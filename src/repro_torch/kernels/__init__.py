@@ -1,0 +1,20 @@
+"""Kernels of the port: hand-written Hopper CUDA with plain PyTorch twins.
+
+Ops (``cuda`` / ``torch`` backends, selected by the tensors' device — see
+``registry.py``):
+
+  * ``gram``    — fused G = U Uᵀ, c = U g (``csrc/gram.cu``)
+  * ``combine`` — α-weighted update combine w + Σ α_k U_k
+    (``csrc/combine.cu``)
+
+The CUDA sources build at first use with ``nvcc`` for ``sm_90a``
+(``_build.py``); importing this package builds nothing.
+"""
+from .ops import gram_and_cross, weighted_combine
+from .registry import (available_ops, backends, dispatch, force_backend,
+                       launch_counts, register_impl, reset_launch_counts,
+                       select_impl)
+
+__all__ = ["available_ops", "backends", "dispatch", "force_backend",
+           "gram_and_cross", "launch_counts", "register_impl",
+           "reset_launch_counts", "select_impl", "weighted_combine"]

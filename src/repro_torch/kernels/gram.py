@@ -1,0 +1,105 @@
+"""``gram``: G = U Uᵀ and c = U g in one pass over n — the Hopper kernel.
+
+Replaces ``repro.kernels.gram.gram_pallas``.  The CUDA source
+(``csrc/gram.cu``) says what bounds it on the H100 and how the deterministic
+two-pass split reduction is laid out; this module checks the inputs,
+allocates the outputs and the per-block scratch with ``torch.empty``, and
+launches both passes on the current stream without synchronising.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from . import _build
+from .registry import count_launch
+
+MAX_K = 64
+COLS_GRANULE = 128        # a block's column range is a multiple of this
+SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(updates: torch.Tensor, grad: torch.Tensor) -> None:
+    if not (updates.is_cuda and grad.is_cuda):
+        raise ValueError("gram_cuda needs CUDA tensors; got "
+                         f"{updates.device} and {grad.device}")
+    if updates.device != grad.device:
+        raise ValueError(f"updates on {updates.device}, grad on {grad.device}")
+    for name, t in (("updates", updates), ("grad", grad)):
+        if t.dtype not in SUPPORTED_DTYPES:
+            raise TypeError(f"gram_cuda: {name} dtype {t.dtype} not in "
+                            f"{SUPPORTED_DTYPES}")
+        if not t.is_contiguous():
+            raise ValueError(f"gram_cuda: {name} must be contiguous")
+    if updates.dim() != 2 or grad.dim() != 1:
+        raise ValueError(f"gram_cuda: want updates (K, n) and grad (n,); got "
+                         f"{tuple(updates.shape)} and {tuple(grad.shape)}")
+    K, n = updates.shape
+    if grad.shape[0] != n:
+        raise ValueError(f"gram_cuda: updates have n={n}, grad {grad.shape[0]}")
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"gram_cuda: K={K} outside [1, {MAX_K}]")
+    if n < 1:
+        raise ValueError("gram_cuda: n must be >= 1")
+
+
+def grid(n: int, sm_count: int, blocks_per_sm: int) -> Tuple[int, int]:
+    """``(num_blocks, cols_per_block)``: one resident wave of blocks (at most
+    ``blocks_per_sm`` on each SM), each over a contiguous range of whole
+    granules."""
+    granules = -(-n // COLS_GRANULE)
+    blocks = max(1, min(blocks_per_sm * sm_count, granules))
+    cols = -(-granules // blocks) * COLS_GRANULE
+    return -(-n // cols), cols
+
+
+def scratch_rows(K: int) -> int:
+    """R: rows of the extended matrix [U; g], padded to a multiple of 4."""
+    return (K + 1 + 3) // 4 * 4
+
+
+@functools.lru_cache(maxsize=None)
+def launch_config(K: int, u_bf16: bool, g_bf16: bool,
+                  device_index: int) -> Tuple[int, int]:
+    """``(blocks resident per SM, dynamic shared memory bytes per block)``
+    of the partial kernel the launch picks for this K and these dtypes."""
+    lib = _build.load_library()
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        rc = lib.gram_launch_config(K, int(u_bf16), int(g_bf16),
+                                    ctypes.byref(blocks), ctypes.byref(smem))
+    _build.check(lib, rc, "gram occupancy query")
+    if blocks.value < 1:
+        raise RuntimeError(f"gram kernel cannot be resident for K={K}")
+    return blocks.value, smem.value
+
+
+def gram_cuda(updates: torch.Tensor, grad: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``updates (K, n)``, ``grad (n,)`` (f32 or bf16, contiguous, on one
+    CUDA device) → ``(G (K, K) f32, c (K,) f32)``."""
+    _check(updates, grad)
+    K, n = updates.shape
+    dev = updates.device
+    u_bf16 = updates.dtype == torch.bfloat16
+    g_bf16 = grad.dtype == torch.bfloat16
+    per_sm, _ = launch_config(K, u_bf16, g_bf16, dev.index)
+    num_blocks, cols = grid(n, _build.sm_count(dev.index), per_sm)
+    R = scratch_rows(K)
+    out = torch.empty((K * K + K,), dtype=torch.float32, device=dev)
+    G, c = out[:K * K].view(K, K), out[K * K:]
+    partial = torch.empty((num_blocks * R * R,), dtype=torch.float32,
+                          device=dev)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        rc = lib.gram_launch(
+            updates.data_ptr(), grad.data_ptr(), partial.data_ptr(),
+            partial.numel(), G.data_ptr(), c.data_ptr(), K, n, int(u_bf16),
+            int(g_bf16), num_blocks, cols,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "gram")
+    count_launch("gram", "cuda")
+    return G, c

@@ -1,0 +1,173 @@
+"""The port's kernels (``repro_torch.kernels``) against the JAX reference.
+
+On the CPU the ops run their plain PyTorch versions; these are held against
+``gram_pallas`` / ``combine_pallas`` in interpret mode at the tolerances of
+``tests/test_kernels.py`` (1e-4 f32 and 2e-2 bf16 for gram, 1e-5 f32 and
+3e-2 bf16 for combine).  The CUDA kernels themselves are tested on the card
+by ``tests/test_torch_cuda.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.combine import combine_pallas
+from repro.kernels.gram import gram_pallas
+from repro_torch.kernels import (_build, backends, force_backend,
+                                 gram_and_cross, launch_counts,
+                                 register_impl, registry,
+                                 reset_launch_counts, weighted_combine)
+from repro_torch.kernels import ref
+from repro_torch.kernels.combine import combine_cuda
+from repro_torch.kernels.gram import gram_cuda, grid
+
+torch.set_num_threads(1)
+
+GRAM_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+COMBINE_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+
+
+def _jnp_dtype(name):
+    return jnp.bfloat16 if name == "bfloat16" else jnp.float32
+
+
+def _torch_dtype(name):
+    return torch.bfloat16 if name == "bfloat16" else torch.float32
+
+
+def _pair(arr, dtype):
+    """The same values as a jnp array and a torch tensor of ``dtype``."""
+    j = jnp.asarray(arr, jnp.float32).astype(_jnp_dtype(dtype))
+    t = torch.from_numpy(np.asarray(arr, np.float32)).to(_torch_dtype(dtype))
+    return j, t
+
+
+# ----------------------------------------------------------------- gram
+
+@pytest.mark.parametrize("K,n,dtype", [
+    (1, 1, "float32"), (3, 130, "bfloat16"), (10, 7850, "float32"),
+    (10, 1001, "bfloat16"), (64, 257, "float32"), (64, 257, "bfloat16")])
+def test_gram_plain_matches_pallas(K, n, dtype):
+    rng = np.random.RandomState(K * 1000 + n)
+    Uj, Ut = _pair(rng.randn(K, n) * 0.5, dtype)
+    gj, gt = _pair(rng.randn(n), dtype)
+    Gj, cj = gram_pallas(Uj, gj, block_n=128, interpret=True)
+    G, c = gram_and_cross(Ut, gt)
+    assert G.dtype == torch.float32 and c.dtype == torch.float32
+    assert tuple(G.shape) == (K, K) and tuple(c.shape) == (K,)
+    tol = GRAM_TOL[dtype]
+    Gj, cj = np.asarray(Gj), np.asarray(cj)
+    np.testing.assert_allclose(G.numpy(), Gj, rtol=tol,
+                               atol=tol * max(1.0, float(np.abs(Gj).max())))
+    np.testing.assert_allclose(c.numpy(), cj, rtol=tol,
+                               atol=tol * max(1.0, float(np.abs(cj).max())))
+
+
+def test_gram_zero_padding_exact():
+    """Shapes off any tile boundary give exact sums (the reference pads with
+    zero columns; the port must not change the result either way)."""
+    G, c = gram_and_cross(torch.ones(3, 130), torch.ones(130))
+    np.testing.assert_array_equal(G.numpy(), np.full((3, 3), 130.0))
+    np.testing.assert_array_equal(c.numpy(), np.full((3,), 130.0))
+    Gj, cj = gram_pallas(jnp.ones((3, 130)), jnp.ones((130,)), block_n=128,
+                         interpret=True)
+    np.testing.assert_array_equal(G.numpy(), np.asarray(Gj))
+    np.testing.assert_array_equal(c.numpy(), np.asarray(cj))
+
+
+# --------------------------------------------------------------- combine
+
+@pytest.mark.parametrize("K,n,dtype", [
+    (1, 1, "float32"), (3, 999, "bfloat16"), (10, 7850, "float32"),
+    (64, 513, "float32"), (64, 513, "bfloat16")])
+def test_combine_plain_matches_pallas(K, n, dtype):
+    rng = np.random.RandomState(K * 7 + n)
+    Uj, Ut = _pair(rng.randn(K, n) * 0.3, dtype)
+    wj, wt = _pair(rng.randn(n), dtype)
+    a = rng.randn(K).astype(np.float32)
+    out_j = combine_pallas(wj, Uj, jnp.asarray(a), block_n=512, interpret=True)
+    out = weighted_combine(wt, Ut, torch.from_numpy(a))
+    assert out.dtype == wt.dtype and tuple(out.shape) == (n,)
+    tol = COMBINE_TOL[dtype]
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(out_j, np.float32), rtol=tol, atol=tol)
+
+
+def test_combine_zero_alpha_identity():
+    w = torch.arange(300, dtype=torch.float32)
+    out = weighted_combine(w, torch.ones(4, 300), torch.zeros(4))
+    np.testing.assert_array_equal(out.numpy(), w.numpy())
+
+
+# -------------------------------------------------------------- dispatch
+
+def test_cpu_tensors_take_the_plain_version_and_count():
+    reset_launch_counts()
+    gram_and_cross(torch.ones(2, 5), torch.ones(5))
+    weighted_combine(torch.ones(5), torch.ones(2, 5), torch.ones(2))
+    weighted_combine(torch.ones(5), torch.ones(2, 5), torch.ones(2))
+    counts = launch_counts()
+    assert counts == {"combine/cuda": 0, "combine/torch": 2,
+                      "gram/cuda": 0, "gram/torch": 1}
+    reset_launch_counts()
+    assert set(launch_counts().values()) == {0}
+
+
+def test_registry_misuse_raises():
+    assert backends("gram") == ("cuda", "torch")
+    assert backends("combine") == ("cuda", "torch")
+    with pytest.raises(KeyError, match="unknown kernel op"):
+        registry.dispatch("bogus_op", torch.ones(1))
+    with pytest.raises(KeyError, match="not registered"):
+        gram_and_cross(torch.ones(2, 3), torch.ones(3), backend="bogus")
+    with pytest.raises(KeyError, match="already registered"):
+        register_impl("gram", "torch", ref.gram_ref)
+
+
+def test_cuda_kernels_never_take_cpu_tensors():
+    """Forcing the CUDA backend onto CPU tensors raises: the wrappers never
+    fall back to the plain version, and never run a kernel off the card."""
+    with force_backend("cuda"):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            gram_and_cross(torch.ones(2, 3), torch.ones(3))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        weighted_combine(torch.ones(3), torch.ones(2, 3), torch.ones(2),
+                         backend="cuda")
+    with pytest.raises(ValueError):
+        gram_cuda(torch.ones(2, 3), torch.ones(3))
+    with pytest.raises(ValueError):
+        combine_cuda(torch.ones(3), torch.ones(2, 3), torch.ones(2))
+    assert launch_counts()["gram/cuda"] == 0
+
+
+def test_force_backend_pins_the_plain_version():
+    reset_launch_counts()
+    with force_backend("torch", op="gram"):
+        gram_and_cross(torch.ones(2, 3), torch.ones(3))
+    assert launch_counts()["gram/torch"] == 1
+    assert registry._FORCED == []
+
+
+@pytest.mark.parametrize("n", [1, 127, 128, 7850, (1 << 20) + 3, 1 << 24])
+@pytest.mark.parametrize("sm_count,per_sm", [(1, 3), (132, 3), (132, 2)])
+def test_gram_grid_covers_every_column(n, sm_count, per_sm):
+    blocks, cols = grid(n, sm_count, per_sm)
+    assert cols % 128 == 0
+    assert 1 <= blocks <= per_sm * sm_count
+    assert blocks * cols >= n > (blocks - 1) * cols
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "DEFAULT_NVCC", tmp_path / "nvcc")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.find_nvcc()
+
+
+def test_build_key_covers_every_source():
+    names = {p.name for p in _build.sources()}
+    assert {"gram.cu", "combine.cu"} <= names
+    assert len(_build.source_hash()) == 16
+    assert _build.build_dir().parent == _build.BUILD_ROOT
