@@ -12,16 +12,27 @@ Phases (any failure exits non-zero and prints no result line):
      kernels from ``src/repro_torch/kernels/csrc`` (build seconds, the
      ``ptxas -v`` registers per kernel, and the dynamic shared memory and
      resident blocks per SM each launch uses);
-  2. kernels — ``gram`` and ``combine`` against their plain PyTorch versions
-     on the card at the main path's shape, a ragged small set and model
-     widths (f32 and bf16): max |err| within the stated tolerance, two
-     ``gram`` calls bitwise equal, and CUDA-event times of the kernel, the
-     plain version and a one-call PyTorch yardstick beside the bound;
+  2. kernels — ``gram`` (K up to 100, the gateways' 23-25 among them),
+     ``combine``, ``topk``, ``sign_sketch`` and ``sign_sketch_adjoint``
+     against their plain PyTorch versions on the card at the main paths'
+     shapes, a ragged small set and
+     model widths: max |err| within the stated tolerance (``topk`` exactly),
+     two ``gram`` and two ``sign_sketch`` calls bitwise equal, and
+     CUDA-event times of the kernel, the plain version and a one-call
+     PyTorch yardstick (where one exists) beside the bound;
   3. path    — ``run_simulation`` at paper-logreg width (784 → 10) on
      MNIST-like data over 100 devices, contextual then FedAvg, with the
      launch counters showing that every round went through the kernels and
      never through the plain versions; one round is also held against the
-     same round on the CPU.
+     same round on the CPU;
+  4. hier    — ``run_hier_simulation`` on the same data and width over a
+     bimodal fleet of 100 devices: a star cloud (K = 100), two tiers of 4
+     gateways, and the two tiers with ``topk`` and with ``sign_sketch``
+     summaries.  The counters must show ``gram`` on every round and ``topk``
+     or ``sign_sketch`` + ``sign_sketch_adjoint`` on every compressed round,
+     and no plain version; the losses must fall; compressed cloud uplink
+     below uncompressed below star; one uncompressed and one
+     ``sign_sketch`` round on the card match the same round on the CPU.
 
 The last lines are one ``{"kernels": [...]}`` JSON object, the
 ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device": ...}``.
@@ -43,18 +54,54 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 F32_CUDA_CORE_FLOPS = 67e12
+# Instruction rates of the two pipes the sign hash runs on.  The Hopper SM
+# has 64 INT32 lanes beside its 128 FP32 lanes (NVIDIA H100 architecture
+# white paper); the FP32 lanes' 67 TFLOP/s counts an FMA as 2 operations:
+INT32_OPS = 67e12 / 2 / 2      # shifts and logic ops, per second
+FMA_PIPE_OPS = 67e12 / 2       # FADD, FFMA and integer multiplies (IMAD)
+# Per entry of the implicit sign matrix (csrc/rng_hash.cuh), what the sign
+# needs: the xor with the row hash and mix32's first two shift-xor pairs on
+# the INT32 pipe (mix32's last xor-shift leaves the msb as it is), its two
+# multiplies on the FMA pipe; then per row of U one sign flip (INT32) and
+# one add (FMA).  The two pipes run side by side, so the least time is the
+# larger of the two.
+HASH_INT_OPS = 5
+HASH_MUL_OPS = 2
 
 # tolerances on max |kernel - plain| relative to max(1, max |plain|):
 # f32 and bf16 inputs both accumulate in f32, so gram's two sides differ by
 # summation order only (the reference's own kernel tests use 1e-4); combine's
 # f32 output likewise (1e-5), its bf16 output by up to one bf16 rounding
-# (the reference's tests use 3e-2)
+# (the reference's tests use 3e-2); sign_sketch and its adjoint sum f32
+# products in another order (1e-5); topk must be exact (0)
 TOL = {("gram", "float32"): 1e-4, ("gram", "bfloat16"): 1e-4,
-       ("combine", "float32"): 1e-5, ("combine", "bfloat16"): 3e-2}
+       ("combine", "float32"): 1e-5, ("combine", "bfloat16"): 3e-2,
+       ("sign_sketch", "float32"): 1e-5, ("sign_sketch", "bfloat16"): 1e-5,
+       ("sign_sketch_adjoint", "float32"): 1e-5}
 
 PATH_SHAPE = (10, 7850)        # K clients x paper-logreg parameters (784·10 + 10)
 RAGGED = [(K, n) for K in (1, 3, 10) for n in (1, 130, 7850)]
 MODEL = [(K, n) for K in (10, 64) for n in ((1 << 20) + 3, 1 << 24)]
+# gram at the hier gateways (4 gateways of 25 devices; dropouts leave 23-25
+# rows), then past 64 rows: the star cloud's K = 100 at the path width, and
+# K = 100 at model width beside K = 64 above
+GRAM_GATEWAY = [(25, 7850), (23, 7850)]
+GRAM_WIDE = [(65, 7850), (100, 7850), (100, 1 << 24)]
+N_PATH = 7850
+# topk (n, k): the hier path's summaries (ū and ĝ at ratio 3.4 / u_frac
+# 0.75, and the default ratio 8), ragged, ties, and model widths
+TOPK_PATH = [(N_PATH, 1731), (N_PATH, 577), (N_PATH, 490)]
+TOPK_RAGGED = [(n, k) for n in (1, 130, N_PATH) for k in (1, 17, n) if k <= n]
+TOPK_MODEL = [(n, k) for n in ((1 << 20) + 3, 1 << 24)
+              for k in (n // 16, 2048)]
+# sign_sketch (K, n, m): ratio 4 and ratio 8 at the path width, ragged, and
+# model widths; the adjoint takes (m, n) of each
+SKETCH_PATH = [(1, N_PATH, 1962), (1, N_PATH, 981)]
+SKETCH_RAGGED = [(1, 1, 1), (3, 130, 17), (8, 4097, 300), (11, 1000, 129)]
+SKETCH_MODEL = [(K, (1 << 20) + 3, m) for K in (1, 8) for m in (1024, 8192)]
+
+HIER_ROUNDS = 6
+HIER_CFG = dict(lr=0.05, batch_size=10, min_epochs=1, max_epochs=20)
 
 PATH_ROUNDS = 8
 PATH_CFG = dict(num_devices=100, clients_per_round=10, lr=0.05,
@@ -95,6 +142,16 @@ def time_ms(fn, reps: int, warmup: int = 3) -> float:
 
 def reps_for(nbytes: int) -> int:
     return 200 if nbytes < (1 << 24) else 20
+
+
+def bound(nbytes: float, ops_s: float) -> dict:
+    """The least time for the work: bytes at the HBM rate against the
+    operations' time (already in seconds), whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_s * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes}
 
 
 # ----------------------------------------------------------------- kernels
@@ -190,11 +247,142 @@ def check_combine(K: int, n: int, dt, gen, timed: bool = True) -> dict:
     return rec
 
 
+def check_topk(n: int, k: int, gen, timed: bool = True, v=None) -> dict:
+    import torch
+    from repro_torch.kernels import ops, ref
+    if v is None:
+        v = torch.randn((n,), generator=gen, device="cuda")
+    vals, idx = ops.topk_select(v, k, backend="cuda")
+    rv, ri = ref.topk_ref(v, k)
+    torch.cuda.synchronize()
+    need(vals.shape == (k,) and idx.dtype == torch.int32,
+         f"topk n={n} k={k}: outputs {tuple(vals.shape)} {idx.dtype}")
+    same = bool(torch.equal(idx, ri)
+                and torch.equal(vals.view(torch.int32), rv.view(torch.int32)))
+    need(same, f"topk n={n} k={k}: values or indices differ from the plain "
+         "version")
+    rec = {"n": n, "k": k, "dtype": "float32", "max_abs_err": 0.0,
+           "rel_err": 0.0, "tolerance": 0.0, "exact": same}
+    if timed:
+        reps = reps_for(4 * n)
+        rec["ms"] = time_ms(lambda: ops.topk_select(v, k, backend="cuda"), reps)
+        rec["plain_ms"] = time_ms(lambda: ref.topk_ref(v, k), reps)
+        rec["library_ms"] = time_ms(
+            lambda: v.gather(0, torch.topk(v.abs(), k).indices), reps)
+        rec.update(bound(4 * n + 8 * k, 0.0))
+    return rec
+
+
+def hash_ops_s(rows: int, m: int, n: int) -> float:
+    """Least seconds for m·n sign hashes applied to ``rows`` rows: the
+    INT32 pipe's and the FMA pipe's instruction counts at their rates,
+    whichever is longer."""
+    return max((HASH_INT_OPS + rows) * m * n / INT32_OPS,
+               (HASH_MUL_OPS + rows) * m * n / FMA_PIPE_OPS)
+
+
+def sketch_bound(K: int, n: int, m: int, dt) -> dict:
+    import torch
+    size = torch.finfo(dt).bits // 8
+    return dict(bound(K * n * size + 4 * K * m, hash_ops_s(K, m, n)),
+                int_ops=(HASH_INT_OPS + K) * m * n,
+                fma_pipe_ops=(HASH_MUL_OPS + K) * m * n)
+
+
+def check_sketch(K: int, n: int, m: int, dt, gen, timed: bool = True) -> dict:
+    import torch
+    from repro_torch.kernels import ops, ref
+    U = torch.randn((K, n), generator=gen, device="cuda").to(dt)
+    seed = (0x9E3779B1 * (K + m) + n) & 0xFFFFFFFF
+    S = ops.sign_sketch(U, seed, m, backend="cuda")
+    S2 = ops.sign_sketch(U, seed, m, backend="cuda")
+    Sr = ref.rng_sketch_ref(U, seed, m)
+    torch.cuda.synchronize()
+    need(S.shape == (K, m) and S.dtype == torch.float32,
+         f"sign_sketch K={K} n={n} m={m}: output {tuple(S.shape)}")
+    bitwise = bool(torch.equal(S, S2))
+    need(bitwise, f"sign_sketch K={K} n={n} m={m}: two calls differ bitwise")
+    err = _max_err(S, Sr) / _scale(Sr)
+    tol = TOL[("sign_sketch", _dtype_name(dt))]
+    need(err <= tol, f"sign_sketch K={K} n={n} m={m} {dt}: relative err "
+         f"{err:.3e} > {tol}")
+    rec = {"K": K, "n": n, "m": m, "dtype": _dtype_name(dt),
+           "max_abs_err": _max_err(S, Sr), "rel_err": err, "tolerance": tol,
+           "bitwise_repeatable": bitwise}
+    if timed:
+        big = m * n > (1 << 30)
+        rec["ms"] = time_ms(lambda: ops.sign_sketch(U, seed, m,
+                                                    backend="cuda"),
+                            5 if big else 200)
+        rec["plain_ms"] = time_ms(lambda: ref.rng_sketch_ref(U, seed, m),
+                                  2 if big else 20, warmup=1)
+        rec["library_ms"] = None
+        rec.update(sketch_bound(K, n, m, dt))
+    return rec
+
+
+def check_adjoint(m: int, n: int, gen, timed: bool = True) -> dict:
+    import torch
+    from repro_torch.kernels import ops, ref
+    s = torch.randn((m,), generator=gen, device="cuda")
+    seed = (0x85EBCA6B * m + n) & 0xFFFFFFFF
+    out = ops.sign_sketch_adjoint(s, seed, n, backend="cuda")
+    out2 = ops.sign_sketch_adjoint(s, seed, n, backend="cuda")
+    outr = ref.rng_sketch_adjoint_ref(s, seed, n)
+    torch.cuda.synchronize()
+    need(out.shape == (n,) and torch.equal(out, out2),
+         f"sign_sketch_adjoint m={m} n={n}: shape {tuple(out.shape)} or two "
+         "calls differ")
+    err = _max_err(out, outr) / _scale(outr)
+    tol = TOL[("sign_sketch_adjoint", "float32")]
+    need(err <= tol, f"sign_sketch_adjoint m={m} n={n}: relative err "
+         f"{err:.3e} > {tol}")
+    rec = {"m": m, "n": n, "dtype": "float32",
+           "max_abs_err": _max_err(out, outr), "rel_err": err,
+           "tolerance": tol}
+    if timed:
+        big = m * n > (1 << 30)
+        rec["ms"] = time_ms(lambda: ops.sign_sketch_adjoint(s, seed, n,
+                                                            backend="cuda"),
+                            5 if big else 200)
+        rec["plain_ms"] = time_ms(lambda: ref.rng_sketch_adjoint_ref(s, seed, n),
+                                  2 if big else 20, warmup=1)
+        rec["library_ms"] = None
+        rec.update(bound(4 * m + 4 * n, hash_ops_s(1, m, n)),
+                   int_ops=(HASH_INT_OPS + 1) * m * n,
+                   fma_pipe_ops=(HASH_MUL_OPS + 1) * m * n)
+    return rec
+
+
+def _fmt_us(v) -> str:
+    return "     none" if v is None else f"{v * 1e3:9.1f}"
+
+
+def _log_rec(name: str, rec: dict) -> None:
+    shape = " ".join(f"{k}={rec[k]}" for k in ("K", "n", "k", "m")
+                     if k in rec)
+    log(f"{name:19s} {rec['set']:6s} {shape:28s} {rec['dtype']:9s} "
+        f"err={rec['max_abs_err']:.3e} kernel={_fmt_us(rec['ms'])}us "
+        f"plain={_fmt_us(rec['plain_ms'])}us "
+        f"library={_fmt_us(rec['library_ms'])}us "
+        f"bound={rec['bound_ms'] * 1e3:9.2f}us ({rec['bound_by']})")
+
+
+def _tie_vectors(n: int):
+    import torch
+    ar = torch.arange(n, device="cuda")
+    return [torch.where(ar % 3 == 0, -2.5, 2.5),
+            torch.zeros(n, device="cuda"),
+            torch.where(ar % 2 == 0, 0.0, -0.0),
+            (ar % 4).float() - 1.5]
+
+
 def kernels_phase() -> dict:
     import torch
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    out = {"gram": [], "combine": []}
+    out = {"gram": [], "combine": [], "topk": [], "sign_sketch": [],
+           "sign_sketch_adjoint": []}
     f32, bf16 = torch.float32, torch.bfloat16
     K, n = PATH_SHAPE
     for name, check in (("gram", check_gram), ("combine", check_combine)):
@@ -208,15 +396,52 @@ def kernels_phase() -> dict:
                 rec = dict(check(Km, nm, dt, gen), set="model")
                 out[name].append(rec)
                 torch.cuda.empty_cache()
-        for rec in out[name]:
+    for Kw, nw in GRAM_GATEWAY + GRAM_WIDE:
+        for dt in (f32, bf16):
+            out["gram"].append(dict(check_gram(Kw, nw, dt, gen),
+                                    set="path" if nw == N_PATH else "model"))
+            torch.cuda.empty_cache()
+
+    for nk in TOPK_PATH:
+        out["topk"].append(dict(check_topk(*nk, gen), set="path"))
+    for nk in TOPK_RAGGED:
+        out["topk"].append(dict(check_topk(*nk, gen, timed=False),
+                                set="ragged"))
+    for v in _tie_vectors(130):
+        for k in (1, 17, 130):
+            out["topk"].append(dict(check_topk(130, k, gen, False, v=v),
+                                    set="ragged"))
+    for nk in TOPK_MODEL:
+        out["topk"].append(dict(check_topk(*nk, gen), set="model"))
+        torch.cuda.empty_cache()
+
+    for K_, n_, m_ in SKETCH_PATH:
+        out["sign_sketch"].append(dict(check_sketch(K_, n_, m_, f32, gen),
+                                       set="path"))
+        out["sign_sketch_adjoint"].append(dict(check_adjoint(m_, n_, gen),
+                                               set="path"))
+    for K_, n_, m_ in SKETCH_RAGGED:
+        for dt in (f32, bf16):
+            out["sign_sketch"].append(dict(
+                check_sketch(K_, n_, m_, dt, gen, timed=False), set="ragged"))
+        out["sign_sketch_adjoint"].append(dict(
+            check_adjoint(m_, n_, gen, timed=False), set="ragged"))
+    for K_, n_, m_ in SKETCH_MODEL:
+        out["sign_sketch"].append(dict(check_sketch(K_, n_, m_, f32, gen),
+                                       set="model"))
+        if K_ == 1:
+            out["sign_sketch_adjoint"].append(dict(
+                check_adjoint(m_, n_, gen), set="model"))
+        torch.cuda.empty_cache()
+    out["sign_sketch"].append(dict(check_sketch(8, (1 << 20) + 3, 1024, bf16,
+                                                gen), set="model"))
+
+    for name, recs in out.items():
+        for rec in recs:
             if "ms" in rec:
-                log(f"{name:8s} {rec['set']:6s} K={rec['K']:3d} n={rec['n']:9d} "
-                    f"{rec['dtype']:9s} err={rec['max_abs_err']:.3e} "
-                    f"kernel={rec['ms']*1e3:9.1f}us plain={rec['plain_ms']*1e3:9.1f}us "
-                    f"library={rec['library_ms']*1e3:9.1f}us "
-                    f"bound={rec['bound_ms']*1e3:8.1f}us ({rec['bound_by']})")
-        ragged = [r for r in out[name] if r["set"] == "ragged"]
-        log(f"{name:8s} ragged: {len(ragged)} shapes within tolerance, "
+                _log_rec(name, rec)
+        ragged = [r for r in recs if r["set"] == "ragged"]
+        log(f"{name:19s} ragged: {len(ragged)} shapes within tolerance, "
             f"worst rel err {max(r['rel_err'] for r in ragged):.3e}")
     return out
 
@@ -263,8 +488,9 @@ def round_vs_cpu(ds, params) -> float:
     return _max_err(news[0], news[1]) / _scale(news[1])
 
 
-def path_phase() -> dict:
-    """Drive the paper-logreg path; returns its launch counts."""
+def path_phase():
+    """Drive the paper-logreg path; returns its launch counts, the data and
+    the initial parameters (the hier phase reuses them)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -325,14 +551,125 @@ def path_phase() -> dict:
     log(f"path: one contextual round, card vs CPU, max rel err of new "
         f"params {rel:.3e} (tolerance 1e-4)")
     need(rel <= 1e-4, f"card round disagrees with the CPU round: {rel:.3e}")
-    return {k: ctx[k] + avg[k] for k in ctx}
+    return {k: ctx[k] + avg[k] for k in ctx}, ds, params
+
+
+# -------------------------------------------------------------------- hier
+
+def hier_round_vs_cpu(ds, params, topo, cfg) -> float:
+    """One hier round on the card against the same round on the CPU (plain
+    versions); both draw their mini-batches from a CPU generator with one
+    seed, so they train on the same batches.  Returns max |Δ new params|
+    relative to max |params|."""
+    import torch
+    from repro_torch.core.flatten import tree_map, tree_to_vector
+    from repro_torch.fl import run_hier_simulation
+    from repro_torch.models.logistic import logistic_apply, logistic_loss
+    news = []
+    for dev in ("cuda", "cpu"):
+        got = []
+        batches = torch.Generator()
+        batches.manual_seed(7)
+        run_hier_simulation(
+            "vs_cpu", logistic_loss, logistic_apply,
+            tree_map(lambda p: p.to(dev), params), ds, cfg, topo, 1,
+            selection_seed=7, device=dev, batch_generator=batches,
+            publish_fn=lambda t, p: got.append(tree_to_vector(p).cpu()))
+        need(len(got) == 1, "the card-vs-CPU round was skipped")
+        news.append(got[0])
+    return _max_err(news[0], news[1]) / _scale(news[1])
+
+
+def hier_phase(ds, params) -> dict:
+    """Drive run_hier_simulation at paper-logreg width; returns its launch
+    counts, summed over the runs."""
+    import numpy as np
+    import torch
+    from repro_torch.compress import CompressConfig
+    from repro_torch.edge import bimodal_fleet
+    from repro_torch.fl import run_hier_simulation
+    from repro_torch.hier import HierConfig, star_topology, two_tier_topology
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.logistic import logistic_apply, logistic_loss
+    from repro_torch.obs import InMemoryTracker, use_tracker
+    from repro_torch.obs.spans import span_fields
+
+    fleet = bimodal_fleet(ds.num_devices, slowdown=10.0, dropout_slow=0.05,
+                          seed=0)
+    star, tiers = star_topology(fleet), two_tier_topology(fleet, 4)
+    plain_cfg = HierConfig(**HIER_CFG)
+    sketch = dict(aggregator="hier_contextual_sketch", **HIER_CFG)
+    runs = [
+        ("star", star, plain_cfg, ()),
+        ("two_tier", tiers, plain_cfg, ()),
+        ("topk", tiers, HierConfig(compress=CompressConfig(
+            scheme="topk", ratio=3.4, u_frac=0.75), **sketch), ("topk",)),
+        ("sign_sketch", tiers, HierConfig(compress=CompressConfig(
+            scheme="sign_sketch", ratio=4.0), **sketch),
+         ("sign_sketch", "sign_sketch_adjoint")),
+    ]
+    log(f"hier: {ds.num_devices} devices (bimodal, slowdown 10, dropout_slow "
+        f"0.05), {HIER_ROUNDS} rounds per run, lr {HIER_CFG['lr']}")
+    results, total = {}, {}
+    for name, topo, cfg, compress_ops in runs:
+        snaps = []
+        tracker = InMemoryTracker()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with use_tracker(tracker):
+            res = run_hier_simulation(
+                name, logistic_loss, logistic_apply, params, ds, cfg, topo,
+                HIER_ROUNDS, selection_seed=42, device="cuda",
+                publish_fn=lambda t, p: snaps.append(launch_counts()))
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        results[name] = res
+        for key, v in counts.items():
+            total[key] = total.get(key, 0) + v
+        round_ms = [span_fields(e)["dur_wall_s"] * 1e3
+                    for e in tracker.span_events()
+                    if span_fields(e)["name"] == "round"]
+        need(np.isfinite(res.train_loss).all(),
+             f"hier {name}: non-finite losses {res.train_loss}")
+        need(res.train_loss[-1] < res.train_loss[0],
+             f"hier {name}: loss did not fall: {res.train_loss}")
+        need(len(snaps) == HIER_ROUNDS - res.rounds_skipped,
+             f"hier {name}: {len(snaps)} rounds published")
+        prev = {k: 0 for k in counts}
+        for t, snap in enumerate(snaps):
+            for op in ("gram",) + compress_ops:
+                need(snap[f"{op}/cuda"] > prev[f"{op}/cuda"],
+                     f"hier {name}: round {t} launched no {op}/cuda")
+            prev = snap
+        plain = {k: v for k, v in counts.items() if k.endswith("/torch") and v}
+        need(not plain, f"hier {name}: plain versions ran on the path: {plain}")
+        log(f"hier {name:11s} loss {res.train_loss[0]:.4f} -> "
+            f"{res.train_loss[-1]:.4f}  acc {res.test_acc[-1]:.4f}  "
+            f"cloud uplink {res.cloud_uplink_bytes:.0f} B  "
+            f"skipped {res.rounds_skipped}  round ms median "
+            f"{statistics.median(round_ms):.2f} (first {round_ms[0]:.2f}, all "
+            f"{[round(r, 2) for r in round_ms]})  launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+    up = {k: r.cloud_uplink_bytes for k, r in results.items()}
+    need(up["topk"] < up["two_tier"] and up["sign_sketch"] < up["two_tier"]
+         and up["two_tier"] < up["star"],
+         f"hier: cloud uplink bytes out of order: {up}")
+    for name, topo, cfg, _ in runs[1:]:
+        rel = hier_round_vs_cpu(ds, params, topo, cfg)
+        gated = name != "topk"
+        log(f"hier: one {name} round, card vs CPU, max rel err of new params "
+            f"{rel:.3e} ({'tolerance 1e-4' if gated else 'not gated: a near tie in ū may pick another coordinate'})")
+        if gated:
+            need(rel <= 1e-4, f"hier {name}: card round disagrees with the "
+                 f"CPU round: {rel:.3e}")
+    return total
 
 
 # -------------------------------------------------------------------- main
 
 def setup_phase() -> str:
     import torch
-    from repro_torch.kernels import _build, gram
+    from repro_torch.kernels import _build, gram, rng_sketch, topk
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
@@ -353,27 +690,50 @@ def setup_phase() -> str:
                 or line.startswith("==")):
             log("ptxas: " + line.strip())
     _build.load_library()
-    for K in (PATH_SHAPE[0], 64):
+    for K in (PATH_SHAPE[0], 25, 64, 100):
         for dt in ("f32", "bf16"):
             per_sm, smem = gram.launch_config(K, dt == "bf16", dt == "bf16", 0)
             log(f"launch: gram partial K={K} {dt}: {smem} B dynamic shared "
-                f"memory per block, {per_sm} blocks per SM; gram finish: 0 B; "
+                f"memory per block, {per_sm} blocks per SM, "
+                f"{gram.row_slices(K)} grid slices; gram finish: 0 B; "
                 f"combine: 4*K = {4 * K} B (alpha)")
+    sms = _build.sm_count(0)
+    for n, k in TOPK_PATH[:1] + TOPK_MODEL[-2:-1]:
+        log(f"launch: topk n={n} k={k}: (blocks, chunk) "
+            f"{topk.grid(n, sms)}, 256 threads, 1 KB static shared memory")
+    for K, n, m in SKETCH_PATH[:1] + SKETCH_MODEL[-1:]:
+        log(f"launch: sign_sketch K={K} n={n} m={m}: (column splits, "
+            f"columns per split, rows per pass) {rng_sketch.grid(K, n, m, sms)}"
+            f" x {-(-m // rng_sketch.ROWS_PER_BLOCK)} row tiles of 128 "
+            f"threads; adjoint: {-(-n // 64)} blocks of 64 threads")
     return smi_line
 
 
-def kernel_entry(name: str, recs: list, launches: int) -> dict:
-    src = {"gram": ("src/repro_torch/kernels/csrc/gram.cu",
-                    "src/repro/kernels/gram.py:104"),
-           "combine": ("src/repro_torch/kernels/csrc/combine.cu",
-                       "src/repro/kernels/combine.py:30")}[name]
+KERNEL_SOURCES = {
+    "gram": ("src/repro_torch/kernels/csrc/gram.cu",
+             "src/repro/kernels/gram.py:104"),
+    "combine": ("src/repro_torch/kernels/csrc/combine.cu",
+                "src/repro/kernels/combine.py:30"),
+    "topk": ("src/repro_torch/kernels/csrc/topk.cu",
+             "src/repro/kernels/topk.py:34"),
+    "sign_sketch": ("src/repro_torch/kernels/csrc/rng_sketch.cu",
+                    "src/repro/kernels/rng_sketch.py:127"),
+    "sign_sketch_adjoint": ("src/repro_torch/kernels/csrc/rng_sketch.cu",
+                            "src/repro/kernels/rng_sketch.py:94"),
+}
+
+
+def kernel_entry(name: str, recs: list, launches: dict) -> dict:
+    src = KERNEL_SOURCES[name]
     path = next(r for r in recs if r["set"] == "path")
     return {"name": name, "route": "cuda", "source": src[0], "replaces": src[1],
-            "launches": launches, "max_abs_err": path["max_abs_err"],
+            "launches": sum(launches.values()), "launches_by_path": launches,
+            "max_abs_err": path["max_abs_err"],
             "ms": path["ms"], "plain_ms": path["plain_ms"],
             "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
             "library_ms": path["library_ms"],
-            "shape": {"K": path["K"], "n": path["n"], "dtype": path["dtype"]},
+            "shape": {k: path[k] for k in ("K", "n", "k", "m", "dtype")
+                      if k in path},
             "tolerance": path["tolerance"],
             "max_rel_err_all_shapes": max(r["rel_err"] for r in recs),
             "shapes": [r for r in recs if "ms" in r]}
@@ -394,12 +754,15 @@ def main() -> int:
     try:
         smi_line = setup_phase()
         kern = kernels_phase()
-        launches = path_phase()
+        sync_counts, ds, params = path_phase()
+        hier_counts = hier_phase(ds, params)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
-    entries = [kernel_entry(name, kern[name], launches[f"{name}/cuda"])
-               for name in ("gram", "combine")]
+    entries = [kernel_entry(name, kern[name],
+                            {"sync": sync_counts.get(f"{name}/cuda", 0),
+                             "hier": hier_counts.get(f"{name}/cuda", 0)})
+               for name in KERNEL_SOURCES]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi_line, flush=True)

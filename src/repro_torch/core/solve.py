@@ -12,8 +12,8 @@ pseudo-inverse.  ``expectation_scale`` is the §III-C expected-bound factor
     [ β(G + ρI)   1 ] [α]   [−c]
     [    1ᵀ       0 ] [λ] = [ s ].
 
-K ≤ 64, so the solve runs in ``torch.linalg`` on the tensors' device, with
-no kernel of its own.
+K is a cohort or a tier's children (tens to a few hundred), so the solve
+runs in ``torch.linalg`` on the tensors' device, with no kernel of its own.
 """
 from __future__ import annotations
 

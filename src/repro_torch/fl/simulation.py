@@ -10,18 +10,29 @@ dataset goes to ``device`` once per run; mini-batch draws come from a
 
 Each round opens the spans ``round`` > ``update_aggregate`` and ``eval``
 on the active tracker (``repro_torch.obs``), as the reference does.
+
+``run_hier_simulation`` runs synchronous rounds over a ``repro_torch.hier``
+multi-tier topology on the event scheduler (``repro_torch.edge``): every hop
+is an event, so round times are multi-hop critical paths, and the per-tier
+byte ledger measures the uplink the hierarchy saves.  The round's array math
+runs on the fused engine (``repro_torch.hier.fused``), whose Gram reductions
+launch the ``gram`` kernel on the card; compressed summaries go through the
+``topk`` and ``sign_sketch`` kernels.  Its spans are ``round`` >
+``client_update``, ``begin_round``, ``event_loop`` > ``gateway`` /
+``merge`` / ``cloud``, and ``eval``, as in the reference.
 """
 from __future__ import annotations
 
+import os
 import time
 from collections import deque
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace as dc_replace
 from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
-from ..core.flatten import tree_map
+from ..core.flatten import tree_map, tree_size
 from ..data.federated import FederatedDataset
 from ..device import DeviceLike, resolve_device
 from ..obs import current_tracker, spans
@@ -142,5 +153,603 @@ def run_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
     if tr.active and result.train_loss:
         tr.log_summary({"final_train_loss": result.train_loss[-1],
                         "final_test_acc": result.test_acc[-1],
+                        "wall_time_s": result.wall_time})
+    return result
+
+
+@dataclass
+class HierSimulationResult:
+    """Metrics of a hierarchical run, indexed by virtual wall-clock."""
+    name: str
+    times: List[float] = field(default_factory=list)       # round-end seconds
+    train_loss: List[float] = field(default_factory=list)
+    test_acc: List[float] = field(default_factory=list)
+    test_nll: List[float] = field(default_factory=list)
+    gamma_history: List[np.ndarray] = field(default_factory=list)
+    comm: Dict[str, Dict[str, float]] = field(default_factory=dict)
+    cloud_uplink_bytes: float = 0.0
+    total_bytes: float = 0.0
+    dispatched: int = 0         # device tasks only (backhaul transfers are
+    arrived: int = 0            # scheduler events but not counted here)
+    dropped: int = 0
+    rounds_skipped: int = 0     # rounds where every participant dropped out
+    wall_time: float = 0.0
+    # engine_name, round-matrix bytes, and the real wall-clock split:
+    # first round, median of the rest, all rounds
+    engine: Dict[str, Any] = field(default_factory=dict)
+
+    def time_to_accuracy(self, level: float) -> Optional[float]:
+        return self.to_curve().time_to_accuracy(level)
+
+    def to_curve(self):
+        from ..edge.wallclock import WallclockCurve
+        return WallclockCurve(name=self.name, times=list(self.times),
+                              test_acc=list(self.test_acc),
+                              train_loss=list(self.train_loss))
+
+
+def _host(t) -> np.ndarray:
+    return (t.detach().cpu().numpy() if isinstance(t, torch.Tensor)
+            else np.asarray(t))
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP queue 1 {item})")
+
+
+def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
+                        init_params: Tree, dataset: FederatedDataset,
+                        cfg, topology, num_rounds: int,
+                        selection_seed: int = 1234, eval_every: int = 1,
+                        collect_gamma: bool = False,
+                        engine: str = "auto", mesh=None,
+                        record_history: RecordHistory = True,
+                        attack=None, churn=None,
+                        scheduler_mode: str = "auto",
+                        rng_stream: str = "v1",
+                        publish_fn: Optional[Callable[[int, Tree], None]]
+                        = None,
+                        batch_generator: Optional[torch.Generator] = None,
+                        device: DeviceLike = "cuda") -> HierSimulationResult:
+    """Synchronous rounds over a multi-tier topology (``cfg`` a
+    :class:`repro_torch.hier.HierConfig`, ``topology`` a
+    :class:`repro_torch.hier.Topology`), as
+    ``repro.fl.simulation.run_hier_simulation`` in event-scheduler mode on
+    the fused engine.
+
+    Per round the model broadcast flows down the backhaul links, every
+    gateway's (fan-in-sampled) devices train at profile speed, each
+    aggregation node completes when its last member's terminal event pops
+    (dropouts still gate it), and its summary rides the uplink as a
+    scheduled event; the round ends when the cloud's last child reports.
+    With ``cfg.compress`` set, summary uplinks carry error-feedback
+    compressed payloads (``repro_torch.compress``) and the cloud's γ stage
+    solves on sketched cross-terms.  The host randomness (selection, epoch
+    draws, the scheduler) is numpy and bit-identical to the reference, so
+    times, bytes and counts match it exactly; mini-batch draws come from a
+    ``torch.Generator`` on ``device`` seeded with ``selection_seed``.
+
+    Not ported yet, each raising ``NotImplementedError``: the streamed
+    engine (``engine="streamed"``, or ``"auto"`` when the dense round
+    matrices exceed ``REPRO_DENSE_ROUND_BYTES``), the cohort scheduler
+    (``scheduler_mode="cohort"``, or ``"auto"`` at 4096 participants),
+    ``attack``, ``churn`` and ``mesh``.
+
+    ``publish_fn(round, params)`` is called with each round's aggregated
+    params the moment the cloud stage applies them; skipped rounds publish
+    nothing.
+
+    ``batch_generator``, if given, draws the mini-batch indices instead (on
+    its own device; they then move to ``device``), so that runs on two
+    devices can train on the same batches.
+    """
+    from ..compress import ErrorFeedback, payload_gram
+    from ..edge.events import EventKind, EventScheduler
+    from ..edge.wallclock import model_flops_per_step, model_payload_bytes
+    from ..hier.comm import (CommLedger, compressed_summary_bytes,
+                             summary_bytes, update_bytes)
+    from ..hier.fused import HierRoundEngine
+    from ..hier.gateway import CompressedSummary, GatewaySummary
+    from ..hier.hier_server import blockdiag_diagnostics
+    from .client import client_update, draw_batch_indices
+
+    if attack is not None or churn is not None:
+        raise _not_ported("attack / churn (repro.robust)", "#9")
+    if mesh is not None:
+        raise _not_ported("mesh sharding (repro.sharding)", "#13")
+    if getattr(dataset, "virtual", False):
+        raise _not_ported("VirtualFleetDataset (fleet scale)", "#10")
+    dev = resolve_device(device)
+    fleet = topology.fleet
+    if dataset.num_devices < fleet.num_devices:
+        raise ValueError(f"dataset has {dataset.num_devices} device shards, "
+                         f"topology needs {fleet.num_devices}")
+
+    steps_per_epoch = max(dataset.samples_per_device // cfg.batch_size, 1)
+    max_steps = cfg.max_epochs * steps_per_epoch
+    params = tree_map(lambda a: torch.as_tensor(a, device=dev), init_params)
+    x = torch.as_tensor(dataset.x, device=dev)
+    y = torch.as_tensor(dataset.y, dtype=torch.long, device=dev)
+    mask = torch.as_tensor(dataset.mask, device=dev)
+    test_x = torch.as_tensor(dataset.test_x, device=dev)
+    test_y = torch.as_tensor(dataset.test_y, dtype=torch.long, device=dev)
+    gen = batch_generator
+    if gen is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(selection_seed)
+
+    n_model = tree_size(params)
+    mbytes = model_payload_bytes(params)
+    scheduler = EventScheduler(
+        fleet, seed=selection_seed,
+        flops_per_step=model_flops_per_step(params, cfg.batch_size),
+        payload_bytes=mbytes, rng_stream=rng_stream)
+    tr = current_tracker().scope(f"hier/{name}")
+    if tr.active:
+        tr.jot(runtime="hier", run=name, aggregator=cfg.aggregator,
+               depth=topology.depth, num_rounds=num_rounds, device=str(dev))
+    ledger = CommLedger(topology.depth, tracker=tr.scope("comm"),
+                        clock=lambda: scheduler.now)
+    sel_rng = np.random.RandomState(selection_seed)
+
+    gateways = topology.gateways            # tier-1 nodes (the cloud, if star)
+    solve_cfg = cfg.solve_config()
+    relay = cfg.aggregator == "hier_relay"
+    tier_mode = cfg.tier_mode
+    cloud_kind = "fedavg" if cfg.aggregator == "hier_fedavg" else "combo"
+
+    # -- engine and scheduler selection (P per round is fixed by the
+    # topology and fan_in)
+    P_round = sum(min(cfg.fan_in, len(gw.children)) if cfg.fan_in is not None
+                  else len(gw.children) for gw in gateways)
+    dense_bytes = float(2 * P_round * n_model * 4)
+    if engine not in ("auto", "fused", "streamed"):
+        raise ValueError(f"unknown engine '{engine}' (auto|fused|streamed)")
+    device_decodes = cfg.compressing and cfg.compress.device_uplink
+    if engine == "auto":
+        budget = float(os.environ.get("REPRO_DENSE_ROUND_BYTES", 1 << 30))
+        engine = ("fused" if device_decodes or dense_bytes <= budget
+                  else "streamed")
+    if engine == "streamed":
+        raise _not_ported(
+            f"the streamed engine (dense round matrices {dense_bytes:.0f} B; "
+            "repro.hier.streamed)", "#7")
+    if scheduler_mode not in ("auto", "event", "cohort"):
+        raise ValueError(f"unknown scheduler_mode '{scheduler_mode}' "
+                         "(auto|event|cohort)")
+    cohort_mode = (scheduler_mode == "cohort"
+                   or (scheduler_mode == "auto" and P_round >= 4096))
+    if cohort_mode and device_decodes:
+        if scheduler_mode == "cohort":
+            raise ValueError("scheduler_mode='cohort' is incompatible with "
+                             "CompressConfig(device_uplink=True): per-arrival "
+                             "error feedback needs per-device events")
+        cohort_mode = False
+    if cohort_mode:
+        raise _not_ported(f"the cohort scheduler ({P_round} participants)",
+                          "#10")
+    eng = HierRoundEngine(params, solve_cfg, tier_mode, cfg.gram_scope)
+
+    # summary compression: per-sender error-feedback residuals persist
+    # across rounds; linear sketches share one per-round seed so the cloud's
+    # Gram stage runs in sketch space (payload_gram)
+    compressing = cfg.compressing
+    if compressing:
+        comp_u_c, comp_g_c = cfg.compress.build_pair(n_model)
+        ef = ErrorFeedback(enabled=cfg.compress.error_feedback)
+        compress_devices = cfg.compress.device_uplink
+
+    def broadcast_path(gw):
+        path, node = [], gw
+        while node.parent is not None:
+            path.append(node)
+            node = topology.nodes[node.parent]
+        return list(reversed(path))         # cloud-side hop first
+
+    result = HierSimulationResult(name=name)
+    result.gamma_history = _history_buffer(record_history)
+    round_walls: List[float] = []
+    t0 = time.time()
+    with spans.use_virtual_clock(lambda: scheduler.now):
+        for t in range(num_rounds):
+            with spans.span("round", round=t):
+                round_t0 = time.perf_counter()
+                round_start = scheduler.now
+                # -- selection (one shared RNG): per-gateway contiguous
+                # blocks of participant rows
+                groups: List[np.ndarray] = []
+                for gw in gateways:
+                    devs = np.asarray(gw.children, np.int64)
+                    if cfg.fan_in is not None and cfg.fan_in < len(devs):
+                        devs = np.sort(sel_rng.choice(devs, cfg.fan_in,
+                                                      replace=False))
+                    groups.append(devs)
+                gw_sizes = np.asarray([len(g) for g in groups], np.int64)
+                part_dev = np.concatenate(groups)
+                P = int(part_dev.size)
+                epochs = sel_rng.randint(cfg.min_epochs, cfg.max_epochs + 1,
+                                         size=P)
+                num_steps = (epochs * steps_per_epoch).astype(np.int32)
+
+                # -- downlink broadcast, then one batched dispatch at each
+                # gateway's model arrival
+                down_delay = np.zeros(len(gateways))
+                for gi, gw in enumerate(gateways):
+                    delay = 0.0
+                    for hop in broadcast_path(gw):
+                        dl = hop.uplink.downlink_time(mbytes)
+                        ledger.record_down(hop.tier, mbytes, dl)
+                        delay += dl
+                    down_delay[gi] = delay
+                ledger.record_down(0, mbytes, count=P)
+                scheduler.dispatch_batch(
+                    part_dev, num_steps, version=t,
+                    at=round_start + np.repeat(down_delay, gw_sizes))
+
+                # -- local training of the whole cohort (batched over P)
+                with spans.span("client_update", participants=P):
+                    sel = torch.as_tensor(part_dev, device=dev)
+                    cm = mask[sel]
+                    batch_idx = draw_batch_indices(
+                        cm.to(gen.device), max_steps, cfg.batch_size,
+                        gen).to(dev)
+                    deltas, grads = client_update(
+                        loss_fn, params, x[sel], y[sel], cm,
+                        torch.as_tensor(num_steps, dtype=torch.long,
+                                        device=dev),
+                        batch_idx, lr=cfg.lr, mu=cfg.mu)
+                with spans.span("begin_round", engine=eng.name):
+                    ctx = eng.begin_round(deltas, grads)
+
+                # -- event loop: device terminals, then multi-hop transfers.
+                # Contextual tiers with gateway_grad="global" run a gradient
+                # pre-pass: each gateway ships its ĝ_g up first, the cloud
+                # broadcasts the global ĝ back down, and only then do the
+                # gateways solve and ship (ū_g, G_g, c_g).
+                use_prepass = (topology.depth >= 2 and not relay
+                               and tier_mode == "contextual"
+                               and cfg.gateway_grad == "global")
+                interior = [n for tier in range(2, topology.depth + 1)
+                            for n in topology.tier_nodes(tier)]
+                out_grad = {n.node_id: len(n.children) for n in interior}
+                out_sum = {n.node_id: len(n.children) for n in interior}
+                recv_grad: Dict[int, list] = {n.node_id: [] for n in interior}
+                recv_sum: Dict[int, list] = {n.node_id: [] for n in interior}
+                node_ghat: Dict[int, Any] = {}
+                gw_idxs: Dict[int, np.ndarray] = {}
+                meta: Dict[int, tuple] = {}     # event seq -> (kind, node, payload)
+                ghat_global = None
+                cloud_done = False
+                round_info: Dict[str, Any] = {}
+                idx_of = np.full(fleet.num_devices, -1, np.int64)
+                idx_of[part_dev] = np.arange(P)
+                part_gw = np.repeat(np.arange(len(gateways)), gw_sizes)
+                out_dev = {gw.node_id: int(gw_sizes[gi])
+                           for gi, gw in enumerate(gateways)}
+                survivors: Dict[int, List[int]] = {
+                    gw.node_id: [] for gw in gateways}
+
+                def send_up(kind, node, payload, nbytes):
+                    parent = topology.nodes[node.parent]
+                    dt = node.uplink.uplink_time(nbytes)
+                    ledger.record_up(parent.tier, nbytes, dt)
+                    evt = scheduler.schedule(dt, node.node_id, version=t)
+                    meta[evt.seq] = (kind, node.node_id, payload)
+
+                def send_ghat_down(child_id, ghat):
+                    child = topology.nodes[child_id]
+                    nbytes = update_bytes(n_model)
+                    dt = child.uplink.downlink_time(nbytes)
+                    ledger.record_down(child.tier, nbytes, dt)
+                    evt = scheduler.schedule(dt, child_id, version=t)
+                    meta[evt.seq] = ("ghat", child_id, ghat)
+
+                def gone_up(nid, out_map, complete_fn):
+                    """Subtree has nothing to report: release the parent's
+                    count."""
+                    pid = topology.nodes[nid].parent
+                    out_map[pid] -= 1
+                    if out_map[pid] == 0:
+                        complete_fn(pid)
+
+                def gateway_done(gid, idxs):
+                    node = topology.nodes[gid]
+                    idxs = np.sort(np.asarray(idxs, np.int64))  # stable order
+                    gw_idxs[gid] = idxs
+                    if node.parent is None:      # star: the cloud is the gateway
+                        finish_cloud(idxs.tolist() if idxs.size else None)
+                        return
+                    if not idxs.size:
+                        if use_prepass:
+                            gone_up(gid, out_grad, on_grad_complete)
+                        gone_up(gid, out_sum, on_sum_complete)
+                        return
+                    if relay:
+                        send_up("summary", node, idxs.tolist(),
+                                len(idxs) * update_bytes(n_model))
+                    elif use_prepass:
+                        send_up("grad", node, (ctx.mean_grad(idxs), len(idxs)),
+                                update_bytes(n_model))
+                    else:   # solve against the cohort's own ĝ_g, which
+                            # rides up inside the summary
+                        s = _gateway_summary(gid, idxs, None)
+                        if compressing:
+                            send_up("summary", node, *_compress_summary(s, gid))
+                        else:
+                            send_up("summary", node, s,
+                                    summary_bytes(len(idxs), n_model,
+                                                  include_grad=True))
+
+                def _gateway_summary(gid, idxs, solve_grad):
+                    # §III-C at the gateway tier: a fan-in-sampled cohort
+                    # prices the pool it was drawn from
+                    pool = len(topology.nodes[gid].children)
+                    pool_scale = ((pool - 1) / max(len(idxs) - 1, 1)
+                                  if cfg.fan_in is not None
+                                  and cfg.fan_in < pool
+                                  and tier_mode == "contextual" else 1.0)
+                    with spans.span("gateway", node=gid, members=len(idxs)):
+                        out = ctx.gateway(idxs, solve_grad=solve_grad,
+                                          pool_scale=pool_scale)
+                    return GatewaySummary(
+                        node_id=gid, num_updates=len(idxs),
+                        member_ids=part_dev[np.asarray(idxs, np.int64)],
+                        G=out["G"], c=out["c"], alpha=out["alpha"],
+                        u_bar=out["u_bar"], grad_est=out["ghat"],
+                        info=out["info"])
+
+                def _merge_summaries(nid, kids, solve_grad):
+                    """Parent-tier merge over what arrived: the children's ū
+                    become this node's members (Σγ = 1)."""
+                    counts = np.asarray([s.num_updates for s in kids],
+                                        np.float32)
+                    with spans.span("merge", node=nid, children=len(kids)):
+                        out = ctx.merge([s.u_bar for s in kids],
+                                        [s.grad_est for s in kids], counts,
+                                        solve_grad=solve_grad)
+                    return GatewaySummary(
+                        node_id=nid, num_updates=int(counts.sum()),
+                        member_ids=np.asarray([s.node_id for s in kids],
+                                              np.int64),
+                        G=out["G"], c=out["c"], alpha=out["alpha"],
+                        u_bar=out["u_bar"], grad_est=out["ghat"],
+                        info=out["info"])
+
+                def _compress_summary(s, nid):
+                    """EF-compress one summary's (ū, ĝ) for its uplink hop;
+                    returns (payload, wire bytes).  One per-round sketch seed
+                    for every node and both vectors; residuals per (vector,
+                    node)."""
+                    comp_u, u_hat = ef.step(("u", nid), ctx.materialize(s.u_bar),
+                                            comp_u_c, seed=t)
+                    comp_g, g_hat = ef.step(("g", nid),
+                                            ctx.materialize(s.grad_est),
+                                            comp_g_c, seed=t)
+                    decoded = dc_replace(s, u_bar=u_hat, grad_est=g_hat)
+                    nbytes = compressed_summary_bytes(comp_u.nbytes
+                                                      + comp_g.nbytes)
+                    return CompressedSummary(decoded, comp_u, comp_g), nbytes
+
+                def on_grad_complete(nid):
+                    nonlocal ghat_global
+                    node = topology.nodes[nid]
+                    entries = recv_grad[nid]     # [(sender, ĝ ref, count)]
+                    if not entries:
+                        if node.parent is not None:
+                            gone_up(nid, out_grad, on_grad_complete)
+                        return
+                    counts = np.asarray([c for _, _, c in entries], np.float64)
+                    ghat = ctx.compose_grads([g for _, g, _ in entries], counts)
+                    if node.parent is None:      # cloud: broadcast the global ĝ
+                        ghat_global = ghat
+                        for sender, _, _ in entries:
+                            send_ghat_down(sender, ghat)
+                    else:
+                        send_up("grad", node, (ghat, int(counts.sum())),
+                                update_bytes(n_model))
+
+                def on_ghat(nid, ghat):
+                    node = topology.nodes[nid]
+                    node_ghat[nid] = ghat
+                    if node.tier == 1:           # gateway: solve and ship
+                        idxs = gw_idxs[nid]
+                        send_up("summary", node,
+                                _gateway_summary(nid, idxs, ghat),
+                                summary_bytes(len(idxs), n_model))
+                    else:                        # regional: fan the broadcast out
+                        for sender, _, _ in recv_grad[nid]:
+                            send_ghat_down(sender, ghat)
+
+                def on_sum_complete(nid):
+                    node = topology.nodes[nid]
+                    kids = recv_sum[nid]
+                    if node.parent is None:
+                        if not kids:
+                            finish_cloud(None)
+                        else:
+                            finish_cloud(sum(kids, []) if relay else kids)
+                        return
+                    if not kids:
+                        gone_up(nid, out_sum, on_sum_complete)
+                        return
+                    if relay:
+                        fwd = sum(kids, [])
+                        send_up("summary", node, fwd,
+                                len(fwd) * update_bytes(n_model))
+                    elif compressing:
+                        # merge over the decodes, then re-compress with this
+                        # node's own error-feedback state
+                        s = _merge_summaries(nid, [p.summary for p in kids],
+                                             node_ghat.get(nid))
+                        send_up("summary", node, *_compress_summary(s, nid))
+                    else:
+                        s = _merge_summaries(nid, kids, node_ghat.get(nid))
+                        send_up("summary", node, s,
+                                summary_bytes(len(kids), n_model,
+                                              include_grad=not use_prepass))
+
+                def finish_cloud(payload):
+                    nonlocal cloud_done, round_info, params
+                    if payload is None:          # every participant dropped out
+                        result.rounds_skipped += 1
+                    else:
+                        with spans.span("cloud"):
+                            delta, round_info = _cloud_stage(payload)
+                            params = ctx.apply(params, delta)
+                        if publish_fn is not None:
+                            publish_fn(t, params)
+                    cloud_done = True
+
+                def _cloud_stage(payload):
+                    if isinstance(payload, list) and isinstance(
+                            payload[0], (int, np.integer)):
+                        # raw updates (star / relay); a star cloud is the
+                        # fleet's one gateway, so fan-in sampling prices its
+                        # pool here too
+                        pool = len(topology.nodes[topology.cloud_id].children)
+                        scale = ((pool - 1) / max(len(payload) - 1, 1)
+                                 if cfg.fan_in is not None and cfg.fan_in < pool
+                                 and not relay and tier_mode == "contextual"
+                                 else 1.0)
+                        kind = ("fedavg" if cfg.aggregator == "hier_fedavg"
+                                else "raw")
+                        return ctx.cloud_raw(payload, kind, solve_scale=scale)
+                    if compressing:              # compressed child summaries
+                        csums = payload
+                        summaries = [p.summary for p in csums]
+                        counts = [s.num_updates for s in summaries]
+                        # the P×P stage runs on the sketched cross-terms; the
+                        # combine applies the decodes
+                        G2c2 = payload_gram(comp_u_c,
+                                            [p.comp_u for p in csums],
+                                            [p.comp_g for p in csums],
+                                            np.asarray(counts, np.float64))
+                        ghat = ctx.compose_grads([s.grad_est for s in summaries],
+                                                 counts)
+                        return ctx.cloud_combo([s.u_bar for s in summaries],
+                                               counts, ghat, kind="combo",
+                                               override=G2c2)
+                    summaries = payload          # top-tier child summaries
+                    counts = [s.num_updates for s in summaries]
+                    ghat = (ghat_global if ghat_global is not None else
+                            ctx.compose_grads([s.grad_est for s in summaries],
+                                              counts))
+                    delta, info = ctx.cloud_combo([s.u_bar for s in summaries],
+                                                  counts, ghat, kind=cloud_kind)
+                    info = dict(info)
+                    info.update(blockdiag_diagnostics(summaries, info["gamma"],
+                                                      cfg.smoothness))
+                    return delta, info
+
+                def on_transfer(kind, sender, payload):
+                    if kind == "grad":
+                        pid = topology.nodes[sender].parent
+                        recv_grad[pid].append((sender,) + payload)
+                        out_grad[pid] -= 1
+                        if out_grad[pid] == 0:
+                            on_grad_complete(pid)
+                    elif kind == "ghat":
+                        on_ghat(sender, payload)
+                    else:                        # summary
+                        pid = topology.nodes[sender].parent
+                        recv_sum[pid].append(payload)
+                        out_sum[pid] -= 1
+                        if out_sum[pid] == 0:
+                            on_sum_complete(pid)
+
+                max_events = 8 * (P + len(topology.nodes)) + 64
+                with spans.span("event_loop"):
+                    for _ in range(max_events):
+                        if cloud_done:
+                            break
+                        evt = scheduler.pop()
+                        if evt is None:
+                            raise RuntimeError(f"round {t}: event queue "
+                                               "exhausted before the cloud "
+                                               "completed")
+                        if evt.seq in meta:      # backhaul transfer arrival
+                            on_transfer(*meta.pop(evt.seq))
+                            continue
+                        pi = int(idx_of[evt.device_id])   # device terminal
+                        gid = gateways[int(part_gw[pi])].node_id
+                        if evt.kind == EventKind.ARRIVAL:
+                            survivors[gid].append(pi)
+                            result.arrived += 1
+                            if compressing and compress_devices:
+                                # per-device error feedback on BOTH streams
+                                # (the solves consume the gradient too)
+                                comp_d, vhat = ef.step(
+                                    ("dev", evt.device_id), ctx.D[pi],
+                                    comp_u_c, seed=t)
+                                comp_dg, ghat = ef.step(
+                                    ("devg", evt.device_id), ctx.GM[pi],
+                                    comp_g_c, seed=t)
+                                ctx.add_decoded_row(pi, vhat, ghat)
+                                ledger.record_up(
+                                    topology.nodes[gid].tier,
+                                    comp_d.nbytes + comp_dg.nbytes)
+                            else:
+                                ledger.record_up(topology.nodes[gid].tier,
+                                                 update_bytes(n_model))
+                        else:
+                            result.dropped += 1
+                        out_dev[gid] -= 1
+                        if out_dev[gid] == 0:
+                            gateway_done(gid, survivors[gid])
+                if not cloud_done:
+                    raise RuntimeError(f"round {t}: exceeded {max_events} "
+                                       "events")
+                result.dispatched += P
+                round_walls.append(time.perf_counter() - round_t0)
+
+                gamma = (_host(round_info["gamma"]) if "gamma" in round_info
+                         and (collect_gamma or tr.active) else None)
+                if collect_gamma and gamma is not None:
+                    _history_push(result.gamma_history, gamma, record_history)
+                event: Dict[str, Any] = {}
+                if tr.active:
+                    event = {"round": t, "t_virtual": scheduler.now,
+                             "round_virtual_s": scheduler.now - round_start,
+                             "round_wall_s": round_walls[-1],
+                             "participants": P,
+                             "rounds_skipped": result.rounds_skipped}
+                    if gamma is not None:
+                        event.update(_vec_stats("gamma", gamma))
+                if (t + 1) % eval_every == 0 or t == num_rounds - 1:
+                    with spans.span("eval"):
+                        loss = global_train_loss(loss_fn, params, x, y, mask)
+                        nll, acc = evaluate_classifier(apply_fn, params,
+                                                       test_x, test_y)
+                    result.times.append(scheduler.now)
+                    result.train_loss.append(loss)
+                    result.test_acc.append(acc)
+                    result.test_nll.append(nll)
+                    if tr.active:
+                        event.update(train_loss=loss, test_acc=acc,
+                                     test_nll=nll)
+                if tr.active:
+                    tr.log(event, step=t)
+    result.wall_time = time.time() - t0
+    result.comm = ledger.report()
+    result.cloud_uplink_bytes = ledger.cloud_uplink_bytes
+    result.total_bytes = ledger.total_bytes()
+    result.engine = {
+        "engine_name": eng.name,
+        "round_matrix_peak_bytes": eng.peak_round_bytes(P_round),
+        "dense_round_matrix_bytes": dense_bytes,
+    }
+    if round_walls:
+        steady = round_walls[1:] if len(round_walls) > 1 else round_walls
+        result.engine.update({
+            "compile_wall_time_s": round_walls[0],
+            "steady_wall_time_per_round_s": float(np.median(steady)),
+            "rounds_wall_time_s": float(np.sum(round_walls)),
+        })
+    if tr.active:
+        tr.log_summary({**result.engine,
+                        "cloud_uplink_bytes": result.cloud_uplink_bytes,
+                        "total_bytes": result.total_bytes,
+                        "t_virtual_end": scheduler.now,
                         "wall_time_s": result.wall_time})
     return result

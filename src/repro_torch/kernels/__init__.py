@@ -6,15 +6,21 @@ Ops (``cuda`` / ``torch`` backends, selected by the tensors' device — see
   * ``gram``    — fused G = U Uᵀ, c = U g (``csrc/gram.cu``)
   * ``combine`` — α-weighted update combine w + Σ α_k U_k
     (``csrc/combine.cu``)
+  * ``topk``    — the k largest-|v| entries, radix select (``csrc/topk.cu``)
+  * ``sign_sketch`` / ``sign_sketch_adjoint`` — U Rᵀ/√m and Rᵀ s/√m with
+    the ±1 matrix R hashed from counters in the kernel
+    (``csrc/rng_sketch.cu``, ``csrc/rng_hash.cuh``)
 
 The CUDA sources build at first use with ``nvcc`` for ``sm_90a``
 (``_build.py``); importing this package builds nothing.
 """
-from .ops import gram_and_cross, weighted_combine
+from .ops import (gram_and_cross, sign_sketch, sign_sketch_adjoint,
+                  topk_select, weighted_combine)
 from .registry import (available_ops, backends, dispatch, force_backend,
                        launch_counts, register_impl, reset_launch_counts,
                        select_impl)
 
 __all__ = ["available_ops", "backends", "dispatch", "force_backend",
            "gram_and_cross", "launch_counts", "register_impl",
-           "reset_launch_counts", "select_impl", "weighted_combine"]
+           "reset_launch_counts", "select_impl", "sign_sketch",
+           "sign_sketch_adjoint", "topk_select", "weighted_combine"]

@@ -2,9 +2,11 @@
 
 Replaces ``repro.kernels.gram.gram_pallas``.  The CUDA source
 (``csrc/gram.cu``) says what bounds it on the H100 and how the deterministic
-two-pass split reduction is laid out; this module checks the inputs,
-allocates the outputs and the per-block scratch with ``torch.empty``, and
-launches both passes on the current stream without synchronising.
+two-pass split reduction is laid out, for K up to 64 in one piece and above
+it as one grid slice per pair (a, b >= a) of 64-row blocks of U; this module
+checks the inputs, allocates the outputs and the per-block scratch with
+``torch.empty``, and launches both passes on the current stream without
+synchronising.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch
 from . import _build
 from .registry import count_launch
 
-MAX_K = 64
+MAX_K = 64                # rows of U in one piece, and in each row block above
 COLS_GRANULE = 128        # a block's column range is a multiple of this
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -40,25 +42,35 @@ def _check(updates: torch.Tensor, grad: torch.Tensor) -> None:
     K, n = updates.shape
     if grad.shape[0] != n:
         raise ValueError(f"gram_cuda: updates have n={n}, grad {grad.shape[0]}")
-    if not 1 <= K <= MAX_K:
-        raise ValueError(f"gram_cuda: K={K} outside [1, {MAX_K}]")
+    if K < 1:
+        raise ValueError(f"gram_cuda: K={K} must be >= 1")
     if n < 1:
         raise ValueError("gram_cuda: n must be >= 1")
 
 
-def grid(n: int, sm_count: int, blocks_per_sm: int) -> Tuple[int, int]:
-    """``(num_blocks, cols_per_block)``: one resident wave of blocks (at most
-    ``blocks_per_sm`` on each SM), each over a contiguous range of whole
-    granules."""
+def grid(n: int, sm_count: int, blocks_per_sm: int,
+         slices: int = 1) -> Tuple[int, int]:
+    """``(num_blocks, cols_per_block)`` of each of ``slices`` grid slices:
+    one resident wave of blocks in all (at most ``blocks_per_sm`` on each
+    SM), each over a contiguous range of whole granules."""
     granules = -(-n // COLS_GRANULE)
-    blocks = max(1, min(blocks_per_sm * sm_count, granules))
+    blocks = max(1, min(blocks_per_sm * sm_count // slices, granules))
     cols = -(-granules // blocks) * COLS_GRANULE
     return -(-n // cols), cols
 
 
+def row_slices(K: int) -> int:
+    """Grid slices: one per pair (a, b >= a) of the nb row blocks of U of up
+    to ``MAX_K`` rows, nb(nb + 1)/2 (1 up to ``MAX_K``)."""
+    nb = -(-K // MAX_K)
+    return nb * (nb + 1) // 2
+
+
 def scratch_rows(K: int) -> int:
-    """R: rows of the extended matrix [U; g], padded to a multiple of 4."""
-    return (K + 1 + 3) // 4 * 4
+    """Rows of the widest slice's partial: the extended matrix [U; g] padded
+    to a multiple of 4 up to ``MAX_K``, else two row blocks (a cross slice,
+    U_a against U_b)."""
+    return (K + 1 + 3) // 4 * 4 if K <= MAX_K else 2 * MAX_K
 
 
 @functools.lru_cache(maxsize=None)
@@ -87,11 +99,12 @@ def gram_cuda(updates: torch.Tensor, grad: torch.Tensor
     u_bf16 = updates.dtype == torch.bfloat16
     g_bf16 = grad.dtype == torch.bfloat16
     per_sm, _ = launch_config(K, u_bf16, g_bf16, dev.index)
-    num_blocks, cols = grid(n, _build.sm_count(dev.index), per_sm)
+    slices = row_slices(K)
+    num_blocks, cols = grid(n, _build.sm_count(dev.index), per_sm, slices)
     R = scratch_rows(K)
     out = torch.empty((K * K + K,), dtype=torch.float32, device=dev)
     G, c = out[:K * K].view(K, K), out[K * K:]
-    partial = torch.empty((num_blocks * R * R,), dtype=torch.float32,
+    partial = torch.empty((slices * num_blocks * R * R,), dtype=torch.float32,
                           device=dev)
     lib = _build.load_library()
     with torch.cuda.device(dev):

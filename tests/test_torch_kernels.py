@@ -19,7 +19,9 @@ from repro_torch.kernels import (_build, backends, force_backend,
                                  reset_launch_counts, weighted_combine)
 from repro_torch.kernels import ref
 from repro_torch.kernels.combine import combine_cuda
-from repro_torch.kernels.gram import gram_cuda, grid
+from repro_torch.kernels.gram import gram_cuda, grid, row_slices, scratch_rows
+from repro_torch.kernels.rng_sketch import grid as sketch_grid
+from repro_torch.kernels.topk import grid as topk_grid
 
 torch.set_num_threads(1)
 
@@ -108,14 +110,19 @@ def test_cpu_tensors_take_the_plain_version_and_count():
     weighted_combine(torch.ones(5), torch.ones(2, 5), torch.ones(2))
     counts = launch_counts()
     assert counts == {"combine/cuda": 0, "combine/torch": 2,
-                      "gram/cuda": 0, "gram/torch": 1}
+                      "gram/cuda": 0, "gram/torch": 1,
+                      "sign_sketch/cuda": 0, "sign_sketch/torch": 0,
+                      "sign_sketch_adjoint/cuda": 0,
+                      "sign_sketch_adjoint/torch": 0,
+                      "topk/cuda": 0, "topk/torch": 0}
     reset_launch_counts()
     assert set(launch_counts().values()) == {0}
 
 
 def test_registry_misuse_raises():
-    assert backends("gram") == ("cuda", "torch")
-    assert backends("combine") == ("cuda", "torch")
+    for op in ("gram", "combine", "topk", "sign_sketch",
+               "sign_sketch_adjoint"):
+        assert backends(op) == ("cuda", "torch")
     with pytest.raises(KeyError, match="unknown kernel op"):
         registry.dispatch("bogus_op", torch.ones(1))
     with pytest.raises(KeyError, match="not registered"):
@@ -137,7 +144,13 @@ def test_cuda_kernels_never_take_cpu_tensors():
         gram_cuda(torch.ones(2, 3), torch.ones(3))
     with pytest.raises(ValueError):
         combine_cuda(torch.ones(3), torch.ones(2, 3), torch.ones(2))
-    assert launch_counts()["gram/cuda"] == 0
+    for op, args in (("topk", (torch.ones(3), 2)),
+                     ("sign_sketch", (torch.ones(1, 3), 0, 2)),
+                     ("sign_sketch_adjoint", (torch.ones(2), 0, 3))):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            registry.dispatch(op, *args, backend="cuda")
+    assert all(n == 0 for key, n in launch_counts().items()
+               if key.endswith("/cuda"))
 
 
 def test_force_backend_pins_the_plain_version():
@@ -157,6 +170,30 @@ def test_gram_grid_covers_every_column(n, sm_count, per_sm):
     assert blocks * cols >= n > (blocks - 1) * cols
 
 
+@pytest.mark.parametrize("K,slices,rows", [(1, 1, 4), (25, 1, 28),
+                                            (64, 1, 68), (65, 3, 128),
+                                            (100, 3, 128), (130, 6, 128)])
+def test_gram_row_pairs_above_64(K, slices, rows):
+    """Above 64 rows the kernel runs one grid slice per pair (a, b >= a) of
+    64-row blocks: a diagonal slice stages one block and the g row, a cross
+    slice two blocks, so a partial has at most 128 rows."""
+    assert row_slices(K) == slices
+    assert scratch_rows(K) == rows
+    blocks, cols = grid(7850, 132, 3, slices)
+    assert blocks * slices <= max(3 * 132, slices)
+    assert blocks * cols >= 7850
+
+
+@pytest.mark.parametrize("n", [1, 1000, 7850, (1 << 20) + 3])
+def test_topk_and_sketch_grids_cover_every_entry(n):
+    blocks, chunk = topk_grid(n, 132)
+    assert blocks * chunk >= n > (blocks - 1) * chunk
+    for K, m in ((1, 981), (8, 8192)):
+        splits, cols, kc = sketch_grid(K, n, m, 132)
+        assert splits * cols >= n > (splits - 1) * cols
+        assert kc == K
+
+
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.delenv("CUDA_PATH", raising=False)
@@ -168,6 +205,8 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 def test_build_key_covers_every_source():
     names = {p.name for p in _build.sources()}
-    assert {"gram.cu", "combine.cu"} <= names
+    assert {"gram.cu", "combine.cu", "topk.cu", "rng_sketch.cu"} <= names
+    # a header edit rebuilds too (the hash covers every .cuh)
+    assert (_build.CSRC / "rng_hash.cuh").is_file()
     assert len(_build.source_hash()) == 16
     assert _build.build_dir().parent == _build.BUILD_ROOT
