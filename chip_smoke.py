@@ -32,7 +32,23 @@ Phases (any failure exits non-zero and prints no result line):
      or ``sign_sketch`` + ``sign_sketch_adjoint`` on every compressed round,
      and no plain version; the losses must fall; compressed cloud uplink
      below uncompressed below star; one uncompressed and one
-     ``sign_sketch`` round on the card match the same round on the CPU.
+     ``sign_sketch`` round on the card match the same round on the CPU;
+  5. streamed — the same two-tier runs (uncompressed, ``topk``,
+     ``sign_sketch``) on ``engine="streamed"`` and on the fused engine with
+     the same mini-batches: every streamed round launches ``stream_stats``
+     and ``combine``, the losses fall and agree with the fused engine's to
+     1.4e-3, the cloud-uplink bytes are equal; one streamed round on the
+     card matches the same round on the CPU;
+  6. bigmodel — the reference's full ``transformer_stream`` round
+     (``benchmarks/bigmodel_round.py``: d_model 1024, vocab 8192, 4 layers,
+     P = 16, bf16, n = 58 724 352) through the streamed engine: its round
+     time, the accumulate pass beside its bound, the rise of allocated
+     memory across ``begin_round``, G and C against the plain version, and
+     the round's delta against the fused engine's on the same inputs.
+
+The kernels phase also holds ``stream_stats``, ``gram_block`` and ``sketch``
+(U Rᵀ against an explicit R) against their plain versions, bitwise
+repeatable, at the paths', the reference benchmark's and model shapes.
 
 The last lines are one ``{"kernels": [...]}`` JSON object, the
 ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device": ...}``.
@@ -78,6 +94,9 @@ TOL = {("gram", "float32"): 1e-4, ("gram", "bfloat16"): 1e-4,
        ("combine", "float32"): 1e-5, ("combine", "bfloat16"): 3e-2,
        ("sign_sketch", "float32"): 1e-5, ("sign_sketch", "bfloat16"): 1e-5,
        ("sign_sketch_adjoint", "float32"): 1e-5}
+# stream_stats, gram_block and sketch form the same f32 products as their
+# plain versions (bf16 inputs upcast exactly) and sum them in another order
+CROSS_TOL = 1e-5
 
 PATH_SHAPE = (10, 7850)        # K clients x paper-logreg parameters (784·10 + 10)
 RAGGED = [(K, n) for K in (1, 3, 10) for n in (1, 130, 7850)]
@@ -100,7 +119,34 @@ SKETCH_PATH = [(1, N_PATH, 1962), (1, N_PATH, 981)]
 SKETCH_RAGGED = [(1, 1, 1), (3, 130, 17), (8, 4097, 300), (11, 1000, 129)]
 SKETCH_MODEL = [(K, (1 << 20) + 3, m) for K in (1, 8) for m in (1024, 8192)]
 
+# stream_stats (P, n): the streamed paper path's two leaf slabs at P = 100
+# (w: 784 x 10, b: 10), ragged, and one slab of each size of the
+# transformer_stream round (embedding, MLP, attention) at P = 16 bf16
+STREAM_PATH = [(100, 7840), (100, 10)]
+STREAM_RAGGED = [(1, 7), (3, 129), (65, 1000)]
+STREAM_MODEL = [(16, 8192 * 1024), (16, 1024 * 4096), (16, 1024 * 1024)]
+# gram_block (Ka, Kb, n): benchmarks/kernel_bench.py's (K, K // 2) pairs,
+# ragged, and Ka = 64, Kb = 32 at n = 2^24
+GRAM_BLOCK_BENCH = [(10, 5, 1 << 16), (16, 8, 1 << 18), (32, 16, 1 << 18)]
+GRAM_BLOCK_RAGGED = [(1, 1, 1), (5, 7, 333), (3, 130, 1000), (100, 100, 7850)]
+GRAM_BLOCK_MODEL = [(64, 32, 1 << 24)]
+# sketch (K, n, m): kernel_bench's shape, ragged, and n = 2^20 + 3
+SKETCH_APPLY_BENCH = [(8, 1 << 16, 1024)]
+SKETCH_APPLY_RAGGED = [(1, 1, 1), (3, 130, 17), (11, 1000, 129),
+                       (100, 777, 65)]
+SKETCH_APPLY_MODEL = [(8, (1 << 20) + 3, 1024)]
+
 HIER_ROUNDS = 6
+# the reference's recorded streamed-vs-fused loss gap (BENCH_bigmodel.json)
+STREAMED_LOSS_GAP = 1.4e-3
+# benchmarks/bigmodel_round.py's full transformer_stream round
+BIG = dict(d_model=1024, vocab=8192, layers=4, P=16, gateways=4,
+           chunk=1 << 18)
+BIG_N = 58_724_352
+BIG_PEAK_BYTES = 33_556_480
+BIG_DENSE_BYTES = 7_516_717_056
+BIG_MEMORY_RISE = 64 << 20
+BIG_DELTA_TOL = 4e-3      # bf16 rounding of the mix weights (mix_rows)
 HIER_CFG = dict(lr=0.05, batch_size=10, min_epochs=1, max_epochs=20)
 
 PATH_ROUNDS = 8
@@ -173,10 +219,11 @@ def gram_bound(K: int, n: int, dt) -> dict:
             "f32_cuda_core_ms": flops / F32_CUDA_CORE_FLOPS * 1e3}
 
 
-def combine_bound(K: int, n: int, dt) -> dict:
+def combine_bound(K: int, n: int, dt, w_dt=None) -> dict:
     import torch
     size = torch.finfo(dt).bits // 8
-    nbytes = K * n * size + 2 * n * size + K * 4
+    w_size = torch.finfo(w_dt or dt).bits // 8
+    nbytes = K * n * size + 2 * n * w_size + K * 4
     flops = 2 * K * n + n
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[_dtype_name(dt)] * 1e3
@@ -221,11 +268,14 @@ def check_gram(K: int, n: int, dt, gen, timed: bool = True) -> dict:
     return rec
 
 
-def check_combine(K: int, n: int, dt, gen, timed: bool = True) -> dict:
+def check_combine(K: int, n: int, dt, gen, timed: bool = True,
+                  w_dt=None) -> dict:
+    """``w_dt``: the base's dtype where it differs from U's (the streamed
+    apply adds bf16 update slabs into f32 parameters)."""
     import torch
     from repro_torch.kernels import ops, ref
     U = torch.randn((K, n), generator=gen, device="cuda").to(dt)
-    w = torch.randn((n,), generator=gen, device="cuda").to(dt)
+    w = torch.randn((n,), generator=gen, device="cuda").to(w_dt or dt)
     a = torch.randn((K,), generator=gen, device="cuda") / K
     out = ops.weighted_combine(w, U, a, backend="cuda")
     outr = ref.combine_ref(w, U, a)
@@ -233,17 +283,20 @@ def check_combine(K: int, n: int, dt, gen, timed: bool = True) -> dict:
     need(out.shape == (n,) and out.dtype == w.dtype,
          f"combine K={K} n={n}: output {tuple(out.shape)} {out.dtype}")
     err = _max_err(out, outr) / _scale(outr)
-    tol = TOL[("combine", _dtype_name(dt))]
+    tol = TOL[("combine", _dtype_name(w.dtype))]
     need(err <= tol, f"combine K={K} n={n} {dt}: relative err {err:.3e} > {tol}")
     rec = {"K": K, "n": n, "dtype": _dtype_name(dt),
            "max_abs_err": _max_err(out, outr), "rel_err": err, "tolerance": tol}
+    if w_dt is not None:
+        rec["w_dtype"] = _dtype_name(w_dt)
     if timed:
         reps = reps_for(U.numel() * U.element_size())
-        a_lib = a.to(dt)
+        lib = (lambda: torch.addmv(w, U.T, a.to(dt))) if w_dt is None else (
+            lambda: w + a.to(dt) @ U)
         rec["ms"] = time_ms(lambda: ops.weighted_combine(w, U, a, backend="cuda"), reps)
         rec["plain_ms"] = time_ms(lambda: ref.combine_ref(w, U, a), reps)
-        rec["library_ms"] = time_ms(lambda: torch.addmv(w, U.T, a_lib), reps)
-        rec.update(combine_bound(K, n, dt))
+        rec["library_ms"] = time_ms(lib, reps)
+        rec.update(combine_bound(K, n, dt, w_dt))
     return rec
 
 
@@ -354,13 +407,159 @@ def check_adjoint(m: int, n: int, gen, timed: bool = True) -> dict:
     return rec
 
 
+def cross_bound(rows_read: int, n: int, fmas_per_col: int, out_floats: int,
+                dt) -> dict:
+    """Bound of a cross product: ``rows_read`` input rows of n entries read
+    once and ``out_floats`` f32 written, against ``fmas_per_col`` FMAs per
+    column at the input type's peak (and, for reference, on the f32 CUDA
+    cores the kernels use)."""
+    import torch
+    size = torch.finfo(dt).bits // 8
+    nbytes = rows_read * n * size + out_floats * 4
+    flops = 2 * n * fmas_per_col
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[_dtype_name(dt)] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops,
+            "f32_cuda_core_ms": flops / F32_CUDA_CORE_FLOPS * 1e3}
+
+
+def _outs(x) -> tuple:
+    return x if isinstance(x, tuple) else (x,)
+
+
+def check_cross(op: str, args: tuple, shape: dict, dt, bound_rec: dict,
+                timed: bool = True, library=None) -> dict:
+    """One of the cross-product kernels (``stream_stats``, ``gram_block``,
+    ``sketch``) against its plain version on ``args``: bitwise equal over
+    two calls and within CROSS_TOL of max |plain|; with ``timed``, CUDA-event
+    times of the kernel, the plain version and ``library``."""
+    import torch
+    from repro_torch.kernels import registry
+    out = _outs(registry.dispatch(op, *args, backend="cuda"))
+    out2 = _outs(registry.dispatch(op, *args, backend="cuda"))
+    want = _outs(registry.dispatch(op, *args, backend="torch"))
+    torch.cuda.synchronize()
+    what = f"{op} {shape} {dt}"
+    need(all(a.shape == b.shape and a.dtype == torch.float32
+             for a, b in zip(out, want)), f"{what}: output shapes")
+    bitwise = all(torch.equal(a, b) for a, b in zip(out, out2))
+    need(bitwise, f"{what}: two calls differ bitwise")
+    err = max(_max_err(a, b) / _scale(b) for a, b in zip(out, want))
+    abs_err = max(_max_err(a, b) for a, b in zip(out, want))
+    need(err <= CROSS_TOL, f"{what}: relative err {err:.3e} > {CROSS_TOL}")
+    rec = dict(shape, dtype=_dtype_name(dt), max_abs_err=abs_err,
+               rel_err=err, tolerance=CROSS_TOL, bitwise_repeatable=bitwise)
+    if timed:
+        reps = reps_for(args[0].numel() * args[0].element_size()
+                        + args[1].numel() * args[1].element_size())
+        rec["ms"] = time_ms(
+            lambda: registry.dispatch(op, *args, backend="cuda"), reps)
+        rec["plain_ms"] = time_ms(
+            lambda: registry.dispatch(op, *args, backend="torch"), reps)
+        rec["library_ms"] = time_ms(library, reps)
+        rec.update(bound_rec)
+    return rec
+
+
+def check_stream_stats(P: int, n: int, dt, gen, timed: bool = True,
+                       D=None, GM=None) -> dict:
+    import torch
+    if D is None:
+        D = torch.randn((P, n), generator=gen, device="cuda").to(dt)
+        GM = torch.randn((P, n), generator=gen, device="cuda").to(dt)
+    return check_cross(
+        "stream_stats", (D, GM), {"P": P, "n": n}, dt,
+        cross_bound(2 * P, n, P * (P + 1) // 2 + P * P, 2 * P * P, dt),
+        timed, library=lambda: (D @ D.T, D @ GM.T))
+
+
+def check_gram_block(Ka: int, Kb: int, n: int, dt, gen,
+                     timed: bool = True) -> dict:
+    import torch
+    U = torch.randn((Ka + Kb, n), generator=gen, device="cuda").to(dt)
+    ua, ub = U[:Ka], U[Ka:]                  # row blocks of one matrix
+    g = torch.randn((n,), generator=gen, device="cuda").to(dt)
+    return check_cross(
+        "gram_block", (ua, ub, g), {"Ka": Ka, "Kb": Kb, "n": n}, dt,
+        cross_bound(Ka + Kb + 1, n, Ka * (Kb + 1), Ka * Kb + Ka, dt),
+        timed, library=lambda: (ua @ ub.T, ua @ g))
+
+
+def check_sketch_apply(K: int, n: int, m: int, dt, gen,
+                       timed: bool = True) -> dict:
+    import torch
+    U = torch.randn((K, n), generator=gen, device="cuda").to(dt)
+    R = torch.randn((m, n), generator=gen, device="cuda").to(dt)
+    return check_cross(
+        "sketch", (U, R), {"K": K, "n": n, "m": m}, dt,
+        cross_bound(K + m, n, K * m, K * m, dt), timed,
+        library=lambda: U @ R.T)
+
+
+def cross_phase_records(gen) -> dict:
+    """The three cross-product kernels at their shapes (kernels phase)."""
+    import torch
+    f32, bf16 = torch.float32, torch.bfloat16
+    out = {"stream_stats": [], "gram_block": [], "sketch": []}
+    for P, n in STREAM_PATH:
+        out["stream_stats"].append(dict(check_stream_stats(P, n, f32, gen),
+                                        set="path"))
+    for P, n in STREAM_RAGGED:
+        for dt in (f32, bf16):
+            out["stream_stats"].append(dict(
+                check_stream_stats(P, n, dt, gen, timed=False), set="ragged"))
+    # slab views of a stacked leaf, and a strided column window (row stride
+    # 400): taken as they lie
+    leaf = torch.randn((3, 43, 7), generator=gen, device="cuda")
+    gleaf = torch.randn((3, 43, 7), generator=gen, device="cuda")
+    wide = torch.randn((5, 400), generator=gen, device="cuda")
+    for D, GM in ((leaf.reshape(3, -1), gleaf.reshape(3, -1)),
+                  (wide[:, 5:305], wide[:, 90:390])):
+        out["stream_stats"].append(dict(check_stream_stats(
+            D.shape[0], D.shape[1], f32, gen, timed=False, D=D, GM=GM),
+            set="ragged"))
+    for P, n in STREAM_MODEL:
+        out["stream_stats"].append(dict(check_stream_stats(P, n, bf16, gen),
+                                        set="model"))
+        torch.cuda.empty_cache()
+    for Ka, Kb, n in GRAM_BLOCK_BENCH:
+        out["gram_block"].append(dict(check_gram_block(Ka, Kb, n, f32, gen),
+                                      set="bench"))
+    for Ka, Kb, n in GRAM_BLOCK_RAGGED:
+        for dt in (f32, bf16):
+            out["gram_block"].append(dict(
+                check_gram_block(Ka, Kb, n, dt, gen, timed=False),
+                set="ragged"))
+    for Ka, Kb, n in GRAM_BLOCK_MODEL:
+        for dt in (f32, bf16):
+            out["gram_block"].append(dict(check_gram_block(Ka, Kb, n, dt, gen),
+                                          set="model"))
+            torch.cuda.empty_cache()
+    for K, n, m in SKETCH_APPLY_BENCH:
+        out["sketch"].append(dict(check_sketch_apply(K, n, m, f32, gen),
+                                  set="bench"))
+    for K, n, m in SKETCH_APPLY_RAGGED:
+        for dt in (f32, bf16):
+            out["sketch"].append(dict(
+                check_sketch_apply(K, n, m, dt, gen, timed=False),
+                set="ragged"))
+    for K, n, m in SKETCH_APPLY_MODEL:
+        for dt in (f32, bf16):
+            out["sketch"].append(dict(check_sketch_apply(K, n, m, dt, gen),
+                                      set="model"))
+            torch.cuda.empty_cache()
+    return out
+
+
 def _fmt_us(v) -> str:
     return "     none" if v is None else f"{v * 1e3:9.1f}"
 
 
 def _log_rec(name: str, rec: dict) -> None:
-    shape = " ".join(f"{k}={rec[k]}" for k in ("K", "n", "k", "m")
-                     if k in rec)
+    shape = " ".join(f"{k}={rec[k]}" for k in ("P", "K", "Ka", "Kb", "n", "k",
+                                                "m") if k in rec)
     log(f"{name:19s} {rec['set']:6s} {shape:28s} {rec['dtype']:9s} "
         f"err={rec['max_abs_err']:.3e} kernel={_fmt_us(rec['ms'])}us "
         f"plain={_fmt_us(rec['plain_ms'])}us "
@@ -396,6 +595,12 @@ def kernels_phase() -> dict:
                 rec = dict(check(Km, nm, dt, gen), set="model")
                 out[name].append(rec)
                 torch.cuda.empty_cache()
+    # combine at the streamed apply: K = 100 at the paper path (f32), and a
+    # transformer slab (bf16 rows into f32 parameters)
+    out["combine"].append(dict(check_combine(100, 7840, f32, gen),
+                               set="path"))
+    out["combine"].append(dict(check_combine(16, 8192 * 1024, bf16, gen,
+                                             w_dt=f32), set="model"))
     for Kw, nw in GRAM_GATEWAY + GRAM_WIDE:
         for dt in (f32, bf16):
             out["gram"].append(dict(check_gram(Kw, nw, dt, gen),
@@ -435,6 +640,7 @@ def kernels_phase() -> dict:
         torch.cuda.empty_cache()
     out["sign_sketch"].append(dict(check_sketch(8, (1 << 20) + 3, 1024, bf16,
                                                 gen), set="model"))
+    out.update(cross_phase_records(gen))
 
     for name, recs in out.items():
         for rec in recs:
@@ -556,7 +762,7 @@ def path_phase():
 
 # -------------------------------------------------------------------- hier
 
-def hier_round_vs_cpu(ds, params, topo, cfg) -> float:
+def hier_round_vs_cpu(ds, params, topo, cfg, engine: str = "fused") -> float:
     """One hier round on the card against the same round on the CPU (plain
     versions); both draw their mini-batches from a CPU generator with one
     seed, so they train on the same batches.  Returns max |Δ new params|
@@ -574,6 +780,7 @@ def hier_round_vs_cpu(ds, params, topo, cfg) -> float:
             "vs_cpu", logistic_loss, logistic_apply,
             tree_map(lambda p: p.to(dev), params), ds, cfg, topo, 1,
             selection_seed=7, device=dev, batch_generator=batches,
+            engine=engine,
             publish_fn=lambda t, p: got.append(tree_to_vector(p).cpu()))
         need(len(got) == 1, "the card-vs-CPU round was skipped")
         news.append(got[0])
@@ -665,11 +872,266 @@ def hier_phase(ds, params) -> dict:
     return total
 
 
+# ---------------------------------------------------------------- streamed
+
+def _round_ms(tracker) -> list:
+    from repro_torch.obs.spans import span_fields
+    return [span_fields(e)["dur_wall_s"] * 1e3 for e in tracker.span_events()
+            if span_fields(e)["name"] == "round"]
+
+
+def streamed_phase(ds, params) -> dict:
+    """The two-tier paper-logreg runs on the streamed engine beside the
+    fused engine, on the same mini-batches; returns the streamed runs'
+    launch counts, summed."""
+    import numpy as np
+    import torch
+    from repro_torch.compress import CompressConfig
+    from repro_torch.edge import bimodal_fleet
+    from repro_torch.fl import run_hier_simulation
+    from repro_torch.hier import HierConfig, two_tier_topology
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.logistic import logistic_apply, logistic_loss
+    from repro_torch.obs import InMemoryTracker, use_tracker
+
+    fleet = bimodal_fleet(ds.num_devices, slowdown=10.0, dropout_slow=0.05,
+                          seed=0)
+    tiers = two_tier_topology(fleet, 4)
+    sketch = dict(aggregator="hier_contextual_sketch", **HIER_CFG)
+    runs = [
+        ("two_tier", HierConfig(**HIER_CFG), ()),
+        ("topk", HierConfig(compress=CompressConfig(
+            scheme="topk", ratio=3.4, u_frac=0.75), **sketch), ("topk",)),
+        ("sign_sketch", HierConfig(compress=CompressConfig(
+            scheme="sign_sketch", ratio=4.0), **sketch),
+         ("sign_sketch", "sign_sketch_adjoint")),
+    ]
+    log(f"streamed: two tiers of 4 gateways over {ds.num_devices} devices, "
+        f"{HIER_ROUNDS} rounds per run, streamed and fused engines on the "
+        "same mini-batches")
+    total = {}
+    for name, cfg, compress_ops in runs:
+        res, ms = {}, {}
+        for engine in ("fused", "streamed"):
+            batches = torch.Generator(device="cuda")
+            batches.manual_seed(42)
+            snaps = []
+            tracker = InMemoryTracker()
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            with use_tracker(tracker):
+                r = run_hier_simulation(
+                    f"{name}_{engine}", logistic_loss, logistic_apply, params,
+                    ds, cfg, tiers, HIER_ROUNDS, selection_seed=42,
+                    device="cuda", engine=engine, batch_generator=batches,
+                    publish_fn=lambda t, p: snaps.append(launch_counts()))
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            res[engine], ms[engine] = r, _round_ms(tracker)
+            need(r.engine["engine_name"] == engine,
+                 f"streamed {name}: ran on {r.engine['engine_name']}")
+            need(np.isfinite(r.train_loss).all()
+                 and r.train_loss[-1] < r.train_loss[0],
+                 f"streamed {name} ({engine}): losses {r.train_loss}")
+            plain = {k: v for k, v in counts.items()
+                     if k.endswith("/torch") and v}
+            need(not plain, f"streamed {name} ({engine}): plain versions ran "
+                 f"on the path: {plain}")
+            if engine == "streamed":
+                need(len(snaps) == HIER_ROUNDS - r.rounds_skipped,
+                     f"streamed {name}: {len(snaps)} rounds published")
+                prev = {k: 0 for k in counts}
+                for t, snap in enumerate(snaps):
+                    for op in ("stream_stats", "combine") + compress_ops:
+                        need(snap[f"{op}/cuda"] > prev[f"{op}/cuda"],
+                             f"streamed {name}: round {t} launched no "
+                             f"{op}/cuda")
+                    prev = snap
+                for key, v in counts.items():
+                    total[key] = total.get(key, 0) + v
+            log(f"streamed {name:11s} {engine:8s} loss {r.train_loss[0]:.6f} "
+                f"-> {r.train_loss[-1]:.6f}  cloud uplink "
+                f"{r.cloud_uplink_bytes:.0f} B  round ms median "
+                f"{statistics.median(ms[engine]):.2f} (first "
+                f"{ms[engine][0]:.2f}, all {[round(x, 2) for x in ms[engine]]})"
+                f"  launches { {k: v for k, v in counts.items() if v} }")
+        gap = abs(res["streamed"].train_loss[-1] - res["fused"].train_loss[-1])
+        log(f"streamed {name}: |loss streamed - fused| after {HIER_ROUNDS} "
+            f"rounds {gap:.3e} (tolerance {STREAMED_LOSS_GAP}); peak round "
+            f"bytes streamed {res['streamed'].engine['round_matrix_peak_bytes']:.0f}"
+            f" vs fused {res['fused'].engine['round_matrix_peak_bytes']:.0f}")
+        need(gap <= STREAMED_LOSS_GAP, f"streamed {name}: loss gap {gap:.3e}")
+        need(res["streamed"].cloud_uplink_bytes
+             == res["fused"].cloud_uplink_bytes,
+             f"streamed {name}: cloud uplink "
+             f"{res['streamed'].cloud_uplink_bytes} vs fused "
+             f"{res['fused'].cloud_uplink_bytes}")
+    rel = hier_round_vs_cpu(ds, params, tiers, runs[0][1], engine="streamed")
+    log(f"streamed: one two_tier round, card vs CPU, max rel err of new "
+        f"params {rel:.3e} (tolerance 1e-4)")
+    need(rel <= 1e-4, f"streamed: card round disagrees with the CPU round: "
+         f"{rel:.3e}")
+    return total
+
+
+# ---------------------------------------------------------------- bigmodel
+
+def transformer_stacked(gen):
+    """benchmarks/bigmodel_round.py's transformer-shaped stacked update and
+    gradient trees (leading P axis, bf16, 0.01·N(0, 1)) drawn on the card,
+    its f32 zero template, and n."""
+    import torch
+    d, P = BIG["d_model"], BIG["P"]
+    shapes = {"embed": (BIG["vocab"], d)}
+    for layer in range(BIG["layers"]):
+        for w in ("wq", "wk", "wv", "wo"):
+            shapes[f"layer{layer}/{w}"] = (d, d)
+        shapes[f"layer{layer}/w_up"] = (d, 4 * d)
+        shapes[f"layer{layer}/w_down"] = (4 * d, d)
+        shapes[f"layer{layer}/ln"] = (d,)
+
+    def draw(shape):
+        return (0.01 * torch.randn((P,) + shape, generator=gen,
+                                   device="cuda")).to(torch.bfloat16)
+
+    import numpy as np
+
+    deltas = {k: draw(s) for k, s in shapes.items()}
+    grads = {k: draw(s) for k, s in shapes.items()}
+    template = {k: torch.zeros(s, device="cuda") for k, s in shapes.items()}
+    n = sum(int(np.prod(s)) for s in shapes.values())
+    return deltas, grads, template, n
+
+
+def _big_round(eng, template, deltas, grads):
+    """One tier-tree round through the context API, as the reference's
+    ``_round_once``: gateway solves, the cloud's γ stage, the apply."""
+    P, gws = BIG["P"], BIG["gateways"]
+    per = P // gws
+    cohorts = [list(range(g * per, (g + 1) * per)) for g in range(gws)]
+    ctx = eng.begin_round(deltas, grads)
+    sums = [ctx.gateway(c) for c in cohorts]
+    counts = [float(len(c)) for c in cohorts]
+    ghat = ctx.compose_grads([s["ghat"] for s in sums], counts)
+    delta, info = ctx.cloud_combo([s["u_bar"] for s in sums], counts, ghat)
+    return ctx, delta, ctx.apply(template, delta)
+
+
+def bigmodel_phase() -> dict:
+    """The streamed engine at transformer width; returns its launch
+    counts."""
+    import torch
+    from repro_torch.core.solve import SolveConfig
+    from repro_torch.hier import HierRoundEngine
+    from repro_torch.hier.streamed import StreamedRoundEngine, dense_round_bytes
+    from repro_torch.kernels import (force_backend, launch_counts,
+                                     reset_launch_counts)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    deltas, grads, template, n = transformer_stacked(gen)
+    P = BIG["P"]
+    cfg = SolveConfig(beta=5.0, ridge=1e-6)
+    seng = StreamedRoundEngine(template, cfg, "contextual", chunk=BIG["chunk"])
+    peak, dense = seng.peak_round_bytes(P), dense_round_bytes(P, n)
+    log(f"bigmodel: transformer_stream d_model {BIG['d_model']}, vocab "
+        f"{BIG['vocab']}, {BIG['layers']} layers, P={P} bf16, n={n}, "
+        f"{len(deltas)} leaves; peak round bytes {peak:.0f} vs dense "
+        f"{dense:.0f} ({dense / peak:.1f}x)")
+    need(n == BIG_N, f"bigmodel: n={n}")
+    need(peak == BIG_PEAK_BYTES and dense == BIG_DENSE_BYTES,
+         f"bigmodel: peak {peak} / dense {dense} differ from the reference")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launch_counts()
+    ctx = seng.begin_round(deltas, grads)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    need(launch_counts()["stream_stats/cuda"] == len(deltas),
+         f"bigmodel: begin_round launched {launch_counts()}")
+    log(f"bigmodel: begin_round raised allocated memory by {rise} B "
+        f"(limit {BIG_MEMORY_RISE}; one f32 (P, n) copy: {P * n * 4} B)")
+    need(rise < BIG_MEMORY_RISE, f"bigmodel: begin_round raised memory by "
+         f"{rise} B")
+
+    # the accumulate pass alone, beside its bound (the bytes of D and GM)
+    acc_ms = time_ms(lambda: seng.begin_round(deltas, grads), 10, warmup=2)
+    acc_bound = cross_bound(2 * P, n, P * (P + 1) // 2 + P * P, 2 * P * P,
+                            torch.bfloat16)
+    # whole rounds: host clock around a round that ends in a sync
+    reset_launch_counts()
+    round_ms = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sctx, sdelta, _ = _big_round(seng, template, deltas, grads)
+        torch.cuda.synchronize()
+        round_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = launch_counts()
+    need(counts["stream_stats/cuda"] == 4 * len(deltas)
+         and counts["combine/cuda"] == 4 * len(deltas),
+         f"bigmodel: 4 rounds launched {counts}")
+    plain = {k: v for k, v in counts.items() if k.endswith("/torch") and v}
+    need(not plain, f"bigmodel: plain versions ran on the path: {plain}")
+    log(f"bigmodel: round ms {[round(x, 2) for x in round_ms]} (median of the "
+        f"last 3 {statistics.median(round_ms[1:]):.2f}); accumulate pass "
+        f"({len(deltas)} stream_stats launches) {acc_ms * 1e3:.1f} us against "
+        f"a bound of {acc_bound['bound_ms'] * 1e3:.1f} us "
+        f"({acc_bound['bound_by']})")
+
+    # where a round's time goes: the P-space stages (host clock, ending in a
+    # sync) and the apply (CUDA events) beside the accumulate pass above
+    P_gw = P // BIG["gateways"]
+    cohorts = [list(range(g * P_gw, (g + 1) * P_gw))
+               for g in range(BIG["gateways"])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sums = [sctx.gateway(c) for c in cohorts]
+    counts_g = [float(len(c)) for c in cohorts]
+    ghat = sctx.compose_grads([x["ghat"] for x in sums], counts_g)
+    sctx.cloud_combo([x["u_bar"] for x in sums], counts_g, ghat)
+    torch.cuda.synchronize()
+    stages_ms = (time.perf_counter() - t0) * 1e3
+    apply_ms = time_ms(lambda: sctx.apply(template, sdelta), 5, warmup=1)
+    apply_bound = (2 * P * n + 2 * 4 * n) / HBM_BYTES_PER_S * 1e3
+    log(f"bigmodel: round parts — P-space stages {stages_ms:.2f} ms (host "
+        f"clock), apply ({len(deltas)} combine launches) "
+        f"{apply_ms * 1e3:.1f} us against a bound of {apply_bound * 1e3:.1f} "
+        "us (bytes: the bf16 deltas read, the f32 parameters read and "
+        "written)")
+
+    with force_backend("torch", op="stream_stats"):
+        ref_ctx = seng.begin_round(deltas, grads)
+    err_g = _max_err(ctx.G, ref_ctx.G) / float(ref_ctx.G.abs().max())
+    err_c = _max_err(ctx.C, ref_ctx.C) / float(ref_ctx.C.abs().max())
+    log(f"bigmodel: G and C against the plain version: max |err| / max |plain|"
+        f" {err_g:.3e} and {err_c:.3e} (tolerance {CROSS_TOL})")
+    need(max(err_g, err_c) <= CROSS_TOL, f"bigmodel: G/C err {err_g:.3e}, "
+         f"{err_c:.3e}")
+    del ref_ctx
+
+    svec = sctx.materialize(sdelta)
+    feng = HierRoundEngine(template, cfg, "contextual")
+    _, fdelta, _ = _big_round(feng, template, deltas, grads)
+    torch.cuda.synchronize()
+    derr = _max_err(svec, fdelta) / float(fdelta.abs().max())
+    log(f"bigmodel: streamed round delta against the fused engine's: max "
+        f"|err| / max |fused| {derr:.3e} (tolerance {BIG_DELTA_TOL})")
+    need(derr <= BIG_DELTA_TOL, f"bigmodel: delta err {derr:.3e}")
+    return {"counts": counts, "round_ms": round_ms, "accumulate_ms": acc_ms,
+            "accumulate_bound": acc_bound, "stages_ms": stages_ms,
+            "apply_ms": apply_ms, "apply_bound_ms": apply_bound,
+            "memory_rise_bytes": rise,
+            "G_rel_err": err_g, "C_rel_err": err_c, "delta_rel_err": derr}
+
+
 # -------------------------------------------------------------------- main
 
 def setup_phase() -> str:
     import torch
-    from repro_torch.kernels import _build, gram, rng_sketch, topk
+    from repro_torch.kernels import _build, cross, gram, rng_sketch, topk
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
@@ -706,6 +1168,16 @@ def setup_phase() -> str:
             f"columns per split, rows per pass) {rng_sketch.grid(K, n, m, sms)}"
             f" x {-(-m // rng_sketch.ROWS_PER_BLOCK)} row tiles of 128 "
             f"threads; adjoint: {-(-n // 64)} blocks of 64 threads")
+    for fn, dims, n in (("stream_stats_launch_config", (100,), 7840),
+                        ("stream_stats_launch_config", (16,), 8192 * 1024),
+                        ("gram_block_launch_config", (64, 32), 1 << 24),
+                        ("sketch_apply_launch_config", (8, 1024),
+                         (1 << 20) + 3)):
+        per_sm, slices = cross.launch_config(fn, dims, 0)
+        log(f"launch: {fn.replace('_launch_config', '')} rows {dims} n={n}: "
+            f"{slices} slices x (blocks, columns per block) "
+            f"{cross.grid(n, sms, per_sm, slices)}, {per_sm} blocks of 256 "
+            "threads per SM")
     return smi_line
 
 
@@ -720,20 +1192,30 @@ KERNEL_SOURCES = {
                     "src/repro/kernels/rng_sketch.py:127"),
     "sign_sketch_adjoint": ("src/repro_torch/kernels/csrc/rng_sketch.cu",
                             "src/repro/kernels/rng_sketch.py:94"),
+    "stream_stats": ("src/repro_torch/kernels/csrc/stream_stats.cu",
+                     "src/repro/kernels/stream.py:102"),
+    "gram_block": ("src/repro_torch/kernels/csrc/gram_block.cu",
+                   "src/repro/kernels/gram.py:60"),
+    "sketch": ("src/repro_torch/kernels/csrc/sketch.cu",
+               "src/repro/kernels/sketch.py:39"),
 }
 
 
 def kernel_entry(name: str, recs: list, launches: dict) -> dict:
+    """The kernel's line: its numbers at the main path's shape, or, for an
+    op no runtime path reaches (gram_block, sketch), at its first model
+    shape."""
     src = KERNEL_SOURCES[name]
-    path = next(r for r in recs if r["set"] == "path")
+    path = next((r for r in recs if r["set"] == "path"), None) or next(
+        r for r in recs if r["set"] == "model")
     return {"name": name, "route": "cuda", "source": src[0], "replaces": src[1],
             "launches": sum(launches.values()), "launches_by_path": launches,
             "max_abs_err": path["max_abs_err"],
             "ms": path["ms"], "plain_ms": path["plain_ms"],
             "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
             "library_ms": path["library_ms"],
-            "shape": {k: path[k] for k in ("K", "n", "k", "m", "dtype")
-                      if k in path},
+            "shape": {k: path[k] for k in ("P", "K", "Ka", "Kb", "n", "k",
+                                           "m", "dtype") if k in path},
             "tolerance": path["tolerance"],
             "max_rel_err_all_shapes": max(r["rel_err"] for r in recs),
             "shapes": [r for r in recs if "ms" in r]}
@@ -756,13 +1238,19 @@ def main() -> int:
         kern = kernels_phase()
         sync_counts, ds, params = path_phase()
         hier_counts = hier_phase(ds, params)
+        streamed_counts = streamed_phase(ds, params)
+        big = bigmodel_phase()
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
+    by_path = {"sync": sync_counts, "hier": hier_counts,
+               "streamed": streamed_counts, "bigmodel": big["counts"]}
     entries = [kernel_entry(name, kern[name],
-                            {"sync": sync_counts.get(f"{name}/cuda", 0),
-                             "hier": hier_counts.get(f"{name}/cuda", 0)})
+                            {path: counts.get(f"{name}/cuda", 0)
+                             for path, counts in by_path.items()})
                for name in KERNEL_SOURCES]
+    entries[[e["name"] for e in entries].index("stream_stats")]["bigmodel"] = {
+        k: v for k, v in big.items() if k != "counts"}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi_line, flush=True)

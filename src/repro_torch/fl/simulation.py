@@ -16,10 +16,13 @@ multi-tier topology on the event scheduler (``repro_torch.edge``): every hop
 is an event, so round times are multi-hop critical paths, and the per-tier
 byte ledger measures the uplink the hierarchy saves.  The round's array math
 runs on the fused engine (``repro_torch.hier.fused``), whose Gram reductions
-launch the ``gram`` kernel on the card; compressed summaries go through the
-``topk`` and ``sign_sketch`` kernels.  Its spans are ``round`` >
-``client_update``, ``begin_round``, ``event_loop`` > ``gateway`` /
-``merge`` / ``cloud``, and ``eval``, as in the reference.
+launch the ``gram`` kernel on the card, or, for models too wide for dense
+(P, n) round matrices, on the streamed engine (``repro_torch.hier.streamed``:
+the ``stream_stats`` kernel per leaf slab, ``combine`` for the apply);
+compressed summaries go through the ``topk`` and ``sign_sketch`` kernels.
+Its spans are ``round`` > ``client_update``, ``begin_round``,
+``event_loop`` > ``gateway`` / ``merge`` / ``cloud``, and ``eval``, as in
+the reference.
 """
 from __future__ import annotations
 
@@ -203,7 +206,8 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
                         cfg, topology, num_rounds: int,
                         selection_seed: int = 1234, eval_every: int = 1,
                         collect_gamma: bool = False,
-                        engine: str = "auto", mesh=None,
+                        engine: str = "auto",
+                        stream_chunk: Optional[int] = None, mesh=None,
                         record_history: RecordHistory = True,
                         attack=None, churn=None,
                         scheduler_mode: str = "auto",
@@ -215,8 +219,7 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
     """Synchronous rounds over a multi-tier topology (``cfg`` a
     :class:`repro_torch.hier.HierConfig`, ``topology`` a
     :class:`repro_torch.hier.Topology`), as
-    ``repro.fl.simulation.run_hier_simulation`` in event-scheduler mode on
-    the fused engine.
+    ``repro.fl.simulation.run_hier_simulation`` in event-scheduler mode.
 
     Per round the model broadcast flows down the backhaul links, every
     gateway's (fan-in-sampled) devices train at profile speed, each
@@ -230,11 +233,18 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
     times, bytes and counts match it exactly; mini-batch draws come from a
     ``torch.Generator`` on ``device`` seeded with ``selection_seed``.
 
-    Not ported yet, each raising ``NotImplementedError``: the streamed
-    engine (``engine="streamed"``, or ``"auto"`` when the dense round
-    matrices exceed ``REPRO_DENSE_ROUND_BYTES``), the cohort scheduler
-    (``scheduler_mode="cohort"``, or ``"auto"`` at 4096 participants),
-    ``attack``, ``churn`` and ``mesh``.
+    ``engine`` picks the round engine: ``"fused"`` (dense (P, n) round
+    matrices, fastest at small width), ``"streamed"`` (per-leaf passes
+    through the ``stream_stats`` and ``combine`` kernels, no (P, n) matrix
+    — big models), or ``"auto"``: streamed when the dense footprint
+    2·P·n·4 bytes would exceed ``REPRO_DENSE_ROUND_BYTES`` (default 1 GiB).
+    Device-uplink compression needs the dense matrices: ``"auto"`` then
+    picks the fused engine and ``"streamed"`` raises.  ``stream_chunk`` is
+    the streamed engine's column chunk (its reported memory model).
+
+    Not ported yet, each raising ``NotImplementedError``: the cohort
+    scheduler (``scheduler_mode="cohort"``, or ``"auto"`` at 4096
+    participants), ``attack``, ``churn`` and ``mesh``.
 
     ``publish_fn(round, params)`` is called with each round's aggregated
     params the moment the cloud stage applies them; skipped rounds publish
@@ -252,6 +262,7 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
     from ..hier.fused import HierRoundEngine
     from ..hier.gateway import CompressedSummary, GatewaySummary
     from ..hier.hier_server import blockdiag_diagnostics
+    from ..hier.streamed import StreamedRoundEngine, dense_round_bytes
     from .client import client_update, draw_batch_indices
 
     if attack is not None or churn is not None:
@@ -303,18 +314,19 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
     # topology and fan_in)
     P_round = sum(min(cfg.fan_in, len(gw.children)) if cfg.fan_in is not None
                   else len(gw.children) for gw in gateways)
-    dense_bytes = float(2 * P_round * n_model * 4)
+    dense_bytes = dense_round_bytes(P_round, n_model)
     if engine not in ("auto", "fused", "streamed"):
         raise ValueError(f"unknown engine '{engine}' (auto|fused|streamed)")
     device_decodes = cfg.compressing and cfg.compress.device_uplink
+    if engine == "streamed" and device_decodes:
+        raise ValueError("engine='streamed' is incompatible with "
+                         "CompressConfig(device_uplink=True): decoded "
+                         "device rows need the dense round matrices "
+                         "(use engine='fused' or 'auto')")
     if engine == "auto":
         budget = float(os.environ.get("REPRO_DENSE_ROUND_BYTES", 1 << 30))
         engine = ("fused" if device_decodes or dense_bytes <= budget
                   else "streamed")
-    if engine == "streamed":
-        raise _not_ported(
-            f"the streamed engine (dense round matrices {dense_bytes:.0f} B; "
-            "repro.hier.streamed)", "#7")
     if scheduler_mode not in ("auto", "event", "cohort"):
         raise ValueError(f"unknown scheduler_mode '{scheduler_mode}' "
                          "(auto|event|cohort)")
@@ -329,7 +341,16 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
     if cohort_mode:
         raise _not_ported(f"the cohort scheduler ({P_round} participants)",
                           "#10")
-    eng = HierRoundEngine(params, solve_cfg, tier_mode, cfg.gram_scope)
+    if engine == "streamed":
+        eng = StreamedRoundEngine(params, solve_cfg, tier_mode,
+                                  cfg.gram_scope, chunk=stream_chunk,
+                                  donate_params=True)
+        # the streamed apply updates the parameters in place (the reference
+        # donates them): copy once so that no round writes into the
+        # caller's init_params
+        params = tree_map(torch.clone, params)
+    else:
+        eng = HierRoundEngine(params, solve_cfg, tier_mode, cfg.gram_scope)
 
     # summary compression: per-sender error-feedback residuals persist
     # across rounds; linear sketches share one per-round seed so the cloud's
@@ -734,10 +755,20 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
     result.comm = ledger.report()
     result.cloud_uplink_bytes = ledger.cloud_uplink_bytes
     result.total_bytes = ledger.total_bytes()
+    # compressed summary tiers are dense above the encode hop: the largest
+    # summary-level fan-in bounds the (members, n) stacks the streamed
+    # engine's fused fallback stages hold (0 when uncompressed or fused)
+    dense_members = 0
+    if compressing and eng.name == "streamed":
+        dense_members = max((len(nd.children)
+                             for tier in range(2, topology.depth + 1)
+                             for nd in topology.tier_nodes(tier)), default=0)
     result.engine = {
         "engine_name": eng.name,
-        "round_matrix_peak_bytes": eng.peak_round_bytes(P_round),
+        "round_matrix_peak_bytes": eng.peak_round_bytes(
+            P_round, dense_fallback_members=dense_members),
         "dense_round_matrix_bytes": dense_bytes,
+        "dense_fallback_members": dense_members,
     }
     if round_walls:
         steady = round_walls[1:] if len(round_walls) > 1 else round_walls

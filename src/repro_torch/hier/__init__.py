@@ -11,9 +11,11 @@
   * comm        — per-tier byte/latency ledger
   * fused       — the round engine over dense (P, n) round matrices, with
                   every Gram reduction through the ``gram`` kernel
+  * streamed    — the big-model round engine: (P, P) statistics from the
+                  ``stream_stats`` kernel per leaf slab, P-space tier
+                  stages, and the apply through the ``combine`` kernel
 
-The streamed engine (``repro.hier.streamed``) belongs to a later slice.  The
-entry point is :func:`repro_torch.fl.run_hier_simulation`.
+The entry point is :func:`repro_torch.fl.run_hier_simulation`.
 """
 from .comm import (CommLedger, TierTraffic, compressed_summary_bytes,
                    model_size, summary_bytes, update_bytes)
@@ -24,6 +26,8 @@ from .hier_server import (HierConfig, aggregate_hier_contextual,
                           aggregate_hier_contextual_sketch,
                           aggregate_hier_fedavg, blockdiag_diagnostics,
                           cloud_aggregate)
+from .streamed import (RowMix, StreamedRoundContext, StreamedRoundEngine,
+                       dense_round_bytes)
 from .topology import (Link, StackedTopology, TopoNode, Topology,
                        geo_partitioned_topology, get_topology, stacked_two_tier,
                        star_topology, two_tier_topology)
@@ -37,6 +41,8 @@ __all__ = [
     "HierConfig", "aggregate_hier_contextual",
     "aggregate_hier_contextual_sketch", "aggregate_hier_fedavg",
     "blockdiag_diagnostics", "cloud_aggregate",
+    "RowMix", "StreamedRoundContext", "StreamedRoundEngine",
+    "dense_round_bytes",
     "Link", "StackedTopology", "TopoNode", "Topology",
     "geo_partitioned_topology", "get_topology", "stacked_two_tier",
     "star_topology", "two_tier_topology",

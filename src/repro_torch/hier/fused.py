@@ -116,6 +116,17 @@ def _counts(counts: Sequence[float], device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(counts, np.float32), device=device)
 
 
+def apply_delta(params: Tree, delta_vec: torch.Tensor) -> Tree:
+    """``w ← w + Δ`` with a flat Δ — the one tree conversion per round."""
+    return tree_add(params, vector_to_tree(delta_vec, params))
+
+
+def weighted_mean_rows(vecs: Sequence[torch.Tensor],
+                       w: torch.Tensor) -> torch.Tensor:
+    """Count-weighted mean of (n,) vectors; takes raw counts."""
+    return (w / w.sum().clamp(min=1e-12)) @ torch.stack(list(vecs))
+
+
 class HierRoundEngine:
     """Per-run engine: holds the model width, solve config, tier mode and
     gram scope, and wraps each round's stacked updates as a
@@ -189,8 +200,7 @@ class FusedRoundContext:
         return self.GM[sel].mean(dim=0)
 
     def compose_grads(self, refs, counts) -> torch.Tensor:
-        w = _counts(counts, self.GM.device)
-        return (w / w.sum().clamp(min=1e-12)) @ torch.stack(list(refs))
+        return weighted_mean_rows(refs, _counts(counts, self.GM.device))
 
     # -- tier stages ---------------------------------------------------------
 
@@ -234,4 +244,4 @@ class FusedRoundContext:
 
     def apply(self, params: Tree, delta_ref: torch.Tensor) -> Tree:
         """``w ← w + Δ`` with a flat Δ."""
-        return tree_add(params, vector_to_tree(delta_ref, params))
+        return apply_delta(params, delta_ref)

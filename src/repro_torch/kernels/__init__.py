@@ -10,17 +10,25 @@ Ops (``cuda`` / ``torch`` backends, selected by the tensors' device — see
   * ``sign_sketch`` / ``sign_sketch_adjoint`` — U Rᵀ/√m and Rᵀ s/√m with
     the ±1 matrix R hashed from counters in the kernel
     (``csrc/rng_sketch.cu``, ``csrc/rng_hash.cuh``)
+  * ``stream_stats`` — the streamed engine's G = D Dᵀ, C = D GMᵀ
+    (``csrc/stream_stats.cu``)
+  * ``gram_block`` — G_ab = U_a U_bᵀ, c_a = U_a g (``csrc/gram_block.cu``)
+  * ``sketch``  — U Rᵀ against an explicit R (``csrc/sketch.cu``)
+
+The last three share one device body, ``csrc/cross.cuh``.
 
 The CUDA sources build at first use with ``nvcc`` for ``sm_90a``
 (``_build.py``); importing this package builds nothing.
 """
-from .ops import (gram_and_cross, sign_sketch, sign_sketch_adjoint,
+from .ops import (gram_and_cross, gram_block_and_cross, sign_sketch,
+                  sign_sketch_adjoint, sketch_apply, stream_stats,
                   topk_select, weighted_combine)
 from .registry import (available_ops, backends, dispatch, force_backend,
                        launch_counts, register_impl, reset_launch_counts,
                        select_impl)
 
 __all__ = ["available_ops", "backends", "dispatch", "force_backend",
-           "gram_and_cross", "launch_counts", "register_impl",
-           "reset_launch_counts", "select_impl", "sign_sketch",
-           "sign_sketch_adjoint", "topk_select", "weighted_combine"]
+           "gram_and_cross", "gram_block_and_cross", "launch_counts",
+           "register_impl", "reset_launch_counts", "select_impl", "sign_sketch",
+           "sign_sketch_adjoint", "sketch_apply", "stream_stats",
+           "topk_select", "weighted_combine"]

@@ -3,9 +3,12 @@
 Replaces ``repro.kernels.combine.combine_pallas``.  The CUDA source
 (``csrc/combine.cu``) says what bounds it on the H100 and how the pass is
 laid out; this module checks the inputs, allocates the output with
-``torch.empty`` and launches on the current stream without synchronising.
+``torch.empty`` (or writes into the caller's ``out``, which may be the base
+itself) and launches on the current stream without synchronising.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -53,14 +56,21 @@ def _check(params_vec: torch.Tensor, updates: torch.Tensor,
 
 
 def combine_cuda(params_vec: torch.Tensor, updates: torch.Tensor,
-                 alpha: torch.Tensor) -> torch.Tensor:
+                 alpha: torch.Tensor, *,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``params_vec (n,)``, ``updates (K, n)`` (each f32 or bf16),
     ``alpha (K,)`` f32, contiguous on one CUDA device → ``(n,)`` in
-    params_vec's dtype."""
+    params_vec's dtype, written into ``out`` if given (which may be
+    ``params_vec`` itself: an update in place)."""
     _check(params_vec, updates, alpha)
     K, n = updates.shape
     dev = updates.device
-    out = torch.empty_like(params_vec)
+    if out is None:
+        out = torch.empty_like(params_vec)
+    elif (out.device != dev or out.dtype != params_vec.dtype
+          or out.shape != params_vec.shape or not out.is_contiguous()):
+        raise ValueError("combine_cuda: out must be a contiguous tensor of "
+                         "params_vec's shape and dtype on its device")
     lib = _build.load_library()
     with torch.cuda.device(dev):
         rc = lib.combine_launch(

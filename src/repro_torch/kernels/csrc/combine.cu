@@ -12,7 +12,9 @@
 // (n) — against 3.35 TB/s; the 2·K·n flops are far below the f32 rate.  The
 // design keeps every load coalesced and several rows in flight per thread.
 // U's rows start at byte 4·k·n, not 16-byte aligned for odd n, so the loads
-// are scalar.
+// are scalar.  out may be w itself (an update in place): each w[j] is read
+// once, by the thread that then writes out[j], so w and out carry no
+// __restrict__.
 
 #include "common.cuh"
 
@@ -27,9 +29,8 @@ constexpr int kMaxK = 4096;
 
 template <typename TU, typename TW>
 __global__ void __launch_bounds__(kThreads)
-combine_kernel(const TW* __restrict__ w, const TU* __restrict__ U,
-               const float* __restrict__ alpha, TW* __restrict__ out, int K,
-               int64_t n) {
+combine_kernel(const TW* w, const TU* __restrict__ U,
+               const float* __restrict__ alpha, TW* out, int K, int64_t n) {
   extern __shared__ float alpha_s[];
   for (int k = threadIdx.x; k < K; k += blockDim.x) alpha_s[k] = alpha[k];
   __syncthreads();
@@ -86,7 +87,7 @@ cudaError_t launch(const void* w, const void* U, const float* alpha, void* out,
 }  // namespace
 
 // w (n,), U (K, n) row-major, each f32 or bf16; alpha (K,) f32; out (n,) in
-// w's dtype.  The grid is capped at max_blocks (grid-stride beyond it).
+// w's dtype, possibly w itself.  The grid is capped at max_blocks (grid-stride beyond it).
 // Returns cudaGetLastError() after the launch on `stream`.
 extern "C" int combine_launch(const void* w, const void* U, const void* alpha,
                               void* out, int K, long long n, int u_bf16,

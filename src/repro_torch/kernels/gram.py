@@ -1,12 +1,18 @@
-"""``gram``: G = U Uᵀ and c = U g in one pass over n — the Hopper kernel.
+"""``gram``: G = U Uᵀ and c = U g in one pass over n, and ``gram_block``:
+G_ab = U_a U_bᵀ and c_a = U_a g — the Hopper kernels.
 
-Replaces ``repro.kernels.gram.gram_pallas``.  The CUDA source
+``gram_cuda`` replaces ``repro.kernels.gram.gram_pallas``.  The CUDA source
 (``csrc/gram.cu``) says what bounds it on the H100 and how the deterministic
 two-pass split reduction is laid out, for K up to 64 in one piece and above
 it as one grid slice per pair (a, b >= a) of 64-row blocks of U; this module
 checks the inputs, allocates the outputs and the per-block scratch with
 ``torch.empty``, and launches both passes on the current stream without
 synchronising.
+
+``gram_block_cuda`` replaces ``repro.kernels.gram.gram_block_pallas``; its
+source (``csrc/gram_block.cu``) runs the shared cross-product body of
+``csrc/cross.cuh`` with A = U_a and B = [U_b; g], for any Ka and Kb, with
+no pad.
 """
 from __future__ import annotations
 
@@ -16,7 +22,7 @@ from typing import Tuple
 
 import torch
 
-from . import _build
+from . import _build, cross
 from .registry import count_launch
 
 MAX_K = 64                # rows of U in one piece, and in each row block above
@@ -115,4 +121,43 @@ def gram_cuda(updates: torch.Tensor, grad: torch.Tensor
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "gram")
     count_launch("gram", "cuda")
+    return G, c
+
+
+def gram_block_cuda(ua: torch.Tensor, ub: torch.Tensor, grad: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ua (Ka, n)``, ``ub (Kb, n)`` (any row stride, unit-strided columns)
+    and ``grad (n,)``, f32 or bf16 each, on one CUDA device →
+    ``(G_ab (Ka, Kb), c_a (Ka,))`` f32."""
+    dev = ua.device
+    lda = cross.row_stride("gram_block_cuda", "ua", ua, dev)
+    ldb = cross.row_stride("gram_block_cuda", "ub", ub, dev)
+    if grad.dim() != 1:
+        raise ValueError(f"gram_block_cuda: grad must be 1-D, got shape "
+                         f"{tuple(grad.shape)}")
+    cross.row_stride("gram_block_cuda", "grad", grad[None, :], dev)
+    (Ka, n), (Kb, nb) = ua.shape, ub.shape
+    if nb != n or grad.shape[0] != n:
+        raise ValueError(f"gram_block_cuda: operands disagree on n: {n}, {nb} "
+                         f"and {grad.shape[0]}")
+    if Ka < 1 or Kb < 1:
+        raise ValueError(f"gram_block_cuda: Ka={Ka} and Kb={Kb} must be >= 1")
+    out = torch.empty((Ka * Kb + Ka,), dtype=torch.float32, device=dev)
+    G, c = out[:Ka * Kb].view(Ka, Kb), out[Ka * Kb:]
+    if n == 0:
+        out.zero_()
+        return G, c
+    partial, num_blocks, cols = cross.scratch("gram_block_launch_config",
+                                              (Ka, Kb), n, dev)
+    bf16 = torch.bfloat16
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        rc = lib.gram_block_launch(
+            ua.data_ptr(), lda, int(ua.dtype == bf16), Ka,
+            ub.data_ptr(), ldb, int(ub.dtype == bf16), Kb,
+            grad.data_ptr(), int(grad.dtype == bf16), n,
+            partial.data_ptr(), partial.numel(), num_blocks, cols,
+            G.data_ptr(), c.data_ptr(), cross.stream_of(dev))
+    _build.check(lib, rc, "gram_block")
+    count_launch("gram_block", "cuda")
     return G, c

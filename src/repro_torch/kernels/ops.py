@@ -15,12 +15,15 @@ import torch
 
 from . import ref
 from .combine import combine_cuda
-from .gram import gram_cuda
+from .gram import gram_block_cuda, gram_cuda
 from .registry import count_launch, dispatch, register_impl
 from .rng_sketch import sign_sketch_adjoint_cuda, sign_sketch_cuda
+from .sketch import sketch_apply_cuda
+from .stream import stream_stats_cuda
 from .topk import topk_cuda
 
-__all__ = ["gram_and_cross", "sign_sketch", "sign_sketch_adjoint",
+__all__ = ["gram_and_cross", "gram_block_and_cross", "sign_sketch",
+           "sign_sketch_adjoint", "sketch_apply", "stream_stats",
            "topk_select", "weighted_combine"]
 
 
@@ -31,10 +34,32 @@ def _plain(op: str, fn):
     return run
 
 
+def _combine_plain(params_vec, updates, alpha, *, out=None):
+    count_launch("combine", "torch")
+    res = ref.combine_ref(params_vec, updates, alpha)
+    return res if out is None else out.copy_(res)
+
+
+def _stream_stats_plain(deltas, grads, *, out=None):
+    count_launch("stream_stats", "torch")
+    G, C = ref.stream_stats_ref(deltas, grads)
+    if out is None:
+        return G, C
+    out[0].add_(G)
+    out[1].add_(C)
+    return out
+
+
 register_impl("gram", "cuda", gram_cuda)
 register_impl("gram", "torch", _plain("gram", ref.gram_ref))
+register_impl("gram_block", "cuda", gram_block_cuda)
+register_impl("gram_block", "torch", _plain("gram_block", ref.gram_block_ref))
+register_impl("stream_stats", "cuda", stream_stats_cuda)
+register_impl("stream_stats", "torch", _stream_stats_plain)
 register_impl("combine", "cuda", combine_cuda)
-register_impl("combine", "torch", _plain("combine", ref.combine_ref))
+register_impl("combine", "torch", _combine_plain)
+register_impl("sketch", "cuda", sketch_apply_cuda)
+register_impl("sketch", "torch", _plain("sketch", ref.sketch_ref))
 register_impl("topk", "cuda", topk_cuda)
 register_impl("topk", "torch", _plain("topk", ref.topk_ref))
 register_impl("sign_sketch", "cuda", sign_sketch_cuda)
@@ -51,12 +76,48 @@ def gram_and_cross(updates: torch.Tensor, grad: torch.Tensor, *,
     return dispatch("gram", updates, grad, backend=backend)
 
 
+def gram_block_and_cross(ua: torch.Tensor, ub: torch.Tensor,
+                         grad: torch.Tensor, *,
+                         backend: Optional[str] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One fused hierarchical-merge block: G_ab = U_a U_bᵀ and c_a = U_a g
+    in f32.  ua (Ka, n), ub (Kb, n), grad (n,) (named apart from
+    ``core.gram.gram_block``, which returns G alone)."""
+    return dispatch("gram_block", ua, ub, grad, backend=backend)
+
+
+def stream_stats(deltas: torch.Tensor, grads: torch.Tensor, *,
+                 out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 backend: Optional[str] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused round statistics G = D Dᵀ, C = D GMᵀ (P, P) in f32 from
+    deltas/grads (P, n) in any float dtype.  With ``out=(G, C)`` they are
+    added into ``out`` — the streamed engine's sum over leaf slabs.  The
+    plain version upcasts the inputs whole, so on the card only
+    ``backend="torch"`` or ``force_backend("torch")`` reaches it."""
+    return dispatch("stream_stats", deltas, grads, out=out, backend=backend)
+
+
 def weighted_combine(params_vec: torch.Tensor, updates: torch.Tensor,
                      alpha: torch.Tensor, *,
+                     out: Optional[torch.Tensor] = None,
                      backend: Optional[str] = None) -> torch.Tensor:
     """w + Σ α_k U_k in w's dtype.  params_vec (n,), updates (K, n),
-    alpha (K,) f32."""
-    return dispatch("combine", params_vec, updates, alpha, backend=backend)
+    alpha (K,) f32.  ``out`` (w's shape and dtype) receives the result and
+    may be ``params_vec`` itself."""
+    return dispatch("combine", params_vec, updates, alpha, out=out,
+                    backend=backend)
+
+
+def sketch_apply(updates: torch.Tensor, sketch: torch.Tensor, *,
+                 backend: Optional[str] = None) -> torch.Tensor:
+    """Stacked sketch-apply ``U Rᵀ`` (K, m) f32 against an explicit sketch
+    matrix: updates (K, n), sketch (m, n).  For the counter-based sign
+    sketch that never materializes R, use :func:`sign_sketch`."""
+    if updates.shape[-1] != sketch.shape[-1]:
+        raise ValueError(f"sketch operands disagree on n: "
+                         f"{updates.shape[-1]} vs {sketch.shape[-1]}")
+    return dispatch("sketch", updates, sketch, backend=backend)
 
 
 def topk_select(vec: torch.Tensor, k: int, *,

@@ -30,6 +30,27 @@ def gram_ref(updates: torch.Tensor, grad: torch.Tensor
     return u @ u.T, u @ g
 
 
+def gram_block_ref(ua: torch.Tensor, ub: torch.Tensor, grad: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(G_ab = U_a U_bᵀ, c_a = U_a g) in f32 — plain version of
+    kernels.gram's ``gram_block``."""
+    a = ua.float()
+    return a @ ub.float().T, a @ grad.float()
+
+
+def stream_stats_ref(deltas: torch.Tensor, grads: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(G = D Dᵀ, C = D GMᵀ) in f32 — plain version of kernels.stream.  It
+    upcasts both inputs whole: the f32 copies the kernel exists to avoid."""
+    d = deltas.float()
+    return d @ d.T, d @ grads.float().T
+
+
+def sketch_ref(updates: torch.Tensor, sketch: torch.Tensor) -> torch.Tensor:
+    """U Rᵀ in f32 — plain version of kernels.sketch."""
+    return updates.float() @ sketch.float().T
+
+
 def combine_ref(params_vec: torch.Tensor, updates: torch.Tensor,
                 alpha: torch.Tensor) -> torch.Tensor:
     """w + Σ_k α_k U_k with f32 accumulation, in w's dtype — plain version

@@ -114,6 +114,58 @@ def test_stacked_weighted_sum_matches_reference():
         np.testing.assert_allclose(_np(a), _np(b), rtol=1e-5, atol=1e-6)
 
 
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The gap from each bf16 value to its neighbour away from zero."""
+    bits = x.view(torch.int16)
+    nxt = torch.where(bits == 0x7F7F, bits, bits + 1).view(torch.bfloat16)
+    return (nxt.float() - x.float()).abs()
+
+
+def test_stacked_weighted_sum_bf16_within_one_ulp_of_reference():
+    """bf16 leaves: the reference rounds each weight to bf16 before an
+    f32-accumulated contraction (``mix_rows``); the port does the same, so
+    every entry lies within one bf16 ulp of the reference's (summation order
+    alone can flip the last rounding).  An f32 upcast of the weights, the
+    earlier form, differs by more."""
+    rng = np.random.RandomState(13)
+    P, n = 16, 4096
+    leaf = rng.randn(P, n).astype(np.float32)
+    w = (rng.randn(P) * 0.3).astype(np.float32)
+    want = jflat.stacked_weighted_sum(
+        {"x": jnp.asarray(leaf).astype(jnp.bfloat16)}, jnp.asarray(w))["x"]
+    want = torch.from_numpy(np.array(want.astype(jnp.float32))).to(
+        torch.bfloat16)
+    got = tflat.stacked_weighted_sum(
+        {"x": torch.from_numpy(leaf).to(torch.bfloat16)},
+        torch.from_numpy(w))["x"]
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (n,)
+    gap = (got.float() - want.float()).abs()
+    assert bool((gap <= _bf16_ulp(want)).all()), \
+        f"{int((gap > _bf16_ulp(want)).sum())} entries beyond one ulp"
+
+
+def test_chunked_view_and_mix_rows_match_reference():
+    rng = np.random.RandomState(8)
+    stacked = _mlp_tree(rng, K=5)
+    w = rng.randn(5).astype(np.float32)
+    tv = tflat.ChunkedFlatView(_torch_tree(stacked), "last_layer")
+    jv = jflat.ChunkedFlatView(_jax_tree(stacked), "last_layer")
+    assert [(s.offset, s.width, s.in_scope) for s in tv.slabs] == \
+        [(s.offset, s.width, s.in_scope) for s in jv.slabs]
+    for ts, js in zip(tv.slabs, jv.slabs):
+        np.testing.assert_allclose(
+            _np(tflat.mix_rows(torch.from_numpy(w), ts.matrix)),
+            np.asarray(jflat.mix_rows(jnp.asarray(w), js.matrix)),
+            rtol=1e-5, atol=1e-6)
+    out = torch.full((tv.slabs[0].width,), 7.0)
+    assert tflat.mix_rows(torch.from_numpy(w), tv.slabs[0].matrix,
+                          out=out) is out
+    np.testing.assert_allclose(
+        _np(out), np.asarray(jflat.mix_rows(jnp.asarray(w),
+                                            jv.slabs[0].matrix)),
+        rtol=1e-5, atol=1e-6)
+
+
 # ------------------------------------------------------------ gram, solve
 
 def _gram_inputs(K=6, n=50, seed=3):
@@ -136,6 +188,66 @@ def test_dense_gram_and_residual_match_reference():
         np.asarray(jgram.gram_residual(jnp.asarray(G), jnp.asarray(c),
                                        jnp.asarray(a), 3.0)),
         rtol=1e-5, atol=1e-4)
+
+
+def _split(U, sizes):
+    out, start = [], 0
+    for k in sizes:
+        out.append(U[start:start + k])
+        start += k
+    return out
+
+
+def test_chunked_and_block_gram_match_reference():
+    U, g, G, c = _gram_inputs(K=11, n=900, seed=7)
+    Ut, gt = torch.from_numpy(U), torch.from_numpy(g)
+    Gc, cc = tgram.gram_and_cross_chunked(Ut, gt, chunk=256)
+    Gj, cj = jgram.gram_and_cross_chunked(jnp.asarray(U), jnp.asarray(g),
+                                          chunk=256)
+    np.testing.assert_allclose(_np(Gc), np.asarray(Gj), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(_np(cc), np.asarray(cj), rtol=1e-5, atol=1e-4)
+    a, b = U[:4], U[4:]
+    for got, want in (
+            (tgram.gram_block(torch.from_numpy(a), torch.from_numpy(b)),
+             jgram.gram_block(jnp.asarray(a), jnp.asarray(b))),
+            (tgram.gram_block_chunked(torch.from_numpy(a),
+                                      torch.from_numpy(b), chunk=256),
+             jgram.gram_block_chunked(jnp.asarray(a), jnp.asarray(b),
+                                      chunk=256))):
+        np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5,
+                                   atol=1e-4)
+    with pytest.raises(ValueError, match="disagree on n"):
+        tgram.gram_block_chunked(torch.from_numpy(a),
+                                 torch.from_numpy(b[:, :10]))
+
+
+@pytest.mark.parametrize("fns", ["default", "chunked", "kernel_op"])
+def test_block_merge_equals_flat(fns):
+    """``blockwise_gram_and_cross`` over uneven groups reproduces the flat
+    (G, c) of the reference, with the dense, the chunked and the
+    ``gram_block`` op's block functions (``tests/test_hier.py``)."""
+    from repro_torch.kernels.ops import gram_block_and_cross
+    U, g, G, c = _gram_inputs(K=11, n=900, seed=7)
+    Ut, gt = torch.from_numpy(U), torch.from_numpy(g)
+    kw = {"default": {},
+          "chunked": dict(
+              diag_fn=lambda u, gr: tgram.gram_and_cross_chunked(u, gr, 256),
+              block_fn=lambda a, b: tgram.gram_block_chunked(a, b, 256)),
+          "kernel_op": dict(
+              block_fn=lambda a, b: gram_block_and_cross(a, b, gt)[0])}[fns]
+    Gm, cm = tgram.blockwise_gram_and_cross(_split(Ut, (4, 3, 4)), gt, **kw)
+    Gr, cr = jgram.blockwise_gram_and_cross(_split(jnp.asarray(U), (4, 3, 4)),
+                                            jnp.asarray(g))
+    np.testing.assert_allclose(_np(Gm), np.asarray(Gr), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(_np(cm), np.asarray(cr), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(_np(Gm), G, rtol=1e-5, atol=1e-4)
+
+
+def test_merge_gram_blocks_validates_segment_count():
+    with pytest.raises(ValueError, match="cross-term"):
+        tgram.merge_gram_blocks([torch.eye(2)], {}, [])
+    with pytest.raises(ValueError, match="cross-term"):
+        jgram.merge_gram_blocks([jnp.eye(2)], {}, [])
 
 
 SOLVES = {

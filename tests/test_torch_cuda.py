@@ -11,7 +11,8 @@ Tolerances are relative to max(1, max |plain|): gram 1e-4 (f32 and bf16
 inputs both accumulate in f32, so the kernel and ``torch.matmul`` differ in
 summation order only); combine 1e-5 in f32 and 3e-2 for a bf16 output (one
 bf16 rounding), as the reference's kernel tests; sign_sketch and its adjoint
-1e-5 (f32 sums in another order).  topk is held exactly: the same values
+1e-5 (f32 sums in another order); stream_stats, gram_block and sketch 1e-5
+(the same products in f32, summed in another order).  topk is held exactly: the same values
 and indices as the plain version on the same tensor.
 """
 import numpy as np
@@ -23,15 +24,17 @@ from repro_torch.data import FederatedDataset, make_synthetic
 from repro_torch.edge import uniform_fleet
 from repro_torch.fl import ServerConfig, run_hier_simulation, run_simulation
 from repro_torch.hier import HierConfig, star_topology, two_tier_topology
-from repro_torch.kernels import (gram_and_cross, launch_counts,
-                                 reset_launch_counts, sign_sketch,
-                                 sign_sketch_adjoint, topk_select,
+from repro_torch.kernels import (gram_and_cross, gram_block_and_cross,
+                                 launch_counts, reset_launch_counts,
+                                 sign_sketch, sign_sketch_adjoint,
+                                 sketch_apply, stream_stats, topk_select,
                                  weighted_combine)
 from repro_torch.kernels import ref
 from repro_torch.kernels.combine import combine_cuda
-from repro_torch.kernels.gram import gram_cuda
+from repro_torch.kernels.gram import gram_block_cuda, gram_cuda
 from repro_torch.kernels.rng_sketch import (sign_sketch_adjoint_cuda,
                                             sign_sketch_cuda)
+from repro_torch.kernels.sketch import sketch_apply_cuda
 from repro_torch.kernels.topk import topk_cuda
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.logistic import (init_logistic, logistic_apply,
@@ -289,3 +292,180 @@ def test_hier_path_runs_through_the_cuda_kernels(cuda_device, scheme, topo):
         assert counts["sign_sketch/cuda"] >= 3 * 3 * 2
         assert counts["sign_sketch_adjoint/cuda"] >= 3 * 3 * 2
     assert all(v == 0 for key, v in counts.items() if key.endswith("/torch"))
+
+
+# ------------------------------------- stream_stats, gram_block, sketch
+
+CROSS_TOL = 1e-5     # f32 sums in another order than torch.matmul
+
+
+def _randn(gen, shape, dtype, device):
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
+@pytest.mark.parametrize("P,n", [(1, 7), (3, 129), (65, 1000), (16, 4097),
+                                 (100, 7850), (100, 10)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stream_stats_kernel_matches_plain(cuda_device, P, n, dtype):
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(P * 7 + n)
+    D = _randn(gen, (P, n), dtype, cuda_device)
+    GM = _randn(gen, (P, n), dtype, cuda_device)
+    reset_launch_counts()
+    G, C = stream_stats(D, GM)
+    G2, C2 = stream_stats(D, GM)
+    assert launch_counts()["stream_stats/cuda"] == 2
+    assert launch_counts()["stream_stats/torch"] == 0
+    assert torch.equal(G, G2) and torch.equal(C, C2)     # no float atomics
+    assert torch.equal(G, G.T)
+    Gr, Cr = ref.stream_stats_ref(D, GM)
+    assert _rel_err(G, Gr) <= CROSS_TOL and _rel_err(C, Cr) <= CROSS_TOL
+    out = (G.clone(), C.clone())
+    assert stream_stats(D, GM, out=out) is out           # adds into out
+    assert _rel_err(out[0], 2 * Gr) <= CROSS_TOL
+    assert _rel_err(out[1], 2 * Cr) <= CROSS_TOL
+
+
+def test_stream_stats_takes_slab_views_without_a_copy(cuda_device):
+    """A (P, width) view of a stacked leaf goes in as it lies: the kernel
+    reads its row stride, and allocates only its outputs and scratch (an
+    f32 copy of this slab would be 64 MiB)."""
+    from repro_torch.kernels import cross
+    from repro_torch.kernels.stream import stream_stats_cuda
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(3)
+    leaf = _randn(gen, (16, 1024, 1024), torch.bfloat16, cuda_device)
+    gleaf = _randn(gen, (16, 1024, 1024), torch.bfloat16, cuda_device)
+    slab, gslab = leaf.reshape(16, -1), gleaf.reshape(16, -1)
+    assert slab.data_ptr() == leaf.data_ptr()
+    per_sm, slices = cross.launch_config("stream_stats_launch_config", (16,),
+                                         cuda_device.index or 0)
+    blocks, _ = cross.grid(slab.shape[1], torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count, per_sm, slices)
+    expect = 2 * 16 * 16 * 4 + slices * blocks * 64 * 64 * 4
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    base = torch.cuda.memory_allocated(cuda_device)
+    G, C = stream_stats_cuda(slab, gslab)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated(cuda_device) - base
+    assert rise <= expect + 4096, (rise, expect)
+    Gr, Cr = ref.stream_stats_ref(slab, gslab)
+    assert _rel_err(G, Gr) <= CROSS_TOL and _rel_err(C, Cr) <= CROSS_TOL
+    # a strided column window of a wider matrix (row stride 3000)
+    wide = _randn(gen, (5, 3000), torch.float32, cuda_device)
+    win = wide[:, 100:2100]
+    assert not win.is_contiguous()
+    G, C = stream_stats_cuda(win, win)
+    Gr, Cr = ref.stream_stats_ref(win, win)
+    assert _rel_err(G, Gr) <= CROSS_TOL and _rel_err(C, Cr) <= CROSS_TOL
+
+
+@pytest.mark.parametrize("Ka,Kb,n", [(1, 1, 1), (5, 7, 333), (64, 32, 4097),
+                                     (100, 100, 7850), (3, 130, 1000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gram_block_kernel_matches_plain(cuda_device, Ka, Kb, n, dtype):
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(Ka * 31 + Kb + n)
+    U = _randn(gen, (Ka + Kb, n), dtype, cuda_device)
+    ua, ub = U[:Ka], U[Ka:]                   # row blocks of one matrix
+    g = _randn(gen, (n,), dtype, cuda_device)
+    reset_launch_counts()
+    G, c = gram_block_and_cross(ua, ub, g)
+    G2, c2 = gram_block_and_cross(ua, ub, g)
+    assert launch_counts()["gram_block/cuda"] == 2
+    assert torch.equal(G, G2) and torch.equal(c, c2)
+    Gr, cr = ref.gram_block_ref(ua, ub, g)
+    assert tuple(G.shape) == (Ka, Kb) and tuple(c.shape) == (Ka,)
+    assert _rel_err(G, Gr) <= CROSS_TOL and _rel_err(c, cr) <= CROSS_TOL
+
+
+@pytest.mark.parametrize("K,m,n", [(1, 1, 1), (3, 17, 130), (8, 1024, 4099),
+                                   (11, 129, 1000), (100, 65, 777)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sketch_kernel_matches_plain(cuda_device, K, m, n, dtype):
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(K * 13 + m + n)
+    U = _randn(gen, (K, n), dtype, cuda_device)
+    R = _randn(gen, (m, n), dtype, cuda_device)
+    reset_launch_counts()
+    S = sketch_apply(U, R)
+    S2 = sketch_apply(U, R)
+    assert launch_counts()["sketch/cuda"] == 2
+    assert torch.equal(S, S2) and tuple(S.shape) == (K, m)
+    assert _rel_err(S, ref.sketch_ref(U, R)) <= CROSS_TOL
+    with pytest.raises(ValueError, match="disagree on n"):
+        sketch_apply_cuda(U, R[:, :n - 1] if n > 1 else R[:, :0])
+
+
+def test_cross_wrappers_reject_bad_inputs(cuda_device):
+    from repro_torch.kernels.stream import stream_stats_cuda
+    D = torch.ones(4, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        stream_stats_cuda(torch.ones(4, 8), torch.ones(4, 8))
+    with pytest.raises(TypeError):
+        stream_stats_cuda(D.double(), D.double())
+    with pytest.raises(ValueError, match="unit-strided"):
+        stream_stats_cuda(D.T, D.T)
+    with pytest.raises(ValueError, match="disagree"):
+        stream_stats_cuda(D, D[:, :7])
+    with pytest.raises(ValueError, match="out"):
+        stream_stats_cuda(D, D, out=(torch.zeros(3, 3, device=cuda_device),
+                                     torch.zeros(3, 3, device=cuda_device)))
+    with pytest.raises(ValueError, match="disagree on n"):
+        gram_block_cuda(D, D[:, :7], torch.ones(8, device=cuda_device))
+    with pytest.raises(TypeError):
+        sketch_apply_cuda(D.half(), D.half())
+    with pytest.raises(ValueError, match="out"):
+        combine_cuda(D[0], D, torch.ones(4, device=cuda_device),
+                     out=torch.ones(8, device=cuda_device).bfloat16())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mix_rows_and_in_place_combine_match_plain(cuda_device, dtype):
+    from repro_torch.core.flatten import mix_rows
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(5)
+    leaf = _randn(gen, (16, 33, 129), dtype, cuda_device)
+    w = torch.randn(16, generator=gen, device=cuda_device) * 0.3
+    reset_launch_counts()
+    got = mix_rows(w, leaf)
+    assert launch_counts()["combine/cuda"] == 1
+    want = mix_rows(w.cpu(), leaf.cpu())
+    assert got.dtype == torch.float32
+    assert _rel_err(got.cpu(), want) <= 1e-5
+    base = _randn(gen, (33 * 129,), dtype, cuda_device)
+    new = weighted_combine(base, leaf.reshape(16, -1), w)
+    ptr = base.data_ptr()
+    assert weighted_combine(base, leaf.reshape(16, -1), w, out=base) is base
+    assert base.data_ptr() == ptr and torch.equal(base, new)
+
+
+@pytest.mark.parametrize("scheme", [None, "sign_sketch"])
+def test_streamed_path_runs_through_the_cuda_kernels(cuda_device, scheme):
+    xs, ys = make_synthetic(1.0, 1.0, num_devices=12, samples_per_device=30,
+                            dim=20, seed=5)
+    ds = FederatedDataset(xs, ys, np.ones(ys.shape, np.float32),
+                          xs.reshape(-1, 20)[:150], ys.reshape(-1)[:150], 10)
+    params = init_logistic(ArchConfig(name="lr", family="logreg",
+                                      input_dim=20, num_classes=10), 0)
+    before = {k: v.clone() for k, v in params.items()}
+    topology = two_tier_topology(uniform_fleet(12, dropout=0.0), 3)
+    kw = dict(lr=0.2, batch_size=10, min_epochs=1, max_epochs=4)
+    cfg = (HierConfig(**kw) if scheme is None else HierConfig(
+        aggregator="hier_contextual_sketch",
+        compress=CompressConfig(scheme=scheme, ratio=4.0), **kw))
+    reset_launch_counts()
+    res = run_hier_simulation("cuda", logistic_loss, logistic_apply, params,
+                              ds, cfg, topology, num_rounds=3,
+                              engine="streamed")
+    counts = launch_counts()
+    assert res.engine["engine_name"] == "streamed"
+    assert np.isfinite(res.train_loss).all()
+    assert counts["stream_stats/cuda"] == 3 * 2         # 2 leaves per round
+    # the apply per leaf, or the materialized summaries per leaf
+    assert counts["combine/cuda"] >= 3 * 2
+    assert counts["gram/cuda"] == 0                      # no dense Gram
+    assert all(v == 0 for key, v in counts.items() if key.endswith("/torch"))
+    for k in params:                                     # init_params kept
+        assert torch.equal(params[k], before[k])

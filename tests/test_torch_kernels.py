@@ -1,9 +1,11 @@
 """The port's kernels (``repro_torch.kernels``) against the JAX reference.
 
 On the CPU the ops run their plain PyTorch versions; these are held against
-``gram_pallas`` / ``combine_pallas`` in interpret mode at the tolerances of
-``tests/test_kernels.py`` (1e-4 f32 and 2e-2 bf16 for gram, 1e-5 f32 and
-3e-2 bf16 for combine).  The CUDA kernels themselves are tested on the card
+``gram_pallas`` / ``gram_block_pallas`` / ``sketch_apply_pallas`` /
+``combine_pallas`` in interpret mode at the tolerances of
+``tests/test_kernels.py`` (1e-4 f32 and 2e-2 bf16 for the products, 1e-5
+f32 and 3e-2 bf16 for combine).  ``stream_stats`` is held against the
+reference in ``tests/test_torch_streamed.py``.  The CUDA kernels themselves are tested on the card
 by ``tests/test_torch_cuda.py``.
 """
 import jax.numpy as jnp
@@ -12,13 +14,16 @@ import pytest
 import torch
 
 from repro.kernels.combine import combine_pallas
-from repro.kernels.gram import gram_pallas
+from repro.kernels.gram import gram_block_pallas, gram_pallas
+from repro.kernels.sketch import sketch_apply_pallas
 from repro_torch.kernels import (_build, backends, force_backend,
-                                 gram_and_cross, launch_counts,
-                                 register_impl, registry,
-                                 reset_launch_counts, weighted_combine)
+                                 gram_and_cross, gram_block_and_cross,
+                                 launch_counts, register_impl, registry,
+                                 reset_launch_counts, sketch_apply,
+                                 weighted_combine)
 from repro_torch.kernels import ref
 from repro_torch.kernels.combine import combine_cuda
+from repro_torch.kernels.cross import grid as cross_grid
 from repro_torch.kernels.gram import gram_cuda, grid, row_slices, scratch_rows
 from repro_torch.kernels.rng_sketch import grid as sketch_grid
 from repro_torch.kernels.topk import grid as topk_grid
@@ -111,9 +116,12 @@ def test_cpu_tensors_take_the_plain_version_and_count():
     counts = launch_counts()
     assert counts == {"combine/cuda": 0, "combine/torch": 2,
                       "gram/cuda": 0, "gram/torch": 1,
+                      "gram_block/cuda": 0, "gram_block/torch": 0,
                       "sign_sketch/cuda": 0, "sign_sketch/torch": 0,
                       "sign_sketch_adjoint/cuda": 0,
                       "sign_sketch_adjoint/torch": 0,
+                      "sketch/cuda": 0, "sketch/torch": 0,
+                      "stream_stats/cuda": 0, "stream_stats/torch": 0,
                       "topk/cuda": 0, "topk/torch": 0}
     reset_launch_counts()
     assert set(launch_counts().values()) == {0}
@@ -121,7 +129,7 @@ def test_cpu_tensors_take_the_plain_version_and_count():
 
 def test_registry_misuse_raises():
     for op in ("gram", "combine", "topk", "sign_sketch",
-               "sign_sketch_adjoint"):
+               "sign_sketch_adjoint", "stream_stats", "gram_block", "sketch"):
         assert backends(op) == ("cuda", "torch")
     with pytest.raises(KeyError, match="unknown kernel op"):
         registry.dispatch("bogus_op", torch.ones(1))
@@ -146,7 +154,11 @@ def test_cuda_kernels_never_take_cpu_tensors():
         combine_cuda(torch.ones(3), torch.ones(2, 3), torch.ones(2))
     for op, args in (("topk", (torch.ones(3), 2)),
                      ("sign_sketch", (torch.ones(1, 3), 0, 2)),
-                     ("sign_sketch_adjoint", (torch.ones(2), 0, 3))):
+                     ("sign_sketch_adjoint", (torch.ones(2), 0, 3)),
+                     ("stream_stats", (torch.ones(2, 3), torch.ones(2, 3))),
+                     ("gram_block", (torch.ones(2, 3), torch.ones(1, 3),
+                                     torch.ones(3))),
+                     ("sketch", (torch.ones(2, 3), torch.ones(4, 3)))):
         with pytest.raises(ValueError, match="CUDA tensors"):
             registry.dispatch(op, *args, backend="cuda")
     assert all(n == 0 for key, n in launch_counts().items()
@@ -205,8 +217,79 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 def test_build_key_covers_every_source():
     names = {p.name for p in _build.sources()}
-    assert {"gram.cu", "combine.cu", "topk.cu", "rng_sketch.cu"} <= names
+    assert {"gram.cu", "combine.cu", "topk.cu", "rng_sketch.cu",
+            "stream_stats.cu", "gram_block.cu", "sketch.cu"} <= names
     # a header edit rebuilds too (the hash covers every .cuh)
     assert (_build.CSRC / "rng_hash.cuh").is_file()
+    assert (_build.CSRC / "cross.cuh").is_file()
     assert len(_build.source_hash()) == 16
     assert _build.build_dir().parent == _build.BUILD_ROOT
+
+
+# ------------------------------------------ gram_block, sketch, combine out
+
+@pytest.mark.parametrize("Ka,Kb,n,dtype", [(5, 7, 333, "float32"),
+                                           (1, 1, 1, "float32"),
+                                           (64, 32, 500, "float32"),
+                                           (3, 65, 129, "bfloat16")])
+def test_gram_block_plain_matches_pallas(Ka, Kb, n, dtype):
+    rng = np.random.RandomState(Ka * 100 + Kb + n)
+    uaj, uat = _pair(rng.randn(Ka, n), dtype)
+    ubj, ubt = _pair(rng.randn(Kb, n), dtype)
+    gj, gt = _pair(rng.randn(n), dtype)
+    Gj, cj = gram_block_pallas(uaj, ubj, gj, block_n=128, interpret=True)
+    reset_launch_counts()
+    G, c = gram_block_and_cross(uat, ubt, gt)
+    assert launch_counts()["gram_block/torch"] == 1
+    assert G.dtype == torch.float32 and tuple(G.shape) == (Ka, Kb)
+    assert tuple(c.shape) == (Ka,)
+    tol = GRAM_TOL[dtype]
+    np.testing.assert_allclose(G.numpy(), np.asarray(Gj), rtol=tol,
+                               atol=tol * max(1.0, float(np.abs(Gj).max())))
+    np.testing.assert_allclose(c.numpy(), np.asarray(cj), rtol=tol,
+                               atol=tol * max(1.0, float(np.abs(cj).max())))
+
+
+@pytest.mark.parametrize("K,m,n,dtype", [(5, 11, 333, "float32"),
+                                         (1, 1, 7, "float32"),
+                                         (8, 130, 1000, "bfloat16")])
+def test_sketch_apply_plain_matches_pallas(K, m, n, dtype):
+    rng = np.random.RandomState(K + m + n)
+    Uj, Ut = _pair(rng.randn(K, n), dtype)
+    Rj, Rt = _pair(rng.randn(m, n), dtype)
+    want = sketch_apply_pallas(Uj, Rj, block_n=128, interpret=True)
+    reset_launch_counts()
+    got = sketch_apply(Ut, Rt)
+    assert launch_counts()["sketch/torch"] == 1
+    assert got.dtype == torch.float32 and tuple(got.shape) == (K, m)
+    tol = GRAM_TOL[dtype]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol,
+                               atol=tol * max(1.0, float(np.abs(want).max())))
+    with pytest.raises(ValueError, match="disagree on n"):
+        sketch_apply(Ut, Rt[:, :n - 1] if n > 1 else Rt[:, :0])
+    with pytest.raises(ValueError, match="disagree on n"):
+        sketch_apply_pallas(Uj, Rj[:, :n - 1] if n > 1 else Rj[:, :0],
+                            interpret=True)
+
+
+def test_combine_writes_into_out_and_may_update_in_place():
+    rng = np.random.RandomState(0)
+    w = torch.from_numpy(rng.randn(300).astype(np.float32))
+    U = torch.from_numpy(rng.randn(4, 300).astype(np.float32))
+    a = torch.from_numpy(rng.randn(4).astype(np.float32))
+    want = weighted_combine(w, U, a)
+    out = torch.empty(300)
+    assert weighted_combine(w, U, a, out=out) is out
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+    base = w.clone()
+    assert weighted_combine(base, U, a, out=base) is base
+    torch.testing.assert_close(base, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 7850, (1 << 20) + 3])
+@pytest.mark.parametrize("slices", [1, 7, 16, 500])
+def test_cross_grid_covers_every_column(n, slices):
+    blocks, cols = cross_grid(n, 132, 2, slices)
+    assert cols % 256 == 0
+    assert 1 <= blocks and blocks * slices <= max(2 * 132, slices)
+    assert blocks * cols >= n > (blocks - 1) * cols
