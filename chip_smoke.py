@@ -44,11 +44,26 @@ Phases (any failure exits non-zero and prints no result line):
      P = 16, bf16, n = 58 724 352) through the streamed engine: its round
      time, the accumulate pass beside its bound, the rise of allocated
      memory across ``begin_round``, G and C against the plain version, and
-     the round's delta against the fused engine's on the same inputs.
+     the round's delta against the fused engine's on the same inputs;
+  7. serve   — the continuous-batching ``DecodeEngine`` on the full
+     qwen3-14b (40 layers, d_model 5 120, 40/8 heads, bf16, 14.77 B
+     parameters from a seeded generator on the card): 4 slots of 256 rows
+     serve 8 requests (prompts of 48-200 tokens, 32 or 4 new) with one
+     mid-flight publish on the ``ModelBus``.  Every request completes, the
+     versions are monotone, ``flash_decode`` launches L x decode steps and
+     no plain version runs; tokens/s, one decode step and one prefill chunk
+     alone (CUDA events) beside the step's byte bound, the device busy time
+     per step from ``torch.profiler``, the swap stall; one step's logits
+     with the kernel against the plain ``flash_decode``; three staggered
+     requests equal to each served alone; a reduced f32 qwen3 served on the
+     card and on the CPU gives the same tokens.
 
 The kernels phase also holds ``stream_stats``, ``gram_block`` and ``sketch``
 (U Rᵀ against an explicit R) against their plain versions, bitwise
-repeatable, at the paths', the reference benchmark's and model shapes.
+repeatable, at the paths', the reference benchmark's and model shapes, and
+``flash_decode`` (o and lse) at the serve path's shape, a decode_32k-like
+cache, gemma-7b's and starcoder2-15b's heads (the latter windowed), with
+ragged, strided, soft-capped and f32 caches, timed beside SDPA.
 
 The last lines are one ``{"kernels": [...]}`` JSON object, the
 ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device": ...}``.
@@ -136,6 +151,29 @@ SKETCH_APPLY_RAGGED = [(1, 1, 1), (3, 130, 17), (11, 1000, 129),
                        (100, 777, 65)]
 SKETCH_APPLY_MODEL = [(8, (1 << 20) + 3, 1024)]
 
+# flash_decode: the serve path's own shape (4 slots of max_seq 256, qwen3-14b
+# heads, mixed lengths 1..S), a decode_32k-like cache, gemma-7b's and
+# starcoder2-15b's heads (the latter's 4 096-row window); (B, S, KV, G, hd,
+# window, lengths or None for full)
+DECODE_PATH = (4, 256, 8, 5, 128, None, [1, 97, 200, 256])
+DECODE_MODEL = [(8, 32768, 8, 5, 128, None, None),
+                (4, 8192, 16, 1, 256, None, None),
+                (4, 16384, 4, 12, 128, 4096, None)]
+# o and lse against the plain version: f32 sums in another order and the
+# kernel's fast exp (relative to max(1, max |plain|))
+DECODE_TOL = 1e-4
+# the serve phase: full qwen3-14b (40 layers, bf16, 14.77 B parameters) on
+# examples/serve_decode.py's traffic shape
+SERVE = dict(arch="qwen3-14b", slots=4, max_seq=256, scan_chunk=8,
+             prefill_chunk=64, requests=8, prompt=(48, 200), new=(32, 4))
+# one decode step's logits with the kernel vs the plain flash_decode, over
+# max |logit|.  Full width, bf16: every layer rounds the f32 attention output
+# (kernel and plain differ by ~5e-7 of it) to 8 bits, and 40 random layers
+# amplify the flipped roundings — the first run measured 1.86e-2 (the kernel
+# itself is held to 1e-4 at this shape in the kernels phase); the reduced
+# f32 model carries no such rounding and is held to f32 summation order.
+SERVE_LOGIT_TOL = 5e-2
+SERVE_LOGIT_TOL_F32 = 1e-5
 HIER_ROUNDS = 6
 # the reference's recorded streamed-vs-fused loss gap (BENCH_bigmodel.json)
 STREAMED_LOSS_GAP = 1.4e-3
@@ -553,13 +591,129 @@ def cross_phase_records(gen) -> dict:
     return out
 
 
+def decode_bound(B: int, S: int, KV: int, G: int, hd: int, dt, lengths,
+                 window) -> dict:
+    """Least time of one flash_decode: the live K and V rows (and q, o,
+    lse, lengths) at the HBM rate against its FMAs (QK and PV, 2·G·hd per
+    live row and head) at the f32 rate."""
+    import torch
+    size = torch.finfo(dt).bits // 8
+    live = sum(min(n, S) - (max(0, n - window) if window else 0)
+               for n in lengths)
+    nbytes = (2 * live * KV * hd * size + B * KV * G * hd * size
+              + B * KV * G * (hd + 1) * 4 + 4 * B)
+    flops = 4 * live * KV * G * hd
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops, "live_rows": live}
+
+
+def check_decode(B: int, S: int, KV: int, G: int, hd: int, dt, gen,
+                 lengths=None, window=None, softcap=None, timed=True,
+                 stacked=False) -> dict:
+    """flash_decode against its plain version on the card (o and lse within
+    DECODE_TOL, two calls bitwise equal); with ``timed``, CUDA-event times
+    of the kernel, the plain version and SDPA on the same rows."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    lengths = lengths or [S] * B
+    q = torch.randn((B, KV, G, hd), generator=gen, device="cuda").to(dt)
+    if stacked:     # layer 1 of a stacked (3, B, S, KV, hd) cache, in place
+        k = torch.randn((3, B, S, KV, hd), generator=gen, device="cuda").to(dt)[1]
+        v = torch.randn((3, B, S, KV, hd), generator=gen, device="cuda").to(dt)[1]
+    else:
+        k = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dt)
+        v = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dt)
+    ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    kw = dict(window=window, softcap=softcap)
+    got = ops.flash_decode(q, k, v, ln, backend="cuda", **kw)
+    again = ops.flash_decode(q, k, v, ln, backend="cuda", **kw)
+    want = ops.flash_decode(q, k, v, ln, backend="torch", **kw)
+    torch.cuda.synchronize()
+    what = f"flash_decode B={B} S={S} KV={KV} G={G} hd={hd} {dt}"
+    need(all(a.shape == b.shape and a.dtype == torch.float32
+             for a, b in zip(got, want)), f"{what}: output shapes")
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    need(bitwise, f"{what}: two calls differ bitwise")
+    err = max(_max_err(a, b) / _scale(b) for a, b in zip(got, want))
+    need(err <= DECODE_TOL, f"{what}: relative err {err:.3e} > {DECODE_TOL}")
+    rec = {"B": B, "S": S, "KV": KV, "G": G, "hd": hd,
+           "dtype": _dtype_name(dt), "window": window, "softcap": softcap,
+           "lengths": lengths if len(set(lengths)) > 1 else f"all {S}",
+           "max_abs_err": max(_max_err(a, b) for a, b in zip(got, want)),
+           "rel_err": err, "tolerance": DECODE_TOL,
+           "bitwise_repeatable": bitwise}
+    if timed:
+        b_rec = decode_bound(B, S, KV, G, hd, dt, lengths, window)
+        reps = reps_for(b_rec["bytes"])
+        rec["ms"] = time_ms(
+            lambda: ops.flash_decode(q, k, v, ln, backend="cuda", **kw), reps)
+        rec["plain_ms"] = time_ms(
+            lambda: ops.flash_decode(q, k, v, ln, backend="torch", **kw), reps)
+        # SDPA on the same rows with a length (and window) mask; it returns
+        # o but no lse.  k and v are transposed to (B, KV, S, hd) once,
+        # outside the timing.
+        qh = q.reshape(B, KV * G, 1, hd)
+        kh, vh = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        pos = torch.arange(S, device="cuda")[None, :]
+        ok = pos < ln[:, None]
+        if window:
+            ok = ok & (pos > ln[:, None] - 1 - window)
+        mask = ok[:, None, None, :]
+        try:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qh, kh, vh, attn_mask=mask, enable_gqa=True)
+            lib()
+            rec["library_ms"] = None if softcap else time_ms(lib, reps)
+        except (RuntimeError, TypeError) as exc:
+            rec["library_ms"], rec["library_error"] = None, str(exc)[:200]
+        rec["library"] = ("scaled_dot_product_attention(enable_gqa, bool "
+                          "length mask): o only, no lse; transpose not timed")
+        rec.update(b_rec)
+    return rec
+
+
+def decode_phase_records(gen) -> list:
+    """flash_decode at the serve path's shape, model shapes, and ragged,
+    strided, windowed, soft-capped and f32 shapes (kernels phase)."""
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, S, KV, G, hd, window, lengths = DECODE_PATH
+    recs = [dict(check_decode(B, S, KV, G, hd, bf16, gen, lengths, window),
+                 set="path")]
+    for B, S, KV, G, hd, window, lengths in DECODE_MODEL:
+        recs.append(dict(check_decode(B, S, KV, G, hd, bf16, gen, lengths,
+                                      window), set="model"))
+        torch.cuda.empty_cache()
+    ragged = [
+        dict(B=4, S=256, KV=8, G=5, hd=128, dt=f32, lengths=[1, 97, 200, 256]),
+        dict(B=4, S=256, KV=8, G=5, hd=128, dt=bf16, stacked=True,
+             lengths=[256, 1, 31, 130]),
+        dict(B=4, S=8192, KV=16, G=1, hd=256, dt=bf16, softcap=50.0,
+             lengths=[1, 8192, 4000, 8191]),
+        dict(B=3, S=1000, KV=4, G=12, hd=128, dt=bf16, window=64,
+             lengths=[1, 1000, 65]),
+        dict(B=3, S=77, KV=4, G=1, hd=64, dt=f32, lengths=[1, 77, 40]),
+        dict(B=2, S=4097, KV=2, G=3, hd=64, dt=bf16, window=4096,
+             softcap=30.0, lengths=[4097, 2])]
+    for c in ragged:
+        dt = c.pop("dt")
+        recs.append(dict(check_decode(gen=gen, dt=dt, timed=False, **c),
+                         set="ragged"))
+    return recs
+
+
 def _fmt_us(v) -> str:
     return "     none" if v is None else f"{v * 1e3:9.1f}"
 
 
 def _log_rec(name: str, rec: dict) -> None:
     shape = " ".join(f"{k}={rec[k]}" for k in ("P", "K", "Ka", "Kb", "n", "k",
-                                                "m") if k in rec)
+                                                "m", "B", "S", "KV", "G",
+                                                "hd", "window") if k in rec)
     log(f"{name:19s} {rec['set']:6s} {shape:28s} {rec['dtype']:9s} "
         f"err={rec['max_abs_err']:.3e} kernel={_fmt_us(rec['ms'])}us "
         f"plain={_fmt_us(rec['plain_ms'])}us "
@@ -641,6 +795,8 @@ def kernels_phase() -> dict:
     out["sign_sketch"].append(dict(check_sketch(8, (1 << 20) + 3, 1024, bf16,
                                                 gen), set="model"))
     out.update(cross_phase_records(gen))
+    out["flash_decode"] = decode_phase_records(gen)
+    torch.cuda.empty_cache()
 
     for name, recs in out.items():
         for rec in recs:
@@ -874,10 +1030,10 @@ def hier_phase(ds, params) -> dict:
 
 # ---------------------------------------------------------------- streamed
 
-def _round_ms(tracker) -> list:
+def _round_ms(tracker, name: str = "round") -> list:
     from repro_torch.obs.spans import span_fields
     return [span_fields(e)["dur_wall_s"] * 1e3 for e in tracker.span_events()
-            if span_fields(e)["name"] == "round"]
+            if span_fields(e)["name"] == name]
 
 
 def streamed_phase(ds, params) -> dict:
@@ -1060,6 +1216,23 @@ def bigmodel_phase() -> dict:
     acc_ms = time_ms(lambda: seng.begin_round(deltas, grads), 10, warmup=2)
     acc_bound = cross_bound(2 * P, n, P * (P + 1) // 2 + P * P, 2 * P * P,
                             torch.bfloat16)
+    # the same pass through the plain version, and through one torch.matmul
+    # pair per slab summed in f32 (the library yardstick; bf16 products on
+    # the tensor cores)
+    with force_backend("torch", op="stream_stats"):
+        acc_plain_ms = time_ms(lambda: seng.begin_round(deltas, grads), 5,
+                               warmup=1)
+    slabs = [(deltas[k].reshape(P, -1), grads[k].reshape(P, -1))
+             for k in sorted(deltas)]
+
+    def library_pass():
+        G = torch.zeros((P, P), device="cuda")
+        C = torch.zeros((P, P), device="cuda")
+        for D, GM in slabs:
+            G += D @ D.T
+            C += D @ GM.T
+        return G, C
+    acc_library_ms = time_ms(library_pass, 5, warmup=1)
     # whole rounds: host clock around a round that ends in a sync
     reset_launch_counts()
     round_ms = []
@@ -1079,7 +1252,8 @@ def bigmodel_phase() -> dict:
         f"last 3 {statistics.median(round_ms[1:]):.2f}); accumulate pass "
         f"({len(deltas)} stream_stats launches) {acc_ms * 1e3:.1f} us against "
         f"a bound of {acc_bound['bound_ms'] * 1e3:.1f} us "
-        f"({acc_bound['bound_by']})")
+        f"({acc_bound['bound_by']}); plain {acc_plain_ms * 1e3:.1f} us, "
+        f"library (torch.matmul per slab) {acc_library_ms * 1e3:.1f} us")
 
     # where a round's time goes: the P-space stages (host clock, ending in a
     # sync) and the apply (CUDA events) beside the accumulate pass above
@@ -1121,10 +1295,289 @@ def bigmodel_phase() -> dict:
         f"|err| / max |fused| {derr:.3e} (tolerance {BIG_DELTA_TOL})")
     need(derr <= BIG_DELTA_TOL, f"bigmodel: delta err {derr:.3e}")
     return {"counts": counts, "round_ms": round_ms, "accumulate_ms": acc_ms,
-            "accumulate_bound": acc_bound, "stages_ms": stages_ms,
+            "accumulate_bound": acc_bound,
+            "accumulate_plain_ms": acc_plain_ms,
+            "accumulate_library_ms": acc_library_ms, "stages_ms": stages_ms,
             "apply_ms": apply_ms, "apply_bound_ms": apply_bound,
             "memory_rise_bytes": rise,
             "G_rel_err": err_g, "C_rel_err": err_c, "delta_rel_err": derr}
+
+
+# ------------------------------------------------------------------- serve
+
+def _event_ms(fn, reps: int, warmup: int = 2) -> list:
+    """CUDA-event ms of each of ``reps`` calls of ``fn`` (after warm-up)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    out = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b))
+    return out
+
+
+def device_busy(fn, steps: int) -> dict:
+    """Device time per call of ``fn`` from a ``torch.profiler`` trace: the
+    sum of the kernels' own device time, and the largest kernels by name.
+    None when the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0 and not e.key.startswith(("aten::", "cuda")):
+            rows.append((e.key[:60], us / 1e3 / steps, e.count / steps))
+    total = sum(r[1] for r in rows)
+    if total <= 0:
+        return None
+    rows.sort(key=lambda r: -r[1])
+    return {"busy_ms": total,
+            "top": [(k, (ms, n)) for k, ms, n in rows[:8]]}
+
+
+def _logits_vs_plain(cfg, params, device, cache=None) -> float:
+    """One decode step (4 slots at depths 200-230, all active) with the
+    kernel and again from the same cache under the plain flash_decode:
+    max |difference| of the logits over max |logit|."""
+    import torch
+    from repro_torch.kernels import force_backend
+    from repro_torch.models import transformer as ttf
+    if cache is None:
+        cache = ttf.init_lm_cache(cfg, SERVE["slots"], SERVE["max_seq"],
+                                  ring=False, device=device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(3)
+        for t in cache.kv:
+            t.copy_(torch.randn(t.shape, generator=gen, device=device))
+    pos = torch.tensor([200, 210, 220, 230], dtype=torch.int32, device=device)
+    tok = torch.tensor([1, 2, 3, 4], dtype=torch.int32, device=device)
+    active = torch.ones(SERVE["slots"], dtype=torch.bool, device=device)
+    saved = [t.clone() for t in cache.kv]
+    lk, _ = ttf.decode_slots(cfg, params, tok, cache, pos, active=active)
+    for t, s in zip(cache.kv, saved):
+        t.copy_(s)
+    with force_backend("torch", "flash_decode"):
+        lp, _ = ttf.decode_slots(cfg, params, tok, cache, pos, active=active)
+    return _max_err(lk, lp) / float(lp.float().abs().max())
+
+
+def _serve_requests(vocab: int, seed: int = 1) -> list:
+    """examples/serve_decode.py's traffic: prompts of SERVE["prompt"] tokens,
+    every other request generating the long budget, the rest the short."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(SERVE["requests"]):
+        plen = int(rng.integers(SERVE["prompt"][0], SERVE["prompt"][1] + 1))
+        out.append(([int(t) for t in rng.integers(0, vocab, plen)],
+                    SERVE["new"][i % 2]))
+    return out
+
+
+def _engine(cfg, params, device, **kw):
+    from repro_torch.serve import DecodeEngine, ModelBus
+    opts = dict(num_slots=SERVE["slots"], max_seq=SERVE["max_seq"],
+                scan_chunk=SERVE["scan_chunk"],
+                prefill_chunk_tokens=SERVE["prefill_chunk"])
+    opts.update(kw)
+    return DecodeEngine(cfg, ModelBus(params), device=device, **opts)
+
+
+def _staggered(eng, reqs) -> dict:
+    """The first request resident before the rest are submitted."""
+    eng.submit(reqs[0][0], reqs[0][1], rid=0)
+    done = eng.step()
+    for rid, (prompt, new) in enumerate(reqs[1:], start=1):
+        eng.submit(prompt, new, rid=rid)
+    return {c.rid: c.tokens for c in done + eng.run()}
+
+
+def _dense_param_count(cfg) -> int:
+    """Parameters of a dense config: the analytic estimate plus the norm
+    scales it leaves out (ln1, ln2, qk-norm per layer; final norm)."""
+    qk = 2 * cfg.resolved_head_dim if cfg.qk_norm else 0
+    return (cfg.param_count_estimate()
+            + cfg.num_layers * (2 * cfg.d_model + qk) + cfg.d_model)
+
+
+def serve_phase(device: str = "cuda", cfg=None) -> dict:
+    """The continuous-batching engine on the full qwen3-14b, bf16 (``cfg``
+    and ``device`` other than the defaults only to rehearse the phase's
+    control flow at a small size)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.flatten import tree_leaves, tree_map
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import get_model
+    from repro_torch.models import transformer as ttf
+    from repro_torch.obs import InMemoryTracker, use_tracker
+    cfg = cfg or get_config(SERVE["arch"])
+    L = cfg.num_layers
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = get_model(cfg).init(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(p.numel() for p in tree_leaves(params))
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in tree_leaves(params))
+    step_bytes = weight_bytes - params["embed"].numel() * 2
+    step_bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"serve: {cfg.name} L={L} d={cfg.d_model} heads {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} hd={cfg.resolved_head_dim} d_ff={cfg.d_ff} "
+        f"vocab={cfg.vocab_size} bf16: {n} parameters, {weight_bytes} B, "
+        f"init {init_s:.1f} s; weights read per decode step {step_bytes} B "
+        f"-> bound {step_bound_ms:.3f} ms")
+    need(n == _dense_param_count(cfg), f"serve: {n} parameters")
+
+    # the main path: 8 requests, one mid-flight publish of a tree that
+    # shares every leaf but final_norm
+    reqs = _serve_requests(cfg.vocab_size)
+    eng = _engine(cfg, params, device)
+    for rid, (prompt, new) in enumerate(reqs):
+        eng.submit(prompt, new, rid=rid)
+    tracker = InMemoryTracker()
+    done, seen = [], []
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with use_tracker(tracker):
+        done += eng.step()
+        seen.append(eng.model_version)
+        published = dict(params, final_norm=params["final_norm"] + 0.01)
+        eng.bus.publish(published)
+        while not eng.idle:
+            done += eng.step()
+            seen.append(eng.model_version)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    tokens = sum(len(c.tokens) for c in done)
+    steps = int(eng.stats["decode_steps"])
+    need(sorted(c.rid for c in done) == list(range(len(reqs)))
+         and all(len(c.tokens) == reqs[c.rid][1] for c in done),
+         "serve: not every request completed with its budget")
+    need(seen == sorted(seen) and eng.model_version == 1
+         and eng.stats["swaps"] == 1, f"serve: versions {seen}")
+    need(all(0 <= c.admit_version <= c.final_version <= 1 for c in done),
+         "serve: completion versions")
+    need(counts["flash_decode/cuda"] == L * steps,
+         f"serve: flash_decode/cuda {counts['flash_decode/cuda']} launches, "
+         f"want L x decode steps = {L * steps}")
+    plain = {k: v for k, v in counts.items() if k.endswith("/torch") and v}
+    need(not plain, f"serve: plain versions ran on the path: {plain}")
+    chunk_ms = sorted(ms / SERVE["scan_chunk"]
+                      for ms in _round_ms(tracker, "serve/decode_chunk"))
+    swap_stall = eng.stats["swap_stall_s_max"]
+    log(f"serve: {len(done)} requests, {tokens} tokens in {wall:.2f} s = "
+        f"{tokens / wall:.1f} tokens/s; {steps} decode steps in "
+        f"{int(eng.stats['decode_chunks'])} chunks, "
+        f"{int(eng.stats['prefill_chunks'])} prefill chunks; "
+        f"median {statistics.median(chunk_ms):.2f} ms per step as served "
+        f"(chunk wall / {SERVE['scan_chunk']}, prefill work included); "
+        f"swap stall {swap_stall * 1e3:.3f} ms; flash_decode launches "
+        f"{counts['flash_decode/cuda']} = {L} x {steps}")
+
+    # one decode step and one prefill chunk alone, timed with CUDA events
+    B = SERVE["slots"]
+    pos = torch.tensor([200, 210, 220, 230], dtype=torch.int32,
+                       device=device)
+    tok = torch.tensor([1, 2, 3, 4], dtype=torch.int32, device=device)
+    active = torch.ones(B, dtype=torch.bool, device=device)
+    cache = eng._cache
+    step_ms = _event_ms(lambda: ttf.decode_slots(
+        cfg, params, tok, cache, pos, active=active), reps=10)
+    chunk = torch.tensor(reqs[0][0][:SERVE["prefill_chunk"]],
+                         dtype=torch.int32, device=device)
+    prefill_ms = _event_ms(lambda: ttf.prefill_chunk(
+        cfg, params, chunk, cache, 0, 0), reps=3, warmup=1)
+    step_med = statistics.median(step_ms)
+    busy = device_busy(lambda: ttf.decode_slots(cfg, params, tok, cache, pos,
+                                                active=active), steps=2)
+    log(f"serve: decode step B={B} S={SERVE['max_seq']} alone: median "
+        f"{step_med:.2f} ms (min {min(step_ms):.2f}) against the "
+        f"{step_bound_ms:.3f} ms bound ({step_bound_ms / step_med:.1%}); "
+        f"prefill chunk of {SERVE['prefill_chunk']} tokens: median "
+        f"{statistics.median(prefill_ms):.2f} ms")
+
+    if busy is None:
+        log("serve: device busy time per step: not measured (the profiler "
+            "recorded no device time)")
+    else:
+        log(f"serve: device busy per decode step {busy['busy_ms']:.2f} ms of "
+            f"{step_med:.2f} ms ({busy['busy_ms'] / step_med:.1%}; idle "
+            f"share {1 - busy['busy_ms'] / step_med:.1%}); by kernel (ms per "
+            f"step, launches per step): " + "; ".join(
+                f"{k} {v[0]:.3f} ({v[1]:g})" for k, v in busy["top"]))
+
+    # the kernel against the plain flash_decode inside one decode step
+    logit_err = _logits_vs_plain(cfg, params, device, cache)
+    need(logit_err <= SERVE_LOGIT_TOL, f"serve: decode-step logits with the "
+         f"kernel vs plain flash_decode: {logit_err:.3e} of max |logit| > "
+         f"{SERVE_LOGIT_TOL}")
+    del eng, cache
+    torch.cuda.empty_cache()
+
+    # continuous batching equals solo decode at full width
+    few = [(p[:60 + 20 * i], 6 + 3 * i) for i, (p, _) in enumerate(reqs[:3])]
+    batched = _staggered(_engine(cfg, params, device), few)
+    for rid, req in enumerate(few):
+        solo = _staggered(_engine(cfg, params, device), [req])
+        need(solo[0] == batched[rid], f"serve: rid {rid} batched "
+             f"{batched[rid]} != solo {solo[0]}")
+    torch.cuda.empty_cache()
+
+    # a reduced f32 qwen3 on the card and on the CPU: the same tokens
+    small = get_config(SERVE["arch"]).reduced()
+    cpu_gen = torch.Generator()
+    cpu_gen.manual_seed(0)
+    small_cpu = get_model(small).init(cpu_gen)
+    small_card = tree_map(lambda a: a.to(device), small_cpu)
+    small_reqs = [(p[:20 + 9 * i], 8 + 2 * i)
+                  for i, (p, _) in enumerate(_serve_requests(
+                      small.vocab_size, seed=2)[:4])]
+    kw = dict(max_seq=64, prefill_chunk_tokens=16)
+    on_card = _staggered(_engine(small, small_card, device, **kw),
+                         small_reqs)
+    on_cpu = _staggered(_engine(small, small_cpu, "cpu", **kw), small_reqs)
+    need(on_card == on_cpu, f"serve: reduced f32 tokens card {on_card} != "
+         f"CPU {on_cpu}")
+    small_err = _logits_vs_plain(small, small_card, device)
+    need(small_err <= SERVE_LOGIT_TOL_F32, f"serve: reduced f32 decode-step "
+         f"logits kernel vs plain flash_decode {small_err:.3e} > "
+         f"{SERVE_LOGIT_TOL_F32}")
+    log(f"serve: kernel vs plain flash_decode in one decode step: "
+        f"{logit_err:.3e} of max |logit| (tolerance {SERVE_LOGIT_TOL}); "
+        f"reduced f32: {small_err:.3e} (tolerance {SERVE_LOGIT_TOL_F32}); "
+        f"3 staggered requests equal solo at full width; reduced f32 "
+        f"qwen3 tokens equal on card and CPU ({sum(map(len, on_cpu.values()))}"
+        f" tokens)")
+    return {"counts": counts, "tokens": tokens, "wall_s": wall,
+            "tokens_per_s": tokens / wall, "decode_steps": steps,
+            "decode_step_ms_alone": step_med,
+            "decode_step_ms_alone_all": step_ms,
+            "decode_step_ms_as_served_median": statistics.median(chunk_ms),
+            "decode_step_bound_ms": step_bound_ms,
+            "decode_step_bytes": step_bytes,
+            "prefill_chunk_ms": statistics.median(prefill_ms),
+            "swap_stall_s": swap_stall, "logit_rel_err_vs_plain": logit_err,
+            "logit_rel_err_vs_plain_reduced_f32": small_err,
+            "device_busy": busy, "init_s": init_s}
 
 
 # -------------------------------------------------------------------- main
@@ -1178,6 +1631,15 @@ def setup_phase() -> str:
             f"{slices} slices x (blocks, columns per block) "
             f"{cross.grid(n, sms, per_sm, slices)}, {per_sm} blocks of 256 "
             "threads per SM")
+    from repro_torch.kernels.decode_attn import decode_splits, resident_blocks
+    for B, S, KV, G, hd, window, _ in (DECODE_PATH,) + tuple(DECODE_MODEL):
+        resident = resident_blocks(hd, G, True, 0)
+        splits, rows = decode_splits(B, S, KV, resident, window)
+        log(f"launch: flash_decode B={B} S={S} KV={KV} G={G} hd={hd} "
+            f"window={window} bf16: {resident // sms} blocks of 128 threads "
+            f"per SM; {splits} splits of {rows} rows -> {splits * KV * B} "
+            "blocks" + (f", then a merge of {B * KV} blocks" if splits > 1
+                        else ""))
     return smi_line
 
 
@@ -1198,6 +1660,8 @@ KERNEL_SOURCES = {
                    "src/repro/kernels/gram.py:60"),
     "sketch": ("src/repro_torch/kernels/csrc/sketch.cu",
                "src/repro/kernels/sketch.py:39"),
+    "flash_decode": ("src/repro_torch/kernels/csrc/decode_attn.cu",
+                     "src/repro/kernels/decode_attn.py:72"),
 }
 
 
@@ -1215,7 +1679,9 @@ def kernel_entry(name: str, recs: list, launches: dict) -> dict:
             "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
             "library_ms": path["library_ms"],
             "shape": {k: path[k] for k in ("P", "K", "Ka", "Kb", "n", "k",
-                                           "m", "dtype") if k in path},
+                                           "m", "B", "S", "KV", "G", "hd",
+                                           "window", "lengths", "dtype")
+                      if k in path},
             "tolerance": path["tolerance"],
             "max_rel_err_all_shapes": max(r["rel_err"] for r in recs),
             "shapes": [r for r in recs if "ms" in r]}
@@ -1240,17 +1706,22 @@ def main() -> int:
         hier_counts = hier_phase(ds, params)
         streamed_counts = streamed_phase(ds, params)
         big = bigmodel_phase()
+        served = serve_phase()
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
     by_path = {"sync": sync_counts, "hier": hier_counts,
-               "streamed": streamed_counts, "bigmodel": big["counts"]}
+               "streamed": streamed_counts, "bigmodel": big["counts"],
+               "serve": served["counts"]}
     entries = [kernel_entry(name, kern[name],
                             {path: counts.get(f"{name}/cuda", 0)
                              for path, counts in by_path.items()})
                for name in KERNEL_SOURCES]
-    entries[[e["name"] for e in entries].index("stream_stats")]["bigmodel"] = {
+    names = [e["name"] for e in entries]
+    entries[names.index("stream_stats")]["bigmodel"] = {
         k: v for k, v in big.items() if k != "counts"}
+    entries[names.index("flash_decode")]["serve"] = {
+        k: v for k, v in served.items() if k != "counts"}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi_line, flush=True)

@@ -14,21 +14,25 @@ Ops (``cuda`` / ``torch`` backends, selected by the tensors' device — see
     (``csrc/stream_stats.cu``)
   * ``gram_block`` — G_ab = U_a U_bᵀ, c_a = U_a g (``csrc/gram_block.cu``)
   * ``sketch``  — U Rᵀ against an explicit R (``csrc/sketch.cu``)
+  * ``flash_decode`` — single-token GQA attention against a KV cache, with
+    the (o, lse) partials (``csrc/decode_attn.cu``); ``lse_merge`` combines
+    partials of a split cache in plain torch
 
 The last three share one device body, ``csrc/cross.cuh``.
 
 The CUDA sources build at first use with ``nvcc`` for ``sm_90a``
 (``_build.py``); importing this package builds nothing.
 """
-from .ops import (gram_and_cross, gram_block_and_cross, sign_sketch,
-                  sign_sketch_adjoint, sketch_apply, stream_stats,
-                  topk_select, weighted_combine)
+from .ops import (flash_decode, gram_and_cross, gram_block_and_cross,
+                  lse_merge, sign_sketch, sign_sketch_adjoint, sketch_apply,
+                  stream_stats, topk_select, weighted_combine)
 from .registry import (available_ops, backends, dispatch, force_backend,
                        launch_counts, register_impl, reset_launch_counts,
                        select_impl)
 
-__all__ = ["available_ops", "backends", "dispatch", "force_backend",
-           "gram_and_cross", "gram_block_and_cross", "launch_counts",
-           "register_impl", "reset_launch_counts", "select_impl", "sign_sketch",
+__all__ = ["available_ops", "backends", "dispatch", "flash_decode",
+           "force_backend", "gram_and_cross", "gram_block_and_cross",
+           "launch_counts", "lse_merge", "register_impl",
+           "reset_launch_counts", "select_impl", "sign_sketch",
            "sign_sketch_adjoint", "sketch_apply", "stream_stats",
            "topk_select", "weighted_combine"]

@@ -60,6 +60,11 @@ _SIGNATURES = {
                                    ctypes.POINTER(_LL)],
     "sketch_apply_launch": [_VP, _LL, _I, _I, _VP, _LL, _I, _I, _LL, _VP, _LL,
                             _I, _LL, _VP, _VP],
+    "flash_decode_launch_config": [_I, _I, _I, ctypes.POINTER(_I)],
+    "flash_decode_launch": [_VP, _I, _VP, _VP, _I, _VP, _VP, _VP, _VP, _VP,
+                            _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _LL, _LL,
+                            _I, _I, ctypes.c_float, _I, _I, _I,
+                            ctypes.c_float, _VP],
 }
 
 

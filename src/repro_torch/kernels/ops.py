@@ -15,6 +15,7 @@ import torch
 
 from . import ref
 from .combine import combine_cuda
+from .decode_attn import flash_decode_cuda
 from .gram import gram_block_cuda, gram_cuda
 from .registry import count_launch, dispatch, register_impl
 from .rng_sketch import sign_sketch_adjoint_cuda, sign_sketch_cuda
@@ -22,9 +23,9 @@ from .sketch import sketch_apply_cuda
 from .stream import stream_stats_cuda
 from .topk import topk_cuda
 
-__all__ = ["gram_and_cross", "gram_block_and_cross", "sign_sketch",
-           "sign_sketch_adjoint", "sketch_apply", "stream_stats",
-           "topk_select", "weighted_combine"]
+__all__ = ["flash_decode", "gram_and_cross", "gram_block_and_cross",
+           "lse_merge", "sign_sketch", "sign_sketch_adjoint", "sketch_apply",
+           "stream_stats", "topk_select", "weighted_combine"]
 
 
 def _plain(op: str, fn):
@@ -50,6 +51,12 @@ def _stream_stats_plain(deltas, grads, *, out=None):
     return out
 
 
+def _flash_decode_plain(q, k, v, lengths, *, window=None, softcap=None):
+    count_launch("flash_decode", "torch")
+    return ref.flash_decode_ref(q, k, v, lengths, window=window,
+                                softcap=softcap)
+
+
 register_impl("gram", "cuda", gram_cuda)
 register_impl("gram", "torch", _plain("gram", ref.gram_ref))
 register_impl("gram_block", "cuda", gram_block_cuda)
@@ -67,6 +74,8 @@ register_impl("sign_sketch", "torch", _plain("sign_sketch", ref.rng_sketch_ref))
 register_impl("sign_sketch_adjoint", "cuda", sign_sketch_adjoint_cuda)
 register_impl("sign_sketch_adjoint", "torch",
               _plain("sign_sketch_adjoint", ref.rng_sketch_adjoint_ref))
+register_impl("flash_decode", "cuda", flash_decode_cuda)
+register_impl("flash_decode", "torch", _flash_decode_plain)
 
 
 def gram_and_cross(updates: torch.Tensor, grad: torch.Tensor, *,
@@ -141,3 +150,29 @@ def sign_sketch_adjoint(coords: torch.Tensor, seed: int, n: int, *,
     """Decode-side adjoint ``Rᵀ s/√m``: ``coords (m,)`` → ``(n,)`` f32, the
     same implicit R."""
     return dispatch("sign_sketch_adjoint", coords, seed, n, backend=backend)
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 lengths: torch.Tensor, *, window: Optional[int] = None,
+                 softcap: Optional[float] = None,
+                 backend: Optional[str] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-token attention against a KV cache; returns the f32 partials
+    ``(o (B, KV, G, hd), lse (B, KV, G, 1))``.  q (B, KV, G, hd) against
+    k, v (B, S, KV, hd) with per-row ``lengths`` (B,) int32 (= position + 1)
+    masking, an optional sliding ``window`` and tanh ``softcap`` — the
+    serving engine's per-slot contract (``models.attention.
+    attention_decode_slots`` calls it once per layer per decode step).  The
+    plain version reads every row of the cache, so on the card only
+    ``backend="torch"`` or ``force_backend("torch")`` reaches it."""
+    return dispatch("flash_decode", q, k, v, lengths, window=window,
+                    softcap=softcap, backend=backend)
+
+
+def lse_merge(o_parts: torch.Tensor, lse_parts: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Combine per-shard ``(o, lse)`` partials of a flash_decode over a
+    cache whose seq axis was split: o_parts (P, B, KV, G, hd), lse_parts
+    (P, B, KV, G, 1) → (o, lse).  Plain torch (a few elementwise ops on
+    small tensors; the kernel merges its own splits inside)."""
+    return ref.lse_merge_ref(o_parts, lse_parts)

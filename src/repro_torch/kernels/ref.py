@@ -17,7 +17,7 @@ the m×n matrix never exists at once.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -128,3 +128,47 @@ def rng_sketch_adjoint_ref(coords: torch.Tensor, seed: int, n: int,
                                  col0=c0, device=s.device)
              for c0 in range(0, n, block_n)]
     return torch.cat(parts) / _sqrt_m(m, s.device)
+
+
+NEG_INF = -1e30
+
+
+def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor, window: Optional[int] = None,
+                     softcap: Optional[float] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o (B, KV, G, hd) f32, lse (B, KV, G, 1) f32) — plain version of
+    kernels.decode_attn.  q (B, KV, G, hd); k, v (B, S, KV, hd); lengths
+    (B,) = position + 1.  ``softcap`` applies the tanh logit cap before
+    masking; keys at ``kpos >= length`` are masked, and with ``window``
+    those at ``kpos <= length - 1 - window`` too.  It reads every row of
+    the cache, live or not."""
+    S, hd = k.shape[1], k.shape[3]
+    q32 = q.float() * hd ** -0.5
+    s = torch.einsum("bkgd,bskd->bkgs", q32, k.float())
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
+    kpos = torch.arange(S, device=k.device)[None, None, None, :]
+    length = lengths.to(torch.int64)[:, None, None, None]
+    ok = kpos < length
+    if window is not None:
+        ok = ok & (kpos > length - 1 - window)
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bkgs,bskd->bkgd", p / l.clamp(min=1e-30), v.float())
+    lse = m + torch.log(l.clamp(min=1e-30))
+    return o, lse
+
+
+def lse_merge_ref(o_parts: torch.Tensor, lse_parts: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge per-shard flash-decode partials: o_parts (P, B, KV, G, hd),
+    lse_parts (P, B, KV, G, 1) → (o, lse)."""
+    m = lse_parts.amax(dim=0, keepdim=True)
+    w = torch.exp(lse_parts - m)                       # (P, …, 1)
+    denom = w.sum(dim=0)
+    o = (o_parts * w).sum(dim=0) / denom.clamp(min=1e-30)
+    lse = m[0] + torch.log(denom.clamp(min=1e-30))
+    return o, lse

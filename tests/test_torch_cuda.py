@@ -13,7 +13,9 @@ summation order only); combine 1e-5 in f32 and 3e-2 for a bf16 output (one
 bf16 rounding), as the reference's kernel tests; sign_sketch and its adjoint
 1e-5 (f32 sums in another order); stream_stats, gram_block and sketch 1e-5
 (the same products in f32, summed in another order).  topk is held exactly: the same values
-and indices as the plain version on the same tensor.
+and indices as the plain version on the same tensor.  flash_decode 1e-4 on
+o and lse (f32 sums in another order, and the kernel's fast exp); the
+serving engine's greedy tokens exactly.
 """
 import numpy as np
 import pytest
@@ -24,8 +26,11 @@ from repro_torch.data import FederatedDataset, make_synthetic
 from repro_torch.edge import uniform_fleet
 from repro_torch.fl import ServerConfig, run_hier_simulation, run_simulation
 from repro_torch.hier import HierConfig, star_topology, two_tier_topology
-from repro_torch.kernels import (gram_and_cross, gram_block_and_cross,
-                                 launch_counts, reset_launch_counts,
+from repro_torch.configs import get_config
+from repro_torch.core.flatten import tree_map
+from repro_torch.kernels import (flash_decode, gram_and_cross,
+                                 gram_block_and_cross, launch_counts,
+                                 reset_launch_counts,
                                  sign_sketch, sign_sketch_adjoint,
                                  sketch_apply, stream_stats, topk_select,
                                  weighted_combine)
@@ -37,8 +42,11 @@ from repro_torch.kernels.rng_sketch import (sign_sketch_adjoint_cuda,
 from repro_torch.kernels.sketch import sketch_apply_cuda
 from repro_torch.kernels.topk import topk_cuda
 from repro_torch.models.config import ArchConfig
+from repro_torch.models import get_model
+from repro_torch.models import transformer as ttf
 from repro_torch.models.logistic import (init_logistic, logistic_apply,
                                          logistic_loss)
+from repro_torch.serve import DecodeEngine, ModelBus
 
 COMBINE_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 
@@ -469,3 +477,163 @@ def test_streamed_path_runs_through_the_cuda_kernels(cuda_device, scheme):
     assert all(v == 0 for key, v in counts.items() if key.endswith("/torch"))
     for k in params:                                     # init_params kept
         assert torch.equal(params[k], before[k])
+
+
+# --------------------------------------------------------- flash_decode
+
+DECODE_TOL = 1e-4
+
+
+def _decode_case(gen, dev, B, S, KV, G, hd, dtype, lengths):
+    q = _randn(gen, (B, KV, G, hd), dtype, dev)
+    k = _randn(gen, (B, S, KV, hd), dtype, dev)
+    v = _randn(gen, (B, S, KV, hd), dtype, dev)
+    return q, k, v, torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+
+def _check_decode(q, k, v, lengths, **kw):
+    reset_launch_counts()
+    got = flash_decode(q, k, v, lengths, **kw)
+    again = flash_decode(q, k, v, lengths, **kw)
+    assert launch_counts()["flash_decode/cuda"] == 2
+    assert launch_counts()["flash_decode/torch"] == 0
+    want = flash_decode(q, k, v, lengths, backend="torch", **kw)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert torch.equal(g, a)                           # no float atomics
+        assert _rel_err(g, w) <= DECODE_TOL
+    return got
+
+
+@pytest.mark.parametrize("B,S,KV,G,hd", [
+    (4, 256, 8, 5, 128),        # the qwen3-14b serve path
+    (4, 200, 16, 1, 256),       # gemma-7b heads, ragged S
+    (2, 333, 4, 12, 128),       # starcoder2-15b heads
+    (3, 77, 4, 1, 64),          # the reduced configs
+    (2, 1000, 2, 3, 64), (1, 1, 1, 8, 256), (5, 4097, 8, 16, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_kernel_matches_plain(cuda_device, B, S, KV, G, hd,
+                                           dtype):
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(B * S + G)
+    lengths = [1, S, max(1, S // 3), max(1, S - 5), 17 % S + 1][:B]
+    _check_decode(*_decode_case(gen, cuda_device, B, S, KV, G, hd, dtype,
+                                lengths))
+
+
+@pytest.mark.parametrize("window,softcap", [(64, None), (1, None),
+                                            (None, 50.0), (300, 5.0)])
+def test_flash_decode_kernel_window_and_softcap(cuda_device, window, softcap):
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(3)
+    _check_decode(*_decode_case(gen, cuda_device, 4, 1500, 4, 12, 128,
+                                torch.bfloat16, [1, 64, 700, 1500]),
+                  window=window, softcap=softcap)
+
+
+def test_flash_decode_kernel_reads_a_stacked_cache_in_place(cuda_device):
+    """A layer's view of a stacked (L, B, S, KV, hd) cache, and a view whose
+    rows are further apart (the head axis of a wider cache), are read as
+    they lie: the result equals the plain version on the same views."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(4)
+    L, B, S, KV, G, hd = 3, 4, 300, 8, 5, 128
+    ck = _randn(gen, (L, B, S, KV, hd), torch.bfloat16, cuda_device)
+    cv = _randn(gen, (L, B, S, KV, hd), torch.bfloat16, cuda_device)
+    q = _randn(gen, (B, KV, G, hd), torch.bfloat16, cuda_device)
+    lengths = torch.tensor([1, 300, 150, 7], dtype=torch.int32,
+                           device=cuda_device)
+    _check_decode(q, ck[1], cv[1], lengths)
+    wide_k = _randn(gen, (B, S, 2 * KV, hd), torch.float32, cuda_device)
+    wide_v = _randn(gen, (B, S, 2 * KV, hd), torch.float32, cuda_device)
+    _check_decode(q.float(), wide_k[:, :, KV:], wide_v[:, :, KV:], lengths,
+                  window=100)
+
+
+def test_flash_decode_kernel_skips_dead_rows(cuda_device):
+    """Rows at or past a row's length, and before its window, are never
+    read: filling them with NaN changes nothing."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(5)
+    B, S, KV, G, hd = 3, 2048, 2, 5, 128
+    q, k, v, lengths = _decode_case(gen, cuda_device, B, S, KV, G, hd,
+                                    torch.bfloat16, [1, 1000, 2048])
+    window = 300
+    clean = flash_decode(q, k, v, lengths, window=window)
+    pos = torch.arange(S, device=cuda_device)[None, :]
+    dead = (pos >= lengths[:, None]) | (pos < lengths[:, None] - window)
+    kn = torch.where(dead[..., None, None], float("nan"), k.float()).to(k.dtype)
+    vn = torch.where(dead[..., None, None], float("nan"), v.float()).to(v.dtype)
+    dirty = flash_decode(q, kn, vn, lengths, window=window)
+    for a, b in zip(clean, dirty):
+        assert torch.equal(a, b)
+
+
+def test_flash_decode_kernel_refuses_what_it_cannot_take(cuda_device):
+    q = torch.zeros(1, 1, 1, 96, device=cuda_device)
+    k = torch.zeros(1, 8, 1, 96, device=cuda_device)
+    one = torch.ones(1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_decode(q, k, k, one)
+    k = torch.zeros(1, 8, 1, 128, device=cuda_device)
+    q = torch.zeros(1, 1, 1, 128, device=cuda_device)
+    with pytest.raises(ValueError, match="int32"):
+        flash_decode(q, k, k, one.long())
+    with pytest.raises(ValueError, match="contiguous last dim"):
+        every_other = torch.zeros(1, 8, 1, 256, device=cuda_device)[..., ::2]
+        flash_decode(q, every_other, k, one)
+
+
+SERVE_CFG = get_config("qwen3-14b").reduced(num_layers=1, d_model=32,
+                                            vocab_size=64, dtype="float32")
+
+
+def test_decode_slots_leaves_inactive_rows_untouched(cuda_device):
+    cfg = get_config("qwen3-14b").reduced()
+    params = get_model(cfg).init(0, device=cuda_device)
+    cache = ttf.init_lm_cache(cfg, 3, 64, ring=False, device=cuda_device)
+    for t in cache.kv:
+        t.normal_()
+    before = [t.clone() for t in cache.kv]
+    positions = torch.tensor([10, 63, 30], dtype=torch.int32,
+                             device=cuda_device)
+    active = torch.tensor([True, False, True], device=cuda_device)
+    reset_launch_counts()
+    logits, _ = ttf.decode_slots(cfg, params,
+                                 torch.tensor([1, 2, 3], dtype=torch.int32,
+                                              device=cuda_device),
+                                 cache, positions, active=active)
+    assert launch_counts()["flash_decode/cuda"] == cfg.num_layers
+    assert torch.isfinite(logits).all()
+    for new, old in zip(cache.kv, before):
+        changed = (new != old).flatten(3).any(-1)          # (L, B, S)
+        assert changed[:, 0, 10].all() and changed[:, 2, 30].all()
+        changed[:, 0, 10] = changed[:, 2, 30] = False
+        assert not changed.any()
+
+
+def _serve(params, device, prompts, max_new, stagger=True):
+    eng = DecodeEngine(SERVE_CFG, ModelBus(params), num_slots=3, max_seq=40,
+                       scan_chunk=4, prefill_chunk_tokens=8, device=device)
+    eng.submit(prompts[0], max_new[0], rid=0)
+    done = eng.step() if stagger else []
+    for rid in range(1, len(prompts)):
+        eng.submit(prompts[rid], max_new[rid], rid=rid)
+    return {c.rid: c.tokens for c in done + eng.run()}
+
+
+def test_engine_batched_equals_solo_and_cpu(cuda_device):
+    params = get_model(SERVE_CFG).init(0, device="cpu")
+    on_card = tree_map(lambda a: a.to(cuda_device), params)
+    rng = np.random.default_rng(3)
+    prompts = [[int(t) for t in rng.integers(0, 64, n)] for n in (6, 13, 9)]
+    max_new = (7, 4, 9)
+    reset_launch_counts()
+    batched = _serve(on_card, cuda_device, prompts, max_new)
+    assert launch_counts()["flash_decode/cuda"] > 0
+    assert launch_counts()["flash_decode/torch"] == 0
+    for rid in range(3):
+        solo = _serve(on_card, cuda_device, prompts[rid:rid + 1],
+                      max_new[rid:rid + 1])
+        assert solo[0] == batched[rid], f"rid={rid} diverged"
+    assert _serve(params, "cpu", prompts, max_new) == batched

@@ -410,10 +410,10 @@ def test_unported_parts_raise():
         tserver.build_round_fn(t_loss, tserver.ServerConfig(malicious=(1,)),
                                M, device="cpu")
     with pytest.raises(KeyError, match="not ported yet"):
-        tconfigs.get_config("gemma-7b")
+        tconfigs.get_config("olmoe-1b-7b")
     assert tconfigs.get_config("paper-logreg").input_dim == 784
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        t_get_model(ArchConfig(name="d", family="dense"))
+        t_get_model(ArchConfig(name="m", family="moe"))
     with pytest.raises(KeyError, match="unknown aggregator"):
         tserver.build_round_fn(t_loss, tserver.ServerConfig(aggregator="bogus"),
                                M, device="cpu")

@@ -2,9 +2,10 @@
 
 On the CPU the ops run their plain PyTorch versions; these are held against
 ``gram_pallas`` / ``gram_block_pallas`` / ``sketch_apply_pallas`` /
-``combine_pallas`` in interpret mode at the tolerances of
-``tests/test_kernels.py`` (1e-4 f32 and 2e-2 bf16 for the products, 1e-5
-f32 and 3e-2 bf16 for combine).  ``stream_stats`` is held against the
+``combine_pallas`` and ``flash_decode_pallas`` in interpret mode at the
+tolerances of ``tests/test_kernels.py`` (1e-4 f32 and 2e-2 bf16 for the
+products, 1e-5 f32 and 3e-2 bf16 for combine, 2e-4 f32 and 3e-2 bf16 for
+flash_decode, 1e-4 for lse_merge over seq shards).  ``stream_stats`` is held against the
 reference in ``tests/test_torch_streamed.py``.  The CUDA kernels themselves are tested on the card
 by ``tests/test_torch_cuda.py``.
 """
@@ -13,17 +14,21 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ref as jref
 from repro.kernels.combine import combine_pallas
+from repro.kernels.decode_attn import flash_decode_pallas
 from repro.kernels.gram import gram_block_pallas, gram_pallas
 from repro.kernels.sketch import sketch_apply_pallas
-from repro_torch.kernels import (_build, backends, force_backend,
-                                 gram_and_cross, gram_block_and_cross,
-                                 launch_counts, register_impl, registry,
+from repro_torch.kernels import (_build, backends, flash_decode,
+                                 force_backend, gram_and_cross,
+                                 gram_block_and_cross, launch_counts,
+                                 lse_merge, register_impl, registry,
                                  reset_launch_counts, sketch_apply,
                                  weighted_combine)
 from repro_torch.kernels import ref
 from repro_torch.kernels.combine import combine_cuda
 from repro_torch.kernels.cross import grid as cross_grid
+from repro_torch.kernels.decode_attn import decode_splits
 from repro_torch.kernels.gram import gram_cuda, grid, row_slices, scratch_rows
 from repro_torch.kernels.rng_sketch import grid as sketch_grid
 from repro_torch.kernels.topk import grid as topk_grid
@@ -115,6 +120,7 @@ def test_cpu_tensors_take_the_plain_version_and_count():
     weighted_combine(torch.ones(5), torch.ones(2, 5), torch.ones(2))
     counts = launch_counts()
     assert counts == {"combine/cuda": 0, "combine/torch": 2,
+                      "flash_decode/cuda": 0, "flash_decode/torch": 0,
                       "gram/cuda": 0, "gram/torch": 1,
                       "gram_block/cuda": 0, "gram_block/torch": 0,
                       "sign_sketch/cuda": 0, "sign_sketch/torch": 0,
@@ -129,7 +135,8 @@ def test_cpu_tensors_take_the_plain_version_and_count():
 
 def test_registry_misuse_raises():
     for op in ("gram", "combine", "topk", "sign_sketch",
-               "sign_sketch_adjoint", "stream_stats", "gram_block", "sketch"):
+               "sign_sketch_adjoint", "stream_stats", "gram_block", "sketch",
+               "flash_decode"):
         assert backends(op) == ("cuda", "torch")
     with pytest.raises(KeyError, match="unknown kernel op"):
         registry.dispatch("bogus_op", torch.ones(1))
@@ -293,3 +300,104 @@ def test_cross_grid_covers_every_column(n, slices):
     assert cols % 256 == 0
     assert 1 <= blocks and blocks * slices <= max(2 * 132, slices)
     assert blocks * cols >= n > (blocks - 1) * cols
+
+
+# --------------------------------------------------------- flash_decode
+
+DECODE_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+
+
+def _decode_inputs(B, S, KV, G, hd, dtype, seed, lengths=None):
+    rng = np.random.RandomState(seed)
+    q = _pair(rng.randn(B, KV, G, hd), dtype)
+    k = _pair(rng.randn(B, S, KV, hd), dtype)
+    v = _pair(rng.randn(B, S, KV, hd), dtype)
+    if lengths is None:
+        lengths = rng.randint(1, S + 1, size=B)
+    lengths = np.asarray(lengths, np.int32)
+    return q, k, v, (jnp.asarray(lengths), torch.from_numpy(lengths))
+
+
+def _assert_decode_close(got, want, dtype):
+    tol = DECODE_TOL[dtype]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(w, np.float32),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("G", [1, 3, 5, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window,softcap", [(None, None), (37, None),
+                                            (None, 5.0), (64, 30.0)])
+def test_flash_decode_plain_matches_pallas(G, dtype, window, softcap):
+    B, S, KV, hd = 3, 300, 2, 64
+    (qj, qt), (kj, kt), (vj, vt), (lj, lt) = _decode_inputs(
+        B, S, KV, G, hd, dtype, seed=G * 7 + len(dtype),
+        lengths=[1, 173, S])
+    reset_launch_counts()
+    got = flash_decode(qt, kt, vt, lt, window=window, softcap=softcap)
+    assert launch_counts()["flash_decode/torch"] == 1
+    assert got[0].shape == (B, KV, G, hd) and got[1].shape == (B, KV, G, 1)
+    assert got[0].dtype == got[1].dtype == torch.float32
+    pallas = flash_decode_pallas(qj, kj, vj, lj, block_s=128, window=window,
+                                 softcap=softcap, interpret=True)
+    _assert_decode_close(got, pallas, dtype)
+    _assert_decode_close(got, jref.flash_decode_ref(
+        qj, kj, vj, lj, window=window, softcap=softcap), dtype)
+
+
+@pytest.mark.parametrize("parts", [2, 3, 5])
+def test_lse_merge_over_seq_shards_matches_whole_cache(parts):
+    """Shard the cache's seq axis, decode each shard, merge: the whole
+    cache's (o, lse), as the reference's merge gives."""
+    B, KV, G, hd = 2, 2, 3, 32
+    S = 128 * parts
+    (qj, qt), (kj, kt), (vj, vt), (lj, lt) = _decode_inputs(
+        B, S, KV, G, hd, "float32", seed=parts, lengths=[S - 37, S])
+    shard = S // parts
+    os_, ls_, jos, jls = [], [], [], []
+    for p in range(parts):
+        lo = p * shard
+        local = torch.clamp(lt - lo, 0, shard).to(torch.int32)
+        o, lse = flash_decode(qt, kt[:, lo:lo + shard], vt[:, lo:lo + shard],
+                              local)
+        os_.append(o)
+        ls_.append(lse)
+        oj, lsej = jref.flash_decode_ref(
+            qj, kj[:, lo:lo + shard], vj[:, lo:lo + shard],
+            jnp.clip(lj - lo, 0, shard))
+        jos.append(oj)
+        jls.append(lsej)
+    om, lm = lse_merge(torch.stack(os_), torch.stack(ls_))
+    whole = flash_decode(qt, kt, vt, lt)
+    ref_merged = jref.lse_merge_ref(jnp.stack(jos), jnp.stack(jls))
+    for got, want in ((om, whole[0]), (lm, whole[1])):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    for got, want in zip((om, lm), ref_merged):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_flash_decode_cuda_refuses_cpu_tensors():
+    from repro_torch.kernels.decode_attn import flash_decode_cuda
+    q = torch.zeros(1, 1, 1, 64)
+    k = torch.zeros(1, 4, 1, 64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_decode_cuda(q, k, k, torch.ones(1, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("B,S,KV,window", [
+    (4, 256, 8, None), (8, 32768, 8, None), (4, 8192, 16, None),
+    (4, 16384, 4, 4096), (1, 1, 1, None), (3, 97, 2, 30), (64, 100, 64, None),
+    (2, 5000, 2, 10000), (1, 1 << 20, 1, 64)])
+@pytest.mark.parametrize("resident", [132, 396, 1188])
+def test_decode_splits_cover_the_rows(B, S, KV, window, resident):
+    """The seq split comes from the shapes alone and covers every row once
+    in whole multiples of 64 rows; the splits that can hold a query's rows
+    (all S, or the last ``window``) fit one wave of resident blocks."""
+    splits, rows = decode_splits(B, S, KV, resident, window)
+    assert rows % 64 == 0 and 1 <= splits <= 4096
+    assert (splits - 1) * rows < S <= splits * rows
+    live = min(S, window) if window else S
+    live_splits = -(-live // rows)
+    assert B * KV * live_splits <= max(resident, B * KV)
