@@ -19,7 +19,9 @@ Phases (any failure exits non-zero and prints no result line):
      model widths: max |err| within the stated tolerance (``topk`` exactly),
      two ``gram`` and two ``sign_sketch`` calls bitwise equal, and
      CUDA-event times of the kernel, the plain version and a one-call
-     PyTorch yardstick (where one exists) beside the bound;
+     PyTorch yardstick (where one exists) beside the bound (``topk``: the
+     median and min-max of five rounds, and one device kernel per call at
+     every shape of the one-block path, from ``torch.profiler``);
   3. path    — ``run_simulation`` at paper-logreg width (784 → 10) on
      MNIST-like data over 100 devices, contextual then FedAvg, with the
      launch counters showing that every round went through the kernels and
@@ -54,7 +56,9 @@ Phases (any failure exits non-zero and prints no result line):
      no plain version runs; tokens/s, one decode step and one prefill chunk
      alone (CUDA events) beside the step's byte bound, the device busy time
      per step from ``torch.profiler``, the swap stall; one step's logits
-     with the kernel against the plain ``flash_decode``; three staggered
+     with the kernel against the plain ``flash_decode``, beside the floor
+     two correct attentions show (the plain version in f32 against f64 and
+     against SDPA, a yardstick used nowhere in the port); three staggered
      requests equal to each served alone; a reduced f32 qwen3 served on the
      card and on the CPU gives the same tokens.
 
@@ -71,6 +75,7 @@ Matmuls run in full f32 (TF32 off) so the plain ``gram`` is a fair reference.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -128,6 +133,8 @@ TOPK_PATH = [(N_PATH, 1731), (N_PATH, 577), (N_PATH, 490)]
 TOPK_RAGGED = [(n, k) for n in (1, 130, N_PATH) for k in (1, 17, n) if k <= n]
 TOPK_MODEL = [(n, k) for n in ((1 << 20) + 3, 1 << 24)
               for k in (n // 16, 2048)]
+# rounds of the timing loop per topk row, for a median and a min-max spread
+TOPK_REPEATS = 5
 # sign_sketch (K, n, m): ratio 4 and ratio 8 at the path width, ragged, and
 # model widths; the adjoint takes (m, n) of each
 SKETCH_PATH = [(1, N_PATH, 1962), (1, N_PATH, 981)]
@@ -168,11 +175,15 @@ SERVE = dict(arch="qwen3-14b", slots=4, max_seq=256, scan_chunk=8,
              prefill_chunk=64, requests=8, prompt=(48, 200), new=(32, 4))
 # one decode step's logits with the kernel vs the plain flash_decode, over
 # max |logit|.  Full width, bf16: every layer rounds the f32 attention output
-# (kernel and plain differ by ~5e-7 of it) to 8 bits, and 40 random layers
-# amplify the flipped roundings — the first run measured 1.86e-2 (the kernel
-# itself is held to 1e-4 at this shape in the kernels phase); the reduced
-# f32 model carries no such rounding and is held to f32 summation order.
-SERVE_LOGIT_TOL = 5e-2
+# to 8 bits, and 40 random layers amplify the flipped roundings.  Two
+# correct attentions show the floor of this statistic: the plain version in
+# f32 against the same arithmetic in f64 (2.013e-2) and against SDPA
+# (1.702e-2), the same in two runs on an H100; the gate is 1.5x that floor
+# (the kernel itself is held to 1e-4 at this shape in the kernels phase).
+# The reduced f32 model carries no such rounding and is held to f32
+# summation order.
+SERVE_LOGIT_FLOOR = 2.013e-2
+SERVE_LOGIT_TOL = 1.5 * SERVE_LOGIT_FLOOR
 SERVE_LOGIT_TOL_F32 = 1e-5
 HIER_ROUNDS = 6
 # the reference's recorded streamed-vs-fused loss gap (BENCH_bigmodel.json)
@@ -222,6 +233,52 @@ def time_ms(fn, reps: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_ms_spread(fns: dict, reps: int, repeats: int = 5) -> dict:
+    """``{name: {"median", "min", "max", "runs"}}`` over ``repeats`` rounds
+    of :func:`time_ms` (``reps`` calls each), taking the ``fns`` in turn
+    within a round so that drift of the host or the card hits all alike."""
+    runs = {name: [] for name in fns}
+    for _ in range(repeats):
+        for name, fn in fns.items():
+            runs[name].append(time_ms(fn, reps))
+    return {name: {"median": statistics.median(r), "min": min(r),
+                   "max": max(r), "runs": r} for name, r in runs.items()}
+
+
+def device_kernels(fn) -> tuple:
+    """``(names, ms)``: the device kernels one call of ``fn`` runs, one name
+    per launch, and their device time (``torch.profiler`` over one call
+    after a warm-up call; the entries with device time, as
+    :func:`device_busy` reads them)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if _device_us(e) > 0 and not e.key.startswith(("aten::", "cuda"))]
+    return ([e.key for e in rows for _ in range(e.count)],
+            sum(_device_us(e) for e in rows) / 1e3)
+
+
+def host_ms(fn, reps: int, repeats: int = 5) -> float:
+    """Median host ms per call of ``fn`` over ``repeats`` rounds of ``reps``
+    calls that are not waited for: what the host spends to issue a call."""
+    import torch
+    runs = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        runs.append((time.perf_counter() - t0) / reps * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(runs)
 
 
 def reps_for(nbytes: int) -> int:
@@ -339,8 +396,14 @@ def check_combine(K: int, n: int, dt, gen, timed: bool = True,
 
 
 def check_topk(n: int, k: int, gen, timed: bool = True, v=None) -> dict:
+    """Exact against the plain version on values (bitwise) and indices.
+    Timed: ``TOPK_REPEATS`` rounds of the kernel, the plain version and the
+    ``torch.topk`` yardstick in turn (median, min, max); the device kernels
+    of one call (one, the one-block kernel, where ``single_block`` holds)
+    and their device time; the host time to issue a call."""
     import torch
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.topk import single_block
     if v is None:
         v = torch.randn((n,), generator=gen, device="cuda")
     vals, idx = ops.topk_select(v, k, backend="cuda")
@@ -353,13 +416,26 @@ def check_topk(n: int, k: int, gen, timed: bool = True, v=None) -> dict:
     need(same, f"topk n={n} k={k}: values or indices differ from the plain "
          "version")
     rec = {"n": n, "k": k, "dtype": "float32", "max_abs_err": 0.0,
-           "rel_err": 0.0, "tolerance": 0.0, "exact": same}
+           "rel_err": 0.0, "tolerance": 0.0, "exact": same,
+           "single_block": single_block(n, k)}
     if timed:
-        reps = reps_for(4 * n)
-        rec["ms"] = time_ms(lambda: ops.topk_select(v, k, backend="cuda"), reps)
-        rec["plain_ms"] = time_ms(lambda: ref.topk_ref(v, k), reps)
-        rec["library_ms"] = time_ms(
-            lambda: v.gather(0, torch.topk(v.abs(), k).indices), reps)
+        call = lambda: ops.topk_select(v, k, backend="cuda")  # noqa: E731
+        kernels, rec["device_ms"] = device_kernels(call)
+        rec["device_kernels_per_call"] = len(kernels)
+        rec["host_ms"] = host_ms(call, reps_for(4 * n))
+        if rec["single_block"]:
+            need(len(kernels) == 1 and "topk_small" in kernels[0],
+                 f"topk n={n} k={k}: one call ran {kernels}, want the one "
+                 "topk_small kernel")
+        spread = time_ms_spread({
+            "ms": call,
+            "plain_ms": lambda: ref.topk_ref(v, k),
+            "library_ms": lambda: v.gather(0, torch.topk(v.abs(), k).indices),
+        }, reps_for(4 * n), TOPK_REPEATS)
+        for key, sp in spread.items():
+            rec[key] = sp["median"]
+            rec[key + "_min"], rec[key + "_max"] = sp["min"], sp["max"]
+            rec[key + "_runs"] = sp["runs"]
         rec.update(bound(4 * n + 8 * k, 0.0))
     return rec
 
@@ -710,15 +786,26 @@ def _fmt_us(v) -> str:
     return "     none" if v is None else f"{v * 1e3:9.1f}"
 
 
+def _fmt_spread(rec: dict, key: str) -> str:
+    """The time, and its min-max over the rounds where it has a spread."""
+    if key + "_min" not in rec:
+        return _fmt_us(rec[key])
+    return (f"{_fmt_us(rec[key])} [{rec[key + '_min'] * 1e3:.1f}-"
+            f"{rec[key + '_max'] * 1e3:.1f}]")
+
+
 def _log_rec(name: str, rec: dict) -> None:
     shape = " ".join(f"{k}={rec[k]}" for k in ("P", "K", "Ka", "Kb", "n", "k",
                                                 "m", "B", "S", "KV", "G",
                                                 "hd", "window") if k in rec)
+    kernels = (f" kernels/call={rec['device_kernels_per_call']} device="
+               f"{rec['device_ms'] * 1e3:.1f}us host={rec['host_ms'] * 1e3:.1f}us"
+               if "device_kernels_per_call" in rec else "")
     log(f"{name:19s} {rec['set']:6s} {shape:28s} {rec['dtype']:9s} "
-        f"err={rec['max_abs_err']:.3e} kernel={_fmt_us(rec['ms'])}us "
-        f"plain={_fmt_us(rec['plain_ms'])}us "
-        f"library={_fmt_us(rec['library_ms'])}us "
-        f"bound={rec['bound_ms'] * 1e3:9.2f}us ({rec['bound_by']})")
+        f"err={rec['max_abs_err']:.3e} kernel={_fmt_spread(rec, 'ms')}us "
+        f"plain={_fmt_spread(rec, 'plain_ms')}us "
+        f"library={_fmt_spread(rec, 'library_ms')}us "
+        f"bound={rec['bound_ms'] * 1e3:9.2f}us ({rec['bound_by']}){kernels}")
 
 
 def _tie_vectors(n: int):
@@ -1322,6 +1409,13 @@ def _event_ms(fn, reps: int, warmup: int = 2) -> list:
     return out
 
 
+def _device_us(e) -> float:
+    """A profiler average's own device time (the attribute's name differs
+    between torch versions)."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
 def device_busy(fn, steps: int) -> dict:
     """Device time per call of ``fn`` from a ``torch.profiler`` trace: the
     sum of the kernels' own device time, and the largest kernels by name.
@@ -1337,8 +1431,7 @@ def device_busy(fn, steps: int) -> dict:
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
+        us = _device_us(e)
         if us > 0 and not e.key.startswith(("aten::", "cuda")):
             rows.append((e.key[:60], us / 1e3 / steps, e.count / steps))
     total = sum(r[1] for r in rows)
@@ -1349,10 +1442,66 @@ def device_busy(fn, steps: int) -> dict:
             "top": [(k, (ms, n)) for k, ms, n in rows[:8]]}
 
 
-def _logits_vs_plain(cfg, params, device, cache=None) -> float:
-    """One decode step (4 slots at depths 200-230, all active) with the
-    kernel and again from the same cache under the plain flash_decode:
-    max |difference| of the logits over max |logit|."""
+def _flash_decode_f64(q, k, v, lengths, *, window=None, softcap=None,
+                      backend=None):
+    """The plain flash_decode's arithmetic in f64, cast back to f32 — a
+    second correct attention for the serve phase's logit floor."""
+    import torch
+    S, hd = k.shape[1], k.shape[3]
+    s = torch.einsum("bkgd,bskd->bkgs", q.double() * hd ** -0.5, k.double())
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
+    kpos = torch.arange(S, device=k.device)[None, None, None, :]
+    length = lengths.to(torch.int64)[:, None, None, None]
+    ok = kpos < length
+    if window is not None:
+        ok = ok & (kpos > length - 1 - window)
+    s = s.masked_fill(~ok, float("-inf"))
+    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    o = torch.einsum("bkgs,bskd->bkgd", torch.exp(s - lse), v.double())
+    return o.float(), lse.float()
+
+
+def _flash_decode_sdpa(q, k, v, lengths, *, window=None, softcap=None,
+                       backend=None):
+    """``scaled_dot_product_attention`` in f32 with a boolean length/window
+    mask: a yardstick for the logit floor only, never on the port's path
+    (o only: the decode step drops lse)."""
+    import torch
+    import torch.nn.functional as F
+    need(softcap is None, "serve: the SDPA yardstick has no softcap")
+    B, KV, G, hd = q.shape
+    S = k.shape[1]
+    kpos = torch.arange(S, device=k.device)[None, :]
+    length = lengths.to(torch.int64)[:, None]
+    ok = kpos < length
+    if window is not None:
+        ok = ok & (kpos > length - 1 - window)
+    o = F.scaled_dot_product_attention(
+        q.float().reshape(B, KV * G, 1, hd), k.float().transpose(1, 2),
+        v.float().transpose(1, 2), attn_mask=ok[:, None, None, :],
+        enable_gqa=True)
+    return o.reshape(B, KV, G, hd), None
+
+
+@contextlib.contextmanager
+def _attention(fn):
+    """Route the model's ``flash_decode`` calls to ``fn`` inside the block
+    (the decode step looks the op up on ``kernels.ops`` at each call)."""
+    from repro_torch.kernels import ops
+    saved, ops.flash_decode = ops.flash_decode, fn
+    try:
+        yield
+    finally:
+        ops.flash_decode = saved
+
+
+def _decode_logits(cfg, params, device, cache=None,
+                   variants=("kernel", "plain")) -> dict:
+    """The logits of one decode step (4 slots at depths 200-230, all
+    active), once per attention in ``variants``, each from the same cache:
+    ``kernel`` (the port's path), ``plain`` (the plain flash_decode in f32),
+    ``f64`` (its arithmetic in f64) and ``sdpa`` (the SDPA yardstick)."""
     import torch
     from repro_torch.kernels import force_backend
     from repro_torch.models import transformer as ttf
@@ -1366,13 +1515,24 @@ def _logits_vs_plain(cfg, params, device, cache=None) -> float:
     pos = torch.tensor([200, 210, 220, 230], dtype=torch.int32, device=device)
     tok = torch.tensor([1, 2, 3, 4], dtype=torch.int32, device=device)
     active = torch.ones(SERVE["slots"], dtype=torch.bool, device=device)
+    routes = {"kernel": contextlib.nullcontext,
+              "plain": lambda: force_backend("torch", "flash_decode"),
+              "f64": lambda: _attention(_flash_decode_f64),
+              "sdpa": lambda: _attention(_flash_decode_sdpa)}
     saved = [t.clone() for t in cache.kv]
-    lk, _ = ttf.decode_slots(cfg, params, tok, cache, pos, active=active)
-    for t, s in zip(cache.kv, saved):
-        t.copy_(s)
-    with force_backend("torch", "flash_decode"):
-        lp, _ = ttf.decode_slots(cfg, params, tok, cache, pos, active=active)
-    return _max_err(lk, lp) / float(lp.float().abs().max())
+    out = {}
+    for name in variants:
+        for t, s in zip(cache.kv, saved):
+            t.copy_(s)
+        with routes[name]():
+            out[name], _ = ttf.decode_slots(cfg, params, tok, cache, pos,
+                                            active=active)
+    return out
+
+
+def _logit_err(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return _max_err(a, b) / float(b.float().abs().max())
 
 
 def _serve_requests(vocab: int, seed: int = 1) -> list:
@@ -1525,12 +1685,27 @@ def serve_phase(device: str = "cuda", cfg=None) -> dict:
             f"step, launches per step): " + "; ".join(
                 f"{k} {v[0]:.3f} ({v[1]:g})" for k, v in busy["top"]))
 
-    # the kernel against the plain flash_decode inside one decode step
-    logit_err = _logits_vs_plain(cfg, params, device, cache)
+    # the kernel against the plain flash_decode inside one decode step,
+    # beside the floor that two correct attentions show through the bf16
+    # model: the plain version in f32 against the same arithmetic in f64,
+    # and against SDPA
+    lg = _decode_logits(cfg, params, device, cache,
+                        ("kernel", "plain", "f64", "sdpa"))
+    logit_err = _logit_err(lg["kernel"], lg["plain"])
+    floor = {"plain_vs_f64": _logit_err(lg["plain"], lg["f64"]),
+             "plain_vs_sdpa": _logit_err(lg["plain"], lg["sdpa"]),
+             "kernel_vs_f64": _logit_err(lg["kernel"], lg["f64"])}
+    logit_floor = max(floor["plain_vs_f64"], floor["plain_vs_sdpa"])
+    log(f"serve: logit floor (one full-width bf16 step, max |dlogit| / max "
+        f"|logit|) of two correct attentions {logit_floor:.3e}: plain f32 vs "
+        f"f64 {floor['plain_vs_f64']:.3e}, plain vs SDPA "
+        f"{floor['plain_vs_sdpa']:.3e}; kernel vs plain {logit_err:.3e}, "
+        f"kernel vs f64 {floor['kernel_vs_f64']:.3e} (gate "
+        f"{SERVE_LOGIT_TOL:.4g})")
     need(logit_err <= SERVE_LOGIT_TOL, f"serve: decode-step logits with the "
          f"kernel vs plain flash_decode: {logit_err:.3e} of max |logit| > "
          f"{SERVE_LOGIT_TOL}")
-    del eng, cache
+    del lg, eng, cache
     torch.cuda.empty_cache()
 
     # continuous batching equals solo decode at full width
@@ -1557,12 +1732,13 @@ def serve_phase(device: str = "cuda", cfg=None) -> dict:
     on_cpu = _staggered(_engine(small, small_cpu, "cpu", **kw), small_reqs)
     need(on_card == on_cpu, f"serve: reduced f32 tokens card {on_card} != "
          f"CPU {on_cpu}")
-    small_err = _logits_vs_plain(small, small_card, device)
+    lg = _decode_logits(small, small_card, device)
+    small_err = _logit_err(lg["kernel"], lg["plain"])
     need(small_err <= SERVE_LOGIT_TOL_F32, f"serve: reduced f32 decode-step "
          f"logits kernel vs plain flash_decode {small_err:.3e} > "
          f"{SERVE_LOGIT_TOL_F32}")
     log(f"serve: kernel vs plain flash_decode in one decode step: "
-        f"{logit_err:.3e} of max |logit| (tolerance {SERVE_LOGIT_TOL}); "
+        f"{logit_err:.3e} of max |logit| (tolerance {SERVE_LOGIT_TOL:.4g}); "
         f"reduced f32: {small_err:.3e} (tolerance {SERVE_LOGIT_TOL_F32}); "
         f"3 staggered requests equal solo at full width; reduced f32 "
         f"qwen3 tokens equal on card and CPU ({sum(map(len, on_cpu.values()))}"
@@ -1576,6 +1752,8 @@ def serve_phase(device: str = "cuda", cfg=None) -> dict:
             "decode_step_bytes": step_bytes,
             "prefill_chunk_ms": statistics.median(prefill_ms),
             "swap_stall_s": swap_stall, "logit_rel_err_vs_plain": logit_err,
+            "logit_floor": logit_floor, "logit_floor_pairs": floor,
+            "logit_tolerance": SERVE_LOGIT_TOL,
             "logit_rel_err_vs_plain_reduced_f32": small_err,
             "device_busy": busy, "init_s": init_s}
 
@@ -1613,7 +1791,12 @@ def setup_phase() -> str:
                 f"{gram.row_slices(K)} grid slices; gram finish: 0 B; "
                 f"combine: 4*K = {4 * K} B (alpha)")
     sms = _build.sm_count(0)
-    for n, k in TOPK_PATH[:1] + TOPK_MODEL[-2:-1]:
+    for n, k in TOPK_PATH:
+        p2 = 1 << (k - 1).bit_length()
+        log(f"launch: topk n={n} k={k}: one block of 1024 threads, "
+            f"{-(-4 * n // 8) * 8 + 8 * p2} B dynamic shared memory "
+            f"({n} entries, {p2} sort keys)")
+    for n, k in TOPK_MODEL[-2:-1]:
         log(f"launch: topk n={n} k={k}: (blocks, chunk) "
             f"{topk.grid(n, sms)}, 256 threads, 1 KB static shared memory")
     for K, n, m in SKETCH_PATH[:1] + SKETCH_MODEL[-1:]:

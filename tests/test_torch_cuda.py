@@ -40,7 +40,7 @@ from repro_torch.kernels.gram import gram_block_cuda, gram_cuda
 from repro_torch.kernels.rng_sketch import (sign_sketch_adjoint_cuda,
                                             sign_sketch_cuda)
 from repro_torch.kernels.sketch import sketch_apply_cuda
-from repro_torch.kernels.topk import topk_cuda
+from repro_torch.kernels.topk import SMALL_MAX_N, single_block, topk_cuda
 from repro_torch.models.config import ArchConfig
 from repro_torch.models import get_model
 from repro_torch.models import transformer as ttf
@@ -140,14 +140,17 @@ def test_gram_kernel_past_64_rows(cuda_device, K, dtype):
     assert _rel_err(G, Gr) <= 1e-4 and _rel_err(c, cr) <= 1e-4
 
 
-def _tie_vectors(device):
-    n = 130
+def _tie_vectors(device, n=130):
+    ar = torch.arange(n, device=device)
     return {
         "all_equal": torch.full((n,), 2.5, device=device)
-        * torch.where(torch.arange(n, device=device) % 3 == 0, -1.0, 1.0),
+        * torch.where(ar % 3 == 0, -1.0, 1.0),
         "zeros": torch.zeros(n, device=device),
-        "signed_zeros": torch.tensor([0.0, -0.0] * (n // 2), device=device),
-        "few_values": (torch.arange(n, device=device) % 4).float() - 1.5,
+        "signed_zeros": torch.where(ar % 2 == 0, 0.0, -0.0),
+        "few_values": (ar % 4).float() - 1.5,
+        "infs": torch.where(ar % 5 == 0, float("inf"),
+                            torch.where(ar % 7 == 0, float("-inf"),
+                                        (ar % 11).float() - 5.0)),
     }
 
 
@@ -157,8 +160,13 @@ def _assert_topk_equal(got, want):
     assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
 
 
-@pytest.mark.parametrize("n", [1, 130, 7850, (1 << 20) + 3])
-@pytest.mark.parametrize("k", [1, 17, "n"])
+# n: ragged, the paths' 7 850, the one-block cap and one past it (the
+# multi-block radix select), and a model width
+TOPK_N = [1, 130, 7850, SMALL_MAX_N, SMALL_MAX_N + 1, (1 << 20) + 3]
+
+
+@pytest.mark.parametrize("n", TOPK_N)
+@pytest.mark.parametrize("k", [1, 17, 1731, "n"])
 def test_topk_kernel_matches_plain(cuda_device, n, k):
     k = n if k == "n" else min(k, n)
     gen = torch.Generator(device=cuda_device)
@@ -169,14 +177,42 @@ def test_topk_kernel_matches_plain(cuda_device, n, k):
     assert launch_counts()["topk/cuda"] == 1
     assert got[0].dtype == torch.float32 and got[1].dtype == torch.int32
     _assert_topk_equal(got, ref.topk_ref(v, k))
+    again = topk_select(v, k)
+    assert launch_counts()["topk/cuda"] == 2
+    _assert_topk_equal(again, got)                     # bitwise repeatable
 
 
 @pytest.mark.parametrize("case", ["all_equal", "zeros", "signed_zeros",
-                                  "few_values"])
-@pytest.mark.parametrize("k", [1, 17, 130])
-def test_topk_kernel_ties(cuda_device, case, k):
-    v = _tie_vectors(cuda_device)[case]
+                                  "few_values", "infs"])
+@pytest.mark.parametrize("n", [130, 7850, SMALL_MAX_N, SMALL_MAX_N + 1])
+@pytest.mark.parametrize("k", [1, 17, 130, 1731, "n"])
+def test_topk_kernel_ties(cuda_device, case, n, k):
+    k = n if k == "n" else min(k, n)
+    v = _tie_vectors(cuda_device, n)[case]
     _assert_topk_equal(topk_cuda(v, k), ref.topk_ref(v, k))
+
+
+@pytest.mark.parametrize("n,k", [(7850, 1731), (7850, 577), (7850, 490),
+                                 (SMALL_MAX_N, SMALL_MAX_N)])
+def test_topk_single_block_is_one_launch(cuda_device, n, k):
+    """At the paths' shapes a call is one kernel on the card (the one-block
+    select-and-order), counted once."""
+    from torch.profiler import ProfilerActivity, profile
+    assert single_block(n, k)
+    v = torch.randn(n, device=cuda_device)
+    topk_cuda(v, k)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        topk_cuda(v, k)
+        torch.cuda.synchronize()
+    assert launch_counts()["topk/cuda"] == 1
+    on_card = [(e.key, e.count) for e in prof.key_averages()
+               if e.self_device_time_total > 0
+               and not e.key.startswith(("aten::", "cuda"))]
+    assert len(on_card) == 1 and on_card[0][1] == 1, on_card
+    assert "topk_small" in on_card[0][0], on_card
 
 
 @pytest.mark.parametrize("K,n,m", [(1, 7850, 981), (1, 7850, 1962),

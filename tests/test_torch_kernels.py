@@ -31,6 +31,7 @@ from repro_torch.kernels.cross import grid as cross_grid
 from repro_torch.kernels.decode_attn import decode_splits
 from repro_torch.kernels.gram import gram_cuda, grid, row_slices, scratch_rows
 from repro_torch.kernels.rng_sketch import grid as sketch_grid
+from repro_torch.kernels.topk import SMALL_MAX_N, single_block
 from repro_torch.kernels.topk import grid as topk_grid
 
 torch.set_num_threads(1)
@@ -211,6 +212,33 @@ def test_topk_and_sketch_grids_cover_every_entry(n):
         splits, cols, kc = sketch_grid(K, n, m, 132)
         assert splits * cols >= n > (splits - 1) * cols
         assert kc == K
+
+
+# (n, k, one block?): the paper paths' summaries at n = 7 850 (k = 1 731,
+# 577, 490), the smoke's ragged and tied shapes, the cap and one past it,
+# and the model widths, which keep the multi-block radix select
+@pytest.mark.parametrize("n,k,one_block", [
+    (7850, 1731, True), (7850, 577, True), (7850, 490, True),
+    *[(n, k, True) for n in (1, 130, 7850) for k in sorted({1, 17, n})
+      if k <= n],
+    (SMALL_MAX_N, 1, True), (SMALL_MAX_N, SMALL_MAX_N, True),
+    (SMALL_MAX_N + 1, 1731, False), (SMALL_MAX_N + 1, SMALL_MAX_N + 1, False),
+    ((1 << 20) + 3, ((1 << 20) + 3) // 16, False), ((1 << 20) + 3, 2048, False),
+    (1 << 24, 1 << 20, False), (1 << 24, 2048, False)])
+def test_topk_single_block_rule(n, k, one_block):
+    assert single_block(n, k) is one_block
+
+
+def test_topk_single_block_kernel_is_built_and_bound():
+    """``csrc/topk.cu`` is among the sources the build compiles, defines the
+    one-block launcher the wrapper binds, and caps n where the wrapper
+    does."""
+    src = _build.CSRC / "topk.cu"
+    assert src in _build.sources()
+    text = src.read_text()
+    assert 'extern "C" int topk_small_launch(' in text
+    assert f"constexpr int kSmallMaxN = {SMALL_MAX_N};" in text
+    assert len(_build._SIGNATURES["topk_small_launch"]) == 6
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
