@@ -38,15 +38,18 @@ Phases (any failure exits non-zero and prints no result line):
   5. streamed — the same two-tier runs (uncompressed, ``topk``,
      ``sign_sketch``) on ``engine="streamed"`` and on the fused engine with
      the same mini-batches: every streamed round launches ``stream_stats``
-     and ``combine``, the losses fall and agree with the fused engine's to
+     (its P = 100 f32 slabs on cross.cuh's body) and ``combine``, the
+     losses fall and agree with the fused engine's to
      1.4e-3, the cloud-uplink bytes are equal; one streamed round on the
      card matches the same round on the CPU;
   6. bigmodel — the reference's full ``transformer_stream`` round
      (``benchmarks/bigmodel_round.py``: d_model 1024, vocab 8192, 4 layers,
      P = 16, bf16, n = 58 724 352) through the streamed engine: its round
-     time, the accumulate pass beside its bound, the rise of allocated
-     memory across ``begin_round``, G and C against the plain version, and
-     the round's delta against the fused engine's on the same inputs;
+     time, the accumulate pass beside its bound (every one of its 29
+     ``stream_stats`` launches on the tensor-core body), the rise of
+     allocated memory across ``begin_round``, G and C against the plain
+     version and against an f64 product, and the round's delta against the
+     fused engine's on the same inputs;
   7. serve   — the continuous-batching ``DecodeEngine`` on the full
      qwen3-14b (40 layers, d_model 5 120, 40/8 heads, bf16, 14.77 B
      parameters from a seeded generator on the card): 4 slots of 256 rows
@@ -64,7 +67,11 @@ Phases (any failure exits non-zero and prints no result line):
 
 The kernels phase also holds ``stream_stats``, ``gram_block`` and ``sketch``
 (U Rᵀ against an explicit R) against their plain versions, bitwise
-repeatable, at the paths', the reference benchmark's and model shapes, and
+repeatable, at the paths', the reference benchmark's and model shapes
+(timed rows as the median and min-max of five rounds, with device µs;
+``stream_stats``: which of its two bodies each shape took, and the model
+slabs and the tensor-core body's ragged shapes also against an f64
+product), and
 ``flash_decode`` (o and lse) at the serve path's shape, a decode_32k-like
 cache, gemma-7b's and starcoder2-15b's heads (the latter windowed), with
 ragged, strided, soft-capped and f32 caches, timed beside SDPA.
@@ -133,7 +140,8 @@ TOPK_PATH = [(N_PATH, 1731), (N_PATH, 577), (N_PATH, 490)]
 TOPK_RAGGED = [(n, k) for n in (1, 130, N_PATH) for k in (1, 17, n) if k <= n]
 TOPK_MODEL = [(n, k) for n in ((1 << 20) + 3, 1 << 24)
               for k in (n // 16, 2048)]
-# rounds of the timing loop per topk row, for a median and a min-max spread
+# rounds of the timing loop per topk and cross-kernel row, for a median and
+# a min-max spread
 TOPK_REPEATS = 5
 # sign_sketch (K, n, m): ratio 4 and ratio 8 at the path width, ragged, and
 # model widths; the adjoint takes (m, n) of each
@@ -147,6 +155,10 @@ SKETCH_MODEL = [(K, (1 << 20) + 3, m) for K in (1, 8) for m in (1024, 8192)]
 STREAM_PATH = [(100, 7840), (100, 10)]
 STREAM_RAGGED = [(1, 7), (3, 129), (65, 1000)]
 STREAM_MODEL = [(16, 8192 * 1024), (16, 1024 * 4096), (16, 1024 * 1024)]
+# the tensor-core body (bf16, P <= 32): one and two 16-row tiles, ragged
+# column tails of 1 024-wide rows
+STREAM_MMA_ROWS = (1, 5, 16, 17, 32)
+STREAM_MMA_COLS = (1, 31, 1000)
 # gram_block (Ka, Kb, n): benchmarks/kernel_bench.py's (K, K // 2) pairs,
 # ragged, and Ka = 64, Kb = 32 at n = 2^24
 GRAM_BLOCK_BENCH = [(10, 5, 1 << 16), (16, 8, 1 << 18), (32, 16, 1 << 18)]
@@ -264,6 +276,25 @@ def device_kernels(fn) -> tuple:
             if _device_us(e) > 0 and not e.key.startswith(("aten::", "cuda"))]
     return ([e.key for e in rows for _ in range(e.count)],
             sum(_device_us(e) for e in rows) / 1e3)
+
+
+def device_kernel_means(fn, calls: int = 3) -> dict:
+    """``{kernel name: [launches seen, mean device ms per launch]}`` over
+    ``calls`` calls of ``fn`` under ``torch.profiler`` (after a warm-up
+    call): a kernel that a call launches once costs its mean per call, even
+    where the trace misses one of its launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: [e.count, _device_us(e) / e.count / 1e3]
+            for e in prof.key_averages()
+            if _device_us(e) > 0 and not e.key.startswith(("aten::", "cuda"))}
 
 
 def host_ms(fn, reps: int, repeats: int = 5) -> float:
@@ -548,7 +579,9 @@ def check_cross(op: str, args: tuple, shape: dict, dt, bound_rec: dict,
     """One of the cross-product kernels (``stream_stats``, ``gram_block``,
     ``sketch``) against its plain version on ``args``: bitwise equal over
     two calls and within CROSS_TOL of max |plain|; with ``timed``, CUDA-event
-    times of the kernel, the plain version and ``library``."""
+    times of the kernel, the plain version and ``library`` (the median and
+    min-max of ``TOPK_REPEATS`` rounds taken in turn) and the kernel's
+    device kernels and device time per call."""
     import torch
     from repro_torch.kernels import registry
     out = _outs(registry.dispatch(op, *args, backend="cuda"))
@@ -568,25 +601,78 @@ def check_cross(op: str, args: tuple, shape: dict, dt, bound_rec: dict,
     if timed:
         reps = reps_for(args[0].numel() * args[0].element_size()
                         + args[1].numel() * args[1].element_size())
-        rec["ms"] = time_ms(
-            lambda: registry.dispatch(op, *args, backend="cuda"), reps)
-        rec["plain_ms"] = time_ms(
-            lambda: registry.dispatch(op, *args, backend="torch"), reps)
-        rec["library_ms"] = time_ms(library, reps)
+        fns = {"ms": lambda: registry.dispatch(op, *args, backend="cuda"),
+               "plain_ms": lambda: registry.dispatch(op, *args,
+                                                     backend="torch"),
+               "library_ms": library}
+        kernels = device_kernel_means(fns["ms"])
+        rec["device_ms"] = sum(ms for _, ms in kernels.values())
+        rec["device_kernels_per_call"] = len(kernels)
+        rec["device_kernels"] = kernels
+        for key, sp in time_ms_spread(fns, reps, TOPK_REPEATS).items():
+            rec[key] = sp["median"]
+            rec[key + "_min"], rec[key + "_max"] = sp["min"], sp["max"]
+            rec[key + "_runs"] = sp["runs"]
         rec.update(bound_rec)
     return rec
 
 
+def _f64_err(got, d64, g64) -> float:
+    """max |got - (D Dᵀ, D GMᵀ) in f64| / max(1, max |f64|) over G and C."""
+    want = (d64 @ d64.T, d64 @ g64.T)
+    return max(float((a.double() - b).abs().max())
+               / max(1.0, float(b.abs().max())) for a, b in zip(got, want))
+
+
 def check_stream_stats(P: int, n: int, dt, gen, timed: bool = True,
-                       D=None, GM=None) -> dict:
+                       D=None, GM=None, body: str = None,
+                       f64: bool = False) -> dict:
+    """``check_cross`` for stream_stats, plus the body the calls took
+    (``body``, if given, must be it: ``mma`` for the tensor-core body,
+    ``cross`` for cross.cuh's) and, with ``f64``, the kernel's and the
+    plain version's error against an f64 product (the kernel's within
+    CROSS_TOL)."""
     import torch
+    from repro_torch.kernels import ops, stream
     if D is None:
         D = torch.randn((P, n), generator=gen, device="cuda").to(dt)
         GM = torch.randn((P, n), generator=gen, device="cuda").to(dt)
-    return check_cross(
+    took = "mma" if stream._mma_eligible(D, GM) else "cross"
+    need(body is None or took == body,
+         f"stream_stats P={P} n={n} {dt}: takes the {took} body, want {body}")
+    stream.reset_body_launches()
+    rec = check_cross(
         "stream_stats", (D, GM), {"P": P, "n": n}, dt,
         cross_bound(2 * P, n, P * (P + 1) // 2 + P * P, 2 * P * P, dt),
         timed, library=lambda: (D @ D.T, D @ GM.T))
+    tally = stream.body_launches()
+    need(tally[took] >= 2 and sum(tally.values()) == tally[took],
+         f"stream_stats P={P} n={n} {dt}: body launches {tally}, want only "
+         f"{took}")
+    rec["body"] = took
+    if timed:
+        log(f"stream_stats P={P} n={n} {_dtype_name(dt)}: device kernels "
+            "(launches in 3 calls, us per launch) " + ", ".join(
+                f"{k.replace('void ', '').replace('(anonymous namespace)::', '').split('(')[0]} "
+                f"{c} {ms * 1e3:.1f}"
+                for k, (c, ms) in rec["device_kernels"].items()))
+    if timed and took == "mma":
+        need(any("stream_stats_mma" in k for k in rec["device_kernels"]),
+             f"stream_stats P={P} n={n}: device kernels "
+             f"{rec['device_kernels']}")
+    if f64:
+        d64, g64 = D.double(), GM.double()
+        rec["f64_rel_err"] = _f64_err(ops.stream_stats(D, GM, backend="cuda"),
+                                      d64, g64)
+        rec["plain_f64_rel_err"] = _f64_err(
+            ops.stream_stats(D, GM, backend="torch"), d64, g64)
+        del d64, g64
+        log(f"stream_stats P={P} n={n} {_dtype_name(dt)} against an f64 "
+            f"product: kernel {rec['f64_rel_err']:.3e}, plain "
+            f"{rec['plain_f64_rel_err']:.3e} (tolerance {CROSS_TOL})")
+        need(rec["f64_rel_err"] <= CROSS_TOL,
+             f"stream_stats P={P} n={n}: {rec['f64_rel_err']:.3e} off f64")
+    return rec
 
 
 def check_gram_block(Ka: int, Kb: int, n: int, dt, gen,
@@ -618,8 +704,8 @@ def cross_phase_records(gen) -> dict:
     f32, bf16 = torch.float32, torch.bfloat16
     out = {"stream_stats": [], "gram_block": [], "sketch": []}
     for P, n in STREAM_PATH:
-        out["stream_stats"].append(dict(check_stream_stats(P, n, f32, gen),
-                                        set="path"))
+        out["stream_stats"].append(dict(
+            check_stream_stats(P, n, f32, gen, body="cross"), set="path"))
     for P, n in STREAM_RAGGED:
         for dt in (f32, bf16):
             out["stream_stats"].append(dict(
@@ -634,9 +720,25 @@ def cross_phase_records(gen) -> dict:
         out["stream_stats"].append(dict(check_stream_stats(
             D.shape[0], D.shape[1], f32, gen, timed=False, D=D, GM=GM),
             set="ragged"))
+    # the tensor-core body: column views of 1 024-wide bf16 rows (16-byte
+    # aligned) with ragged tails; a misaligned bf16 view and a mixed
+    # f32/bf16 pair keep cross.cuh's body
+    for P in STREAM_MMA_ROWS:
+        D = torch.randn((P, 1024), generator=gen, device="cuda").to(bf16)
+        GM = torch.randn((P, 1024), generator=gen, device="cuda").to(bf16)
+        for n in STREAM_MMA_COLS:
+            out["stream_stats"].append(dict(check_stream_stats(
+                P, n, bf16, gen, timed=False, D=D[:, :n], GM=GM[:, :n],
+                body="mma", f64=True), set="ragged"))
+    out["stream_stats"].append(dict(check_stream_stats(
+        16, 1000, bf16, gen, timed=False, D=D[:16, 1:1001],
+        GM=GM[:16, 1:1001], body="cross"), set="ragged"))
+    out["stream_stats"].append(dict(check_stream_stats(
+        16, 1000, f32, gen, timed=False, D=D[:16, :1000].float(),
+        GM=GM[:16, :1000], body="cross"), set="ragged"))
     for P, n in STREAM_MODEL:
-        out["stream_stats"].append(dict(check_stream_stats(P, n, bf16, gen),
-                                        set="model"))
+        out["stream_stats"].append(dict(check_stream_stats(
+            P, n, bf16, gen, body="mma", f64=True), set="model"))
         torch.cuda.empty_cache()
     for Ka, Kb, n in GRAM_BLOCK_BENCH:
         out["gram_block"].append(dict(check_gram_block(Ka, Kb, n, f32, gen),
@@ -799,8 +901,12 @@ def _log_rec(name: str, rec: dict) -> None:
                                                 "m", "B", "S", "KV", "G",
                                                 "hd", "window") if k in rec)
     kernels = (f" kernels/call={rec['device_kernels_per_call']} device="
-               f"{rec['device_ms'] * 1e3:.1f}us host={rec['host_ms'] * 1e3:.1f}us"
+               f"{rec['device_ms'] * 1e3:.1f}us"
                if "device_kernels_per_call" in rec else "")
+    if "host_ms" in rec:
+        kernels += f" host={rec['host_ms'] * 1e3:.1f}us"
+    if "body" in rec:
+        kernels += f" body={rec['body']}"
     log(f"{name:19s} {rec['set']:6s} {shape:28s} {rec['dtype']:9s} "
         f"err={rec['max_abs_err']:.3e} kernel={_fmt_spread(rec, 'ms')}us "
         f"plain={_fmt_spread(rec, 'plain_ms')}us "
@@ -1134,6 +1240,7 @@ def streamed_phase(ds, params) -> dict:
     from repro_torch.fl import run_hier_simulation
     from repro_torch.hier import HierConfig, two_tier_topology
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import stream
     from repro_torch.models.logistic import logistic_apply, logistic_loss
     from repro_torch.obs import InMemoryTracker, use_tracker
 
@@ -1162,6 +1269,7 @@ def streamed_phase(ds, params) -> dict:
             tracker = InMemoryTracker()
             torch.cuda.synchronize()
             reset_launch_counts()
+            stream.reset_body_launches()
             with use_tracker(tracker):
                 r = run_hier_simulation(
                     f"{name}_{engine}", logistic_loss, logistic_apply, params,
@@ -1181,6 +1289,11 @@ def streamed_phase(ds, params) -> dict:
             need(not plain, f"streamed {name} ({engine}): plain versions ran "
                  f"on the path: {plain}")
             if engine == "streamed":
+                # the paper path's P = 100 f32 slabs keep cross.cuh's body
+                bodies = stream.body_launches()
+                need(bodies == {"mma": 0,
+                                "cross": counts["stream_stats/cuda"]},
+                     f"streamed {name}: stream_stats bodies {bodies}")
                 need(len(snaps) == HIER_ROUNDS - r.rounds_skipped,
                      f"streamed {name}: {len(snaps)} rounds published")
                 prev = {k: 0 for k in counts}
@@ -1268,7 +1381,7 @@ def bigmodel_phase() -> dict:
     from repro_torch.hier import HierRoundEngine
     from repro_torch.hier.streamed import StreamedRoundEngine, dense_round_bytes
     from repro_torch.kernels import (force_backend, launch_counts,
-                                     reset_launch_counts)
+                                     reset_launch_counts, stream)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
@@ -1289,11 +1402,16 @@ def bigmodel_phase() -> dict:
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     reset_launch_counts()
+    stream.reset_body_launches()
     ctx = seng.begin_round(deltas, grads)
     torch.cuda.synchronize()
     rise = torch.cuda.max_memory_allocated() - base
     need(launch_counts()["stream_stats/cuda"] == len(deltas),
          f"bigmodel: begin_round launched {launch_counts()}")
+    # every slab of the accumulate pass takes the tensor-core body
+    bodies = stream.body_launches()
+    need(bodies == {"mma": len(deltas), "cross": 0},
+         f"bigmodel: begin_round's stream_stats bodies {bodies}")
     log(f"bigmodel: begin_round raised allocated memory by {rise} B "
         f"(limit {BIG_MEMORY_RISE}; one f32 (P, n) copy: {P * n * 4} B)")
     need(rise < BIG_MEMORY_RISE, f"bigmodel: begin_round raised memory by "
@@ -1322,6 +1440,7 @@ def bigmodel_phase() -> dict:
     acc_library_ms = time_ms(library_pass, 5, warmup=1)
     # whole rounds: host clock around a round that ends in a sync
     reset_launch_counts()
+    stream.reset_body_launches()
     round_ms = []
     for _ in range(4):
         torch.cuda.synchronize()
@@ -1333,6 +1452,8 @@ def bigmodel_phase() -> dict:
     need(counts["stream_stats/cuda"] == 4 * len(deltas)
          and counts["combine/cuda"] == 4 * len(deltas),
          f"bigmodel: 4 rounds launched {counts}")
+    need(stream.body_launches() == {"mma": 4 * len(deltas), "cross": 0},
+         f"bigmodel: 4 rounds' stream_stats bodies {stream.body_launches()}")
     plain = {k: v for k, v in counts.items() if k.endswith("/torch") and v}
     need(not plain, f"bigmodel: plain versions ran on the path: {plain}")
     log(f"bigmodel: round ms {[round(x, 2) for x in round_ms]} (median of the "
@@ -1371,7 +1492,26 @@ def bigmodel_phase() -> dict:
         f" {err_g:.3e} and {err_c:.3e} (tolerance {CROSS_TOL})")
     need(max(err_g, err_c) <= CROSS_TOL, f"bigmodel: G/C err {err_g:.3e}, "
          f"{err_c:.3e}")
-    del ref_ctx
+    # both against the same statistics in f64, slab by slab
+    G64 = torch.zeros((P, P), dtype=torch.float64, device="cuda")
+    C64 = torch.zeros_like(G64)
+    for k in sorted(deltas):
+        d64 = deltas[k].reshape(P, -1).double()
+        G64 += d64 @ d64.T
+        C64 += d64 @ grads[k].reshape(P, -1).double().T
+        del d64
+    f64_errs = {}
+    for who, c in (("kernel", ctx), ("plain", ref_ctx)):
+        f64_errs[who] = (
+            float((c.G.double() - G64).abs().max() / G64.abs().max()),
+            float((c.C.double() - C64).abs().max() / C64.abs().max()))
+    log(f"bigmodel: G and C against an f64 product: kernel "
+        f"{f64_errs['kernel'][0]:.3e} and {f64_errs['kernel'][1]:.3e}, plain "
+        f"{f64_errs['plain'][0]:.3e} and {f64_errs['plain'][1]:.3e} "
+        f"(tolerance {CROSS_TOL})")
+    need(max(f64_errs["kernel"]) <= CROSS_TOL,
+         f"bigmodel: G/C off f64 by {f64_errs['kernel']}")
+    del ref_ctx, G64, C64
 
     svec = sctx.materialize(sdelta)
     feng = HierRoundEngine(template, cfg, "contextual")
@@ -1387,7 +1527,10 @@ def bigmodel_phase() -> dict:
             "accumulate_library_ms": acc_library_ms, "stages_ms": stages_ms,
             "apply_ms": apply_ms, "apply_bound_ms": apply_bound,
             "memory_rise_bytes": rise,
-            "G_rel_err": err_g, "C_rel_err": err_c, "delta_rel_err": derr}
+            "G_rel_err": err_g, "C_rel_err": err_c, "delta_rel_err": derr,
+            "G_C_f64_rel_err": f64_errs["kernel"],
+            "plain_G_C_f64_rel_err": f64_errs["plain"],
+            "accumulate_body": "mma"}
 
 
 # ------------------------------------------------------------------- serve
@@ -1804,13 +1947,18 @@ def setup_phase() -> str:
             f"columns per split, rows per pass) {rng_sketch.grid(K, n, m, sms)}"
             f" x {-(-m // rng_sketch.ROWS_PER_BLOCK)} row tiles of 128 "
             f"threads; adjoint: {-(-n // 64)} blocks of 64 threads")
-    for fn, dims, n in (("stream_stats_launch_config", (100,), 7840),
-                        ("stream_stats_launch_config", (16,), 8192 * 1024),
+    for fn, dims, n in (("stream_stats_launch_config", (100, 0), 7840),
+                        ("stream_stats_launch_config", (16, 1), 8192 * 1024),
                         ("gram_block_launch_config", (64, 32), 1 << 24),
                         ("sketch_apply_launch_config", (8, 1024),
                          (1 << 20) + 3)):
         per_sm, slices = cross.launch_config(fn, dims, 0)
-        log(f"launch: {fn.replace('_launch_config', '')} rows {dims} n={n}: "
+        what = fn.replace("_launch_config", "")
+        if fn.startswith("stream_stats"):
+            what += (f" ({'mma' if dims[1] else 'cross'} body) P={dims[0]}")
+        else:
+            what += f" rows {dims}"
+        log(f"launch: {what} n={n}: "
             f"{slices} slices x (blocks, columns per block) "
             f"{cross.grid(n, sms, per_sm, slices)}, {per_sm} blocks of 256 "
             "threads per SM")

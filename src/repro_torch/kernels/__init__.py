@@ -18,7 +18,9 @@ Ops (``cuda`` / ``torch`` backends, selected by the tensors' device — see
     the (o, lse) partials (``csrc/decode_attn.cu``); ``lse_merge`` combines
     partials of a split cache in plain torch
 
-The last three share one device body, ``csrc/cross.cuh``.
+The last three share one device body, ``csrc/cross.cuh``; ``stream_stats``
+takes a tensor-core body of its own for bf16 inputs with P <= 32
+(``stream._mma_eligible``).
 
 The CUDA sources build at first use with ``nvcc`` for ``sm_90a``
 (``_build.py``); importing this package builds nothing.

@@ -382,8 +382,8 @@ def test_stream_stats_takes_slab_views_without_a_copy(cuda_device):
     gleaf = _randn(gen, (16, 1024, 1024), torch.bfloat16, cuda_device)
     slab, gslab = leaf.reshape(16, -1), gleaf.reshape(16, -1)
     assert slab.data_ptr() == leaf.data_ptr()
-    per_sm, slices = cross.launch_config("stream_stats_launch_config", (16,),
-                                         cuda_device.index or 0)
+    per_sm, slices = cross.launch_config("stream_stats_launch_config",
+                                         (16, 1), cuda_device.index or 0)
     blocks, _ = cross.grid(slab.shape[1], torch.cuda.get_device_properties(
         cuda_device).multi_processor_count, per_sm, slices)
     expect = 2 * 16 * 16 * 4 + slices * blocks * 64 * 64 * 4
@@ -403,6 +403,82 @@ def test_stream_stats_takes_slab_views_without_a_copy(cuda_device):
     G, C = stream_stats_cuda(win, win)
     Gr, Cr = ref.stream_stats_ref(win, win)
     assert _rel_err(G, Gr) <= CROSS_TOL and _rel_err(C, Cr) <= CROSS_TOL
+
+
+def _f64_stats(D, GM):
+    d = D.double()
+    return d @ d.T, d @ GM.double().T
+
+
+def _check_mma_body(D, GM):
+    """Two calls of the tensor-core body: bitwise equal, G symmetric, within
+    CROSS_TOL of the plain version and of an f64 product, and ``out=``
+    adding into running sums."""
+    from repro_torch.kernels import stream
+    stream.reset_body_launches()
+    reset_launch_counts()
+    G, C = stream_stats(D, GM)
+    G2, C2 = stream_stats(D, GM)
+    assert launch_counts()["stream_stats/cuda"] == 2
+    assert stream.body_launches() == {"mma": 2, "cross": 0}
+    assert torch.equal(G, G2) and torch.equal(C, C2)     # no float atomics
+    assert torch.equal(G, G.T)
+    Gr, Cr = ref.stream_stats_ref(D, GM)
+    assert _rel_err(G, Gr) <= CROSS_TOL and _rel_err(C, Cr) <= CROSS_TOL
+    G64, C64 = _f64_stats(D, GM)
+    assert _rel_err(G.double(), G64) <= CROSS_TOL
+    assert _rel_err(C.double(), C64) <= CROSS_TOL
+    out = (G.clone(), C.clone())
+    assert stream_stats(D, GM, out=out) is out           # adds into out
+    assert _rel_err(out[0].double(), 2 * G64) <= CROSS_TOL
+    assert _rel_err(out[1].double(), 2 * C64) <= CROSS_TOL
+    assert stream.body_launches()["mma"] == 3
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 1000, 4097])
+@pytest.mark.parametrize("P", [1, 5, 16, 17, 32])
+def test_stream_stats_mma_body(cuda_device, P, n):
+    """bf16 D and GM with P <= 32 and 16-byte aligned rows take the
+    tensor-core body: column views of 4 104-wide tensors (row stride a
+    multiple of 8), ragged column tails included."""
+    from repro_torch.kernels.stream import _mma_eligible
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(P * 131 + n)
+    D = _randn(gen, (P, 4104), torch.bfloat16, cuda_device)[:, :n]
+    GM = _randn(gen, (P, 4104), torch.bfloat16, cuda_device)[:, :n]
+    assert _mma_eligible(D, GM)
+    _check_mma_body(D, GM)
+
+
+def test_stream_stats_mma_body_at_the_embedding_slab(cuda_device):
+    """The big-model round's widest slab: P = 16, n = 8 192 x 1 024."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(8)
+    D = _randn(gen, (16, 8192 * 1024), torch.bfloat16, cuda_device)
+    GM = _randn(gen, (16, 8192 * 1024), torch.bfloat16, cuda_device)
+    _check_mma_body(D, GM)
+
+
+def test_stream_stats_other_calls_take_cross_partial(cuda_device):
+    """A misaligned bf16 view, a mixed f32/bf16 pair and P = 33 keep the
+    cross.cuh body, with its results unchanged."""
+    from repro_torch.kernels import stream
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(33)
+    wide = _randn(gen, (16, 1024), torch.bfloat16, cuda_device)
+    gwide = _randn(gen, (16, 1024), torch.bfloat16, cuda_device)
+    cases = [(wide[:, 1:1001], gwide[:, 1:1001]),
+             (wide.float(), gwide),
+             (_randn(gen, (33, 1000), torch.bfloat16, cuda_device),
+              _randn(gen, (33, 1000), torch.bfloat16, cuda_device))]
+    for D, GM in cases:
+        assert not stream._mma_eligible(D, GM)
+        stream.reset_body_launches()
+        G, C = stream_stats(D, GM)
+        assert stream.body_launches() == {"mma": 0, "cross": 1}
+        Gr, Cr = ref.stream_stats_ref(D, GM)
+        assert torch.equal(G, G.T)
+        assert _rel_err(G, Gr) <= CROSS_TOL and _rel_err(C, Cr) <= CROSS_TOL
 
 
 @pytest.mark.parametrize("Ka,Kb,n", [(1, 1, 1), (5, 7, 333), (64, 32, 4097),

@@ -9,6 +9,8 @@ flash_decode, 1e-4 for lse_merge over seq shards).  ``stream_stats`` is held aga
 reference in ``tests/test_torch_streamed.py``.  The CUDA kernels themselves are tested on the card
 by ``tests/test_torch_cuda.py``.
 """
+import ctypes
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -328,6 +330,61 @@ def test_cross_grid_covers_every_column(n, slices):
     assert cols % 256 == 0
     assert 1 <= blocks and blocks * slices <= max(2 * 132, slices)
     assert blocks * cols >= n > (blocks - 1) * cols
+
+
+def _bf16(P, width):
+    return torch.zeros((P, width), dtype=torch.bfloat16)
+
+
+_WIDE = _bf16(16, 1024)
+_MMA_CASES = {
+    "bf16 aligned": (_WIDE, _WIDE, True),
+    "column view of aligned rows": (_WIDE[:, :1000], _WIDE[:, :1000], True),
+    "offset view 16 bytes in": (_WIDE[:, 8:], _WIDE[:, 8:], True),
+    "one column": (_WIDE[:, :1], _WIDE[:, :1], True),
+    "f32": (_WIDE.float(), _WIDE.float(), False),
+    "mixed f32/bf16": (_WIDE.float(), _WIDE, False),
+    "mixed bf16/f32": (_WIDE, _WIDE.float(), False),
+    "f16": (_WIDE.half(), _WIDE.half(), False),
+    "P = 1": (_bf16(1, 32), _bf16(1, 32), True),
+    "P = 32": (_bf16(32, 64), _bf16(32, 64), True),
+    "P = 33": (_bf16(33, 64), _bf16(33, 64), False),
+    "row stride 1 020 (% 8 = 4)": (_bf16(4, 1020), _bf16(4, 1020), False),
+    "grads' row stride % 8 != 0": (_bf16(4, 1024)[:, :1020],
+                                   _bf16(4, 1020), False),
+    "data_ptr 2 bytes in": (_WIDE[:, 1:], _WIDE[:, 1:], False),
+    "grads' data_ptr 2 bytes in": (_WIDE[:, 8:], _WIDE[:, 1:1017], False),
+    "n = 0": (_WIDE[:, :0], _WIDE[:, :0], False),
+}
+
+
+@pytest.mark.parametrize("case", list(_MMA_CASES))
+def test_mma_eligible_rule(case):
+    """The tensor-core body takes bf16 D and GM with 1 <= P <= 32, n >= 1,
+    row strides that are multiples of 8 elements and 16-byte aligned
+    pointers; every other call keeps cross.cuh's body."""
+    from repro_torch.kernels.stream import MMA_MAX_ROWS, _mma_eligible
+    D, GM, want = _MMA_CASES[case]
+    assert MMA_MAX_ROWS == 32
+    assert _mma_eligible(D, GM) is want
+
+
+def test_stream_stats_mma_body_is_built_and_bound():
+    """``stream_stats.cu`` defines the tensor-core launcher the wrapper binds
+    and issues bf16 ``mma.sync`` with f32 accumulators; the launch-config
+    query takes the body as its second argument; ``cross.cuh`` still
+    serves the other calls."""
+    text = (_build.CSRC / "stream_stats.cu").read_text()
+    sig = _build._SIGNATURES
+    assert sig["stream_stats_launch_config"][:2] == [ctypes.c_int,
+                                                     ctypes.c_int]
+    assert len(sig["stream_stats_launch_config"]) == 4
+    assert ('extern "C" int stream_stats_launch_config(int P, int mma,'
+            in text)
+    assert 'extern "C" int stream_stats_mma_launch(' in text
+    assert len(sig["stream_stats_mma_launch"]) == 14
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in text
+    assert '#include "cross.cuh"' in text and "cross_finish<<<" in text
 
 
 # --------------------------------------------------------- flash_decode
