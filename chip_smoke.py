@@ -12,16 +12,20 @@ Phases (any failure exits non-zero and prints no result line):
      kernels from ``src/repro_torch/kernels/csrc`` (build seconds, the
      ``ptxas -v`` registers per kernel, and the dynamic shared memory and
      resident blocks per SM each launch uses);
-  2. kernels — ``gram`` (K up to 100, the gateways' 23-25 among them),
+  2. kernels — ``gram`` (K up to 100, the gateways' 23-25 among them; the
+     body each call took: the bf16 tensor-core body of ``gram_mma.cu`` for
+     bf16 U and g with K <= 127 and n % 8 == 0, ``gram.cu`` for the rest),
      ``combine``, ``topk``, ``sign_sketch`` and ``sign_sketch_adjoint``
      against their plain PyTorch versions on the card at the main paths'
      shapes, a ragged small set and
      model widths: max |err| within the stated tolerance (``topk`` exactly),
      two ``gram`` and two ``sign_sketch`` calls bitwise equal, and
      CUDA-event times of the kernel, the plain version and a one-call
-     PyTorch yardstick (where one exists) beside the bound (``topk``: the
-     median and min-max of five rounds, and one device kernel per call at
-     every shape of the one-block path, from ``torch.profiler``);
+     PyTorch yardstick (where one exists) beside the bound (``topk`` and
+     ``gram``: the median and min-max of five rounds, with device µs from
+     ``torch.profiler``; ``topk``: one device kernel per call at every
+     shape of the one-block path; ``gram``'s tensor-core rows also against
+     an f64 product beside the plain version's distance from it);
   3. path    — ``run_simulation`` at paper-logreg width (784 → 10) on
      MNIST-like data over 100 devices, contextual then FedAvg, with the
      launch counters showing that every round went through the kernels and
@@ -32,7 +36,9 @@ Phases (any failure exits non-zero and prints no result line):
      gateways, and the two tiers with ``topk`` and with ``sign_sketch``
      summaries.  The counters must show ``gram`` on every round and ``topk``
      or ``sign_sketch`` + ``sign_sketch_adjoint`` on every compressed round,
-     and no plain version; the losses must fall; compressed cloud uplink
+     and no plain version (every ``gram`` launch of the sync, hier,
+     streamed, bigmodel and serve phases runs ``gram.cu``'s body: their
+     inputs are f32); the losses must fall; compressed cloud uplink
      below uncompressed below star; one uncompressed and one
      ``sign_sketch`` round on the card match the same round on the CPU;
   5. streamed — the same two-tier runs (uncompressed, ``topk``,
@@ -133,6 +139,11 @@ MODEL = [(K, n) for K in (10, 64) for n in ((1 << 20) + 3, 1 << 24)]
 # K = 100 at model width beside K = 64 above
 GRAM_GATEWAY = [(25, 7850), (23, 7850)]
 GRAM_WIDE = [(65, 7850), (100, 7850), (100, 1 << 24)]
+# gram's tensor-core body (bf16, K <= 127, n % 8 == 0): every 16-row tile
+# count of [U; g] and its edges, with ragged last staged tiles; the model
+# rows K = 10, 64 (MODEL) and 100 (GRAM_WIDE) at n = 2^24 take it timed
+GRAM_MMA_K = (1, 15, 16, 17, 31, 32, 63, 64, 65, 100, 127)
+GRAM_MMA_N = (8, 72, 4104)
 N_PATH = 7850
 # topk (n, k): the hier path's summaries (ū and ĝ at ratio 3.4 / u_frac
 # 0.75, and the default ratio 8), ragged, ties, and model widths
@@ -366,31 +377,102 @@ def _scale(t) -> float:
     return max(1.0, float(t.float().abs().max()))
 
 
-def check_gram(K: int, n: int, dt, gen, timed: bool = True) -> dict:
+def _gram_f64_err(got, U, g, chunk: int = 1 << 22) -> float:
+    """max |got - (U Uᵀ, U g) in f64| / max(1, max |f64|) over G and c (the
+    f64 product summed over column chunks, so the copy stays small)."""
     import torch
-    from repro_torch.kernels import ops, ref
-    U = torch.randn((K, n), generator=gen, device="cuda").to(dt)
-    g = torch.randn((n,), generator=gen, device="cuda").to(dt)
+    K, n = U.shape
+    G64 = torch.zeros((K, K), dtype=torch.float64, device=U.device)
+    c64 = torch.zeros((K,), dtype=torch.float64, device=U.device)
+    for c0 in range(0, n, chunk):
+        u = U[:, c0:c0 + chunk].double()
+        G64 += u @ u.T
+        c64 += u @ g[c0:c0 + chunk].double()
+        del u
+    return max(float((a.double() - b).abs().max())
+               / max(1.0, float(b.abs().max()))
+               for a, b in zip(got, (G64, c64)))
+
+
+def _time_record(rec: dict, fns: dict, reps: int) -> None:
+    """Into ``rec``: the device kernels of a call of ``fns["ms"]`` (mean µs
+    per launch over three calls) and the median and min-max of
+    ``TOPK_REPEATS`` rounds of CUDA-event times of every fn, in turn."""
+    kernels = device_kernel_means(fns["ms"])
+    rec["device_ms"] = sum(ms for _, ms in kernels.values())
+    rec["device_kernels_per_call"] = len(kernels)
+    rec["device_kernels"] = kernels
+    for key, sp in time_ms_spread(fns, reps, TOPK_REPEATS).items():
+        rec[key] = sp["median"]
+        rec[key + "_min"], rec[key + "_max"] = sp["min"], sp["max"]
+        rec[key + "_runs"] = sp["runs"]
+
+
+def _kernel_names(rec: dict) -> str:
+    """``rec``'s device kernels as "name launches µs-per-launch"."""
+    return ", ".join(
+        f"{k.replace('void ', '').replace('(anonymous namespace)::', '').split('(')[0]} "
+        f"{c} {ms * 1e3:.1f}" for k, (c, ms) in rec["device_kernels"].items())
+
+
+def check_gram(K: int, n: int, dt, gen, timed: bool = True, body: str = None,
+               f64: bool = False, U=None, g=None) -> dict:
+    """gram against its plain version: two calls bitwise equal, G symmetric,
+    within the tolerance, and the body both took (``mma``: gram_mma.cu,
+    ``cuda_core``: gram.cu; ``body``, if given, must be it); with ``timed``
+    the spread of kernel, plain and ``torch.matmul`` times and the device
+    kernels; with ``f64`` the kernel's and the plain version's error
+    against an f64 product (the kernel's within the tolerance)."""
+    import torch
+    from repro_torch.kernels import gram, ops, ref
+    if U is None:
+        U = torch.randn((K, n), generator=gen, device="cuda").to(dt)
+        g = torch.randn((n,), generator=gen, device="cuda").to(dt)
+    dt = U.dtype
+    took = "mma" if gram._mma_eligible(U, g) else "cuda_core"
+    what = f"gram K={K} n={n} {_dtype_name(U.dtype)}/{_dtype_name(g.dtype)}"
+    need(body is None or took == body,
+         f"{what}: takes the {took} body, want {body}")
+    gram.reset_body_launches()
     G, c = ops.gram_and_cross(U, g, backend="cuda")
     G2, c2 = ops.gram_and_cross(U, g, backend="cuda")
+    tally = gram.body_launches()
+    need(tally[took] == 2 and sum(tally.values()) == 2,
+         f"{what}: body launches {tally}, want 2 on {took}")
     Gr, cr = ref.gram_ref(U, g)
     torch.cuda.synchronize()
     need(G.shape == (K, K) and c.shape == (K,) and G.dtype == torch.float32,
-         f"gram K={K} n={n}: output shapes {tuple(G.shape)}, {tuple(c.shape)}")
+         f"{what}: output shapes {tuple(G.shape)}, {tuple(c.shape)}")
     bitwise = bool(torch.equal(G, G2) and torch.equal(c, c2))
-    need(bitwise, f"gram K={K} n={n} {dt}: two calls differ bitwise")
+    need(bitwise, f"{what}: two calls differ bitwise")
+    need(torch.equal(G, G.T), f"{what}: G is not symmetric")
     err = max(_max_err(G, Gr) / _scale(Gr), _max_err(c, cr) / _scale(cr))
     abs_err = max(_max_err(G, Gr), _max_err(c, cr))
     tol = TOL[("gram", _dtype_name(dt))]
-    need(err <= tol, f"gram K={K} n={n} {dt}: relative err {err:.3e} > {tol}")
+    need(err <= tol, f"{what}: relative err {err:.3e} > {tol}")
     rec = {"K": K, "n": n, "dtype": _dtype_name(dt), "max_abs_err": abs_err,
-           "rel_err": err, "tolerance": tol, "bitwise_repeatable": bitwise}
+           "rel_err": err, "tolerance": tol, "bitwise_repeatable": bitwise,
+           "body": took}
+    if f64:
+        rec["f64_rel_err"] = _gram_f64_err((G, c), U, g)
+        rec["plain_f64_rel_err"] = _gram_f64_err((Gr, cr), U, g)
+        log(f"{what} against an f64 product: kernel "
+            f"{rec['f64_rel_err']:.3e}, plain {rec['plain_f64_rel_err']:.3e} "
+            f"(tolerance {tol})")
+        need(rec["f64_rel_err"] <= tol,
+             f"{what}: {rec['f64_rel_err']:.3e} off an f64 product")
     if timed:
         reps = reps_for(U.numel() * U.element_size())
-        rec["ms"] = time_ms(lambda: ops.gram_and_cross(U, g, backend="cuda"), reps)
-        rec["plain_ms"] = time_ms(lambda: ref.gram_ref(U, g), reps)
-        rec["library_ms"] = time_ms(lambda: (U @ U.T, U @ g), reps)
+        _time_record(rec, {
+            "ms": lambda: ops.gram_and_cross(U, g, backend="cuda"),
+            "plain_ms": lambda: ref.gram_ref(U, g),
+            "library_ms": lambda: (U @ U.T, U @ g)}, reps)
         rec.update(gram_bound(K, n, dt))
+        log(f"{what}: device kernels (launches in 3 calls, us per launch) "
+            + _kernel_names(rec))
+        if took == "mma":
+            need(any("gram_mma_partial" in k for k in rec["device_kernels"]),
+                 f"{what}: device kernels {rec['device_kernels']}")
     return rec
 
 
@@ -601,18 +683,10 @@ def check_cross(op: str, args: tuple, shape: dict, dt, bound_rec: dict,
     if timed:
         reps = reps_for(args[0].numel() * args[0].element_size()
                         + args[1].numel() * args[1].element_size())
-        fns = {"ms": lambda: registry.dispatch(op, *args, backend="cuda"),
-               "plain_ms": lambda: registry.dispatch(op, *args,
-                                                     backend="torch"),
-               "library_ms": library}
-        kernels = device_kernel_means(fns["ms"])
-        rec["device_ms"] = sum(ms for _, ms in kernels.values())
-        rec["device_kernels_per_call"] = len(kernels)
-        rec["device_kernels"] = kernels
-        for key, sp in time_ms_spread(fns, reps, TOPK_REPEATS).items():
-            rec[key] = sp["median"]
-            rec[key + "_min"], rec[key + "_max"] = sp["min"], sp["max"]
-            rec[key + "_runs"] = sp["runs"]
+        _time_record(rec, {
+            "ms": lambda: registry.dispatch(op, *args, backend="cuda"),
+            "plain_ms": lambda: registry.dispatch(op, *args, backend="torch"),
+            "library_ms": library}, reps)
         rec.update(bound_rec)
     return rec
 
@@ -652,10 +726,7 @@ def check_stream_stats(P: int, n: int, dt, gen, timed: bool = True,
     rec["body"] = took
     if timed:
         log(f"stream_stats P={P} n={n} {_dtype_name(dt)}: device kernels "
-            "(launches in 3 calls, us per launch) " + ", ".join(
-                f"{k.replace('void ', '').replace('(anonymous namespace)::', '').split('(')[0]} "
-                f"{c} {ms * 1e3:.1f}"
-                for k, (c, ms) in rec["device_kernels"].items()))
+            "(launches in 3 calls, us per launch) " + _kernel_names(rec))
     if timed and took == "mma":
         need(any("stream_stats_mma" in k for k in rec["device_kernels"]),
              f"stream_stats P={P} n={n}: device kernels "
@@ -939,8 +1010,12 @@ def kernels_phase() -> dict:
                                       set="ragged"))
         for Km, nm in MODEL:
             for dt in (f32, bf16):
-                rec = dict(check(Km, nm, dt, gen), set="model")
-                out[name].append(rec)
+                # gram's bf16 rows at n = 2^24 take the tensor-core body
+                mma = name == "gram" and dt == bf16 and nm % 8 == 0
+                kw = (dict(body="mma" if mma else "cuda_core", f64=mma)
+                      if name == "gram" else {})
+                out[name].append(dict(check(Km, nm, dt, gen, **kw),
+                                      set="model"))
                 torch.cuda.empty_cache()
     # combine at the streamed apply: K = 100 at the paper path (f32), and a
     # transformer slab (bf16 rows into f32 parameters)
@@ -950,9 +1025,29 @@ def kernels_phase() -> dict:
                                              w_dt=f32), set="model"))
     for Kw, nw in GRAM_GATEWAY + GRAM_WIDE:
         for dt in (f32, bf16):
-            out["gram"].append(dict(check_gram(Kw, nw, dt, gen),
-                                    set="path" if nw == N_PATH else "model"))
+            mma = dt == bf16 and nw % 8 == 0
+            out["gram"].append(dict(
+                check_gram(Kw, nw, dt, gen, f64=mma,
+                           body="mma" if mma else "cuda_core"),
+                set="path" if nw == N_PATH else "model"))
             torch.cuda.empty_cache()
+    # gram's tensor-core body at every tile count with ragged last tiles
+    # (against f64 too), and bf16 calls that keep gram.cu's body: K = 128,
+    # n % 8 != 0, U starting 2 bytes into its buffer, and an f32 U
+    for Km in GRAM_MMA_K:
+        for nm in GRAM_MMA_N:
+            out["gram"].append(dict(check_gram(Km, nm, bf16, gen, timed=False,
+                                               body="mma", f64=True),
+                                    set="ragged"))
+    shifted = torch.randn((10 * 1024 + 1,), generator=gen,
+                          device="cuda").to(bf16)[1:].view(10, 1024)
+    g1024 = torch.randn((1024,), generator=gen, device="cuda").to(bf16)
+    for Km, nm, U_, g_ in ((128, 1024, None, None), (10, 1001, None, None),
+                           (10, 1024, shifted, g1024),
+                           (10, 1024, shifted.float(), g1024)):
+        out["gram"].append(dict(check_gram(Km, nm, bf16, gen, timed=False,
+                                           body="cuda_core", U=U_, g=g_),
+                                set="ragged"))
 
     for nk in TOPK_PATH:
         out["topk"].append(dict(check_topk(*nk, gen), set="path"))
@@ -1934,6 +2029,13 @@ def setup_phase() -> str:
                 f"{gram.row_slices(K)} grid slices; gram finish: 0 B; "
                 f"combine: 4*K = {4 * K} B (alpha)")
     sms = _build.sm_count(0)
+    for K in (1, PATH_SHAPE[0], 64, 100, 127):
+        per_sm, smem = gram.mma_launch_config(K, 0)
+        log(f"launch: gram_mma_partial K={K} bf16 (Kp={gram.mma_rows(K)}, "
+            f"tiles per warp {max(len(w) for w in gram.mma_deal(K))}): "
+            f"{smem} B dynamic shared memory per block, {per_sm} blocks of "
+            f"256 threads per SM; n=2^24: (blocks, columns per block) "
+            f"{gram.grid(1 << 24, sms, per_sm)}")
     for n, k in TOPK_PATH:
         p2 = 1 << (k - 1).bit_length()
         log(f"launch: topk n={n} k={k}: one block of 1024 threads, "
@@ -2030,25 +2132,48 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     t_start = time.perf_counter()
+    from repro_torch.kernels import gram
+    gram_bodies = {}
+
+    def on_cuda_core(path: str, phase, *args):
+        """Run a path phase; every gram launch in it must take gram.cu's
+        body (the paths hand gram f32 inputs)."""
+        gram.reset_body_launches()
+        result = phase(*args)
+        gram_bodies[path] = gram.body_launches()
+        need(gram_bodies[path]["mma"] == 0,
+             f"{path}: gram bodies {gram_bodies[path]}, want cuda_core only")
+        return result
+
     try:
         smi_line = setup_phase()
         kern = kernels_phase()
-        sync_counts, ds, params = path_phase()
-        hier_counts = hier_phase(ds, params)
-        streamed_counts = streamed_phase(ds, params)
-        big = bigmodel_phase()
-        served = serve_phase()
+        sync_counts, ds, params = on_cuda_core("sync", path_phase)
+        hier_counts = on_cuda_core("hier", hier_phase, ds, params)
+        streamed_counts = on_cuda_core("streamed", streamed_phase, ds, params)
+        big = on_cuda_core("bigmodel", bigmodel_phase)
+        served = on_cuda_core("serve", serve_phase)
+        by_path = {"sync": sync_counts, "hier": hier_counts,
+                   "streamed": streamed_counts, "bigmodel": big["counts"],
+                   "serve": served["counts"]}
+        for path, counts in by_path.items():
+            need(gram_bodies[path]["cuda_core"] >= counts.get("gram/cuda", 0),
+                 f"{path}: {counts.get('gram/cuda', 0)} gram launches, "
+                 f"bodies {gram_bodies[path]}")
+        log(f"gram bodies by path (each phase, its checks against the CPU "
+            f"included): {gram_bodies}")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
-    by_path = {"sync": sync_counts, "hier": hier_counts,
-               "streamed": streamed_counts, "bigmodel": big["counts"],
-               "serve": served["counts"]}
     entries = [kernel_entry(name, kern[name],
                             {path: counts.get(f"{name}/cuda", 0)
                              for path, counts in by_path.items()})
                for name in KERNEL_SOURCES]
     names = [e["name"] for e in entries]
+    entries[names.index("gram")].update(
+        sources=[KERNEL_SOURCES["gram"][0],
+                 "src/repro_torch/kernels/csrc/gram_mma.cu"],
+        bodies_by_path=gram_bodies)
     entries[names.index("stream_stats")]["bigmodel"] = {
         k: v for k, v in big.items() if k != "counts"}
     entries[names.index("flash_decode")]["serve"] = {

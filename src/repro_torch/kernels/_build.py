@@ -43,6 +43,8 @@ _SIGNATURES = {
     "gram_launch": [_VP, _VP, _VP, _LL, _VP, _VP, _I, _LL, _I, _I, _I, _LL,
                     _VP],
     "gram_launch_config": [_I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
+    "gram_mma_launch": [_VP, _VP, _VP, _LL, _VP, _VP, _I, _LL, _I, _LL, _VP],
+    "gram_mma_launch_config": [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
     "combine_launch": [_VP, _VP, _VP, _VP, _I, _LL, _I, _I, _I, _VP],
     "topk_launch": [_VP, _LL, _I, _VP, _LL, _VP, _VP, _I, _LL, _VP],
     "topk_small_launch": [_VP, _I, _I, _VP, _VP, _VP],

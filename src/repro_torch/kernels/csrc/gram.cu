@@ -47,8 +47,9 @@
 // product bounds it.  On this design the full cross slice sets the time: its
 // 256 tiles keep every thread reading two 16-byte operands from shared
 // memory per 16 FMAs, while the diagonal slices, with as many blocks, finish
-// early.  Moving the product to the tensor cores (mma.sync / wgmma, bf16 in,
-// f32 accumulate) is the step beyond this design.
+// early.  Where U and g are both bf16 (K <= 127, n % 8 == 0, aligned), the
+// product runs on the tensor cores instead: gram_mma.cu (mma.sync, bf16 in,
+// f32 accumulate), chosen by kernels/gram.py::_mma_eligible.
 // U's rows start at byte 4·k·n, which is not 16-byte aligned for odd n, so the
 // global loads are scalar (coalesced along the columns).
 

@@ -1,13 +1,17 @@
 """``gram``: G = U Uᵀ and c = U g in one pass over n, and ``gram_block``:
 G_ab = U_a U_bᵀ and c_a = U_a g — the Hopper kernels.
 
-``gram_cuda`` replaces ``repro.kernels.gram.gram_pallas``.  The CUDA source
-(``csrc/gram.cu``) says what bounds it on the H100 and how the deterministic
-two-pass split reduction is laid out, for K up to 64 in one piece and above
-it as one grid slice per pair (a, b >= a) of 64-row blocks of U; this module
-checks the inputs, allocates the outputs and the per-block scratch with
-``torch.empty``, and launches both passes on the current stream without
-synchronising.
+``gram_cuda`` replaces ``repro.kernels.gram.gram_pallas``.  It has two
+bodies, chosen from the inputs alone (:func:`_mma_eligible`): a call with U
+and g both bf16, 1 <= K <= 127, n % 8 == 0 and 16-byte aligned pointers runs
+on the bf16 tensor cores (``csrc/gram_mma.cu``), every other call on the f32
+CUDA cores (``csrc/gram.cu``: K up to 64 in one piece and above it as one
+grid slice per pair (a, b >= a) of 64-row blocks of U).  Each source says
+what bounds it on the H100 and how its deterministic two-pass split
+reduction is laid out; this module checks the inputs, allocates the outputs
+and the per-block scratch with ``torch.empty``, and launches both passes on
+the current stream without synchronising.  ``body_launches()`` tallies the
+launches by body, so a run can show which body its path took.
 
 ``gram_block_cuda`` replaces ``repro.kernels.gram.gram_block_pallas``; its
 source (``csrc/gram_block.cu``) runs the shared cross-product body of
@@ -18,7 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -28,6 +32,48 @@ from .registry import count_launch
 MAX_K = 64                # rows of U in one piece, and in each row block above
 COLS_GRANULE = 128        # a block's column range is a multiple of this
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
+MMA_MAX_K = 127           # the tensor-core body's K: [U; g] in 128 rows
+MMA_WARPS = 8             # warps of a block of the tensor-core body
+MMA_STAGE_COLS = 128      # columns of one staged tile of [U; g]
+_BODY_LAUNCHES = {"mma": 0, "cuda_core": 0}
+
+
+def _mma_eligible(updates: torch.Tensor, grad: torch.Tensor) -> bool:
+    """Whether a call takes the tensor-core body: U and g both bf16,
+    1 <= K <= 127, n >= 1 with n % 8 == 0 and both ``data_ptr()`` 16-byte
+    aligned (every row of the contiguous U then starts 16-byte aligned).
+    Reads only dtypes, shapes and pointers."""
+    K, n = updates.shape
+    return (updates.dtype == torch.bfloat16 and grad.dtype == torch.bfloat16
+            and 1 <= K <= MMA_MAX_K and n >= 1 and n % 8 == 0
+            and updates.data_ptr() % 16 == 0 and grad.data_ptr() % 16 == 0)
+
+
+def body_launches() -> Dict[str, int]:
+    """``{"mma": launches, "cuda_core": launches}`` since the last reset."""
+    return dict(_BODY_LAUNCHES)
+
+
+def reset_body_launches() -> None:
+    for key in _BODY_LAUNCHES:
+        _BODY_LAUNCHES[key] = 0
+
+
+def mma_rows(K: int) -> int:
+    """Rows Kp of the tensor-core body's [U; g], zero-padded to a multiple
+    of 16 (its partial is Kp x Kp per block)."""
+    return 16 * -(-(K + 1) // 16)
+
+
+def mma_deal(K: int) -> List[List[Tuple[int, int]]]:
+    """The (16 x 8) output tiles (i, j) of E Eᵀ, E = [U; g] in Kp rows, that
+    each warp of a tensor-core block owns: the tiles with 8j + 7 >= 16i in
+    row-major order, ceil(count / 8) consecutive ones a warp (as
+    ``gram_mma_partial`` deals them)."""
+    mt = mma_rows(K) // 16
+    tiles = [(i, j) for i in range(mt) for j in range(2 * i, 2 * mt)]
+    per_warp = -(-len(tiles) // MMA_WARPS)
+    return [tiles[w * per_warp:(w + 1) * per_warp] for w in range(MMA_WARPS)]
 
 
 def _check(updates: torch.Tensor, grad: torch.Tensor) -> None:
@@ -95,6 +141,21 @@ def launch_config(K: int, u_bf16: bool, g_bf16: bool,
     return blocks.value, smem.value
 
 
+@functools.lru_cache(maxsize=None)
+def mma_launch_config(K: int, device_index: int) -> Tuple[int, int]:
+    """``(blocks resident per SM, dynamic shared memory bytes per block)``
+    of the tensor-core body's partial kernel for this K."""
+    lib = _build.load_library()
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        rc = lib.gram_mma_launch_config(K, ctypes.byref(blocks),
+                                        ctypes.byref(smem))
+    _build.check(lib, rc, "gram_mma occupancy query")
+    if blocks.value < 1:
+        raise RuntimeError(f"gram_mma kernel cannot be resident for K={K}")
+    return blocks.value, smem.value
+
+
 def gram_cuda(updates: torch.Tensor, grad: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``updates (K, n)``, ``grad (n,)`` (f32 or bf16, contiguous, on one
@@ -104,23 +165,34 @@ def gram_cuda(updates: torch.Tensor, grad: torch.Tensor
     dev = updates.device
     u_bf16 = updates.dtype == torch.bfloat16
     g_bf16 = grad.dtype == torch.bfloat16
-    per_sm, _ = launch_config(K, u_bf16, g_bf16, dev.index)
-    slices = row_slices(K)
+    mma = _mma_eligible(updates, grad)
+    if mma:
+        per_sm, _ = mma_launch_config(K, dev.index)
+        slices, R = 1, mma_rows(K)
+    else:
+        per_sm, _ = launch_config(K, u_bf16, g_bf16, dev.index)
+        slices, R = row_slices(K), scratch_rows(K)
     num_blocks, cols = grid(n, _build.sm_count(dev.index), per_sm, slices)
-    R = scratch_rows(K)
     out = torch.empty((K * K + K,), dtype=torch.float32, device=dev)
     G, c = out[:K * K].view(K, K), out[K * K:]
     partial = torch.empty((slices * num_blocks * R * R,), dtype=torch.float32,
                           device=dev)
     lib = _build.load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = lib.gram_launch(
-            updates.data_ptr(), grad.data_ptr(), partial.data_ptr(),
-            partial.numel(), G.data_ptr(), c.data_ptr(), K, n, int(u_bf16),
-            int(g_bf16), num_blocks, cols,
-            torch.cuda.current_stream(dev).cuda_stream)
+        if mma:
+            rc = lib.gram_mma_launch(
+                updates.data_ptr(), grad.data_ptr(), partial.data_ptr(),
+                partial.numel(), G.data_ptr(), c.data_ptr(), K, n,
+                num_blocks, cols, stream)
+        else:
+            rc = lib.gram_launch(
+                updates.data_ptr(), grad.data_ptr(), partial.data_ptr(),
+                partial.numel(), G.data_ptr(), c.data_ptr(), K, n,
+                int(u_bf16), int(g_bf16), num_blocks, cols, stream)
     _build.check(lib, rc, "gram")
     count_launch("gram", "cuda")
+    _BODY_LAUNCHES["mma" if mma else "cuda_core"] += 1
     return G, c
 
 

@@ -123,9 +123,10 @@ def test_combine_kernel_grid_stride(cuda_device):
 @pytest.mark.parametrize("K", [65, 100, 130])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gram_kernel_past_64_rows(cuda_device, K, dtype):
-    """K > 64 runs as one grid slice per pair (a, b >= a) of 32-row blocks;
-    each slice writes only its own entries of G and c, and the result stays
-    bitwise repeatable."""
+    """K > 64 runs as one grid slice per pair (a, b >= a) of 64-row blocks
+    (gram.cu's body; bf16 K = 65 and 100 at n = 7 850 too, since
+    n % 8 != 0); each slice writes only its own entries of G and c, and the
+    result stays bitwise repeatable."""
     gen = torch.Generator(device=cuda_device)
     gen.manual_seed(K)
     U = torch.randn(K, 7850, generator=gen, device=cuda_device).to(dtype)
@@ -138,6 +139,96 @@ def test_gram_kernel_past_64_rows(cuda_device, K, dtype):
     assert torch.equal(G, G.T)
     Gr, cr = ref.gram_ref(U, g)
     assert _rel_err(G, Gr) <= 1e-4 and _rel_err(c, cr) <= 1e-4
+
+
+def _gram_f64(U, g):
+    u = U.double()
+    return u @ u.T, u @ g.double()
+
+
+def _check_gram_mma(U, g):
+    """Two calls of gram's tensor-core body: bitwise equal, G symmetric,
+    within 1e-4 of the plain version and of an f64 product."""
+    from repro_torch.kernels import gram
+    gram.reset_body_launches()
+    reset_launch_counts()
+    G, c = gram_and_cross(U, g)
+    G2, c2 = gram_and_cross(U, g)
+    assert launch_counts()["gram/cuda"] == 2
+    assert launch_counts()["gram/torch"] == 0
+    assert gram.body_launches() == {"mma": 2, "cuda_core": 0}
+    assert torch.equal(G, G2) and torch.equal(c, c2)      # no float atomics
+    assert torch.equal(G, G.T)
+    Gr, cr = ref.gram_ref(U, g)
+    assert _rel_err(G, Gr) <= 1e-4 and _rel_err(c, cr) <= 1e-4
+    G64, c64 = _gram_f64(U, g)
+    assert _rel_err(G.double(), G64) <= 1e-4
+    assert _rel_err(c.double(), c64) <= 1e-4
+    return G, c
+
+
+# every 16-row tile count MT = 1..8 of [U; g], its edges (K + 1 = 16, 17,
+# 32, 33, ...), and n with a ragged last staged tile (n % 64 != 0)
+GRAM_MMA_K = [1, 15, 16, 17, 31, 32, 63, 64, 65, 100, 127]
+GRAM_MMA_N = [8, 64, 72, 4104, 65600]
+
+
+@pytest.mark.parametrize("n", GRAM_MMA_N)
+@pytest.mark.parametrize("K", GRAM_MMA_K)
+def test_gram_mma_body(cuda_device, K, n):
+    """U and g both bf16 with K <= 127, n % 8 == 0 and aligned pointers take
+    the tensor-core body (csrc/gram_mma.cu)."""
+    from repro_torch.kernels.gram import _mma_eligible
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(K * 1009 + n)
+    U = _randn(gen, (K, n), torch.bfloat16, cuda_device)
+    g = _randn(gen, (n,), torch.bfloat16, cuda_device)
+    assert _mma_eligible(U, g)
+    _check_gram_mma(U, g)
+
+
+def test_gram_mma_body_against_f64_at_model_width(cuda_device):
+    """K = 100, n = 2^22 bf16: the tensor-core body and the plain f32
+    version, each against an f64 product (the kernel within 1e-4)."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(100)
+    U = _randn(gen, (100, 1 << 22), torch.bfloat16, cuda_device)
+    g = _randn(gen, (1 << 22,), torch.bfloat16, cuda_device)
+    G, c = _check_gram_mma(U, g)
+    G64, c64 = _gram_f64(U, g)
+    Gr, cr = ref.gram_ref(U, g)
+    kernel = max(_rel_err(G.double(), G64), _rel_err(c.double(), c64))
+    plain = max(_rel_err(Gr.double(), G64), _rel_err(cr.double(), c64))
+    print(f"gram K=100 n=2^22 bf16 against f64: kernel {kernel:.3e}, "
+          f"plain {plain:.3e}")
+    assert kernel <= 1e-4
+
+
+def test_gram_other_calls_keep_the_cuda_core_body(cuda_device):
+    """bf16 K = 128, bf16 with n % 8 != 0, mixed dtypes either way, f32,
+    and a bf16 U starting 2 bytes into its buffer keep gram.cu's body."""
+    from repro_torch.kernels import gram
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(128)
+    bf16 = torch.bfloat16
+    shifted = _randn(gen, (10 * 1024 + 1,), bf16, cuda_device)[1:]
+    g1024 = _randn(gen, (1024,), bf16, cuda_device)
+    cases = [(_randn(gen, (128, 1024), bf16, cuda_device), g1024),
+             (_randn(gen, (10, 1001), bf16, cuda_device),
+              _randn(gen, (1001,), bf16, cuda_device)),
+             (_randn(gen, (10, 1024), torch.float32, cuda_device), g1024),
+             (_randn(gen, (10, 1024), bf16, cuda_device), g1024.float()),
+             (_randn(gen, (10, 1024), torch.float32, cuda_device),
+              g1024.float()),
+             (shifted.view(10, 1024), g1024)]
+    for U, g in cases:
+        assert not gram._mma_eligible(U, g)
+        gram.reset_body_launches()
+        G, c = gram_and_cross(U, g)
+        assert gram.body_launches() == {"mma": 0, "cuda_core": 1}
+        Gr, cr = ref.gram_ref(U, g)
+        assert torch.equal(G, G.T)
+        assert _rel_err(G, Gr) <= 1e-4 and _rel_err(c, cr) <= 1e-4
 
 
 def _tie_vectors(device, n=130):

@@ -383,8 +383,111 @@ def test_stream_stats_mma_body_is_built_and_bound():
             in text)
     assert 'extern "C" int stream_stats_mma_launch(' in text
     assert len(sig["stream_stats_mma_launch"]) == 14
-    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in text
+    # the bf16 mma.sync helper lives in mma.cuh, which both tensor-core
+    # bodies include
+    assert '#include "mma.cuh"' in text and "mma_bf16(" in text
+    mma = (_build.CSRC / "mma.cuh").read_text()
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in mma
     assert '#include "cross.cuh"' in text and "cross_finish<<<" in text
+
+
+def _gram_pair(K, n, dtype=torch.bfloat16, g_dtype=None, u_in=0, g_in=0):
+    """U (K, n) and g (n,), each starting ``u_in`` / ``g_in`` entries into a
+    fresh buffer (a buffer's own start is 64-byte aligned)."""
+    U = torch.zeros(K * n + u_in, dtype=dtype)[u_in:].view(K, n)
+    g = torch.zeros(n + g_in, dtype=g_dtype or dtype)[g_in:]
+    return U, g
+
+
+_GRAM_MMA_CASES = {
+    "bf16 aligned": (_gram_pair(10, 1024), True),
+    "K = 1": (_gram_pair(1, 64), True),
+    "K = 127": (_gram_pair(127, 64), True),
+    "K = 128": (_gram_pair(128, 64), False),
+    "n = 8": (_gram_pair(10, 8), True),
+    "n = 7 850 (% 8 = 2)": (_gram_pair(10, 7850), False),
+    "n = 2^20 + 3": (_gram_pair(1, (1 << 20) + 3), False),
+    "f32": (_gram_pair(10, 1024, torch.float32), False),
+    "mixed f32/bf16": (_gram_pair(10, 1024, torch.float32, torch.bfloat16),
+                       False),
+    "mixed bf16/f32": (_gram_pair(10, 1024, torch.bfloat16, torch.float32),
+                       False),
+    "f16": (_gram_pair(10, 1024, torch.float16), False),
+    "data_ptr 16 bytes in": (_gram_pair(10, 1024, u_in=8, g_in=8), True),
+    "data_ptr 2 bytes in": (_gram_pair(10, 1024, u_in=1), False),
+    "grad's data_ptr 2 bytes in": (_gram_pair(10, 1024, g_in=1), False),
+    "n = 0": (_gram_pair(10, 0), False),
+}
+
+
+@pytest.mark.parametrize("case", list(_GRAM_MMA_CASES))
+def test_gram_mma_eligible_rule(case):
+    """gram's tensor-core body takes U and g both bf16 with 1 <= K <= 127,
+    n >= 1, n % 8 == 0 and 16-byte aligned pointers; every other call keeps
+    gram.cu's body."""
+    from repro_torch.kernels.gram import MMA_MAX_K, _mma_eligible
+    (U, g), want = _GRAM_MMA_CASES[case]
+    assert MMA_MAX_K == 127
+    assert _mma_eligible(U, g) is want
+
+
+def test_gram_mma_body_is_built_and_bound():
+    """``gram_mma.cu`` defines the two launchers the wrapper binds, with the
+    argument counts ``_build`` gives them, stages with ``cp.async``, loads
+    fragments with ``ldmatrix`` and multiplies through mma.cuh's bf16
+    ``mma.sync``; ``stream_stats.cu`` includes the same header."""
+    src = _build.CSRC / "gram_mma.cu"
+    assert src in _build.sources()
+    text = src.read_text()
+    sig = _build._SIGNATURES
+    assert 'extern "C" int gram_mma_launch_config(int K, int* blocks_per_sm,' \
+        in text
+    assert sig["gram_mma_launch_config"] == [ctypes.c_int,
+                                             ctypes.POINTER(ctypes.c_int),
+                                             ctypes.POINTER(ctypes.c_int)]
+    assert 'extern "C" int gram_mma_launch(const void* U, const void* g,' \
+        in text
+    assert len(sig["gram_mma_launch"]) == 11
+    assert sig["gram_mma_launch"][6] == ctypes.c_int            # K
+    assert sig["gram_mma_launch"][7] == ctypes.c_longlong       # n
+    assert '#include "mma.cuh"' in text and "mma_bf16(" in text
+    assert "ldmatrix.sync.aligned.m8n8.x4.shared.b16" in text
+    assert "cp.async.cg.shared.global" in text
+    mma = (_build.CSRC / "mma.cuh").read_text()
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in mma
+    assert '#include "mma.cuh"' in (_build.CSRC / "stream_stats.cu").read_text()
+
+
+@pytest.mark.parametrize("mt", range(1, 9))
+def test_gram_mma_scratch_and_grid_cover_every_column_and_tile(mt):
+    """For every K of one 16-row tile count MT (K = 1 .. 127 over the eight
+    cases): the warps' tiles are disjoint, lie in the Kp x Kp partial, and
+    cover every entry (i, j >= i) of [G | c]; the one-wave grid's column
+    ranges are whole staged tiles and cover n."""
+    from repro_torch.kernels.gram import (MMA_MAX_K, MMA_STAGE_COLS,
+                                          MMA_WARPS, mma_deal, mma_rows)
+    for K in range(max(1, 16 * mt - 16), min(16 * mt, MMA_MAX_K + 1)):
+        Kp = mma_rows(K)
+        assert Kp == 16 * mt and K + 1 <= Kp <= 128
+        deal = mma_deal(K)
+        assert len(deal) == MMA_WARPS
+        tiles = [tile for warp in deal for tile in warp]
+        assert len(tiles) == len(set(tiles)) == mt * (mt + 1)
+        assert max(len(w) for w in deal) == -(-mt * (mt + 1) // MMA_WARPS)
+        owner = {}
+        for i, j in tiles:
+            assert 0 <= 16 * i < Kp and 0 <= 8 * j < Kp and 8 * j + 7 >= 16 * i
+            for r in range(16 * i, 16 * i + 16):
+                for c in range(8 * j, 8 * j + 8):
+                    owner[(r, c)] = (i, j)
+        assert all((r, c) in owner for r in range(K) for c in range(r, K + 1))
+        for n in (8, 72, 4104, 7856, 1 << 24):
+            for per_sm in (1, 2, 4, 8):
+                blocks, cols = grid(n, 132, per_sm)
+                assert cols % MMA_STAGE_COLS == 0
+                assert 1 <= blocks <= per_sm * 132
+                assert blocks * cols >= n > (blocks - 1) * cols
+                assert blocks * Kp * Kp * 4 <= 8 * 132 * 128 * 128 * 4
 
 
 # --------------------------------------------------------- flash_decode
