@@ -75,9 +75,11 @@ The kernels phase also holds ``stream_stats``, ``gram_block`` and ``sketch``
 (U Rᵀ against an explicit R) against their plain versions, bitwise
 repeatable, at the paths', the reference benchmark's and model shapes
 (timed rows as the median and min-max of five rounds, with device µs;
-``stream_stats``: which of its two bodies each shape took, and the model
-slabs and the tensor-core body's ragged shapes also against an f64
-product), and
+``stream_stats`` and ``gram_block``: which of their two bodies each shape
+took, and the model rows and the tensor-core bodies' ragged shapes also
+against an f64 product; ``gram_block``'s bf16 rows with aligned rows and
+n % 8 == 0 take the tensor-core body of ``gram_block_mma.cu``, every
+other call ``gram_block.cu``), and
 ``flash_decode`` (o and lse) at the serve path's shape, a decode_32k-like
 cache, gemma-7b's and starcoder2-15b's heads (the latter windowed), with
 ragged, strided, soft-capped and f32 caches, timed beside SDPA.
@@ -171,10 +173,20 @@ STREAM_MODEL = [(16, 8192 * 1024), (16, 1024 * 4096), (16, 1024 * 1024)]
 STREAM_MMA_ROWS = (1, 5, 16, 17, 32)
 STREAM_MMA_COLS = (1, 31, 1000)
 # gram_block (Ka, Kb, n): benchmarks/kernel_bench.py's (K, K // 2) pairs,
-# ragged, and Ka = 64, Kb = 32 at n = 2^24
+# ragged, and at n = 2^24 Ka = 64, Kb = 32 in f32 and bf16, then in bf16
+# the one-tile case (10, 5) and a gateway-cohort pair (25, 25) (the bf16
+# model rows take the tensor-core body)
 GRAM_BLOCK_BENCH = [(10, 5, 1 << 16), (16, 8, 1 << 18), (32, 16, 1 << 18)]
 GRAM_BLOCK_RAGGED = [(1, 1, 1), (5, 7, 333), (3, 130, 1000), (100, 100, 7850)]
-GRAM_BLOCK_MODEL = [(64, 32, 1 << 24)]
+GRAM_BLOCK_MODEL = [(64, 32, 1 << 24, ("float32", "bfloat16")),
+                    (10, 5, 1 << 24, ("bfloat16",)),
+                    (25, 25, 1 << 24, ("bfloat16",))]
+# gram_block's tensor-core body (bf16, Ka <= 64, Kb <= 63, n % 8 == 0): the
+# edges of every instance (MA, NB) = (ceil(Ka / 16), ceil((Kb + 1) / 8)),
+# with a ragged last staged tile at n = 4 104, against f64 too
+GRAM_BLOCK_MMA_KA = (1, 16, 17, 32, 33, 48, 49, 64)
+GRAM_BLOCK_MMA_KB = (1, 7, 8, 16, 24, 32, 40, 48, 63)
+GRAM_BLOCK_MMA_N = (8, 4104)
 # sketch (K, n, m): kernel_bench's shape, ragged, and n = 2^20 + 3
 SKETCH_APPLY_BENCH = [(8, 1 << 16, 1024)]
 SKETCH_APPLY_RAGGED = [(1, 1, 1), (3, 130, 17), (11, 1000, 129),
@@ -377,18 +389,21 @@ def _scale(t) -> float:
     return max(1.0, float(t.float().abs().max()))
 
 
-def _gram_f64_err(got, U, g, chunk: int = 1 << 22) -> float:
-    """max |got - (U Uᵀ, U g) in f64| / max(1, max |f64|) over G and c (the
-    f64 product summed over column chunks, so the copy stays small)."""
+def _gram_f64_err(got, U, g, chunk: int = 1 << 22, V=None) -> float:
+    """max |got - (U Vᵀ, U g) in f64| / max(1, max |f64|) over G and c, V = U
+    unless given (the f64 product summed over column chunks, so the copy
+    stays small)."""
     import torch
     K, n = U.shape
-    G64 = torch.zeros((K, K), dtype=torch.float64, device=U.device)
+    V = U if V is None else V
+    G64 = torch.zeros((K, V.shape[0]), dtype=torch.float64, device=U.device)
     c64 = torch.zeros((K,), dtype=torch.float64, device=U.device)
     for c0 in range(0, n, chunk):
         u = U[:, c0:c0 + chunk].double()
-        G64 += u @ u.T
+        v = u if V is U else V[:, c0:c0 + chunk].double()
+        G64 += u @ v.T
         c64 += u @ g[c0:c0 + chunk].double()
-        del u
+        del u, v
     return max(float((a.double() - b).abs().max())
                / max(1.0, float(b.abs().max()))
                for a, b in zip(got, (G64, c64)))
@@ -406,6 +421,12 @@ def _time_record(rec: dict, fns: dict, reps: int) -> None:
         rec[key] = sp["median"]
         rec[key + "_min"], rec[key + "_max"] = sp["min"], sp["max"]
         rec[key + "_runs"] = sp["runs"]
+
+
+def _gated_err(rec: dict) -> float:
+    """The relative error a record was gated on: against the plain version,
+    or against an f64 product where the plain version was no oracle."""
+    return rec["f64_rel_err"] if rec.get("gated_on") == "f64" else rec["rel_err"]
 
 
 def _kernel_names(rec: dict) -> str:
@@ -657,11 +678,14 @@ def _outs(x) -> tuple:
 
 
 def check_cross(op: str, args: tuple, shape: dict, dt, bound_rec: dict,
-                timed: bool = True, library=None) -> dict:
+                timed: bool = True, library=None,
+                plain_gate: bool = True) -> dict:
     """One of the cross-product kernels (``stream_stats``, ``gram_block``,
     ``sketch``) against its plain version on ``args``: bitwise equal over
-    two calls and within CROSS_TOL of max |plain|; with ``timed``, CUDA-event
-    times of the kernel, the plain version and ``library`` (the median and
+    two calls and within CROSS_TOL of max |plain| (unless ``plain_gate`` is
+    False: then the caller gates on an f64 product and the distance from
+    the plain version is only recorded); with ``timed``, CUDA-event times
+    of the kernel, the plain version and ``library`` (the median and
     min-max of ``TOPK_REPEATS`` rounds taken in turn) and the kernel's
     device kernels and device time per call."""
     import torch
@@ -677,9 +701,11 @@ def check_cross(op: str, args: tuple, shape: dict, dt, bound_rec: dict,
     need(bitwise, f"{what}: two calls differ bitwise")
     err = max(_max_err(a, b) / _scale(b) for a, b in zip(out, want))
     abs_err = max(_max_err(a, b) for a, b in zip(out, want))
-    need(err <= CROSS_TOL, f"{what}: relative err {err:.3e} > {CROSS_TOL}")
+    need(err <= CROSS_TOL or not plain_gate,
+         f"{what}: relative err {err:.3e} > {CROSS_TOL}")
     rec = dict(shape, dtype=_dtype_name(dt), max_abs_err=abs_err,
-               rel_err=err, tolerance=CROSS_TOL, bitwise_repeatable=bitwise)
+               rel_err=err, tolerance=CROSS_TOL, bitwise_repeatable=bitwise,
+               gated_on="plain" if plain_gate else "f64")
     if timed:
         reps = reps_for(args[0].numel() * args[0].element_size()
                         + args[1].numel() * args[1].element_size())
@@ -747,15 +773,57 @@ def check_stream_stats(P: int, n: int, dt, gen, timed: bool = True,
 
 
 def check_gram_block(Ka: int, Kb: int, n: int, dt, gen,
-                     timed: bool = True) -> dict:
+                     timed: bool = True, body: str = None, f64: bool = False,
+                     plain_gate: bool = True, ua=None, ub=None,
+                     g=None) -> dict:
+    """``check_cross`` for gram_block (U_a and U_b row blocks of one matrix
+    unless given), plus the body the calls took (``body``, if given, must
+    be it: ``mma`` for gram_block_mma.cu, ``cross`` for gram_block.cu) and,
+    with ``f64``, the kernel's and the plain version's error against an
+    f64 product (the kernel's within CROSS_TOL).  ``plain_gate=False``
+    (with ``f64``) gates on the f64 product alone: at n = 4 104 a c_a that
+    cancels below 1 leaves the plain f32 version itself beyond CROSS_TOL of
+    it."""
     import torch
-    U = torch.randn((Ka + Kb, n), generator=gen, device="cuda").to(dt)
-    ua, ub = U[:Ka], U[Ka:]                  # row blocks of one matrix
-    g = torch.randn((n,), generator=gen, device="cuda").to(dt)
-    return check_cross(
+    from repro_torch.kernels import gram, ops
+    if ua is None:
+        U = torch.randn((Ka + Kb, n), generator=gen, device="cuda").to(dt)
+        ua, ub = U[:Ka], U[Ka:]              # row blocks of one matrix
+        g = torch.randn((n,), generator=gen, device="cuda").to(dt)
+    took = "mma" if gram._block_mma_eligible(ua, ub, g) else "cross"
+    what = (f"gram_block Ka={Ka} Kb={Kb} n={n} {_dtype_name(ua.dtype)}/"
+            f"{_dtype_name(ub.dtype)}/{_dtype_name(g.dtype)}")
+    need(body is None or took == body,
+         f"{what}: takes the {took} body, want {body}")
+    gram.reset_block_body_launches()
+    rec = check_cross(
         "gram_block", (ua, ub, g), {"Ka": Ka, "Kb": Kb, "n": n}, dt,
         cross_bound(Ka + Kb + 1, n, Ka * (Kb + 1), Ka * Kb + Ka, dt),
-        timed, library=lambda: (ua @ ub.T, ua @ g))
+        timed, library=lambda: (ua @ ub.T, ua @ g),
+        plain_gate=plain_gate or not f64)
+    tally = gram.block_body_launches()
+    need(tally[took] >= 2 and sum(tally.values()) == tally[took],
+         f"{what}: body launches {tally}, want only {took}")
+    rec["body"] = took
+    if timed:
+        log(f"{what}: device kernels (launches in 3 calls, us per launch) "
+            + _kernel_names(rec))
+        if took == "mma":
+            need(any("gram_block_mma_partial" in k
+                     for k in rec["device_kernels"]),
+                 f"{what}: device kernels {rec['device_kernels']}")
+    if f64:
+        rec["f64_rel_err"] = _gram_f64_err(
+            ops.gram_block_and_cross(ua, ub, g, backend="cuda"), ua, g, V=ub)
+        rec["plain_f64_rel_err"] = _gram_f64_err(
+            ops.gram_block_and_cross(ua, ub, g, backend="torch"), ua, g, V=ub)
+        if timed:
+            log(f"{what} against an f64 product: kernel "
+                f"{rec['f64_rel_err']:.3e}, plain "
+                f"{rec['plain_f64_rel_err']:.3e} (tolerance {CROSS_TOL})")
+        need(rec["f64_rel_err"] <= CROSS_TOL,
+             f"{what}: {rec['f64_rel_err']:.3e} off an f64 product")
+    return rec
 
 
 def check_sketch_apply(K: int, n: int, m: int, dt, gen,
@@ -812,17 +880,37 @@ def cross_phase_records(gen) -> dict:
             P, n, bf16, gen, body="mma", f64=True), set="model"))
         torch.cuda.empty_cache()
     for Ka, Kb, n in GRAM_BLOCK_BENCH:
-        out["gram_block"].append(dict(check_gram_block(Ka, Kb, n, f32, gen),
-                                      set="bench"))
+        out["gram_block"].append(dict(
+            check_gram_block(Ka, Kb, n, f32, gen, body="cross"), set="bench"))
     for Ka, Kb, n in GRAM_BLOCK_RAGGED:
         for dt in (f32, bf16):
             out["gram_block"].append(dict(
-                check_gram_block(Ka, Kb, n, dt, gen, timed=False),
-                set="ragged"))
-    for Ka, Kb, n in GRAM_BLOCK_MODEL:
-        for dt in (f32, bf16):
-            out["gram_block"].append(dict(check_gram_block(Ka, Kb, n, dt, gen),
-                                          set="model"))
+                check_gram_block(Ka, Kb, n, dt, gen, timed=False,
+                                 body="cross"), set="ragged"))
+    # the tensor-core body at every instance's edges and ragged last tiles,
+    # held to an f64 product (the plain version's distance recorded); a
+    # bf16 U_a starting 2 bytes into its buffer and a mixed f32/bf16 call
+    # keep cross.cuh's body
+    for Ka in GRAM_BLOCK_MMA_KA:
+        for Kb in GRAM_BLOCK_MMA_KB:
+            for n in GRAM_BLOCK_MMA_N:
+                out["gram_block"].append(dict(check_gram_block(
+                    Ka, Kb, n, bf16, gen, timed=False, body="mma", f64=True,
+                    plain_gate=False), set="ragged"))
+    shifted = torch.randn((10 * 1024 + 1,), generator=gen,
+                          device="cuda").to(bf16)[1:].view(10, 1024)
+    ub = torch.randn((5, 1024), generator=gen, device="cuda").to(bf16)
+    g1024 = torch.randn((1024,), generator=gen, device="cuda").to(bf16)
+    for ua in (shifted, shifted.float()):
+        out["gram_block"].append(dict(check_gram_block(
+            10, 5, 1024, ua.dtype, gen, timed=False, body="cross", ua=ua,
+            ub=ub, g=g1024), set="ragged"))
+    for Ka, Kb, n, dts in GRAM_BLOCK_MODEL:
+        for dt in (getattr(torch, name) for name in dts):
+            mma = dt == bf16
+            out["gram_block"].append(dict(check_gram_block(
+                Ka, Kb, n, dt, gen, body="mma" if mma else "cross", f64=mma),
+                set="model"))
             torch.cuda.empty_cache()
     for K, n, m in SKETCH_APPLY_BENCH:
         out["sketch"].append(dict(check_sketch_apply(K, n, m, f32, gen),
@@ -1092,7 +1180,14 @@ def kernels_phase() -> dict:
                 _log_rec(name, rec)
         ragged = [r for r in recs if r["set"] == "ragged"]
         log(f"{name:19s} ragged: {len(ragged)} shapes within tolerance, "
-            f"worst rel err {max(r['rel_err'] for r in ragged):.3e}")
+            f"worst rel err {max(_gated_err(r) for r in ragged):.3e}")
+        on_f64 = [r for r in ragged if r.get("gated_on") == "f64"]
+        if on_f64:
+            log(f"{name:19s} ragged: {len(on_f64)} of them held to an f64 "
+                f"product (kernel worst {max(_gated_err(r) for r in on_f64):.3e}"
+                f"); the plain version there: worst "
+                f"{max(r['plain_f64_rel_err'] for r in on_f64):.3e} off f64, "
+                f"{max(r['rel_err'] for r in on_f64):.3e} off the kernel")
     return out
 
 
@@ -2016,10 +2111,18 @@ def setup_phase() -> str:
     lib = _build.build(force=True)
     log(f"build: {len(_build.sources())} sources -> {lib.relative_to(ROOT)} "
         f"in {time.perf_counter() - t0:.2f} s")
+    build_s = {}
     for line in _build.ptxas_log().splitlines():
         if ("Compiling entry function" in line or "registers" in line
                 or line.startswith("==")):
             log("ptxas: " + line.strip())
+        if line.startswith("== "):           # "== name.cu (seconds s)"
+            name, secs = line[3:].split(" (")
+            build_s[name] = float(secs.split()[0])
+    log("build: nvcc seconds, gram_block_mma.cu (32 instances) "
+        f"{build_s['gram_block_mma.cu']:.2f} beside gram_mma.cu (8) "
+        f"{build_s['gram_mma.cu']:.2f}; slowest "
+        f"{max(build_s, key=build_s.get)} {max(build_s.values()):.2f}")
     _build.load_library()
     for K in (PATH_SHAPE[0], 25, 64, 100):
         for dt in ("f32", "bf16"):
@@ -2035,6 +2138,14 @@ def setup_phase() -> str:
             f"tiles per warp {max(len(w) for w in gram.mma_deal(K))}): "
             f"{smem} B dynamic shared memory per block, {per_sm} blocks of "
             f"256 threads per SM; n=2^24: (blocks, columns per block) "
+            f"{gram.grid(1 << 24, sms, per_sm)}")
+    for Ka, Kb in ((10, 5), (25, 25), (64, 32), (64, 63)):
+        per_sm, smem = gram.block_mma_launch_config(Ka, Kb, 0)
+        log(f"launch: gram_block_mma_partial Ka={Ka} Kb={Kb} bf16 (staged "
+            f"rows {gram.block_mma_rows(Ka, Kb)}, tiles per warp "
+            f"{max(len(w) for w in gram.block_mma_deal(Ka, Kb))}): {smem} B "
+            f"dynamic shared memory per block, {per_sm} blocks of 256 "
+            f"threads per SM; n=2^24: (blocks, columns per block) "
             f"{gram.grid(1 << 24, sms, per_sm)}")
     for n, k in TOPK_PATH:
         p2 = 1 << (k - 1).bit_length()
@@ -2058,6 +2169,8 @@ def setup_phase() -> str:
         what = fn.replace("_launch_config", "")
         if fn.startswith("stream_stats"):
             what += (f" ({'mma' if dims[1] else 'cross'} body) P={dims[0]}")
+        elif fn.startswith("gram_block"):
+            what += f" (cross body) rows {dims}"
         else:
             what += f" rows {dims}"
         log(f"launch: {what} n={n}: "
@@ -2116,7 +2229,7 @@ def kernel_entry(name: str, recs: list, launches: dict) -> dict:
                                            "window", "lengths", "dtype")
                       if k in path},
             "tolerance": path["tolerance"],
-            "max_rel_err_all_shapes": max(r["rel_err"] for r in recs),
+            "max_rel_err_all_shapes": max(_gated_err(r) for r in recs),
             "shapes": [r for r in recs if "ms" in r]}
 
 
@@ -2133,16 +2246,21 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     t_start = time.perf_counter()
     from repro_torch.kernels import gram
-    gram_bodies = {}
+    gram_bodies, block_bodies = {}, {}
 
     def on_cuda_core(path: str, phase, *args):
         """Run a path phase; every gram launch in it must take gram.cu's
-        body (the paths hand gram f32 inputs)."""
+        body (the paths hand gram f32 inputs), and no path reaches
+        gram_block."""
         gram.reset_body_launches()
+        gram.reset_block_body_launches()
         result = phase(*args)
         gram_bodies[path] = gram.body_launches()
+        block_bodies[path] = gram.block_body_launches()
         need(gram_bodies[path]["mma"] == 0,
              f"{path}: gram bodies {gram_bodies[path]}, want cuda_core only")
+        need(sum(block_bodies[path].values()) == 0,
+             f"{path}: gram_block bodies {block_bodies[path]}, want none")
         return result
 
     try:
@@ -2174,6 +2292,10 @@ def main() -> int:
         sources=[KERNEL_SOURCES["gram"][0],
                  "src/repro_torch/kernels/csrc/gram_mma.cu"],
         bodies_by_path=gram_bodies)
+    entries[names.index("gram_block")].update(
+        sources=[KERNEL_SOURCES["gram_block"][0],
+                 "src/repro_torch/kernels/csrc/gram_block_mma.cu"],
+        bodies_by_path=block_bodies)
     entries[names.index("stream_stats")]["bigmodel"] = {
         k: v for k, v in big.items() if k != "counts"}
     entries[names.index("flash_decode")]["serve"] = {

@@ -196,9 +196,10 @@ def _host(t) -> np.ndarray:
             else np.asarray(t))
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
+def _not_ported(what: str, module: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP queue 1 {item})")
+        f"{what} is not ported to repro_torch yet (reference: {module}; "
+        "ROADMAP queue 1)")
 
 
 def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
@@ -266,11 +267,13 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
     from .client import client_update, draw_batch_indices
 
     if attack is not None or churn is not None:
-        raise _not_ported("attack / churn (repro.robust)", "#9")
+        raise _not_ported("attack / churn", "repro.robust")
     if mesh is not None:
-        raise _not_ported("mesh sharding (repro.sharding)", "#13")
+        raise _not_ported("mesh sharding",
+                          "repro.sharding / repro.core.distributed")
     if getattr(dataset, "virtual", False):
-        raise _not_ported("VirtualFleetDataset (fleet scale)", "#10")
+        raise _not_ported("VirtualFleetDataset (fleet scale)",
+                          "repro.data.fleetgen")
     dev = resolve_device(device)
     fleet = topology.fleet
     if dataset.num_devices < fleet.num_devices:
@@ -340,7 +343,8 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
         cohort_mode = False
     if cohort_mode:
         raise _not_ported(f"the cohort scheduler ({P_round} participants)",
-                          "#10")
+                          "repro.fl.simulation, scheduler_mode='cohort', "
+                          "with repro.data.fleetgen")
     if engine == "streamed":
         eng = StreamedRoundEngine(params, solve_cfg, tier_mode,
                                   cfg.gram_scope, chunk=stream_chunk,

@@ -175,8 +175,9 @@ class HierConfig:
                                  "and defeat the uplink budget")
         if self.robust is not None:
             raise NotImplementedError(
-                "HierConfig.robust needs the robust slice (repro.robust, "
-                "ROADMAP queue 1 #9), which repro_torch has not ported yet")
+                "HierConfig.robust needs the robust slice (reference: "
+                "repro.robust; ROADMAP queue 1), which repro_torch has not "
+                "ported yet")
 
     @property
     def smoothness(self) -> float:

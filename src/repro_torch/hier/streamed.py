@@ -190,7 +190,8 @@ class StreamedRoundEngine:
         if robust is not None:
             raise NotImplementedError(
                 "robust tier statistics on the streamed stages are not "
-                "ported to repro_torch yet (ROADMAP queue 1 #9)")
+                "ported to repro_torch yet (reference: repro.robust; "
+                "ROADMAP queue 1)")
         self.n = tree_size(params_template)
         self.solve_cfg = solve_cfg
         self.tier_mode = tier_mode

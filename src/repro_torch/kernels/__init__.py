@@ -3,7 +3,8 @@
 Ops (``cuda`` / ``torch`` backends, selected by the tensors' device — see
 ``registry.py``):
 
-  * ``gram``    — fused G = U Uᵀ, c = U g (``csrc/gram.cu``)
+  * ``gram``    — fused G = U Uᵀ, c = U g (``csrc/gram.cu``; bf16:
+    ``csrc/gram_mma.cu``)
   * ``combine`` — α-weighted update combine w + Σ α_k U_k
     (``csrc/combine.cu``)
   * ``topk``    — the k largest-|v| entries, radix select (``csrc/topk.cu``)
@@ -12,15 +13,17 @@ Ops (``cuda`` / ``torch`` backends, selected by the tensors' device — see
     (``csrc/rng_sketch.cu``, ``csrc/rng_hash.cuh``)
   * ``stream_stats`` — the streamed engine's G = D Dᵀ, C = D GMᵀ
     (``csrc/stream_stats.cu``)
-  * ``gram_block`` — G_ab = U_a U_bᵀ, c_a = U_a g (``csrc/gram_block.cu``)
+  * ``gram_block`` — G_ab = U_a U_bᵀ, c_a = U_a g (``csrc/gram_block.cu``;
+    bf16: ``csrc/gram_block_mma.cu``)
   * ``sketch``  — U Rᵀ against an explicit R (``csrc/sketch.cu``)
   * ``flash_decode`` — single-token GQA attention against a KV cache, with
     the (o, lse) partials (``csrc/decode_attn.cu``); ``lse_merge`` combines
     partials of a split cache in plain torch
 
-The last three share one device body, ``csrc/cross.cuh``; ``stream_stats``
-takes a tensor-core body of its own for bf16 inputs with P <= 32
-(``stream._mma_eligible``).
+``stream_stats``, ``gram_block`` and ``sketch`` share one device body,
+``csrc/cross.cuh``.  ``stream_stats``, ``gram`` and ``gram_block`` each take
+a tensor-core body of their own for bf16 inputs (``stream._mma_eligible``,
+``gram._mma_eligible``, ``gram._block_mma_eligible``).
 
 The CUDA sources build at first use with ``nvcc`` for ``sm_90a``
 (``_build.py``); importing this package builds nothing.

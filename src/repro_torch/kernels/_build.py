@@ -6,12 +6,14 @@ library with a plain C interface, loaded with ``ctypes``.  The library lives
 under ``build/kernels/<hash of the sources and flags>/`` at the repository
 root (listed in ``.gitignore``), so an edited source rebuilds and an
 unchanged one is reused.  ``ptxas -v`` output (registers, shared memory and
-spills per kernel) is kept beside it as ``ptxas.log``.
+spills per kernel) is kept beside it as ``ptxas.log``, each source's part
+headed by its name and the seconds its ``nvcc`` took.
 
 A missing ``nvcc`` or a failed build raises; nothing falls back.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -20,6 +22,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 from typing import List, Optional
 
@@ -61,6 +64,10 @@ _SIGNATURES = {
                                  ctypes.POINTER(_LL)],
     "gram_block_launch": [_VP, _LL, _I, _I, _VP, _LL, _I, _I, _VP, _I, _LL,
                           _VP, _LL, _I, _LL, _VP, _VP, _VP],
+    "gram_block_mma_launch_config": [_I, _I, ctypes.POINTER(_I),
+                                     ctypes.POINTER(_I)],
+    "gram_block_mma_launch": [_VP, _LL, _I, _VP, _LL, _I, _VP, _LL, _VP, _LL,
+                              _I, _LL, _VP, _VP, _VP],
     "sketch_apply_launch_config": [_I, _I, ctypes.POINTER(_I),
                                    ctypes.POINTER(_LL)],
     "sketch_apply_launch": [_VP, _LL, _I, _I, _VP, _LL, _I, _I, _LL, _VP, _LL,
@@ -118,18 +125,29 @@ def build(force: bool = False) -> Path:
         return lib_path
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp, \
+            contextlib.ExitStack() as outs:
         objs, procs = [], []
+        t0 = time.perf_counter()
         for src in sources():
             obj = Path(tmp) / (src.stem + ".o")
             objs.append(obj)
-            procs.append((src, subprocess.Popen(
+            out = outs.enter_context(open(Path(tmp) / (src.stem + ".log"),
+                                          "w+"))
+            procs.append((src, out, subprocess.Popen(
                 [nvcc, *CFLAGS, "-c", str(src), "-o", str(obj)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+                stdout=out, stderr=subprocess.STDOUT)))
+        seconds = {}                      # each source's time to its object
+        while len(seconds) < len(procs):
+            for src, _, proc in procs:
+                if src.name not in seconds and proc.poll() is not None:
+                    seconds[src.name] = time.perf_counter() - t0
+            time.sleep(0.05)
         logs, failed = [], []
-        for src, proc in procs:
-            text, _ = proc.communicate()
-            logs.append(f"== {src.name}\n{text}")
+        for src, out, proc in procs:
+            out.seek(0)
+            logs.append(f"== {src.name} ({seconds[src.name]:.2f} s)\n"
+                        f"{out.read()}")
             if proc.returncode != 0:
                 failed.append(src.name)
         (out_dir / "ptxas.log").write_text("\n".join(logs))

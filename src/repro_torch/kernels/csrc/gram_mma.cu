@@ -67,7 +67,6 @@
 // No wgmma, TMA or clusters: cp.async + ldmatrix + mma.sync reach the bytes.
 
 #include <atomic>
-#include <type_traits>
 #include <utility>
 
 #include "common.cuh"
@@ -117,39 +116,6 @@ struct Deal {
     return NT - w * TW <= 0 ? 0 : NT - w * TW < TW ? NT - w * TW : TW;
   }
 };
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, L1 bypassed; `bytes` = 0 writes 16 zero bytes
-// and reads nothing.
-__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x2(unsigned (&r)[2], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr));
-}
 
 // A lane's ldmatrix row addresses, in bytes into a stage: for A (x4) row
 // lane % 16 of a row tile, columns 8·(lane / 16) on; for B (x2) row lane % 8
@@ -224,20 +190,6 @@ __device__ __forceinline__ void warp_write(float* out, int lane,
   (write(D::row(W * D::TW + T), D::col(W * D::TW + T), run[T]), ...);
 }
 
-// f(std::integral_constant<int, warp>) for this thread's warp.
-template <typename F>
-__device__ __forceinline__ void for_warp(int warp, F&& f) {
-  switch (warp) {
-    case 0: f(std::integral_constant<int, 0>{}); break;
-    case 1: f(std::integral_constant<int, 1>{}); break;
-    case 2: f(std::integral_constant<int, 2>{}); break;
-    case 3: f(std::integral_constant<int, 3>{}); break;
-    case 4: f(std::integral_constant<int, 4>{}); break;
-    case 5: f(std::integral_constant<int, 5>{}); break;
-    case 6: f(std::integral_constant<int, 6>{}); break;
-    default: f(std::integral_constant<int, 7>{}); break;
-  }
-}
 static_assert(kWarps == 8, "for_warp deals to 8 warps");
 
 // One block per column range [col0, col1) of cols_per_block (a multiple of

@@ -1,6 +1,9 @@
 // PTX helpers of the bf16 tensor-core bodies (stream_stats.cu's
-// stream_stats_mma and gram_mma.cu's gram_mma_partial).
+// stream_stats_mma, gram_mma.cu's gram_mma_partial and gram_block_mma.cu's
+// gram_block_mma_partial).
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -24,6 +27,55 @@ __device__ __forceinline__ uint4 load16(const __nv_bfloat16* p) {
       : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
       : "l"(p));
   return v;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, L1 bypassed; `bytes` = 0 writes 16 zero bytes
+// and reads nothing.
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x2(unsigned (&r)[2], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// f(std::integral_constant<int, warp>) for this thread's warp, of a block of
+// 8 warps: each warp runs its own compile-time instance of f.
+template <typename F>
+__device__ __forceinline__ void for_warp(int warp, F&& f) {
+  switch (warp) {
+    case 0: f(std::integral_constant<int, 0>{}); break;
+    case 1: f(std::integral_constant<int, 1>{}); break;
+    case 2: f(std::integral_constant<int, 2>{}); break;
+    case 3: f(std::integral_constant<int, 3>{}); break;
+    case 4: f(std::integral_constant<int, 4>{}); break;
+    case 5: f(std::integral_constant<int, 5>{}); break;
+    case 6: f(std::integral_constant<int, 6>{}); break;
+    default: f(std::integral_constant<int, 7>{}); break;
+  }
 }
 
 }  // namespace

@@ -13,10 +13,17 @@ and the per-block scratch with ``torch.empty``, and launches both passes on
 the current stream without synchronising.  ``body_launches()`` tallies the
 launches by body, so a run can show which body its path took.
 
-``gram_block_cuda`` replaces ``repro.kernels.gram.gram_block_pallas``; its
-source (``csrc/gram_block.cu``) runs the shared cross-product body of
-``csrc/cross.cuh`` with A = U_a and B = [U_b; g], for any Ka and Kb, with
-no pad.
+``gram_block_cuda`` replaces ``repro.kernels.gram.gram_block_pallas``.  It
+has two bodies as well, chosen from the inputs alone
+(:func:`_block_mma_eligible`): a call with U_a, U_b and g all bf16,
+1 <= Ka <= 64, 1 <= Kb <= 63, n % 8 == 0, 16-byte aligned pointers and row
+strides that are multiples of 8 runs on the bf16 tensor cores
+(``csrc/gram_block_mma.cu``), every other call on the shared cross-product
+body of ``csrc/cross.cuh`` (``csrc/gram_block.cu``: any Ka and Kb, f32 or
+bf16 each, no pad).  Both take A = U_a and B = [U_b; g] by pointer and row
+stride, so U_a and U_b may be row blocks of one matrix.  No f32 operand is
+rounded to bf16 to reach a tensor core.  ``block_body_launches()`` tallies
+its launches by body.
 """
 from __future__ import annotations
 
@@ -35,7 +42,10 @@ SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
 MMA_MAX_K = 127           # the tensor-core body's K: [U; g] in 128 rows
 MMA_WARPS = 8             # warps of a block of the tensor-core body
 MMA_STAGE_COLS = 128      # columns of one staged tile of [U; g]
+BLOCK_MMA_MAX_KA = 64     # gram_block's tensor-core body: U_a in 64 rows
+BLOCK_MMA_MAX_KB = 63     # and [U_b; g] in 64
 _BODY_LAUNCHES = {"mma": 0, "cuda_core": 0}
+_BLOCK_BODY_LAUNCHES = {"mma": 0, "cross": 0}
 
 
 def _mma_eligible(updates: torch.Tensor, grad: torch.Tensor) -> bool:
@@ -72,6 +82,50 @@ def mma_deal(K: int) -> List[List[Tuple[int, int]]]:
     ``gram_mma_partial`` deals them)."""
     mt = mma_rows(K) // 16
     tiles = [(i, j) for i in range(mt) for j in range(2 * i, 2 * mt)]
+    per_warp = -(-len(tiles) // MMA_WARPS)
+    return [tiles[w * per_warp:(w + 1) * per_warp] for w in range(MMA_WARPS)]
+
+
+def _block_mma_eligible(ua: torch.Tensor, ub: torch.Tensor,
+                        grad: torch.Tensor) -> bool:
+    """Whether a ``gram_block`` call takes the tensor-core body: U_a, U_b and
+    g all bf16, 1 <= Ka <= 64, 1 <= Kb <= 63, n >= 1 with n % 8 == 0, every
+    ``data_ptr()`` 16-byte aligned and both row strides multiples of 8
+    entries (every row then starts 16-byte aligned).  Reads only dtypes,
+    shapes, strides and pointers."""
+    (Ka, n), Kb = ua.shape, ub.shape[0]
+    return (all(t.dtype == torch.bfloat16 for t in (ua, ub, grad))
+            and 1 <= Ka <= BLOCK_MMA_MAX_KA and 1 <= Kb <= BLOCK_MMA_MAX_KB
+            and n >= 1 and n % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (ua, ub, grad))
+            and ua.stride(0) % 8 == 0 and ub.stride(0) % 8 == 0)
+
+
+def block_body_launches() -> Dict[str, int]:
+    """``{"mma": launches, "cross": launches}`` of ``gram_block`` since the
+    last reset."""
+    return dict(_BLOCK_BODY_LAUNCHES)
+
+
+def reset_block_body_launches() -> None:
+    for key in _BLOCK_BODY_LAUNCHES:
+        _BLOCK_BODY_LAUNCHES[key] = 0
+
+
+def block_mma_rows(Ka: int, Kb: int) -> Tuple[int, int]:
+    """Staged rows ``(RA, RB)`` of gram_block's tensor-core body: U_a
+    zero-padded to a multiple of 16, [U_b; g] to a multiple of 8 (its
+    partial is RA x RB per block)."""
+    return 16 * -(-Ka // 16), 8 * -(-(Kb + 1) // 8)
+
+
+def block_mma_deal(Ka: int, Kb: int) -> List[List[Tuple[int, int]]]:
+    """The (16 x 8) output tiles (i, j) of U_a [U_b; g]ᵀ that each warp of
+    a tensor-core block owns: all MA x NB tiles in row-major order,
+    ceil(MA·NB / 8) consecutive ones a warp (as ``gram_block_mma_partial``
+    deals them)."""
+    ra, rb = block_mma_rows(Ka, Kb)
+    tiles = [(i, j) for i in range(ra // 16) for j in range(rb // 8)]
     per_warp = -(-len(tiles) // MMA_WARPS)
     return [tiles[w * per_warp:(w + 1) * per_warp] for w in range(MMA_WARPS)]
 
@@ -126,34 +180,40 @@ def scratch_rows(K: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
+def _resident(config_fn: str, dims: Tuple[int, ...],
+              device_index: int) -> Tuple[int, int]:
+    """``(blocks resident per SM, dynamic shared memory bytes per block)``
+    that the library's ``config_fn`` reports for a partial kernel."""
+    lib = _build.load_library()
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        rc = getattr(lib, config_fn)(*dims, ctypes.byref(blocks),
+                                     ctypes.byref(smem))
+    _build.check(lib, rc, f"{config_fn} occupancy query")
+    if blocks.value < 1:
+        raise RuntimeError(f"{config_fn}: the partial kernel cannot be "
+                           f"resident for {dims}")
+    return blocks.value, smem.value
+
+
 def launch_config(K: int, u_bf16: bool, g_bf16: bool,
                   device_index: int) -> Tuple[int, int]:
-    """``(blocks resident per SM, dynamic shared memory bytes per block)``
-    of the partial kernel the launch picks for this K and these dtypes."""
-    lib = _build.load_library()
-    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
-    with torch.cuda.device(device_index):
-        rc = lib.gram_launch_config(K, int(u_bf16), int(g_bf16),
-                                    ctypes.byref(blocks), ctypes.byref(smem))
-    _build.check(lib, rc, "gram occupancy query")
-    if blocks.value < 1:
-        raise RuntimeError(f"gram kernel cannot be resident for K={K}")
-    return blocks.value, smem.value
+    """:func:`_resident` of the gram.cu partial kernel the launch picks for
+    this K and these dtypes."""
+    return _resident("gram_launch_config", (K, int(u_bf16), int(g_bf16)),
+                     device_index)
 
 
-@functools.lru_cache(maxsize=None)
 def mma_launch_config(K: int, device_index: int) -> Tuple[int, int]:
-    """``(blocks resident per SM, dynamic shared memory bytes per block)``
-    of the tensor-core body's partial kernel for this K."""
-    lib = _build.load_library()
-    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
-    with torch.cuda.device(device_index):
-        rc = lib.gram_mma_launch_config(K, ctypes.byref(blocks),
-                                        ctypes.byref(smem))
-    _build.check(lib, rc, "gram_mma occupancy query")
-    if blocks.value < 1:
-        raise RuntimeError(f"gram_mma kernel cannot be resident for K={K}")
-    return blocks.value, smem.value
+    """:func:`_resident` of gram's tensor-core partial kernel for this K."""
+    return _resident("gram_mma_launch_config", (K,), device_index)
+
+
+def block_mma_launch_config(Ka: int, Kb: int,
+                            device_index: int) -> Tuple[int, int]:
+    """:func:`_resident` of gram_block's tensor-core partial kernel for these
+    Ka, Kb."""
+    return _resident("gram_block_mma_launch_config", (Ka, Kb), device_index)
 
 
 def gram_cuda(updates: torch.Tensor, grad: torch.Tensor
@@ -200,7 +260,8 @@ def gram_block_cuda(ua: torch.Tensor, ub: torch.Tensor, grad: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``ua (Ka, n)``, ``ub (Kb, n)`` (any row stride, unit-strided columns)
     and ``grad (n,)``, f32 or bf16 each, on one CUDA device →
-    ``(G_ab (Ka, Kb), c_a (Ka,))`` f32."""
+    ``(G_ab (Ka, Kb), c_a (Ka,))`` f32, on the tensor-core body when
+    :func:`_block_mma_eligible` holds and on cross.cuh's otherwise."""
     dev = ua.device
     lda = cross.row_stride("gram_block_cuda", "ua", ua, dev)
     ldb = cross.row_stride("gram_block_cuda", "ub", ub, dev)
@@ -219,17 +280,32 @@ def gram_block_cuda(ua: torch.Tensor, ub: torch.Tensor, grad: torch.Tensor
     if n == 0:
         out.zero_()
         return G, c
-    partial, num_blocks, cols = cross.scratch("gram_block_launch_config",
-                                              (Ka, Kb), n, dev)
-    bf16 = torch.bfloat16
+    mma = _block_mma_eligible(ua, ub, grad)
     lib = _build.load_library()
-    with torch.cuda.device(dev):
-        rc = lib.gram_block_launch(
-            ua.data_ptr(), lda, int(ua.dtype == bf16), Ka,
-            ub.data_ptr(), ldb, int(ub.dtype == bf16), Kb,
-            grad.data_ptr(), int(grad.dtype == bf16), n,
-            partial.data_ptr(), partial.numel(), num_blocks, cols,
-            G.data_ptr(), c.data_ptr(), cross.stream_of(dev))
+    if mma:
+        per_sm, _ = block_mma_launch_config(Ka, Kb, dev.index)
+        num_blocks, cols = grid(n, _build.sm_count(dev.index), per_sm)
+        ra, rb = block_mma_rows(Ka, Kb)
+        partial = torch.empty((num_blocks * ra * rb,), dtype=torch.float32,
+                              device=dev)
+        with torch.cuda.device(dev):
+            rc = lib.gram_block_mma_launch(
+                ua.data_ptr(), lda, Ka, ub.data_ptr(), ldb, Kb,
+                grad.data_ptr(), n, partial.data_ptr(), partial.numel(),
+                num_blocks, cols, G.data_ptr(), c.data_ptr(),
+                cross.stream_of(dev))
+    else:
+        partial, num_blocks, cols = cross.scratch("gram_block_launch_config",
+                                                  (Ka, Kb), n, dev)
+        bf16 = torch.bfloat16
+        with torch.cuda.device(dev):
+            rc = lib.gram_block_launch(
+                ua.data_ptr(), lda, int(ua.dtype == bf16), Ka,
+                ub.data_ptr(), ldb, int(ub.dtype == bf16), Kb,
+                grad.data_ptr(), int(grad.dtype == bf16), n,
+                partial.data_ptr(), partial.numel(), num_blocks, cols,
+                G.data_ptr(), c.data_ptr(), cross.stream_of(dev))
     _build.check(lib, rc, "gram_block")
     count_launch("gram_block", "cuda")
+    _BLOCK_BODY_LAUNCHES["mma" if mma else "cross"] += 1
     return G, c

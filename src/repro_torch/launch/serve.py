@@ -66,7 +66,8 @@ def _engine_serve(cfg, bundle, args) -> None:
 def _lockstep_serve(cfg, bundle, args) -> None:
     raise NotImplementedError(
         f"the lockstep serving loop for the {cfg.family!r} family waits for "
-        "that family's port (ROADMAP queue 1 #12)")
+        "that family's port (reference: repro.launch.serve with "
+        "repro.models.{rwkv,ssd,encdec,vlm}; ROADMAP queue 1)")
 
 
 def main(argv=None) -> None:

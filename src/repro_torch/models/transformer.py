@@ -12,9 +12,10 @@ over the stack's per-layer views.  Entry points:
   * ``prefill_chunk`` — one chunk of a prompt into one slot of the engine's
     cache
 
-The moe, ssm and hybrid families raise ``NotImplementedError`` naming their
-ROADMAP item.  Caches are updated in place and returned (the reference
-returns new arrays); ``LMCache.position`` is a host int.
+The moe, ssm and hybrid families raise ``NotImplementedError`` naming the
+reference module that holds them.  Caches are updated in place and
+returned (the reference returns new arrays); ``LMCache.position`` is a host
+int.
 """
 from __future__ import annotations
 
@@ -35,12 +36,12 @@ from .mlp import init_mlp, mlp_forward
 Pytree = Any
 
 _NOT_PORTED = {
-    "moe": "ROADMAP queue 1 #11 (models/moe.py)",
-    "ssm": "ROADMAP queue 1 #12 (models/rwkv.py, models/ssd.py)",
-    "hybrid": "ROADMAP queue 1 #12 (models/ssd.py, the shared-attention "
-              "hybrid)",
-    "vlm": "ROADMAP queue 1 #12 (models/vlm.py)",
-    "audio": "ROADMAP queue 1 #12 (models/encdec.py)",
+    "moe": "reference: repro.models.moe; ROADMAP queue 1",
+    "ssm": "reference: repro.models.rwkv, repro.models.ssd; ROADMAP queue 1",
+    "hybrid": "reference: repro.models.ssd (the shared-attention hybrid); "
+              "ROADMAP queue 1",
+    "vlm": "reference: repro.models.vlm; ROADMAP queue 1",
+    "audio": "reference: repro.models.encdec; ROADMAP queue 1",
 }
 
 
@@ -129,7 +130,8 @@ def forward_train(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
     if remat:
         raise NotImplementedError(
             f"remat={remat!r} waits for the training slice of repro_torch "
-            "(ROADMAP queue 1 #4); only remat=False runs")
+            "(reference: repro.models.transformer forward_train(remat=...); "
+            "ROADMAP queue 1); only remat=False runs")
     S = tokens.shape[1]
     window = window if window is not None else cfg.sliding_window
     x = params["embed"][tokens]

@@ -12,7 +12,9 @@ inputs both accumulate in f32, so the kernel and ``torch.matmul`` differ in
 summation order only); combine 1e-5 in f32 and 3e-2 for a bf16 output (one
 bf16 rounding), as the reference's kernel tests; sign_sketch and its adjoint
 1e-5 (f32 sums in another order); stream_stats, gram_block and sketch 1e-5
-(the same products in f32, summed in another order).  topk is held exactly: the same values
+(the same products in f32, summed in another order; gram_block's
+tensor-core sweep against an f64 product, where the plain f32 version of a
+short cancelling dot product is no oracle).  topk is held exactly: the same values
 and indices as the plain version on the same tensor.  flash_decode 1e-4 on
 o and lse (f32 sums in another order, and the kernel's fast exp); the
 serving engine's greedy tokens exactly.
@@ -589,6 +591,107 @@ def test_gram_block_kernel_matches_plain(cuda_device, Ka, Kb, n, dtype):
     Gr, cr = ref.gram_block_ref(ua, ub, g)
     assert tuple(G.shape) == (Ka, Kb) and tuple(c.shape) == (Ka,)
     assert _rel_err(G, Gr) <= CROSS_TOL and _rel_err(c, cr) <= CROSS_TOL
+
+
+def _gram_block_f64(ua, ub, g):
+    a = ua.double()
+    return a @ ub.double().T, a @ g.double()
+
+
+def _check_gram_block_mma(ua, ub, g):
+    """Two calls of gram_block's tensor-core body: bitwise equal and within
+    CROSS_TOL of an f64 product.  The plain f32 version is measured against
+    the same product (printed with ``-s``) but is no oracle here: where a
+    dot product of a few thousand terms cancels to |c_a| < 1 (Ka = 1), the
+    plain version itself can lie further than CROSS_TOL from it.  Returns
+    the outputs and the kernel's and the plain version's error."""
+    from repro_torch.kernels import gram
+    assert gram._block_mma_eligible(ua, ub, g)
+    gram.reset_block_body_launches()
+    reset_launch_counts()
+    G, c = gram_block_and_cross(ua, ub, g)
+    G2, c2 = gram_block_and_cross(ua, ub, g)
+    assert launch_counts()["gram_block/cuda"] == 2
+    assert launch_counts()["gram_block/torch"] == 0
+    assert gram.block_body_launches() == {"mma": 2, "cross": 0}
+    assert torch.equal(G, G2) and torch.equal(c, c2)      # no float atomics
+    (Ka, n), Kb = ua.shape, ub.shape[0]
+    assert tuple(G.shape) == (Ka, Kb) and tuple(c.shape) == (Ka,)
+    G64, c64 = _gram_block_f64(ua, ub, g)
+    Gr, cr = ref.gram_block_ref(ua, ub, g)
+    kernel = max(_rel_err(G.double(), G64), _rel_err(c.double(), c64))
+    plain = max(_rel_err(Gr.double(), G64), _rel_err(cr.double(), c64))
+    print(f"gram_block Ka={Ka} Kb={Kb} n={n} bf16 against f64: kernel "
+          f"{kernel:.3e}, plain {plain:.3e}")
+    assert kernel <= CROSS_TOL
+    return G, c, Gr, cr
+
+
+# the edges of every instance (MA, NB) = (ceil(Ka / 16), ceil((Kb + 1) / 8))
+# of the tensor-core body, MA 1..4 by NB 1..8, and n with a ragged last
+# staged tile (n % 128 != 0)
+GRAM_BLOCK_MMA_KA = [1, 15, 16, 17, 31, 32, 33, 48, 63, 64]
+GRAM_BLOCK_MMA_KB = [1, 7, 8, 15, 16, 31, 32, 40, 55, 63]
+GRAM_BLOCK_MMA_N = [8, 72, 4104]
+
+
+@pytest.mark.parametrize("n", GRAM_BLOCK_MMA_N)
+@pytest.mark.parametrize("Kb", GRAM_BLOCK_MMA_KB)
+@pytest.mark.parametrize("Ka", GRAM_BLOCK_MMA_KA)
+def test_gram_block_mma_body(cuda_device, Ka, Kb, n):
+    """U_a, U_b and g all bf16 with Ka <= 64, Kb <= 63, n % 8 == 0 and
+    aligned rows take the tensor-core body (csrc/gram_block_mma.cu), as row
+    blocks of one matrix and as separate tensors."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(Ka * 4099 + Kb * 131 + n)
+    bf16 = torch.bfloat16
+    U = _randn(gen, (Ka + Kb, n), bf16, cuda_device)
+    g = _randn(gen, (n,), bf16, cuda_device)
+    _check_gram_block_mma(U[:Ka], U[Ka:], g)
+    _check_gram_block_mma(_randn(gen, (Ka, n), bf16, cuda_device),
+                          _randn(gen, (Kb, n), bf16, cuda_device), g)
+
+
+def test_gram_block_mma_body_against_f64_at_model_width(cuda_device):
+    """Ka = 64, Kb = 32, n = 2^22 bf16: the tensor-core body and the plain
+    f32 version, each against an f64 product, and the body within CROSS_TOL
+    of both."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(6432)
+    U = _randn(gen, (96, 1 << 22), torch.bfloat16, cuda_device)
+    g = _randn(gen, (1 << 22,), torch.bfloat16, cuda_device)
+    G, c, Gr, cr = _check_gram_block_mma(U[:64], U[64:], g)
+    assert _rel_err(G, Gr) <= CROSS_TOL and _rel_err(c, cr) <= CROSS_TOL
+
+
+def test_gram_block_other_calls_keep_cross(cuda_device):
+    """Mixed dtypes each way, Ka = 65, Kb = 64, n % 8 != 0 and a bf16 U_a
+    starting 2 bytes into its buffer keep cross.cuh's body, with its results
+    unchanged."""
+    from repro_torch.kernels import gram
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(6564)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def r(*shape, dtype=bf16):
+        return _randn(gen, shape, dtype, cuda_device)
+
+    g = r(1024)
+    shifted = r(10 * 1024 + 1)[1:].view(10, 1024)
+    cases = [(r(10, 1024), r(5, 1024), g.float()),
+             (r(10, 1024, dtype=f32), r(5, 1024), g),
+             (r(10, 1024), r(5, 1024, dtype=f32), g),
+             (r(65, 1024), r(5, 1024), g),
+             (r(10, 1024), r(64, 1024), g),
+             (r(10, 1001), r(5, 1001), r(1001)),
+             (shifted, r(5, 1024), g)]
+    for ua, ub, gg in cases:
+        assert not gram._block_mma_eligible(ua, ub, gg)
+        gram.reset_block_body_launches()
+        G, c = gram_block_and_cross(ua, ub, gg)
+        assert gram.block_body_launches() == {"mma": 0, "cross": 1}
+        Gr, cr = ref.gram_block_ref(ua, ub, gg)
+        assert _rel_err(G, Gr) <= CROSS_TOL and _rel_err(c, cr) <= CROSS_TOL
 
 
 @pytest.mark.parametrize("K,m,n", [(1, 1, 1), (3, 17, 130), (8, 1024, 4099),

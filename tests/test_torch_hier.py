@@ -581,18 +581,18 @@ def test_unported_parts_raise(problem, monkeypatch):
     cfg = th.HierConfig(**BASE)
     run = lambda **kw: t_run("x", t_loss, t_apply, tp, tds, cfg,  # noqa: E731
                              topo, 1, device="cpu", **kw)
-    for kw, item in ((dict(scheduler_mode="cohort"), "#10"),
-                     (dict(attack=object()), "#9"),
-                     (dict(churn=object()), "#9"),
-                     (dict(mesh=object()), "#13")):
+    for kw, item in ((dict(scheduler_mode="cohort"), "repro.data.fleetgen"),
+                     (dict(attack=object()), "repro.robust"),
+                     (dict(churn=object()), "repro.robust"),
+                     (dict(mesh=object()), "repro.sharding")):
         with pytest.raises(NotImplementedError, match=item):
             run(**kw)
-    # the streamed engine (queue 1 #7) runs now, by name and above the budget
+    # the streamed engine runs now, by name and above the budget
     assert run(engine="streamed").engine["engine_name"] == "streamed"
     monkeypatch.setenv("REPRO_DENSE_ROUND_BYTES", "16")
     assert run().engine["engine_name"] == "streamed"
     monkeypatch.delenv("REPRO_DENSE_ROUND_BYTES")
-    with pytest.raises(NotImplementedError, match="#9"):
+    with pytest.raises(NotImplementedError, match="repro.robust"):
         th.HierConfig(robust=object())
     with pytest.raises(ValueError, match="device shards"):
         t_run("x", t_loss, t_apply, tp, tds, cfg,

@@ -435,7 +435,8 @@ def test_gram_mma_body_is_built_and_bound():
     """``gram_mma.cu`` defines the two launchers the wrapper binds, with the
     argument counts ``_build`` gives them, stages with ``cp.async``, loads
     fragments with ``ldmatrix`` and multiplies through mma.cuh's bf16
-    ``mma.sync``; ``stream_stats.cu`` includes the same header."""
+    ``mma.sync`` (the three PTX helpers live in mma.cuh);
+    ``stream_stats.cu`` includes the same header."""
     src = _build.CSRC / "gram_mma.cu"
     assert src in _build.sources()
     text = src.read_text()
@@ -451,9 +452,10 @@ def test_gram_mma_body_is_built_and_bound():
     assert sig["gram_mma_launch"][6] == ctypes.c_int            # K
     assert sig["gram_mma_launch"][7] == ctypes.c_longlong       # n
     assert '#include "mma.cuh"' in text and "mma_bf16(" in text
-    assert "ldmatrix.sync.aligned.m8n8.x4.shared.b16" in text
-    assert "cp.async.cg.shared.global" in text
+    assert "ldmatrix_x4(" in text and "cp_async16(" in text
     mma = (_build.CSRC / "mma.cuh").read_text()
+    assert "ldmatrix.sync.aligned.m8n8.x4.shared.b16" in mma
+    assert "cp.async.cg.shared.global" in mma
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in mma
     assert '#include "mma.cuh"' in (_build.CSRC / "stream_stats.cu").read_text()
 
@@ -488,6 +490,129 @@ def test_gram_mma_scratch_and_grid_cover_every_column_and_tile(mt):
                 assert 1 <= blocks <= per_sm * 132
                 assert blocks * cols >= n > (blocks - 1) * cols
                 assert blocks * Kp * Kp * 4 <= 8 * 132 * 128 * 128 * 4
+
+
+def _block_triple(Ka, Kb, n, dtypes=(torch.bfloat16,) * 3, a_in=0, b_in=0,
+                  g_in=0, lda=None, ldb=None):
+    """U_a (Ka, n), U_b (Kb, n) and g (n,), each starting ``*_in`` entries
+    into a fresh buffer (a buffer's own start is 64-byte aligned), U_a and
+    U_b with rows ``lda`` / ``ldb`` entries apart (default n)."""
+    def rows(K, ld, dtype, skip):
+        ld = ld or n
+        buf = torch.zeros(K * ld + skip, dtype=dtype)[skip:]
+        return buf.as_strided((K, n), (ld, 1))
+    return (rows(Ka, lda, dtypes[0], a_in), rows(Kb, ldb, dtypes[1], b_in),
+            torch.zeros(n + g_in, dtype=dtypes[2])[g_in:])
+
+
+def _row_blocks(Ka, Kb, n):
+    U = torch.zeros((Ka + Kb, n), dtype=torch.bfloat16)
+    return U[:Ka], U[Ka:], torch.zeros(n, dtype=torch.bfloat16)
+
+
+_F32, _BF16 = torch.float32, torch.bfloat16
+_BLOCK_MMA_CASES = {
+    "bf16, separate tensors": (_block_triple(64, 32, 1024), True),
+    "bf16, row blocks of one matrix": (_row_blocks(64, 32, 1024), True),
+    "row blocks, n = 8": (_row_blocks(5, 3, 8), True),
+    "Ka = 1": (_block_triple(1, 5, 64), True),
+    "Ka = 64": (_block_triple(64, 5, 64), True),
+    "Ka = 65": (_block_triple(65, 5, 64), False),
+    "Kb = 1": (_block_triple(10, 1, 64), True),
+    "Kb = 63": (_block_triple(10, 63, 64), True),
+    "Kb = 64": (_block_triple(10, 64, 64), False),
+    "n = 7 850 (% 8 = 2)": (_block_triple(10, 5, 7850), False),
+    "n = 2^20 + 3": (_block_triple(1, 1, (1 << 20) + 3), False),
+    "n = 0": (_block_triple(10, 5, 0), False),
+    "f32": (_block_triple(10, 5, 1024, (_F32,) * 3), False),
+    "U_a f32": (_block_triple(10, 5, 1024, (_F32, _BF16, _BF16)), False),
+    "U_b f32": (_block_triple(10, 5, 1024, (_BF16, _F32, _BF16)), False),
+    "g f32": (_block_triple(10, 5, 1024, (_BF16, _BF16, _F32)), False),
+    "f16": (_block_triple(10, 5, 1024, (torch.float16,) * 3), False),
+    "row strides 1 032 (% 8 = 0)": (_block_triple(10, 5, 1024, lda=1032,
+                                                  ldb=1032), True),
+    "U_a's row stride 1 025 (odd)": (_block_triple(10, 5, 1024, lda=1025),
+                                     False),
+    "U_b's row stride 1 028 (% 8 = 4)": (_block_triple(10, 5, 1024,
+                                                       ldb=1028), False),
+    "data_ptrs 16 bytes in": (_block_triple(10, 5, 1024, a_in=8, b_in=8,
+                                            g_in=8), True),
+    "U_a's data_ptr 2 bytes in": (_block_triple(10, 5, 1024, a_in=1), False),
+    "U_b's data_ptr 2 bytes in": (_block_triple(10, 5, 1024, b_in=1), False),
+    "g's data_ptr 2 bytes in": (_block_triple(10, 5, 1024, g_in=1), False),
+}
+
+
+@pytest.mark.parametrize("case", list(_BLOCK_MMA_CASES))
+def test_gram_block_mma_eligible_rule(case):
+    """gram_block's tensor-core body takes U_a, U_b and g all bf16 with
+    1 <= Ka <= 64, 1 <= Kb <= 63, n >= 1, n % 8 == 0, 16-byte aligned
+    pointers and row strides that are multiples of 8; every other call
+    keeps cross.cuh's body (gram_block.cu)."""
+    from repro_torch.kernels.gram import (BLOCK_MMA_MAX_KA, BLOCK_MMA_MAX_KB,
+                                          _block_mma_eligible)
+    (ua, ub, g), want = _BLOCK_MMA_CASES[case]
+    assert (BLOCK_MMA_MAX_KA, BLOCK_MMA_MAX_KB) == (64, 63)
+    assert _block_mma_eligible(ua, ub, g) is want
+
+
+@pytest.mark.parametrize("nb", range(1, 9))
+@pytest.mark.parametrize("ma", range(1, 5))
+def test_gram_block_mma_deal_covers_every_tile(ma, nb):
+    """For every (Ka, Kb) of one instance (MA, NB): the warps own every
+    (16 x 8) tile (i, j) of the (16·MA x 8·NB) partial exactly once, at
+    most ceil(MA·NB / 8) a warp, so every entry of [G_ab | c_a] is written;
+    the one-wave grid's column ranges are whole staged tiles and cover n."""
+    from repro_torch.kernels.gram import (MMA_STAGE_COLS, MMA_WARPS,
+                                          block_mma_deal, block_mma_rows)
+    for Ka in range(16 * ma - 15, 16 * ma + 1):
+        for Kb in range(max(1, 8 * nb - 8), 8 * nb):
+            assert block_mma_rows(Ka, Kb) == (16 * ma, 8 * nb)
+            deal = block_mma_deal(Ka, Kb)
+            assert len(deal) == MMA_WARPS
+            tiles = [tile for warp in deal for tile in warp]
+            assert sorted(tiles) == [(i, j) for i in range(ma)
+                                     for j in range(nb)]
+            assert max(len(w) for w in deal) == -(-ma * nb // MMA_WARPS)
+            covered = {(16 * i + r, 8 * j + c) for i, j in tiles
+                       for r in range(16) for c in range(8)}
+            assert all((r, c) in covered for r in range(Ka)
+                       for c in range(Kb + 1))
+    for n in (8, 72, 4104, 1 << 24):
+        for per_sm in (1, 2, 4, 8):
+            blocks, cols = grid(n, 132, per_sm)
+            assert cols % MMA_STAGE_COLS == 0
+            assert 1 <= blocks <= per_sm * 132
+            assert blocks * cols >= n > (blocks - 1) * cols
+
+
+def test_gram_block_mma_body_is_built_and_bound():
+    """``gram_block_mma.cu`` defines the two launchers the wrapper binds,
+    with the argument counts and types ``_build`` gives them, stages with
+    ``cp.async``, loads fragments with ``ldmatrix`` and multiplies through
+    mma.cuh's bf16 ``mma.sync``; ``gram_block.cu`` still runs cross.cuh."""
+    src = _build.CSRC / "gram_block_mma.cu"
+    assert src in _build.sources()
+    text = src.read_text()
+    sig = _build._SIGNATURES
+    I, LL, VP = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+    assert ('extern "C" int gram_block_mma_launch_config(int Ka, int Kb, '
+            'int* blocks_per_sm,' in text)
+    assert sig["gram_block_mma_launch_config"] == [
+        I, I, ctypes.POINTER(I), ctypes.POINTER(I)]
+    assert ('extern "C" int gram_block_mma_launch(const void* Ua, '
+            'long long lda, int Ka,' in text)
+    # Ua, lda, Ka, Ub, ldb, Kb, g, n, partial, partial_floats, num_blocks,
+    # cols_per_block, G, c, stream
+    assert sig["gram_block_mma_launch"] == [VP, LL, I, VP, LL, I, VP, LL, VP,
+                                            LL, I, LL, VP, VP, VP]
+    assert '#include "mma.cuh"' in text and "mma_bf16(" in text
+    assert "ldmatrix_x4(" in text and "ldmatrix_x2(" in text
+    assert "cp_async16(" in text and "for_warp(" in text
+    mma = (_build.CSRC / "mma.cuh").read_text()
+    assert "ldmatrix.sync.aligned.m8n8.x4.shared.b16" in mma
+    assert "cp.async.cg.shared.global" in mma
+    assert '#include "cross.cuh"' in (_build.CSRC / "gram_block.cu").read_text()
 
 
 # --------------------------------------------------------- flash_decode

@@ -7,8 +7,8 @@ the reference's own ``TOL`` (``tests/test_streamed_engine.py``: rtol 1e-5,
 atol 1e-4): f32 accumulation in another order, the same solves.  The
 reference's streamed tests are ported here except two that have no
 counterpart in the port: the autotune cap (the port dispatches by device,
-with no autotune) and the mesh-sharded chunk axis (``mesh`` raises, ROADMAP
-queue 1 #13).
+with no autotune) and the mesh-sharded chunk axis (``mesh`` raises, naming
+repro.sharding).
 """
 import jax
 import jax.numpy as jnp
@@ -422,7 +422,7 @@ def test_peak_bytes_equal_the_reference():
     with pytest.raises(ValueError, match="chunk"):
         StreamedRoundEngine(_tt(tmpl_np), SolveConfig(beta=4.0),
                             "contextual", chunk=0)
-    with pytest.raises(NotImplementedError, match="#9"):
+    with pytest.raises(NotImplementedError, match="repro.robust"):
         StreamedRoundEngine(_tt(tmpl_np), SolveConfig(beta=4.0),
                             "contextual", robust=object())
 
@@ -553,11 +553,11 @@ def test_compressed_run_reports_dense_fallback_peak(problem):
 
 def test_streamed_unported_parts_still_raise(problem):
     tcfg, _ = _cfgs("contextual")
-    with pytest.raises(NotImplementedError, match="#13"):
+    with pytest.raises(NotImplementedError, match="repro.sharding"):
         _t(problem, tcfg, "streamed", rounds=1, mesh=object())
-    with pytest.raises(NotImplementedError, match="#10"):
+    with pytest.raises(NotImplementedError, match="repro.data.fleetgen"):
         _t(problem, tcfg, "streamed", rounds=1, scheduler_mode="cohort")
-    with pytest.raises(NotImplementedError, match="#9"):
+    with pytest.raises(NotImplementedError, match="repro.robust"):
         HierConfig(robust=object(), **BASE)
 
 
