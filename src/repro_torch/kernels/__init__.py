@@ -15,15 +15,17 @@ Ops (``cuda`` / ``torch`` backends, selected by the tensors' device — see
     (``csrc/stream_stats.cu``)
   * ``gram_block`` — G_ab = U_a U_bᵀ, c_a = U_a g (``csrc/gram_block.cu``;
     bf16: ``csrc/gram_block_mma.cu``)
-  * ``sketch``  — U Rᵀ against an explicit R (``csrc/sketch.cu``)
+  * ``sketch``  — U Rᵀ against an explicit R (``csrc/sketch.cu``; bf16:
+    ``csrc/sketch_mma.cu``)
   * ``flash_decode`` — single-token GQA attention against a KV cache, with
     the (o, lse) partials (``csrc/decode_attn.cu``); ``lse_merge`` combines
     partials of a split cache in plain torch
 
 ``stream_stats``, ``gram_block`` and ``sketch`` share one device body,
-``csrc/cross.cuh``.  ``stream_stats``, ``gram`` and ``gram_block`` each take
-a tensor-core body of their own for bf16 inputs (``stream._mma_eligible``,
-``gram._mma_eligible``, ``gram._block_mma_eligible``).
+``csrc/cross.cuh``.  ``stream_stats``, ``gram``, ``gram_block`` and
+``sketch`` each take a tensor-core body of their own for bf16 inputs
+(``stream._mma_eligible``, ``gram._mma_eligible``,
+``gram._block_mma_eligible``, ``sketch._mma_eligible``).
 
 The CUDA sources build at first use with ``nvcc`` for ``sm_90a``
 (``_build.py``); importing this package builds nothing.

@@ -12,12 +12,12 @@ inputs both accumulate in f32, so the kernel and ``torch.matmul`` differ in
 summation order only); combine 1e-5 in f32 and 3e-2 for a bf16 output (one
 bf16 rounding), as the reference's kernel tests; sign_sketch and its adjoint
 1e-5 (f32 sums in another order); stream_stats, gram_block and sketch 1e-5
-(the same products in f32, summed in another order; gram_block's
-tensor-core sweep against an f64 product, where the plain f32 version of a
-short cancelling dot product is no oracle).  topk is held exactly: the same values
-and indices as the plain version on the same tensor.  flash_decode 1e-4 on
-o and lse (f32 sums in another order, and the kernel's fast exp); the
-serving engine's greedy tokens exactly.
+(the same products in f32, summed in another order; gram_block's and
+sketch's tensor-core sweeps against an f64 product, where the plain f32
+version of a short cancelling dot product is no oracle).  topk is held
+exactly: the same values and indices as the plain version on the same
+tensor.  flash_decode 1e-4 on o and lse (f32 sums in another order, and the
+kernel's fast exp); the serving engine's greedy tokens exactly.
 """
 import numpy as np
 import pytest
@@ -710,6 +710,100 @@ def test_sketch_kernel_matches_plain(cuda_device, K, m, n, dtype):
     assert _rel_err(S, ref.sketch_ref(U, R)) <= CROSS_TOL
     with pytest.raises(ValueError, match="disagree on n"):
         sketch_apply_cuda(U, R[:, :n - 1] if n > 1 else R[:, :0])
+
+
+def _check_sketch_mma(U, R):
+    """Two calls of sketch's tensor-core body: bitwise equal and within
+    CROSS_TOL of an f64 product.  The plain f32 version is measured against
+    the same product (printed with ``-s``) but is no oracle here, as for
+    gram_block's sweep.  Returns the output and the plain version's."""
+    from repro_torch.kernels import sketch
+    assert sketch._mma_eligible(U, R)
+    sketch.reset_body_launches()
+    reset_launch_counts()
+    S = sketch_apply(U, R)
+    S2 = sketch_apply(U, R)
+    assert launch_counts()["sketch/cuda"] == 2
+    assert launch_counts()["sketch/torch"] == 0
+    assert sketch.body_launches() == {"mma": 2, "cross": 0}
+    assert torch.equal(S, S2)                       # no float atomics
+    (K, n), m = U.shape, R.shape[0]
+    assert tuple(S.shape) == (K, m) and S.dtype == torch.float32
+    S64 = U.double() @ R.double().T
+    Sr = ref.sketch_ref(U, R)
+    kernel = _rel_err(S.double(), S64)
+    plain = _rel_err(Sr.double(), S64)
+    print(f"sketch K={K} m={m} n={n} bf16 against f64: kernel "
+          f"{kernel:.3e}, plain {plain:.3e}")
+    assert kernel <= CROSS_TOL
+    return S, Sr
+
+
+# the edges of every instance NB = ceil(K / 8) of the tensor-core body and of
+# its 128-row slices of R, and n with a ragged last staged tile
+# (n % 128 != 0)
+SKETCH_MMA_K = [1, 7, 8, 9, 16, 57, 64]
+SKETCH_MMA_M = [1, 15, 16, 17, 127, 128, 129, 1024]
+SKETCH_MMA_N = [8, 72, 4104]
+
+
+@pytest.mark.parametrize("n", SKETCH_MMA_N)
+@pytest.mark.parametrize("m", SKETCH_MMA_M)
+@pytest.mark.parametrize("K", SKETCH_MMA_K)
+def test_sketch_mma_body(cuda_device, K, m, n):
+    """U and R both bf16 with K <= 64, n % 8 == 0 and aligned rows take the
+    tensor-core body (csrc/sketch_mma.cu), as row blocks of one matrix and
+    as separate tensors."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(K * 8209 + m * 131 + n)
+    bf16 = torch.bfloat16
+    M = _randn(gen, (K + m, n), bf16, cuda_device)
+    _check_sketch_mma(M[:K], M[K:])
+    _check_sketch_mma(_randn(gen, (K, n), bf16, cuda_device),
+                      _randn(gen, (m, n), bf16, cuda_device))
+
+
+def test_sketch_mma_body_against_f64_at_model_width(cuda_device):
+    """K = 8, m = 1 024, n = 2^18 bf16: the tensor-core body and the plain
+    f32 version, each against an f64 product, and the body within CROSS_TOL
+    of both."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(81024)
+    U = _randn(gen, (8, 1 << 18), torch.bfloat16, cuda_device)
+    R = _randn(gen, (1024, 1 << 18), torch.bfloat16, cuda_device)
+    S, Sr = _check_sketch_mma(U, R)
+    assert _rel_err(S, Sr) <= CROSS_TOL
+
+
+def test_sketch_other_calls_keep_cross(cuda_device):
+    """f32 and mixed dtypes each way, K = 65, n % 8 != 0, row blocks of one
+    matrix at an odd n, a row stride that is no multiple of 8, and a bf16 U
+    or R starting 2 bytes into its buffer keep cross.cuh's body, with its
+    results unchanged."""
+    from repro_torch.kernels import sketch
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(6565)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def r(*shape, dtype=bf16):
+        return _randn(gen, shape, dtype, cuda_device)
+
+    M = r(8 + 129, 1001)
+    cases = [(r(8, 1024, dtype=f32), r(129, 1024, dtype=f32)),
+             (r(8, 1024, dtype=f32), r(129, 1024)),
+             (r(8, 1024), r(129, 1024, dtype=f32)),
+             (r(65, 1024), r(129, 1024)),
+             (r(8, 1001), r(129, 1001)),
+             (M[:8], M[8:]),
+             (r(8, 1028)[:, :1024], r(129, 1024)),
+             (r(8 * 1024 + 1)[1:].view(8, 1024), r(129, 1024)),
+             (r(8, 1024), r(129 * 1024 + 1)[1:].view(129, 1024))]
+    for U, R in cases:
+        assert not sketch._mma_eligible(U, R)
+        sketch.reset_body_launches()
+        S = sketch_apply(U, R)
+        assert sketch.body_launches() == {"mma": 0, "cross": 1}
+        assert _rel_err(S, ref.sketch_ref(U, R)) <= CROSS_TOL
 
 
 def test_cross_wrappers_reject_bad_inputs(cuda_device):

@@ -289,7 +289,8 @@ def test_gram_block_plain_matches_pallas(Ka, Kb, n, dtype):
 
 @pytest.mark.parametrize("K,m,n,dtype", [(5, 11, 333, "float32"),
                                          (1, 1, 7, "float32"),
-                                         (8, 130, 1000, "bfloat16")])
+                                         (8, 130, 1000, "bfloat16"),
+                                         (8, 1024, 256, "bfloat16")])
 def test_sketch_apply_plain_matches_pallas(K, m, n, dtype):
     rng = np.random.RandomState(K + m + n)
     Uj, Ut = _pair(rng.randn(K, n), dtype)
@@ -492,16 +493,22 @@ def test_gram_mma_scratch_and_grid_cover_every_column_and_tile(mt):
                 assert blocks * Kp * Kp * 4 <= 8 * 132 * 128 * 128 * 4
 
 
+def _rows(K, n, ld, dtype, skip):
+    """A (K, n) view with rows ``ld`` entries apart (default n), starting
+    ``skip`` entries into a fresh buffer (a buffer's own start is 64-byte
+    aligned)."""
+    ld = ld or n
+    return torch.zeros(K * ld + skip, dtype=dtype)[skip:].as_strided(
+        (K, n), (ld, 1))
+
+
 def _block_triple(Ka, Kb, n, dtypes=(torch.bfloat16,) * 3, a_in=0, b_in=0,
                   g_in=0, lda=None, ldb=None):
     """U_a (Ka, n), U_b (Kb, n) and g (n,), each starting ``*_in`` entries
-    into a fresh buffer (a buffer's own start is 64-byte aligned), U_a and
-    U_b with rows ``lda`` / ``ldb`` entries apart (default n)."""
-    def rows(K, ld, dtype, skip):
-        ld = ld or n
-        buf = torch.zeros(K * ld + skip, dtype=dtype)[skip:]
-        return buf.as_strided((K, n), (ld, 1))
-    return (rows(Ka, lda, dtypes[0], a_in), rows(Kb, ldb, dtypes[1], b_in),
+    into a fresh buffer, U_a and U_b with rows ``lda`` / ``ldb`` entries
+    apart (default n)."""
+    return (_rows(Ka, n, lda, dtypes[0], a_in),
+            _rows(Kb, n, ldb, dtypes[1], b_in),
             torch.zeros(n + g_in, dtype=dtypes[2])[g_in:])
 
 
@@ -613,6 +620,134 @@ def test_gram_block_mma_body_is_built_and_bound():
     assert "ldmatrix.sync.aligned.m8n8.x4.shared.b16" in mma
     assert "cp.async.cg.shared.global" in mma
     assert '#include "cross.cuh"' in (_build.CSRC / "gram_block.cu").read_text()
+
+
+# ------------------------------------------- sketch's tensor-core body
+
+def _sketch_pair(K, m, n, dtypes=(_BF16, _BF16), u_in=0, r_in=0, ldu=None,
+                 ldr=None):
+    """U (K, n) and R (m, n), each starting ``*_in`` entries into a fresh
+    buffer, with rows ``ldu`` / ``ldr`` entries apart (default n)."""
+    return (_rows(K, n, ldu, dtypes[0], u_in),
+            _rows(m, n, ldr, dtypes[1], r_in))
+
+
+def _sketch_row_blocks(K, m, n):
+    M = torch.zeros((K + m, n), dtype=_BF16)
+    return M[:K], M[K:]
+
+
+_SKETCH_MMA_CASES = {
+    "bf16, separate tensors": (_sketch_pair(8, 1024, 1024), True),
+    "bf16, row blocks of one matrix": (_sketch_row_blocks(8, 129, 1024), True),
+    "row blocks, n = 1 001": (_sketch_row_blocks(8, 129, 1001), False),
+    "K = 1": (_sketch_pair(1, 129, 64), True),
+    "K = 64": (_sketch_pair(64, 129, 64), True),
+    "K = 65": (_sketch_pair(65, 129, 64), False),
+    "m = 1": (_sketch_pair(8, 1, 64), True),
+    "m = 1 025": (_sketch_pair(8, 1025, 1024), True),
+    "n = 8": (_sketch_pair(8, 129, 8), True),
+    "n = 7 850 (% 8 = 2)": (_sketch_pair(8, 129, 7850), False),
+    "n = 2^20 + 3": (_sketch_pair(1, 1, (1 << 20) + 3), False),
+    "n = 0": (_sketch_pair(8, 129, 0), False),
+    "f32": (_sketch_pair(8, 129, 1024, (_F32, _F32)), False),
+    "U f32, R bf16": (_sketch_pair(8, 129, 1024, (_F32, _BF16)), False),
+    "U bf16, R f32": (_sketch_pair(8, 129, 1024, (_BF16, _F32)), False),
+    "f16": (_sketch_pair(8, 129, 1024, (torch.float16,) * 2), False),
+    "row strides 1 032 (% 8 = 0)": (_sketch_pair(8, 129, 1024, ldu=1032,
+                                                 ldr=1032), True),
+    "U's row stride 1 028 (% 8 = 4)": (_sketch_pair(8, 129, 1024, ldu=1028),
+                                       False),
+    "R's row stride 1 025 (odd)": (_sketch_pair(8, 129, 1024, ldr=1025),
+                                   False),
+    "data_ptrs 16 bytes in": (_sketch_pair(8, 129, 1024, u_in=8, r_in=8),
+                              True),
+    "U's data_ptr 2 bytes in": (_sketch_pair(8, 129, 1024, u_in=1), False),
+    "R's data_ptr 2 bytes in": (_sketch_pair(8, 129, 1024, r_in=1), False),
+}
+
+
+@pytest.mark.parametrize("case", list(_SKETCH_MMA_CASES))
+def test_sketch_mma_eligible_rule(case):
+    """sketch's tensor-core body takes U and R both bf16 with 1 <= K <= 64,
+    any m, n >= 1, n % 8 == 0, 16-byte aligned pointers and row strides
+    that are multiples of 8; every other call keeps cross.cuh's body
+    (sketch.cu)."""
+    from repro_torch.kernels.sketch import SKETCH_MMA_MAX_K, _mma_eligible
+    (U, R), want = _SKETCH_MMA_CASES[case]
+    assert SKETCH_MMA_MAX_K == 64
+    assert _mma_eligible(U, R) is want
+
+
+@pytest.mark.parametrize("nb", range(1, 9))
+def test_sketch_mma_deal_covers_every_tile(nb):
+    """For every K of one instance NB: the warps own every (16 x 8) tile
+    (i, j) of a slice's (128 x 8·NB) partial exactly once, warp w the row
+    tile w; for m across the slice boundaries every entry of S_U is one
+    partial entry of one slice; the one-wave grid's column ranges are whole
+    staged tiles that cover n."""
+    from repro_torch.kernels.sketch import (MMA_SLICE_ROWS, MMA_STAGE_COLS,
+                                            MMA_WARPS, mma_deal, mma_grid,
+                                            mma_rows, mma_slices)
+    assert MMA_SLICE_ROWS == 16 * MMA_WARPS
+    for K in range(8 * nb - 7, 8 * nb + 1):
+        assert mma_rows(K) == 8 * nb
+        deal = mma_deal(K)
+        assert len(deal) == MMA_WARPS
+        assert all(len(w) == nb and {i for i, _ in w} == {row}
+                   for row, w in enumerate(deal))
+        tiles = [tile for warp in deal for tile in warp]
+        assert sorted(tiles) == [(i, j) for i in range(MMA_SLICE_ROWS // 16)
+                                 for j in range(nb)]
+        covered = {(16 * i + r, 8 * j + c) for i, j in tiles
+                   for r in range(16) for c in range(8)}
+        assert all((r, k) in covered for r in range(MMA_SLICE_ROWS)
+                   for k in range(K))
+        for m in (1, 15, 16, 17, 127, 128, 129, 255, 256, 1024, 1025):
+            slices = mma_slices(m)
+            assert (slices - 1) * MMA_SLICE_ROWS < m <= slices * MMA_SLICE_ROWS
+            # column j of S_U is row j % 128 of slice j // 128's partial
+            entries = {(j // MMA_SLICE_ROWS, j % MMA_SLICE_ROWS, k)
+                       for j in range(m) for k in range(K)}
+            assert len(entries) == K * m
+            for per_sm in (1, 2):
+                for n in (8, 72, 4104, 1 << 20, 1 << 22):
+                    s, blocks, cols = mma_grid(n, m, 132, per_sm)
+                    assert s == slices
+                    assert cols % MMA_STAGE_COLS == 0
+                    assert 1 <= blocks and s * blocks <= max(per_sm * 132, s)
+                    assert blocks * cols >= n > (blocks - 1) * cols
+    assert mma_grid(1 << 20, 1024, 132, 2) == (8, 33, 249 * 128)
+
+
+def test_sketch_mma_body_is_built_and_bound():
+    """``sketch_mma.cu`` defines the two launchers the wrapper binds, with
+    the argument counts and types ``_build`` gives them, stages with
+    ``cp.async``, loads fragments with ``ldmatrix`` and multiplies through
+    mma.cuh's bf16 ``mma.sync``; ``sketch.cu`` still runs cross.cuh."""
+    src = _build.CSRC / "sketch_mma.cu"
+    assert src in _build.sources()
+    text = src.read_text()
+    sig = _build._SIGNATURES
+    I, LL, VP = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+    assert ('extern "C" int sketch_mma_launch_config(int K, int m, '
+            'int* blocks_per_sm,' in text)
+    assert "long long* slices)" in text
+    assert sig["sketch_mma_launch_config"] == [I, I, ctypes.POINTER(I),
+                                               ctypes.POINTER(LL)]
+    assert ('extern "C" int sketch_mma_launch(const void* U, long long ldu, '
+            'int K,' in text)
+    # U, ldu, K, R, ldr, m, n, partial, partial_floats, num_blocks,
+    # cols_per_block, S, stream
+    assert sig["sketch_mma_launch"] == [VP, LL, I, VP, LL, I, LL, VP, LL, I,
+                                        LL, VP, VP]
+    assert '#include "mma.cuh"' in text and "mma_bf16(" in text
+    assert "ldmatrix_x4(" in text and "ldmatrix_x2(" in text
+    assert "cp_async16(" in text
+    assert '#include "cross.cuh"' not in text
+    sketch_cu = (_build.CSRC / "sketch.cu").read_text()
+    assert '#include "cross.cuh"' in sketch_cu
+    assert "mma_bf16(" not in sketch_cu
 
 
 # --------------------------------------------------------- flash_decode
