@@ -61,15 +61,16 @@ Phases (any failure exits non-zero and prints no result line):
      parameters from a seeded generator on the card): 4 slots of 256 rows
      serve 8 requests (prompts of 48-200 tokens, 32 or 4 new) with one
      mid-flight publish on the ``ModelBus``.  Every request completes, the
-     versions are monotone, ``flash_decode`` launches L x decode steps and
-     no plain version runs; tokens/s, one decode step and one prefill chunk
+     versions are monotone, ``flash_decode`` launches L x decode steps, all
+     on the tensor-core body, and no plain version runs; tokens/s, one decode step and one prefill chunk
      alone (CUDA events) beside the step's byte bound, the device busy time
      per step from ``torch.profiler``, the swap stall; one step's logits
      with the kernel against the plain ``flash_decode``, beside the floor
      two correct attentions show (the plain version in f32 against f64 and
      against SDPA, a yardstick used nowhere in the port); three staggered
      requests equal to each served alone; a reduced f32 qwen3 served on the
-     card and on the CPU gives the same tokens.
+     card (on ``decode_attn.cu``'s body) and on the CPU gives the same
+     tokens.
 
 The kernels phase also holds ``stream_stats``, ``gram_block`` and ``sketch``
 (U Rᵀ against an explicit R) against their plain versions, bitwise
@@ -84,7 +85,10 @@ bf16 rows with K <= 64, aligned rows and n % 8 == 0 take
 ``sketch_mma.cu``, every other call ``sketch.cu``), and ``flash_decode``
 (o and lse) at the serve path's shape, a decode_32k-like cache, gemma-7b's
 and starcoder2-15b's heads (the latter windowed), with ragged, strided,
-soft-capped and f32 caches, timed beside SDPA.
+soft-capped and f32 caches, timed beside SDPA (bf16 q, k and v at hd 64
+or 128 take the tensor-core body of ``decode_attn_mma.cu``, timed in turn
+with ``decode_attn.cu``'s body on the same inputs; every other call
+``decode_attn.cu``; device µs of both bodies' partial and merge kernels).
 
 The last lines are one ``{"kernels": [...]}`` JSON object, the
 ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device": ...}``.
@@ -295,21 +299,42 @@ def time_ms_spread(fns: dict, reps: int, repeats: int = 5) -> dict:
                    "max": max(r), "runs": r} for name, r in runs.items()}
 
 
+# torch.profiler traces on an H100 now and then come back with no device
+# activity at all for a short window (seen for one call of topk and of gram
+# at path width); a window that holds none is profiled again, up to this
+# many times in all.  A call always launches a kernel, so an empty trace is
+# a lost trace, never a result.
+PROFILE_ATTEMPTS = 3
+
+
+def _device_rows(fn, calls: int) -> list:
+    """The ``key_averages()`` entries with device time (kernels, not aten
+    ops or runtime calls) of ``calls`` calls of ``fn`` under
+    ``torch.profiler``, after a warm-up call; an empty trace is taken
+    again (``PROFILE_ATTEMPTS``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if _device_us(e) > 0
+                and not e.key.startswith(("aten::", "cuda"))]
+        if rows:
+            break
+    return rows
+
+
 def device_kernels(fn) -> tuple:
     """``(names, ms)``: the device kernels one call of ``fn`` runs, one name
     per launch, and their device time (``torch.profiler`` over one call
     after a warm-up call; the entries with device time, as
     :func:`device_busy` reads them)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if _device_us(e) > 0 and not e.key.startswith(("aten::", "cuda"))]
+    rows = _device_rows(fn, 1)
     return ([e.key for e in rows for _ in range(e.count)],
             sum(_device_us(e) for e in rows) / 1e3)
 
@@ -319,18 +344,8 @@ def device_kernel_means(fn, calls: int = 3) -> dict:
     ``calls`` calls of ``fn`` under ``torch.profiler`` (after a warm-up
     call): a kernel that a call launches once costs its mean per call, even
     where the trace misses one of its launches."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
     return {e.key: [e.count, _device_us(e) / e.count / 1e3]
-            for e in prof.key_averages()
-            if _device_us(e) > 0 and not e.key.startswith(("aten::", "cuda"))}
+            for e in _device_rows(fn, calls)}
 
 
 def host_ms(fn, reps: int, repeats: int = 5) -> float:
@@ -1043,11 +1058,17 @@ def check_decode(B: int, S: int, KV: int, G: int, hd: int, dt, gen,
                  lengths=None, window=None, softcap=None, timed=True,
                  stacked=False) -> dict:
     """flash_decode against its plain version on the card (o and lse within
-    DECODE_TOL, two calls bitwise equal); with ``timed``, CUDA-event times
-    of the kernel, the plain version and SDPA on the same rows."""
+    DECODE_TOL, two calls bitwise equal, both on the body the inputs route
+    to: ``mma``, decode_attn_mma.cu, for bf16 q, k and v at hd 64 or 128,
+    ``cuda_core``, decode_attn.cu, otherwise); with ``timed``, CUDA-event
+    times of the kernel, the plain version and SDPA on the same rows and
+    the device µs of the call's kernels from ``torch.profiler``.  A row on
+    the tensor-core body also times the CUDA-core body on the same inputs
+    (held to the same tolerance), the two bodies in turn (CUDA-core,
+    tensor-core, tensor-core, CUDA-core)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import decode_attn, ops
     lengths = lengths or [S] * B
     q = torch.randn((B, KV, G, hd), generator=gen, device="cuda").to(dt)
     if stacked:     # layer 1 of a stacked (3, B, S, KV, hd) cache, in place
@@ -1058,11 +1079,16 @@ def check_decode(B: int, S: int, KV: int, G: int, hd: int, dt, gen,
         v = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dt)
     ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     kw = dict(window=window, softcap=softcap)
+    body = "mma" if decode_attn._mma_eligible(q, k, v) else "cuda_core"
+    decode_attn.reset_body_launches()
     got = ops.flash_decode(q, k, v, ln, backend="cuda", **kw)
     again = ops.flash_decode(q, k, v, ln, backend="cuda", **kw)
+    tally = decode_attn.body_launches()
     want = ops.flash_decode(q, k, v, ln, backend="torch", **kw)
     torch.cuda.synchronize()
     what = f"flash_decode B={B} S={S} KV={KV} G={G} hd={hd} {dt}"
+    need(tally[body] == 2 and sum(tally.values()) == 2,
+         f"{what}: body launches {tally}, want 2 on {body}")
     need(all(a.shape == b.shape and a.dtype == torch.float32
              for a, b in zip(got, want)), f"{what}: output shapes")
     bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -1074,14 +1100,42 @@ def check_decode(B: int, S: int, KV: int, G: int, hd: int, dt, gen,
            "lengths": lengths if len(set(lengths)) > 1 else f"all {S}",
            "max_abs_err": max(_max_err(a, b) for a, b in zip(got, want)),
            "rel_err": err, "tolerance": DECODE_TOL,
-           "bitwise_repeatable": bitwise}
+           "bitwise_repeatable": bitwise, "body": body}
+    if body == "mma":
+        first = decode_attn.flash_decode_cuda(q, k, v, ln, body="cuda_core",
+                                              **kw)
+        rec["cuda_core_rel_err"] = max(_max_err(a, b) / _scale(b)
+                                       for a, b in zip(first, want))
+        need(rec["cuda_core_rel_err"] <= DECODE_TOL,
+             f"{what}: the CUDA-core body {rec['cuda_core_rel_err']:.3e} "
+             f"off plain")
     if timed:
         b_rec = decode_bound(B, S, KV, G, hd, dt, lengths, window)
         reps = reps_for(b_rec["bytes"])
-        rec["ms"] = time_ms(
-            lambda: ops.flash_decode(q, k, v, ln, backend="cuda", **kw), reps)
+        kernel = lambda: ops.flash_decode(q, k, v, ln, backend="cuda", **kw)  # noqa: E731
+        if body == "mma":
+            parent = lambda: decode_attn.flash_decode_cuda(  # noqa: E731
+                q, k, v, ln, body="cuda_core", **kw)
+            runs = [time_ms(fn, reps) for fn in (parent, kernel, kernel,
+                                                 parent)]
+            rec["ms_runs"], rec["cuda_core_ms_runs"] = runs[1:3], runs[::3]
+            rec["ms"] = statistics.median(runs[1:3])
+            rec["cuda_core_ms"] = statistics.median(runs[::3])
+            kernels = device_kernel_means(parent)
+            rec["cuda_core_device_kernels"] = kernels
+            rec["cuda_core_device_ms"] = sum(ms for _, ms in kernels.values())
+        else:
+            rec["ms"] = time_ms(kernel, reps)
         rec["plain_ms"] = time_ms(
             lambda: ops.flash_decode(q, k, v, ln, backend="torch", **kw), reps)
+        kernels = device_kernel_means(kernel)
+        rec["device_kernels"] = kernels
+        rec["device_ms"] = sum(ms for _, ms in kernels.values())
+        rec["device_kernels_per_call"] = len(kernels)
+        rec["host_ms"] = host_ms(kernel, reps)
+        if body == "mma":
+            need(any("decode_mma_partial" in name for name in kernels),
+                 f"{what}: device kernels {list(kernels)}")
         # SDPA on the same rows with a length (and window) mask; it returns
         # o but no lse.  k and v are transposed to (B, KV, S, hd) once,
         # outside the timing.
@@ -1097,17 +1151,37 @@ def check_decode(B: int, S: int, KV: int, G: int, hd: int, dt, gen,
                 qh, kh, vh, attn_mask=mask, enable_gqa=True)
             lib()
             rec["library_ms"] = None if softcap else time_ms(lib, reps)
+            if rec["library_ms"] is not None:
+                rec["library_device_ms"] = sum(
+                    ms for _, ms in device_kernel_means(lib).values())
         except (RuntimeError, TypeError) as exc:
             rec["library_ms"], rec["library_error"] = None, str(exc)[:200]
         rec["library"] = ("scaled_dot_product_attention(enable_gqa, bool "
                           "length mask): o only, no lse; transpose not timed")
         rec.update(b_rec)
+        if body == "mma":
+            log(f"{what} window={window}: tensor-core body "
+                f"{' / '.join(f'{t * 1e3:.1f}' for t in rec['ms_runs'])} us, "
+                f"CUDA-core body "
+                f"{' / '.join(f'{t * 1e3:.1f}' for t in rec['cuda_core_ms_runs'])}"
+                f" us (in turn: CUDA-core, tensor-core, tensor-core, "
+                f"CUDA-core); device kernels (launches in 3 calls, us per "
+                f"launch) tensor-core: " + _kernel_names(rec) + "; CUDA-core: "
+                + _kernel_names({"device_kernels":
+                                 rec["cuda_core_device_kernels"]})
+                + f"; SDPA device {rec.get('library_device_ms', 0) * 1e3:.1f}"
+                " us")
+        else:
+            log(f"{what} window={window}: device kernels (launches in 3 "
+                f"calls, us per launch) " + _kernel_names(rec))
     return rec
 
 
 def decode_phase_records(gen) -> list:
     """flash_decode at the serve path's shape, model shapes, and ragged,
-    strided, windowed, soft-capped and f32 shapes (kernels phase)."""
+    strided, windowed, soft-capped and f32 shapes (kernels phase); the
+    bf16 rows at hd 64 and 128 take the tensor-core body, the rest the
+    CUDA-core body."""
     import torch
     bf16, f32 = torch.bfloat16, torch.float32
     B, S, KV, G, hd, window, lengths = DECODE_PATH
@@ -1127,7 +1201,11 @@ def decode_phase_records(gen) -> list:
              lengths=[1, 1000, 65]),
         dict(B=3, S=77, KV=4, G=1, hd=64, dt=f32, lengths=[1, 77, 40]),
         dict(B=2, S=4097, KV=2, G=3, hd=64, dt=bf16, window=4096,
-             softcap=30.0, lengths=[4097, 2])]
+             softcap=30.0, lengths=[4097, 2]),
+        dict(B=8, S=1000, KV=2, G=16, hd=64, dt=bf16, window=300,
+             softcap=30.0, lengths=[1, 63, 64, 65, 299, 300, 301, 1000]),
+        dict(B=3, S=300, KV=4, G=12, hd=128, dt=f32, window=100,
+             lengths=[300, 1, 150])]
     for c in ragged:
         dt = c.pop("dt")
         recs.append(dict(check_decode(gen=gen, dt=dt, timed=False, **c),
@@ -1332,7 +1410,8 @@ def path_phase():
     import torch
     from repro_torch.configs import get_config
     from repro_torch.fl import ServerConfig, run_simulation
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import (decode_attn, launch_counts,
+                                     reset_launch_counts)
     from repro_torch.models import get_model
     from repro_torch.models.logistic import logistic_apply, logistic_loss
     from repro_torch.obs import InMemoryTracker, use_tracker
@@ -1991,6 +2070,12 @@ def _staggered(eng, reqs) -> dict:
     return {c.rid: c.tokens for c in done + eng.run()}
 
 
+def _tally_since(before: dict, now: dict) -> dict:
+    """A launch tally by body over a stretch of a phase (the phase's own
+    tally, read by ``main``, runs on across it)."""
+    return {key: now[key] - before[key] for key in now}
+
+
 def _dense_param_count(cfg) -> int:
     """Parameters of a dense config: the analytic estimate plus the norm
     scales it leaves out (ln1, ln2, qk-norm per layer; final norm)."""
@@ -2006,7 +2091,8 @@ def serve_phase(device: str = "cuda", cfg=None) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.flatten import tree_leaves, tree_map
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import (decode_attn, launch_counts,
+                                     reset_launch_counts)
     from repro_torch.models import get_model
     from repro_torch.models import transformer as ttf
     from repro_torch.obs import InMemoryTracker, use_tracker
@@ -2039,6 +2125,7 @@ def serve_phase(device: str = "cuda", cfg=None) -> dict:
     tracker = InMemoryTracker()
     done, seen = [], []
     reset_launch_counts()
+    before = decode_attn.body_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with use_tracker(tracker):
@@ -2052,6 +2139,7 @@ def serve_phase(device: str = "cuda", cfg=None) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
+    bodies = _tally_since(before, decode_attn.body_launches())
     tokens = sum(len(c.tokens) for c in done)
     steps = int(eng.stats["decode_steps"])
     need(sorted(c.rid for c in done) == list(range(len(reqs)))
@@ -2064,6 +2152,9 @@ def serve_phase(device: str = "cuda", cfg=None) -> dict:
     need(counts["flash_decode/cuda"] == L * steps,
          f"serve: flash_decode/cuda {counts['flash_decode/cuda']} launches, "
          f"want L x decode steps = {L * steps}")
+    need(bodies == {"mma": L * steps, "cuda_core": 0},
+         f"serve: flash_decode bodies {bodies}, want all {L * steps} bf16 "
+         "launches on the tensor-core body")
     plain = {k: v for k, v in counts.items() if k.endswith("/torch") and v}
     need(not plain, f"serve: plain versions ran on the path: {plain}")
     chunk_ms = sorted(ms / SERVE["scan_chunk"]
@@ -2076,7 +2167,7 @@ def serve_phase(device: str = "cuda", cfg=None) -> dict:
         f"median {statistics.median(chunk_ms):.2f} ms per step as served "
         f"(chunk wall / {SERVE['scan_chunk']}, prefill work included); "
         f"swap stall {swap_stall * 1e3:.3f} ms; flash_decode launches "
-        f"{counts['flash_decode/cuda']} = {L} x {steps}")
+        f"{counts['flash_decode/cuda']} = {L} x {steps}, bodies {bodies}")
 
     # one decode step and one prefill chunk alone, timed with CUDA events
     B = SERVE["slots"]
@@ -2152,8 +2243,13 @@ def serve_phase(device: str = "cuda", cfg=None) -> dict:
                   for i, (p, _) in enumerate(_serve_requests(
                       small.vocab_size, seed=2)[:4])]
     kw = dict(max_seq=64, prefill_chunk_tokens=16)
+    before = decode_attn.body_launches()
     on_card = _staggered(_engine(small, small_card, device, **kw),
                          small_reqs)
+    small_bodies = _tally_since(before, decode_attn.body_launches())
+    need(small_bodies["mma"] == 0 and small_bodies["cuda_core"] > 0,
+         f"serve: reduced f32 flash_decode bodies {small_bodies}, want the "
+         "CUDA-core body only")
     on_cpu = _staggered(_engine(small, small_cpu, "cpu", **kw), small_reqs)
     need(on_card == on_cpu, f"serve: reduced f32 tokens card {on_card} != "
          f"CPU {on_cpu}")
@@ -2167,8 +2263,10 @@ def serve_phase(device: str = "cuda", cfg=None) -> dict:
         f"reduced f32: {small_err:.3e} (tolerance {SERVE_LOGIT_TOL_F32}); "
         f"3 staggered requests equal solo at full width; reduced f32 "
         f"qwen3 tokens equal on card and CPU ({sum(map(len, on_cpu.values()))}"
-        f" tokens)")
-    return {"counts": counts, "tokens": tokens, "wall_s": wall,
+        f" tokens; flash_decode bodies {small_bodies})")
+    return {"counts": counts, "bodies": bodies,
+            "reduced_f32_bodies": small_bodies,
+            "tokens": tokens, "wall_s": wall,
             "tokens_per_s": tokens / wall, "decode_steps": steps,
             "decode_step_ms_alone": step_med,
             "decode_step_ms_alone_all": step_ms,
@@ -2207,13 +2305,16 @@ def setup_phase() -> str:
     build_s = {}
     for line in _build.ptxas_log().splitlines():
         if ("Compiling entry function" in line or "registers" in line
-                or line.startswith("==")):
+                or line.startswith("==") or ("spill" in line and not line
+                                             .strip().startswith("0 bytes"))):
             log("ptxas: " + line.strip())
         if line.startswith("== "):           # "== name.cu (seconds s)"
             name, secs = line[3:].split(" (")
             build_s[name] = float(secs.split()[0])
-    log("build: nvcc seconds, sketch_mma.cu (8 instances) "
-        f"{build_s['sketch_mma.cu']:.2f} beside gram_block_mma.cu (32) "
+    log("build: nvcc seconds, decode_attn_mma.cu (2 instances) "
+        f"{build_s['decode_attn_mma.cu']:.2f} beside decode_attn.cu (32) "
+        f"{build_s['decode_attn.cu']:.2f}, sketch_mma.cu (8) "
+        f"{build_s['sketch_mma.cu']:.2f}, gram_block_mma.cu (32) "
         f"{build_s['gram_block_mma.cu']:.2f} and gram_mma.cu (8) "
         f"{build_s['gram_mma.cu']:.2f}; slowest "
         f"{max(build_s, key=build_s.get)} {max(build_s.values()):.2f}")
@@ -2278,15 +2379,26 @@ def setup_phase() -> str:
             f"{slices} slices x (blocks, columns per block) "
             f"{cross.grid(n, sms, per_sm, slices)}, {per_sm} blocks of 256 "
             "threads per SM")
-    from repro_torch.kernels.decode_attn import decode_splits, resident_blocks
+    from repro_torch.kernels.decode_attn import (
+        MMA_HEAD_DIMS, decode_mma_splits, decode_splits, mma_resident_blocks,
+        resident_blocks)
     for B, S, KV, G, hd, window, _ in (DECODE_PATH,) + tuple(DECODE_MODEL):
         resident = resident_blocks(hd, G, True, 0)
         splits, rows = decode_splits(B, S, KV, resident, window)
         log(f"launch: flash_decode B={B} S={S} KV={KV} G={G} hd={hd} "
-            f"window={window} bf16: {resident // sms} blocks of 128 threads "
-            f"per SM; {splits} splits of {rows} rows -> {splits * KV * B} "
-            "blocks" + (f", then a merge of {B * KV} blocks" if splits > 1
-                        else ""))
+            f"window={window} bf16, CUDA-core body: {resident // sms} blocks "
+            f"of 128 threads per SM; {splits} splits of {rows} rows -> "
+            f"{splits * KV * B} blocks" + (
+                f", then a merge of {B * KV} blocks" if splits > 1 else ""))
+        if hd in MMA_HEAD_DIMS:
+            resident = mma_resident_blocks(hd, 0)
+            splits, rows = decode_mma_splits(B, S, KV, resident, window)
+            log(f"launch: flash_decode B={B} S={S} KV={KV} G={G} hd={hd} "
+                f"window={window} bf16, tensor-core body: {resident // sms} "
+                f"blocks of 128 threads per SM; {splits} splits x {rows} "
+                f"rows of each row's live window -> {splits * KV * B} "
+                "blocks" + (f", then a merge of {B * KV * G} blocks of {hd}"
+                            " threads" if splits > 1 else ""))
     return smi_line
 
 
@@ -2307,7 +2419,7 @@ KERNEL_SOURCES = {
                    "src/repro/kernels/gram.py:60"),
     "sketch": ("src/repro_torch/kernels/csrc/sketch.cu",
                "src/repro/kernels/sketch.py:39"),
-    "flash_decode": ("src/repro_torch/kernels/csrc/decode_attn.cu",
+    "flash_decode": ("src/repro_torch/kernels/csrc/decode_attn_mma.cu",
                      "src/repro/kernels/decode_attn.py:72"),
 }
 
@@ -2346,8 +2458,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     t_start = time.perf_counter()
-    from repro_torch.kernels import gram, sketch
-    gram_bodies, block_bodies, sketch_bodies = {}, {}, {}
+    from repro_torch.kernels import decode_attn, gram, sketch
+    gram_bodies, block_bodies, sketch_bodies, decode_bodies = {}, {}, {}, {}
 
     def on_cuda_core(path: str, phase, *args):
         """Run a path phase; every gram launch in it must take gram.cu's
@@ -2356,10 +2468,12 @@ def main() -> int:
         gram.reset_body_launches()
         gram.reset_block_body_launches()
         sketch.reset_body_launches()
+        decode_attn.reset_body_launches()
         result = phase(*args)
         gram_bodies[path] = gram.body_launches()
         block_bodies[path] = gram.block_body_launches()
         sketch_bodies[path] = sketch.body_launches()
+        decode_bodies[path] = decode_attn.body_launches()
         need(gram_bodies[path]["mma"] == 0,
              f"{path}: gram bodies {gram_bodies[path]}, want cuda_core only")
         need(sum(block_bodies[path].values()) == 0,
@@ -2405,6 +2519,10 @@ def main() -> int:
         sources=[KERNEL_SOURCES["sketch"][0],
                  "src/repro_torch/kernels/csrc/sketch_mma.cu"],
         bodies_by_path=sketch_bodies)
+    entries[names.index("flash_decode")].update(
+        sources=[KERNEL_SOURCES["flash_decode"][0],
+                 "src/repro_torch/kernels/csrc/decode_attn.cu"],
+        bodies_by_path=decode_bodies)
     entries[names.index("stream_stats")]["bigmodel"] = {
         k: v for k, v in big.items() if k != "counts"}
     entries[names.index("flash_decode")]["serve"] = {

@@ -81,6 +81,11 @@ _SIGNATURES = {
                             _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _LL, _LL,
                             _I, _I, ctypes.c_float, _I, _I, _I,
                             ctypes.c_float, _VP],
+    "flash_decode_mma_launch_config": [_I, ctypes.POINTER(_I)],
+    "flash_decode_mma_launch": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I,
+                                _I, _I, _I, _I, _LL, _LL, _LL, _LL, _LL, _LL,
+                                _I, _I, ctypes.c_float, _I, _I, _I,
+                                ctypes.c_float, _VP],
 }
 
 

@@ -1,6 +1,7 @@
 // PTX helpers of the bf16 tensor-core bodies (stream_stats.cu's
-// stream_stats_mma, gram_mma.cu's gram_mma_partial and gram_block_mma.cu's
-// gram_block_mma_partial).
+// stream_stats_mma, gram_mma.cu's gram_mma_partial, gram_block_mma.cu's
+// gram_block_mma_partial, sketch_mma.cu's sketch_mma_partial and
+// decode_attn_mma.cu's decode_mma_partial).
 #pragma once
 
 #include <type_traits>
@@ -59,6 +60,16 @@ __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
 __device__ __forceinline__ void ldmatrix_x2(unsigned (&r)[2], unsigned addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// Four 8 x 8 b16 matrices, each stored as 8 rows of 16 bytes, transposed
+// on the way into the fragments: a [k][n] tile in shared memory becomes
+// m16n8k16's col-major B operand.
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
 }
 

@@ -36,7 +36,7 @@ from repro_torch.kernels import (flash_decode, gram_and_cross,
                                  sign_sketch, sign_sketch_adjoint,
                                  sketch_apply, stream_stats, topk_select,
                                  weighted_combine)
-from repro_torch.kernels import ref
+from repro_torch.kernels import decode_attn, ref
 from repro_torch.kernels.combine import combine_cuda
 from repro_torch.kernels.gram import gram_block_cuda, gram_cuda
 from repro_torch.kernels.rng_sketch import (sign_sketch_adjoint_cuda,
@@ -892,11 +892,18 @@ def _decode_case(gen, dev, B, S, KV, G, hd, dtype, lengths):
 
 
 def _check_decode(q, k, v, lengths, **kw):
+    """Two kernel calls, bitwise equal and within DECODE_TOL of the plain
+    version, both on the body the inputs route to (the tensor-core body for
+    bf16 q, k and v at hd 64 or 128, the CUDA-core body otherwise)."""
+    body = "mma" if decode_attn._mma_eligible(q, k, v) else "cuda_core"
     reset_launch_counts()
+    decode_attn.reset_body_launches()
     got = flash_decode(q, k, v, lengths, **kw)
     again = flash_decode(q, k, v, lengths, **kw)
     assert launch_counts()["flash_decode/cuda"] == 2
     assert launch_counts()["flash_decode/torch"] == 0
+    assert decode_attn.body_launches()[body] == 2
+    assert sum(decode_attn.body_launches().values()) == 2
     want = flash_decode(q, k, v, lengths, backend="torch", **kw)
     for g, a, w in zip(got, again, want):
         assert g.dtype == torch.float32 and g.shape == w.shape
@@ -967,6 +974,63 @@ def test_flash_decode_kernel_skips_dead_rows(cuda_device):
     dirty = flash_decode(q, kn, vn, lengths, window=window)
     for a, b in zip(clean, dirty):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("G", [1, 4, 5, 8, 12, 16])
+@pytest.mark.parametrize("window,softcap", [(None, None), (300, None),
+                                            (300, 30.0), (None, 50.0)])
+def test_flash_decode_mma_body_matches_plain(cuda_device, hd, G, window,
+                                             softcap):
+    """The tensor-core body at every G it takes, on rows whose lengths sit
+    on the 64-row tiles' edges and on the window's."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(hd + G)
+    S = 1000
+    lengths = [1, 63, 64, 65, 299, 300, 301, S]
+    q, k, v, ln = _decode_case(gen, cuda_device, len(lengths), S, 2, G, hd,
+                               torch.bfloat16, lengths)
+    assert decode_attn._mma_eligible(q, k, v)
+    _check_decode(q, k, v, ln, window=window, softcap=softcap)
+
+
+def test_flash_decode_first_body_still_serves_bf16_and_skips_dead_rows(
+        cuda_device):
+    """The CUDA-core body, asked for on bf16 calls the tensor-core body
+    would take, agrees with the plain version and with the tensor-core body,
+    and also never reads dead rows (NaN there changes nothing)."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(6)
+    B, S, KV, G, hd = 3, 2048, 2, 12, 128
+    q, k, v, lengths = _decode_case(gen, cuda_device, B, S, KV, G, hd,
+                                    torch.bfloat16, [1, 1000, 2048])
+    window = 300
+    decode_attn.reset_body_launches()
+    first = decode_attn.flash_decode_cuda(q, k, v, lengths, window=window,
+                                          body="cuda_core")
+    mma = decode_attn.flash_decode_cuda(q, k, v, lengths, window=window)
+    assert decode_attn.body_launches() == {"mma": 1, "cuda_core": 1}
+    want = flash_decode(q, k, v, lengths, window=window, backend="torch")
+    for f, m, w in zip(first, mma, want):
+        assert _rel_err(f, w) <= DECODE_TOL and _rel_err(m, w) <= DECODE_TOL
+    pos = torch.arange(S, device=cuda_device)[None, :]
+    dead = (pos >= lengths[:, None]) | (pos < lengths[:, None] - window)
+    kn = torch.where(dead[..., None, None], float("nan"), k.float()).to(k.dtype)
+    vn = torch.where(dead[..., None, None], float("nan"), v.float()).to(v.dtype)
+    dirty = decode_attn.flash_decode_cuda(q, kn, vn, lengths, window=window,
+                                          body="cuda_core")
+    for a, b in zip(first, dirty):
+        assert torch.equal(a, b)
+
+
+def test_flash_decode_body_choice_is_checked(cuda_device):
+    q = torch.zeros(1, 1, 1, 128, device=cuda_device)
+    k = torch.zeros(1, 8, 1, 128, device=cuda_device)
+    one = torch.ones(1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="tensor-core body"):
+        decode_attn.flash_decode_cuda(q, k, k, one, body="mma")   # f32
+    with pytest.raises(ValueError, match="body"):
+        decode_attn.flash_decode_cuda(q, k, k, one, body="wgmma")
 
 
 def test_flash_decode_kernel_refuses_what_it_cannot_take(cuda_device):

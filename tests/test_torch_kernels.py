@@ -5,7 +5,11 @@ On the CPU the ops run their plain PyTorch versions; these are held against
 ``combine_pallas`` and ``flash_decode_pallas`` in interpret mode at the
 tolerances of ``tests/test_kernels.py`` (1e-4 f32 and 2e-2 bf16 for the
 products, 1e-5 f32 and 3e-2 bf16 for combine, 2e-4 f32 and 3e-2 bf16 for
-flash_decode, 1e-4 for lse_merge over seq shards).  ``stream_stats`` is held against the
+flash_decode, 1e-4 for lse_merge over seq shards).  The arithmetic of
+flash_decode's tensor-core body (``csrc/decode_attn_mma.cu``) is emulated
+here in f32 and held to 1e-4 of ``flash_decode_pallas`` and to the plain
+f32 version's distance from an f64 attention; its splits and routing are
+checked from the shapes.  ``stream_stats`` is held against the
 reference in ``tests/test_torch_streamed.py``.  The CUDA kernels themselves are tested on the card
 by ``tests/test_torch_cuda.py``.
 """
@@ -30,7 +34,8 @@ from repro_torch.kernels import (_build, backends, flash_decode,
 from repro_torch.kernels import ref
 from repro_torch.kernels.combine import combine_cuda
 from repro_torch.kernels.cross import grid as cross_grid
-from repro_torch.kernels.decode_attn import decode_splits
+from repro_torch.kernels.decode_attn import (_mma_eligible, decode_mma_splits,
+                                            decode_splits)
 from repro_torch.kernels.gram import gram_cuda, grid, row_slices, scratch_rows
 from repro_torch.kernels.rng_sketch import grid as sketch_grid
 from repro_torch.kernels.topk import SMALL_MAX_N, single_block
@@ -849,3 +854,244 @@ def test_decode_splits_cover_the_rows(B, S, KV, window, resident):
     live = min(S, window) if window else S
     live_splits = -(-live // rows)
     assert B * KV * live_splits <= max(resident, B * KV)
+
+
+# ------------------------------------- flash_decode's tensor-core body
+
+def mma_split_rows(length, S, window, split, rows):
+    """``[start, end)``: the cache rows that split ``split`` of a batch row
+    of ``length`` reads in the tensor-core body, as ``decode_mma_partial``
+    (``csrc/decode_attn_mma.cu``) computes them on the device (empty when
+    start >= end)."""
+    hi = min(length, S)
+    lo = max(0, length - window) if window else 0
+    start = lo + split * rows
+    return start, min(hi, start + rows)
+
+
+def _split_lengths(S, window):
+    """Lengths 1..S, sampled: the ends, the 64-row edges, the window's
+    edges and a spread between."""
+    cand = {1, 2, 63, 64, 65, 127, 128, 129, S // 2, S - 1, S}
+    if window:
+        cand |= {window - 1, window, window + 1}
+    cand |= set(np.linspace(1, S, 17).astype(int).tolist())
+    return sorted(x for x in cand if 1 <= x <= S)
+
+
+@pytest.mark.parametrize("B,S,KV,window", [
+    (4, 256, 8, None), (8, 32768, 8, None), (4, 8192, 16, None),
+    (4, 16384, 4, 4096), (1, 1, 1, None), (3, 97, 2, 30), (64, 100, 64, None),
+    (2, 5000, 2, 10000), (1, 1 << 20, 1, 64)])
+@pytest.mark.parametrize("resident", [132, 396, 1188])
+def test_decode_mma_splits_cover_each_rows_live_window(B, S, KV, window,
+                                                       resident):
+    """The tensor-core body's splits come from the shapes alone, in whole
+    64-row multiples, fill at most one wave (or one split a head), and for
+    every length anchor at the row's own window: split j reads
+    [lo + j·rows, min(lo + (j+1)·rows, len)), and together they read the
+    live rows [lo, len) exactly once and nothing else."""
+    splits, rows = decode_mma_splits(B, S, KV, resident, window)
+    live = min(S, window) if window else S
+    assert rows % 64 == 0 and splits >= 1
+    assert (splits - 1) * rows < live <= splits * rows
+    assert B * KV * splits <= max(resident, B * KV)
+    for length in _split_lengths(S, window):
+        lo = max(0, length - window) if window else 0
+        ranges = [mma_split_rows(length, S, window, j, rows)
+                  for j in range(splits)]
+        at = lo
+        for j, (start, end) in enumerate(ranges):
+            assert start == lo + j * rows
+            if start < end:             # contiguous, each row once
+                assert start == at
+                at = end
+        assert at == length, (length, ranges)
+
+
+def test_decode_mma_splits_shrink_starcoder2s_grid():
+    """At starcoder2-15b's row (B=4, KV=4, window 4 096 of S=16 384) on the
+    resident blocks of two blocks an SM of 132, the grid holds the 16
+    splits of 256 rows a full window needs; the CUDA-core body's tiling of
+    the whole cache holds 64."""
+    assert decode_mma_splits(4, 16384, 4, 264, 4096) == (16, 256)
+    assert decode_splits(4, 16384, 4, 264, 4096)[0] == 64
+
+
+def _decode_view(shape, dtype, hd_pad=0, shift=0):
+    """A (B, S, KV, hd) tensor of ``dtype``, optionally a view of a wider
+    last dim (row stride hd + hd_pad) or starting ``shift`` entries into
+    its buffer."""
+    B, S, KV, hd = shape
+    full = torch.zeros(B * S * KV * (hd + hd_pad) + shift, dtype=dtype)
+    return full[shift:].view(B, S, KV, hd + hd_pad)[..., :hd]
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("G", list(range(1, 17)))
+def test_mma_eligible_routes_bf16_heads_to_the_tensor_cores(hd, G):
+    bf16 = torch.bfloat16
+    q = torch.zeros(2, 4, G, hd, dtype=bf16)
+    k, v = (_decode_view((2, 33, 4, hd), bf16) for _ in range(2))
+    assert _mma_eligible(q, k, v)
+    # a layer of a stacked cache, and a view of every other head
+    stacked = torch.zeros(3, 2, 33, 4, hd, dtype=bf16)
+    assert _mma_eligible(q, stacked[1], stacked[2])
+    wide = torch.zeros(2, 33, 8, hd, dtype=bf16)[:, :, 4:]
+    assert _mma_eligible(q, wide, wide)
+
+
+@pytest.mark.parametrize("case", ["f32", "f32_q", "f32_cache", "hd256",
+                                  "G17", "k_stride", "v_shift", "q_shift",
+                                  "q_view"])
+def test_mma_eligible_keeps_the_rest_on_the_cuda_cores(case):
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, S, KV, G, hd = 2, 33, 4, 5, 128
+    q = torch.zeros(B, KV, G, hd, dtype=bf16)
+    k = v = _decode_view((B, S, KV, hd), bf16)
+    if case == "f32":
+        q, k, v = q.float(), k.float(), v.float()
+    elif case == "f32_q":                       # no f32 operand is rounded
+        q = q.float()
+    elif case == "f32_cache":
+        k = v = _decode_view((B, S, KV, hd), f32)
+    elif case == "hd256":
+        q = torch.zeros(B, KV, G, 256, dtype=bf16)
+        k = v = _decode_view((B, S, KV, 256), bf16)
+    elif case == "G17":
+        q = torch.zeros(B, KV, 17, hd, dtype=bf16)
+    elif case == "k_stride":                   # rows 2 bytes off 16
+        k = _decode_view((B, S, KV, hd), bf16, hd_pad=1)
+    elif case == "v_shift":
+        v = _decode_view((B, S, KV, hd), bf16, shift=4)
+    elif case == "q_shift":
+        q = torch.zeros(B * KV * G * hd + 1, dtype=bf16)[1:].view(B, KV, G, hd)
+    else:                                       # q not contiguous
+        q = torch.zeros(B, KV, G, 2 * hd, dtype=bf16)[..., :hd]
+    assert not _mma_eligible(q, k, v)
+
+
+def _mma_body_emulation(q, k, v, lengths, window, softcap, resident,
+                        parts=3):
+    """The tensor-core body's arithmetic on the CPU in f32: splits anchored
+    at each row's window (``decode_mma_splits``, ``mma_split_rows``), each
+    split's 64-row tiles dealt 16 rows a warp to 4 warps, S = Q Kᵀ (exact
+    bf16 products, f32 sums) times hd^-1/2, the cap, an online softmax per
+    warp, P into O as ``parts`` bf16 parts (each the rest of p after the
+    ones before, rounded; the kernel's 3, or 1: P rounded once), the warps
+    merged in order, then the splits with the lse_merge arithmetic.
+    q (B, KV, G, hd), k, v (B, S, KV, hd) bf16 tensors."""
+    B, S, KV, hd = k.shape
+    G = q.shape[2]
+    splits, rows = decode_mma_splits(B, S, KV, resident, window)
+    scale = torch.tensor(hd ** -0.5, dtype=torch.float32)
+    o = torch.zeros(B, KV, G, hd)
+    lse = torch.zeros(B, KV, G, 1)
+    for b in range(B):
+        qf = q[b].float()                                   # (KV, G, hd)
+        o_parts, l_parts = [], []
+        for j in range(splits):
+            s0, s1 = mma_split_rows(int(lengths[b]), S, window, j, rows)
+            warps = []
+            for w in range(4):
+                m = torch.full((KV, G), -1e30)
+                l = torch.zeros(KV, G)
+                acc = torch.zeros(KV, G, hd)
+                for t0 in range(s0 + 16 * w, s1, 64):
+                    t1 = min(t0 + 16, s1)
+                    kk = k[b, t0:t1].float().transpose(0, 1)   # (KV, n, hd)
+                    vv = v[b, t0:t1].float().transpose(0, 1)
+                    sc = (qf @ kk.transpose(1, 2)) * scale
+                    if softcap is not None:
+                        sc = torch.tanh(sc / softcap) * softcap
+                    mx = torch.maximum(m, sc.amax(-1))
+                    corr = torch.exp(m - mx)
+                    p = torch.exp(sc - mx[..., None])
+                    l = l * corr + p.sum(-1)
+                    rest, pv = p, []
+                    for _ in range(parts):
+                        part = rest.bfloat16().float()
+                        rest = rest - part
+                        pv.append(part @ vv)
+                    acc = acc * corr[..., None] + sum(reversed(pv))
+                    m = mx
+                warps.append((m, l, acc))
+            M = torch.stack([w_[0] for w_ in warps]).amax(0)
+            L = sum(w_[1] * torch.exp(w_[0] - M) for w_ in warps)
+            A = sum(w_[2] * torch.exp(w_[0] - M)[..., None] for w_ in warps)
+            Lc = L.clamp(min=1e-30)
+            o_parts.append(A / Lc[..., None])
+            l_parts.append((M + torch.log(Lc))[..., None])
+        if splits == 1:
+            o[b], lse[b] = o_parts[0], l_parts[0]
+        else:
+            o[b], lse[b] = ref.lse_merge_ref(torch.stack(o_parts),
+                                             torch.stack(l_parts))
+    return o, lse
+
+
+def _flash_decode_f64(q, k, v, lengths, window=None, softcap=None):
+    """The plain version's arithmetic in f64 (``ref.flash_decode_ref``
+    computes in f32 whatever its inputs)."""
+    S, hd = k.shape[1], k.shape[3]
+    s = torch.einsum("bkgd,bskd->bkgs", q.double() * hd ** -0.5, k.double())
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
+    kpos = torch.arange(S)[None, None, None, :]
+    length = lengths.to(torch.int64)[:, None, None, None]
+    ok = kpos < length
+    if window is not None:
+        ok = ok & (kpos > length - 1 - window)
+    s = s.masked_fill(~ok, float("-inf"))
+    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    return (torch.einsum("bkgs,bskd->bkgd", torch.exp(s - lse), v.double()),
+            lse)
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| / max(1, max |want|), as the card tests gate."""
+    want = torch.as_tensor(np.asarray(want, np.float64))
+    scale = max(1.0, float(want.abs().max()))
+    return float((got.double() - want).abs().max()) / scale
+
+
+# the card's gate on the kernel against the plain version
+MMA_DECODE_TOL = 1e-4
+
+
+@pytest.mark.parametrize("name,B,S,KV,G,hd,window,softcap,lengths", [
+    ("serve_path", 4, 256, 8, 5, 128, None, None, [1, 97, 200, 256]),
+    ("window_g12", 3, 1000, 2, 12, 128, 300, None, [1, 1000, 301]),
+    ("softcap", 2, 600, 2, 3, 64, None, 30.0, [600, 130])])
+def test_mma_body_emulation_matches_pallas_and_f64(name, B, S, KV, G, hd,
+                                                   window, softcap, lengths):
+    """The tensor-core body's arithmetic, emulated, against
+    ``flash_decode_pallas`` in interpret mode at the card's 1e-4, and
+    against an f64 attention: with P in three bf16 parts it is as close to
+    f64 as the plain f32 version (within 1.5x).  The errors of fewer parts
+    are reported beside it: P rounded once to bf16 fails the 1e-4 gate, and
+    two parts leave it farther from f64 than the plain version (which, on
+    the card, took a full-width bf16 decode step's logits past the serve
+    gate)."""
+    (qj, qt), (kj, kt), (vj, vt), (lj, lt) = _decode_inputs(
+        B, S, KV, G, hd, "bfloat16", seed=S + G, lengths=lengths)
+    resident = 264                      # two blocks an SM of an H100's 132
+    pallas = flash_decode_pallas(qj, kj, vj, lj, block_s=128, window=window,
+                                 softcap=softcap, interpret=True)
+    f64 = _flash_decode_f64(qt, kt, vt, lt, window=window, softcap=softcap)
+    plain = ref.flash_decode_ref(qt, kt, vt, lt, window=window,
+                                 softcap=softcap)
+    errs = {"plain": max(_rel_err(a, b) for a, b in zip(plain, f64))}
+    for parts in (3, 2, 1):
+        got = _mma_body_emulation(qt, kt, vt, lt, window, softcap, resident,
+                                  parts=parts)
+        errs[parts] = max(_rel_err(a, b) for a, b in zip(got, f64))
+        if parts == 3:
+            errs["pallas"] = max(_rel_err(a, b) for a, b in zip(got, pallas))
+    print(f"{name} off f64: plain f32 {errs['plain']:.3e}; P in 3 bf16 parts "
+          f"{errs[3]:.3e} ({errs['pallas']:.3e} off pallas), 2 parts "
+          f"{errs[2]:.3e}, 1 part {errs[1]:.3e}")
+    assert errs["pallas"] <= MMA_DECODE_TOL
+    assert errs[3] <= 1.5 * errs["plain"]
+    assert errs[2] > 1.5 * errs["plain"]
+    assert errs[1] > MMA_DECODE_TOL
