@@ -15,7 +15,12 @@ Phases (any failure exits non-zero and prints no result line):
   2. kernels — ``gram`` (K up to 100, the gateways' 23-25 among them; the
      body each call took: the bf16 tensor-core body of ``gram_mma.cu`` for
      bf16 U and g with K <= 127 and n % 8 == 0, ``gram.cu`` for the rest),
-     ``combine``, ``topk``, ``sign_sketch`` and ``sign_sketch_adjoint``
+     ``combine`` (the body each call took: ``combine_vec.cu`` where every
+     row of U, w and out starts 16-byte aligned, timed in turn with
+     ``combine.cu`` on the same inputs and bitwise equal to it where the
+     rows are not split; ``combine.cu`` for the rest; the f32-out rows
+     also against an f64 sum), ``topk``, ``sign_sketch`` and
+     ``sign_sketch_adjoint``
      against their plain PyTorch versions on the card at the main paths'
      shapes, a ragged small set and
      model widths: max |err| within the stated tolerance (``topk`` exactly),
@@ -23,7 +28,8 @@ Phases (any failure exits non-zero and prints no result line):
      CUDA-event times of the kernel, the plain version and a one-call
      PyTorch yardstick (where one exists) beside the bound (``topk`` and
      ``gram``: the median and min-max of five rounds, with device µs from
-     ``torch.profiler``; ``topk``: one device kernel per call at every
+     ``torch.profiler``; ``combine``: the same, with the host µs to issue
+     a call; ``topk``: one device kernel per call at every
      shape of the one-block path; ``gram``'s tensor-core rows also against
      an f64 product beside the plain version's distance from it);
   3. path    — ``run_simulation`` at paper-logreg width (784 → 10) on
@@ -44,15 +50,19 @@ Phases (any failure exits non-zero and prints no result line):
   5. streamed — the same two-tier runs (uncompressed, ``topk``,
      ``sign_sketch``) on ``engine="streamed"`` and on the fused engine with
      the same mini-batches: every streamed round launches ``stream_stats``
-     (its P = 100 f32 slabs on cross.cuh's body) and ``combine``, the
-     losses fall and agree with the fused engine's to
+     (its P = 100 f32 slabs on cross.cuh's body) and ``combine`` (each
+     call on the body its ``_vec_eligible`` gives it: the apply's
+     100 x 7 840 weight slab on ``combine_vec.cu``), the losses fall and
+     agree with the fused engine's to
      1.4e-3, the cloud-uplink bytes are equal; one streamed round on the
      card matches the same round on the CPU;
   6. bigmodel — the reference's full ``transformer_stream`` round
      (``benchmarks/bigmodel_round.py``: d_model 1024, vocab 8192, 4 layers,
      P = 16, bf16, n = 58 724 352) through the streamed engine: its round
      time, the accumulate pass beside its bound (every one of its 29
-     ``stream_stats`` launches on the tensor-core body), the rise of
+     ``stream_stats`` launches on the tensor-core body), the apply beside
+     its bound (all 29 ``combine`` launches on ``combine_vec.cu``), with
+     its device and host time, the rise of
      allocated memory across ``begin_round``, G and C against the plain
      version and against an f64 product, and the round's delta against the
      fused engine's on the same inputs;
@@ -145,6 +155,11 @@ MODEL = [(K, n) for K in (10, 64) for n in ((1 << 20) + 3, 1 << 24)]
 # gram at the hier gateways (4 gateways of 25 devices; dropouts leave 23-25
 # rows), then past 64 rows: the star cloud's K = 100 at the path width, and
 # K = 100 at model width beside K = 64 above
+# combine_vec.cu at W_k = 1 (K = 1 and 3, and 64 x 2^20+8), 2 (8 x 4 104),
+# 4 (17 x 2 056; 16 x 1 024, a layer-norm leaf) and 8 (100 x 7 840), with
+# ragged last chunks
+COMBINE_VEC_RAGGED = [(1, 8), (3, 136), (17, 2056), (16, 1024), (8, 4104),
+                      (100, 7840), (64, (1 << 20) + 8)]
 GRAM_GATEWAY = [(25, 7850), (23, 7850)]
 GRAM_WIDE = [(65, 7850), (100, 7850), (100, 1 << 24)]
 # gram's tensor-core body (bf16, K <= 127, n % 8 == 0): every 16-row tile
@@ -243,6 +258,7 @@ STREAMED_LOSS_GAP = 1.4e-3
 # benchmarks/bigmodel_round.py's full transformer_stream round
 BIG = dict(d_model=1024, vocab=8192, layers=4, P=16, gateways=4,
            chunk=1 << 18)
+BIG_SLABS = (8192 * 1024, 1024 * 4096)   # its embedding and MLP leaves
 BIG_N = 58_724_352
 BIG_PEAK_BYTES = 33_556_480
 BIG_DENSE_BYTES = 7_516_717_056
@@ -525,35 +541,122 @@ def check_gram(K: int, n: int, dt, gen, timed: bool = True, body: str = None,
     return rec
 
 
-def check_combine(K: int, n: int, dt, gen, timed: bool = True,
-                  w_dt=None) -> dict:
-    """``w_dt``: the base's dtype where it differs from U's (the streamed
-    apply adds bf16 update slabs into f32 parameters)."""
+def _combine_f64_err(out, w, U, a, chunk: int = 1 << 21) -> float:
+    """max |out - (w + a U) in f64| / max(1, max |f64|), over column chunks
+    so the f64 copy stays small."""
     import torch
-    from repro_torch.kernels import ops, ref
+    err, scale = 0.0, 1.0
+    a64 = a.double()
+    for c0 in range(0, U.shape[1], chunk):
+        ref64 = w[c0:c0 + chunk].double() + a64 @ U[:, c0:c0 + chunk].double()
+        err = max(err, float((out[c0:c0 + chunk].double() - ref64).abs().max()))
+        scale = max(scale, float(ref64.abs().max()))
+        del ref64
+    torch.cuda.synchronize()
+    return err / scale
+
+
+def check_combine(K: int, n: int, dt, gen, timed: bool = True,
+                  w_dt=None, f64: bool = False) -> dict:
+    """combine against its plain version: within the tolerance, two calls
+    bitwise equal, on the body the inputs route to (``vec``:
+    combine_vec.cu, for rows of U, w and out that start 16-byte aligned;
+    ``scalar``: combine.cu); a ``vec`` row also runs the first body on the
+    same inputs (bitwise equal where the rows are not split, W_k = 1) and
+    in place (out = w).  ``w_dt``: the base's dtype where it differs from
+    U's (the streamed apply adds bf16 update slabs into f32 parameters).
+    With ``f64`` (f32 out) it is held within 1e-5 of an f64 sum; with
+    ``timed`` the spread of kernel, plain and library times, the device
+    kernels, the host µs to issue a call, and on a ``vec`` row both bodies
+    timed in turn (scalar, vec, vec, scalar)."""
+    import torch
+    from repro_torch.kernels import combine, ops, ref
     U = torch.randn((K, n), generator=gen, device="cuda").to(dt)
     w = torch.randn((n,), generator=gen, device="cuda").to(w_dt or dt)
     a = torch.randn((K,), generator=gen, device="cuda") / K
+    body = "vec" if combine._vec_eligible(w, U) else "scalar"
+    what = (f"combine K={K} n={n} {_dtype_name(dt)}"
+            + (f" into {_dtype_name(w_dt)}" if w_dt is not None else ""))
+    combine.reset_body_launches()
     out = ops.weighted_combine(w, U, a, backend="cuda")
+    again = ops.weighted_combine(w, U, a, backend="cuda")
+    tally = combine.body_launches()
     outr = ref.combine_ref(w, U, a)
     torch.cuda.synchronize()
+    need(tally[body] == 2 and sum(tally.values()) == 2,
+         f"{what}: body launches {tally}, want 2 on {body}")
     need(out.shape == (n,) and out.dtype == w.dtype,
-         f"combine K={K} n={n}: output {tuple(out.shape)} {out.dtype}")
+         f"{what}: output {tuple(out.shape)} {out.dtype}")
+    bitwise = bool(torch.equal(out, again))
+    need(bitwise, f"{what}: two calls differ bitwise")
     err = _max_err(out, outr) / _scale(outr)
     tol = TOL[("combine", _dtype_name(w.dtype))]
-    need(err <= tol, f"combine K={K} n={n} {dt}: relative err {err:.3e} > {tol}")
+    need(err <= tol, f"{what}: relative err {err:.3e} > {tol}")
     rec = {"K": K, "n": n, "dtype": _dtype_name(dt),
-           "max_abs_err": _max_err(out, outr), "rel_err": err, "tolerance": tol}
+           "max_abs_err": _max_err(out, outr), "rel_err": err,
+           "tolerance": tol, "bitwise_repeatable": bitwise, "body": body}
     if w_dt is not None:
         rec["w_dtype"] = _dtype_name(w_dt)
+    if body == "vec":
+        wk, blocks, chunks = combine.vec_plan(K, n, dt == torch.bfloat16,
+                                              w.dtype == torch.bfloat16, 0)
+        rec.update(split=wk, blocks=blocks, chunks=chunks,
+                   chunk_rounds=-(-chunks // blocks))
+        first = combine.combine_cuda(w, U, a, body="scalar")
+        base = w.clone()
+        combine.combine_cuda(base, U, a, out=base)
+        torch.cuda.synchronize()
+        rec["scalar_rel_err"] = _max_err(first, outr) / _scale(outr)
+        rec["bitwise_equal_scalar"] = bool(torch.equal(out, first))
+        need(rec["scalar_rel_err"] <= tol,
+             f"{what}: the scalar body {rec['scalar_rel_err']:.3e} off plain")
+        need(wk > 1 or rec["bitwise_equal_scalar"],
+             f"{what}: W_k = 1 but the two bodies differ bitwise")
+        need(torch.equal(base, out), f"{what}: in place differs")
+    if f64:
+        rec["f64_rel_err"] = _combine_f64_err(out, w, U, a)
+        rec["plain_f64_rel_err"] = _combine_f64_err(outr, w, U, a)
+        need(rec["f64_rel_err"] <= 1e-5,
+             f"{what}: {rec['f64_rel_err']:.3e} off an f64 sum")
+    del outr
     if timed:
         reps = reps_for(U.numel() * U.element_size())
         lib = (lambda: torch.addmv(w, U.T, a.to(dt))) if w_dt is None else (
             lambda: w + a.to(dt) @ U)
-        rec["ms"] = time_ms(lambda: ops.weighted_combine(w, U, a, backend="cuda"), reps)
-        rec["plain_ms"] = time_ms(lambda: ref.combine_ref(w, U, a), reps)
-        rec["library_ms"] = time_ms(lib, reps)
+        kernel = lambda: ops.weighted_combine(w, U, a, backend="cuda")  # noqa: E731
+        _time_record(rec, {"ms": kernel,
+                           "plain_ms": lambda: ref.combine_ref(w, U, a),
+                           "library_ms": lib}, reps)
+        rec["host_ms"] = host_ms(kernel, reps)
+        rec["library_device_ms"] = sum(
+            ms for _, ms in device_kernel_means(lib).values())
+        if body == "vec":
+            vec = lambda: combine.combine_cuda(w, U, a)  # noqa: E731
+            scalar = lambda: combine.combine_cuda(w, U, a, body="scalar")  # noqa: E731
+            runs = [time_ms(fn, reps) for fn in (scalar, vec, vec, scalar)]
+            rec["vec_ms_runs"], rec["scalar_ms_runs"] = runs[1:3], runs[::3]
+            rec["scalar_ms"] = statistics.median(runs[::3])
+            kernels = device_kernel_means(scalar)
+            rec["scalar_device_kernels"] = kernels
+            rec["scalar_device_ms"] = sum(ms for _, ms in kernels.values())
+            rec["scalar_host_ms"] = host_ms(scalar, reps)
+            need(any("combine_vec_kernel" in k for k in rec["device_kernels"]),
+                 f"{what}: device kernels {list(rec['device_kernels'])}")
         rec.update(combine_bound(K, n, dt, w_dt))
+        log(f"{what}: body {body}"
+            + (f" (W_k={rec['split']}, {rec['blocks']} blocks, "
+               f"{rec['chunks']} chunks, {rec['chunk_rounds']} a block at "
+               f"most); vec {' / '.join(f'{t * 1e3:.1f}' for t in rec['vec_ms_runs'])}"
+               f" us, scalar {' / '.join(f'{t * 1e3:.1f}' for t in rec['scalar_ms_runs'])}"
+               f" us (in turn: scalar, vec, vec, scalar), scalar device "
+               f"{rec['scalar_device_ms'] * 1e3:.1f} us, host "
+               f"{rec['scalar_host_ms'] * 1e3:.1f} us"
+               if body == "vec" else "")
+            + f"; device kernels (launches in 3 calls, us per launch) "
+            + _kernel_names(rec) + f"; library device "
+            f"{rec['library_device_ms'] * 1e3:.1f} us"
+            + (f"; off f64 {rec['f64_rel_err']:.3e} (plain "
+               f"{rec['plain_f64_rel_err']:.3e})" if f64 else ""))
     return rec
 
 
@@ -1261,26 +1364,39 @@ def kernels_phase() -> dict:
     f32, bf16 = torch.float32, torch.bfloat16
     K, n = PATH_SHAPE
     for name, check in (("gram", check_gram), ("combine", check_combine)):
-        out[name].append(dict(check(K, n, f32, gen), set="path"))
+        out[name].append(dict(check(K, n, f32, gen, **(
+            dict(f64=True) if name == "combine" else {})), set="path"))
         for Kr, nr in RAGGED:
             for dt in (f32, bf16):
                 out[name].append(dict(check(Kr, nr, dt, gen, timed=False),
                                       set="ragged"))
         for Km, nm in MODEL:
             for dt in (f32, bf16):
-                # gram's bf16 rows at n = 2^24 take the tensor-core body
+                # gram's bf16 rows at n = 2^24 take the tensor-core body;
+                # combine's f32 rows are held to an f64 sum too
                 mma = name == "gram" and dt == bf16 and nm % 8 == 0
                 kw = (dict(body="mma" if mma else "cuda_core", f64=mma)
-                      if name == "gram" else {})
+                      if name == "gram" else dict(f64=dt == f32))
                 out[name].append(dict(check(Km, nm, dt, gen, **kw),
                                       set="model"))
                 torch.cuda.empty_cache()
-    # combine at the streamed apply: K = 100 at the paper path (f32), and a
-    # transformer slab (bf16 rows into f32 parameters)
-    out["combine"].append(dict(check_combine(100, 7840, f32, gen),
+    # combine at the streamed apply: K = 100 at the paper path (f32), and
+    # the big-model round's slabs (bf16 rows into f32 parameters): the
+    # embedding and an MLP matrix
+    out["combine"].append(dict(check_combine(100, 7840, f32, gen, f64=True),
                                set="path"))
-    out["combine"].append(dict(check_combine(16, 8192 * 1024, bf16, gen,
-                                             w_dt=f32), set="model"))
+    for nb in BIG_SLABS:
+        out["combine"].append(dict(check_combine(BIG["P"], nb, bf16, gen,
+                                                 w_dt=f32, f64=True),
+                                   set="model"))
+        torch.cuda.empty_cache()
+    # combine_vec.cu at each split and ragged last chunks, all four
+    # (U, w) dtype pairs
+    for Kr, nr in COMBINE_VEC_RAGGED:
+        for dt, w_dt in ((f32, None), (bf16, None), (bf16, f32), (f32, bf16)):
+            rec = check_combine(Kr, nr, dt, gen, timed=False, w_dt=w_dt)
+            need(rec["body"] == "vec", f"combine K={Kr} n={nr}: {rec['body']}")
+            out["combine"].append(dict(rec, set="ragged"))
     for Kw, nw in GRAM_GATEWAY + GRAM_WIDE:
         for dt in (f32, bf16):
             mma = dt == bf16 and nw % 8 == 0
@@ -1601,9 +1717,18 @@ def streamed_phase(ds, params) -> dict:
     from repro_torch.fl import run_hier_simulation
     from repro_torch.hier import HierConfig, two_tier_topology
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.kernels import stream
+    from repro_torch.kernels import _build, combine, stream
     from repro_torch.models.logistic import logistic_apply, logistic_loss
     from repro_torch.obs import InMemoryTracker, use_tracker
+
+    # each combine call's _vec_eligible verdict, by (leaf width, verdict)
+    verdicts = {}
+    eligible = combine._vec_eligible
+
+    def recording(w, U, out=None):
+        v = eligible(w, U, out)
+        verdicts[(U.shape[1], v)] = verdicts.get((U.shape[1], v), 0) + 1
+        return v
 
     fleet = bimodal_fleet(ds.num_devices, slowdown=10.0, dropout_slow=0.05,
                           seed=0)
@@ -1631,12 +1756,19 @@ def streamed_phase(ds, params) -> dict:
             torch.cuda.synchronize()
             reset_launch_counts()
             stream.reset_body_launches()
-            with use_tracker(tracker):
-                r = run_hier_simulation(
-                    f"{name}_{engine}", logistic_loss, logistic_apply, params,
-                    ds, cfg, tiers, HIER_ROUNDS, selection_seed=42,
-                    device="cuda", engine=engine, batch_generator=batches,
-                    publish_fn=lambda t, p: snaps.append(launch_counts()))
+            combine_before = combine.body_launches()
+            verdicts.clear()
+            combine._vec_eligible = recording
+            try:
+                with use_tracker(tracker):
+                    r = run_hier_simulation(
+                        f"{name}_{engine}", logistic_loss, logistic_apply,
+                        params, ds, cfg, tiers, HIER_ROUNDS,
+                        selection_seed=42, device="cuda", engine=engine,
+                        batch_generator=batches,
+                        publish_fn=lambda t, p: snaps.append(launch_counts()))
+            finally:
+                combine._vec_eligible = eligible
             torch.cuda.synchronize()
             counts = launch_counts()
             res[engine], ms[engine] = r, _round_ms(tracker)
@@ -1655,6 +1787,30 @@ def streamed_phase(ds, params) -> dict:
                 need(bodies == {"mma": 0,
                                 "cross": counts["stream_stats/cuda"]},
                      f"streamed {name}: stream_stats bodies {bodies}")
+                # combine: each call on the body _vec_eligible gave it; the
+                # uncompressed run's apply takes vec for the 100 x 7 840
+                # weight slab and scalar for the 40-byte bias rows
+                cb = _tally_since(combine_before, combine.body_launches())
+                want = {"vec": sum(c for (_, v), c in verdicts.items() if v),
+                        "scalar": sum(c for (_, v), c in verdicts.items()
+                                      if not v)}
+                by_width = {f"{nw} {'vec' if v else 'scalar'}": c
+                            for (nw, v), c in sorted(verdicts.items())}
+                wk, blocks, chunks = combine.vec_plan(
+                    100, 7840, False, False, 0)
+                log(f"streamed {name}: combine bodies {cb}; _vec_eligible by "
+                    f"leaf width {by_width}; the 100 x 7 840 f32 slab splits "
+                    f"W_k = {wk} ({blocks} blocks of "
+                    f"{combine.VEC_WARPS // wk} column groups, "
+                    f"{_build.sm_count(0)} SMs)")
+                need(cb == want and sum(cb.values()) == counts["combine/cuda"],
+                     f"streamed {name}: combine bodies {cb}, eligibility "
+                     f"{by_width}, {counts['combine/cuda']} launches")
+                need(name != "two_tier" or (
+                    cb["vec"] == counts["combine/cuda"] // 2
+                    == verdicts.get((7840, True), 0)),
+                     f"streamed {name}: the apply's weight slab took "
+                     f"{by_width}")
                 need(len(snaps) == HIER_ROUNDS - r.rounds_skipped,
                      f"streamed {name}: {len(snaps)} rounds published")
                 prev = {k: 0 for k in counts}
@@ -1741,7 +1897,7 @@ def bigmodel_phase() -> dict:
     from repro_torch.core.solve import SolveConfig
     from repro_torch.hier import HierRoundEngine
     from repro_torch.hier.streamed import StreamedRoundEngine, dense_round_bytes
-    from repro_torch.kernels import (force_backend, launch_counts,
+    from repro_torch.kernels import (combine, force_backend, launch_counts,
                                      reset_launch_counts, stream)
 
     gen = torch.Generator(device="cuda")
@@ -1802,6 +1958,7 @@ def bigmodel_phase() -> dict:
     # whole rounds: host clock around a round that ends in a sync
     reset_launch_counts()
     stream.reset_body_launches()
+    combine_before = combine.body_launches()
     round_ms = []
     for _ in range(4):
         torch.cuda.synchronize()
@@ -1815,6 +1972,10 @@ def bigmodel_phase() -> dict:
          f"bigmodel: 4 rounds launched {counts}")
     need(stream.body_launches() == {"mma": 4 * len(deltas), "cross": 0},
          f"bigmodel: 4 rounds' stream_stats bodies {stream.body_launches()}")
+    # every slab's apply has 16-byte rows: all on combine_vec.cu
+    combine_bodies = _tally_since(combine_before, combine.body_launches())
+    need(combine_bodies == {"vec": 4 * len(deltas), "scalar": 0},
+         f"bigmodel: 4 rounds' combine bodies {combine_bodies}")
     plain = {k: v for k, v in counts.items() if k.endswith("/torch") and v}
     need(not plain, f"bigmodel: plain versions ran on the path: {plain}")
     log(f"bigmodel: round ms {[round(x, 2) for x in round_ms]} (median of the "
@@ -1839,11 +2000,24 @@ def bigmodel_phase() -> dict:
     stages_ms = (time.perf_counter() - t0) * 1e3
     apply_ms = time_ms(lambda: sctx.apply(template, sdelta), 5, warmup=1)
     apply_bound = (2 * P * n + 2 * 4 * n) / HBM_BYTES_PER_S * 1e3
+    # the apply's device kernels over three calls (each kernel's launches
+    # seen, and its mean device time a launch), and the host time to issue
+    # one apply: where the host takes as long, the apply is host-paced
+    apply_kernels = device_kernel_means(lambda: sctx.apply(template, sdelta))
+    apply_device_ms = sum(c * ms for c, ms in apply_kernels.values()) / 3
+    apply_host_ms = host_ms(lambda: sctx.apply(template, sdelta), 5)
+    apply_launches = {}
+    for k, (c, _) in apply_kernels.items():
+        short = k.replace("void ", "").replace(
+            "(anonymous namespace)::", "").split("(")[0].split("<")[0]
+        apply_launches[short] = apply_launches.get(short, 0) + c
     log(f"bigmodel: round parts — P-space stages {stages_ms:.2f} ms (host "
         f"clock), apply ({len(deltas)} combine launches) "
         f"{apply_ms * 1e3:.1f} us against a bound of {apply_bound * 1e3:.1f} "
         "us (bytes: the bf16 deltas read, the f32 parameters read and "
-        "written)")
+        f"written); {apply_device_ms * 1e3:.1f} us a call on the device, "
+        f"{apply_host_ms * 1e3:.1f} us of host time to issue one; the "
+        f"apply's device kernels seen in three calls {apply_launches}")
 
     with force_backend("torch", op="stream_stats"):
         ref_ctx = seng.begin_round(deltas, grads)
@@ -1887,6 +2061,10 @@ def bigmodel_phase() -> dict:
             "accumulate_plain_ms": acc_plain_ms,
             "accumulate_library_ms": acc_library_ms, "stages_ms": stages_ms,
             "apply_ms": apply_ms, "apply_bound_ms": apply_bound,
+            "apply_device_ms": apply_device_ms,
+            "apply_host_ms": apply_host_ms,
+            "apply_launches_in_3_calls": apply_launches,
+            "combine_bodies": combine_bodies,
             "memory_rise_bytes": rise,
             "G_rel_err": err_g, "C_rel_err": err_c, "delta_rel_err": derr,
             "G_C_f64_rel_err": f64_errs["kernel"],
@@ -2311,7 +2489,9 @@ def setup_phase() -> str:
         if line.startswith("== "):           # "== name.cu (seconds s)"
             name, secs = line[3:].split(" (")
             build_s[name] = float(secs.split()[0])
-    log("build: nvcc seconds, decode_attn_mma.cu (2 instances) "
+    log("build: nvcc seconds, combine_vec.cu (16 instances) "
+        f"{build_s['combine_vec.cu']:.2f} beside combine.cu (4) "
+        f"{build_s['combine.cu']:.2f}, decode_attn_mma.cu (2 instances) "
         f"{build_s['decode_attn_mma.cu']:.2f} beside decode_attn.cu (32) "
         f"{build_s['decode_attn.cu']:.2f}, sketch_mma.cu (8) "
         f"{build_s['sketch_mma.cu']:.2f}, gram_block_mma.cu (32) "
@@ -2327,6 +2507,21 @@ def setup_phase() -> str:
                 f"{gram.row_slices(K)} grid slices; gram finish: 0 B; "
                 f"combine: 4*K = {4 * K} B (alpha)")
     sms = _build.sm_count(0)
+    from repro_torch.kernels import combine
+    for K, n, u16, w16 in ((100, 7840, False, False),
+                           (BIG["P"], BIG_SLABS[0], True, False),
+                           (BIG["P"], BIG_SLABS[1], True, False),
+                           (BIG["P"], BIG["d_model"], True, False),
+                           (64, 1 << 24, True, True),
+                           (64, 1 << 24, False, False)):
+        wk, blocks, chunks = combine.vec_plan(K, n, u16, w16, 0)
+        per_sm = combine.vec_blocks_per_sm(u16, w16, wk, K, 0)
+        log(f"launch: combine_vec K={K} n={n} U {'bf16' if u16 else 'f32'} "
+            f"w {'bf16' if w16 else 'f32'}: W_k={wk} ({combine.VEC_WARPS // wk}"
+            f" column groups a block), {per_sm} blocks of 256 threads per SM "
+            f"({per_sm * sms} resident), {blocks} blocks over {chunks} chunks"
+            f" ({-(-chunks // blocks)} a block at most, "
+            f"{-(-blocks // (per_sm * sms))} wave)")
     for K in (1, PATH_SHAPE[0], 64, 100, 127):
         per_sm, smem = gram.mma_launch_config(K, 0)
         log(f"launch: gram_mma_partial K={K} bf16 (Kp={gram.mma_rows(K)}, "
@@ -2458,8 +2653,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     t_start = time.perf_counter()
-    from repro_torch.kernels import decode_attn, gram, sketch
+    from repro_torch.kernels import combine, decode_attn, gram, sketch
     gram_bodies, block_bodies, sketch_bodies, decode_bodies = {}, {}, {}, {}
+    combine_bodies = {}
 
     def on_cuda_core(path: str, phase, *args):
         """Run a path phase; every gram launch in it must take gram.cu's
@@ -2469,7 +2665,9 @@ def main() -> int:
         gram.reset_block_body_launches()
         sketch.reset_body_launches()
         decode_attn.reset_body_launches()
+        combine.reset_body_launches()
         result = phase(*args)
+        combine_bodies[path] = combine.body_launches()
         gram_bodies[path] = gram.body_launches()
         block_bodies[path] = gram.block_body_launches()
         sketch_bodies[path] = sketch.body_launches()
@@ -2499,6 +2697,17 @@ def main() -> int:
                  f"bodies {gram_bodies[path]}")
         log(f"gram bodies by path (each phase, its checks against the CPU "
             f"included): {gram_bodies}")
+        # combine: the sync path's K = 10 x 7 850 f32 rows (31 400 bytes)
+        # keep combine.cu; every big-model slab takes combine_vec.cu
+        need(combine_bodies["sync"]["vec"] == 0
+             and combine_bodies["sync"]["scalar"]
+             >= sync_counts["combine/cuda"],
+             f"sync: combine bodies {combine_bodies['sync']}")
+        need(combine_bodies["bigmodel"]["scalar"] == 0
+             and big["combine_bodies"]["vec"] == big["counts"]["combine/cuda"],
+             f"bigmodel: combine bodies {combine_bodies['bigmodel']}")
+        log(f"combine bodies by path (each phase, its checks against the CPU "
+            f"included): {combine_bodies}")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
@@ -2519,6 +2728,10 @@ def main() -> int:
         sources=[KERNEL_SOURCES["sketch"][0],
                  "src/repro_torch/kernels/csrc/sketch_mma.cu"],
         bodies_by_path=sketch_bodies)
+    entries[names.index("combine")].update(
+        sources=[KERNEL_SOURCES["combine"][0],
+                 "src/repro_torch/kernels/csrc/combine_vec.cu"],
+        bodies_by_path=combine_bodies)
     entries[names.index("flash_decode")].update(
         sources=[KERNEL_SOURCES["flash_decode"][0],
                  "src/repro_torch/kernels/csrc/decode_attn.cu"],

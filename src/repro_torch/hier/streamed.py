@@ -376,17 +376,20 @@ class StreamedRoundContext:
     def apply(self, params: Tree, delta_ref) -> Tree:
         """``w ← w + α @ U`` leaf by leaf through the ``combine`` kernel (the
         weights rounded to each leaf's dtype, f32 accumulation, as
-        ``mix_rows``), into the parameter tensors themselves when the engine
-        donates them."""
+        ``mix_rows``; rounded once per dtype, not per leaf), into the
+        parameter tensors themselves when the engine donates them."""
         if not _is_mix(delta_ref):
             return apply_delta(params, delta_ref)
         donate = self.engine.donate_params
         slabs = iter(self._dview.slabs)
+        weights = {}
 
         def step(p):
             m = next(slabs).matrix
+            if m.dtype not in weights:
+                weights[m.dtype] = delta_ref.w.to(m.dtype).float()
             flat = p.view(-1) if donate else p.reshape(-1)
-            new = weighted_combine(flat, m, delta_ref.w.to(m.dtype).float(),
+            new = weighted_combine(flat, m, weights[m.dtype],
                                    out=flat if donate else None)
             return p if donate else new.view(p.shape)
 

@@ -6,7 +6,7 @@ Ops (``cuda`` / ``torch`` backends, selected by the tensors' device — see
   * ``gram``    — fused G = U Uᵀ, c = U g (``csrc/gram.cu``; bf16:
     ``csrc/gram_mma.cu``)
   * ``combine`` — α-weighted update combine w + Σ α_k U_k
-    (``csrc/combine.cu``)
+    (``csrc/combine.cu``; rows 16-byte aligned: ``csrc/combine_vec.cu``)
   * ``topk``    — the k largest-|v| entries, radix select (``csrc/topk.cu``)
   * ``sign_sketch`` / ``sign_sketch_adjoint`` — U Rᵀ/√m and Rᵀ s/√m with
     the ±1 matrix R hashed from counters in the kernel

@@ -10,7 +10,10 @@ so it runs on a machine that has just PyTorch:
 Tolerances are relative to max(1, max |plain|): gram 1e-4 (f32 and bf16
 inputs both accumulate in f32, so the kernel and ``torch.matmul`` differ in
 summation order only); combine 1e-5 in f32 and 3e-2 for a bf16 output (one
-bf16 rounding), as the reference's kernel tests; sign_sketch and its adjoint
+bf16 rounding), as the reference's kernel tests, and its 16-byte body
+(``combine_vec.cu``) bitwise equal to ``combine.cu`` wherever it does not
+split the rows (W_k = 1: the same fmaf per row in k order) and bitwise
+repeatable where it does; sign_sketch and its adjoint
 1e-5 (f32 sums in another order); stream_stats, gram_block and sketch 1e-5
 (the same products in f32, summed in another order; gram_block's and
 sketch's tensor-core sweeps against an f64 product, where the plain f32
@@ -120,6 +123,113 @@ def test_combine_kernel_grid_stride(cuda_device):
     w = torch.arange(n, device=cuda_device, dtype=torch.float32)
     out = weighted_combine(w, U, torch.tensor([0.5, 0.25], device=cuda_device))
     assert torch.equal(out, w + 0.75)
+
+
+# combine_vec.cu: shapes at every W_k (100 x 7 840 splits 8 ways, 16 x 1 024
+# 4, 8 x 4 104 2, the rest 1), with ragged last chunks, and all four
+# (U, w) dtype pairs
+COMBINE_VEC_SHAPES = [(1, 8), (3, 136), (100, 7840), (16, 1024), (8, 4104),
+                      (17, 2056), (10, 1 << 20), (64, (1 << 20) + 8),
+                      (5, 132 * 8 * 2048 * 2 + 8)]
+DTYPE_PAIRS = [(torch.float32, torch.float32),
+               (torch.bfloat16, torch.bfloat16),
+               (torch.bfloat16, torch.float32),
+               (torch.float32, torch.bfloat16)]
+
+
+def _combine_case(gen, device, K, n, u_dt, w_dt):
+    U = torch.randn(K, n, generator=gen, device=device).to(u_dt)
+    w = torch.randn(n, generator=gen, device=device).to(w_dt)
+    a = torch.randn(K, generator=gen, device=device) / K
+    return w, U, a
+
+
+@pytest.mark.parametrize("K,n", COMBINE_VEC_SHAPES)
+@pytest.mark.parametrize("u_dt,w_dt", DTYPE_PAIRS)
+def test_combine_vec_body_matches_plain_and_first_body(cuda_device, K, n,
+                                                      u_dt, w_dt):
+    """The 16-byte body within COMBINE_TOL of the plain version, two calls
+    bitwise equal, and bitwise equal to combine.cu wherever W_k = 1 (the
+    same fmaf per row in k order, then w); the tally counts each body."""
+    from repro_torch.kernels import combine
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(K + n)
+    w, U, a = _combine_case(gen, cuda_device, K, n, u_dt, w_dt)
+    assert combine._vec_eligible(w, U)
+    wk = combine.combine_vec_split(K, n, U.element_size(),
+                                   torch.cuda.get_device_properties(
+                                       cuda_device).multi_processor_count)
+    combine.reset_body_launches()
+    reset_launch_counts()
+    got = combine_cuda(w, U, a)
+    again = weighted_combine(w, U, a)
+    first = combine_cuda(w, U, a, body="scalar")
+    assert combine.body_launches() == {"vec": 2, "scalar": 1}
+    assert launch_counts()["combine/cuda"] == 3
+    assert got.dtype == w_dt and got.shape == (n,)
+    assert torch.equal(got, again)
+    assert _rel_err(got, ref.combine_ref(w, U, a)) <= COMBINE_TOL[w_dt]
+    assert _rel_err(first, ref.combine_ref(w, U, a)) <= COMBINE_TOL[w_dt]
+    if wk == 1:
+        assert torch.equal(got, first)
+
+
+@pytest.mark.parametrize("K,n", [(100, 7840), (16, 1024), (10, 1 << 20)])
+@pytest.mark.parametrize("u_dt,w_dt", DTYPE_PAIRS)
+def test_combine_vec_body_in_place_and_ragged_tail(cuda_device, K, n, u_dt,
+                                                   w_dt):
+    """out = w in place gives the out-of-place result; into an out that
+    is the head of a longer buffer, nothing past n is written."""
+    from repro_torch.kernels import combine
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(3 * K + n)
+    w, U, a = _combine_case(gen, cuda_device, K, n, u_dt, w_dt)
+    want = combine_cuda(w, U, a)
+    combine.reset_body_launches()
+    base = w.clone()
+    ptr = base.data_ptr()
+    assert combine_cuda(base, U, a, out=base) is base
+    assert base.data_ptr() == ptr and torch.equal(base, want)
+    buf = torch.full((n + 4096,), 7.0, device=cuda_device).to(w_dt)
+    assert combine_cuda(w, U, a, out=buf[:n]).data_ptr() == buf.data_ptr()
+    assert combine.body_launches() == {"vec": 2, "scalar": 0}
+    assert torch.equal(buf[:n], want)
+    assert bool((buf[n:] == 7.0).all())
+
+
+def test_combine_vec_body_takes_aligned_views(cuda_device):
+    """Row blocks of a stacked matrix and views 16 bytes into a buffer take
+    the 16-byte body; views 4 bytes in keep combine.cu; both agree."""
+    from repro_torch.kernels import combine
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(11)
+    big = torch.randn(8 * 1024 + 4, generator=gen, device=cuda_device)
+    a = torch.randn(3, generator=gen, device=cuda_device)
+    w = torch.randn(1024, generator=gen, device=cuda_device)
+    blocks = big[:8 * 1024].view(8, 1024)[2:5]
+    shifted4 = big[4:3 * 1024 + 4].view(3, 1024)
+    shifted1 = big[1:3 * 1024 + 1].view(3, 1024)
+    combine.reset_body_launches()
+    outs = [combine_cuda(w, U, a) for U in (blocks, shifted4, shifted1)]
+    assert combine.body_launches() == {"vec": 2, "scalar": 1}
+    for U, out in zip((blocks, shifted4, shifted1), outs):
+        assert _rel_err(out, ref.combine_ref(w, U, a)) <= 1e-5
+
+
+def test_combine_body_choice_is_checked(cuda_device):
+    from repro_torch.kernels import combine
+    U = torch.ones(2, 10, device=cuda_device)       # 40-byte rows
+    w = torch.ones(10, device=cuda_device)
+    a = torch.ones(2, device=cuda_device)
+    assert not combine._vec_eligible(w, U)
+    with pytest.raises(ValueError, match="vec body"):
+        combine_cuda(w, U, a, body="vec")
+    with pytest.raises(ValueError, match="body"):
+        combine_cuda(w, U, a, body="wide")
+    combine.reset_body_launches()
+    assert torch.equal(combine_cuda(w, U, a), w + 2)
+    assert torch.equal(combine_cuda(w, U, a, body="scalar"), w + 2)
+    assert combine.body_launches() == {"vec": 0, "scalar": 2}
 
 
 @pytest.mark.parametrize("K", [65, 100, 130])

@@ -259,8 +259,9 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 def test_build_key_covers_every_source():
     names = {p.name for p in _build.sources()}
-    assert {"gram.cu", "combine.cu", "topk.cu", "rng_sketch.cu",
-            "stream_stats.cu", "gram_block.cu", "sketch.cu"} <= names
+    assert {"gram.cu", "combine.cu", "combine_vec.cu", "topk.cu",
+            "rng_sketch.cu", "stream_stats.cu", "gram_block.cu",
+            "sketch.cu"} <= names
     # a header edit rebuilds too (the hash covers every .cuh)
     assert (_build.CSRC / "rng_hash.cuh").is_file()
     assert (_build.CSRC / "cross.cuh").is_file()
@@ -753,6 +754,200 @@ def test_sketch_mma_body_is_built_and_bound():
     sketch_cu = (_build.CSRC / "sketch.cu").read_text()
     assert '#include "cross.cuh"' in sketch_cu
     assert "mma_bf16(" not in sketch_cu
+
+
+# ------------------------------------------------- combine's vec body
+
+def _vec_case(K, n, u_dt=torch.float32, w_dt=None,
+              u_in=0, w_in=0, out_in=None):
+    """w (n,), U (K, n) and out (n,) or None, each starting ``*_in``
+    entries into a fresh buffer (``out_in`` None: no out; "w": out is w)."""
+    U = _rows(K, n, None, u_dt, u_in)
+    w = torch.zeros(n + w_in, dtype=w_dt or u_dt)[w_in:]
+    out = (None if out_in is None else w if out_in == "w"
+           else torch.zeros(n + out_in, dtype=w.dtype)[out_in:])
+    return w, U, out
+
+
+_VEC_CASES = {
+    "f32, n % 4 == 0": (_vec_case(3, 7840), True),
+    "bf16, n % 8 == 0": (_vec_case(3, 4104, torch.bfloat16), True),
+    "bf16 U into f32 w (the big-model slabs)": (
+        _vec_case(16, 1024, torch.bfloat16, torch.float32), True),
+    "f32 U into bf16 w": (_vec_case(16, 1024, torch.float32,
+                                    torch.bfloat16), True),
+    "f32, n = 7 850 (% 4 = 2: the sync path)": (_vec_case(10, 7850), False),
+    "f32, n = 10 (the bias leaf)": (_vec_case(100, 10), False),
+    "bf16, n = 4 (% 8 = 4)": (_vec_case(3, 4, torch.bfloat16), False),
+    "bf16, n = 2^20 + 3": (_vec_case(1, (1 << 20) + 3, torch.bfloat16),
+                           False),
+    "f32, n = 4 100 (% 8 = 4, but % 4 = 0)": (_vec_case(2, 4100), True),
+    "U 4 f32 entries in": (_vec_case(3, 1024, u_in=4), True),
+    "U 1 f32 entry in": (_vec_case(3, 1024, u_in=1), False),
+    "U 8 bf16 entries in": (_vec_case(3, 1024, torch.bfloat16, u_in=8),
+                            True),
+    "U 2 bf16 entries in": (_vec_case(3, 1024, torch.bfloat16, u_in=2),
+                            False),
+    "w 2 f32 entries in": (_vec_case(3, 1024, w_in=2), False),
+    "out 4 f32 entries in": (_vec_case(3, 1024, out_in=4), True),
+    "out 3 f32 entries in": (_vec_case(3, 1024, out_in=3), False),
+    "out aliasing w": (_vec_case(3, 1024, out_in="w"), True),
+    "out aliasing w, both 2 entries in": (_vec_case(3, 1024, w_in=2,
+                                                    out_in="w"), False),
+    "f16 U": (_vec_case(3, 1024, torch.float16, torch.float32), False),
+    "f64 w": (_vec_case(3, 1024, torch.float32, torch.float64), False),
+    "K = 4 096": (_vec_case(4096, 8), True),
+    "K = 4 097": (_vec_case(4097, 8), False),
+}
+
+
+@pytest.mark.parametrize("case", list(_VEC_CASES))
+def test_combine_vec_eligible_rule(case):
+    """combine_vec.cu takes w and U each f32 or bf16, 1 <= K <= 4 096,
+    every row of U 16-byte aligned (data_ptr and n · element size), and w
+    and out 16-byte aligned (out may be w); every other call keeps
+    combine.cu."""
+    from repro_torch.kernels.combine import _vec_eligible
+    (w, U, out), want = _VEC_CASES[case]
+    assert _vec_eligible(w, U, out) is want
+
+
+@pytest.mark.parametrize("K,n,elem,want", [
+    (100, 7840, 4, 8),                       # the streamed apply: 62 blocks
+    (16, 1024, 2, 4),                        # a big-model layer-norm leaf
+    (8, 4104, 2, 2),                         # a slice keeps >= 4 rows
+    (3, 4104, 2, 1),                         # too few rows to split
+    (10, 1 << 24, 4, 1), (10, 1 << 24, 2, 1),  # model widths
+    (64, 1 << 24, 4, 1), (64, 1 << 24, 2, 1),
+    (16, 8192 * 1024, 2, 1),                 # the big-model slabs
+    (16, 1024 * 4096, 2, 1), (16, 1024 * 1024, 2, 1)])
+def test_combine_vec_split(K, n, elem, want):
+    """W_k is 1 where whole columns give every SM two blocks (every model
+    width and big-model slab); it doubles where they do not, while each
+    slice keeps four rows; the slices cover the rows in order."""
+    from repro_torch.kernels.combine import (combine_vec_split, vec_grid,
+                                             vec_row_slices)
+    wk = combine_vec_split(K, n, elem, 132)
+    assert wk == want
+    slices = vec_row_slices(K, wk)
+    assert slices[0][0] == 0 and slices[-1][1] == K
+    assert all(a[1] == b[0] for a, b in zip(slices, slices[1:]))
+    assert wk == 1 or all(k1 - k0 >= 4 for k0, k1 in slices)
+    blocks, chunks = vec_grid(n, elem, wk, 8 * 132)
+    if wk == 1 and K >= 8:      # whole columns fill the card
+        assert chunks >= 2 * 132
+    if (K, n) == (100, 7840):
+        assert (blocks, chunks) == (62, 62)
+    if (K, n, elem) == (64, 1 << 24, 4):      # 16 384 chunks over 528 slots
+        assert vec_grid(n, elem, wk, 4 * 132) == (512, 16384)
+
+
+def test_combine_vec_split_always_divides_the_block():
+    """For any shape W_k is one of the instances (1, 2, 4, 8), each block's
+    chunks cover n, and the blocks' chunk counts differ by at most one."""
+    from repro_torch.kernels.combine import (VEC_SPLITS, combine_vec_split,
+                                             vec_cols, vec_grid)
+    rng = np.random.RandomState(0)
+    for _ in range(300):
+        K = int(rng.randint(1, 4097))
+        elem = int(rng.choice([2, 4]))
+        n = int(rng.randint(1, 1 << 22)) // vec_cols(elem) * vec_cols(elem)
+        n = max(n, vec_cols(elem))
+        sms = int(rng.choice([1, 66, 132]))
+        wk = combine_vec_split(K, n, elem, sms)
+        assert wk in VEC_SPLITS and 8 % wk == 0
+        resident = int(rng.randint(1, 9)) * sms
+        blocks, chunks = vec_grid(n, elem, wk, resident)
+        cols = 8 // wk * 32 * vec_cols(elem)
+        assert (chunks - 1) * cols < n <= chunks * cols
+        assert 1 <= blocks <= min(chunks, resident)
+        per_block = [len(range(b, chunks, blocks)) for b in range(blocks)]
+        assert max(per_block) - min(per_block) <= 1
+        assert max(per_block) == -(-chunks // resident)   # one wave's rounds
+
+
+def _emulate_vec(w, U, a, wk):
+    """combine_vec.cu's arithmetic in numpy: each row slice sums its rows
+    in ascending k with one f32 fma a row (the product exact in f64, then
+    one rounding), the slices' partials are added in order in f32, then w,
+    then the result is rounded to w's dtype."""
+    from repro_torch.kernels.combine import vec_row_slices
+    U64 = U.float().double().numpy()
+    a64 = a.double().numpy()
+    parts = []
+    for k0, k1 in vec_row_slices(U.shape[0], wk):
+        acc = np.zeros(U.shape[1], np.float32)
+        for k in range(k0, k1):
+            acc = (a64[k] * U64[k] + acc.astype(np.float64)).astype(np.float32)
+        parts.append(acc)
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    res = w.float().numpy() + total
+    return torch.from_numpy(res).to(w.dtype)
+
+
+@pytest.mark.parametrize("K,n,u_dt,w_dt", [
+    (100, 7840, torch.float32, torch.float32),   # W_k = 8
+    (16, 1024, torch.bfloat16, torch.float32),   # W_k = 4
+    (8, 4104, torch.bfloat16, torch.float32)])   # W_k = 2
+def test_combine_vec_split_order_matches_f64(K, n, u_dt, w_dt):
+    """The split body's summation order, emulated on the CPU, is within
+    1e-6 of an f64 sum (relative to max(1, max |out|)) and of the plain
+    version, at the three splits the paths and tests reach."""
+    from repro_torch.kernels.combine import combine_vec_split
+    rng = np.random.RandomState(K + n)
+    U = torch.from_numpy(rng.randn(K, n).astype(np.float32)).to(u_dt)
+    w = torch.from_numpy(rng.randn(n).astype(np.float32)).to(w_dt)
+    a = torch.from_numpy((rng.randn(K) / K).astype(np.float32))
+    wk = combine_vec_split(K, n, U.element_size(), 132)
+    assert wk > 1
+    got = _emulate_vec(w, U, a, wk).double()
+    f64 = w.double() + a.double() @ U.double()
+    scale = max(1.0, float(f64.abs().max()))
+    assert float((got - f64).abs().max()) / scale <= 1e-6
+    plain = weighted_combine(w, U, a).double()
+    assert float((got - plain).abs().max()) / scale <= 1e-6
+
+
+def test_combine_vec_body_is_built_and_bound():
+    """``combine_vec.cu`` defines the two launchers the wrapper binds, with
+    the argument counts and types ``_build`` gives them, an instance for
+    each (U dtype, w dtype, W_k) and 16-byte read-only loads of U;
+    ``combine.cu`` is untouched by it."""
+    from repro_torch.kernels.combine import VEC_SPLITS
+    src = _build.CSRC / "combine_vec.cu"
+    assert src in _build.sources()
+    text = src.read_text()
+    sig = _build._SIGNATURES
+    I, LL, VP = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+    assert ('extern "C" int combine_vec_launch_config(int u_bf16, int w_bf16, '
+            'int wk, int K,' in text)
+    assert sig["combine_vec_launch_config"] == [I, I, I, I,
+                                                ctypes.POINTER(I)]
+    assert ('extern "C" int combine_vec_launch(const void* w, const void* U, '
+            'const void* alpha,' in text)
+    # w, U, alpha, out, K, n, u_bf16, w_bf16, wk, blocks, stream
+    assert sig["combine_vec_launch"] == [VP, VP, VP, VP, I, LL, I, I, I, I,
+                                         VP]
+    for wk in VEC_SPLITS:
+        assert f"case {wk}: return reinterpret_cast<const void*>(" \
+               f"combine_vec_kernel<TU, TW, {wk}>);" in text
+    assert "ld.global.nc.L1::no_allocate.v4.u32" in text
+    assert "atomicAdd" not in text
+    assert "combine_vec" not in (_build.CSRC / "combine.cu").read_text()
+
+
+def test_combine_cuda_body_choice_is_checked_before_launch():
+    """A body name outside ("vec", "scalar") raises before anything is
+    launched; CPU tensors raise as they always did."""
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        combine_cuda(torch.ones(8), torch.ones(2, 8), torch.ones(2),
+                     body="vec")
+    from repro_torch.kernels import combine
+    assert combine.BODIES == ("vec", "scalar")
+    combine.reset_body_launches()
+    assert combine.body_launches() == {"vec": 0, "scalar": 0}
 
 
 # --------------------------------------------------------- flash_decode

@@ -581,3 +581,56 @@ def test_streamed_bf16_round_rounds_weights_to_the_leaf_dtype():
         torch.testing.assert_close(v, want, rtol=0, atol=0)
     D = torch.cat([v.reshape(4, -1).float() for v in tb.values()], dim=1)
     _allclose(ctx.G, D @ D.T)
+
+
+def _mixed_dtype_round(P=6, seed=3):
+    """A streamed round over a stacked tree of bf16 and f32 leaves, its
+    template, and the round's weights."""
+    tree, grads = _stacked_np(P=P, seed=seed,
+                              leaves=((3, 5), (7,), (4, 6), (1,), (2, 8)))
+    dts = [torch.bfloat16, torch.float32, torch.bfloat16, torch.float32,
+           torch.bfloat16]
+    tt = {k: torch.from_numpy(v).to(dt) for (k, v), dt in zip(tree.items(),
+                                                             dts)}
+    gt = {k: torch.from_numpy(v).to(dt) for (k, v), dt in zip(grads.items(),
+                                                             dts)}
+    tmpl = tree_map(lambda v: v[0].clone(), tt)
+    ctx = StreamedRoundEngine(tmpl, SolveConfig(beta=2.0),
+                              "contextual").begin_round(tt, gt)
+    w = torch.from_numpy(np.random.RandomState(seed).randn(P)
+                         .astype(np.float32) * 0.3)
+    return ctx, tt, tmpl, w
+
+
+def test_streamed_apply_rounds_the_weights_once_per_leaf_dtype():
+    """apply casts the round's weights once for each leaf dtype (two here),
+    not once per leaf (five): on the card each cast is a launch."""
+    from torch.overrides import TorchFunctionMode
+
+    ctx, _, tmpl, w = _mixed_dtype_round()
+
+    class CountCasts(TorchFunctionMode):
+        casts = 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is torch.Tensor.to and args and args[0] is w:
+                CountCasts.casts += 1
+            return func(*args, **(kwargs or {}))
+
+    with CountCasts():
+        ctx.apply(tmpl, RowMix(w, "delta"))
+    assert CountCasts.casts == 2
+
+
+def test_streamed_apply_equals_the_per_leaf_rounding_bitwise():
+    """The applied parameters are bitwise those of rounding the weights
+    anew for every leaf, as apply did before."""
+    from repro_torch.kernels import weighted_combine
+    ctx, tt, tmpl, w = _mixed_dtype_round()
+    got = ctx.apply(tmpl, RowMix(w, "delta"))
+    for k, leaf in tt.items():
+        m = leaf.reshape(leaf.shape[0], -1)
+        want = weighted_combine(tmpl[k].reshape(-1), m,
+                                w.to(m.dtype).float()).view(tmpl[k].shape)
+        assert got[k].dtype == tmpl[k].dtype
+        assert torch.equal(got[k], want)
