@@ -29,7 +29,9 @@ Phases (any failure exits non-zero and prints no result line):
      PyTorch yardstick (where one exists) beside the bound (``topk`` and
      ``gram``: the median and min-max of five rounds, with device µs from
      ``torch.profiler``; ``combine``: the same, with the host µs to issue
-     a call; ``topk``: one device kernel per call at every
+     a call; ``sign_sketch`` and its adjoint: device µs and host µs to
+     issue a call beside the one CUDA-event time; ``topk``: one device
+     kernel per call at every
      shape of the one-block path; ``gram``'s tensor-core rows also against
      an f64 product beside the plain version's distance from it);
   3. path    — ``run_simulation`` at paper-logreg width (784 → 10) on
@@ -37,7 +39,21 @@ Phases (any failure exits non-zero and prints no result line):
      launch counters showing that every round went through the kernels and
      never through the plain versions; one round is also held against the
      same round on the CPU;
-  4. hier    — ``run_hier_simulation`` on the same data and width over a
+  4. async   — ``run_async_simulation`` on the same data and width over a
+     bimodal fleet of 100 devices (slowdown 4, dropout_slow 0.1; buffer 5,
+     concurrency 10, lr 0.2): ``contextual_async``, ``fedbuff`` and
+     ``fedasync`` (buffer 1), 30 flushes each.  The counters must show
+     ``gram`` once per ``contextual_async`` flush and ``combine`` twice on
+     every flush (W on ``combine_vec.cu``, b on ``combine.cu``), and no
+     plain version; the losses must fall; two ``contextual_async`` runs
+     on the card (the second 10 flushes long) give the same virtual times
+     and losses within 1e-6; one
+     flush on the card matches the same flush on the CPU; the device µs of
+     a flush's ``gram`` and ``combine`` launches beside their bounds; and
+     ``BENCH_async.json``'s ordering on Synthetic(1,1) at slowdown 1:
+     contextual-async reaches 0.5 accuracy at an earlier virtual time than
+     fedavg-sync;
+  5. hier    — ``run_hier_simulation`` on the same data and width over a
      bimodal fleet of 100 devices: a star cloud (K = 100), two tiers of 4
      gateways, and the two tiers with ``topk`` and with ``sign_sketch``
      summaries.  The counters must show ``gram`` on every round and ``topk``
@@ -47,7 +63,7 @@ Phases (any failure exits non-zero and prints no result line):
      inputs are f32); the losses must fall; compressed cloud uplink
      below uncompressed below star; one uncompressed and one
      ``sign_sketch`` round on the card match the same round on the CPU;
-  5. streamed — the same two-tier runs (uncompressed, ``topk``,
+  6. streamed — the same two-tier runs (uncompressed, ``topk``,
      ``sign_sketch``) on ``engine="streamed"`` and on the fused engine with
      the same mini-batches: every streamed round launches ``stream_stats``
      (its P = 100 f32 slabs on cross.cuh's body) and ``combine`` (each
@@ -56,7 +72,7 @@ Phases (any failure exits non-zero and prints no result line):
      agree with the fused engine's to
      1.4e-3, the cloud-uplink bytes are equal; one streamed round on the
      card matches the same round on the CPU;
-  6. bigmodel — the reference's full ``transformer_stream`` round
+  7. bigmodel — the reference's full ``transformer_stream`` round
      (``benchmarks/bigmodel_round.py``: d_model 1024, vocab 8192, 4 layers,
      P = 16, bf16, n = 58 724 352) through the streamed engine: its round
      time, the accumulate pass beside its bound (every one of its 29
@@ -66,7 +82,7 @@ Phases (any failure exits non-zero and prints no result line):
      allocated memory across ``begin_round``, G and C against the plain
      version and against an f64 product, and the round's delta against the
      fused engine's on the same inputs;
-  7. serve   — the continuous-batching ``DecodeEngine`` on the full
+  8. serve   — the continuous-batching ``DecodeEngine`` on the full
      qwen3-14b (40 layers, d_model 5 120, 40/8 heads, bf16, 14.77 B
      parameters from a seeded generator on the card): 4 slots of 256 rows
      serve 8 requests (prompts of 48-200 tokens, 32 or 4 new) with one
@@ -269,6 +285,16 @@ HIER_CFG = dict(lr=0.05, batch_size=10, min_epochs=1, max_epochs=20)
 PATH_ROUNDS = 8
 PATH_CFG = dict(num_devices=100, clients_per_round=10, lr=0.05,
                 batch_size=10, min_epochs=1, max_epochs=20)
+ASYNC_FLUSHES = 30
+# the second contextual_async run (determinism) and the Synthetic(1,1)
+# async run of the ordering check stop early: their prefix is the run
+# (the event stream is causal), and every arrival costs ~70-80 ms of host
+# time on the card (one eager client_update, ~63 SGD steps)
+ASYNC_REPEAT_FLUSHES = 10
+ASYNC_BENCH_FLUSHES = 12
+ASYNC_CFG = dict(num_devices=100, buffer_size=5, concurrency=10, lr=0.2,
+                 batch_size=10, min_epochs=1, max_epochs=20)
+ASYNC_FLEET = dict(slowdown=4.0, dropout_slow=0.1, seed=0)
 
 
 class SmokeFailure(RuntimeError):
@@ -315,34 +341,58 @@ def time_ms_spread(fns: dict, reps: int, repeats: int = 5) -> dict:
                    "max": max(r), "runs": r} for name, r in runs.items()}
 
 
-# torch.profiler traces on an H100 now and then come back with no device
-# activity at all for a short window (seen for one call of topk and of gram
-# at path width); a window that holds none is profiled again, up to this
-# many times in all.  A call always launches a kernel, so an empty trace is
-# a lost trace, never a result.
-PROFILE_ATTEMPTS = 3
+# torch.profiler traces on an H100 lose device activity at the start of a
+# window: a ``profile`` that starts recording as it opens misses the first
+# launches after it (seen for one call of topk and of gram at path width,
+# the first of three stream_stats_mma launches in most rows, and once the
+# first five launches of three stream_stats calls).  So a window first runs
+# one call in a warm-up cycle (``schedule(warmup=1)``: CUPTI is on, the
+# events are dropped) and records the next ``calls``; and a window that
+# still comes back incomplete (no device activity, or a kernel seen a
+# number of times that is no multiple of ``calls``: every call of a
+# function here launches the same kernels) is profiled again, up to this
+# many times in all.  A lost launch is a lost trace, never a result.
+PROFILE_ATTEMPTS = 5
+
+
+def _profile_window(fn, calls: int) -> list:
+    """The ``key_averages()`` entries with device time (kernels, not aten
+    ops, runtime calls or the step markers) of ``calls`` calls of ``fn``,
+    recorded after one call in the profiler's warm-up cycle."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+    return [e for e in prof.key_averages() if _device_us(e) > 0
+            and not e.key.startswith(("aten::", "cuda", "ProfilerStep"))]
 
 
 def _device_rows(fn, calls: int) -> list:
-    """The ``key_averages()`` entries with device time (kernels, not aten
-    ops or runtime calls) of ``calls`` calls of ``fn`` under
-    ``torch.profiler``, after a warm-up call; an empty trace is taken
-    again (``PROFILE_ATTEMPTS``)."""
+    """:func:`_profile_window` of ``calls`` calls of ``fn`` after a warm-up
+    call; an incomplete trace is taken again (``PROFILE_ATTEMPTS``), and
+    if none is complete the one with the most launches is returned."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    best = []
     for _ in range(PROFILE_ATTEMPTS):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages() if _device_us(e) > 0
-                and not e.key.startswith(("aten::", "cuda"))]
-        if rows:
-            break
-    return rows
+        rows = _profile_window(fn, calls)
+        if rows and all(e.count % calls == 0 for e in rows):
+            return rows
+        log(f"profiler: incomplete trace of {calls} calls "
+            f"{ {e.key[:40]: e.count for e in rows} }, profiled again")
+        if sum(e.count for e in rows) > sum(e.count for e in best):
+            best = rows
+    return best
 
 
 def device_kernels(fn) -> tuple:
@@ -721,6 +771,17 @@ def sketch_bound(K: int, n: int, m: int, dt) -> dict:
                 fma_pipe_ops=(HASH_MUL_OPS + K) * m * n)
 
 
+def _device_and_host(rec: dict, call, reps: int) -> None:
+    """Into ``rec``: the device kernels of ``call`` (mean µs per launch over
+    three calls, ``torch.profiler``), their sum, and the host µs to issue a
+    call, as the ``combine`` rows carry them."""
+    kernels = device_kernel_means(call)
+    rec["device_kernels"] = kernels
+    rec["device_kernels_per_call"] = len(kernels)
+    rec["device_ms"] = sum(ms for _, ms in kernels.values())
+    rec["host_ms"] = host_ms(call, reps)
+
+
 def check_sketch(K: int, n: int, m: int, dt, gen, timed: bool = True) -> dict:
     import torch
     from repro_torch.kernels import ops, ref
@@ -743,9 +804,9 @@ def check_sketch(K: int, n: int, m: int, dt, gen, timed: bool = True) -> dict:
            "bitwise_repeatable": bitwise}
     if timed:
         big = m * n > (1 << 30)
-        rec["ms"] = time_ms(lambda: ops.sign_sketch(U, seed, m,
-                                                    backend="cuda"),
-                            5 if big else 200)
+        call = lambda: ops.sign_sketch(U, seed, m, backend="cuda")  # noqa: E731
+        rec["ms"] = time_ms(call, 5 if big else 200)
+        _device_and_host(rec, call, 5 if big else 200)
         rec["plain_ms"] = time_ms(lambda: ref.rng_sketch_ref(U, seed, m),
                                   2 if big else 20, warmup=1)
         rec["library_ms"] = None
@@ -774,9 +835,9 @@ def check_adjoint(m: int, n: int, gen, timed: bool = True) -> dict:
            "tolerance": tol}
     if timed:
         big = m * n > (1 << 30)
-        rec["ms"] = time_ms(lambda: ops.sign_sketch_adjoint(s, seed, n,
-                                                            backend="cuda"),
-                            5 if big else 200)
+        call = lambda: ops.sign_sketch_adjoint(s, seed, n, backend="cuda")  # noqa: E731
+        rec["ms"] = time_ms(call, 5 if big else 200)
+        _device_and_host(rec, call, 5 if big else 200)
         rec["plain_ms"] = time_ms(lambda: ref.rng_sketch_adjoint_ref(s, seed, n),
                                   2 if big else 20, warmup=1)
         rec["library_ms"] = None
@@ -1698,6 +1759,279 @@ def hier_phase(ds, params) -> dict:
     return total
 
 
+# ------------------------------------------------------------------- async
+
+def _async_items(ds, params, cfg):
+    """``cfg.buffer_size`` buffered updates of mixed staleness (dispatch
+    versions 0, 1, ...) trained on the CPU from one seeded generator:
+    ``[(delta, grad, dispatch version, device id)]`` on the CPU."""
+    import torch
+    from repro_torch.core.flatten import tree_map
+    from repro_torch.fl.client import client_update, draw_batch_indices
+    from repro_torch.models.logistic import logistic_loss
+    spe = max(ds.samples_per_device // cfg.batch_size, 1)
+    max_steps = cfg.max_epochs * spe
+    cpu_params = tree_map(lambda p: p.cpu(), params)
+    gen = torch.Generator()
+    gen.manual_seed(7)
+    items = []
+    for j, d in enumerate((3, 22, 41, 60, 79)[:cfg.buffer_size]):
+        x = torch.as_tensor(ds.x[d:d + 1])
+        y = torch.as_tensor(ds.y[d:d + 1], dtype=torch.long)
+        mask = torch.as_tensor(ds.mask[d:d + 1])
+        idx = draw_batch_indices(mask, max_steps, cfg.batch_size, gen)
+        delta, grad = client_update(logistic_loss, cpu_params, x, y, mask,
+                                    torch.tensor([spe * (2 * j + 1)]), idx,
+                                    lr=cfg.lr)
+        items.append((tree_map(lambda t: t[0], delta),
+                      tree_map(lambda t: t[0], grad), j, d))
+    return items
+
+
+def _async_flush(cfg, items, params, device: str):
+    """One flush of ``items`` into ``params`` on ``device`` at model version
+    ``len(items)``: ``(new params, info)``."""
+    from repro_torch.core.flatten import tree_map
+    from repro_torch.edge import AsyncBuffer, BufferedUpdate
+    buf = AsyncBuffer(cfg)
+    for delta, grad, ver, d in items:
+        buf.add(BufferedUpdate(tree_map(lambda t: t.to(device), delta),
+                               tree_map(lambda t: t.to(device), grad),
+                               ver, d))
+    return buf.flush(tree_map(lambda p: p.to(device), params), len(items))
+
+
+def async_flush_vs_cpu(cfg, items, params) -> dict:
+    """One ``contextual_async`` flush on the card against the same flush on
+    the CPU (plain versions), from the same buffered deltas and gradients;
+    returns the max |Δ new params| relative to max |new params| and the
+    same for α."""
+    from repro_torch.core.flatten import tree_to_vector
+    outs = [_async_flush(cfg, items, params, dev) for dev in ("cuda", "cpu")]
+    (new_c, info_c), (new_p, info_p) = outs
+    vec_c, vec_p = tree_to_vector(new_c).cpu(), tree_to_vector(new_p)
+    return {"params_rel_err": _max_err(vec_c, vec_p) / _scale(vec_p),
+            "alpha_rel_err": _max_err(info_c["alpha"].cpu(), info_p["alpha"])
+            / _scale(info_p["alpha"]),
+            "staleness": [float(t) for t in info_p["staleness"]]}
+
+
+def async_flush_kernels(cfg, items, params) -> dict:
+    """Device µs of one ``contextual_async`` flush's ``gram`` and
+    ``combine`` launches (``torch.profiler``, mean per launch over three
+    flushes) beside their bounds."""
+    import torch
+    flush = lambda: _async_flush(cfg, items, params, "cuda")  # noqa: E731
+    rows = device_kernel_means(flush)
+    K, f32 = cfg.buffer_size, torch.float32
+    n_w, n_b = 784 * 10, 10
+    out = {}
+    for key, (count, ms) in rows.items():
+        kind = ("combine_vec" if "combine_vec_kernel" in key else
+                "combine" if "combine_kernel" in key else
+                "gram_finish" if "gram_finish" in key else
+                "gram" if "gram_partial" in key else None)
+        if kind is not None:
+            out[kind] = {"launches_in_3_flushes": count, "device_ms": ms}
+    need(set(out) >= {"combine_vec", "combine", "gram"},
+         f"async flush: device kernels {list(rows)}, want gram's and "
+         "combine's two bodies")
+    out["gram"]["bound"] = gram_bound(K, N_PATH, f32)
+    out["combine_vec"]["bound"] = combine_bound(K, n_w, f32)
+    out["combine"]["bound"] = combine_bound(K, n_b, f32)
+    out["all_kernels"] = {k: v for k, v in rows.items()}
+    return out
+
+
+def async_bench_ordering() -> dict:
+    """``BENCH_async.json``'s ordering at slowdown 1.0 on the card:
+    contextual-async reaches 0.5 test accuracy on Synthetic(1,1) at an
+    earlier virtual time than fedavg-sync (``benchmarks/async_vs_sync.py``'s
+    configs, ``benchmarks/common.py``'s data; 30 sync rounds as there, the
+    async run's first ``ASYNC_BENCH_FLUSHES`` of its 30 flushes: the time
+    to 0.5 is fixed by the first flushes, the reference's 0.0082 s of
+    0.039)."""
+    import numpy as np
+    from repro_torch.data import FederatedDataset, make_synthetic
+    from repro_torch.edge import (AsyncConfig, bimodal_fleet,
+                                  model_flops_per_step, model_payload_bytes,
+                                  run_async_simulation, sync_wallclock_curve)
+    from repro_torch.fl import ServerConfig, run_simulation
+    from repro_torch.models.config import ArchConfig
+    from repro_torch.models.logistic import (init_logistic, logistic_apply,
+                                             logistic_loss)
+    xs, ys = make_synthetic(1.0, 1.0, num_devices=30, samples_per_device=60,
+                            dim=60, seed=0)
+    ds = FederatedDataset(xs, ys, np.ones(ys.shape, np.float32),
+                          xs.reshape(-1, 60)[:400], ys.reshape(-1)[:400], 10)
+    params = init_logistic(ArchConfig(name="lr", family="logreg",
+                                      input_dim=60, num_classes=10), 0,
+                           device="cuda")
+    fleet = bimodal_fleet(30, slowdown=1.0, dropout_slow=0.1, seed=0)
+    common = dict(num_devices=30, lr=0.2, batch_size=10, min_epochs=1,
+                  max_epochs=20)
+    sync_cfg = ServerConfig(aggregator="fedavg", clients_per_round=10,
+                            **common)
+    r = run_simulation("fedavg-sync", logistic_loss, logistic_apply, params,
+                       ds, sync_cfg, num_rounds=30, selection_seed=42,
+                       eval_every=2, device="cuda")
+    sync = sync_wallclock_curve(
+        r, fleet, sync_cfg, max(ds.samples_per_device // 10, 1), 30, 2,
+        model_flops_per_step(params, 10), model_payload_bytes(params),
+        selection_seed=42)
+    a = run_async_simulation(
+        "contextual-async", logistic_loss, logistic_apply, params, ds,
+        AsyncConfig(aggregator="contextual_async", buffer_size=5,
+                    concurrency=10, staleness_mode="poly",
+                    staleness_decay=0.5, **common),
+        fleet, num_aggregations=ASYNC_BENCH_FLUSHES, selection_seed=42,
+        eval_every=2, device="cuda")
+    out = {"target_acc": 0.5,
+           "fedavg_sync_s": sync.time_to_accuracy(0.5),
+           "contextual_async_s": a.time_to_accuracy(0.5),
+           "fedavg_sync_best_acc": max(sync.test_acc),
+           "contextual_async_best_acc": max(a.test_acc)}
+    need(out["contextual_async_s"] is not None
+         and (out["fedavg_sync_s"] is None
+              or out["contextual_async_s"] < out["fedavg_sync_s"]),
+         f"async: contextual-async does not reach 0.5 accuracy before "
+         f"fedavg-sync on Synthetic(1,1): {out}")
+    return out
+
+
+def async_phase(ds, params) -> dict:
+    """Drive run_async_simulation at paper-logreg width; returns the launch
+    counts of its three runs, summed, and its numbers."""
+    import numpy as np
+    import torch
+    from repro_torch.edge import AsyncConfig, bimodal_fleet, run_async_simulation
+    from repro_torch.kernels import combine, launch_counts, reset_launch_counts
+    from repro_torch.models.logistic import logistic_apply, logistic_loss
+    from repro_torch.obs import InMemoryTracker, use_tracker
+
+    t0 = time.perf_counter()
+    fleet = bimodal_fleet(ds.num_devices, **ASYNC_FLEET)
+    runs = [("contextual_async", dict(aggregator="contextual_async")),
+            ("fedbuff", dict(aggregator="fedbuff", server_lr=0.5)),
+            ("fedasync", dict(aggregator="fedasync", buffer_size=1))]
+    log(f"async: {ds.num_devices} devices (bimodal, slowdown "
+        f"{ASYNC_FLEET['slowdown']}, dropout_slow "
+        f"{ASYNC_FLEET['dropout_slow']}), {ASYNC_FLUSHES} flushes per run, "
+        f"{ASYNC_CFG}")
+
+    def drive(agg, kw, flushes=ASYNC_FLUSHES):
+        tracker = InMemoryTracker()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        before = combine.body_launches()
+        with use_tracker(tracker):
+            res = run_async_simulation(
+                agg, logistic_loss, logistic_apply, params, ds,
+                AsyncConfig(**dict(ASYNC_CFG, **kw)), fleet,
+                num_aggregations=flushes, selection_seed=42,
+                eval_every=5, device="cuda")
+        torch.cuda.synchronize()
+        return (res, launch_counts(),
+                _tally_since(before, combine.body_launches()), tracker)
+
+    results, total, numbers = {}, {}, {"runs": {}}
+    for agg, kw in runs:
+        res, counts, bodies, tracker = drive(agg, kw)
+        results[agg] = res
+        for key, v in counts.items():
+            total[key] = total.get(key, 0) + v
+        F = ASYNC_FLUSHES
+        need(np.isfinite(res.train_loss).all() and
+             res.train_loss[-1] < res.train_loss[0],
+             f"async {agg}: losses did not fall: {res.train_loss}")
+        want_gram = F if agg == "contextual_async" else 0
+        need(counts["gram/cuda"] == want_gram,
+             f"async {agg}: gram/cuda launched {counts['gram/cuda']} times in "
+             f"{F} flushes, want {want_gram}")
+        need(counts["combine/cuda"] == 2 * F,
+             f"async {agg}: combine/cuda launched {counts['combine/cuda']} "
+             f"times in {F} flushes, want 2 a flush (W and b)")
+        plain = {k: v for k, v in counts.items() if k.endswith("/torch") and v}
+        need(not plain, f"async {agg}: plain versions ran: {plain}")
+        # each flush: W (K, 7 840) f32 rows of 31 360 bytes on combine_vec.cu,
+        # b (K, 10) rows of 40 bytes on combine.cu
+        need(bodies == {"vec": F, "scalar": F},
+             f"async {agg}: combine bodies {bodies}, want {F} vec (W) and "
+             f"{F} scalar (b)")
+        cu, ag = _round_ms(tracker, "client_update"), _round_ms(
+            tracker, "aggregate")
+        numbers["runs"][agg] = {
+            "train_loss": [res.train_loss[0], res.train_loss[-1]],
+            "test_acc": res.test_acc[-1], "virtual_s": res.times[-1],
+            "arrived": res.arrived, "dropped": res.dropped,
+            "staleness_mean": float(np.mean(res.staleness_mean)),
+            "combine_bodies": bodies,
+            "client_update_ms_per_flush": sum(cu) / F,
+            "client_update_ms_mean": statistics.mean(cu),
+            "aggregate_ms_mean": statistics.mean(ag),
+            "aggregate_ms_median": statistics.median(ag),
+            "wall_s": res.wall_time}
+        log(f"async {agg:16s} loss {res.train_loss[0]:.4f} -> "
+            f"{res.train_loss[-1]:.4f}  acc {res.test_acc[-1]:.4f}  virtual "
+            f"{res.times[-1]:.4f} s  arrived {res.arrived} dropped "
+            f"{res.dropped}  per flush: client_update "
+            f"{sum(cu) / F:.2f} ms ({len(cu)} updates, "
+            f"{statistics.mean(cu):.2f} ms each), aggregate "
+            f"{statistics.mean(ag):.2f} ms (median "
+            f"{statistics.median(ag):.2f})  launches "
+            f"{ {k: v for k, v in counts.items() if v} }  combine bodies "
+            f"{bodies}")
+
+    again = drive(*runs[0], flushes=ASYNC_REPEAT_FLUSHES)[0]
+    first = results["contextual_async"]
+    same_times = again.times == first.times[:len(again.times)]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(again.train_loss, first.train_loss))
+    need(same_times and len(again.times) == ASYNC_REPEAT_FLUSHES // 5
+         and loss_rel <= 1e-6,
+         f"async: two card runs differ: times equal {same_times}, loss rel "
+         f"diff {loss_rel:.3e}")
+    log(f"async: a second contextual_async run on the card "
+        f"({ASYNC_REPEAT_FLUSHES} flushes, {len(again.times)} evals) against "
+        f"the first one's: virtual times bitwise equal, largest train-loss "
+        f"rel diff {loss_rel:.3e} (tolerance 1e-6)")
+    numbers["repeat_loss_rel_diff"] = loss_rel
+
+    flush_cfg = AsyncConfig(aggregator="contextual_async", **ASYNC_CFG)
+    items = _async_items(ds, params, flush_cfg)
+    vs = async_flush_vs_cpu(flush_cfg, items, params)
+    log(f"async: one contextual_async flush (staleness {vs['staleness']}), "
+        f"card vs CPU: max rel err of new params {vs['params_rel_err']:.3e}, "
+        f"of alpha {vs['alpha_rel_err']:.3e} (tolerance 1e-4)")
+    need(vs["params_rel_err"] <= 1e-4 and vs["alpha_rel_err"] <= 1e-4,
+         f"async: card flush disagrees with the CPU flush: {vs}")
+    numbers["flush_vs_cpu"] = vs
+
+    kern = async_flush_kernels(flush_cfg, items, params)
+    for kind in ("gram", "gram_finish", "combine_vec", "combine"):
+        if kind not in kern:
+            continue
+        k = kern[kind]
+        b = (f" bound {k['bound']['bound_ms'] * 1e3:.2f} us "
+             f"({k['bound']['bound_by']})" if "bound" in k else "")
+        log(f"async flush: {kind:12s} device {k['device_ms'] * 1e3:.1f} us "
+            f"per launch ({k['launches_in_3_flushes']} in 3 flushes){b}")
+    numbers["flush_kernels"] = {k: v for k, v in kern.items()
+                                if k != "all_kernels"}
+    numbers["flush_device_kernels"] = kern["all_kernels"]
+
+    bench = async_bench_ordering()
+    log(f"async: Synthetic(1,1), slowdown 1.0: virtual s to 0.5 accuracy "
+        f"contextual-async {bench['contextual_async_s']} vs fedavg-sync "
+        f"{bench['fedavg_sync_s']} (best acc "
+        f"{bench['contextual_async_best_acc']:.3f} / "
+        f"{bench['fedavg_sync_best_acc']:.3f})")
+    numbers["bench_ordering"] = bench
+    numbers["host_s"] = time.perf_counter() - t0
+    log(f"async: phase host time {numbers['host_s']:.1f} s")
+    return {"counts": total, **numbers}
+
+
 # ---------------------------------------------------------------- streamed
 
 def _round_ms(tracker, name: str = "round") -> list:
@@ -2102,20 +2436,8 @@ def device_busy(fn, steps: int) -> dict:
     """Device time per call of ``fn`` from a ``torch.profiler`` trace: the
     sum of the kernels' own device time, and the largest kernels by name.
     None when the trace holds no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        us = _device_us(e)
-        if us > 0 and not e.key.startswith(("aten::", "cuda")):
-            rows.append((e.key[:60], us / 1e3 / steps, e.count / steps))
+    rows = [(e.key[:60], _device_us(e) / 1e3 / steps, e.count / steps)
+            for e in _device_rows(fn, steps)]
     total = sum(r[1] for r in rows)
     if total <= 0:
         return None
@@ -2684,11 +3006,13 @@ def main() -> int:
         smi_line = setup_phase()
         kern = kernels_phase()
         sync_counts, ds, params = on_cuda_core("sync", path_phase)
+        asynced = on_cuda_core("async", async_phase, ds, params)
         hier_counts = on_cuda_core("hier", hier_phase, ds, params)
         streamed_counts = on_cuda_core("streamed", streamed_phase, ds, params)
         big = on_cuda_core("bigmodel", bigmodel_phase)
         served = on_cuda_core("serve", serve_phase)
-        by_path = {"sync": sync_counts, "hier": hier_counts,
+        by_path = {"sync": sync_counts, "async": asynced["counts"],
+                   "hier": hier_counts,
                    "streamed": streamed_counts, "bigmodel": big["counts"],
                    "serve": served["counts"]}
         for path, counts in by_path.items():
@@ -2736,6 +3060,10 @@ def main() -> int:
         sources=[KERNEL_SOURCES["flash_decode"][0],
                  "src/repro_torch/kernels/csrc/decode_attn.cu"],
         bodies_by_path=decode_bodies)
+    async_numbers = {k: v for k, v in asynced.items() if k != "counts"}
+    entries[names.index("combine")]["async"] = async_numbers
+    entries[names.index("gram")]["async"] = async_numbers["flush_kernels"][
+        "gram"]
     entries[names.index("stream_stats")]["bigmodel"] = {
         k: v for k, v in big.items() if k != "counts"}
     entries[names.index("flash_decode")]["serve"] = {

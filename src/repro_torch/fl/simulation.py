@@ -1,4 +1,4 @@
-"""End-to-end synchronous FL simulation (the paper's experiments).
+"""End-to-end FL simulation (the paper's experiments).
 
 ``run_simulation`` runs T synchronous rounds of a configured algorithm on a
 :class:`FederatedDataset`, keeping the host-side randomness (device
@@ -10,6 +10,15 @@ dataset goes to ``device`` once per run; mini-batch draws come from a
 
 Each round opens the spans ``round`` > ``update_aggregate`` and ``eval``
 on the active tracker (``repro_torch.obs``), as the reference does.
+
+``run_async_simulation`` drives the same datasets and metrics through the
+event-driven edge runtime (``repro_torch.edge``): devices train at
+profile-dependent speeds, updates arrive asynchronously, and the server
+flushes buffers of (possibly stale) updates through ``contextual_async``
+(the ``gram`` and ``combine`` kernels on the card), ``fedbuff`` or
+``fedasync`` (``combine``).  The event stream is a pure function of the
+fleet and the seed, bit-identical to the reference's, so aggregators stay
+comparable on one virtual clock.
 
 ``run_hier_simulation`` runs synchronous rounds over a ``repro_torch.hier``
 multi-tier topology on the event scheduler (``repro_torch.edge``): every hop
@@ -156,6 +165,215 @@ def run_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
     if tr.active and result.train_loss:
         tr.log_summary({"final_train_loss": result.train_loss[-1],
                         "final_test_acc": result.test_acc[-1],
+                        "wall_time_s": result.wall_time})
+    return result
+
+
+@dataclass
+class AsyncSimulationResult:
+    """Metrics of an async run, indexed by *virtual wall-clock* eval points."""
+    name: str
+    times: List[float] = field(default_factory=list)       # virtual seconds
+    versions: List[int] = field(default_factory=list)      # model version
+    train_loss: List[float] = field(default_factory=list)
+    test_acc: List[float] = field(default_factory=list)
+    test_nll: List[float] = field(default_factory=list)
+    staleness_mean: List[float] = field(default_factory=list)  # per flush
+    alpha_history: List[np.ndarray] = field(default_factory=list)
+    updates_per_device: Optional[np.ndarray] = None   # arrivals aggregated
+    dispatched: int = 0
+    arrived: int = 0
+    dropped: int = 0
+    wall_time: float = 0.0                                 # real seconds
+
+    def time_to_accuracy(self, level: float) -> Optional[float]:
+        """First virtual time at which test accuracy reaches ``level``."""
+        return self.to_curve().time_to_accuracy(level)
+
+    def to_curve(self):
+        from ..edge.wallclock import WallclockCurve
+        return WallclockCurve(name=self.name, times=list(self.times),
+                              test_acc=list(self.test_acc),
+                              train_loss=list(self.train_loss))
+
+
+def run_async_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
+                         init_params: Tree, dataset: FederatedDataset,
+                         cfg, fleet, num_aggregations: int,
+                         selection_seed: int = 1234, eval_every: int = 1,
+                         collect_alpha: bool = False,
+                         record_history: RecordHistory = True,
+                         attack=None, churn=None,
+                         batch_indices: Optional[
+                             Callable[[int, int, int], torch.Tensor]] = None,
+                         device: DeviceLike = "cuda"
+                         ) -> AsyncSimulationResult:
+    """Event-driven async FL (``cfg`` is a :class:`repro_torch.edge.AsyncConfig`),
+    as ``repro.fl.simulation.run_async_simulation``.
+
+    The server keeps up to ``cfg.concurrency`` tasks in flight (default: one
+    per device); devices without a task wait in a FIFO queue, so a
+    concurrency cap rotates work across the whole fleet.  Each ARRIVAL is
+    trained against the params it was *dispatched* with (``client_update``
+    with K = 1), buffered, and the buffer is flushed through the configured
+    aggregator (``contextual_async`` / ``fedbuff`` / ``fedasync``) once
+    ``cfg.buffer_size`` updates are present.  Dropouts lose their work; the
+    freed slot goes to the next waiting device.  Runs until
+    ``num_aggregations`` buffer flushes have been applied.
+
+    The host randomness (epoch draws, the FIFO queue, the event scheduler)
+    is numpy and bit-identical to the reference, so virtual times, versions
+    and counts match it exactly.  Mini-batch draws come from a
+    ``torch.Generator`` on ``device`` seeded with ``selection_seed``, or from
+    ``batch_indices(seq, device_id, max_steps)``, which returns the
+    ``(1, max_steps, batch_size)`` sample indices of the arrival with event
+    sequence number ``seq`` (the tests replay the reference's draws that
+    way).  ``attack`` and ``churn`` are not ported yet and raise
+    ``NotImplementedError``.
+
+    Spans: ``client_update`` per arrival, ``aggregate`` per flush, ``eval``,
+    all on the scheduler's virtual clock.
+    """
+    # imported here: repro_torch.edge imports repro_torch.fl at module scope
+    from ..edge.async_server import AsyncBuffer, BufferedUpdate
+    from ..edge.events import EventKind, EventScheduler
+    from ..edge.wallclock import model_flops_per_step, model_payload_bytes
+    from .client import client_update, draw_batch_indices
+
+    if attack is not None or churn is not None:
+        raise _not_ported("attack / churn", "repro.robust")
+    if fleet.num_devices != cfg.num_devices:
+        raise ValueError(f"fleet has {fleet.num_devices} devices, config "
+                         f"expects {cfg.num_devices}")
+    if dataset.num_devices < cfg.num_devices:
+        raise ValueError(f"dataset has {dataset.num_devices} device shards, "
+                         f"need {cfg.num_devices}")
+    dev = resolve_device(device)
+
+    steps_per_epoch = max(dataset.samples_per_device // cfg.batch_size, 1)
+    max_steps = cfg.max_epochs * steps_per_epoch
+
+    params = tree_map(lambda a: torch.as_tensor(a, device=dev), init_params)
+    x = torch.as_tensor(dataset.x, device=dev)
+    y = torch.as_tensor(dataset.y, dtype=torch.long, device=dev)
+    mask = torch.as_tensor(dataset.mask, device=dev)
+    test_x = torch.as_tensor(dataset.test_x, device=dev)
+    test_y = torch.as_tensor(dataset.test_y, dtype=torch.long, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(selection_seed)
+
+    scheduler = EventScheduler(
+        fleet, seed=selection_seed,
+        flops_per_step=model_flops_per_step(params, cfg.batch_size),
+        payload_bytes=model_payload_bytes(params))
+    buffer = AsyncBuffer(cfg)
+    epoch_rng = np.random.RandomState(selection_seed + 1)
+
+    version = 0
+    in_flight: Dict[int, tuple] = {}     # device_id -> (params snapshot, version)
+    idle = deque(range(fleet.num_devices))   # devices waiting for a task
+
+    def dispatch_next() -> None:
+        device_id = idle.popleft()
+        epochs = int(epoch_rng.randint(cfg.min_epochs, cfg.max_epochs + 1))
+        scheduler.dispatch(device_id, epochs * steps_per_epoch, version)
+        in_flight[device_id] = (params, version)
+
+    concurrency = (fleet.num_devices if cfg.concurrency is None
+                   else min(cfg.concurrency, fleet.num_devices))
+    for _ in range(concurrency):
+        dispatch_next()
+
+    tr = current_tracker().scope(f"async/{name}")
+    if tr.active:
+        tr.jot(runtime="async", run=name, aggregator=cfg.aggregator,
+               num_aggregations=num_aggregations,
+               buffer_size=cfg.buffer_size, device=str(dev))
+    result = AsyncSimulationResult(
+        name=name, updates_per_device=np.zeros(fleet.num_devices, np.int64))
+    result.alpha_history = _history_buffer(record_history)
+    max_events = 1000 + 50 * num_aggregations * cfg.buffer_size
+    aggs = 0
+    events_processed = 0
+    t0 = time.time()
+    with spans.use_virtual_clock(lambda: scheduler.now):
+        while aggs < num_aggregations:
+            if events_processed >= max_events:
+                raise RuntimeError(f"exceeded {max_events} events before reaching "
+                                   f"{num_aggregations} aggregations")
+            events_processed += 1
+            evt = scheduler.pop()
+            if evt is None:
+                raise RuntimeError("event queue exhausted before reaching "
+                                   f"{num_aggregations} aggregations")
+            disp_params, disp_version = in_flight.pop(evt.device_id)
+            idle.append(evt.device_id)      # back of the queue either way
+            if evt.kind == EventKind.DROPOUT:
+                dispatch_next()             # lost work; slot goes to next waiter
+                continue
+            d = evt.device_id
+            with spans.span("client_update", device=d,
+                            staleness=version - disp_version):
+                if batch_indices is None:
+                    idx = draw_batch_indices(mask[d:d + 1], max_steps,
+                                             cfg.batch_size, gen)
+                else:
+                    idx = batch_indices(evt.seq, d, max_steps).to(dev)
+                    if tuple(idx.shape) != (1, max_steps, cfg.batch_size):
+                        raise ValueError(
+                            f"batch_indices returned {tuple(idx.shape)}, "
+                            f"want {(1, max_steps, cfg.batch_size)}")
+                deltas, grads = client_update(
+                    loss_fn, disp_params, x[d:d + 1], y[d:d + 1],
+                    mask[d:d + 1],
+                    torch.tensor([evt.num_steps], device=dev), idx,
+                    lr=cfg.lr, mu=cfg.mu)
+            buffer.add(BufferedUpdate(tree_map(lambda t: t[0], deltas),
+                                      tree_map(lambda t: t[0], grads),
+                                      disp_version, d))
+            result.updates_per_device[d] += 1
+            if buffer.ready():
+                with spans.span("aggregate", flush=aggs + 1):
+                    params, info = buffer.flush(params, version)
+                version += 1
+                aggs += 1
+                stale = float(np.mean(info["staleness"]))
+                result.staleness_mean.append(stale)
+                alpha = (_host(info["alpha"]) if "alpha" in info
+                         and (collect_alpha or tr.active) else None)
+                if collect_alpha and alpha is not None:
+                    _history_push(result.alpha_history, alpha, record_history)
+                event: Dict[str, Any] = {}
+                if tr.active:
+                    event = {"flush": aggs, "t_virtual": scheduler.now,
+                             "version": version, "staleness_mean": stale,
+                             "staleness_max": float(np.max(info["staleness"]))}
+                    if alpha is not None:
+                        event.update(_vec_stats("alpha", alpha))
+                if aggs % eval_every == 0 or aggs == num_aggregations:
+                    with spans.span("eval"):
+                        loss = global_train_loss(loss_fn, params, x, y, mask)
+                        nll, acc = evaluate_classifier(apply_fn, params,
+                                                       test_x, test_y)
+                    result.times.append(scheduler.now)
+                    result.versions.append(version)
+                    result.train_loss.append(loss)
+                    result.test_acc.append(acc)
+                    result.test_nll.append(nll)
+                    if tr.active:
+                        event.update(train_loss=loss, test_acc=acc, test_nll=nll)
+                if tr.active:
+                    tr.log(event, step=aggs)
+            dispatch_next()                 # fresh task on the freshest model
+    result.wall_time = time.time() - t0
+    result.dispatched = scheduler.stats.dispatched
+    result.arrived = scheduler.stats.arrived
+    result.dropped = scheduler.stats.dropped
+    if tr.active:
+        tr.log_summary({"dispatched": result.dispatched,
+                        "arrived": result.arrived,
+                        "dropped": result.dropped,
+                        "t_virtual_end": scheduler.now,
                         "wall_time_s": result.wall_time})
     return result
 
