@@ -29,8 +29,15 @@ Phases (any failure exits non-zero and prints no result line):
      PyTorch yardstick (where one exists) beside the bound (``topk`` and
      ``gram``: the median and min-max of five rounds, with device µs from
      ``torch.profiler``; ``combine``: the same, with the host µs to issue
-     a call; ``sign_sketch`` and its adjoint: device µs and host µs to
-     issue a call beside the one CUDA-event time; ``topk``: one device
+     a call; ``sign_sketch`` and its adjoint: both bodies, ``col``
+     (``rng_sketch_col.cu``, every call's) and the first
+     (``rng_sketch.cu``), on the same inputs, the col body within the
+     tolerance of the plain version and of the first body, each timed as
+     the median and min-max of five rounds in turn, with device kernels
+     per call, device µs and host µs to issue a call, beside the
+     recounted bound and the old count's; one device kernel a col sketch
+     call at K <= 8; the async flush's gram and combine shapes timed
+     too; ``topk``: one device
      kernel per call at every
      shape of the one-block path; ``gram``'s tensor-core rows also against
      an f64 product beside the plain version's distance from it);
@@ -137,19 +144,37 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 F32_CUDA_CORE_FLOPS = 67e12
-# Instruction rates of the two pipes the sign hash runs on.  The Hopper SM
-# has 64 INT32 lanes beside its 128 FP32 lanes (NVIDIA H100 architecture
-# white paper); the FP32 lanes' 67 TFLOP/s counts an FMA as 2 operations:
+# Instruction rates of the pipes the sign hash runs on.  The Hopper SM has
+# 64 INT32 lanes beside its 128 FP32 lanes (NVIDIA H100 architecture white
+# paper); the FP32 lanes' 67 TFLOP/s counts an FMA as 2 operations:
 INT32_OPS = 67e12 / 2 / 2      # shifts and logic ops, per second
 FMA_PIPE_OPS = 67e12 / 2       # FADD, FFMA and integer multiplies (IMAD)
-# Per entry of the implicit sign matrix (csrc/rng_hash.cuh), what the sign
-# needs: the xor with the row hash and mix32's first two shift-xor pairs on
-# the INT32 pipe (mix32's last xor-shift leaves the msb as it is), its two
-# multiplies on the FMA pipe; then per row of U one sign flip (INT32) and
-# one add (FMA).  The two pipes run side by side, so the least time is the
-# larger of the two.
-HASH_INT_OPS = 5
-HASH_MUL_OPS = 2
+# The SM's four schedulers issue one warp instruction each a clock, 128
+# thread operations: the FP32 lanes' rate, and a cap on every instruction
+# whatever its pipe
+ISSUE_OPS = FMA_PIPE_OPS
+# The recount (the col body, csrc/rng_sketch_col.cu): R[i, j]'s sign is
+# msb(mix32'(cc_j ^ R1_i)) with the column's half cc_j = j ^ (j >> 16) and
+# the row's half R1_i = rh_i ^ (rh_i >> 16) each formed once, not per sign.
+# What a sign needs at the least: the xor cc_j ^ R1_i, y·M1, y ^= y >> 13,
+# y·M2 and ±1.0f from y's msb in one LOP3, 6 instructions, then one FFMA
+# per row of U: 6 + K, all through the issue slots (ISSUE_OPS).  Of the 6
+# only 3 need the INT32 lanes at the least (the two xors and the LOP3: the
+# shift can run as IMAD.HI, a multiply by 2^19, on the FMA pipe; the CUDA
+# Programming Guide's throughput table for compute capability 9.0 gives
+# 32-bit IMAD 64 a clock an SM, so its 3 IMADs bind no sooner than the 3
+# INT32 ops).  The least time is the larger of 3·m·n at INT32_OPS and
+# (6 + K)·m·n at ISSUE_OPS; the second binds at every K >= 1 (7 against
+# 3·2 at K = 1).  The kernel keeps the shift on the INT32 lanes (4 ops a
+# sign): as IMAD.HI it ran slower on the H100.
+HASH_INT_ONLY_OPS = 3
+HASH_OPS = 6
+# The old count, printed beside the recount: the first body's 5 INT32
+# operations a sign (the xor with the row hash and mix32's first two
+# shift-xor pairs) plus a sign flip per row of U, against its 2 multiplies
+# plus an add per row on the FMA pipe, the two pipes side by side
+HASH_INT_OPS_FIRST = 5
+HASH_MUL_OPS_FIRST = 2
 
 # tolerances on max |kernel - plain| relative to max(1, max |plain|):
 # f32 and bf16 inputs both accumulate in f32, so gram's two sides differ by
@@ -756,19 +781,34 @@ def check_topk(n: int, k: int, gen, timed: bool = True, v=None) -> dict:
 
 
 def hash_ops_s(rows: int, m: int, n: int) -> float:
-    """Least seconds for m·n sign hashes applied to ``rows`` rows: the
-    INT32 pipe's and the FMA pipe's instruction counts at their rates,
-    whichever is longer."""
-    return max((HASH_INT_OPS + rows) * m * n / INT32_OPS,
-               (HASH_MUL_OPS + rows) * m * n / FMA_PIPE_OPS)
+    """Least seconds for m·n sign hashes applied to ``rows`` rows, by the
+    recount: the INT32-only operations at the INT32 rate against every
+    instruction at the issue rate, whichever is longer."""
+    return max(HASH_INT_ONLY_OPS * m * n / INT32_OPS,
+               (HASH_OPS + rows) * m * n / ISSUE_OPS)
+
+
+def hash_ops_s_first(rows: int, m: int, n: int) -> float:
+    """The same by the old count (the first body's hash): the INT32 pipe's
+    and the FMA pipe's counts at their rates, whichever is longer."""
+    return max((HASH_INT_OPS_FIRST + rows) * m * n / INT32_OPS,
+               (HASH_MUL_OPS_FIRST + rows) * m * n / FMA_PIPE_OPS)
+
+
+def sign_bound(rows: int, m: int, n: int, nbytes: int) -> dict:
+    """The recounted bound of m·n signs applied to ``rows`` rows moving
+    ``nbytes``, with the old count's beside it."""
+    old = bound(nbytes, hash_ops_s_first(rows, m, n))
+    return dict(bound(nbytes, hash_ops_s(rows, m, n)),
+                bound_ms_old_count=old["bound_ms"],
+                int_only_ops=HASH_INT_ONLY_OPS * m * n,
+                issue_ops=(HASH_OPS + rows) * m * n)
 
 
 def sketch_bound(K: int, n: int, m: int, dt) -> dict:
     import torch
     size = torch.finfo(dt).bits // 8
-    return dict(bound(K * n * size + 4 * K * m, hash_ops_s(K, m, n)),
-                int_ops=(HASH_INT_OPS + K) * m * n,
-                fma_pipe_ops=(HASH_MUL_OPS + K) * m * n)
+    return sign_bound(K, m, n, K * n * size + 4 * K * m)
 
 
 def _device_and_host(rec: dict, call, reps: int) -> None:
@@ -782,69 +822,144 @@ def _device_and_host(rec: dict, call, reps: int) -> None:
     rec["host_ms"] = host_ms(call, reps)
 
 
+def _sign_bodies(rec: dict, col, first, reps: int, kernel: str,
+                 what: str) -> None:
+    """Into ``rec``: the col body (``col``) and the first (``first``) timed
+    in turn on the same inputs, the median and min-max of ``TOPK_REPEATS``
+    rounds each (``ms``, ``first_ms``), and each body's device kernels per
+    call, device µs and host µs to issue a call; the col body's trace must
+    hold ``kernel`` and, for the sketch at K <= 8 and the adjoint, only it,
+    once a call."""
+    for key, sp in time_ms_spread({"ms": col, "first_ms": first}, reps,
+                                  TOPK_REPEATS).items():
+        rec[key] = sp["median"]
+        rec[key + "_min"], rec[key + "_max"] = sp["min"], sp["max"]
+        rec[key + "_runs"] = sp["runs"]
+    _device_and_host(rec, col, reps)
+    kernels = device_kernel_means(first)
+    rec["first_device_kernels"] = kernels
+    rec["first_device_kernels_per_call"] = len(kernels)
+    rec["first_device_ms"] = sum(ms for _, ms in kernels.values())
+    rec["first_host_ms"] = host_ms(first, reps)
+    need(any(kernel in k for k in rec["device_kernels"]),
+         f"{what}: device kernels {list(rec['device_kernels'])}, want "
+         f"{kernel}")
+    if rec.get("K", 1) <= 8:
+        need(rec["device_kernels_per_call"] == 1 and all(
+            c == 3 for c, _ in rec["device_kernels"].values()),
+             f"{what}: the col body ran {rec['device_kernels']} in 3 calls, "
+             "want one kernel a call")
+    log(f"{what}: col {_fmt_spread(rec, 'ms')}us, device "
+        f"{rec['device_ms'] * 1e3:.1f} us ({rec['device_kernels_per_call']} "
+        f"kernel a call), host {rec['host_ms'] * 1e3:.1f} us; first (in turn) "
+        f"{_fmt_spread(rec, 'first_ms')}us, device "
+        f"{rec['first_device_ms'] * 1e3:.1f} us "
+        f"({rec['first_device_kernels_per_call']} kernels: "
+        + ", ".join(f"{k.replace('void ', '').replace('(anonymous namespace)::', '').split('(')[0]} "
+                    f"{ms * 1e3:.1f}" for k, (_, ms)
+                    in rec["first_device_kernels"].items())
+        + f"), host {rec['first_host_ms'] * 1e3:.1f} us; bound "
+        f"{rec['bound_ms'] * 1e3:.2f} us (old count "
+        f"{rec['bound_ms_old_count'] * 1e3:.2f})")
+
+
 def check_sketch(K: int, n: int, m: int, dt, gen, timed: bool = True) -> dict:
+    """sign_sketch on the col body (every call's) against its plain version
+    and the first body on the same inputs, both within the tolerance, two
+    calls bitwise equal; with ``timed`` both bodies timed in turn
+    (:func:`_sign_bodies`) beside the recounted bound and the old count's."""
     import torch
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, rng_sketch
     U = torch.randn((K, n), generator=gen, device="cuda").to(dt)
     seed = (0x9E3779B1 * (K + m) + n) & 0xFFFFFFFF
+    what = f"sign_sketch K={K} n={n} m={m} {_dtype_name(dt)}"
+    rng_sketch.reset_body_launches()
     S = ops.sign_sketch(U, seed, m, backend="cuda")
     S2 = ops.sign_sketch(U, seed, m, backend="cuda")
+    tally = rng_sketch.body_launches()["sign_sketch"]
+    S1 = rng_sketch.sign_sketch_cuda(U, seed, m, body="first")
     Sr = ref.rng_sketch_ref(U, seed, m)
     torch.cuda.synchronize()
+    need(tally == {"col": 2, "first": 0},
+         f"{what}: body launches {tally}, want 2 on col")
     need(S.shape == (K, m) and S.dtype == torch.float32,
-         f"sign_sketch K={K} n={n} m={m}: output {tuple(S.shape)}")
+         f"{what}: output {tuple(S.shape)}")
     bitwise = bool(torch.equal(S, S2))
-    need(bitwise, f"sign_sketch K={K} n={n} m={m}: two calls differ bitwise")
+    need(bitwise, f"{what}: two calls differ bitwise")
     err = _max_err(S, Sr) / _scale(Sr)
+    first_err = _max_err(S1, Sr) / _scale(Sr)
+    vs_first = _max_err(S, S1) / _scale(S1)
     tol = TOL[("sign_sketch", _dtype_name(dt))]
-    need(err <= tol, f"sign_sketch K={K} n={n} m={m} {dt}: relative err "
-         f"{err:.3e} > {tol}")
+    need(err <= tol and vs_first <= tol and first_err <= tol,
+         f"{what}: relative err {err:.3e} (first body {first_err:.3e}, col "
+         f"vs first {vs_first:.3e}) > {tol}")
     rec = {"K": K, "n": n, "m": m, "dtype": _dtype_name(dt),
            "max_abs_err": _max_err(S, Sr), "rel_err": err, "tolerance": tol,
-           "bitwise_repeatable": bitwise}
+           "bitwise_repeatable": bitwise, "body": "col",
+           "first_rel_err": first_err, "col_vs_first_rel_err": vs_first,
+           "plan": rng_sketch.col_plan(K, n, m, _sms())._asdict()}
     if timed:
-        big = m * n > (1 << 30)
-        call = lambda: ops.sign_sketch(U, seed, m, backend="cuda")  # noqa: E731
-        rec["ms"] = time_ms(call, 5 if big else 200)
-        _device_and_host(rec, call, 5 if big else 200)
-        rec["plain_ms"] = time_ms(lambda: ref.rng_sketch_ref(U, seed, m),
-                                  2 if big else 20, warmup=1)
-        rec["library_ms"] = None
+        reps = 5 if m * n > (1 << 30) else 200
         rec.update(sketch_bound(K, n, m, dt))
+        _sign_bodies(
+            rec, lambda: ops.sign_sketch(U, seed, m, backend="cuda"),
+            lambda: rng_sketch.sign_sketch_cuda(U, seed, m, body="first"),
+            reps, "sign_sketch_col", what)
+        rec["plain_ms"] = time_ms(lambda: ref.rng_sketch_ref(U, seed, m),
+                                  2 if reps == 5 else 20, warmup=1)
+        rec["library_ms"] = None
     return rec
 
 
 def check_adjoint(m: int, n: int, gen, timed: bool = True) -> dict:
+    """sign_sketch_adjoint on the col body against its plain version and
+    the first body, as :func:`check_sketch`."""
     import torch
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, rng_sketch
     s = torch.randn((m,), generator=gen, device="cuda")
     seed = (0x85EBCA6B * m + n) & 0xFFFFFFFF
+    what = f"sign_sketch_adjoint m={m} n={n}"
+    rng_sketch.reset_body_launches()
     out = ops.sign_sketch_adjoint(s, seed, n, backend="cuda")
     out2 = ops.sign_sketch_adjoint(s, seed, n, backend="cuda")
+    tally = rng_sketch.body_launches()["sign_sketch_adjoint"]
+    out1 = rng_sketch.sign_sketch_adjoint_cuda(s, seed, n, body="first")
     outr = ref.rng_sketch_adjoint_ref(s, seed, n)
     torch.cuda.synchronize()
+    need(tally == {"col": 2, "first": 0},
+         f"{what}: body launches {tally}, want 2 on col")
     need(out.shape == (n,) and torch.equal(out, out2),
-         f"sign_sketch_adjoint m={m} n={n}: shape {tuple(out.shape)} or two "
-         "calls differ")
+         f"{what}: shape {tuple(out.shape)} or two calls differ")
     err = _max_err(out, outr) / _scale(outr)
+    first_err = _max_err(out1, outr) / _scale(outr)
+    vs_first = _max_err(out, out1) / _scale(out1)
     tol = TOL[("sign_sketch_adjoint", "float32")]
-    need(err <= tol, f"sign_sketch_adjoint m={m} n={n}: relative err "
-         f"{err:.3e} > {tol}")
+    need(err <= tol and vs_first <= tol and first_err <= tol,
+         f"{what}: relative err {err:.3e} (first body {first_err:.3e}, col "
+         f"vs first {vs_first:.3e}) > {tol}")
     rec = {"m": m, "n": n, "dtype": "float32",
            "max_abs_err": _max_err(out, outr), "rel_err": err,
-           "tolerance": tol}
+           "tolerance": tol, "bitwise_repeatable": True, "body": "col",
+           "first_rel_err": first_err, "col_vs_first_rel_err": vs_first,
+           "plan": rng_sketch.adjoint_plan(m, n, _sms())._asdict()}
     if timed:
-        big = m * n > (1 << 30)
-        call = lambda: ops.sign_sketch_adjoint(s, seed, n, backend="cuda")  # noqa: E731
-        rec["ms"] = time_ms(call, 5 if big else 200)
-        _device_and_host(rec, call, 5 if big else 200)
-        rec["plain_ms"] = time_ms(lambda: ref.rng_sketch_adjoint_ref(s, seed, n),
-                                  2 if big else 20, warmup=1)
+        reps = 5 if m * n > (1 << 30) else 200
+        rec.update(sign_bound(1, m, n, 4 * m + 4 * n))
+        _sign_bodies(
+            rec, lambda: ops.sign_sketch_adjoint(s, seed, n, backend="cuda"),
+            lambda: rng_sketch.sign_sketch_adjoint_cuda(s, seed, n,
+                                                        body="first"),
+            reps, "sign_sketch_adjoint_col", what)
+        rec["plain_ms"] = time_ms(
+            lambda: ref.rng_sketch_adjoint_ref(s, seed, n),
+            2 if reps == 5 else 20, warmup=1)
         rec["library_ms"] = None
-        rec.update(bound(4 * m + 4 * n, hash_ops_s(1, m, n)),
-                   int_ops=(HASH_INT_OPS + 1) * m * n,
-                   fma_pipe_ops=(HASH_MUL_OPS + 1) * m * n)
     return rec
+
+
+def _sms() -> int:
+    from repro_torch.kernels import _build
+    return _build.sm_count(0)
 
 
 def cross_bound(rows_read: int, n: int, fmas_per_col: int, out_floats: int,
@@ -1517,6 +1632,14 @@ def kernels_phase() -> dict:
         torch.cuda.empty_cache()
     out["sign_sketch"].append(dict(check_sketch(8, (1 << 20) + 3, 1024, bf16,
                                                 gen), set="model"))
+    # one contextual_async flush's kernels (buffer 5, paper-logreg width):
+    # gram over the five flattened updates, combine_vec.cu on W's rows and
+    # combine.cu on b's 40-byte rows, timed with their plain versions and
+    # yardsticks as the path rows
+    out["gram"].append(dict(check_gram(5, N_PATH, f32, gen), set="async"))
+    for n_leaf in (784 * 10, 10):
+        out["combine"].append(dict(check_combine(5, n_leaf, f32, gen),
+                                   set="async"))
     out.update(cross_phase_records(gen))
     out["flash_decode"] = decode_phase_records(gen)
     torch.cuda.empty_cache()
@@ -2874,11 +2997,18 @@ def setup_phase() -> str:
     for n, k in TOPK_MODEL[-2:-1]:
         log(f"launch: topk n={n} k={k}: (blocks, chunk) "
             f"{topk.grid(n, sms)}, 256 threads, 1 KB static shared memory")
-    for K, n, m in SKETCH_PATH[:1] + SKETCH_MODEL[-1:]:
-        log(f"launch: sign_sketch K={K} n={n} m={m}: (column splits, "
-            f"columns per split, rows per pass) {rng_sketch.grid(K, n, m, sms)}"
-            f" x {-(-m // rng_sketch.ROWS_PER_BLOCK)} row tiles of 128 "
-            f"threads; adjoint: {-(-n // 64)} blocks of 64 threads")
+    for K, n, m in SKETCH_PATH + SKETCH_MODEL:
+        plan = rng_sketch.col_plan(K, n, m, sms)
+        adj = rng_sketch.adjoint_plan(m, n, sms)
+        log(f"launch: sign_sketch col K={K} n={n} m={m}: {plan.launches} "
+            f"launch of {plan.row_tiles} row tiles of {plan.rows} rows (RI="
+            f"{plan.ri}) x {plan.ranks} cluster ranks of "
+            f"{plan.cols_per_rank} columns = {plan.blocks} blocks of 256 "
+            f"threads; adjoint col: {adj.blocks} blocks of 512 threads, "
+            f"{adj.cols_per_block} columns (CJ={adj.cj}) x WR={adj.wr} row "
+            f"slices ({adj.blocks * rng_sketch.ADJ_WARPS / sms:.1f} warps an "
+            f"SM); first body: (column splits, columns per split, rows per "
+            f"pass) {rng_sketch.grid(K, n, m, sms)}")
     for fn, dims, n in (("stream_stats_launch_config", (100, 0), 7840),
                         ("stream_stats_launch_config", (16, 1), 8192 * 1024),
                         ("gram_block_launch_config", (64, 32), 1 << 24),
@@ -2926,9 +3056,9 @@ KERNEL_SOURCES = {
                 "src/repro/kernels/combine.py:30"),
     "topk": ("src/repro_torch/kernels/csrc/topk.cu",
              "src/repro/kernels/topk.py:34"),
-    "sign_sketch": ("src/repro_torch/kernels/csrc/rng_sketch.cu",
+    "sign_sketch": ("src/repro_torch/kernels/csrc/rng_sketch_col.cu",
                     "src/repro/kernels/rng_sketch.py:127"),
-    "sign_sketch_adjoint": ("src/repro_torch/kernels/csrc/rng_sketch.cu",
+    "sign_sketch_adjoint": ("src/repro_torch/kernels/csrc/rng_sketch_col.cu",
                             "src/repro/kernels/rng_sketch.py:94"),
     "stream_stats": ("src/repro_torch/kernels/csrc/stream_stats.cu",
                      "src/repro/kernels/stream.py:102"),
@@ -2975,9 +3105,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     t_start = time.perf_counter()
-    from repro_torch.kernels import combine, decode_attn, gram, sketch
+    from repro_torch.kernels import (combine, decode_attn, gram, rng_sketch,
+                                     sketch)
     gram_bodies, block_bodies, sketch_bodies, decode_bodies = {}, {}, {}, {}
-    combine_bodies = {}
+    combine_bodies, sign_bodies = {}, {}
 
     def on_cuda_core(path: str, phase, *args):
         """Run a path phase; every gram launch in it must take gram.cu's
@@ -2988,8 +3119,10 @@ def main() -> int:
         sketch.reset_body_launches()
         decode_attn.reset_body_launches()
         combine.reset_body_launches()
+        rng_sketch.reset_body_launches()
         result = phase(*args)
         combine_bodies[path] = combine.body_launches()
+        sign_bodies[path] = rng_sketch.body_launches()
         gram_bodies[path] = gram.body_launches()
         block_bodies[path] = gram.block_body_launches()
         sketch_bodies[path] = sketch.body_launches()
@@ -3000,6 +3133,8 @@ def main() -> int:
              f"{path}: gram_block bodies {block_bodies[path]}, want none")
         need(sum(sketch_bodies[path].values()) == 0,
              f"{path}: sketch bodies {sketch_bodies[path]}, want none")
+        need(all(t["first"] == 0 for t in sign_bodies[path].values()),
+             f"{path}: sign sketch bodies {sign_bodies[path]}, want col only")
         return result
 
     try:
@@ -3032,6 +3167,18 @@ def main() -> int:
              f"bigmodel: combine bodies {combine_bodies['bigmodel']}")
         log(f"combine bodies by path (each phase, its checks against the CPU "
             f"included): {combine_bodies}")
+        # every sign sketch and adjoint launch of the hier and streamed
+        # phases took the col body (the phases' card rounds against the CPU
+        # included: at least the runs' own launches)
+        for path in ("hier", "streamed"):
+            for op in ("sign_sketch", "sign_sketch_adjoint"):
+                launched = by_path[path].get(f"{op}/cuda", 0)
+                need(launched > 0 and sign_bodies[path][op]["first"] == 0
+                     and sign_bodies[path][op]["col"] >= launched,
+                     f"{path}: {op} bodies {sign_bodies[path][op]}, "
+                     f"{launched} launches in the runs, want col only")
+        log(f"sign sketch bodies by path (each phase, its checks against the "
+            f"CPU included): {sign_bodies}")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
@@ -3060,6 +3207,11 @@ def main() -> int:
         sources=[KERNEL_SOURCES["flash_decode"][0],
                  "src/repro_torch/kernels/csrc/decode_attn.cu"],
         bodies_by_path=decode_bodies)
+    for op in ("sign_sketch", "sign_sketch_adjoint"):
+        entries[names.index(op)].update(
+            sources=[KERNEL_SOURCES[op][0],
+                     "src/repro_torch/kernels/csrc/rng_sketch.cu"],
+            bodies_by_path={path: t[op] for path, t in sign_bodies.items()})
     async_numbers = {k: v for k, v in asynced.items() if k != "counts"}
     entries[names.index("combine")]["async"] = async_numbers
     entries[names.index("gram")]["async"] = async_numbers["flush_kernels"][

@@ -10,7 +10,8 @@ Ops (``cuda`` / ``torch`` backends, selected by the tensors' device — see
   * ``topk``    — the k largest-|v| entries, radix select (``csrc/topk.cu``)
   * ``sign_sketch`` / ``sign_sketch_adjoint`` — U Rᵀ/√m and Rᵀ s/√m with
     the ±1 matrix R hashed from counters in the kernel
-    (``csrc/rng_sketch.cu``, ``csrc/rng_hash.cuh``)
+    (``csrc/rng_sketch_col.cu``; the first body, run only to compare:
+    ``csrc/rng_sketch.cu``, ``csrc/rng_hash.cuh``)
   * ``stream_stats`` — the streamed engine's G = D Dᵀ, C = D GMᵀ
     (``csrc/stream_stats.cu``)
   * ``gram_block`` — G_ab = U_a U_bᵀ, c_a = U_a g (``csrc/gram_block.cu``;

@@ -56,6 +56,10 @@ _SIGNATURES = {
     "sign_sketch_launch": [_VP, _I, _LL, _I, ctypes.c_uint, _I, _VP, _LL, _VP,
                            _I, _LL, _VP],
     "sign_sketch_adjoint_launch": [_VP, _I, ctypes.c_uint, _LL, _VP, _VP],
+    "sign_sketch_col_launch": [_VP, _I, _LL, _I, ctypes.c_uint, _I, _I, _I,
+                               _LL, _VP, _VP],
+    "sign_sketch_adjoint_col_launch": [_VP, _I, ctypes.c_uint, _LL, _I, _I,
+                                       _VP, _VP],
     "stream_stats_launch_config": [_I, _I, ctypes.POINTER(_I),
                                    ctypes.POINTER(_LL)],
     "stream_stats_launch": [_VP, _LL, _I, _VP, _LL, _I, _I, _LL, _VP, _LL,

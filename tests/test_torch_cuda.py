@@ -14,7 +14,8 @@ bf16 rounding), as the reference's kernel tests, and its 16-byte body
 (``combine_vec.cu``) bitwise equal to ``combine.cu`` wherever it does not
 split the rows (W_k = 1: the same fmaf per row in k order) and bitwise
 repeatable where it does; sign_sketch and its adjoint
-1e-5 (f32 sums in another order); stream_stats, gram_block and sketch 1e-5
+1e-5 (f32 sums in another order), their col body (``rng_sketch_col.cu``)
+also within 1e-5 of the first body (``rng_sketch.cu``); stream_stats, gram_block and sketch 1e-5
 (the same products in f32, summed in another order; gram_block's and
 sketch's tensor-core sweeps against an f64 product, where the plain f32
 version of a short cancelling dot product is no oracle).  topk is held
@@ -39,7 +40,7 @@ from repro_torch.kernels import (flash_decode, gram_and_cross,
                                  sign_sketch, sign_sketch_adjoint,
                                  sketch_apply, stream_stats, topk_select,
                                  weighted_combine)
-from repro_torch.kernels import decode_attn, ref
+from repro_torch.kernels import decode_attn, ref, rng_sketch
 from repro_torch.kernels.combine import combine_cuda
 from repro_torch.kernels.gram import gram_block_cuda, gram_cuda
 from repro_torch.kernels.rng_sketch import (sign_sketch_adjoint_cuda,
@@ -447,6 +448,73 @@ def test_sign_sketch_adjoint_kernel_matches_plain(cuda_device, m, n):
     assert launch_counts()["sign_sketch_adjoint/cuda"] == 1
     assert torch.equal(out, sign_sketch_adjoint(s, 12345, n))
     assert _rel_err(out, ref.rng_sketch_adjoint_ref(s, 12345, n)) <= 1e-5
+
+
+# the col body (csrc/rng_sketch_col.cu) at the shapes above and past 2^16
+# columns, against the plain version and the first body (rng_sketch.cu)
+SIGN_COL_SHAPES = [(1, 7850, 981), (1, 7850, 1962), (3, 130, 17),
+                   (8, 4097, 300), (11, 1000, 129), (1, 1, 1), (1, 65539, 77),
+                   (8, 65539, 300), (2, 65539, 4100)]
+
+
+@pytest.mark.parametrize("K,n,m", SIGN_COL_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sign_sketch_col_body_matches_plain_and_first(cuda_device, K, n, m,
+                                                      dtype):
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(K * n + m + 1)
+    U = torch.randn(K, n, generator=gen, device=cuda_device).to(dtype)
+    seed = 0x9E3779B1 ^ (K * 7919 + m)
+    rng_sketch.reset_body_launches()
+    S = sign_sketch(U, seed, m)
+    S2 = sign_sketch(U, seed, m)
+    first = sign_sketch_cuda(U, seed, m, body="first")
+    assert rng_sketch.body_launches()["sign_sketch"] == {"col": 2, "first": 1}
+    assert torch.equal(S, S2)                          # no float atomics
+    plain = ref.rng_sketch_ref(U, seed, m)
+    assert _rel_err(S, plain) <= 1e-5
+    assert _rel_err(S, first) <= 1e-5
+
+
+@pytest.mark.parametrize("m,n", [(m, n) for _, n, m in SIGN_COL_SHAPES]
+                         + [(8192, (1 << 20) + 3)])
+def test_sign_sketch_adjoint_col_body_matches_plain_and_first(cuda_device, m,
+                                                              n):
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(m * 3 + n)
+    s = torch.randn(m, generator=gen, device=cuda_device)
+    rng_sketch.reset_body_launches()
+    out = sign_sketch_adjoint(s, 777, n)
+    out2 = sign_sketch_adjoint(s, 777, n)
+    first = sign_sketch_adjoint_cuda(s, 777, n, body="first")
+    assert rng_sketch.body_launches()["sign_sketch_adjoint"] == {
+        "col": 2, "first": 1}
+    assert torch.equal(out, out2)
+    assert _rel_err(out, ref.rng_sketch_adjoint_ref(s, 777, n)) <= 1e-5
+    assert _rel_err(out, first) <= 1e-5
+
+
+@pytest.mark.parametrize("K", [1, 3, 8])
+def test_sign_sketch_col_is_one_launch(cuda_device, K):
+    """Up to 8 rows of U, a call is one kernel on the card (the splits are
+    added inside the launch, in a cluster), counted once."""
+    from torch.profiler import ProfilerActivity, profile
+    U = torch.randn(K, 7850, device=cuda_device)
+    sign_sketch(U, 5, 1962)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            sign_sketch(U, 5, 1962)
+        torch.cuda.synchronize()
+    assert launch_counts()["sign_sketch/cuda"] == 3
+    on_card = [(e.key, e.count) for e in prof.key_averages()
+               if e.self_device_time_total > 0
+               and not e.key.startswith(("aten::", "cuda"))]
+    # a profiler window may lose its first launches, never add one
+    assert len(on_card) == 1 and 1 <= on_card[0][1] <= 3, on_card
+    assert "sign_sketch_col" in on_card[0][0], on_card
 
 
 def test_sign_matrix_same_on_card_and_cpu(cuda_device):
