@@ -79,7 +79,22 @@ Phases (any failure exits non-zero and prints no result line):
      agree with the fused engine's to
      1.4e-3, the cloud-uplink bytes are equal; one streamed round on the
      card matches the same round on the CPU;
-  7. bigmodel — the reference's full ``transformer_stream`` round
+  7. robust  — ``BENCH_robust.json``'s acceptance at its own sizes
+     (Synthetic(1,1), dim 20, 64 devices, 16 clients, 10 rounds, 20 %
+     adversaries under ``ByzantineGauss(25)``): the loss inflation of
+     contextual_mom <= 1.10, contextual >= 1.25, FedAvg >= 1.5, printed
+     beside the recorded ones; then the robust path at paper-logreg
+     width over ``bimodal_fleet(100)`` with 20 % adversaries: a flat
+     ``contextual_mom`` run (``gram``, ``gram_block`` and ``combine``
+     once a round), and ``HierConfig(robust=RobustConfig(2.0, "mom"))``
+     on two tiers of 4 gateways and on a star, each on the fused
+     engine (``gram_block`` on every round, its cross.cuh body only) and
+     the streamed one (``stream_stats``, no ``gram_block``), under a
+     churn wave set by a clean run's span: event times equal and losses
+     within 5e-4 across engines, two card runs of each engine bitwise
+     equal, one attacked round of each engine on the card against the
+     CPU at 1e-4;
+  8. bigmodel — the reference's full ``transformer_stream`` round
      (``benchmarks/bigmodel_round.py``: d_model 1024, vocab 8192, 4 layers,
      P = 16, bf16, n = 58 724 352) through the streamed engine: its round
      time, the accumulate pass beside its bound (every one of its 29
@@ -89,7 +104,7 @@ Phases (any failure exits non-zero and prints no result line):
      allocated memory across ``begin_round``, G and C against the plain
      version and against an f64 product, and the round's delta against the
      fused engine's on the same inputs;
-  8. serve   — the continuous-batching ``DecodeEngine`` on the full
+  9. serve   — the continuous-batching ``DecodeEngine`` on the full
      qwen3-14b (40 layers, d_model 5 120, 40/8 heads, bf16, 14.77 B
      parameters from a seeded generator on the card): 4 slots of 256 rows
      serve 8 requests (prompts of 48-200 tokens, 32 or 4 new) with one
@@ -107,7 +122,9 @@ Phases (any failure exits non-zero and prints no result line):
 
 The kernels phase also holds ``stream_stats``, ``gram_block`` and ``sketch``
 (U Rᵀ against an explicit R) against their plain versions, bitwise
-repeatable, at the paths', the reference benchmark's and model shapes
+repeatable, at the paths' (``gram_block``: the robust path's f32 cross
+terms, K = 10, 25 and 100 at n = 7 850), the reference benchmark's and
+model shapes
 (timed rows as the median and min-max of five rounds, with device µs;
 ``stream_stats``, ``gram_block`` and ``sketch``: which of their two bodies
 each shape took, and the model rows and the tensor-core bodies' ragged
@@ -238,6 +255,10 @@ STREAM_MMA_COLS = (1, 31, 1000)
 # ragged, and at n = 2^24 Ka = 64, Kb = 32 in f32 and bf16, then in bf16
 # the one-tile case (10, 5) and a gateway-cohort pair (25, 25) (the bf16
 # model rows take the tensor-core body)
+# the robust path's cross term U Gmᵀ (f32): the flat contextual_mom round
+# (K = J = 10), a gateway cohort of the two tiers (~25) and the star cloud
+# (~95-100 survivors), at paper-logreg width
+GRAM_BLOCK_PATH = [(10, 10, 7850), (25, 25, 7850), (100, 100, 7850)]
 GRAM_BLOCK_BENCH = [(10, 5, 1 << 16), (16, 8, 1 << 18), (32, 16, 1 << 18)]
 GRAM_BLOCK_RAGGED = [(1, 1, 1), (5, 7, 333), (3, 130, 1000), (100, 100, 7850)]
 GRAM_BLOCK_MODEL = [(64, 32, 1 << 24, ("float32", "bfloat16")),
@@ -320,6 +341,20 @@ ASYNC_BENCH_FLUSHES = 12
 ASYNC_CFG = dict(num_devices=100, buffer_size=5, concurrency=10, lr=0.2,
                  batch_size=10, min_epochs=1, max_epochs=20)
 ASYNC_FLEET = dict(slowdown=4.0, dropout_slow=0.1, seed=0)
+# benchmarks/robust_suite.py's setup (BENCH_robust.json's acceptance):
+# Synthetic(1,1), dim 20, 64 devices of 30 samples, 16 clients a round
+ROBUST_BENCH = dict(num_devices=64, clients_per_round=16, lr=0.2,
+                    batch_size=10, min_epochs=1, max_epochs=4)
+ROBUST_BENCH_ROUNDS = 10
+# BENCH_robust.json's acceptance thresholds on the loss inflation
+# (attacked / clean final loss): (aggregator, key in the file, bound, side)
+ROBUST_ACCEPT = (("contextual_mom", "robust_inflation", 1.10, "max"),
+                 ("contextual", "plain_inflation", 1.25, "min"),
+                 ("fedavg", "fedavg_inflation", 1.5, "min"))
+ROBUST_FRAC, ROBUST_ADV_SEED, ROBUST_SCALE = 0.2, 3, 25.0
+ROBUST_PATH_ROUNDS = 4
+# tests/test_robust.py's fused-vs-streamed tolerance under attack + churn
+ROBUST_ENGINE_TOL = 5e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -1237,6 +1272,13 @@ def cross_phase_records(gen) -> dict:
         out["stream_stats"].append(dict(check_stream_stats(
             P, n, bf16, gen, body="mma", f64=True), set="model"))
         torch.cuda.empty_cache()
+    for Ka, Kb, n in GRAM_BLOCK_PATH:
+        ua = torch.randn((Ka, n), generator=gen, device="cuda")
+        ub = torch.randn((Kb, n), generator=gen, device="cuda")
+        g = torch.randn((n,), generator=gen, device="cuda")
+        out["gram_block"].append(dict(
+            check_gram_block(Ka, Kb, n, f32, gen, body="cross", ua=ua, ub=ub,
+                             g=g), set="path"))
     for Ka, Kb, n in GRAM_BLOCK_BENCH:
         out["gram_block"].append(dict(
             check_gram_block(Ka, Kb, n, f32, gen, body="cross"), set="bench"))
@@ -1772,11 +1814,12 @@ def path_phase():
 
 # -------------------------------------------------------------------- hier
 
-def hier_round_vs_cpu(ds, params, topo, cfg, engine: str = "fused") -> float:
+def hier_round_vs_cpu(ds, params, topo, cfg, engine: str = "fused",
+                      **run_kw) -> float:
     """One hier round on the card against the same round on the CPU (plain
     versions); both draw their mini-batches from a CPU generator with one
-    seed, so they train on the same batches.  Returns max |Δ new params|
-    relative to max |params|."""
+    seed, so they train on the same batches (``run_kw`` goes to both runs).
+    Returns max |Δ new params| relative to max |params|."""
     import torch
     from repro_torch.core.flatten import tree_map, tree_to_vector
     from repro_torch.fl import run_hier_simulation
@@ -1791,7 +1834,8 @@ def hier_round_vs_cpu(ds, params, topo, cfg, engine: str = "fused") -> float:
             tree_map(lambda p: p.to(dev), params), ds, cfg, topo, 1,
             selection_seed=7, device=dev, batch_generator=batches,
             engine=engine,
-            publish_fn=lambda t, p: got.append(tree_to_vector(p).cpu()))
+            publish_fn=lambda t, p: got.append(tree_to_vector(p).cpu()),
+            **run_kw)
         need(len(got) == 1, "the card-vs-CPU round was skipped")
         news.append(got[0])
     return _max_err(news[0], news[1]) / _scale(news[1])
@@ -2302,6 +2346,227 @@ def streamed_phase(ds, params) -> dict:
     need(rel <= 1e-4, f"streamed: card round disagrees with the CPU round: "
          f"{rel:.3e}")
     return total
+
+
+# ------------------------------------------------------------------ robust
+
+def _robust_bench() -> dict:
+    """``BENCH_robust.json``'s acceptance at its own sizes on the card: the
+    clean and attacked runs of contextual_mom (clip 2, mom), contextual and
+    FedAvg on the port's own draws; returns the inflations."""
+    import numpy as np
+    from repro_torch.data import FederatedDataset, make_synthetic
+    from repro_torch.edge import uniform_fleet
+    from repro_torch.fl import ServerConfig, run_simulation
+    from repro_torch.models.config import ArchConfig
+    from repro_torch.models.logistic import (init_logistic, logistic_apply,
+                                             logistic_loss)
+    from repro_torch.robust import (ByzantineGauss, RobustConfig,
+                                    assign_adversaries)
+    recorded = json.loads((ROOT / "BENCH_robust.json").read_text())[
+        "acceptance"]
+    xs, ys = make_synthetic(1.0, 1.0, num_devices=64, samples_per_device=30,
+                            dim=20, seed=5)
+    ds = FederatedDataset(xs, ys, np.ones(ys.shape, np.float32),
+                          xs.reshape(-1, 20)[:400], ys.reshape(-1)[:400], 10)
+    params = init_logistic(ArchConfig(name="lr", family="logreg",
+                                      input_dim=20, num_classes=10), 0,
+                           device="cuda")
+    fleet = assign_adversaries(uniform_fleet(64), ROBUST_FRAC,
+                               seed=ROBUST_ADV_SEED)
+    attack = ByzantineGauss(scale=ROBUST_SCALE)
+    robust = {"contextual_mom": RobustConfig(clip=2.0, pool="mom")}
+    out = {}
+    for agg, key, bound, side in ROBUST_ACCEPT:
+        loss = {}
+        for tag, atk in (("clean", None), ("attacked", attack)):
+            cfg = ServerConfig(aggregator=agg, attack=atk,
+                               malicious=fleet.malicious if atk else (),
+                               robust=robust.get(agg), **ROBUST_BENCH)
+            loss[tag] = run_simulation(
+                f"{agg}-{tag}", logistic_loss, logistic_apply, params, ds,
+                cfg, num_rounds=ROBUST_BENCH_ROUNDS, selection_seed=42,
+                eval_every=ROBUST_BENCH_ROUNDS, device="cuda").train_loss[-1]
+        infl = loss["attacked"] / loss["clean"]
+        ok = infl <= bound if side == "max" else infl >= bound
+        log(f"robust bench {agg:15s} clean {loss['clean']:.6f} attacked "
+            f"{loss['attacked']:.6f} inflation {infl:.4f} (gate "
+            f"{'<=' if side == 'max' else '>='} {bound}; recorded "
+            f"{recorded[key]:.4f} on the reference's draws)")
+        need(ok and np.isfinite(infl),
+             f"robust bench {agg}: inflation {infl:.4f}, gate {side} {bound}")
+        out[agg] = {"clean": loss["clean"], "attacked": loss["attacked"],
+                    "inflation": infl, "recorded": recorded[key]}
+    return out
+
+
+def _cpu_noise(t, deltas, grads):
+    """The adversary's draws from a CPU generator keyed by the round: the
+    same noise for a card round and its CPU twin."""
+    import torch
+    from repro_torch.robust import generator_noise
+    gen = torch.Generator()
+    gen.manual_seed(1000 + t)
+    return generator_noise(gen)(deltas, grads)
+
+
+def robust_phase(ds, params) -> dict:
+    """The robust subsystem on the card: BENCH_robust.json's acceptance,
+    then the robust path at paper-logreg width under ByzantineGauss(25)
+    (and a churn wave on the hier runs); returns the runs' launch counts,
+    summed, and the phase's numbers."""
+    import numpy as np
+    import torch
+    from repro_torch.edge import bimodal_fleet
+    from repro_torch.fl import (ServerConfig, run_hier_simulation,
+                                run_simulation)
+    from repro_torch.hier import HierConfig, star_topology, two_tier_topology
+    from repro_torch.kernels import gram, launch_counts, reset_launch_counts
+    from repro_torch.models.logistic import logistic_apply, logistic_loss
+    from repro_torch.obs import InMemoryTracker, use_tracker
+    from repro_torch.robust import (ByzantineGauss, RobustConfig,
+                                    assign_adversaries, churn_schedule)
+
+    t0 = time.perf_counter()
+    bench = _robust_bench()
+    bench_s = time.perf_counter() - t0
+    fleet = assign_adversaries(
+        bimodal_fleet(ds.num_devices, slowdown=10.0, dropout_slow=0.05,
+                      seed=0), ROBUST_FRAC, seed=ROBUST_ADV_SEED)
+    attack = ByzantineGauss(scale=ROBUST_SCALE)
+    robust = RobustConfig(clip=2.0, pool="mom")
+    log(f"robust: {ds.num_devices} devices (bimodal, slowdown 10, "
+        f"dropout_slow 0.05), {len(fleet.malicious)} malicious "
+        f"{fleet.malicious}, {attack.name} at {attack.scale:g}x")
+    total, numbers = {}, {"bench": bench, "bench_s": bench_s, "runs": {}}
+
+    def counted(name, run, fused_rounds=False, streamed=False):
+        """Run one card run; gate its launches; add them to the total."""
+        snaps = []
+        tracker = InMemoryTracker()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        before = gram.block_body_launches()
+        with use_tracker(tracker):
+            res = run(lambda t, p: snaps.append(launch_counts()))
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        bodies = _tally_since(before, gram.block_body_launches())
+        plain = {k: v for k, v in counts.items() if k.endswith("/torch") and v}
+        need(not plain, f"robust {name}: plain versions ran: {plain}")
+        need(np.isfinite(res.train_loss).all(),
+             f"robust {name}: non-finite losses {res.train_loss}")
+        need(bodies["mma"] == 0
+             and bodies["cross"] == counts["gram_block/cuda"],
+             f"robust {name}: gram_block bodies {bodies}, "
+             f"{counts['gram_block/cuda']} launches")
+        prev = {k: 0 for k in counts}
+        ops = (("gram", "gram_block") if fused_rounds else
+               ("stream_stats", "combine") if streamed else ())
+        for t, snap in enumerate(snaps):
+            for op in ops:
+                need(snap[f"{op}/cuda"] > prev[f"{op}/cuda"],
+                     f"robust {name}: round {t} launched no {op}/cuda")
+            prev = snap
+        if streamed:
+            need(counts["gram_block/cuda"] == 0,
+                 f"robust {name}: the streamed engine launched gram_block")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        ms = _round_ms(tracker)
+        launched = {k: v for k, v in counts.items() if v}
+        log(f"robust {name:28s} loss {res.train_loss[0]:.6f} -> "
+            f"{res.train_loss[-1]:.6f}  dropped {getattr(res, 'dropped', '-')}"
+            f"  round ms median {statistics.median(ms):.2f} (first "
+            f"{ms[0]:.2f})  launches {launched}  gram_block bodies {bodies}")
+        numbers["runs"][name] = {"loss": res.train_loss, "round_ms": ms,
+                                 "launches": launched,
+                                 "gram_block_bodies": bodies}
+        return res
+
+    # the flat contextual_mom path: G from gram, C = U Gmᵀ from gram_block
+    flat_cfg = ServerConfig(aggregator="contextual_mom", attack=attack,
+                            malicious=fleet.malicious, robust=robust,
+                            **PATH_CFG)
+    counted("flat contextual_mom", lambda pub: run_simulation(
+        "robust_flat", logistic_loss, logistic_apply, params, ds, flat_cfg,
+        num_rounds=ROBUST_PATH_ROUNDS, selection_seed=42, device="cuda"))
+    flat = numbers["runs"]["flat contextual_mom"]["launches"]
+    need(flat["gram_block/cuda"] == ROBUST_PATH_ROUNDS
+         and flat["gram/cuda"] == ROBUST_PATH_ROUNDS
+         and flat["combine/cuda"] >= ROBUST_PATH_ROUNDS,
+         f"robust flat: launches {flat} in {ROBUST_PATH_ROUNDS} rounds")
+
+    hcfg = HierConfig(robust=robust, **HIER_CFG)
+    for topo_name, topo in (("two_tier", two_tier_topology(fleet, 4)),
+                            ("star", star_topology(fleet))):
+        clean = counted(f"{topo_name} clean fused", lambda pub: (
+            run_hier_simulation(
+                f"robust_{topo_name}_clean", logistic_loss, logistic_apply,
+                params, ds, hcfg, topo, HIER_ROUNDS, selection_seed=42,
+                device="cuda", engine="fused", publish_fn=pub)),
+            fused_rounds=True)
+        churn = churn_schedule("wave", ds.num_devices, clean.times[-1],
+                               seed=1)
+        runs = {}
+        for engine in ("fused", "streamed"):
+            for rep in range(2 if topo_name == "two_tier" else 1):
+                def run(pub, engine=engine):
+                    batches = torch.Generator(device="cuda")
+                    batches.manual_seed(42)
+                    return run_hier_simulation(
+                        f"robust_{topo_name}_{engine}", logistic_loss,
+                        logistic_apply, params, ds, hcfg, topo, HIER_ROUNDS,
+                        selection_seed=42, device="cuda", engine=engine,
+                        batch_generator=batches, attack=attack, churn=churn,
+                        publish_fn=pub)
+                res = counted(f"{topo_name} {engine} attacked #{rep + 1}",
+                              run, fused_rounds=engine == "fused",
+                              streamed=engine == "streamed")
+                need(res.engine["engine_name"] == engine,
+                     f"robust {topo_name}: ran on {res.engine['engine_name']}")
+                need(res.dropped > clean.dropped,
+                     f"robust {topo_name} {engine}: dropped {res.dropped}, "
+                     f"clean {clean.dropped}: the churn wave took nothing")
+                runs.setdefault(engine, []).append(res)
+        rf, rs = runs["fused"][0], runs["streamed"][0]
+        gap = float(np.max(np.abs(np.asarray(rf.train_loss)
+                                  - np.asarray(rs.train_loss))))
+        log(f"robust {topo_name}: fused vs streamed event times "
+            f"{'equal' if rf.times == rs.times else 'DIFFER'}, max |loss gap| "
+            f"{gap:.3e} (rtol = atol = {ROBUST_ENGINE_TOL})")
+        need(rf.times == rs.times, f"robust {topo_name}: fused times "
+             f"{rf.times} vs streamed {rs.times}")
+        need(np.allclose(rf.train_loss, rs.train_loss, rtol=ROBUST_ENGINE_TOL,
+                         atol=ROBUST_ENGINE_TOL),
+             f"robust {topo_name}: fused losses {rf.train_loss} vs streamed "
+             f"{rs.train_loss}")
+        for engine, pair in runs.items():
+            if len(pair) == 2:
+                a, b = pair
+                same = (a.times == b.times and a.train_loss == b.train_loss
+                        and (a.dispatched, a.arrived, a.dropped)
+                        == (b.dispatched, b.arrived, b.dropped))
+                log(f"robust {topo_name} {engine}: two card runs bitwise "
+                    f"{'equal' if same else 'DIFFERENT'}")
+                need(same, f"robust {topo_name} {engine}: two runs differ")
+        numbers["runs"][f"{topo_name} gap"] = gap
+    for topo_name, topo, engine in (("two_tier", two_tier_topology(fleet, 4),
+                                     "fused"),
+                                    ("star", star_topology(fleet),
+                                     "streamed")):
+        rel = hier_round_vs_cpu(ds, params, topo, hcfg, engine=engine,
+                                attack=attack, attack_noise=_cpu_noise)
+        log(f"robust: one {topo_name} {engine} attacked round, card vs CPU, "
+            f"max rel err of new params {rel:.3e} (tolerance 1e-4)")
+        need(rel <= 1e-4, f"robust {topo_name} {engine}: card round "
+             f"disagrees with the CPU round: {rel:.3e}")
+        numbers[f"{topo_name}_{engine}_vs_cpu"] = rel
+    numbers["host_s"] = time.perf_counter() - t0
+    log(f"robust: launches by kernel "
+        f"{ {k: v for k, v in sorted(total.items()) if v} }; phase host "
+        f"seconds {numbers['host_s']:.1f} (acceptance runs {bench_s:.1f})")
+    return {"counts": total, "numbers": numbers}
 
 
 # ---------------------------------------------------------------- bigmodel
@@ -3072,9 +3337,9 @@ KERNEL_SOURCES = {
 
 
 def kernel_entry(name: str, recs: list, launches: dict) -> dict:
-    """The kernel's line: its numbers at the main path's shape, or, for an
-    op no runtime path reaches (gram_block, sketch), at its first model
-    shape."""
+    """The kernel's line: its numbers at the main path's shape (for
+    gram_block the flat robust path's), or, for an op no runtime path
+    reaches (sketch), at its first model shape."""
     src = KERNEL_SOURCES[name]
     path = next((r for r in recs if r["set"] == "path"), None) or next(
         r for r in recs if r["set"] == "model")
@@ -3112,8 +3377,9 @@ def main() -> int:
 
     def on_cuda_core(path: str, phase, *args):
         """Run a path phase; every gram launch in it must take gram.cu's
-        body (the paths hand gram f32 inputs), and no path reaches
-        gram_block or sketch."""
+        body (the paths hand gram f32 inputs), no path but the robust one
+        reaches gram_block, and that one only its cross.cuh body (f32
+        inputs), and no path reaches sketch."""
         gram.reset_body_launches()
         gram.reset_block_body_launches()
         sketch.reset_body_launches()
@@ -3129,8 +3395,14 @@ def main() -> int:
         decode_bodies[path] = decode_attn.body_launches()
         need(gram_bodies[path]["mma"] == 0,
              f"{path}: gram bodies {gram_bodies[path]}, want cuda_core only")
-        need(sum(block_bodies[path].values()) == 0,
-             f"{path}: gram_block bodies {block_bodies[path]}, want none")
+        if path == "robust":
+            need(block_bodies[path]["mma"] == 0
+                 and block_bodies[path]["cross"] > 0,
+                 f"{path}: gram_block bodies {block_bodies[path]}, want "
+                 "cross only")
+        else:
+            need(sum(block_bodies[path].values()) == 0,
+                 f"{path}: gram_block bodies {block_bodies[path]}, want none")
         need(sum(sketch_bodies[path].values()) == 0,
              f"{path}: sketch bodies {sketch_bodies[path]}, want none")
         need(all(t["first"] == 0 for t in sign_bodies[path].values()),
@@ -3144,18 +3416,26 @@ def main() -> int:
         asynced = on_cuda_core("async", async_phase, ds, params)
         hier_counts = on_cuda_core("hier", hier_phase, ds, params)
         streamed_counts = on_cuda_core("streamed", streamed_phase, ds, params)
+        robusted = on_cuda_core("robust", robust_phase, ds, params)
         big = on_cuda_core("bigmodel", bigmodel_phase)
         served = on_cuda_core("serve", serve_phase)
         by_path = {"sync": sync_counts, "async": asynced["counts"],
                    "hier": hier_counts,
-                   "streamed": streamed_counts, "bigmodel": big["counts"],
-                   "serve": served["counts"]}
+                   "streamed": streamed_counts, "robust": robusted["counts"],
+                   "bigmodel": big["counts"], "serve": served["counts"]}
         for path, counts in by_path.items():
             need(gram_bodies[path]["cuda_core"] >= counts.get("gram/cuda", 0),
                  f"{path}: {counts.get('gram/cuda', 0)} gram launches, "
                  f"bodies {gram_bodies[path]}")
         log(f"gram bodies by path (each phase, its checks against the CPU "
             f"included): {gram_bodies}")
+        # every gram_block launch of the robust runs was counted by body
+        # (each run gated exactly); the phase's card-vs-CPU rounds add more
+        need(block_bodies["robust"]["cross"]
+             >= robusted["counts"]["gram_block/cuda"] > 0,
+             f"robust: gram_block bodies {block_bodies['robust']}, "
+             f"{robusted['counts']['gram_block/cuda']} launches in the runs")
+        log(f"gram_block bodies by path: {block_bodies}")
         # combine: the sync path's K = 10 x 7 850 f32 rows (31 400 bytes)
         # keep combine.cu; every big-model slab takes combine_vec.cu
         need(combine_bodies["sync"]["vec"] == 0
@@ -3216,6 +3496,7 @@ def main() -> int:
     entries[names.index("combine")]["async"] = async_numbers
     entries[names.index("gram")]["async"] = async_numbers["flush_kernels"][
         "gram"]
+    entries[names.index("gram_block")]["robust"] = robusted["numbers"]
     entries[names.index("stream_stats")]["bigmodel"] = {
         k: v for k, v in big.items() if k != "counts"}
     entries[names.index("flash_decode")]["serve"] = {

@@ -44,11 +44,10 @@ class ServerConfig:
     gram_scope: Optional[str] = None # e.g. "last_layer" (§III-B efficiency)
     ridge: float = 1e-6
     expected_pool: Optional[int] = None  # N' for contextual_expected
-    # adversarial wiring of the robust subsystem — not ported yet; a
-    # non-empty value raises in build_round_fn
-    attack: Optional[Any] = None
-    malicious: Tuple[int, ...] = ()
-    robust: Optional[Any] = None
+    # -- adversarial wiring (repro_torch.robust) ---------------------------
+    attack: Optional[Any] = None         # AttackModel; None → honest run
+    malicious: Tuple[int, ...] = ()      # device ids under adversarial control
+    robust: Optional[Any] = None         # RobustConfig for robust aggregators
 
     @property
     def smoothness(self) -> float:
@@ -74,7 +73,7 @@ def build_round_fn(loss_fn: Callable, cfg: ServerConfig,
                    samples_per_device: int,
                    device: DeviceLike = "cuda") -> Callable:
     """Return ``round_fn(state, data, sel, grad_sel, num_steps, generator=None,
-    *, batch_idx=None) -> (RoundState, info)``.
+    *, batch_idx=None, attack_noise=None) -> (RoundState, info)``.
 
     * ``data``       — ``(x (N,m,...), y (N,m), mask (N,m))`` tensors on
       ``device``
@@ -83,23 +82,57 @@ def build_round_fn(loss_fn: Callable, cfg: ServerConfig,
     * ``num_steps``  — (K,) per-client local step budgets
     * ``generator``  — ``torch.Generator`` on ``device`` for the mini-batch
       draws, or ``batch_idx`` (K, max_steps, batch) to hand them in
+    * ``attack_noise(tag, deltas, grads)`` — the adversary's standard-normal
+      draws (``robust.attacks.Noise`` with a stream tag: 0 for the cohort's
+      rows, 1 for the K₂ gradient sample), called only when ``cfg.attack``
+      needs noise and a malicious device is in the rows it corrupts
+
+    With ``cfg.attack`` (an update-space attack) and ``cfg.malicious``, the
+    rows of malicious devices are corrupted after ``client_update`` (and in
+    the K₂ gradient sample); honest rows stay bit-identical, so a cohort
+    without a malicious device runs exactly the clean round.
     """
     dev = resolve_device(device)
-    if cfg.attack is not None or cfg.malicious or cfg.robust is not None:
-        raise NotImplementedError(
-            "attack / malicious / robust need the robust slice "
-            "(repro.robust), which repro_torch has not ported yet")
     steps_per_epoch = max(samples_per_device // cfg.batch_size, 1)
     max_steps = cfg.max_epochs * steps_per_epoch
     agg_cfg = AggregatorConfig(
         name=cfg.aggregator,
         solve=SolveConfig(beta=cfg.smoothness, ridge=cfg.ridge),
-        gram_scope=cfg.gram_scope)
-    agg_fn = aggregate(cfg.aggregator)
+        gram_scope=cfg.gram_scope, robust=cfg.robust)
+    try:
+        agg_fn = aggregate(cfg.aggregator)
+    except KeyError:
+        # robust variants register on package import; pull them in lazily,
+        # as the reference does, so core never imports upward
+        from .. import robust  # noqa: F401
+        agg_fn = aggregate(cfg.aggregator)
+    # robust contextual variants take the stacked per-client gradient
+    # reports (the (K, J) cross matrix their pooling defends)
+    grad_stack = getattr(agg_fn, "grad_stack", False)
+    # update-space attacks corrupt after local training (label_flip poisons
+    # the dataset in run_simulation instead)
+    attack = cfg.attack
+    if attack is not None and (attack.corrupts_data or not cfg.malicious):
+        attack = None
+    mal = np.asarray(sorted(set(cfg.malicious)), np.int64)
+
+    def corrupt(tag, ids, deltas, grads, attack_noise):
+        """The attack on the rows of ``ids`` that are malicious; the inputs
+        themselves when none is."""
+        rows = np.isin(np.asarray(ids.cpu() if isinstance(ids, torch.Tensor)
+                                  else ids, np.int64), mal)
+        if not rows.any():
+            return deltas, grads
+        from ..robust.attacks import corrupt_stacked
+        noise = (None if attack_noise is None
+                 else lambda d, g: attack_noise(tag, d, g))
+        return corrupt_stacked(attack, deltas, grads,
+                               torch.as_tensor(rows, device=dev), noise)
 
     def round_fn(state: RoundState, data, sel, grad_sel, num_steps,
                  generator: Optional[torch.Generator] = None, *,
-                 batch_idx: Optional[torch.Tensor] = None
+                 batch_idx: Optional[torch.Tensor] = None,
+                 attack_noise: Optional[Callable] = None
                  ) -> Tuple[RoundState, Dict[str, torch.Tensor]]:
         x, y, mask = data
         sel_t = _index(sel, dev)
@@ -116,14 +149,20 @@ def build_round_fn(loss_fn: Callable, cfg: ServerConfig,
         deltas, first_grads = client_update(
             loss_fn, state.params, cx, cy, cm, _index(num_steps, dev),
             batch_idx.to(dev), lr=cfg.lr, mu=cfg.mu)
+        if attack is not None:
+            deltas, first_grads = corrupt(0, sel, deltas, first_grads,
+                                          attack_noise)
 
         if cfg.grad_sample > 0:
             gs = _index(grad_sel, dev)
             grads = vmap(lambda xx, yy, mm: local_gradient(
                 loss_fn, state.params, xx, yy, mm))(x[gs], y[gs], mask[gs])
+            if attack is not None:
+                _, grads = corrupt(1, grad_sel, grads, grads, attack_noise)
         else:
             grads = first_grads
-        grad_est = tree_map(lambda g: g.mean(dim=0), grads)
+        grad_est = (grads if grad_stack
+                    else tree_map(lambda g: g.mean(dim=0), grads))
 
         if cfg.aggregator == "contextual_expected":
             new_params, info = agg_fn(

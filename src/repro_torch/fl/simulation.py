@@ -39,6 +39,7 @@ import os
 import time
 from collections import deque
 from dataclasses import dataclass, field, replace as dc_replace
+from functools import partial
 from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
@@ -104,6 +105,21 @@ class SimulationResult:
         return float(np.mean(np.abs(np.diff(arr))))
 
 
+def _adversary_noise(dev: torch.device, *seed: int) -> Callable:
+    """``noise(*key, deltas, grads)``: the adversary's standard-normal draws
+    from a generator of its own on ``dev``, seeded from ``seed`` and the
+    key (round, arrival, stream tag) alone — never the mini-batch
+    generator, so the honest clients' draws are those of the clean run."""
+    from ..robust.attacks import generator_noise, stream_seed
+
+    def noise(*args):
+        *key, deltas, grads = args
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(stream_seed(*seed, *key))
+        return generator_noise(gen)(deltas, grads)
+    return noise
+
+
 def run_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
                    init_params: Tree, dataset: FederatedDataset,
                    cfg: ServerConfig, num_rounds: int,
@@ -115,6 +131,14 @@ def run_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
     round_fn = build_round_fn(loss_fn, cfg, dataset.samples_per_device,
                               device=dev)
     steps_per_epoch = max(dataset.samples_per_device // cfg.batch_size, 1)
+    if (cfg.attack is not None and cfg.attack.corrupts_data
+            and cfg.malicious):
+        # label-flip adversaries poison their shards before the run; the
+        # update-space attacks corrupt inside the round instead
+        from ..robust.attacks import poison_labels
+        dataset = poison_labels(dataset, cfg.malicious)
+    attack_noise = (None if cfg.attack is None
+                    else _adversary_noise(dev, selection_seed))
 
     state = init_server(tree_map(
         lambda a: torch.as_tensor(a, device=dev), init_params))
@@ -139,8 +163,10 @@ def run_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
             sel, grad_sel, num_steps = sample_round(sel_rng, cfg,
                                                     steps_per_epoch)
             with spans.span("update_aggregate"):
-                state, info = round_fn(state, data, sel, grad_sel, num_steps,
-                                       gen)
+                state, info = round_fn(
+                    state, data, sel, grad_sel, num_steps, gen,
+                    attack_noise=None if attack_noise is None
+                    else partial(attack_noise, t))
             alpha = (info["alpha"].cpu().numpy()
                      if "alpha" in info and (collect_alpha or tr.active)
                      else None)
@@ -206,6 +232,7 @@ def run_async_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
                          attack=None, churn=None,
                          batch_indices: Optional[
                              Callable[[int, int, int], torch.Tensor]] = None,
+                         attack_noise: Optional[Callable] = None,
                          device: DeviceLike = "cuda"
                          ) -> AsyncSimulationResult:
     """Event-driven async FL (``cfg`` is a :class:`repro_torch.edge.AsyncConfig`),
@@ -228,8 +255,17 @@ def run_async_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
     ``batch_indices(seq, device_id, max_steps)``, which returns the
     ``(1, max_steps, batch_size)`` sample indices of the arrival with event
     sequence number ``seq`` (the tests replay the reference's draws that
-    way).  ``attack`` and ``churn`` are not ported yet and raise
-    ``NotImplementedError``.
+    way).
+
+    ``attack`` (a :class:`repro_torch.robust.AttackModel`) corrupts each
+    arrival from a device in ``fleet.malicious`` before it enters the
+    buffer (label-flip attacks poison the malicious shards up front
+    instead); its noise comes from a generator seeded from
+    ``selection_seed`` and the arrival's ``seq``, or from
+    ``attack_noise(seq, deltas, grads)`` (K = 1 stacked trees; the tests
+    replay the reference's draws that way).  ``churn`` (a
+    :class:`repro_torch.robust.ChurnSchedule`) rides on the event
+    scheduler: tasks dispatched inside an active wave drop out.
 
     Spans: ``client_update`` per arrival, ``aggregate`` per flush, ``eval``,
     all on the scheduler's virtual clock.
@@ -240,8 +276,6 @@ def run_async_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
     from ..edge.wallclock import model_flops_per_step, model_payload_bytes
     from .client import client_update, draw_batch_indices
 
-    if attack is not None or churn is not None:
-        raise _not_ported("attack / churn", "repro.robust")
     if fleet.num_devices != cfg.num_devices:
         raise ValueError(f"fleet has {fleet.num_devices} devices, config "
                          f"expects {cfg.num_devices}")
@@ -249,6 +283,15 @@ def run_async_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
         raise ValueError(f"dataset has {dataset.num_devices} device shards, "
                          f"need {cfg.num_devices}")
     dev = resolve_device(device)
+
+    malicious = frozenset(getattr(fleet, "malicious", ()))
+    if attack is not None and attack.corrupts_data and malicious:
+        from ..robust.attacks import poison_labels
+        dataset = poison_labels(dataset, malicious)
+    live_attack = (attack if attack is not None
+                   and not attack.corrupts_data and malicious else None)
+    if live_attack is not None and attack_noise is None:
+        attack_noise = _adversary_noise(dev, selection_seed, 0x0BAD)
 
     steps_per_epoch = max(dataset.samples_per_device // cfg.batch_size, 1)
     max_steps = cfg.max_epochs * steps_per_epoch
@@ -265,7 +308,7 @@ def run_async_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
     scheduler = EventScheduler(
         fleet, seed=selection_seed,
         flops_per_step=model_flops_per_step(params, cfg.batch_size),
-        payload_bytes=model_payload_bytes(params))
+        payload_bytes=model_payload_bytes(params), churn=churn)
     buffer = AsyncBuffer(cfg)
     epoch_rng = np.random.RandomState(selection_seed + 1)
 
@@ -328,9 +371,14 @@ def run_async_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
                     mask[d:d + 1],
                     torch.tensor([evt.num_steps], device=dev), idx,
                     lr=cfg.lr, mu=cfg.mu)
-            buffer.add(BufferedUpdate(tree_map(lambda t: t[0], deltas),
-                                      tree_map(lambda t: t[0], grads),
-                                      disp_version, d))
+            delta = tree_map(lambda t: t[0], deltas)
+            grad = tree_map(lambda t: t[0], grads)
+            if live_attack is not None and d in malicious:
+                from ..robust.attacks import corrupt_one
+                delta, grad = corrupt_one(
+                    live_attack, delta, grad,
+                    partial(attack_noise, evt.seq))
+            buffer.add(BufferedUpdate(delta, grad, disp_version, d))
             result.updates_per_device[d] += 1
             if buffer.ready():
                 with spans.span("aggregate", flush=aggs + 1):
@@ -434,6 +482,8 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
                         publish_fn: Optional[Callable[[int, Tree], None]]
                         = None,
                         batch_generator: Optional[torch.Generator] = None,
+                        batch_indices: Optional[Callable] = None,
+                        attack_noise: Optional[Callable] = None,
                         device: DeviceLike = "cuda") -> HierSimulationResult:
     """Synchronous rounds over a multi-tier topology (``cfg`` a
     :class:`repro_torch.hier.HierConfig`, ``topology`` a
@@ -461,9 +511,17 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
     picks the fused engine and ``"streamed"`` raises.  ``stream_chunk`` is
     the streamed engine's column chunk (its reported memory model).
 
+    ``attack`` (a :class:`repro_torch.robust.AttackModel`) corrupts the
+    cohort's stacked rows of malicious devices after local training
+    (label-flip attacks poison the malicious shards up front instead); its
+    noise comes from a generator seeded from ``selection_seed + 7919`` and
+    the round, or from ``attack_noise(round, deltas, grads)``.  ``churn``
+    (a :class:`repro_torch.robust.ChurnSchedule`) rides on the event
+    scheduler, and ``cfg.robust`` hardens the tier solves of either engine.
+
     Not ported yet, each raising ``NotImplementedError``: the cohort
     scheduler (``scheduler_mode="cohort"``, or ``"auto"`` at 4096
-    participants), ``attack``, ``churn`` and ``mesh``.
+    participants), ``VirtualFleetDataset`` and ``mesh``.
 
     ``publish_fn(round, params)`` is called with each round's aggregated
     params the moment the cloud stage applies them; skipped rounds publish
@@ -471,7 +529,10 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
 
     ``batch_generator``, if given, draws the mini-batch indices instead (on
     its own device; they then move to ``device``), so that runs on two
-    devices can train on the same batches.
+    devices can train on the same batches.  ``batch_indices(round,
+    part_dev, max_steps)``, if given, returns them outright as a
+    ``(P, max_steps, batch_size)`` tensor for the round's participants
+    ``part_dev`` (the tests replay the reference's draws that way).
     """
     from ..compress import ErrorFeedback, payload_gram
     from ..edge.events import EventKind, EventScheduler
@@ -484,8 +545,6 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
     from ..hier.streamed import StreamedRoundEngine, dense_round_bytes
     from .client import client_update, draw_batch_indices
 
-    if attack is not None or churn is not None:
-        raise _not_ported("attack / churn", "repro.robust")
     if mesh is not None:
         raise _not_ported("mesh sharding",
                           "repro.sharding / repro.core.distributed")
@@ -497,6 +556,18 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
     if dataset.num_devices < fleet.num_devices:
         raise ValueError(f"dataset has {dataset.num_devices} device shards, "
                          f"topology needs {fleet.num_devices}")
+
+    # -- adversarial wiring: label_flip poisons shards up front; update-space
+    # attacks corrupt the cohort's stacked rows after local training, with
+    # noise from a generator of the adversary's own
+    malicious = np.asarray(sorted(getattr(fleet, "malicious", ())), np.int64)
+    if attack is not None and attack.corrupts_data and malicious.size:
+        from ..robust.attacks import poison_labels
+        dataset = poison_labels(dataset, malicious)
+    live_attack = (attack if attack is not None
+                   and not attack.corrupts_data and malicious.size else None)
+    if live_attack is not None and attack_noise is None:
+        attack_noise = _adversary_noise(dev, selection_seed + 7919)
 
     steps_per_epoch = max(dataset.samples_per_device // cfg.batch_size, 1)
     max_steps = cfg.max_epochs * steps_per_epoch
@@ -516,7 +587,7 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
     scheduler = EventScheduler(
         fleet, seed=selection_seed,
         flops_per_step=model_flops_per_step(params, cfg.batch_size),
-        payload_bytes=mbytes, rng_stream=rng_stream)
+        payload_bytes=mbytes, churn=churn, rng_stream=rng_stream)
     tr = current_tracker().scope(f"hier/{name}")
     if tr.active:
         tr.jot(runtime="hier", run=name, aggregator=cfg.aggregator,
@@ -566,13 +637,14 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
     if engine == "streamed":
         eng = StreamedRoundEngine(params, solve_cfg, tier_mode,
                                   cfg.gram_scope, chunk=stream_chunk,
-                                  donate_params=True)
+                                  donate_params=True, robust=cfg.robust)
         # the streamed apply updates the parameters in place (the reference
         # donates them): copy once so that no round writes into the
         # caller's init_params
         params = tree_map(torch.clone, params)
     else:
-        eng = HierRoundEngine(params, solve_cfg, tier_mode, cfg.gram_scope)
+        eng = HierRoundEngine(params, solve_cfg, tier_mode, cfg.gram_scope,
+                              robust=cfg.robust)
 
     # summary compression: per-sender error-feedback residuals persist
     # across rounds; linear sketches share one per-round seed so the cloud's
@@ -634,14 +706,31 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
                 with spans.span("client_update", participants=P):
                     sel = torch.as_tensor(part_dev, device=dev)
                     cm = mask[sel]
-                    batch_idx = draw_batch_indices(
-                        cm.to(gen.device), max_steps, cfg.batch_size,
-                        gen).to(dev)
+                    if batch_indices is None:
+                        batch_idx = draw_batch_indices(
+                            cm.to(gen.device), max_steps, cfg.batch_size,
+                            gen).to(dev)
+                    else:
+                        batch_idx = batch_indices(t, part_dev,
+                                                  max_steps).to(dev)
+                        if tuple(batch_idx.shape) != (P, max_steps,
+                                                      cfg.batch_size):
+                            raise ValueError(
+                                f"batch_indices returned "
+                                f"{tuple(batch_idx.shape)}, want "
+                                f"{(P, max_steps, cfg.batch_size)}")
                     deltas, grads = client_update(
                         loss_fn, params, x[sel], y[sel], cm,
                         torch.as_tensor(num_steps, dtype=torch.long,
                                         device=dev),
                         batch_idx, lr=cfg.lr, mu=cfg.mu)
+                mal_rows = np.isin(part_dev, malicious)
+                if live_attack is not None and mal_rows.any():
+                    from ..robust.attacks import corrupt_stacked
+                    deltas, grads = corrupt_stacked(
+                        live_attack, deltas, grads,
+                        torch.as_tensor(mal_rows, device=dev),
+                        partial(attack_noise, t))
                 with spans.span("begin_round", engine=eng.name):
                     ctx = eng.begin_round(deltas, grads)
 

@@ -9,7 +9,9 @@ runs eagerly, so here the stages are plain functions (:func:`summary_stage`,
 :func:`cloud_stage`) and there is no stage cache.
 
 Each Gram reduction goes through ``kernels.ops.gram_and_cross``, so on the
-card every gateway, merge and cloud solve launches the ``gram`` kernel; the
+card every gateway, merge and cloud solve launches the ``gram`` kernel; a
+robust stage (``HierConfig.robust``) also forms its members' (K, K) cross
+matrix through ``kernels.ops.gram_block_and_cross`` (``gram_block``); the
 α-weighted combinations ``α @ U`` stay ``torch.matmul``, as the reference
 leaves them to XLA outside any Pallas kernel.  The solves use
 ``core.solve.solve_alpha`` (the Σγ = 1 KKT branch for merges and the
@@ -57,14 +59,42 @@ def _gram(U: torch.Tensor, g: torch.Tensor, idx: Optional[torch.Tensor]
     return gram_and_cross(U.contiguous(), g.contiguous())
 
 
+def _robust_solve(U: torch.Tensor, GR: torch.Tensor, w: torch.Tensor,
+                  cfg: SolveConfig, robust, idx: Optional[torch.Tensor]):
+    """The robust tier solve over member rows: G from ``gram``, the (K, K)
+    cross matrix ``Us GRsᵀ`` from ``gram_block`` (so the pooling can
+    down-vote poisoned gradient columns), then ``robustify`` and the solve.
+    Returns ``(Gr, cr, alpha, s)``; the caller combines with ``s ⊙ α``."""
+    from ..robust.aggregators import cross_stats
+    from ..robust.gramstats import robustify
+    if idx is not None:
+        U, GR = U[:, idx], GR[:, idx]
+    G, C = cross_stats(U.contiguous(), GR.contiguous(), w)
+    Gr, cr, s = robustify(G, C, w, robust)
+    return Gr, cr, solve_alpha(Gr, cr, cfg), s
+
+
+def _robust_on(robust, applies: bool):
+    """``robust`` when it hardens this stage (a contextual solve over
+    members, defenses enabled), else None."""
+    return robust if applies and getattr(robust, "enabled", False) else None
+
+
 def summary_stage(U: torch.Tensor, GR: torch.Tensor, counts: torch.Tensor,
                   g: Optional[torch.Tensor], solve_cfg: SolveConfig,
                   mode: str, *, pool_scale: float = 1.0,
                   sum_to: Optional[float] = None,
-                  scope_idx: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+                  scope_idx: Optional[torch.Tensor] = None,
+                  robust=None) -> Dict[str, Any]:
     """One tier node over its member rows ``U (K, n)``, ``GR (K, n)`` — the
     engine's form of ``gateway.summarize_updates`` (``sum_to=1`` makes it
-    the parent-tier merge).  Returns G, c, alpha, u_bar, ghat, info."""
+    the parent-tier merge).  Returns G, c, alpha, u_bar, ghat, info.
+
+    With ``robust`` (a RobustConfig, contextual mode) the full (K, K) cross
+    matrix replaces the premixed c (``_robust_solve``); α is then the
+    clipped ``s ⊙ α``, ``info`` carries ``clip_scale``, and the shipped ĝ
+    stays the plain weighted mean (the streamed engine holds no per-member
+    gradient norms)."""
     cfg = solve_cfg
     if pool_scale != 1.0:
         cfg = replace(cfg, expectation_scale=cfg.expectation_scale
@@ -73,6 +103,14 @@ def summary_stage(U: torch.Tensor, GR: torch.Tensor, counts: torch.Tensor,
         cfg = replace(cfg, sum_to=sum_to)
     w = counts / counts.sum().clamp(min=1e-12)
     ghat = w @ GR
+    robust = _robust_on(robust, mode == "contextual")
+    if robust is not None:
+        Gr, cr, alpha, s = _robust_solve(U, GR, w, cfg, robust, scope_idx)
+        eff = s * alpha
+        info = solve_diagnostics(Gr, cr, alpha, cfg.beta)
+        info["clip_scale"] = s
+        return {"G": Gr, "c": cr, "alpha": eff, "u_bar": eff @ U,
+                "ghat": ghat, "info": info}
     G, c = _gram(U, ghat if g is None else g, scope_idx)
     if mode == "contextual":
         alpha = solve_alpha(G, c, cfg)
@@ -88,13 +126,15 @@ def cloud_stage(U: torch.Tensor, ghat: Optional[torch.Tensor],
                 counts: torch.Tensor, solve_cfg: SolveConfig, kind: str, *,
                 solve_scale: float = 1.0,
                 override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                scope_idx: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+                scope_idx: Optional[torch.Tensor] = None,
+                robust=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """The final tier: ``(delta (n,), info)`` — the engine's form of
     ``hier_server.cloud_aggregate``.  ``kind``: "combo" (Σγ = 1 over child
     combinations), "raw" (the paper's solve over raw updates, with the
     §III-C ``solve_scale``), or "fedavg" (count-weighted mean).
-    ``override`` supplies sketched (G₂, c₂) for compressed summaries."""
+    ``override`` supplies sketched (G₂, c₂) for compressed summaries.
+    With ``robust`` on a "raw" solve, ``ghat`` is the (K, n) per-member
+    gradient matrix and the solve is ``summary_stage``'s robust one."""
     if kind == "fedavg":
         alpha = counts / counts.sum().clamp(min=1e-12)
         return alpha @ U, {"alpha": alpha, "gamma": alpha}
@@ -104,6 +144,14 @@ def cloud_stage(U: torch.Tensor, ghat: Optional[torch.Tensor],
     elif solve_scale != 1.0:
         cfg = replace(cfg, expectation_scale=cfg.expectation_scale
                       * solve_scale)
+    robust = _robust_on(robust, kind == "raw")
+    if robust is not None:
+        w = counts / counts.sum().clamp(min=1e-12)
+        Gr, cr, alpha, s = _robust_solve(U, ghat, w, cfg, robust, scope_idx)
+        eff = s * alpha
+        return eff @ U, {"alpha": eff, "gamma": eff,
+                         **solve_diagnostics(Gr, cr, alpha, cfg.beta),
+                         "gram_diag": torch.diagonal(Gr), "clip_scale": s}
     G, c = override if override is not None else _gram(U, ghat, scope_idx)
     alpha = solve_alpha(G, c, cfg)
     info = {"alpha": alpha, "gamma": alpha,
@@ -136,11 +184,15 @@ class HierRoundEngine:
     name = "fused"
 
     def __init__(self, params_template: Tree, solve_cfg: SolveConfig,
-                 tier_mode: str, gram_scope: Optional[str] = None):
+                 tier_mode: str, gram_scope: Optional[str] = None,
+                 robust=None):
         self.n = tree_size(params_template)
         self.solve_cfg = solve_cfg
         self.tier_mode = tier_mode
         self.gram_scope = gram_scope
+        # RobustConfig (or None): hardens the member-level stages (gateway,
+        # cloud_raw); merges and combos act on children already hardened
+        self.robust = robust
         idx = scope_indices(params_template, gram_scope)
         dev = tree_leaves(params_template)[0].device
         self.scope_idx = (None if idx is None
@@ -210,7 +262,8 @@ class FusedRoundContext:
         eng = self.engine
         return summary_stage(U, GR, torch.ones(len(idxs), device=U.device),
                              solve_grad, eng.solve_cfg, eng.tier_mode,
-                             pool_scale=pool_scale, scope_idx=eng.scope_idx)
+                             pool_scale=pool_scale, scope_idx=eng.scope_idx,
+                             robust=eng.robust)
 
     def merge(self, u_refs, g_refs, counts, *,
               solve_grad=None) -> Dict[str, Any]:
@@ -225,10 +278,11 @@ class FusedRoundContext:
                   ) -> Tuple[torch.Tensor, Dict]:
         U, GR = self._rows(idxs)
         eng = self.engine
-        return cloud_stage(U, GR.mean(dim=0),
+        robust = _robust_on(eng.robust, kind == "raw")
+        return cloud_stage(U, GR if robust is not None else GR.mean(dim=0),
                            torch.ones(len(idxs), device=U.device),
                            eng.solve_cfg, kind, solve_scale=solve_scale,
-                           scope_idx=eng.scope_idx)
+                           scope_idx=eng.scope_idx, robust=robust)
 
     def cloud_combo(self, u_refs, counts, ghat, *, kind: str = "combo",
                     override=None) -> Tuple[torch.Tensor, Dict]:

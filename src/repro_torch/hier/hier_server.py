@@ -146,8 +146,10 @@ class HierConfig:
     max_epochs: int = 20
     gram_scope: Optional[str] = None
     ridge: float = 1e-6
-    robust: Optional[Any] = None         # robust tier statistics: not
-                                         # ported yet (raises)
+    robust: Optional[Any] = None         # repro_torch.robust RobustConfig:
+                                         # clip + median-of-means/trimmed
+                                         # pooling on the tier (G, c)
+                                         # statistics before each solve
 
     def __post_init__(self):
         if self.aggregator not in ("hier_contextual", "hier_fedavg",
@@ -174,10 +176,22 @@ class HierConfig:
                                  "pre-pass would ship full-width ĝ both ways "
                                  "and defeat the uplink budget")
         if self.robust is not None:
-            raise NotImplementedError(
-                "HierConfig.robust needs the robust slice (reference: "
-                "repro.robust; ROADMAP queue 1), which repro_torch has not "
-                "ported yet")
+            from ..robust.gramstats import RobustConfig
+            if not isinstance(self.robust, RobustConfig):
+                raise TypeError("HierConfig.robust must be a "
+                                "repro_torch.robust.RobustConfig, got "
+                                f"{type(self.robust).__name__}")
+            if self.aggregator != "hier_contextual":
+                raise ValueError("robust tier statistics require the "
+                                 "'hier_contextual' aggregator (the solve "
+                                 "they harden), got "
+                                 f"'{self.aggregator}'")
+            if self.gateway_grad != "local":
+                raise ValueError("robust tier statistics require "
+                                 "gateway_grad='local': median-of-means/"
+                                 "trimmed pooling acts on the per-member "
+                                 "gradient columns, which the global "
+                                 "pre-pass pre-averages away")
 
     @property
     def smoothness(self) -> float:

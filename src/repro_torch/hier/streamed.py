@@ -27,8 +27,11 @@ summaries are dense (n,) vectors, and those tiers run the fused engine's
 stage functions over the small (#children, n) stacks.
 
 The four P-space stages are plain functions, as the port's fused stages
-are (no jit caches).  On the card the kernels take each slab as it lies, of
-any width, with no pad and no copy; there is no autotune
+are (no jit caches).  With ``robust`` (``HierConfig.robust``) the device
+tier and the raw cloud run ``robustify`` on the cohort's sub-blocks of
+(G, C) before their solves: no new kernel, as C is the round's D GMᵀ.
+On the card the kernels take each slab as it lies, of any width, with no
+pad and no copy; there is no autotune
 (``ROADMAP.md``'s dispatch contract), so the reference's capped timing
 (``AUTOTUNE_CAP_COLS``, ``select_impl_for``) has no counterpart here.
 ``tests/test_torch_streamed.py`` holds every stage against the reference.
@@ -47,8 +50,8 @@ from ..core.flatten import (ChunkedFlatView, mix_rows, tree_leaves,
 from ..core.solve import SolveConfig, bound_value, solve_alpha
 from ..kernels.ops import stream_stats, weighted_combine
 from ..obs import current_tracker, spans
-from .fused import (apply_delta, cloud_stage, scope_indices, summary_stage,
-                    weighted_mean_rows)
+from .fused import (_robust_on, apply_delta, cloud_stage, scope_indices,
+                    summary_stage, weighted_mean_rows)
 from .gateway import solve_diagnostics
 
 Tree = Any
@@ -109,15 +112,38 @@ def _cloud_solve_info(Gs, c, cfg):
                    "gram_diag": torch.diagonal(Gs)}
 
 
+def _robust_solve(G: torch.Tensor, C: torch.Tensor, idx: torch.Tensor,
+                  wts: torch.Tensor, cfg: SolveConfig, robust):
+    """``robustify`` on the cohort's sub-blocks ``G[idx][:, idx]`` and
+    ``C[idx][:, idx]`` (exactly the fused engine's ``Us GRsᵀ``), then the
+    solve: ``(Gr, cr, alpha, s)``."""
+    from ..robust.gramstats import robustify
+    Gr, cr, s = robustify(G[idx][:, idx], C[idx][:, idx], wts, robust)
+    return Gr, cr, solve_alpha(Gr, cr, cfg), s
+
+
 def tier_stage(G: torch.Tensor, C: torch.Tensor, idx: torch.Tensor,
                counts: torch.Tensor, solve_cfg: SolveConfig, mode: str, *,
                pool_scale: float = 1.0,
-               g_w: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+               g_w: Optional[torch.Tensor] = None,
+               robust=None) -> Dict[str, Any]:
     """Device tier over row indices ``idx (K,)`` → G, c, alpha, u_w, ghat_w,
-    info.  ``g_w`` (P,) replaces the cohort's own ĝ mix in the c-term."""
+    info.  ``g_w`` (P,) replaces the cohort's own ĝ mix in the c-term.
+    With ``robust`` (contextual mode) the cohort's cross sub-block feeds
+    clipping and pooling before the solve; α is the clipped ``s ⊙ α`` and
+    the shipped ĝ mix stays the plain weighted mean."""
     cfg = _adjust(solve_cfg, scale=pool_scale)
     wts = _weights(counts)
     ghat_w = _scatter(G.shape[0], idx, wts)
+    robust = _robust_on(robust, mode == "contextual")
+    if robust is not None:
+        Gr, cr, alpha, s = _robust_solve(G, C, idx, wts, cfg, robust)
+        eff = s * alpha
+        info = solve_diagnostics(Gr, cr, alpha, cfg.beta)
+        info["clip_scale"] = s
+        return {"G": Gr, "c": cr, "alpha": eff,
+                "u_w": _scatter(G.shape[0], idx, eff), "ghat_w": ghat_w,
+                "info": info}
     Gs = G[idx][:, idx]
     c = C[idx] @ (ghat_w if g_w is None else g_w)
     alpha, info = _solve_info(Gs, c, cfg, mode, wts)
@@ -145,12 +171,21 @@ def merge_stage(G: torch.Tensor, C: torch.Tensor, W: torch.Tensor,
 
 def cloud_raw_stage(G: torch.Tensor, C: torch.Tensor, idx: torch.Tensor,
                     counts: torch.Tensor, solve_cfg: SolveConfig, kind: str,
-                    *, solve_scale: float = 1.0) -> Dict[str, Any]:
+                    *, solve_scale: float = 1.0,
+                    robust=None) -> Dict[str, Any]:
     """Final tier over raw device rows (star / relay) → u_w, info: the fused
-    ``cloud_stage`` on sub-blocks."""
+    ``cloud_stage`` on sub-blocks, with the same robust hook."""
     wts = _weights(counts)
+    robust = _robust_on(robust, kind == "raw")
     if kind == "fedavg":
         alpha, info = wts, {"alpha": wts, "gamma": wts}
+    elif robust is not None:
+        cfg = _adjust(solve_cfg, scale=solve_scale)
+        Gr, cr, gamma, s = _robust_solve(G, C, idx, wts, cfg, robust)
+        alpha = s * gamma
+        info = {"alpha": alpha, "gamma": alpha,
+                **solve_diagnostics(Gr, cr, gamma, cfg.beta),
+                "gram_diag": torch.diagonal(Gr), "clip_scale": s}
     else:
         cfg = _adjust(solve_cfg, scale=solve_scale)
         c = C[idx] @ _scatter(G.shape[0], idx, wts)
@@ -187,11 +222,6 @@ class StreamedRoundEngine:
                  tier_mode: str, gram_scope: Optional[str] = None, *,
                  chunk: Optional[int] = None, donate_params: bool = False,
                  robust=None):
-        if robust is not None:
-            raise NotImplementedError(
-                "robust tier statistics on the streamed stages are not "
-                "ported to repro_torch yet (reference: repro.robust; "
-                "ROADMAP queue 1)")
         self.n = tree_size(params_template)
         self.solve_cfg = solve_cfg
         self.tier_mode = tier_mode
@@ -201,6 +231,9 @@ class StreamedRoundEngine:
         if self.chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {self.chunk}")
         self.donate_params = bool(donate_params)
+        # RobustConfig (or None): hardens the device-tier and raw cloud
+        # stages, on the statistics the accumulate pass already holds
+        self.robust = robust
         # scoped columns of the fused fallback stages above a compression hop
         idx = scope_indices(params_template, gram_scope)
         dev = tree_leaves(params_template)[0].device
@@ -310,7 +343,8 @@ class StreamedRoundContext:
         out = tier_stage(self.G, self.C, self._idx(idxs),
                          torch.ones(len(idxs), device=self.device),
                          eng.solve_cfg, eng.tier_mode, pool_scale=pool_scale,
-                         g_w=None if solve_grad is None else solve_grad.w)
+                         g_w=None if solve_grad is None else solve_grad.w,
+                         robust=eng.robust)
         return self._wrap(out)
 
     def merge(self, u_refs, g_refs, counts, *,
@@ -339,7 +373,8 @@ class StreamedRoundContext:
         out = cloud_raw_stage(self.G, self.C, self._idx(idxs),
                               torch.ones(len(idxs), device=self.device),
                               self.engine.solve_cfg, kind,
-                              solve_scale=solve_scale)
+                              solve_scale=solve_scale,
+                              robust=self.engine.robust)
         return RowMix(out["u_w"], "delta"), out["info"]
 
     def cloud_combo(self, u_refs, counts, ghat, *, kind: str = "combo",

@@ -372,8 +372,11 @@ def test_async_config_and_fleet_validation(tiny_problem, monkeypatch):
     with pytest.raises(ValueError, match="batch_indices returned"):
         run(uniform_fleet(ds.num_devices),
             batch_indices=lambda seq, d, steps: torch.zeros((1, steps, 3)))
-    for kw in (dict(attack=object()), dict(churn=object())):
-        with pytest.raises(NotImplementedError, match="repro.robust"):
+    # attack and churn are ported: an object that is neither fails where
+    # the reference's does, on the attribute the runtime reads
+    for kw, attr in ((dict(attack=object()), "corrupts_data"),
+                     (dict(churn=object()), "offline")):
+        with pytest.raises(AttributeError, match=attr):
             run(uniform_fleet(ds.num_devices), **kw)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

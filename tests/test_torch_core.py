@@ -354,12 +354,16 @@ def test_contextual_honours_gram_override():
 def test_aggregator_registry():
     import repro_torch.hier  # noqa: F401  (registers the hier aggregators)
     import repro_torch.edge  # noqa: F401  (registers the async aggregators)
+    import repro_torch.robust  # noqa: F401  (registers the robust ones)
     core = ("contextual", "contextual_expected", "fedavg", "fedprox", "folb",
             "weighted")
     hier = ("hier_contextual", "hier_contextual_sketch", "hier_fedavg",
             "hier_relay")
     edge = ("contextual_async", "fedasync", "fedbuff")
-    assert tagg.available_aggregators() == tuple(sorted(core + hier + edge))
+    robust = ("contextual_clipped", "contextual_mom", "coordinate_median",
+              "krum")
+    assert tagg.available_aggregators() == tuple(sorted(core + hier + edge
+                                                        + robust))
     # the reference registry also holds what its subsystems registered
     assert set(core) <= set(jagg.available_aggregators())
     with pytest.raises(KeyError, match="unknown aggregator"):

@@ -20,7 +20,9 @@ also within 1e-5 of the first body (``rng_sketch.cu``); stream_stats, gram_block
 sketch's tensor-core sweeps against an f64 product, where the plain f32
 version of a short cancelling dot product is no oracle).  topk is held
 exactly: the same values and indices as the plain version on the same
-tensor.  flash_decode 1e-4 on o and lse (f32 sums in another order, and the
+tensor.  The robust aggregators on the card against the same call on the
+CPU at 1e-4 (the solve amplifies the kernels' summation-order
+differences), krum's selection exactly.  flash_decode 1e-4 on o and lse (f32 sums in another order, and the
 kernel's fast exp); the serving engine's greedy tokens exactly.
 """
 import numpy as np
@@ -1279,3 +1281,90 @@ def test_engine_batched_equals_solo_and_cpu(cuda_device):
                       max_new[rid:rid + 1])
         assert solo[0] == batched[rid], f"rid={rid} diverged"
     assert _serve(params, "cpu", prompts, max_new) == batched
+
+
+# ------------------------------------------------------------------ robust
+
+@pytest.mark.parametrize("name", ["contextual_mom", "contextual_clipped",
+                                  "krum", "coordinate_median"])
+def test_robust_aggregators_on_the_card_match_the_cpu(cuda_device, name):
+    """The flat robust aggregators on the card against the same call on the
+    CPU (plain versions): G from ``gram``, the cross matrix from
+    ``gram_block`` (its cross.cuh body: f32 inputs), the step through
+    ``combine``; krum's selection equal."""
+    from repro_torch.core import AggregatorConfig, SolveConfig, aggregate
+    from repro_torch.kernels import gram
+    from repro_torch.robust import RobustConfig
+    rng = np.random.RandomState(3)
+    K, n = 10, 7850
+    U = (rng.randn(K, n) * 0.01).astype(np.float32)
+    U[[2, 7]] *= 25.0
+    Gm = (rng.randn(K, n) * 0.01).astype(np.float32)
+    params = {"b": np.zeros(10, np.float32),
+              "w": (rng.randn(n - 10) * 0.1).astype(np.float32)}
+    cfg = AggregatorConfig(name=name, solve=SolveConfig(beta=20.0),
+                           robust=RobustConfig(clip=2.0, pool="mom"))
+    outs = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        split = lambda M: {"b": torch.from_numpy(M[:, :10]).to(dev),  # noqa
+                           "w": torch.from_numpy(M[:, 10:]).to(dev)}
+        p = {k: torch.from_numpy(v).to(dev) for k, v in params.items()}
+        reset_launch_counts()
+        gram.reset_block_body_launches()
+        outs[dev.type] = aggregate(name)(p, split(U), split(Gm), cfg)
+        counts, bodies = launch_counts(), gram.block_body_launches()
+        if dev.type == "cuda":
+            assert all(v == 0 for k, v in counts.items()
+                       if k.endswith("/torch"))
+            assert counts["combine/cuda"] == 1
+            contextual = name.startswith("contextual")
+            assert counts["gram_block/cuda"] == int(contextual)
+            assert bodies == {"mma": 0, "cross": int(contextual)}
+    (got, ginfo), (want, winfo) = outs["cuda"], outs["cpu"]
+    for k in params:
+        assert _rel_err(got[k].cpu(), want[k]) <= 1e-4
+    assert _rel_err(ginfo["alpha"].cpu(), winfo["alpha"]) <= 1e-4
+    if name == "krum":
+        assert torch.equal(ginfo["alpha"].cpu(), winfo["alpha"])
+        assert ginfo["alpha"][2] == 0 and ginfo["alpha"][7] == 0
+
+
+@pytest.mark.parametrize("engine", ["fused", "streamed"])
+def test_robust_hier_runs_through_the_cuda_kernels(cuda_device, engine):
+    """Attack, churn and ``HierConfig.robust`` on the card: the fused
+    engine's robust stages launch ``gram_block`` (cross body), the
+    streamed engine's none; two runs bitwise equal; no plain version."""
+    from repro_torch.kernels import gram
+    from repro_torch.robust import (ByzantineGauss, RobustConfig,
+                                    assign_adversaries, churn_schedule)
+    xs, ys = make_synthetic(1.0, 1.0, num_devices=12, samples_per_device=30,
+                            dim=20, seed=5)
+    ds = FederatedDataset(xs, ys, np.ones(ys.shape, np.float32),
+                          xs.reshape(-1, 20)[:150], ys.reshape(-1)[:150], 10)
+    params = init_logistic(ArchConfig(name="lr", family="logreg",
+                                      input_dim=20, num_classes=10), 0)
+    fleet = assign_adversaries(uniform_fleet(12), 0.17, seed=3)
+    cfg = HierConfig(lr=0.2, batch_size=10, min_epochs=1, max_epochs=4,
+                     robust=RobustConfig(clip=2.0, pool="mom"))
+    runs = []
+    for _ in range(2):
+        reset_launch_counts()
+        gram.reset_block_body_launches()
+        res = run_hier_simulation(
+            "robust", logistic_loss, logistic_apply, params, ds, cfg,
+            two_tier_topology(fleet, 3), num_rounds=3, engine=engine,
+            attack=ByzantineGauss(scale=10.0),
+            churn=churn_schedule("wave", 12, 0.06, seed=1))
+        counts, bodies = launch_counts(), gram.block_body_launches()
+        assert np.isfinite(res.train_loss).all()
+        assert all(v == 0 for k, v in counts.items() if k.endswith("/torch"))
+        if engine == "fused":       # one per gateway a round
+            assert counts["gram_block/cuda"] == 3 * 3
+            assert bodies == {"mma": 0, "cross": 3 * 3}
+        else:
+            assert counts["gram_block/cuda"] == 0
+            assert counts["stream_stats/cuda"] == 3 * 2
+        runs.append(res)
+    assert runs[0].times == runs[1].times
+    assert runs[0].train_loss == runs[1].train_loss
+    assert runs[0].dropped == runs[1].dropped

@@ -582,18 +582,23 @@ def test_unported_parts_raise(problem, monkeypatch):
     run = lambda **kw: t_run("x", t_loss, t_apply, tp, tds, cfg,  # noqa: E731
                              topo, 1, device="cpu", **kw)
     for kw, item in ((dict(scheduler_mode="cohort"), "repro.data.fleetgen"),
-                     (dict(attack=object()), "repro.robust"),
-                     (dict(churn=object()), "repro.robust"),
                      (dict(mesh=object()), "repro.sharding")):
         with pytest.raises(NotImplementedError, match=item):
             run(**kw)
+    # attack and churn are ported: an object that is neither fails where
+    # the reference's does, on the attribute the runtime reads
+    with pytest.raises(AttributeError, match="corrupts_data"):
+        run(attack=object())
+    with pytest.raises(AttributeError, match="offline"):
+        run(churn=object())
     # the streamed engine runs now, by name and above the budget
     assert run(engine="streamed").engine["engine_name"] == "streamed"
     monkeypatch.setenv("REPRO_DENSE_ROUND_BYTES", "16")
     assert run().engine["engine_name"] == "streamed"
     monkeypatch.delenv("REPRO_DENSE_ROUND_BYTES")
-    with pytest.raises(NotImplementedError, match="repro.robust"):
-        th.HierConfig(robust=object())
+    for H in (th.HierConfig, jh.HierConfig):
+        with pytest.raises(TypeError, match="RobustConfig"):
+            H(robust=object())
     with pytest.raises(ValueError, match="device shards"):
         t_run("x", t_loss, t_apply, tp, tds, cfg,
               th.star_topology(tprof.uniform_fleet(50)), 1, device="cpu")

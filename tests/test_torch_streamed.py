@@ -422,9 +422,12 @@ def test_peak_bytes_equal_the_reference():
     with pytest.raises(ValueError, match="chunk"):
         StreamedRoundEngine(_tt(tmpl_np), SolveConfig(beta=4.0),
                             "contextual", chunk=0)
-    with pytest.raises(NotImplementedError, match="repro.robust"):
-        StreamedRoundEngine(_tt(tmpl_np), SolveConfig(beta=4.0),
-                            "contextual", robust=object())
+    # the robust tier statistics are ported: the engine holds the config,
+    # as the reference's does
+    from repro_torch.robust import RobustConfig
+    rob = RobustConfig(clip=2.0, pool="mom")
+    assert StreamedRoundEngine(_tt(tmpl_np), SolveConfig(beta=4.0),
+                               "contextual", robust=rob).robust is rob
 
 
 # ------------------------------------------------------ whole runs
@@ -557,7 +560,7 @@ def test_streamed_unported_parts_still_raise(problem):
         _t(problem, tcfg, "streamed", rounds=1, mesh=object())
     with pytest.raises(NotImplementedError, match="repro.data.fleetgen"):
         _t(problem, tcfg, "streamed", rounds=1, scheduler_mode="cohort")
-    with pytest.raises(NotImplementedError, match="repro.robust"):
+    with pytest.raises(TypeError, match="RobustConfig"):
         HierConfig(robust=object(), **BASE)
 
 
