@@ -37,7 +37,8 @@ Phases (any failure exits non-zero and prints no result line):
      per call, device µs and host µs to issue a call, beside the
      recounted bound and the old count's; one device kernel a col sketch
      call at K <= 8; the async flush's gram and combine shapes timed
-     too; ``topk``: one device
+     too, and ``gram`` at the fleet's shapes, K = 500, 200 and 2 000 at
+     n = 68 f32, with the host µs to issue a call; ``topk``: one device
      kernel per call at every
      shape of the one-block path; ``gram``'s tensor-core rows also against
      an f64 product beside the plain version's distance from it);
@@ -94,7 +95,29 @@ Phases (any failure exits non-zero and prints no result line):
      within 5e-4 across engines, two card runs of each engine bitwise
      equal, one attacked round of each engine on the card against the
      CPU at 1e-4;
-  8. bigmodel — the reference's full ``transformer_stream`` round
+  8. fleet   — ``benchmarks/torch_fleet_scale.py``'s ``collect()``: the
+     64-device event path on ``materialize()``d shards against the cohort
+     path on the ``VirtualFleetDataset`` (times, both byte totals, arrivals
+     and drops equal, loss gap < 1e-5), then 10³, 10⁴ and 10⁵ devices at 3
+     rounds and 10⁶ at 2 (cohort scheduler, v2 stream, ``cohort_chunk``
+     131 072, ``max(4, N // 500)`` gateways), each held to
+     ``BENCH_fleet.json``'s record (devices a round and both byte totals
+     exactly, ``t_virtual_end`` at rel 1e-12, the loss within 2 %; at 10⁶,
+     which has no record, the devices a round and the device-tier bytes
+     they imply), with ``gram`` on the card on every round at every
+     gateway and the cloud and no plain version; the warm round ms,
+     devices/s, peak allocated memory and the round's spans per record;
+     the shard generation's share of ``client_update``; the device idle
+     share of a warm 10⁵ round (``torch.profiler``); and one 4 096-device
+     cohort round on the card against the same round on the CPU on the
+     card's shards (1e-4), beside how far the two devices' generators
+     differ (max |Δx| within 1e-5 of max |x|, flipped labels);
+  9. scaffold — ``run_scaffold`` at paper-logreg width on the path phase's
+     data, FedAvg then contextual, 8 rounds each: the losses fall, every
+     round launches ``combine`` (and, contextual, ``gram``) on the card and
+     no plain version, round ms; one contextual round on the card against
+     the same round on the CPU at 1e-4;
+  10. bigmodel — the reference's full ``transformer_stream`` round
      (``benchmarks/bigmodel_round.py``: d_model 1024, vocab 8192, 4 layers,
      P = 16, bf16, n = 58 724 352) through the streamed engine: its round
      time, the accumulate pass beside its bound (every one of its 29
@@ -104,7 +127,7 @@ Phases (any failure exits non-zero and prints no result line):
      allocated memory across ``begin_round``, G and C against the plain
      version and against an f64 product, and the round's delta against the
      fused engine's on the same inputs;
-  9. serve   — the continuous-batching ``DecodeEngine`` on the full
+  11. serve  — the continuous-batching ``DecodeEngine`` on the full
      qwen3-14b (40 layers, d_model 5 120, 40/8 heads, bf16, 14.77 B
      parameters from a seeded generator on the card): 4 slots of 256 rows
      serve 8 requests (prompts of 48-200 tokens, 32 or 4 new) with one
@@ -355,6 +378,23 @@ ROBUST_FRAC, ROBUST_ADV_SEED, ROBUST_SCALE = 0.2, 3, 25.0
 ROBUST_PATH_ROUNDS = 4
 # tests/test_robust.py's fused-vs-streamed tolerance under attack + churn
 ROBUST_ENGINE_TOL = 5e-4
+# the fleet phase (benchmarks/torch_fleet_scale.py): its sizes, the rounds of
+# the 10^3-10^5 records and of the 10^6 one, and its gates against
+# BENCH_fleet.json (loss: the port's shards are the same family, not the
+# same bits)
+FLEET_DIM, FLEET_CLASSES = 16, 4
+FLEET_SIZES = (1_000, 10_000, 100_000, 1_000_000)
+FLEET_ROUNDS = 3
+FLEET_1M_ROUNDS = 2
+FLEET_T_RTOL = 1e-12
+FLEET_LOSS_RTOL = 0.02
+FLEET_CPU_DEVICES = 4096
+FLEET_GEN_RTOL = 1e-5     # card vs CPU generation, x max |x| (ulp-level
+                          # differences of the transcendentals)
+SCAFFOLD_ROUNDS = 8
+# gram at the fleet's shapes: a gateway of 500 devices, the cloud over 200
+# (10^5) and 2 000 (10^6) gateways, each at n = 16 x 4 + 4 = 68 f32
+GRAM_FLEET = [(500, 68), (200, 68), (2000, 68)]
 
 
 class SmokeFailure(RuntimeError):
@@ -1682,6 +1722,17 @@ def kernels_phase() -> dict:
     for n_leaf in (784 * 10, 10):
         out["combine"].append(dict(check_combine(5, n_leaf, f32, gen),
                                    set="async"))
+    # gram at the fleet path's shapes (n = 68 f32: gram.cu), a gateway's
+    # 500 members and the cloud over 200 and 2 000 gateways, with the host
+    # time to issue a call beside the event times
+    from repro_torch.kernels import ops
+    for Kf, nf in GRAM_FLEET:
+        Uf = torch.randn((Kf, nf), generator=gen, device="cuda")
+        gf = torch.randn((nf,), generator=gen, device="cuda")
+        rec = check_gram(Kf, nf, f32, gen, body="cuda_core", U=Uf, g=gf)
+        rec["host_ms"] = host_ms(
+            lambda: ops.gram_and_cross(Uf, gf, backend="cuda"), 50)
+        out["gram"].append(dict(rec, set="fleet"))
     out.update(cross_phase_records(gen))
     out["flash_decode"] = decode_phase_records(gen)
     torch.cuda.empty_cache()
@@ -2569,6 +2620,375 @@ def robust_phase(ds, params) -> dict:
     return {"counts": total, "numbers": numbers}
 
 
+# ------------------------------------------------------------------- fleet
+
+def _fleet_bench():
+    """``benchmarks/torch_fleet_scale.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_fleet_scale", ROOT / "benchmarks" / "torch_fleet_scale.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _check_fleet_record(rec: dict, recorded, params) -> None:
+    """The gates of one fleet record: devices a round, the per-tier bytes
+    that follow from it, gram on every round on the card and no plain
+    version; with a ``BENCH_fleet.json`` record, its devices a round and
+    bytes exactly, its virtual end time at rel 1e-12 and its loss within
+    2 %."""
+    import math
+    from repro_torch.edge.wallclock import model_payload_bytes
+    from repro_torch.hier.comm import update_bytes
+    n_dev, rounds = rec["fleet_size"], rec["rounds"]
+    what = f"fleet {n_dev}"
+    need(rec["devices_per_round"] == n_dev,
+         f"{what}: {rec['devices_per_round']} devices a round")
+    need(math.isfinite(rec["final_train_loss"]),
+         f"{what}: loss {rec['final_train_loss']}")
+    n_model = FLEET_DIM * FLEET_CLASSES + FLEET_CLASSES
+    comm = rec["comm"]
+    need(comm["tier_0"]["bytes_down"]
+         == rounds * n_dev * model_payload_bytes(params)
+         and comm["tier_1"]["bytes_up"]
+         == rec["arrived"] * update_bytes(n_model)
+         and rec["arrived"] + rec["dropped"] == rounds * n_dev,
+         f"{what}: device-tier bytes {comm} against {rec['arrived']} "
+         f"arrivals of {rounds * n_dev} tasks")
+    gws = rec["num_gateways"]
+    per_round = [r.get("gram/cuda", 0) for r in rec["launches_by_round"]]
+    need(len(per_round) == rounds and all(g == gws + 1 for g in per_round),
+         f"{what}: gram/cuda launches by round {per_round}, want "
+         f"{gws + 1} each (every gateway and the cloud)")
+    plain = {k: v for k, v in rec["launches"].items() if k.endswith("/torch")}
+    need(not plain, f"{what}: plain versions ran: {plain}")
+    if recorded is None:
+        return
+    for key in ("devices_per_round", "cloud_uplink_bytes", "total_bytes"):
+        need(rec[key] == recorded[key],
+             f"{what}: {key} {rec[key]} != BENCH_fleet.json's {recorded[key]}")
+    rel_t = abs(rec["t_virtual_end"] - recorded["t_virtual_end"]) / abs(
+        recorded["t_virtual_end"])
+    need(rel_t <= FLEET_T_RTOL, f"{what}: t_virtual_end {rec['t_virtual_end']}"
+         f" vs {recorded['t_virtual_end']} (rel {rel_t:.3e})")
+    rel_l = abs(rec["final_train_loss"] - recorded["final_train_loss"]) / abs(
+        recorded["final_train_loss"])
+    need(rel_l <= FLEET_LOSS_RTOL, f"{what}: loss {rec['final_train_loss']} "
+         f"vs {recorded['final_train_loss']} (rel {rel_l:.3e})")
+
+
+def _log_fleet_record(rec: dict, recorded) -> None:
+    sp = rec["spans_ms"]
+    ref = ("" if recorded is None else
+           f" (BENCH_fleet.json: loss {recorded['final_train_loss']:.6f}, "
+           f"cloud uplink {recorded['cloud_uplink_bytes']:.0f} B, total "
+           f"{recorded['total_bytes']:.0f} B, t_virtual_end "
+           f"{recorded['t_virtual_end']!r})")
+    log(f"fleet {rec['fleet_size']:>8d} devices, {rec['num_gateways']} "
+        f"gateways, {rec['rounds']} rounds: loss {rec['final_train_loss']:.6f}"
+        f", cloud uplink {rec['cloud_uplink_bytes']:.0f} B, total "
+        f"{rec['total_bytes']:.0f} B, t_virtual_end {rec['t_virtual_end']!r}"
+        f"{ref}")
+    log(f"fleet {rec['fleet_size']:>8d}: warm round "
+        f"{rec['warm_round_wall_time_ms']:.1f} ms (first "
+        f"{rec['compile_wall_time_s'] * 1e3:.1f}), "
+        f"{rec['devices_per_s']:.0f} devices/s, peak allocated "
+        f"{rec['peak_allocated_gb']:.3f} GB; warm spans ms: client_update "
+        f"{sp['client_update']:.1f}, begin_round {sp['begin_round']:.1f}, "
+        f"event_loop {sp['event_loop']:.1f} (gateway {sp['gateway']:.1f}, "
+        f"merge {sp['merge']:.1f}, cloud {sp['cloud']:.1f}), round "
+        f"{sp['round']:.1f}, eval (last round) {sp['eval']:.1f}; "
+        f"launches {rec['launches']}")
+
+
+def fleet_shard_share(bench, n_ids: int, device: str = "cuda") -> dict:
+    """CUDA-event ms of generating ``n_ids`` shards and of the local SGD on
+    them (``client_update``, the path's step budget and batch), the
+    generation's share of the two, median of five."""
+    import torch
+    from repro_torch.fl.client import client_update, draw_batch_indices
+    from repro_torch.models.logistic import logistic_loss
+    ds = bench._dataset(FLEET_SIZES[-1])
+    shard = ds.shard_fn(device)
+    ids = torch.arange(n_ids, device=device) * 7 % ds.num_devices
+    params = bench._params(device)
+    cfg = bench._cfg()
+    steps = cfg.max_epochs * max(ds.samples_per_device // cfg.batch_size, 1)
+    x, y, mask = shard(ids)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    idx = draw_batch_indices(mask, steps, cfg.batch_size, gen)
+    ns = torch.full((n_ids,), steps, device=device)
+    gen_ms = _event_ms(lambda: shard(ids), 5)
+    sgd_ms = _event_ms(lambda: client_update(
+        logistic_loss, params, x, y, mask, ns, idx, lr=cfg.lr), 5)
+    g, s = statistics.median(gen_ms), statistics.median(sgd_ms)
+    return {"ids": n_ids, "shard_ms": g, "sgd_ms": s,
+            "shard_share": g / (g + s)}
+
+
+def fleet_idle_share(bench, params, n_dev: int) -> dict:
+    """One warm one-round run at ``n_dev`` devices: its host time (a run
+    between two synchronisations) against the device busy time of the same
+    run under ``torch.profiler`` (``_device_rows``: a warm-up call, then
+    one in the profiler's warm-up cycle, then the recorded one)."""
+    import torch
+    run = lambda: bench.run_fleet(n_dev, 1, params)  # noqa: E731
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3
+    rows = _device_rows(run, 1)
+    busy = sum(_device_us(e) for e in rows) / 1e3
+    top = sorted(rows, key=_device_us, reverse=True)[:5]
+    return {"devices": n_dev, "host_ms": host, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / host,
+            "kernels": sum(e.count for e in rows),
+            "top_kernels_ms": {e.key[:60]: _device_us(e) / 1e3 for e in top}}
+
+
+def fleet_round_vs_cpu(bench, params, device: str = "cuda") -> dict:
+    """One ``FLEET_CPU_DEVICES``-device cohort round on the card against
+    the same round on the CPU: the CPU run takes the card's generated
+    shards as a ``FederatedDataset`` and both take the same mini-batch
+    indices (a CPU generator through ``batch_indices``).  Beside it, the
+    CPU's own generation of the same shards: max |Δx| and flipped labels."""
+    import numpy as np
+    import torch
+    from repro_torch.core.flatten import tree_map, tree_to_vector
+    from repro_torch.data import FederatedDataset
+    from repro_torch.edge import array_bimodal_fleet
+    from repro_torch.fl import run_hier_simulation
+    from repro_torch.fl.client import draw_batch_indices
+    from repro_torch.hier import stacked_two_tier
+    from repro_torch.models.logistic import logistic_apply, logistic_loss
+    n_dev = FLEET_CPU_DEVICES
+    ds = bench._dataset(n_dev)
+    cfg = bench._cfg()
+    topo = stacked_two_tier(array_bimodal_fleet(n_dev), max(4, n_dev // 500))
+    ids = np.arange(n_dev)
+    gx, gy, gm = ds.materialize_arrays(ids, device)
+    cx, cy, _ = ds.materialize_arrays(ids, "cpu")
+    dx = float(np.abs(gx - cx).max())
+    flips = int((gy != cy).sum())
+    tx, ty = ds.test_set(device)
+    fed = FederatedDataset(gx, gy, gm, tx, ty, ds.num_classes)
+
+    def batch_indices(t, part_dev, max_steps):
+        gen = torch.Generator()
+        gen.manual_seed(1000 + t)
+        return draw_batch_indices(torch.ones((len(part_dev),
+                                              ds.samples_per_device)),
+                                  max_steps, cfg.batch_size, gen)
+    outs = {}
+    for dev, data in ((device, ds), ("cpu", fed)):
+        got = []
+        r = run_hier_simulation(
+            "vs_cpu", logistic_loss, logistic_apply,
+            tree_map(lambda p: p.to(dev), params), data, cfg, topo, 1,
+            selection_seed=bench.SEED, scheduler_mode="cohort",
+            rng_stream="v2", device=dev, batch_indices=batch_indices,
+            publish_fn=lambda t, p: got.append(tree_to_vector(p).cpu()))
+        need(len(got) == 1, "the fleet card-vs-CPU round was skipped")
+        outs[dev] = (got[0], r)
+    (card, r_card), (cpu, r_cpu) = outs[device], outs["cpu"]
+    rel = _max_err(card, cpu) / _scale(cpu)
+    loss_rel = abs(r_card.train_loss[0] - r_cpu.train_loss[0]) / abs(
+        r_cpu.train_loss[0])
+    need(r_card.times == r_cpu.times,
+         "fleet card vs CPU: virtual times differ")
+    return {"devices": n_dev, "params_rel_err": rel, "loss_rel_err": loss_rel,
+            "shard_max_abs_dx": dx, "max_abs_x": float(np.abs(cx).max()),
+            "label_flips": flips, "labels": int(cy.size)}
+
+
+def fleet_phase() -> dict:
+    """``benchmarks/torch_fleet_scale.py``'s ``collect()`` on the card,
+    held to ``BENCH_fleet.json``; then the shard-generation share, the idle
+    share of a warm 10⁵ round and a 4 096-device round card vs CPU.
+    Returns the launch counts of the sweep's runs, summed."""
+    import torch
+    bench = _fleet_bench()
+    need((bench.DIM, bench.CLASSES, bench.QUICK_SIZES, bench.COHORT_CHUNK)
+         == (FLEET_DIM, FLEET_CLASSES, FLEET_SIZES[:-1], 131_072),
+         "benchmarks/torch_fleet_scale.py's sizes moved")
+    recorded = {r["fleet_size"]: r for r in json.loads(
+        (ROOT / "BENCH_fleet.json").read_text())["records"]
+        if r["scenario"] == "fleet"}
+    need(set(recorded) == set(FLEET_SIZES[:-1]),
+         f"BENCH_fleet.json's fleet sizes {sorted(recorded)}")
+    t0 = time.perf_counter()
+    out = bench.collect(FLEET_ROUNDS, quick=False, device="cuda",
+                        full_rounds=FLEET_1M_ROUNDS)
+    log(f"fleet: collect() in {time.perf_counter() - t0:.1f} s")
+    eq, recs = out["records"][0], out["records"][1:]
+    log(f"fleet equivalence_64: loss gap vs the event path "
+        f"{eq['loss_gap_vs_event']!r} (0.0 expected, gate 1e-5), times equal "
+        f"{eq['times_equal_event_path']}, bytes equal "
+        f"{eq['bytes_equal_event_path']}, arrivals equal "
+        f"{eq['counts_equal_event_path']}, final loss "
+        f"{eq['final_train_loss']:.6f}, cloud uplink "
+        f"{eq['cloud_uplink_bytes']:.0f} B (BENCH_fleet.json: 18896)")
+    need(eq["times_equal_event_path"] and eq["bytes_equal_event_path"]
+         and eq["counts_equal_event_path"]
+         and eq["loss_gap_vs_event"] < 1e-5,
+         f"fleet equivalence_64 failed: {eq}")
+    need([r["fleet_size"] for r in recs] == list(FLEET_SIZES)
+         and recs[-1]["rounds"] == FLEET_1M_ROUNDS,
+         f"fleet sweep sizes {[(r['fleet_size'], r['rounds']) for r in recs]}")
+    params = bench._params("cuda")
+    counts = {}
+    for rec in recs:
+        ref = recorded.get(rec["fleet_size"])
+        _log_fleet_record(rec, ref)
+        _check_fleet_record(rec, ref, params)
+        for k, v in rec["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    shares = [fleet_shard_share(bench, n) for n in (100_000, 131_072)]
+    for sh in shares:
+        log(f"fleet shard generation: {sh['ids']} shards {sh['shard_ms']:.2f}"
+            f" ms, their local SGD {sh['sgd_ms']:.2f} ms: generation "
+            f"{sh['shard_share'] * 100:.1f} % of client_update")
+    idle = fleet_idle_share(bench, params, 100_000)
+    log(f"fleet idle share, one warm 100000-device round (a one-round run: "
+        f"round, eval and set-up): host {idle['host_ms']:.1f} ms, device "
+        f"busy {idle['device_busy_ms']:.1f} ms over {idle['kernels']} "
+        f"kernels: idle {idle['idle_share'] * 100:.1f} %; top kernels ms "
+        f"{ {k: round(v, 3) for k, v in idle['top_kernels_ms'].items()} }")
+    vs = fleet_round_vs_cpu(bench, params)
+    log(f"fleet card vs CPU, one {vs['devices']}-device cohort round on the "
+        f"card's shards: params rel err {vs['params_rel_err']:.3e}, loss rel "
+        f"err {vs['loss_rel_err']:.3e} (tolerance 1e-4); the two devices' "
+        f"generators: max |dx| {vs['shard_max_abs_dx']:.3e} of max |x| "
+        f"{vs['max_abs_x']:.3f} (gate {FLEET_GEN_RTOL:g} x max |x|), "
+        f"{vs['label_flips']} of {vs['labels']} labels flip")
+    need(vs["params_rel_err"] <= 1e-4 and vs["loss_rel_err"] <= 1e-4,
+         f"fleet card round disagrees with the CPU round: {vs}")
+    need(vs["shard_max_abs_dx"] <= FLEET_GEN_RTOL * vs["max_abs_x"],
+         f"fleet shards differ between the card and the CPU: {vs}")
+    torch.cuda.empty_cache()
+    return {"counts": counts, "numbers": {
+        "equivalence_64": eq,
+        "records": [{k: v for k, v in r.items() if k not in (
+            "spans_ms_by_round", "launches_by_round")} for r in recs],
+        "shard_share": shares, "idle": idle, "vs_cpu": vs}}
+
+
+# ---------------------------------------------------------------- scaffold
+
+def scaffold_round_vs_cpu(ds, params, agg: str = "contextual",
+                          device: str = "cuda") -> float:
+    """One SCAFFOLD round on the card against the same round on the CPU,
+    from the same state (variates drawn from a CPU generator) and with the
+    same mini-batch indices; max |Δ| of the new params and c_global,
+    relative to their max."""
+    import numpy as np
+    import torch
+    from repro_torch.core.flatten import tree_map, tree_to_vector
+    from repro_torch.fl import (ScaffoldState, ServerConfig,
+                                build_scaffold_round_fn, sample_round)
+    from repro_torch.fl.client import draw_batch_indices
+    from repro_torch.models.logistic import logistic_loss
+    cfg = ServerConfig(aggregator=agg, **PATH_CFG)
+    m = ds.samples_per_device
+    spe = max(m // cfg.batch_size, 1)
+    sel, _, num_steps = sample_round(np.random.RandomState(7), cfg, spe)
+    gen = torch.Generator()
+    gen.manual_seed(7)
+    idx = draw_batch_indices(torch.as_tensor(ds.mask)[torch.as_tensor(
+        sel, dtype=torch.long)], cfg.max_epochs * spe, cfg.batch_size, gen)
+    cpu_params = tree_map(lambda p: p.detach().cpu(), params)
+    c_g = tree_map(lambda p: 0.01 * torch.randn(p.shape, generator=gen),
+                   cpu_params)
+    c_l = tree_map(lambda p: 0.01 * torch.randn(
+        (cfg.num_devices,) + tuple(p.shape), generator=gen), cpu_params)
+    news = []
+    for dev in (device, "cpu"):
+        to = lambda t: tree_map(lambda a: a.to(dev), t)  # noqa: E731
+        data = (torch.as_tensor(ds.x, device=dev),
+                torch.as_tensor(ds.y, dtype=torch.long, device=dev),
+                torch.as_tensor(ds.mask, device=dev))
+        fn = build_scaffold_round_fn(logistic_loss, cfg, m, device=dev)
+        new, _ = fn(ScaffoldState(to(cpu_params), to(c_g), to(c_l), 0), data,
+                    sel, num_steps, batch_idx=idx.to(dev))
+        news.append(torch.cat([tree_to_vector(new.params).cpu(),
+                               tree_to_vector(new.c_global).cpu()]))
+    return _max_err(news[0], news[1]) / _scale(news[1])
+
+
+def scaffold_phase(ds, params, device: str = "cuda") -> dict:
+    """``run_scaffold`` at paper-logreg width on the path phase's data:
+    FedAvg then contextual, ``SCAFFOLD_ROUNDS`` rounds each; returns the
+    launch counts, summed."""
+    import numpy as np
+    import torch
+    from repro_torch.fl import ServerConfig, run_scaffold
+    from repro_torch.fl.client import draw_batch_indices
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.logistic import logistic_apply, logistic_loss
+    from repro_torch.obs import InMemoryTracker, use_tracker
+    log(f"scaffold: paper-logreg, {ds.num_devices} devices, K="
+        f"{PATH_CFG['clients_per_round']}, {SCAFFOLD_ROUNDS} rounds each")
+    total, out = {}, {}
+    for agg in ("fedavg", "contextual"):
+        cfg = ServerConfig(aggregator=agg, **PATH_CFG)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(42)
+        snaps = []
+
+        def batches(t, sel, max_steps):
+            # called as each round starts: the counts so far close the
+            # previous round
+            snaps.append(launch_counts())
+            mask = torch.as_tensor(ds.mask, device=device)[torch.as_tensor(
+                sel, dtype=torch.long, device=device)]
+            return draw_batch_indices(mask, max_steps, cfg.batch_size, gen)
+        tracker = InMemoryTracker()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with use_tracker(tracker):
+            res = run_scaffold(agg, logistic_loss, logistic_apply, params, ds,
+                               cfg, num_rounds=SCAFFOLD_ROUNDS,
+                               selection_seed=42, batch_indices=batches,
+                               device=device)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        snaps = snaps[1:] + [counts]
+        round_ms = _round_ms(tracker)
+        need(np.isfinite(res.train_loss).all()
+             and res.train_loss[-1] < res.train_loss[0],
+             f"scaffold {agg}: losses {res.train_loss}")
+        ops = ("gram", "combine") if agg == "contextual" else ("combine",)
+        prev = {k: 0 for k in counts}
+        for t, snap in enumerate(snaps):
+            for op in ops:
+                need(snap[f"{op}/cuda"] > prev[f"{op}/cuda"],
+                     f"scaffold {agg}: round {t} launched no {op}/cuda")
+            prev = snap
+        plain = {k: v for k, v in counts.items() if k.endswith("/torch") and v}
+        need(not plain, f"scaffold {agg}: plain versions ran: {plain}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        out[agg] = {"loss": res.train_loss, "acc": res.test_acc,
+                    "volatility": res.loss_volatility(), "round_ms": round_ms,
+                    "launches": {k: v for k, v in counts.items() if v}}
+        log(f"scaffold {agg:10s} loss {res.train_loss[0]:.4f} -> "
+            f"{res.train_loss[-1]:.4f}  acc {res.test_acc[-1]:.4f}  "
+            f"volatility {res.loss_volatility():.4f}  round ms median "
+            f"{statistics.median(round_ms):.2f} (first {round_ms[0]:.2f}, all "
+            f"{[round(r, 2) for r in round_ms]})  launches "
+            f"{out[agg]['launches']}")
+    rel = scaffold_round_vs_cpu(ds, params, device=device)
+    log(f"scaffold: one contextual round, card vs CPU, max rel err of the new "
+        f"params and c_global {rel:.3e} (tolerance 1e-4)")
+    need(rel <= 1e-4, f"scaffold card round disagrees with the CPU: {rel:.3e}")
+    out["vs_cpu"] = rel
+    return {"counts": total, "numbers": out}
+
+
 # ---------------------------------------------------------------- bigmodel
 
 def transformer_stacked(gen):
@@ -3417,11 +3837,15 @@ def main() -> int:
         hier_counts = on_cuda_core("hier", hier_phase, ds, params)
         streamed_counts = on_cuda_core("streamed", streamed_phase, ds, params)
         robusted = on_cuda_core("robust", robust_phase, ds, params)
+        fleeted = on_cuda_core("fleet", fleet_phase)
+        scaffolded = on_cuda_core("scaffold", scaffold_phase, ds, params)
         big = on_cuda_core("bigmodel", bigmodel_phase)
         served = on_cuda_core("serve", serve_phase)
         by_path = {"sync": sync_counts, "async": asynced["counts"],
                    "hier": hier_counts,
                    "streamed": streamed_counts, "robust": robusted["counts"],
+                   "fleet": fleeted["counts"],
+                   "scaffold": scaffolded["counts"],
                    "bigmodel": big["counts"], "serve": served["counts"]}
         for path, counts in by_path.items():
             need(gram_bodies[path]["cuda_core"] >= counts.get("gram/cuda", 0),
@@ -3497,6 +3921,8 @@ def main() -> int:
     entries[names.index("gram")]["async"] = async_numbers["flush_kernels"][
         "gram"]
     entries[names.index("gram_block")]["robust"] = robusted["numbers"]
+    entries[names.index("gram")]["fleet"] = fleeted["numbers"]
+    entries[names.index("gram")]["scaffold"] = scaffolded["numbers"]
     entries[names.index("stream_stats")]["bigmodel"] = {
         k: v for k, v in big.items() if k != "counts"}
     entries[names.index("flash_decode")]["serve"] = {

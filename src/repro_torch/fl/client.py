@@ -17,11 +17,16 @@ The draw is separate so a caller can hand in a ``(K, max_steps, batch)``
 index tensor instead — the tests replay the reference's ``jax.random``
 stream that way.
 
+:func:`cohort_update` is the fleet-scale form: the cohort's shards are
+generated on the card from device ids (``data.fleetgen``), chunk by chunk,
+and each chunk runs ``client_update`` against the cohort's index tensor,
+drawn once for the whole cohort.
+
 Loss functions follow ``loss_fn(params, (x, y, sample_weight)) -> scalar``.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 from torch.func import grad, vmap
@@ -100,3 +105,29 @@ def client_update(loss_fn: Callable, global_params: Tree, x: torch.Tensor,
     deltas = tree_map(lambda p, g0: p - g0, params, global_params)
     first_grads = stacked_grad(loss_fn)(stacked_global, (x, y, mask))
     return deltas, first_grads
+
+
+def cohort_update(loss_fn: Callable, global_params: Tree, shard: Callable,
+                  device_ids: torch.Tensor, num_steps: torch.Tensor,
+                  batch_idx: torch.Tensor, *, lr: float, mu: float = 0.0,
+                  chunk: Optional[int] = None) -> Tuple[Tree, Tree]:
+    """``client_update`` over a virtual cohort: ``shard(ids) -> (x, y,
+    mask)`` generates the shards of ``device_ids (P,)`` on their device.
+    With ``chunk`` set, at most ``chunk`` shards exist at once: each slice
+    of ids, step budgets and ``batch_idx (P, max_steps, batch)`` trains on
+    its own and the stacked results are concatenated.  The indices come in
+    drawn for the whole cohort, so a device trains on the same batches
+    whatever the chunking."""
+    P = int(device_ids.shape[0])
+    step = P if chunk is None or P <= chunk else int(chunk)
+    parts = []
+    for s in range(0, P, step):
+        x, y, mask = shard(device_ids[s:s + step])
+        parts.append(client_update(loss_fn, global_params, x, y, mask,
+                                   num_steps[s:s + step],
+                                   batch_idx[s:s + step], lr=lr, mu=mu))
+        del x, y, mask
+    if len(parts) == 1:
+        return parts[0]
+    return tuple(tree_map(lambda *c: torch.cat(c), *[p[i] for p in parts])
+                 for i in range(2))

@@ -29,6 +29,10 @@ launch the ``gram`` kernel on the card, or, for models too wide for dense
 (P, n) round matrices, on the streamed engine (``repro_torch.hier.streamed``:
 the ``stream_stats`` kernel per leaf slab, ``combine`` for the apply);
 compressed summaries go through the ``topk`` and ``sign_sketch`` kernels.
+At fleet scale (10⁵-10⁶ devices a round) a ``VirtualFleetDataset``'s shards
+are generated on the card inside the cohort pass
+(``fl.client.cohort_update``), and ``scheduler_mode="cohort"`` settles the
+whole cohort from one vectorized dispatch with no per-device events.
 Its spans are ``round`` > ``client_update``, ``begin_round``,
 ``event_loop`` > ``gateway`` / ``merge`` / ``cloud``, and ``eval``, as in
 the reference.
@@ -479,6 +483,8 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
                         attack=None, churn=None,
                         scheduler_mode: str = "auto",
                         rng_stream: str = "v1",
+                        eval_device_cap: int = 4096,
+                        cohort_chunk: Optional[int] = None,
                         publish_fn: Optional[Callable[[int, Tree], None]]
                         = None,
                         batch_generator: Optional[torch.Generator] = None,
@@ -488,7 +494,7 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
     """Synchronous rounds over a multi-tier topology (``cfg`` a
     :class:`repro_torch.hier.HierConfig`, ``topology`` a
     :class:`repro_torch.hier.Topology`), as
-    ``repro.fl.simulation.run_hier_simulation`` in event-scheduler mode.
+    ``repro.fl.simulation.run_hier_simulation``.
 
     Per round the model broadcast flows down the backhaul links, every
     gateway's (fan-in-sampled) devices train at profile speed, each
@@ -519,9 +525,23 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
     (a :class:`repro_torch.robust.ChurnSchedule`) rides on the event
     scheduler, and ``cfg.robust`` hardens the tier solves of either engine.
 
-    Not ported yet, each raising ``NotImplementedError``: the cohort
-    scheduler (``scheduler_mode="cohort"``, or ``"auto"`` at 4096
-    participants), ``VirtualFleetDataset`` and ``mesh``.
+    Fleet scale.  ``topology`` may be a
+    :class:`repro_torch.hier.StackedTopology` (no per-device nodes) and
+    ``dataset`` a :class:`repro_torch.data.VirtualFleetDataset`: the
+    round's shards are generated on ``device`` from the participants' ids
+    (``fl.client.cohort_update``), at most ``cohort_chunk`` of them at a
+    time, and the loss is evaluated over ``eval_device_ids(N,
+    eval_device_cap)`` (every device when the fleet fits the cap).
+    ``scheduler_mode``: ``"event"`` — one event per device task;
+    ``"cohort"`` — one vectorized batch dispatch with no per-device events,
+    each gateway completing at its members' latest terminal time, gateways
+    taken in completion order and only the backhaul transfers drained as
+    events (virtual times equal the event path's on two-tier trees;
+    incompatible with ``CompressConfig(device_uplink=True)``); ``"auto"``
+    — cohort from 4096 participants a round, else event.  ``rng_stream``
+    picks the scheduler's draws (``"v1"`` sequential, ``"v2"``
+    counter-based).  ``mesh`` is not ported yet and raises
+    ``NotImplementedError``.
 
     ``publish_fn(round, params)`` is called with each round's aggregated
     params the moment the cloud stage applies them; skipped rounds publish
@@ -532,7 +552,8 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
     devices can train on the same batches.  ``batch_indices(round,
     part_dev, max_steps)``, if given, returns them outright as a
     ``(P, max_steps, batch_size)`` tensor for the round's participants
-    ``part_dev`` (the tests replay the reference's draws that way).
+    ``part_dev`` (the tests replay the reference's draws that way).  Both
+    are drawn once for the whole cohort, before any chunking.
     """
     from ..compress import ErrorFeedback, payload_gram
     from ..edge.events import EventKind, EventScheduler
@@ -543,16 +564,14 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
     from ..hier.gateway import CompressedSummary, GatewaySummary
     from ..hier.hier_server import blockdiag_diagnostics
     from ..hier.streamed import StreamedRoundEngine, dense_round_bytes
-    from .client import client_update, draw_batch_indices
+    from .client import client_update, cohort_update, draw_batch_indices
 
     if mesh is not None:
         raise _not_ported("mesh sharding",
                           "repro.sharding / repro.core.distributed")
-    if getattr(dataset, "virtual", False):
-        raise _not_ported("VirtualFleetDataset (fleet scale)",
-                          "repro.data.fleetgen")
     dev = resolve_device(device)
     fleet = topology.fleet
+    virtual = bool(getattr(dataset, "virtual", False))
     if dataset.num_devices < fleet.num_devices:
         raise ValueError(f"dataset has {dataset.num_devices} device shards, "
                          f"topology needs {fleet.num_devices}")
@@ -562,6 +581,11 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
     # noise from a generator of the adversary's own
     malicious = np.asarray(sorted(getattr(fleet, "malicious", ())), np.int64)
     if attack is not None and attack.corrupts_data and malicious.size:
+        if virtual:
+            raise ValueError(
+                "data-poisoning attacks need materialized shards; a "
+                "VirtualFleetDataset generates data inside the cohort pass "
+                "(materialize() a subset, or use an update-space attack)")
         from ..robust.attacks import poison_labels
         dataset = poison_labels(dataset, malicious)
     live_attack = (attack if attack is not None
@@ -572,11 +596,23 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
     steps_per_epoch = max(dataset.samples_per_device // cfg.batch_size, 1)
     max_steps = cfg.max_epochs * steps_per_epoch
     params = tree_map(lambda a: torch.as_tensor(a, device=dev), init_params)
-    x = torch.as_tensor(dataset.x, device=dev)
-    y = torch.as_tensor(dataset.y, dtype=torch.long, device=dev)
-    mask = torch.as_tensor(dataset.mask, device=dev)
-    test_x = torch.as_tensor(dataset.test_x, device=dev)
-    test_y = torch.as_tensor(dataset.test_y, dtype=torch.long, device=dev)
+    if virtual:
+        # the loss over a capped, evenly-strided subsample generated on the
+        # card: exact whenever the fleet fits the cap
+        from ..data.fleetgen import eval_device_ids
+        shard = dataset.shard_fn(dev)
+        x, y, mask = dataset.materialize_arrays(
+            eval_device_ids(fleet.num_devices, eval_device_cap), dev)
+        test_x, test_y = dataset.test_set(dev)
+        ones = torch.ones((1, dataset.samples_per_device), device=dev)
+    else:
+        x, y, mask = dataset.x, dataset.y, dataset.mask
+        test_x, test_y = dataset.test_x, dataset.test_y
+    x = torch.as_tensor(x, device=dev)
+    y = torch.as_tensor(y, dtype=torch.long, device=dev)
+    mask = torch.as_tensor(mask, device=dev)
+    test_x = torch.as_tensor(test_x, device=dev)
+    test_y = torch.as_tensor(test_y, dtype=torch.long, device=dev)
     gen = batch_generator
     if gen is None:
         gen = torch.Generator(device=dev)
@@ -630,10 +666,6 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
                              "CompressConfig(device_uplink=True): per-arrival "
                              "error feedback needs per-device events")
         cohort_mode = False
-    if cohort_mode:
-        raise _not_ported(f"the cohort scheduler ({P_round} participants)",
-                          "repro.fl.simulation, scheduler_mode='cohort', "
-                          "with repro.data.fleetgen")
     if engine == "streamed":
         eng = StreamedRoundEngine(params, solve_cfg, tier_mode,
                                   cfg.gram_scope, chunk=stream_chunk,
@@ -681,6 +713,8 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
                                                       replace=False))
                     groups.append(devs)
                 gw_sizes = np.asarray([len(g) for g in groups], np.int64)
+                gw_start = np.zeros(len(groups), np.int64)
+                np.cumsum(gw_sizes[:-1], out=gw_start[1:])
                 part_dev = np.concatenate(groups)
                 P = int(part_dev.size)
                 epochs = sel_rng.randint(cfg.min_epochs, cfg.max_epochs + 1,
@@ -688,7 +722,8 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
                 num_steps = (epochs * steps_per_epoch).astype(np.int32)
 
                 # -- downlink broadcast, then one batched dispatch at each
-                # gateway's model arrival
+                # gateway's model arrival (no per-device events in cohort
+                # mode)
                 down_delay = np.zeros(len(gateways))
                 for gi, gw in enumerate(gateways):
                     delay = 0.0
@@ -698,14 +733,16 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
                         delay += dl
                     down_delay[gi] = delay
                 ledger.record_down(0, mbytes, count=P)
-                scheduler.dispatch_batch(
+                batch = scheduler.dispatch_batch(
                     part_dev, num_steps, version=t,
-                    at=round_start + np.repeat(down_delay, gw_sizes))
+                    at=round_start + np.repeat(down_delay, gw_sizes),
+                    enqueue=not cohort_mode)
 
-                # -- local training of the whole cohort (batched over P)
+                # -- local training of the whole cohort (batched over P; a
+                # virtual cohort's shards are generated here, by chunks)
                 with spans.span("client_update", participants=P):
                     sel = torch.as_tensor(part_dev, device=dev)
-                    cm = mask[sel]
+                    cm = ones.expand(P, -1) if virtual else mask[sel]
                     if batch_indices is None:
                         batch_idx = draw_batch_indices(
                             cm.to(gen.device), max_steps, cfg.batch_size,
@@ -719,11 +756,16 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
                                 f"batch_indices returned "
                                 f"{tuple(batch_idx.shape)}, want "
                                 f"{(P, max_steps, cfg.batch_size)}")
-                    deltas, grads = client_update(
-                        loss_fn, params, x[sel], y[sel], cm,
-                        torch.as_tensor(num_steps, dtype=torch.long,
-                                        device=dev),
-                        batch_idx, lr=cfg.lr, mu=cfg.mu)
+                    steps_t = torch.as_tensor(num_steps, dtype=torch.long,
+                                              device=dev)
+                    if virtual:
+                        deltas, grads = cohort_update(
+                            loss_fn, params, shard, sel, steps_t, batch_idx,
+                            lr=cfg.lr, mu=cfg.mu, chunk=cohort_chunk)
+                    else:
+                        deltas, grads = client_update(
+                            loss_fn, params, x[sel], y[sel], cm, steps_t,
+                            batch_idx, lr=cfg.lr, mu=cfg.mu)
                 mal_rows = np.isin(part_dev, malicious)
                 if live_attack is not None and mal_rows.any():
                     from ..robust.attacks import corrupt_stacked
@@ -754,13 +796,15 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
                 ghat_global = None
                 cloud_done = False
                 round_info: Dict[str, Any] = {}
-                idx_of = np.full(fleet.num_devices, -1, np.int64)
-                idx_of[part_dev] = np.arange(P)
-                part_gw = np.repeat(np.arange(len(gateways)), gw_sizes)
-                out_dev = {gw.node_id: int(gw_sizes[gi])
-                           for gi, gw in enumerate(gateways)}
-                survivors: Dict[int, List[int]] = {
-                    gw.node_id: [] for gw in gateways}
+                if not cohort_mode:
+                    # device id -> cohort row / gateway index
+                    idx_of = np.full(fleet.num_devices, -1, np.int64)
+                    idx_of[part_dev] = np.arange(P)
+                    part_gw = np.repeat(np.arange(len(gateways)), gw_sizes)
+                    out_dev = {gw.node_id: int(gw_sizes[gi])
+                               for gi, gw in enumerate(gateways)}
+                    survivors: Dict[int, List[int]] = {
+                        gw.node_id: [] for gw in gateways}
 
                 def send_up(kind, node, payload, nbytes):
                     parent = topology.nodes[node.parent]
@@ -990,45 +1034,79 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
                         if out_sum[pid] == 0:
                             on_sum_complete(pid)
 
-                max_events = 8 * (P + len(topology.nodes)) + 64
-                with spans.span("event_loop"):
-                    for _ in range(max_events):
-                        if cloud_done:
-                            break
-                        evt = scheduler.pop()
-                        if evt is None:
-                            raise RuntimeError(f"round {t}: event queue "
-                                               "exhausted before the cloud "
-                                               "completed")
-                        if evt.seq in meta:      # backhaul transfer arrival
+                if cohort_mode:
+                    # -- cohort device phase, no per-device events: each
+                    # gateway completes at its members' latest terminal time
+                    # (dropouts still gate it); gateways are settled in
+                    # completion order, then the backhaul transfers drain
+                    # as events (the clock may rewind to transfers that
+                    # earlier gateways scheduled)
+                    max_events = 8 * len(topology.nodes) + 64
+                    with spans.span("event_loop"):
+                        t_complete = np.maximum.reduceat(batch.t_end, gw_start)
+                        for gi in np.argsort(t_complete, kind="stable"):
+                            scheduler.advance_to(float(t_complete[gi]))
+                            s0 = int(gw_start[gi])
+                            e0 = s0 + int(gw_sizes[gi])
+                            alive = s0 + np.flatnonzero(~batch.dropped[s0:e0])
+                            result.arrived += int(alive.size)
+                            result.dropped += e0 - s0 - int(alive.size)
+                            gid = gateways[int(gi)].node_id
+                            ledger.record_up(topology.nodes[gid].tier,
+                                             update_bytes(n_model),
+                                             count=int(alive.size))
+                            gateway_done(gid, alive)
+                        scheduler.complete_batch(batch)
+                        for _ in range(max_events):
+                            if cloud_done:
+                                break
+                            evt = scheduler.pop()
+                            if evt is None or evt.seq not in meta:
+                                raise RuntimeError(
+                                    f"round {t}: non-transfer event in the "
+                                    "cohort drain")
                             on_transfer(*meta.pop(evt.seq))
-                            continue
-                        pi = int(idx_of[evt.device_id])   # device terminal
-                        gid = gateways[int(part_gw[pi])].node_id
-                        if evt.kind == EventKind.ARRIVAL:
-                            survivors[gid].append(pi)
-                            result.arrived += 1
-                            if compressing and compress_devices:
-                                # per-device error feedback on BOTH streams
-                                # (the solves consume the gradient too)
-                                comp_d, vhat = ef.step(
-                                    ("dev", evt.device_id), ctx.D[pi],
-                                    comp_u_c, seed=t)
-                                comp_dg, ghat = ef.step(
-                                    ("devg", evt.device_id), ctx.GM[pi],
-                                    comp_g_c, seed=t)
-                                ctx.add_decoded_row(pi, vhat, ghat)
-                                ledger.record_up(
-                                    topology.nodes[gid].tier,
-                                    comp_d.nbytes + comp_dg.nbytes)
+                else:
+                    max_events = 8 * (P + len(topology.nodes)) + 64
+                    with spans.span("event_loop"):
+                        for _ in range(max_events):
+                            if cloud_done:
+                                break
+                            evt = scheduler.pop()
+                            if evt is None:
+                                raise RuntimeError(f"round {t}: event queue "
+                                                   "exhausted before the "
+                                                   "cloud completed")
+                            if evt.seq in meta:  # backhaul transfer arrival
+                                on_transfer(*meta.pop(evt.seq))
+                                continue
+                            pi = int(idx_of[evt.device_id])  # device terminal
+                            gid = gateways[int(part_gw[pi])].node_id
+                            if evt.kind == EventKind.ARRIVAL:
+                                survivors[gid].append(pi)
+                                result.arrived += 1
+                                if compressing and compress_devices:
+                                    # per-device error feedback on BOTH
+                                    # streams (the solves consume the
+                                    # gradient too)
+                                    comp_d, vhat = ef.step(
+                                        ("dev", evt.device_id), ctx.D[pi],
+                                        comp_u_c, seed=t)
+                                    comp_dg, ghat = ef.step(
+                                        ("devg", evt.device_id), ctx.GM[pi],
+                                        comp_g_c, seed=t)
+                                    ctx.add_decoded_row(pi, vhat, ghat)
+                                    ledger.record_up(
+                                        topology.nodes[gid].tier,
+                                        comp_d.nbytes + comp_dg.nbytes)
+                                else:
+                                    ledger.record_up(topology.nodes[gid].tier,
+                                                     update_bytes(n_model))
                             else:
-                                ledger.record_up(topology.nodes[gid].tier,
-                                                 update_bytes(n_model))
-                        else:
-                            result.dropped += 1
-                        out_dev[gid] -= 1
-                        if out_dev[gid] == 0:
-                            gateway_done(gid, survivors[gid])
+                                result.dropped += 1
+                            out_dev[gid] -= 1
+                            if out_dev[gid] == 0:
+                                gateway_done(gid, survivors[gid])
                 if not cloud_done:
                     raise RuntimeError(f"round {t}: exceeded {max_events} "
                                        "events")

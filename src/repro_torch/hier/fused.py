@@ -235,9 +235,11 @@ class FusedRoundContext:
     def _rows(self, idxs) -> Tuple[torch.Tensor, torch.Tensor]:
         """(U, GR): the cohort's rows, with device-uplink decodes in place
         of the rows they replace."""
-        idxs = [int(i) for i in idxs]
-        sel = torch.as_tensor(idxs, dtype=torch.long, device=self.D.device)
+        sel = torch.as_tensor(np.asarray(idxs, np.int64), device=self.D.device)
         U, GR = self.D[sel], self.GM[sel]
+        if not self._dec:
+            return U, GR
+        idxs = [int(i) for i in idxs]
         dec = [k for k, i in enumerate(idxs) if i in self._dec]
         if dec:
             pos = torch.as_tensor(dec, dtype=torch.long, device=self.D.device)

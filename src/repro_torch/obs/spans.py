@@ -88,6 +88,27 @@ def use_virtual_clock(clock: Callable[[], float]) -> Iterator[None]:
         clocks.pop()
 
 
+@contextmanager
+def use_barrier(fn: Callable[[], None]) -> Iterator[None]:
+    """Call ``fn`` (e.g. ``torch.cuda.synchronize``) as each nested span of
+    depth 0 or 1 (a round and its phases) opens and closes, for the block:
+    their wall durations then hold the device work issued inside them, not
+    just the time to issue it.  A port addition (the reference's jit calls
+    block on their outputs); off unless installed."""
+    prev = getattr(_STATE, "barrier", None)
+    _STATE.barrier = fn
+    try:
+        yield
+    finally:
+        _STATE.barrier = prev
+
+
+def _barrier(depth: int) -> None:
+    barrier = getattr(_STATE, "barrier", None)
+    if barrier is not None and depth <= 1:
+        barrier()
+
+
 # ---------------------------------------------------------------------------
 # span lifecycle
 # ---------------------------------------------------------------------------
@@ -147,6 +168,7 @@ def span(name: str, *, t_virtual: Optional[float] = None,
     parent = stack[-1].path if stack else ""
     if t_virtual is None:
         t_virtual = clock() if clock is not None else virtual_now()
+    _barrier(len(stack))
     h = SpanHandle(name=name,
                    path=f"{parent}/{name}" if parent else name,
                    depth=len(stack), t0_wall=time.perf_counter(),
@@ -160,6 +182,7 @@ def span(name: str, *, t_virtual: Optional[float] = None,
         raise
     finally:
         stack.pop()
+        _barrier(h.depth)
         _emit(h, time.perf_counter(),
               clock() if clock is not None else virtual_now())
 

@@ -432,6 +432,10 @@ def _imported_modules(path: Path):
 def test_port_sources_import_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    twins = sorted((ROOT / "examples").glob("torch_*.py")) + sorted(
+        (ROOT / "benchmarks").glob("torch_*.py"))
+    assert len(twins) >= 4
+    files += twins
     assert len(files) > 20
     for f in files:
         for mod in _imported_modules(f):

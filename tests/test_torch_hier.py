@@ -581,10 +581,12 @@ def test_unported_parts_raise(problem, monkeypatch):
     cfg = th.HierConfig(**BASE)
     run = lambda **kw: t_run("x", t_loss, t_apply, tp, tds, cfg,  # noqa: E731
                              topo, 1, device="cpu", **kw)
-    for kw, item in ((dict(scheduler_mode="cohort"), "repro.data.fleetgen"),
-                     (dict(mesh=object()), "repro.sharding")):
-        with pytest.raises(NotImplementedError, match=item):
-            run(**kw)
+    with pytest.raises(NotImplementedError, match="repro.sharding"):
+        run(mesh=object())
+    # the cohort scheduler is ported: the same call runs, on the event
+    # path's clock
+    cohort, event = run(scheduler_mode="cohort"), run(scheduler_mode="event")
+    assert cohort.times == event.times and cohort.dispatched == N_DEV
     # attack and churn are ported: an object that is neither fails where
     # the reference's does, on the attribute the runtime reads
     with pytest.raises(AttributeError, match="corrupts_data"):

@@ -886,12 +886,16 @@ def test_unported_parts_still_raise(robust_problem):
     _, tds, params, mal = robust_problem
     topo = star_topology(_tfleet(mal))
     cfg = HierConfig(**HIER_BASE)
-    for kw, item in ((dict(scheduler_mode="cohort"), "repro.data.fleetgen"),
-                     (dict(mesh=object()), "repro.sharding")):
-        with pytest.raises(NotImplementedError, match=item):
-            run_hier_simulation("x", t_loss, t_apply,
-                                params_from_jax(params, device="cpu"), tds,
-                                cfg, topo, 1, device="cpu", **kw)
+    run = lambda **kw: run_hier_simulation(  # noqa: E731
+        "x", t_loss, t_apply, params_from_jax(params, device="cpu"), tds,
+        cfg, topo, 1, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="repro.sharding"):
+        run(mesh=object())
+    # the cohort scheduler is ported: the same call runs, on the event
+    # path's clock
+    cohort, event = run(scheduler_mode="cohort"), run(scheduler_mode="event")
+    assert cohort.times == event.times
+    assert (cohort.arrived, cohort.dropped) == (event.arrived, event.dropped)
 
 
 # ------------------------------------- BENCH_robust.json's acceptance

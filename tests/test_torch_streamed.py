@@ -558,8 +558,11 @@ def test_streamed_unported_parts_still_raise(problem):
     tcfg, _ = _cfgs("contextual")
     with pytest.raises(NotImplementedError, match="repro.sharding"):
         _t(problem, tcfg, "streamed", rounds=1, mesh=object())
-    with pytest.raises(NotImplementedError, match="repro.data.fleetgen"):
-        _t(problem, tcfg, "streamed", rounds=1, scheduler_mode="cohort")
+    # the cohort scheduler is ported: the same call runs, on the event
+    # path's clock
+    cohort = _t(problem, tcfg, "streamed", rounds=1, scheduler_mode="cohort")
+    assert cohort.engine["engine_name"] == "streamed"
+    assert cohort.times == _t(problem, tcfg, "streamed", rounds=1).times
     with pytest.raises(TypeError, match="RobustConfig"):
         HierConfig(robust=object(), **BASE)
 
