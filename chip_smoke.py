@@ -67,7 +67,7 @@ Phases (any failure exits non-zero and prints no result line):
      summaries.  The counters must show ``gram`` on every round and ``topk``
      or ``sign_sketch`` + ``sign_sketch_adjoint`` on every compressed round,
      and no plain version (every ``gram`` launch of the sync, hier,
-     streamed, bigmodel and serve phases runs ``gram.cu``'s body: their
+     streamed, bigmodel, serve and moe phases runs ``gram.cu``'s body: their
      inputs are f32); the losses must fall; compressed cloud uplink
      below uncompressed below star; one uncompressed and one
      ``sign_sketch`` round on the card match the same round on the CPU;
@@ -141,7 +141,18 @@ Phases (any failure exits non-zero and prints no result line):
      against SDPA, a yardstick used nowhere in the port); three staggered
      requests equal to each served alone; a reduced f32 qwen3 served on the
      card (on ``decode_attn.cu``'s body) and on the CPU gives the same
-     tokens.
+     tokens, and one decode step's logits on both within 1e-5;
+  12. moe    — the serve phase again on each MoE config at full width (all
+     layers, bf16, seeded; deepseek-moe-16b, 28 layers, 64 experts top-6
+     and 2 shared, 16.9 B parameters, then olmoe-1b-7b, 16 layers, top-8,
+     qk-norm, 6.9 B), each freed before the next, with the same gates and
+     numbers, the logit gate at 1.5x the model's measured floor, the
+     (layer, token) top-k sets that the attention's f32 differences moved,
+     and the reduced f32 config card vs CPU; then layer 0 alone at T = 4
+     and 64 against the dense all-experts formula in f64, once under
+     ``set_sync_debug_mode("error")`` (no host sync), bitwise repeatable
+     (no atomics), and its device µs split into router/dispatch, expert
+     ``bmm``, combine and shared experts.
 
 The kernels phase also holds ``stream_stats``, ``gram_block`` and ``sketch``
 (U Rᵀ against an explicit R) against their plain versions, bitwise
@@ -156,7 +167,8 @@ aligned rows and n % 8 == 0 take the tensor-core body of
 ``gram_block_mma.cu``, every other call ``gram_block.cu``; ``sketch``'s
 bf16 rows with K <= 64, aligned rows and n % 8 == 0 take
 ``sketch_mma.cu``, every other call ``sketch.cu``), and ``flash_decode``
-(o and lse) at the serve path's shape, a decode_32k-like cache, gemma-7b's
+(o and lse) at the serve path's shape, the MoE serve path's (KV 16, G 1,
+hd 128), a decode_32k-like cache, gemma-7b's
 and starcoder2-15b's heads (the latter windowed), with ragged, strided,
 soft-capped and f32 caches, timed beside SDPA (bf16 q, k and v at hd 64
 or 128 take the tensor-core body of ``decode_attn_mma.cu``, timed in turn
@@ -321,6 +333,9 @@ DECODE_MODEL = [(8, 32768, 8, 5, 128, None, None),
 # o and lse against the plain version: f32 sums in another order and the
 # kernel's fast exp (relative to max(1, max |plain|))
 DECODE_TOL = 1e-4
+# the MoE serve path's shape: both MoE configs have 16 KV heads of hd 128
+# and no grouping (G = 1), on the serve cache and lengths
+DECODE_MOE = (4, 256, 16, 1, 128, None, [1, 97, 200, 256])
 # the serve phase: full qwen3-14b (40 layers, bf16, 14.77 B parameters) on
 # examples/serve_decode.py's traffic shape
 SERVE = dict(arch="qwen3-14b", slots=4, max_seq=256, scan_chunk=8,
@@ -337,6 +352,25 @@ SERVE = dict(arch="qwen3-14b", slots=4, max_seq=256, scan_chunk=8,
 SERVE_LOGIT_FLOOR = 2.013e-2
 SERVE_LOGIT_TOL = 1.5 * SERVE_LOGIT_FLOOR
 SERVE_LOGIT_TOL_F32 = 1e-5
+# the moe phase: both MoE configs at full width (all layers, bf16, seeded)
+# on SERVE's traffic, deepseek-moe-16b (33.8 GB) first, each freed before
+# the next.  Their logit floor is measured per model, as SERVE_LOGIT_FLOOR
+# was for qwen3-14b: the plain flash_decode in f32 against the same
+# arithmetic in f64 in one full-width decode step, max |dlogit| / max
+# |logit|, on an H100 (5.639e-2 and 6.258e-2; against SDPA 6.203e-2 and
+# 6.757e-3).  Routing is discrete: the attention's f32 differences move
+# 7-12 of the step's (layer, token) top-k sets at near ties, and a moved
+# set moves the logits far more than the rounding alone, so the floor is
+# ~3x qwen3-14b's.  The gate is 1.5x it.
+MOE_ARCHS = ("deepseek-moe-16b", "olmoe-1b-7b")
+MOE_LOGIT_FLOOR = {"deepseek-moe-16b": 5.639e-2, "olmoe-1b-7b": 6.258e-2}
+# one full-width bf16 MoE layer against the reference test's dense
+# all-experts formula (tests/test_model_numerics.py) in f64, max |err| /
+# max |ref|: the layer rounds its buffer products, activations, gate
+# weights, weighted contributions and each of the k adds to bf16 (~1e-2
+# on the CPU at olmoe and deepseek widths with 16 experts)
+MOE_LAYER_TOL = 3e-2
+MOE_LAYER_TOKENS = (4, 64)       # a decode step, a prefill chunk
 HIER_ROUNDS = 6
 # the reference's recorded streamed-vs-fused loss gap (BENCH_bigmodel.json)
 STREAMED_LOSS_GAP = 1.4e-3
@@ -1539,7 +1573,8 @@ def check_decode(B: int, S: int, KV: int, G: int, hd: int, dt, gen,
 
 
 def decode_phase_records(gen) -> list:
-    """flash_decode at the serve path's shape, model shapes, and ragged,
+    """flash_decode at the serve path's shape, the MoE serve path's (KV 16,
+    G 1), model shapes, and ragged,
     strided, windowed, soft-capped and f32 shapes (kernels phase); the
     bf16 rows at hd 64 and 128 take the tensor-core body, the rest the
     CUDA-core body."""
@@ -1548,6 +1583,9 @@ def decode_phase_records(gen) -> list:
     B, S, KV, G, hd, window, lengths = DECODE_PATH
     recs = [dict(check_decode(B, S, KV, G, hd, bf16, gen, lengths, window),
                  set="path")]
+    B, S, KV, G, hd, window, lengths = DECODE_MOE
+    recs.append(dict(check_decode(B, S, KV, G, hd, bf16, gen, lengths,
+                                  window), set="moe"))
     for B, S, KV, G, hd, window, lengths in DECODE_MODEL:
         recs.append(dict(check_decode(B, S, KV, G, hd, bf16, gen, lengths,
                                       window), set="model"))
@@ -3308,38 +3346,73 @@ def _attention(fn):
         ops.flash_decode = saved
 
 
-def _decode_logits(cfg, params, device, cache=None,
-                   variants=("kernel", "plain")) -> dict:
+@contextlib.contextmanager
+def _recorded_routes(into: list):
+    """Append each MoE layer's top-k expert set (sorted ids, (T, k)) to
+    ``into`` inside the block (``moe_forward`` looks ``route`` up on the
+    module at each call)."""
+    from repro_torch.models import moe
+    saved = moe.route
+
+    def recording(cfg, router, xt):
+        out = saved(cfg, router, xt)
+        into.append(out[2].sort(-1).values)
+        return out
+    moe.route = recording
+    try:
+        yield
+    finally:
+        moe.route = saved
+
+
+def _route_flips(a: list, b: list) -> int:
+    """(layer, token) pairs whose top-k expert sets differ between two
+    recorded runs of the same step."""
+    return sum(int((x != y).any(-1).sum()) for x, y in zip(a, b))
+
+
+def _random_cache(cfg, device):
+    """The serve cache's layout filled with seeded normals, drawn on the CPU
+    so that every device holds the same cache."""
+    import torch
+    from repro_torch.models import transformer as ttf
+    cache = ttf.init_lm_cache(cfg, SERVE["slots"], SERVE["max_seq"],
+                              ring=False, device=device)
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    for t in cache.kv:
+        t.copy_(torch.randn(t.shape, generator=gen))
+    return cache
+
+
+def _decode_logits(cfg, params, device, cache,
+                   variants=("kernel", "plain")) -> tuple:
     """The logits of one decode step (4 slots at depths 200-230, all
     active), once per attention in ``variants``, each from the same cache:
     ``kernel`` (the port's path), ``plain`` (the plain flash_decode in f32),
-    ``f64`` (its arithmetic in f64) and ``sdpa`` (the SDPA yardstick)."""
+    ``f64`` (its arithmetic in f64) and ``sdpa`` (the SDPA yardstick).
+    Returns ``(logits, routes)``: routes maps each variant to its MoE
+    layers' top-k sets (empty for a dense model)."""
     import torch
     from repro_torch.kernels import force_backend
     from repro_torch.models import transformer as ttf
-    if cache is None:
-        cache = ttf.init_lm_cache(cfg, SERVE["slots"], SERVE["max_seq"],
-                                  ring=False, device=device)
-        gen = torch.Generator(device=device)
-        gen.manual_seed(3)
-        for t in cache.kv:
-            t.copy_(torch.randn(t.shape, generator=gen, device=device))
     pos = torch.tensor([200, 210, 220, 230], dtype=torch.int32, device=device)
     tok = torch.tensor([1, 2, 3, 4], dtype=torch.int32, device=device)
     active = torch.ones(SERVE["slots"], dtype=torch.bool, device=device)
-    routes = {"kernel": contextlib.nullcontext,
-              "plain": lambda: force_backend("torch", "flash_decode"),
-              "f64": lambda: _attention(_flash_decode_f64),
-              "sdpa": lambda: _attention(_flash_decode_sdpa)}
+    attention = {"kernel": contextlib.nullcontext,
+                 "plain": lambda: force_backend("torch", "flash_decode"),
+                 "f64": lambda: _attention(_flash_decode_f64),
+                 "sdpa": lambda: _attention(_flash_decode_sdpa)}
     saved = [t.clone() for t in cache.kv]
-    out = {}
+    out, routes = {}, {}
     for name in variants:
         for t, s in zip(cache.kv, saved):
             t.copy_(s)
-        with routes[name]():
+        routes[name] = []
+        with attention[name](), _recorded_routes(routes[name]):
             out[name], _ = ttf.decode_slots(cfg, params, tok, cache, pos,
                                             active=active)
-    return out
+    return out, routes
 
 
 def _logit_err(a, b) -> float:
@@ -3384,18 +3457,25 @@ def _tally_since(before: dict, now: dict) -> dict:
     return {key: now[key] - before[key] for key in now}
 
 
-def _dense_param_count(cfg) -> int:
-    """Parameters of a dense config: the analytic estimate plus the norm
+def _param_count(cfg) -> int:
+    """Parameters of a dense or MoE config: the analytic estimate (for MoE
+    it counts every routed and shared expert and the router) plus the norm
     scales it leaves out (ln1, ln2, qk-norm per layer; final norm)."""
     qk = 2 * cfg.resolved_head_dim if cfg.qk_norm else 0
     return (cfg.param_count_estimate()
             + cfg.num_layers * (2 * cfg.d_model + qk) + cfg.d_model)
 
 
-def serve_phase(device: str = "cuda", cfg=None) -> dict:
-    """The continuous-batching engine on the full qwen3-14b, bf16 (``cfg``
-    and ``device`` other than the defaults only to rehearse the phase's
-    control flow at a small size)."""
+def serve_phase(device: str = "cuda", cfg=None, small=None,
+                logit_tol: float = SERVE_LOGIT_TOL, tag: str = "serve",
+                extra=None) -> dict:
+    """The continuous-batching engine on a full-width bf16 model (the full
+    qwen3-14b by default; the moe phase passes each MoE config with its own
+    logit tolerance, and ``extra(cfg, params, device)`` for the checks only
+    it makes while the model is loaded); ``small`` is the reduced f32
+    config served on the card and on the CPU (the reduced ``cfg`` by
+    default).  ``cfg``, ``small`` and ``device`` other than the defaults
+    also rehearse the phase's control flow at a small size."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.flatten import tree_leaves, tree_map
@@ -3405,6 +3485,7 @@ def serve_phase(device: str = "cuda", cfg=None) -> dict:
     from repro_torch.models import transformer as ttf
     from repro_torch.obs import InMemoryTracker, use_tracker
     cfg = cfg or get_config(SERVE["arch"])
+    small = small or get_config(cfg.name).reduced()
     L = cfg.num_layers
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
@@ -3417,12 +3498,16 @@ def serve_phase(device: str = "cuda", cfg=None) -> dict:
                        for p in tree_leaves(params))
     step_bytes = weight_bytes - params["embed"].numel() * 2
     step_bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
-    log(f"serve: {cfg.name} L={L} d={cfg.d_model} heads {cfg.num_heads}/"
+    log(f"{tag}: {cfg.name} L={L} d={cfg.d_model} heads {cfg.num_heads}/"
         f"{cfg.num_kv_heads} hd={cfg.resolved_head_dim} d_ff={cfg.d_ff} "
-        f"vocab={cfg.vocab_size} bf16: {n} parameters, {weight_bytes} B, "
-        f"init {init_s:.1f} s; weights read per decode step {step_bytes} B "
-        f"-> bound {step_bound_ms:.3f} ms")
-    need(n == _dense_param_count(cfg), f"serve: {n} parameters")
+        f"vocab={cfg.vocab_size}" + (
+            f" experts {cfg.num_experts} top-{cfg.experts_per_token} shared "
+            f"{cfg.num_shared_experts}" if cfg.family == "moe" else "")
+        + f" bf16: {n} parameters, {weight_bytes} B, init {init_s:.1f} s; "
+        f"weights read per decode step {step_bytes} B -> bound "
+        f"{step_bound_ms:.3f} ms")
+    need(n == _param_count(cfg), f"{tag}: {n} parameters, want "
+         f"{_param_count(cfg)}")
 
     # the main path: 8 requests, one mid-flight publish of a tree that
     # shares every leaf but final_norm
@@ -3452,23 +3537,23 @@ def serve_phase(device: str = "cuda", cfg=None) -> dict:
     steps = int(eng.stats["decode_steps"])
     need(sorted(c.rid for c in done) == list(range(len(reqs)))
          and all(len(c.tokens) == reqs[c.rid][1] for c in done),
-         "serve: not every request completed with its budget")
+         f"{tag}: not every request completed with its budget")
     need(seen == sorted(seen) and eng.model_version == 1
-         and eng.stats["swaps"] == 1, f"serve: versions {seen}")
+         and eng.stats["swaps"] == 1, f"{tag}: versions {seen}")
     need(all(0 <= c.admit_version <= c.final_version <= 1 for c in done),
-         "serve: completion versions")
+         f"{tag}: completion versions")
     need(counts["flash_decode/cuda"] == L * steps,
-         f"serve: flash_decode/cuda {counts['flash_decode/cuda']} launches, "
+         f"{tag}: flash_decode/cuda {counts['flash_decode/cuda']} launches, "
          f"want L x decode steps = {L * steps}")
     need(bodies == {"mma": L * steps, "cuda_core": 0},
-         f"serve: flash_decode bodies {bodies}, want all {L * steps} bf16 "
+         f"{tag}: flash_decode bodies {bodies}, want all {L * steps} bf16 "
          "launches on the tensor-core body")
     plain = {k: v for k, v in counts.items() if k.endswith("/torch") and v}
-    need(not plain, f"serve: plain versions ran on the path: {plain}")
+    need(not plain, f"{tag}: plain versions ran on the path: {plain}")
     chunk_ms = sorted(ms / SERVE["scan_chunk"]
                       for ms in _round_ms(tracker, "serve/decode_chunk"))
     swap_stall = eng.stats["swap_stall_s_max"]
-    log(f"serve: {len(done)} requests, {tokens} tokens in {wall:.2f} s = "
+    log(f"{tag}: {len(done)} requests, {tokens} tokens in {wall:.2f} s = "
         f"{tokens / wall:.1f} tokens/s; {steps} decode steps in "
         f"{int(eng.stats['decode_chunks'])} chunks, "
         f"{int(eng.stats['prefill_chunks'])} prefill chunks; "
@@ -3493,17 +3578,17 @@ def serve_phase(device: str = "cuda", cfg=None) -> dict:
     step_med = statistics.median(step_ms)
     busy = device_busy(lambda: ttf.decode_slots(cfg, params, tok, cache, pos,
                                                 active=active), steps=2)
-    log(f"serve: decode step B={B} S={SERVE['max_seq']} alone: median "
+    log(f"{tag}: decode step B={B} S={SERVE['max_seq']} alone: median "
         f"{step_med:.2f} ms (min {min(step_ms):.2f}) against the "
         f"{step_bound_ms:.3f} ms bound ({step_bound_ms / step_med:.1%}); "
         f"prefill chunk of {SERVE['prefill_chunk']} tokens: median "
         f"{statistics.median(prefill_ms):.2f} ms")
 
     if busy is None:
-        log("serve: device busy time per step: not measured (the profiler "
+        log(f"{tag}: device busy time per step: not measured (the profiler "
             "recorded no device time)")
     else:
-        log(f"serve: device busy per decode step {busy['busy_ms']:.2f} ms of "
+        log(f"{tag}: device busy per decode step {busy['busy_ms']:.2f} ms of "
             f"{step_med:.2f} ms ({busy['busy_ms'] / step_med:.1%}; idle "
             f"share {1 - busy['busy_ms'] / step_med:.1%}); by kernel (ms per "
             f"step, launches per step): " + "; ".join(
@@ -3512,24 +3597,33 @@ def serve_phase(device: str = "cuda", cfg=None) -> dict:
     # the kernel against the plain flash_decode inside one decode step,
     # beside the floor that two correct attentions show through the bf16
     # model: the plain version in f32 against the same arithmetic in f64,
-    # and against SDPA
-    lg = _decode_logits(cfg, params, device, cache,
-                        ("kernel", "plain", "f64", "sdpa"))
+    # and against SDPA; a MoE model also counts the (layer, token) top-k
+    # sets that the attention's f32 differences moved
+    lg, routes = _decode_logits(cfg, params, device, cache,
+                                ("kernel", "plain", "f64", "sdpa"))
     logit_err = _logit_err(lg["kernel"], lg["plain"])
     floor = {"plain_vs_f64": _logit_err(lg["plain"], lg["f64"]),
              "plain_vs_sdpa": _logit_err(lg["plain"], lg["sdpa"]),
              "kernel_vs_f64": _logit_err(lg["kernel"], lg["f64"])}
     logit_floor = max(floor["plain_vs_f64"], floor["plain_vs_sdpa"])
-    log(f"serve: logit floor (one full-width bf16 step, max |dlogit| / max "
+    flips = {pair: _route_flips(routes[a], routes[b]) for pair, (a, b) in (
+        ("kernel_vs_plain", ("kernel", "plain")),
+        ("plain_vs_f64", ("plain", "f64")),
+        ("plain_vs_sdpa", ("plain", "sdpa")))}
+    log(f"{tag}: logit floor (one full-width bf16 step, max |dlogit| / max "
         f"|logit|) of two correct attentions {logit_floor:.3e}: plain f32 vs "
         f"f64 {floor['plain_vs_f64']:.3e}, plain vs SDPA "
         f"{floor['plain_vs_sdpa']:.3e}; kernel vs plain {logit_err:.3e}, "
         f"kernel vs f64 {floor['kernel_vs_f64']:.3e} (gate "
-        f"{SERVE_LOGIT_TOL:.4g})")
-    need(logit_err <= SERVE_LOGIT_TOL, f"serve: decode-step logits with the "
+        f"{logit_tol:.4g})" + (
+            f"; (layer, token) top-k sets that differ of "
+            f"{L * SERVE['slots']}: {flips}" if routes["kernel"] else ""))
+    need(logit_err <= logit_tol, f"{tag}: decode-step logits with the "
          f"kernel vs plain flash_decode: {logit_err:.3e} of max |logit| > "
-         f"{SERVE_LOGIT_TOL}")
-    del lg, eng, cache
+         f"{logit_tol}")
+    del lg
+    more = extra(cfg, params, device) if extra else {}
+    del eng, cache
     torch.cuda.empty_cache()
 
     # continuous batching equals solo decode at full width
@@ -3537,12 +3631,13 @@ def serve_phase(device: str = "cuda", cfg=None) -> dict:
     batched = _staggered(_engine(cfg, params, device), few)
     for rid, req in enumerate(few):
         solo = _staggered(_engine(cfg, params, device), [req])
-        need(solo[0] == batched[rid], f"serve: rid {rid} batched "
+        need(solo[0] == batched[rid], f"{tag}: rid {rid} batched "
              f"{batched[rid]} != solo {solo[0]}")
+    del params, published
     torch.cuda.empty_cache()
 
-    # a reduced f32 qwen3 on the card and on the CPU: the same tokens
-    small = get_config(SERVE["arch"]).reduced()
+    # the reduced f32 config on the card and on the CPU: the same tokens,
+    # and one decode step's logits within f32 summation order
     cpu_gen = torch.Generator()
     cpu_gen.manual_seed(0)
     small_cpu = get_model(small).init(cpu_gen)
@@ -3556,37 +3651,195 @@ def serve_phase(device: str = "cuda", cfg=None) -> dict:
                          small_reqs)
     small_bodies = _tally_since(before, decode_attn.body_launches())
     need(small_bodies["mma"] == 0 and small_bodies["cuda_core"] > 0,
-         f"serve: reduced f32 flash_decode bodies {small_bodies}, want the "
+         f"{tag}: reduced f32 flash_decode bodies {small_bodies}, want the "
          "CUDA-core body only")
     on_cpu = _staggered(_engine(small, small_cpu, "cpu", **kw), small_reqs)
-    need(on_card == on_cpu, f"serve: reduced f32 tokens card {on_card} != "
+    need(on_card == on_cpu, f"{tag}: reduced f32 tokens card {on_card} != "
          f"CPU {on_cpu}")
-    lg = _decode_logits(small, small_card, device)
+    lg, _ = _decode_logits(small, small_card, device,
+                           _random_cache(small, device))
     small_err = _logit_err(lg["kernel"], lg["plain"])
-    need(small_err <= SERVE_LOGIT_TOL_F32, f"serve: reduced f32 decode-step "
-         f"logits kernel vs plain flash_decode {small_err:.3e} > "
-         f"{SERVE_LOGIT_TOL_F32}")
-    log(f"serve: kernel vs plain flash_decode in one decode step: "
-        f"{logit_err:.3e} of max |logit| (tolerance {SERVE_LOGIT_TOL:.4g}); "
-        f"reduced f32: {small_err:.3e} (tolerance {SERVE_LOGIT_TOL_F32}); "
-        f"3 staggered requests equal solo at full width; reduced f32 "
-        f"qwen3 tokens equal on card and CPU ({sum(map(len, on_cpu.values()))}"
-        f" tokens; flash_decode bodies {small_bodies})")
-    return {"counts": counts, "bodies": bodies,
-            "reduced_f32_bodies": small_bodies,
-            "tokens": tokens, "wall_s": wall,
-            "tokens_per_s": tokens / wall, "decode_steps": steps,
-            "decode_step_ms_alone": step_med,
-            "decode_step_ms_alone_all": step_ms,
-            "decode_step_ms_as_served_median": statistics.median(chunk_ms),
-            "decode_step_bound_ms": step_bound_ms,
-            "decode_step_bytes": step_bytes,
-            "prefill_chunk_ms": statistics.median(prefill_ms),
-            "swap_stall_s": swap_stall, "logit_rel_err_vs_plain": logit_err,
-            "logit_floor": logit_floor, "logit_floor_pairs": floor,
-            "logit_tolerance": SERVE_LOGIT_TOL,
-            "logit_rel_err_vs_plain_reduced_f32": small_err,
-            "device_busy": busy, "init_s": init_s}
+    cpu_lg, _ = _decode_logits(small, small_cpu, "cpu",
+                               _random_cache(small, "cpu"), ("kernel",))
+    card_vs_cpu = _logit_err(lg["kernel"].cpu(), cpu_lg["kernel"])
+    for what, err in (("kernel vs plain flash_decode", small_err),
+                      ("card vs CPU", card_vs_cpu)):
+        need(err <= SERVE_LOGIT_TOL_F32, f"{tag}: reduced f32 decode-step "
+             f"logits {what} {err:.3e} > {SERVE_LOGIT_TOL_F32}")
+    log(f"{tag}: kernel vs plain flash_decode in one decode step: "
+        f"{logit_err:.3e} of max |logit| (tolerance {logit_tol:.4g}); "
+        f"reduced f32: {small_err:.3e}, card vs CPU {card_vs_cpu:.3e} "
+        f"(tolerance {SERVE_LOGIT_TOL_F32}); 3 staggered requests equal solo "
+        f"at full width; reduced f32 {small.name} tokens equal on card and "
+        f"CPU ({sum(map(len, on_cpu.values()))} tokens; flash_decode bodies "
+        f"{small_bodies})")
+    return dict({"counts": counts, "bodies": bodies,
+                 "reduced_f32_bodies": small_bodies,
+                 "tokens": tokens, "wall_s": wall,
+                 "tokens_per_s": tokens / wall, "decode_steps": steps,
+                 "decode_step_ms_alone": step_med,
+                 "decode_step_ms_alone_all": step_ms,
+                 "decode_step_ms_as_served_median":
+                     statistics.median(chunk_ms),
+                 "decode_step_bound_ms": step_bound_ms,
+                 "decode_step_bytes": step_bytes,
+                 "prefill_chunk_ms": statistics.median(prefill_ms),
+                 "swap_stall_s": swap_stall,
+                 "logit_rel_err_vs_plain": logit_err,
+                 "logit_floor": logit_floor, "logit_floor_pairs": floor,
+                 "logit_tolerance": logit_tol,
+                 "logit_rel_err_vs_plain_reduced_f32": small_err,
+                 "logit_rel_err_card_vs_cpu_reduced_f32": card_vs_cpu,
+                 "device_busy": busy, "init_s": init_s, "parameters": n},
+                **({"route_flips": flips} if routes["kernel"] else {}),
+                **more)
+
+
+# --------------------------------------------------------------------- moe
+
+def _moe_dense_f64(cfg, p, xt, top_e) -> tuple:
+    """tests/test_model_numerics.py's dense formula in f64: every token
+    through every expert, weighted by the renormalised gate at the layer's
+    own top-k choice ``top_e``.  Also returns how many tokens the f64
+    router would send to another top-k set."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models.layers import _gelu_tanh
+    x = xt.double()
+    probs = torch.softmax(x @ p["router"].double(), -1)
+    k = cfg.experts_per_token
+    own = torch.sort(probs, dim=-1, descending=True,
+                     stable=True).indices[:, :k]
+    moved = int((own.sort(-1).values != top_e.sort(-1).values).any(-1).sum())
+    gate = probs.gather(1, top_e)
+    gates = torch.zeros_like(probs).scatter(
+        1, top_e, gate / gate.sum(-1, keepdim=True))
+
+    def mlp(w_up, w_gate, w_down):
+        up = x @ w_up.double()
+        up = (F.silu(x @ w_gate.double()) * up if w_gate is not None
+              else _gelu_tanh(up))
+        return up @ w_down.double()
+    out = torch.zeros_like(x)
+    for e in range(cfg.num_experts):
+        out += gates[:, e, None] * mlp(
+            p["w_up"][e], p["w_gate"][e] if "w_gate" in p else None,
+            p["w_down"][e])
+    if "shared" in p:
+        s = p["shared"]
+        out += mlp(s["w_up"], s.get("w_gate"), s["w_down"])
+    return out, moved
+
+
+def _stage_device(fn) -> dict:
+    """Device µs and launches per call of ``fn`` (``torch.profiler`` over
+    three calls)."""
+    rows = _device_rows(fn, 3)
+    return {"device_us": sum(_device_us(e) for e in rows) / 3,
+            "launches": sum(e.count for e in rows) / 3}
+
+
+def moe_layer_checks(cfg, params, device: str = "cuda") -> dict:
+    """Layer 0 of a loaded full-width MoE model alone, at T = 4 (a decode
+    step) and 64 (a prefill chunk): ``moe_forward`` against the dense
+    all-experts formula in f64 (``MOE_LAYER_TOL``), once under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync) and bitwise
+    equal to the first call (no atomics); and the layer's device µs split
+    into router/dispatch, expert ``bmm``, combine and the shared experts."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.mlp import mlp_forward
+    from repro_torch.models.transformer import layer_views
+    p = layer_views(params["blocks"], cfg.num_layers)[0]["moe"]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    out = {}
+    for T in MOE_LAYER_TOKENS:
+        x = torch.randn((1, T, cfg.d_model), generator=gen,
+                        device=device).to(p["w_up"].dtype)
+        xt = x.reshape(T, -1)
+        got, aux = moe.moe_forward(cfg, p, x)
+        probs, top_p, top_e = moe.route(cfg, p["router"], xt)
+        want, moved = _moe_dense_f64(cfg, p, xt, top_e)
+        err = float((got.reshape(T, -1).double() - want).abs().max()
+                    / want.abs().max())
+        need(err <= MOE_LAYER_TOL, f"moe {cfg.name}: layer at T={T} vs the "
+             f"dense f64 formula {err:.3e} of max > {MOE_LAYER_TOL}")
+        torch.cuda.synchronize()
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            again, aux2 = moe.moe_forward(cfg, p, x)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        need(torch.equal(got, again) and torch.equal(aux, aux2),
+             f"moe {cfg.name}: two calls of the layer at T={T} differ")
+        buf, placed = moe.dispatch(cfg, xt, top_e)
+        out_buf = moe.experts(p, buf)
+
+        def front():
+            probs, _, top_e = moe.route(cfg, p["router"], xt)
+            moe.aux_loss(cfg, probs, top_e)
+            return moe.dispatch(cfg, xt, top_e)
+        split = {"router_dispatch": _stage_device(front),
+                 "experts_bmm": _stage_device(lambda: moe.experts(p, buf)),
+                 "combine": _stage_device(
+                     lambda: moe.combine(out_buf, top_p, placed))}
+        if "shared" in p:
+            split["shared"] = _stage_device(
+                lambda: mlp_forward(cfg, p["shared"], xt))
+        layer = _stage_device(lambda: moe.moe_forward(cfg, p, x))
+        layer_ms = _event_ms(lambda: moe.moe_forward(cfg, p, x), reps=10)
+        weight_bytes = sum(p[w].numel() * p[w].element_size()
+                           for w in ("w_up", "w_gate", "w_down") if w in p)
+        out[f"T{T}"] = {"rel_err_vs_dense_f64": err, "tolerance":
+                        MOE_LAYER_TOL, "f64_router_moved_tokens": moved,
+                        "no_host_sync": True, "bitwise_repeatable": True,
+                        "capacity": moe.capacity(cfg, T), "split": split,
+                        "layer_device_us": layer["device_us"],
+                        "layer_launches": layer["launches"],
+                        "layer_event_ms": statistics.median(layer_ms),
+                        "expert_weight_bytes": weight_bytes}
+        log(f"moe {cfg.name}: layer 0 at T={T} (capacity "
+            f"{moe.capacity(cfg, T)}): vs the dense f64 formula {err:.3e} of "
+            f"max (tolerance {MOE_LAYER_TOL}; the f64 router moves {moved} "
+            f"tokens); no host sync under set_sync_debug_mode('error'); two "
+            f"calls bitwise equal; device {layer['device_us']:.1f} us in "
+            f"{layer['launches']:g} launches, events "
+            f"{statistics.median(layer_ms) * 1e3:.1f} us; split (device us, "
+            f"launches): " + "; ".join(
+                f"{k} {v['device_us']:.1f} ({v['launches']:g})"
+                for k, v in split.items())
+            + f"; expert weights {weight_bytes / 1e6:.1f} MB = "
+            f"{weight_bytes / HBM_BYTES_PER_S * 1e6:.1f} us at the HBM rate")
+    return {"layer": out}
+
+
+def moe_phase(smi_line: str, device: str = "cuda", cfgs=None) -> dict:
+    """Both MoE configs through :func:`serve_phase` at full width, each with
+    its measured logit floor and :func:`moe_layer_checks`, one freed before
+    the next.  ``cfgs`` ({name: (cfg, small)}) and ``device`` other than the
+    defaults rehearse the phase's control flow at a small size."""
+    import torch
+    from repro_torch.configs import get_config
+    out = {"counts": {}, "models": {}}
+    for name in MOE_ARCHS:
+        torch.cuda.empty_cache()
+        cfg, small = cfgs[name] if cfgs else (get_config(name), None)
+        rec = serve_phase(device, cfg, small=small,
+                          logit_tol=1.5 * MOE_LOGIT_FLOOR[name],
+                          tag=f"moe {name}", extra=moe_layer_checks)
+        for key, v in rec.pop("counts").items():
+            out["counts"][key] = out["counts"].get(key, 0) + v
+        out["models"][name] = rec
+        busy = rec["device_busy"]
+        log(f"moe {name} ({smi_line}): {rec['tokens_per_s']:.1f} tokens/s; "
+            f"decode step {rec['decode_step_ms_alone']:.2f} ms against the "
+            f"{rec['decode_step_bound_ms']:.3f} ms weight-read bound; device "
+            + ("busy not measured" if busy is None else
+               f"busy {busy['busy_ms'] / rec['decode_step_ms_alone']:.1%}")
+            + f"; flash_decode {rec['bodies']}")
+    return out
 
 
 # -------------------------------------------------------------------- main
@@ -3841,12 +4094,14 @@ def main() -> int:
         scaffolded = on_cuda_core("scaffold", scaffold_phase, ds, params)
         big = on_cuda_core("bigmodel", bigmodel_phase)
         served = on_cuda_core("serve", serve_phase)
+        moed = on_cuda_core("moe", moe_phase, smi_line)
         by_path = {"sync": sync_counts, "async": asynced["counts"],
                    "hier": hier_counts,
                    "streamed": streamed_counts, "robust": robusted["counts"],
                    "fleet": fleeted["counts"],
                    "scaffold": scaffolded["counts"],
-                   "bigmodel": big["counts"], "serve": served["counts"]}
+                   "bigmodel": big["counts"], "serve": served["counts"],
+                   "moe": moed["counts"]}
         for path, counts in by_path.items():
             need(gram_bodies[path]["cuda_core"] >= counts.get("gram/cuda", 0),
                  f"{path}: {counts.get('gram/cuda', 0)} gram launches, "
@@ -3927,6 +4182,7 @@ def main() -> int:
         k: v for k, v in big.items() if k != "counts"}
     entries[names.index("flash_decode")]["serve"] = {
         k: v for k, v in served.items() if k != "counts"}
+    entries[names.index("flash_decode")]["moe"] = moed["models"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi_line, flush=True)

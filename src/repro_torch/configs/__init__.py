@@ -1,7 +1,7 @@
 """Architecture configs of the port (copies of ``repro.configs``).
 
-The paper's own model and the dense transformers are ported;
-``get_config(name)`` returns the full production config and
+The paper's own model, the dense transformers and the MoE family are
+ported; ``get_config(name)`` returns the full production config and
 ``get_config(name).reduced()`` the CPU smoke variant.  Every other name of
 ``repro.configs`` raises ``KeyError`` until its model family lands.
 """
@@ -13,7 +13,7 @@ from typing import Dict
 from ..models.config import ArchConfig
 
 _MODULES = ["paper_logreg", "qwen3_14b", "gemma_7b", "qwen2p5_32b",
-            "starcoder2_15b"]
+            "starcoder2_15b", "olmoe_1b_7b", "deepseek_moe_16b"]
 
 _ALIASES = {
     "paper-logreg": "paper_logreg",
@@ -21,6 +21,8 @@ _ALIASES = {
     "gemma-7b": "gemma_7b",
     "qwen2.5-32b": "qwen2p5_32b",
     "starcoder2-15b": "starcoder2_15b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
 }
 
 PORTED = list(_ALIASES)

@@ -1,17 +1,18 @@
 """Serving driver: the continuous-batching decode engine over a ModelBus
 (``repro.launch.serve``).
 
-The dense family runs on :class:`repro_torch.serve.DecodeEngine` — one
-persistent KV cache, requests admitted into free slots and retired at
-chunk boundaries, every decode step's attention in the ``flash_decode``
+The dense and moe families run on :class:`repro_torch.serve.DecodeEngine`
+— one persistent KV cache, requests admitted into free slots and retired
+at chunk boundaries, every decode step's attention in the ``flash_decode``
 kernel on the card.  Weights are random, from a seeded ``torch.Generator``
 on the device.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --no-reduced
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b --device cpu
 
 ``--no-reduced`` serves the full architecture (qwen3-14b: 29.5 GB of bf16
-weights, one H100); ``--device cpu`` asks for the CPU (the reduced
+weights, deepseek-moe-16b 33.8 GB, olmoe-1b-7b 13.8 GB; one H100); ``--device cpu`` asks for the CPU (the reduced
 architecture is the size for that); ``--no-greedy`` samples.  The
 reference's lockstep loop for the vlm/audio families raises until those
 families are ported.

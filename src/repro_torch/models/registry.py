@@ -1,6 +1,6 @@
 """Model registry of the port — one bundle per architecture family.
 
-The ``logreg`` and ``dense`` families are ported; the others of
+The ``logreg``, ``dense`` and ``moe`` families are ported; the others of
 ``repro.models.registry`` raise until their slice lands.  The bundle keeps
 the reference's field names:
 

@@ -1,10 +1,12 @@
-"""Decoder-only LM of the port (``repro.models.transformer``), dense family.
+"""Decoder-only LM of the port (``repro.models.transformer``), dense and
+MoE families.
 
 Layers are stacked on a leading L axis under ``params["blocks"]``, as the
 reference's tree; the reference's ``lax.scan`` over layers is a Python loop
 over the stack's per-layer views.  Entry points:
 
-  * ``forward_train`` — full-sequence teacher-forced logits (+ aux loss 0)
+  * ``forward_train`` — full-sequence teacher-forced logits (+ the MoE
+    router's aux loss, 0 for dense)
   * ``prefill``       — full prompt, last-token logits and a cache
   * ``decode_step``   — one token for every row against the cache
   * ``decode_slots``  — one token per slot at per-slot depths (the serving
@@ -12,10 +14,11 @@ over the stack's per-layer views.  Entry points:
   * ``prefill_chunk`` — one chunk of a prompt into one slot of the engine's
     cache
 
-The moe, ssm and hybrid families raise ``NotImplementedError`` naming the
-reference module that holds them.  Caches are updated in place and
-returned (the reference returns new arrays); ``LMCache.position`` is a host
-int.
+A ``moe`` layer holds ``moe`` (``repro_torch.models.moe``) where a dense
+layer holds ``mlp``.  The ssm, hybrid, vlm and audio families raise
+``NotImplementedError`` naming the reference module that holds them.
+Caches are updated in place and returned (the reference returns new
+arrays); ``LMCache.position`` is a host int.
 """
 from __future__ import annotations
 
@@ -32,11 +35,11 @@ from .attention import (KVCache, _project_qkv, attention_decode,
 from .config import ArchConfig
 from .layers import dtype_of, embed_init, rms_norm
 from .mlp import init_mlp, mlp_forward
+from .moe import init_moe, moe_forward
 
 Pytree = Any
 
 _NOT_PORTED = {
-    "moe": "reference: repro.models.moe; ROADMAP queue 1",
     "ssm": "reference: repro.models.rwkv, repro.models.ssd; ROADMAP queue 1",
     "hybrid": "reference: repro.models.ssd (the shared-attention hybrid); "
               "ROADMAP queue 1",
@@ -46,8 +49,9 @@ _NOT_PORTED = {
 
 
 def check_family(cfg: ArchConfig) -> None:
-    """Raise for a family the port does not run yet (only ``dense`` runs)."""
-    if cfg.family != "dense":
+    """Raise for a family the port does not run yet (``dense`` and ``moe``
+    run)."""
+    if cfg.family not in ("dense", "moe"):
         item = _NOT_PORTED.get(cfg.family, "ROADMAP queue 1")
         raise NotImplementedError(
             f"model family {cfg.family!r} ({cfg.name}) is not ported yet: "
@@ -58,18 +62,24 @@ def check_family(cfg: ArchConfig) -> None:
 
 def _init_block(cfg: ArchConfig, gen: torch.Generator,
                 dtype: torch.dtype) -> Dict:
-    """One layer's params."""
+    """One layer's params (``moe`` in place of ``mlp`` for the moe
+    family)."""
     zeros = lambda: torch.zeros((cfg.d_model,), dtype=dtype,  # noqa: E731
                                 device=gen.device)
-    return {"ln1": zeros(), "ln2": zeros(),
-            "attn": init_attention(cfg, gen, dtype),
-            "mlp": init_mlp(cfg, gen, dtype)}
+    block = {"ln1": zeros(), "ln2": zeros(),
+             "attn": init_attention(cfg, gen, dtype)}
+    if cfg.family == "moe":
+        block["moe"] = init_moe(cfg, gen, dtype)
+    else:
+        block["mlp"] = init_mlp(cfg, gen, dtype)
+    return block
 
 
 def init_lm(cfg: ArchConfig, gen: torch.Generator) -> Pytree:
     """Random params on the generator's device.  Each layer is drawn apart
     and copied into its slice of the stacked leaves, so only one layer's
-    f32 draws exist at a time (the full qwen3-14b is 29.5 GB in bf16)."""
+    f32 draws exist at a time (the full qwen3-14b is 29.5 GB in bf16, a
+    deepseek-moe-16b layer's f32 draws about 2.3 GB)."""
     check_family(cfg)
     dtype = dtype_of(cfg.dtype)
     params: Dict[str, Any] = {
@@ -100,6 +110,14 @@ def layer_views(blocks: Pytree, num_layers: int) -> List[Pytree]:
 
 # ------------------------------------------------------------------ forward
 
+def _ffn(cfg: ArchConfig, p: Dict, h: torch.Tensor):
+    """The layer's feed-forward: (out, aux), aux the MoE router's loss
+    (None for an MLP layer)."""
+    if "moe" in p:
+        return moe_forward(cfg, p["moe"], h)
+    return mlp_forward(cfg, p["mlp"], h), None
+
+
 def _block_forward(cfg: ArchConfig, p: Dict, x: torch.Tensor,
                    positions: torch.Tensor, window: Optional[int],
                    return_kv: bool = False):
@@ -110,9 +128,10 @@ def _block_forward(cfg: ArchConfig, p: Dict, x: torch.Tensor,
                             window=window, return_kv=return_kv)
     attn, kv = out if return_kv else (out, None)
     x = x + attn
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + mlp_forward(cfg, p["mlp"], h)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device), kv
+    ff, aux = _ffn(cfg, p, rms_norm(x, p["ln2"], cfg.norm_eps))
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + ff, aux, kv
 
 
 def _logits(cfg: ArchConfig, params: Pytree, x: torch.Tensor) -> torch.Tensor:
@@ -205,7 +224,7 @@ def _block_decode(cfg: ArchConfig, p: Dict, h: torch.Tensor, attend
     a = rms_norm(h, p["ln1"], cfg.norm_eps)
     h = h + attend(a)
     m = rms_norm(h, p["ln2"], cfg.norm_eps)
-    return h + mlp_forward(cfg, p["mlp"], m)
+    return h + _ffn(cfg, p, m)[0]
 
 
 def decode_step(cfg: ArchConfig, params: Pytree, token: torch.Tensor,
@@ -295,6 +314,6 @@ def prefill_chunk(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
                    window=window, logit_softcap=cfg.attn_logit_softcap)
         x = x + o.reshape(1, C, -1) @ p["attn"]["wo"]
         m = rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + mlp_forward(cfg, p["mlp"], m)
+        x = x + _ffn(cfg, p, m)[0]
     logits = _logits(cfg, params, x)
     return logits[0], cache

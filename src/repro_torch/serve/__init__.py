@@ -6,8 +6,8 @@ hook pushes each round's aggregated params onto a :class:`ModelBus`, a
 draining in-flight requests, and :mod:`repro_torch.serve.offline` replays request
 traces under the virtual clock for staleness-vs-quality accounting.
 
-The port of ``repro.serve``: the engine's decode steps run the dense
-transformer on the card, with its attention in the ``flash_decode`` kernel.
+The port of ``repro.serve``: the engine's decode steps run the dense or
+MoE transformer on the card, with its attention in the ``flash_decode`` kernel.
 """
 from .bus import ModelBus, Published
 from .engine import Completion, DecodeEngine, Request

@@ -99,7 +99,7 @@ class _SlotInfo:
 
 
 class DecodeEngine:
-    """Continuous-batching decoder over a KV-cache family (dense).
+    """Continuous-batching decoder over a KV-cache family (dense / moe).
 
     ``step()`` advances the engine by one scheduling quantum: adopt the
     newest published model, feed at most one prefill chunk, run one

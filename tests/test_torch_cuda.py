@@ -23,7 +23,9 @@ exactly: the same values and indices as the plain version on the same
 tensor.  The robust aggregators on the card against the same call on the
 CPU at 1e-4 (the solve amplifies the kernels' summation-order
 differences), krum's selection exactly.  flash_decode 1e-4 on o and lse (f32 sums in another order, and the
-kernel's fast exp); the serving engine's greedy tokens exactly.
+kernel's fast exp); the serving engine's greedy tokens exactly.  The MoE
+layer (no kernel of its own) on the card against the CPU at 1e-5 in f32,
+and at olmoe width in bf16 with no host sync and bitwise repeatable.
 """
 import numpy as np
 import pytest
@@ -51,6 +53,7 @@ from repro_torch.kernels.sketch import sketch_apply_cuda
 from repro_torch.kernels.topk import SMALL_MAX_N, single_block, topk_cuda
 from repro_torch.models.config import ArchConfig
 from repro_torch.models import get_model
+from repro_torch.models import moe
 from repro_torch.models import transformer as ttf
 from repro_torch.models.logistic import (init_logistic, logistic_apply,
                                          logistic_loss)
@@ -1281,6 +1284,75 @@ def test_engine_batched_equals_solo_and_cpu(cuda_device):
                       max_new[rid:rid + 1])
         assert solo[0] == batched[rid], f"rid={rid} diverged"
     assert _serve(params, "cpu", prompts, max_new) == batched
+
+
+# --------------------------------------------------------------------- moe
+
+def _moe_cfg(d, ff, E, k, shared, dtype):
+    return ArchConfig(name="moe", family="moe", num_layers=1, d_model=d,
+                      d_ff=ff, vocab_size=64, num_heads=16, num_kv_heads=16,
+                      num_experts=E, experts_per_token=k,
+                      num_shared_experts=shared, dtype=dtype)
+
+
+@pytest.mark.parametrize("T", [4, 64, 320])
+def test_moe_layer_never_syncs_and_repeats_bitwise(cuda_device, T):
+    """An olmoe-width bf16 layer (E 64, top-8, d 2048, d_ff 1024) with a
+    shared expert: no host sync under ``set_sync_debug_mode("error")`` and
+    two calls bitwise equal (no float atomics), at decode, a prefill chunk
+    and a T > 256 batch that drops entries."""
+    cfg = _moe_cfg(2048, 1024, 64, 8, 1, "bfloat16")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = moe.init_moe(cfg, gen, torch.bfloat16)
+    x = torch.randn((1, T, 2048), generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    first, aux = moe.moe_forward(cfg, params, x)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again, aux2 = moe.moe_forward(cfg, params, x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(first, again) and torch.equal(aux, aux2)
+    assert first.dtype == torch.bfloat16 and torch.isfinite(first).all()
+
+
+@pytest.mark.parametrize("T", [4, 64, 320])
+@pytest.mark.parametrize("activation,shared", [("silu", 1), ("gelu", 0)])
+def test_moe_layer_on_the_card_matches_the_cpu(cuda_device, T, activation,
+                                               shared):
+    cfg = _moe_cfg(256, 512, 8, 2, shared, "float32").with_overrides(
+        activation=activation)
+    params = moe.init_moe(cfg, torch.Generator().manual_seed(1),
+                          torch.float32)
+    params["router"] *= 50.0         # route decisively
+    x = torch.randn((1, T, 256), generator=torch.Generator().manual_seed(2))
+    want, want_aux = moe.moe_forward(cfg, params, x)
+    got, aux = moe.moe_forward(cfg, tree_map(
+        lambda a: a.to(cuda_device), params), x.to(cuda_device))
+    assert _rel_err(got.cpu(), want) <= 1e-5
+    assert _rel_err(aux.cpu(), want_aux) <= 1e-5
+
+
+def test_moe_engine_on_the_card_equals_the_cpu(cuda_device):
+    cfg = get_config("olmoe-1b-7b").reduced(num_layers=1, vocab_size=64)
+    params = get_model(cfg).init(0, device="cpu")
+    rng = np.random.default_rng(4)
+    prompts = [[int(t) for t in rng.integers(0, 64, n)] for n in (6, 13, 9)]
+
+    def serve(p, device):
+        eng = DecodeEngine(cfg, ModelBus(p), num_slots=3, max_seq=40,
+                           scan_chunk=4, prefill_chunk_tokens=8,
+                           device=device)
+        for rid, prompt in enumerate(prompts):
+            eng.submit(prompt, 5 + rid, rid=rid)
+        return {c.rid: c.tokens for c in eng.run()}
+    reset_launch_counts()
+    on_card = serve(tree_map(lambda a: a.to(cuda_device), params),
+                    cuda_device)
+    assert launch_counts()["flash_decode/cuda"] > 0
+    assert launch_counts()["flash_decode/torch"] == 0
+    assert on_card == serve(params, "cpu")
 
 
 # ------------------------------------------------------------------ robust

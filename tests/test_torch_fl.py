@@ -412,10 +412,13 @@ def test_unported_parts_raise():
                                      malicious=(1,)), M, device="cpu")
     assert callable(fn)
     with pytest.raises(KeyError, match="not ported yet"):
-        tconfigs.get_config("olmoe-1b-7b")
+        tconfigs.get_config("rwkv6-1.6b")
     assert tconfigs.get_config("paper-logreg").input_dim == 784
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        t_get_model(ArchConfig(name="m", family="moe"))
+    for family in ("ssm", "hybrid"):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            t_get_model(ArchConfig(name="m", family=family))
+    # the moe family is ported: its bundle builds
+    assert t_get_model(ArchConfig(name="m", family="moe")).prefill is not None
     with pytest.raises(KeyError, match="unknown aggregator"):
         tserver.build_round_fn(t_loss, tserver.ServerConfig(aggregator="bogus"),
                                M, device="cpu")

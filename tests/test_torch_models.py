@@ -102,7 +102,7 @@ def test_configs_are_the_references():
             j_get_config(name).reduced().__dict__
     assert get_config("qwen3_14b") is get_config("qwen3-14b")
     with pytest.raises(KeyError, match="not ported yet"):
-        get_config("olmoe-1b-7b")
+        get_config("rwkv6-1.6b")
 
 
 def test_layers_match_reference():
@@ -284,9 +284,19 @@ def test_dense_bundle_and_unported_families():
     with pytest.raises(NotImplementedError, match="training slice"):
         ttf.forward_train(cfg, params, torch.zeros(1, 4, dtype=torch.int32),
                           remat="full")
-    for family in ("moe", "ssm", "hybrid"):
+    for family in ("ssm", "hybrid"):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
             get_model(cfg.with_overrides(family=family))
+    # the moe family runs now (tests/test_torch_moe.py holds it to the
+    # reference)
+    moe = get_model(cfg.with_overrides(family="moe", num_experts=4,
+                                       experts_per_token=2))
+    moe_params = moe.init(0, device="cpu")
+    assert "moe" in moe_params["blocks"] and "mlp" not in moe_params["blocks"]
+    logits = moe.forward(moe_params, {"tokens": torch.zeros(
+        1, 4, dtype=torch.int32)})
+    assert logits.shape == (1, 4, cfg.vocab_size)
+    assert torch.isfinite(logits).all()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         if torch.cuda.is_available():
             raise RuntimeError("device='cpu' (a card is present)")
