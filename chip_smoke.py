@@ -152,7 +152,30 @@ Phases (any failure exits non-zero and prints no result line):
      and 64 against the dense all-experts formula in f64, once under
      ``set_sync_debug_mode("error")`` (no host sync), bitwise repeatable
      (no atomics), and its device µs split into router/dispatch, expert
-     ``bmm``, combine and shared experts.
+     ``bmm``, combine and shared experts;
+  13. recurrent — the lockstep loop of ``repro_torch.launch.serve`` (one
+     batched ``prefill``, then a greedy ``decode_step`` per token) on
+     rwkv6-1.6b (24 RWKV6 layers, 1.59 B parameters) and then zamba2-1.2b
+     (38 Mamba2 layers in 6 groups of 6 and 2 remainder layers, one shared
+     attention + MLP block after every group, 1.17 B), full width, bf16,
+     seeded on the card, each freed before the next: batch 4, prompts of
+     200 tokens, 32 new tokens.  No kernel lies on this path (the
+     reference's scans are plain ``jnp``, the hybrid's attention the plain
+     ``attention_decode``), so every launch counter stays 0, both
+     backends; every row yields 32 tokens and the logits are finite.  The
+     same weights in f32 (TF32 off): prefill of 200 + t tokens against the
+     decode step on token t, t = 1..8, within 2e-3 of max |logit|; the
+     bf16 logits against the f32 ones on the same tokens within 1.5x the
+     model's measured floor (``RECURRENT_LOGIT_FLOOR``, printed); one
+     decode step under ``set_sync_debug_mode("error")``; two steps from
+     copies of one cache bitwise equal; the reduced f32 config (zamba2
+     with two groups and a remainder layer) served on the card and on the
+     CPU: equal tokens, the first decode step's logits within 1e-5.
+     Numbers: prefill ms, one decode step alone (CUDA events, median and
+     min-max of 5) beside its byte bound (weights, the shared block once
+     per group, the states read and written, the shared K/V rows), device
+     busy ms and kernel launches a step (``torch.profiler``), tokens/s and
+     peak allocated memory, beside the card's name and power limit.
 
 The kernels phase also holds ``stream_stats``, ``gram_block`` and ``sketch``
 (U Rᵀ against an explicit R) against their plain versions, bitwise
@@ -371,6 +394,25 @@ MOE_LOGIT_FLOOR = {"deepseek-moe-16b": 5.639e-2, "olmoe-1b-7b": 6.258e-2}
 # on the CPU at olmoe and deepseek widths with 16 experts)
 MOE_LAYER_TOL = 3e-2
 MOE_LAYER_TOKENS = (4, 64)       # a decode step, a prefill chunk
+# the recurrent phase: rwkv6-1.6b, then zamba2-1.2b, at full width (all
+# layers, bf16, seeded) through the lockstep loop of repro_torch.launch.serve
+# (batch 4, prompts of 200 tokens, 32 new tokens, greedy), each freed before
+# the next; small is the reduced f32 config served on the card and the CPU
+# (zamba2 with two groups and a remainder layer)
+RECURRENT_ARCHS = ("rwkv6-1.6b", "zamba2-1.2b")
+RECURRENT = dict(batch=4, prompt=200, new=32, given=8, small_prompt=40,
+                 small_new=8, timed_steps=5)
+RECURRENT_SMALL = {"rwkv6-1.6b": {}, "zamba2-1.2b": {"num_layers": 5}}
+# chunked prefill against the recurrent decode in f32 (TF32 off), max
+# |dlogit| / max |logit|: the reference's tolerance for this invariant
+# (tests/test_model_numerics.py)
+RECURRENT_CHUNK_TOL = 2e-3
+# the bf16 model's lockstep logits against the same weights in f32 on the
+# same tokens, max |dlogit| / max |logit| over the 32 steps (prefill's and
+# 31 teacher-forced decode steps'), measured on an H100 per model: every
+# projection, mix, gate and norm output rounds to bf16 through 24 / 38
+# layers, where the states and scans stay in f32; the gate is 1.5x it
+RECURRENT_LOGIT_FLOOR = {"rwkv6-1.6b": 5.153e-2, "zamba2-1.2b": 7.160e-2}
 HIER_ROUNDS = 6
 # the reference's recorded streamed-vs-fused loss gap (BENCH_bigmodel.json)
 STREAMED_LOSS_GAP = 1.4e-3
@@ -3842,6 +3884,263 @@ def moe_phase(smi_line: str, device: str = "cuda", cfgs=None) -> dict:
     return out
 
 
+# --------------------------------------------------------------- recurrent
+
+def _state_bytes(cache) -> int:
+    """Bytes of a cache's recurrent states (every field of ``cache.ssm``)."""
+    return sum(t.numel() * t.element_size() for t in cache.ssm)
+
+
+def _clone_cache(cache):
+    """A copy of an LMCache whose tensors share nothing with ``cache``."""
+    def copy(field):
+        return None if field is None else type(field)(*(t.clone()
+                                                        for t in field))
+    return cache._replace(kv=copy(cache.kv), ssm=copy(cache.ssm),
+                          shared_kv=copy(cache.shared_kv))
+
+
+def recurrent_step_bound(cfg, params, cache) -> dict:
+    """The byte bound of one lockstep decode step at ``cache.position``:
+    every weight but the embedding read once (the hybrid's shared block
+    once per group: it is applied n_groups times and, at 134 MB, does not
+    stay in the 50 MB L2), the B embedding rows, the recurrent states read
+    and written, and the hybrid's shared K/V rows up to the position read
+    (plus one row written) in every group.  The operations (2 per weight
+    and token, at the bf16 tensor-core rate) are far below it."""
+    from repro_torch.core.flatten import tree_leaves
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+    B = cache.ssm[0].shape[1]
+    embed = params["embed"]
+    weights = nbytes(params) - nbytes(embed) + B * embed[0].numel() * \
+        embed.element_size()
+    kv = 0
+    if cfg.family == "hybrid":
+        groups = cfg.num_layers // cfg.attn_every
+        weights += (groups - 1) * nbytes(params["shared_attn"])
+        k = cache.shared_kv.k
+        row = B * k.shape[3] * k.shape[4] * k.element_size()
+        kv = groups * 2 * row * (cache.position + 2)
+    total = weights + 2 * _state_bytes(cache) + kv
+    n = sum(t.numel() for t in tree_leaves(params))
+    return dict(bound(total, 2 * n * B / PEAK_FLOPS["bfloat16"]),
+                weight_bytes=weights, state_bytes=_state_bytes(cache),
+                kv_bytes=kv)
+
+
+def _teacher_forced(cfg, params, prompt, given, max_seq) -> list:
+    """The logits of prefill(prompt) and of a decode step on each token of
+    ``given`` (B, T) in turn."""
+    from repro_torch.models import transformer as ttf
+    logits, cache = ttf.prefill(cfg, params, prompt, max_seq)
+    out = [logits]
+    for t in range(given.shape[1]):
+        logits, cache = ttf.decode_step(cfg, params, given[:, t], cache)
+        out.append(logits)
+    return out
+
+
+def recurrent_small(small, device: str = "cuda") -> dict:
+    """The reduced f32 config served through the lockstep loop on the card
+    and on the CPU from the same CPU-drawn weights and prompt: equal greedy
+    tokens, and the first decode step's logits within SERVE_LOGIT_TOL_F32."""
+    import torch
+    from repro_torch.core.flatten import tree_map
+    from repro_torch.launch.serve import lockstep, lockstep_prompt
+    from repro_torch.models import get_model
+    bundle = get_model(small)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    cpu_params = bundle.init(gen)
+    card_params = tree_map(lambda a: a.to(device), cpu_params)
+    prompt = lockstep_prompt(small, RECURRENT["batch"],
+                             RECURRENT["small_prompt"], torch.device("cpu"))
+    max_seq = RECURRENT["small_prompt"] + RECURRENT["small_new"]
+    card = lockstep(bundle, card_params, prompt.to(device),
+                    RECURRENT["small_new"], max_seq)
+    cpu = lockstep(bundle, cpu_params, prompt, RECURRENT["small_new"],
+                   max_seq)
+    need(torch.equal(card.tokens.cpu(), cpu.tokens),
+         f"{small.name}: reduced f32 tokens card {card.tokens.tolist()} != "
+         f"CPU {cpu.tokens.tolist()}")
+    step_err = _logit_err(card.logits[:, 1].cpu(), cpu.logits[:, 1])
+    all_err = _logit_err(card.logits.cpu(), cpu.logits)
+    need(step_err <= SERVE_LOGIT_TOL_F32, f"{small.name}: reduced f32 "
+         f"decode-step logits card vs CPU {step_err:.3e} > "
+         f"{SERVE_LOGIT_TOL_F32}")
+    return {"tokens": int(cpu.tokens.numel()),
+            "logit_rel_err_card_vs_cpu_step": step_err,
+            "logit_rel_err_card_vs_cpu_all_steps": all_err}
+
+
+def recurrent_model(cfg, small, floor, smi_line: str,
+                    device: str = "cuda") -> dict:
+    """One recurrent config at full width through the lockstep loop, with
+    the phase's gates and numbers (see ``recurrent_phase``)."""
+    import torch
+    from repro_torch.core.flatten import tree_leaves, tree_map
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import lockstep, lockstep_prompt
+    from repro_torch.models import get_model
+    from repro_torch.models import transformer as ttf
+    tag = f"recurrent {cfg.name}"
+    R = RECURRENT
+    bundle = get_model(cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = bundle.init(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(p.numel() for p in tree_leaves(params))
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in tree_leaves(params))
+    log(f"{tag} ({smi_line}): {cfg.family} L={cfg.num_layers} "
+        f"d={cfg.d_model} d_ff={cfg.d_ff} vocab={cfg.vocab_size}" + (
+            f" heads {cfg.num_heads}/{cfg.num_kv_heads} attn_every "
+            f"{cfg.attn_every} ssm_state {cfg.ssm_state}"
+            if cfg.family == "hybrid" else "")
+        + f" bf16: {n} parameters, {weight_bytes} B, init {init_s:.1f} s")
+
+    # the main path: the lockstep loop of repro_torch.launch.serve
+    prompt = lockstep_prompt(cfg, R["batch"], R["prompt"],
+                             torch.device(device))
+    max_seq = R["prompt"] + R["new"]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    run = lockstep(bundle, params, prompt, R["new"], max_seq)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    need(not any(counts.values()), f"{tag}: kernels or plain kernel "
+         f"versions ran on the path: "
+         f"{ {k: v for k, v in counts.items() if v} }")
+    need(tuple(run.tokens.shape) == (R["batch"], R["new"]),
+         f"{tag}: tokens {tuple(run.tokens.shape)}")
+    need(bool(torch.isfinite(run.logits).all()), f"{tag}: non-finite "
+         "logits")
+    steps = R["new"] - 1
+    tok_s = R["batch"] * steps / run.decode_s
+    log(f"{tag}: lockstep batch {R['batch']} prompt {R['prompt']} new "
+        f"{R['new']}: prefill {run.prefill_s * 1e3:.1f} ms (first call), "
+        f"{steps} decode steps {run.decode_s * 1e3:.1f} ms = "
+        f"{tok_s:.1f} tokens/s; peak allocated {peak / 2**30:.2f} GiB; "
+        f"first sequence {run.tokens[0, :16].tolist()}; launch counts all 0")
+
+    # one decode step alone, its byte bound, and its device time
+    _, cache = bundle.prefill(params, {"tokens": prompt}, max_seq)
+    tok = run.tokens[:, 0]
+    step = lambda: bundle.decode(params, tok, cache)   # noqa: E731
+    prefill_ms = _event_ms(lambda: bundle.prefill(
+        params, {"tokens": prompt}, max_seq), reps=3, warmup=1)
+    step_ms = sorted(_event_ms(step, reps=R["timed_steps"]))
+    step_med = statistics.median(step_ms)
+    b = recurrent_step_bound(cfg, params, cache)
+    rows = _device_rows(step, 2)
+    busy_ms = sum(_device_us(e) for e in rows) / 2 / 1e3
+    launches = sum(e.count for e in rows) / 2
+    top = sorted(rows, key=lambda e: -_device_us(e))[:6]
+    log(f"{tag} ({smi_line}): prefill B={R['batch']} S={R['prompt']} "
+        f"median {statistics.median(prefill_ms):.1f} ms; decode step alone "
+        f"median {step_med:.3f} ms [{step_ms[0]:.3f}-{step_ms[-1]:.3f}] "
+        f"against the {b['bound_ms']:.3f} ms byte bound "
+        f"({b['bound_ms'] / step_med:.1%}; weights {b['weight_bytes']} B, "
+        f"states {b['state_bytes']} B read and written, shared K/V "
+        f"{b['kv_bytes']} B); device busy "
+        + ("not measured (no device time in the trace)" if busy_ms <= 0 else
+           f"{busy_ms:.3f} ms a step ({busy_ms / step_med:.1%}, idle "
+           f"{1 - busy_ms / step_med:.1%}) in {launches:g} kernel launches; "
+           "top: " + "; ".join(f"{e.key[:48]} {_device_us(e) / 2e3:.3f} ms "
+                               f"({e.count / 2:g})" for e in top)))
+
+    # no host sync in a step; two steps from copies of one cache bitwise
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        bundle.decode(params, tok, _clone_cache(cache))
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    a_lg, a_c = bundle.decode(params, tok, _clone_cache(cache))
+    b_lg, b_c = bundle.decode(params, tok, _clone_cache(cache))
+    need(torch.equal(a_lg, b_lg) and all(
+        torch.equal(x, y) for x, y in zip(a_c.ssm, b_c.ssm)),
+        f"{tag}: two decode steps from copies of one cache differ")
+    del cache, a_c, b_c
+
+    # the same weights in f32: the bf16 logits against them on the same
+    # tokens, and chunked prefill = recurrent decode (TF32 off)
+    p32 = tree_map(lambda a: a.float(), params)
+    cfg32 = cfg.with_overrides(dtype="float32")
+    f32 = _teacher_forced(cfg32, p32, prompt, run.tokens[:, :-1], max_seq)
+    bf16_err = max(_logit_err(run.logits[:, t], f32[t])
+                   for t in range(R["new"]))
+    chunk_err = 0.0
+    for t in range(1, R["given"] + 1):
+        full = torch.cat([prompt, run.tokens[:, :t]], 1)
+        lg, _ = ttf.prefill(cfg32, p32, full, max_seq)
+        chunk_err = max(chunk_err, _logit_err(f32[t], lg))
+    del p32, f32
+    gate = None if floor is None else 1.5 * floor
+    log(f"{tag}: f32 chunked prefill of {R['prompt']}+t vs recurrent decode "
+        f"t = 1..{R['given']}: {chunk_err:.3e} of max |logit| (gate "
+        f"{RECURRENT_CHUNK_TOL}); bf16 vs f32 logits over {R['new']} steps "
+        f"{bf16_err:.3e} (floor {floor}, gate "
+        + ("not set" if gate is None else f"{gate:.4g}") + ")")
+    need(chunk_err <= RECURRENT_CHUNK_TOL, f"{tag}: chunked vs recurrent "
+         f"{chunk_err:.3e} > {RECURRENT_CHUNK_TOL}")
+    need(gate is not None and bf16_err <= gate, f"{tag}: bf16 vs f32 "
+         f"logits {bf16_err:.3e}, gate {gate}")
+    del params
+    torch.cuda.empty_cache()
+
+    smalled = recurrent_small(small, device)
+    log(f"{tag}: reduced f32 {small.name} tokens equal on card and CPU "
+        f"({smalled['tokens']} tokens), first decode step's logits "
+        f"{smalled['logit_rel_err_card_vs_cpu_step']:.3e} apart (all steps "
+        f"{smalled['logit_rel_err_card_vs_cpu_all_steps']:.3e}; tolerance "
+        f"{SERVE_LOGIT_TOL_F32})")
+    need(not any(launch_counts().values()), f"{tag}: kernels or plain "
+         "kernel versions ran in the phase's checks")
+    return {"counts": counts, "parameters": n, "weight_bytes": weight_bytes,
+            "init_s": init_s, "prefill_s_first": run.prefill_s,
+            "prefill_ms": statistics.median(prefill_ms),
+            "decode_s": run.decode_s, "decode_steps": steps,
+            "tokens_per_s": tok_s, "peak_allocated_bytes": peak,
+            "decode_step_ms_alone": step_med,
+            "decode_step_ms_alone_all": step_ms,
+            "decode_step_bound_ms": b["bound_ms"],
+            "decode_step_bound": b,
+            "device_busy_ms": busy_ms if busy_ms > 0 else None,
+            "launches_per_step": launches,
+            "chunked_vs_recurrent_f32": chunk_err,
+            "bf16_vs_f32": bf16_err, "bf16_vs_f32_floor": floor,
+            "bf16_vs_f32_tolerance": gate, "reduced_f32": smalled,
+            "nvidia_smi": smi_line}
+
+
+def recurrent_phase(smi_line: str, device: str = "cuda",
+                    cfgs=None) -> dict:
+    """rwkv6-1.6b, then zamba2-1.2b, at full width through the lockstep
+    loop, each freed before the next.  ``cfgs`` ({name: (cfg, small)}) and
+    ``device`` other than the defaults rehearse the phase's control flow at
+    a small size."""
+    import torch
+    from repro_torch.configs import get_config
+    out = {"counts": {}, "models": {}}
+    for name in RECURRENT_ARCHS:
+        torch.cuda.empty_cache()
+        cfg, small = cfgs[name] if cfgs else (
+            get_config(name),
+            get_config(name).reduced(**RECURRENT_SMALL[name]))
+        rec = recurrent_model(cfg, small, RECURRENT_LOGIT_FLOOR[name],
+                              smi_line, device)
+        for key, v in rec.pop("counts").items():
+            out["counts"][key] = out["counts"].get(key, 0) + v
+        out["models"][name] = rec
+    return out
+
+
 # -------------------------------------------------------------------- main
 
 def setup_phase() -> str:
@@ -4095,13 +4394,14 @@ def main() -> int:
         big = on_cuda_core("bigmodel", bigmodel_phase)
         served = on_cuda_core("serve", serve_phase)
         moed = on_cuda_core("moe", moe_phase, smi_line)
+        recurred = on_cuda_core("recurrent", recurrent_phase, smi_line)
         by_path = {"sync": sync_counts, "async": asynced["counts"],
                    "hier": hier_counts,
                    "streamed": streamed_counts, "robust": robusted["counts"],
                    "fleet": fleeted["counts"],
                    "scaffold": scaffolded["counts"],
                    "bigmodel": big["counts"], "serve": served["counts"],
-                   "moe": moed["counts"]}
+                   "moe": moed["counts"], "recurrent": recurred["counts"]}
         for path, counts in by_path.items():
             need(gram_bodies[path]["cuda_core"] >= counts.get("gram/cuda", 0),
                  f"{path}: {counts.get('gram/cuda', 0)} gram launches, "
@@ -4183,6 +4483,9 @@ def main() -> int:
     entries[names.index("flash_decode")]["serve"] = {
         k: v for k, v in served.items() if k != "counts"}
     entries[names.index("flash_decode")]["moe"] = moed["models"]
+    # no kernel lies on the recurrent path (its launches are 0 for every
+    # op); its numbers ride on the serving entry
+    entries[names.index("flash_decode")]["recurrent"] = recurred["models"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi_line, flush=True)

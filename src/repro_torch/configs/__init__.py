@@ -1,9 +1,11 @@
 """Architecture configs of the port (copies of ``repro.configs``).
 
-The paper's own model, the dense transformers and the MoE family are
-ported; ``get_config(name)`` returns the full production config and
-``get_config(name).reduced()`` the CPU smoke variant.  Every other name of
-``repro.configs`` raises ``KeyError`` until its model family lands.
+The paper's own model, the dense transformers, the MoE family and the
+recurrent families (rwkv6-1.6b, the zamba2-1.2b hybrid) are ported;
+``get_config(name)`` returns the full production config and
+``get_config(name).reduced()`` the CPU smoke variant.  The other names of
+``repro.configs`` (whisper-large-v3, chameleon-34b) raise ``KeyError`` until
+their model family lands.
 """
 from __future__ import annotations
 
@@ -13,7 +15,8 @@ from typing import Dict
 from ..models.config import ArchConfig
 
 _MODULES = ["paper_logreg", "qwen3_14b", "gemma_7b", "qwen2p5_32b",
-            "starcoder2_15b", "olmoe_1b_7b", "deepseek_moe_16b"]
+            "starcoder2_15b", "olmoe_1b_7b", "deepseek_moe_16b",
+            "rwkv6_1p6b", "zamba2_1p2b"]
 
 _ALIASES = {
     "paper-logreg": "paper_logreg",
@@ -23,6 +26,8 @@ _ALIASES = {
     "starcoder2-15b": "starcoder2_15b",
     "olmoe-1b-7b": "olmoe_1b_7b",
     "deepseek-moe-16b": "deepseek_moe_16b",
+    "rwkv6-1.6b": "rwkv6_1p6b",
+    "zamba2-1.2b": "zamba2_1p2b",
 }
 
 PORTED = list(_ALIASES)

@@ -1,26 +1,35 @@
-"""Serving driver: the continuous-batching decode engine over a ModelBus
-(``repro.launch.serve``).
+"""Serving entry point (``repro.launch.serve``): the continuous-batching
+decode engine over a ModelBus for the KV-cache families, the lockstep loop
+for the recurrent ones.
 
 The dense and moe families run on :class:`repro_torch.serve.DecodeEngine`
 — one persistent KV cache, requests admitted into free slots and retired
 at chunk boundaries, every decode step's attention in the ``flash_decode``
-kernel on the card.  Weights are random, from a seeded ``torch.Generator``
-on the device.
+kernel on the card.  The ssm (RWKV6, Mamba2) and hybrid (Zamba2) families
+run the reference's lockstep loop: one batched ``prefill``, then one
+greedy ``decode_step`` per token for every row (``--batch`` rows).  Weights
+are random, from a seeded ``torch.Generator`` on the device, and so is the
+lockstep loop's prompt.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --no-reduced
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --no-reduced
 
 ``--no-reduced`` serves the full architecture (qwen3-14b: 29.5 GB of bf16
-weights, deepseek-moe-16b 33.8 GB, olmoe-1b-7b 13.8 GB; one H100); ``--device cpu`` asks for the CPU (the reduced
-architecture is the size for that); ``--no-greedy`` samples.  The
-reference's lockstep loop for the vlm/audio families raises until those
-families are ported.
+weights, deepseek-moe-16b 33.8 GB, olmoe-1b-7b 13.8 GB, rwkv6-1.6b 3.2 GB,
+zamba2-1.2b 2.3 GB; one H100); ``--device cpu`` asks for the CPU (the
+reduced architecture is the size for that); ``--no-greedy`` samples on the
+engine (the lockstep loop is greedy, as the reference's).  The vlm and
+audio families raise ``NotImplementedError`` naming ``repro.models.vlm`` /
+``repro.models.encdec`` until they are ported.
 """
 from __future__ import annotations
 
 import argparse
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -31,6 +40,11 @@ from ..models.registry import get_model
 from ..serve import DecodeEngine, ModelBus
 
 ENGINE_FAMILIES = ("dense", "moe")
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def _engine_serve(cfg, bundle, args) -> None:
@@ -46,8 +60,7 @@ def _engine_serve(cfg, bundle, args) -> None:
         eng.submit([int(t) for t in rng.integers(0, cfg.vocab_size,
                                                  args.prompt_len)],
                    max_new=args.new_tokens)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    _sync(dev)
     t0 = time.time()
     done = eng.run()
     dt = time.time() - t0
@@ -64,11 +77,61 @@ def _engine_serve(cfg, bundle, args) -> None:
     print("first sequence:", first.tokens[:16])
 
 
+class LockstepRun(NamedTuple):
+    tokens: torch.Tensor     # (B, new_tokens) int32, on the device
+    logits: torch.Tensor     # (B, new_tokens, V): the logits each came from
+    prefill_s: float
+    decode_s: float
+
+
+def lockstep(bundle, params, prompt: torch.Tensor, new_tokens: int,
+             max_seq: int) -> LockstepRun:
+    """The reference's lockstep loop: one batched prefill of ``prompt``
+    (B, S), then ``new_tokens - 1`` greedy decode steps for every row.
+    Nothing in the token loop waits on the device; the host clock is read
+    after a synchronise at its two ends."""
+    dev = prompt.device
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = bundle.prefill(params, {"tokens": prompt}, max_seq)
+    _sync(dev)
+    prefill_s = time.perf_counter() - t0
+    tok = logits.argmax(-1).to(torch.int32)
+    toks, outs = [tok], [logits]
+    t0 = time.perf_counter()
+    for _ in range(new_tokens - 1):
+        logits, cache = bundle.decode(params, tok, cache)
+        tok = logits.argmax(-1).to(torch.int32)
+        toks.append(tok)
+        outs.append(logits)
+    _sync(dev)
+    return LockstepRun(torch.stack(toks, 1), torch.stack(outs, 1), prefill_s,
+                       time.perf_counter() - t0)
+
+
+def lockstep_prompt(cfg, batch: int, prompt_len: int,
+                    device: torch.device) -> torch.Tensor:
+    """(batch, prompt_len) int32 tokens from a generator seeded 0 on the
+    device (``jax.random``'s draws cannot be replayed)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    return torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                         generator=gen, device=device, dtype=torch.int32)
+
+
 def _lockstep_serve(cfg, bundle, args) -> None:
-    raise NotImplementedError(
-        f"the lockstep serving loop for the {cfg.family!r} family waits for "
-        "that family's port (reference: repro.launch.serve with "
-        "repro.models.{rwkv,ssd,encdec,vlm}; ROADMAP queue 1)")
+    dev = resolve_device(args.device)
+    params = bundle.init(0, device=dev)
+    prompt = lockstep_prompt(cfg, args.batch, args.prompt_len, dev)
+    run = lockstep(bundle, params, prompt, args.new_tokens,
+                   args.prompt_len + args.new_tokens)
+    total = args.batch * (args.new_tokens - 1)
+    print(f"arch={cfg.name} device={dev} batch={args.batch} "
+          f"prompt={args.prompt_len} new={args.new_tokens} "
+          f"window={cfg.sliding_window}")
+    print(f"prefill: {run.prefill_s:.2f}s  decode: {run.decode_s:.2f}s "
+          f"({total / max(run.decode_s, 1e-9):.1f} tok/s)")
+    print("first sequence:", run.tokens[0, :16].tolist())
 
 
 def main(argv=None) -> None:
@@ -80,8 +143,10 @@ def main(argv=None) -> None:
                     default=True)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="lockstep batch width (ssm/hybrid families)")
     ap.add_argument("--slots", type=int, default=4,
-                    help="engine decode slots")
+                    help="engine decode slots (dense/moe families)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--scan-chunk", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=64)

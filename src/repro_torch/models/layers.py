@@ -48,6 +48,17 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return (out * (1.0 + weight.float())).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm computed in f32 with the population variance (``jnp.var``;
+    torch's default would be the unbiased one), back in x's dtype."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, correction=0)
+    out = (x32 - mean) * torch.rsqrt(var + eps)
+    return (out * weight.float() + bias.float()).to(x.dtype)
+
+
 # ----------------------------------------------------------------------- RoPE
 
 @functools.lru_cache(maxsize=None)

@@ -1,7 +1,10 @@
 """Model registry of the port — one bundle per architecture family.
 
-The ``logreg``, ``dense`` and ``moe`` families are ported; the others of
-``repro.models.registry`` raise until their slice lands.  The bundle keeps
+The ``logreg``, ``dense``, ``moe``, ``ssm`` and ``hybrid`` families are
+ported (one decoder-only bundle serves the last four); ``vlm`` and
+``audio`` of ``repro.models.registry`` raise ``NotImplementedError``,
+naming ``repro.models.vlm`` / ``repro.models.encdec``, until their slice
+lands.  The bundle keeps
 the reference's field names:
 
     bundle.init(seed | Generator, device="cuda")  -> params

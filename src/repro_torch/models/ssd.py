@@ -1,0 +1,196 @@
+"""Mamba2 block of the port (``repro.models.ssd``), in the State-Space
+Duality form.
+
+The SSD recurrence per head (state N, head dim P):
+
+    s_t = a_t · s_{t-1} + dt_t · (B_t ⊗ x_t)       a_t = exp(dt_t · A) ∈ (0,1)
+    y_t = C_t · s_t + D · x_t
+
+is evaluated chunk-parallel (chunk Q): within a chunk the contribution is an
+attention-like masked product, and a Python loop over the chunks carries
+the (B, H, P, N) f32 state (the reference's ``lax.scan``).
+
+Dtypes follow the reference op by op: the full-sequence causal conv runs in
+the model dtype, the decode step's conv in f32 cast back; the scan lifts x,
+B and C to f32; ``A_log``, ``D`` and ``dt_bias`` are f32 leaves whatever
+the model dtype.  ``F.softplus`` returns x itself above 20 where
+``jax.nn.softplus`` is ``logaddexp(x, 0)``; over the whole range the two
+stay within two f32 ulps (``tests/test_torch_recurrent.py`` holds it).
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .config import ArchConfig
+from .layers import dense_init, rms_norm
+
+
+class SSMState(NamedTuple):
+    conv: torch.Tensor   # (B, W-1, conv_channels) rolling conv input window
+    ssm: torch.Tensor    # (B, H, P, N) f32 recurrent state
+
+
+def init_mamba2(cfg: ArchConfig, gen: torch.Generator,
+                dtype: torch.dtype) -> Dict:
+    """The reference's tree, drawn from ``gen`` on its device."""
+    d, di, N = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state
+    H = cfg.ssm_num_heads
+    conv_ch = di + 2 * N
+    dev = gen.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    conv_w = torch.randn((cfg.ssm_conv_width, conv_ch), generator=gen,
+                         device=dev) * 0.2
+    return {
+        # order: [z (di), x (di), B (N), C (N), dt (H)]
+        "in_proj": dense_init(gen, d, 2 * di + 2 * N + H, dtype),
+        "conv_w": conv_w.to(dtype),
+        "conv_b": torch.zeros((conv_ch,), dtype=dtype, device=dev),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, H, **f32)),
+        "D": torch.ones((H,), **f32),
+        "dt_bias": torch.zeros((H,), **f32),
+        "norm": torch.zeros((di,), dtype=dtype, device=dev),
+        "out_proj": dense_init(gen, di, d, dtype),
+    }
+
+
+def _causal_conv(u: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv along seq. u: (B, S, C), w: (W, C)."""
+    W, S = w.shape[0], u.shape[1]
+    pad = F.pad(u, (0, 0, W - 1, 0))
+    out = sum(pad[:, i:i + S, :] * w[i] for i in range(W))
+    return out + b
+
+
+def _ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+                 init_state: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """xh (B,S,H,P), dt (B,S,H) f32, A (H,) negative, Bm/Cm (B,S,N).
+
+    Returns (y (B,S,H,P) f32, final_state (B,H,P,N) f32)."""
+    B, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    pad = (-S) % chunk
+    if pad:
+        # dt = 0 on the padding: identity decay and no state input
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+    nc = (S + pad) // chunk
+    xc = xh.reshape(B, nc, chunk, H, P)
+    dtc = dt.reshape(B, nc, chunk, H)
+    Bc = Bm.reshape(B, nc, chunk, N)
+    Cc = Cm.reshape(B, nc, chunk, N)
+    cum = torch.cumsum(dtc * A, dim=2)       # (B,nc,Q,H) ≤ 0, inclusive
+    causal = torch.ones((chunk, chunk), dtype=torch.bool,
+                        device=xh.device).tril()
+    state = init_state.float()
+    ys = []
+    for c in range(nc):
+        xq, dtq, cumq = xc[:, c].float(), dtc[:, c], cum[:, c]
+        Bq, Cq = Bc[:, c].float(), Cc[:, c].float()
+        # intra-chunk: M[b,q,s,h] = exp(cum_q - cum_s)·dt_s·(C_q·B_s), s ≤ q
+        CB = torch.einsum("bqn,bsn->bqs", Cq, Bq)
+        # valid (s ≤ q) exponents are ≤ 0, so the clamp is exact there and
+        # keeps masked pairs from overflowing (inf·0 = NaN in a backward)
+        decay = torch.exp(torch.clamp(
+            cumq[:, :, None, :] - cumq[:, None, :, :], max=0.0))  # (B,q,s,H)
+        M = torch.where(causal[None, :, :, None], decay, 0.0) \
+            * CB[:, :, :, None] * dtq[:, None, :, :]
+        y_intra = torch.einsum("bqsh,bshp->bqhp", M, xq)
+        # inter-chunk: y_inter[q] = exp(cum_q) · C_q · state
+        y_inter = torch.einsum("bqn,bhpn->bqhp", Cq, state) \
+            * torch.exp(cumq)[..., None]
+        # s' = exp(cum_Q)·s + Σ_s exp(cum_Q - cum_s)·dt_s·x_s⊗B_s
+        total = cumq[:, -1, :]                                   # (B,H)
+        w_s = torch.exp(total[:, None, :] - cumq) * dtq          # (B,Q,H)
+        state = state * torch.exp(total)[:, :, None, None] + torch.einsum(
+            "bqhp,bqn->bhpn", w_s[..., None] * xq, Bq)
+        ys.append(y_intra + y_inter)
+    y = torch.stack(ys, dim=1).reshape(B, nc * chunk, H, P)[:, :S]
+    return y, state
+
+
+def _split_proj(cfg: ArchConfig, proj: torch.Tensor):
+    di, N = cfg.ssm_d_inner, cfg.ssm_state
+    return torch.split(proj, [di, di, N, N, cfg.ssm_num_heads], dim=-1)
+
+
+def _gate_out(cfg: ArchConfig, params: Dict, y: torch.Tensor,
+              z: torch.Tensor) -> torch.Tensor:
+    y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
+    return y @ params["out_proj"]
+
+
+def mamba2_forward(cfg: ArchConfig, params: Dict, x: torch.Tensor,
+                   init_state: Optional[SSMState] = None
+                   ) -> Tuple[torch.Tensor, SSMState]:
+    """Full-sequence forward. x: (B, S, d) → (out (B,S,d), final SSMState).
+    ``init_state`` continues the causal conv across a segment boundary: its
+    W−1 carried inputs are prepended in place of zero padding."""
+    B, S, d = x.shape
+    di, N = cfg.ssm_d_inner, cfg.ssm_state
+    H, P = cfg.ssm_num_heads, cfg.ssm_head_dim
+    W = cfg.ssm_conv_width
+    z, xin, Bm, Cm, dt_raw = _split_proj(cfg, x @ params["in_proj"])
+    conv_in = torch.cat([xin, Bm, Cm], dim=-1)
+    if init_state is not None:
+        hist = torch.cat([init_state.conv.to(conv_in.dtype), conv_in], dim=1)
+        conv_out = F.silu(_causal_conv(hist, params["conv_w"],
+                                       params["conv_b"]))[:, W - 1:]
+    else:
+        hist = F.pad(conv_in, (0, 0, max(W - 1 - S, 0), 0))
+        conv_out = F.silu(_causal_conv(conv_in, params["conv_w"],
+                                       params["conv_b"]))
+    xin, Bm, Cm = torch.split(conv_out, [di, N, N], dim=-1)
+
+    dt = F.softplus(dt_raw.float() + params["dt_bias"])
+    A = -torch.exp(params["A_log"])
+    xh = xin.reshape(B, S, H, P)
+    state0 = (init_state.ssm if init_state is not None else
+              torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device))
+    y, state = _ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk, state0)
+    y = y + params["D"][None, None, :, None] * xh.float()
+    out = _gate_out(cfg, params, y.reshape(B, S, di).to(x.dtype), z)
+    return out, SSMState(hist[:, -(W - 1):, :].to(x.dtype), state)
+
+
+def init_ssm_state(cfg: ArchConfig, batch: int, dtype: torch.dtype,
+                   device=None) -> SSMState:
+    conv_ch = cfg.ssm_d_inner + 2 * cfg.ssm_state
+    return SSMState(
+        torch.zeros((batch, cfg.ssm_conv_width - 1, conv_ch), dtype=dtype,
+                    device=device),
+        torch.zeros((batch, cfg.ssm_num_heads, cfg.ssm_head_dim,
+                     cfg.ssm_state), dtype=torch.float32, device=device))
+
+
+def mamba2_decode(cfg: ArchConfig, params: Dict, x: torch.Tensor,
+                  state: SSMState) -> Tuple[torch.Tensor, SSMState]:
+    """Single-token decode. x: (B, 1, d)."""
+    B = x.shape[0]
+    di, N = cfg.ssm_d_inner, cfg.ssm_state
+    H, P = cfg.ssm_num_heads, cfg.ssm_head_dim
+    z, xin, Bm, Cm, dt_raw = _split_proj(cfg, x[:, 0] @ params["in_proj"])
+    conv_in = torch.cat([xin, Bm, Cm], dim=-1)                 # (B, C)
+    window = torch.cat([state.conv, conv_in[:, None, :]], dim=1)  # (B,W,C)
+    conv_out = F.silu(
+        torch.einsum("bwc,wc->bc", window.float(), params["conv_w"].float())
+        + params["conv_b"].float()).to(x.dtype)
+    xin, Bm, Cm = torch.split(conv_out, [di, N, N], dim=-1)
+
+    dt = F.softplus(dt_raw.float() + params["dt_bias"])        # (B,H)
+    A = -torch.exp(params["A_log"])
+    a = torch.exp(dt * A)                                      # (B,H)
+    xh = xin.reshape(B, H, P).float()
+    s_new = state.ssm * a[:, :, None, None] \
+        + (dt[:, :, None] * xh)[..., None] * Bm.float()[:, None, None, :]
+    y = torch.einsum("bn,bhpn->bhp", Cm.float(), s_new)
+    y = y + params["D"][None, :, None] * xh
+    out = _gate_out(cfg, params, y.reshape(B, di).to(x.dtype), z)
+    return out[:, None, :], SSMState(window[:, 1:], s_new)

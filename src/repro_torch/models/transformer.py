@@ -1,28 +1,38 @@
-"""Decoder-only LM of the port (``repro.models.transformer``), dense and
-MoE families.
+"""Decoder-only LM of the port (``repro.models.transformer``): the dense,
+MoE, SSM (RWKV6 or Mamba2) and hybrid (Zamba2) families.
 
 Layers are stacked on a leading L axis under ``params["blocks"]``, as the
 reference's tree; the reference's ``lax.scan`` over layers is a Python loop
-over the stack's per-layer views.  Entry points:
+over the stack's per-layer views.  The Zamba2 hybrid stacks its Mamba2
+layers on (n_groups, attn_every), the ``num_layers % attn_every`` last ones
+on their own axis under ``blocks_rem``, and applies one SHARED attention +
+MLP block (``shared_attn``) after every group.  Entry points:
 
   * ``forward_train`` — full-sequence teacher-forced logits (+ the MoE
-    router's aux loss, 0 for dense)
+    router's aux loss, 0 for the other families)
   * ``prefill``       — full prompt, last-token logits and a cache
   * ``decode_step``   — one token for every row against the cache
   * ``decode_slots``  — one token per slot at per-slot depths (the serving
-    engine's step; its attention goes through the ``flash_decode`` kernel)
+    engine's step; its attention goes through the ``flash_decode`` kernel;
+    KV-cache families only)
   * ``prefill_chunk`` — one chunk of a prompt into one slot of the engine's
-    cache
+    cache (KV-cache families only)
 
 A ``moe`` layer holds ``moe`` (``repro_torch.models.moe``) where a dense
-layer holds ``mlp``.  The ssm, hybrid, vlm and audio families raise
-``NotImplementedError`` naming the reference module that holds them.
-Caches are updated in place and returned (the reference returns new
-arrays); ``LMCache.position`` is a host int.
+layer holds ``mlp``; an ``ssm`` layer holds ``rwkv``
+(``repro_torch.models.rwkv``) or ``mamba`` (``repro_torch.models.ssd``).
+The vlm and audio families raise ``NotImplementedError`` naming the
+reference module that holds them.  Caches are updated in place and
+returned (the reference returns new arrays); ``LMCache.position`` is a
+host int.  The recurrent states (``LMCache.ssm``) are stacked over
+``num_layers`` with the hybrid's remainder layers at the tail, and the
+hybrid's ``shared_kv`` over its groups: each application of the one shared
+weight set has its own cache.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+import math
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -30,28 +40,27 @@ from ..core.flatten import tree_map
 from ..device import DeviceLike, resolve_device
 from .attention import (KVCache, _project_qkv, attention_decode,
                         attention_decode_slots, attention_forward,
-                        flash_attention, init_attention,
+                        flash_attention, init_attention, init_kv_cache,
                         naive_attention, ring_place)
 from .config import ArchConfig
 from .layers import dtype_of, embed_init, rms_norm
 from .mlp import init_mlp, mlp_forward
 from .moe import init_moe, moe_forward
+from .rwkv import init_rwkv6, init_rwkv_state, rwkv6_decode, rwkv6_forward
+from .ssd import init_mamba2, init_ssm_state, mamba2_decode, mamba2_forward
 
 Pytree = Any
 
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 _NOT_PORTED = {
-    "ssm": "reference: repro.models.rwkv, repro.models.ssd; ROADMAP queue 1",
-    "hybrid": "reference: repro.models.ssd (the shared-attention hybrid); "
-              "ROADMAP queue 1",
     "vlm": "reference: repro.models.vlm; ROADMAP queue 1",
     "audio": "reference: repro.models.encdec; ROADMAP queue 1",
 }
 
 
 def check_family(cfg: ArchConfig) -> None:
-    """Raise for a family the port does not run yet (``dense`` and ``moe``
-    run)."""
-    if cfg.family not in ("dense", "moe"):
+    """Raise for a family the port does not run yet (``FAMILIES`` run)."""
+    if cfg.family not in FAMILIES:
         item = _NOT_PORTED.get(cfg.family, "ROADMAP queue 1")
         raise NotImplementedError(
             f"model family {cfg.family!r} ({cfg.name}) is not ported yet: "
@@ -62,10 +71,15 @@ def check_family(cfg: ArchConfig) -> None:
 
 def _init_block(cfg: ArchConfig, gen: torch.Generator,
                 dtype: torch.dtype) -> Dict:
-    """One layer's params (``moe`` in place of ``mlp`` for the moe
-    family)."""
+    """One layer's params (``moe`` in place of ``mlp`` for the moe family;
+    ``rwkv`` or ``mamba`` alone for the ssm family and the hybrid's Mamba2
+    layers)."""
     zeros = lambda: torch.zeros((cfg.d_model,), dtype=dtype,  # noqa: E731
                                 device=gen.device)
+    if cfg.family == "ssm" and cfg.rwkv:
+        return {"ln1": zeros(), "rwkv": init_rwkv6(cfg, gen, dtype)}
+    if cfg.family in ("ssm", "hybrid"):
+        return {"ln1": zeros(), "mamba": init_mamba2(cfg, gen, dtype)}
     block = {"ln1": zeros(), "ln2": zeros(),
              "attn": init_attention(cfg, gen, dtype)}
     if cfg.family == "moe":
@@ -75,11 +89,30 @@ def _init_block(cfg: ArchConfig, gen: torch.Generator,
     return block
 
 
+def _stacked_layers(cfg: ArchConfig, gen: torch.Generator,
+                    dtype: torch.dtype, lead: Tuple[int, ...]) -> Pytree:
+    """Layers of ``_init_block`` stacked on the leading dims ``lead``, drawn
+    in row-major order, each apart and copied into its slice, so only one
+    layer's f32 draws exist at a time."""
+    blocks = None
+    for i in range(math.prod(lead)):
+        layer = _init_block(cfg, gen, dtype)
+        if blocks is None:
+            blocks = tree_map(lambda a: torch.empty(
+                lead + tuple(a.shape), dtype=a.dtype, device=a.device),
+                layer)
+        at = tuple(divmod(i, lead[1])) if len(lead) == 2 else i
+        tree_map(lambda dst, src: dst[at].copy_(src), blocks, layer)
+        del layer
+    return blocks
+
+
 def init_lm(cfg: ArchConfig, gen: torch.Generator) -> Pytree:
-    """Random params on the generator's device.  Each layer is drawn apart
-    and copied into its slice of the stacked leaves, so only one layer's
-    f32 draws exist at a time (the full qwen3-14b is 29.5 GB in bf16, a
-    deepseek-moe-16b layer's f32 draws about 2.3 GB)."""
+    """Random params on the generator's device, layer by layer (the full
+    qwen3-14b is 29.5 GB in bf16, a deepseek-moe-16b layer's f32 draws
+    about 2.3 GB).  The hybrid's tree holds ``blocks`` on (n_groups,
+    attn_every), ``blocks_rem`` on the remainder layers when
+    ``num_layers % attn_every`` is not 0, and ``shared_attn``."""
     check_family(cfg)
     dtype = dtype_of(cfg.dtype)
     params: Dict[str, Any] = {
@@ -90,16 +123,20 @@ def init_lm(cfg: ArchConfig, gen: torch.Generator) -> Pytree:
     if not cfg.tie_embeddings:
         params["lm_head"] = embed_init(gen, cfg.vocab_size, cfg.d_model,
                                        dtype).T.contiguous()
-    blocks = None
-    for i in range(cfg.num_layers):
-        layer = _init_block(cfg, gen, dtype)
-        if blocks is None:
-            blocks = tree_map(lambda a: torch.empty(
-                (cfg.num_layers,) + tuple(a.shape), dtype=a.dtype,
-                device=a.device), layer)
-        tree_map(lambda dst, src: dst[i].copy_(src), blocks, layer)
-        del layer
-    params["blocks"] = blocks
+    if cfg.family != "hybrid":
+        params["blocks"] = _stacked_layers(cfg, gen, dtype,
+                                           (cfg.num_layers,))
+        return params
+    n_groups, rem = divmod(cfg.num_layers, cfg.attn_every)
+    params["blocks"] = _stacked_layers(cfg, gen, dtype,
+                                       (n_groups, cfg.attn_every))
+    if rem:
+        params["blocks_rem"] = _stacked_layers(cfg, gen, dtype, (rem,))
+    zeros = lambda: torch.zeros((cfg.d_model,), dtype=dtype,  # noqa: E731
+                                device=gen.device)
+    params["shared_attn"] = {"ln1": zeros(), "ln2": zeros(),
+                             "attn": init_attention(cfg, gen, dtype),
+                             "mlp": init_mlp(cfg, gen, dtype)}
     return params
 
 
@@ -120,8 +157,17 @@ def _ffn(cfg: ArchConfig, p: Dict, h: torch.Tensor):
 
 def _block_forward(cfg: ArchConfig, p: Dict, x: torch.Tensor,
                    positions: torch.Tensor, window: Optional[int],
-                   return_kv: bool = False):
-    """One layer. Returns (x, aux, kv or None)."""
+                   state_in=None, return_kv: bool = False):
+    """One layer. Returns (x, aux, extra): extra is the kv (or None) of an
+    attention layer, the new state of a recurrent one (``state_in`` its
+    initial state, None for zeros)."""
+    for name, forward in (("rwkv", rwkv6_forward), ("mamba", mamba2_forward)):
+        if name in p:
+            out, state = forward(cfg, p[name],
+                                 rms_norm(x, p["ln1"], cfg.norm_eps),
+                                 state_in)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            return x + out, aux, state
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     mode = "window" if window is not None else "causal"
     out = attention_forward(cfg, p["attn"], h, positions, mode=mode,
@@ -156,10 +202,43 @@ def forward_train(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
     x = params["embed"][tokens]
     positions = torch.arange(S, device=tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    if cfg.family == "hybrid":
+        mode = "window" if window is not None else "causal"
+        x = _hybrid_pass(
+            cfg, params, x,
+            lambda h, p, _: _block_forward(cfg, p, h, positions, None)[0],
+            lambda _, a: attention_forward(cfg, params["shared_attn"]["attn"],
+                                           a, positions, mode=mode,
+                                           window=window))
+        return _logits(cfg, params, x), aux
     for p in layer_views(params["blocks"], cfg.num_layers):
         x, a, _ = _block_forward(cfg, p, x, positions, window)
         aux = aux + a
     return _logits(cfg, params, x), aux
+
+
+def _hybrid_pass(cfg: ArchConfig, params: Pytree, x: torch.Tensor,
+                 mamba: Callable, attend: Callable) -> torch.Tensor:
+    """Zamba2's layer order: each group's Mamba2 layers, then the shared
+    attention + MLP block (the same weights every time), then the
+    remainder layers.  ``mamba(x, p, layer)`` runs Mamba2 layer ``layer``
+    (its index in ``num_layers`` order, as ``LMCache.ssm`` holds its
+    state); ``attend(g, a)`` is group ``g``'s attention output for the
+    normed input ``a``."""
+    shared = params["shared_attn"]
+    n_groups, rem = divmod(cfg.num_layers, cfg.attn_every)
+    layers = [p for g in range(n_groups) for p in layer_views(
+        tree_map(lambda a: a[g], params["blocks"]), cfg.attn_every)]
+    if rem:
+        layers += layer_views(params["blocks_rem"], rem)
+    for i, p in enumerate(layers):
+        x = mamba(x, p, i)
+        if i < n_groups * cfg.attn_every and (i + 1) % cfg.attn_every == 0:
+            g = i // cfg.attn_every
+            x = x + attend(g, rms_norm(x, shared["ln1"], cfg.norm_eps))
+            m = rms_norm(x, shared["ln2"], cfg.norm_eps)
+            x = x + mlp_forward(cfg, shared["mlp"], m)
+    return x
 
 
 # ------------------------------------------------------------ prefill/decode
@@ -167,9 +246,19 @@ def forward_train(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
 class LMCache(NamedTuple):
     """Per-family cache container (unused fields are None)."""
     kv: Optional[KVCache]            # (L, B, S, KVH, hd) stacked over layers
-    ssm: Optional[Any]
-    shared_kv: Optional[KVCache]
+    ssm: Optional[Any]               # RWKVState / SSMState stacked over L
+    shared_kv: Optional[KVCache]     # hybrid: (G, B, S, KVH, hd)
     position: int
+
+
+def _state_at(stacked, i: int):
+    """Layer ``i``'s views of a stacked RWKVState / SSMState."""
+    return type(stacked)(*(f[i] for f in stacked))
+
+
+def _put_state(stacked, i: int, new) -> None:
+    for dst, src in zip(stacked, new):
+        dst[i].copy_(src)
 
 
 def cache_capacity(cfg: ArchConfig, max_seq: int) -> int:
@@ -188,12 +277,22 @@ def init_lm_cache(cfg: ArchConfig, batch: int, max_seq: int,
     check_family(cfg)
     dev = resolve_device(device)
     cap = cache_capacity(cfg, max_seq) if ring else max_seq
-    shape = (cfg.num_layers, batch, cap, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
     dtype = dtype_of(cfg.dtype)
-    kv = KVCache(torch.zeros(shape, dtype=dtype, device=dev),
-                 torch.zeros(shape, dtype=dtype, device=dev))
-    return LMCache(kv, None, None, 0)
+
+    def stack(tree, n):
+        return type(tree)(*(torch.zeros((n,) + tuple(z.shape), dtype=z.dtype,
+                                        device=dev) for z in tree))
+    if cfg.family == "ssm":
+        init_state = init_rwkv_state if cfg.rwkv else init_ssm_state
+        ssm = stack(init_state(cfg, batch, dtype, "meta"), cfg.num_layers)
+        return LMCache(None, ssm, None, 0)
+    kv = init_kv_cache(cfg, batch, cap, dtype, "meta")
+    if cfg.family == "hybrid":
+        ssm = stack(init_ssm_state(cfg, batch, dtype, "meta"),
+                    cfg.num_layers)
+        shared = stack(kv, cfg.num_layers // cfg.attn_every)
+        return LMCache(None, ssm, shared, 0)
+    return LMCache(stack(kv, cfg.num_layers), None, None, 0)
 
 
 def prefill(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
@@ -201,10 +300,22 @@ def prefill(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
             ) -> Tuple[torch.Tensor, LMCache]:
     """Run the full prompt, build the cache, return last-position logits."""
     check_family(cfg)
-    S = tokens.shape[1]
+    B, S = tokens.shape
     window = window if window is not None else cfg.sliding_window
     x = params["embed"][tokens]
     positions = torch.arange(S, device=tokens.device)
+    if cfg.family in ("ssm", "hybrid"):
+        cache = init_lm_cache(cfg, B, max_seq, device=tokens.device)
+        if cfg.family == "hybrid":
+            x = _hybrid_prefill(cfg, params, x, positions, window, cache)
+        else:
+            for i, p in enumerate(layer_views(params["blocks"],
+                                              cfg.num_layers)):
+                x, _, st = _block_forward(cfg, p, x, positions, None,
+                                          state_in=_state_at(cache.ssm, i))
+                _put_state(cache.ssm, i, st)
+        logits = _logits(cfg, params, x[:, -1:, :])
+        return logits[:, 0], cache._replace(position=S)
     ks, vs = [], []
     for p in layer_views(params["blocks"], cfg.num_layers):
         x, _, (k, v) = _block_forward(cfg, p, x, positions, window,
@@ -217,6 +328,32 @@ def prefill(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
     vc = ring_place(torch.stack(vs), cap).to(dtype)
     logits = _logits(cfg, params, x[:, -1:, :])
     return logits[:, 0], LMCache(KVCache(kc, vc), None, None, S)
+
+
+def _hybrid_prefill(cfg: ArchConfig, params: Pytree, x: torch.Tensor,
+                    positions: torch.Tensor, window: Optional[int],
+                    cache: LMCache) -> torch.Tensor:
+    """The hybrid's prefill into ``cache`` (zero states): every Mamba2
+    layer's final state at its layer index, each group's shared-block K/V
+    ring-placed into its own ``shared_kv`` slice."""
+    mode = "window" if window is not None else "causal"
+    capacity = cache.shared_kv.k.shape[2]
+
+    def mamba(h, p, i):
+        h, _, st = _block_forward(cfg, p, h, positions, None,
+                                  state_in=_state_at(cache.ssm, i))
+        _put_state(cache.ssm, i, st)
+        return h
+
+    def attend(g, a):
+        out, kv = attention_forward(cfg, params["shared_attn"]["attn"], a,
+                                    positions, mode=mode, window=window,
+                                    return_kv=True)
+        for dst, new in zip(cache.shared_kv, kv):
+            dst[g].copy_(ring_place(new, capacity))
+        return out
+
+    return _hybrid_pass(cfg, params, x, mamba, attend)
 
 
 def _block_decode(cfg: ArchConfig, p: Dict, h: torch.Tensor, attend
@@ -236,12 +373,45 @@ def decode_step(cfg: ArchConfig, params: Pytree, token: torch.Tensor,
     window = window if window is not None else cfg.sliding_window
     x = params["embed"][token][:, None, :]     # (B,1,d)
     pos = cache.position
+    if cfg.family == "hybrid":
+        x = _hybrid_decode(cfg, params, x, cache, window)
+        return _logits(cfg, params, x)[:, 0], cache._replace(position=pos + 1)
+    if cfg.family == "ssm":
+        for i, p in enumerate(layer_views(params["blocks"], cfg.num_layers)):
+            x = _recurrent_decode(cfg, p, x, cache.ssm, i)
+        return _logits(cfg, params, x)[:, 0], cache._replace(position=pos + 1)
     for i, p in enumerate(layer_views(params["blocks"], cfg.num_layers)):
         kv = KVCache(cache.kv.k[i], cache.kv.v[i])
         x = _block_decode(cfg, p, x, lambda a: attention_decode(
             cfg, p["attn"], a, kv, pos, window=window)[0])
     logits = _logits(cfg, params, x)
     return logits[:, 0], cache._replace(position=pos + 1)
+
+
+def _recurrent_decode(cfg: ArchConfig, p: Dict, h: torch.Tensor, states,
+                      i: int) -> torch.Tensor:
+    """One RWKV6 or Mamba2 layer's step; its state (layer ``i`` of the
+    stacked ``states``) is written in place."""
+    step, name = ((rwkv6_decode, "rwkv") if "rwkv" in p
+                  else (mamba2_decode, "mamba"))
+    out, new = step(cfg, p[name], rms_norm(h, p["ln1"], cfg.norm_eps),
+                    _state_at(states, i))
+    _put_state(states, i, new)
+    return h + out
+
+
+def _hybrid_decode(cfg: ArchConfig, params: Pytree, x: torch.Tensor,
+                   cache: LMCache, window: Optional[int]) -> torch.Tensor:
+    """The hybrid's step: the shared block attends against its group's
+    ``shared_kv`` slice through the plain ``attention_decode``, as the
+    reference's."""
+    def attend(g, a):
+        kv = KVCache(cache.shared_kv.k[g], cache.shared_kv.v[g])
+        return attention_decode(cfg, params["shared_attn"]["attn"], a, kv,
+                                cache.position, window=window)[0]
+    return _hybrid_pass(
+        cfg, params, x,
+        lambda h, p, i: _recurrent_decode(cfg, p, h, cache.ssm, i), attend)
 
 
 def decode_slots(cfg: ArchConfig, params: Pytree, token: torch.Tensor,

@@ -25,7 +25,10 @@ CPU at 1e-4 (the solve amplifies the kernels' summation-order
 differences), krum's selection exactly.  flash_decode 1e-4 on o and lse (f32 sums in another order, and the
 kernel's fast exp); the serving engine's greedy tokens exactly.  The MoE
 layer (no kernel of its own) on the card against the CPU at 1e-5 in f32,
-and at olmoe width in bf16 with no host sync and bitwise repeatable.
+and at olmoe width in bf16 with no host sync and bitwise repeatable.  The
+recurrent families (no kernel either): the lockstep loop's greedy tokens on
+the card equal to the CPU's and its logits within 1e-5 in f32, a bf16
+decode step with no host sync and bitwise repeatable.
 """
 import numpy as np
 import pytest
@@ -1353,6 +1356,64 @@ def test_moe_engine_on_the_card_equals_the_cpu(cuda_device):
     assert launch_counts()["flash_decode/cuda"] > 0
     assert launch_counts()["flash_decode/torch"] == 0
     assert on_card == serve(params, "cpu")
+
+
+# --------------------------------------------------------------- recurrent
+
+_RECURRENT = {"rwkv6": ("rwkv6-1.6b", {}),
+              "zamba2": ("zamba2-1.2b", {"num_layers": 5})}
+
+
+@pytest.mark.parametrize("name", list(_RECURRENT))
+def test_recurrent_lockstep_on_the_card_equals_the_cpu(cuda_device, name):
+    """The lockstep loop on a reduced f32 RWKV6 / Zamba2 (two groups and a
+    remainder layer), the same weights and prompt on the card and the CPU:
+    equal greedy tokens, logits within 1e-5, and no kernel launched (the
+    path has none)."""
+    from repro_torch.launch.serve import lockstep, lockstep_prompt
+    arch, kw = _RECURRENT[name]
+    cfg = get_config(arch).reduced(**kw)
+    bundle = get_model(cfg)
+    params = bundle.init(0, device="cpu")
+    prompt = lockstep_prompt(cfg, 3, 45, torch.device("cpu"))
+    reset_launch_counts()
+    card = lockstep(bundle, tree_map(lambda a: a.to(cuda_device), params),
+                    prompt.to(cuda_device), 6, 51)
+    assert not any(launch_counts().values())
+    cpu = lockstep(bundle, params, prompt, 6, 51)
+    assert torch.equal(card.tokens.cpu(), cpu.tokens)
+    assert _rel_err(card.logits.cpu(), cpu.logits) <= 1e-5
+
+
+@pytest.mark.parametrize("name", list(_RECURRENT))
+def test_recurrent_decode_never_syncs_and_repeats_bitwise(cuda_device, name):
+    """A bf16 decode step of a reduced RWKV6 / Zamba2 on the card: no host
+    sync under ``set_sync_debug_mode("error")``, and two steps from copies
+    of one cache bitwise equal."""
+    arch, kw = _RECURRENT[name]
+    cfg = get_config(arch).reduced(dtype="bfloat16", **kw)
+    bundle = get_model(cfg)
+    params = bundle.init(0, device=cuda_device)
+    tokens = torch.arange(3 * 45, dtype=torch.int32,
+                          device=cuda_device).reshape(3, 45) % cfg.vocab_size
+    _, cache = bundle.prefill(params, {"tokens": tokens}, 51)
+
+    def copy(c):
+        return c._replace(ssm=type(c.ssm)(*(t.clone() for t in c.ssm)),
+                          shared_kv=None if c.shared_kv is None else
+                          type(c.shared_kv)(*(t.clone()
+                                              for t in c.shared_kv)))
+    tok = tokens[:, -1]
+    first, c1 = bundle.decode(params, tok, copy(cache))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again, c2 = bundle.decode(params, tok, copy(cache))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(first, again)
+    assert all(torch.equal(a, b) for a, b in zip(c1.ssm, c2.ssm))
+    assert first.dtype == torch.bfloat16 and torch.isfinite(first).all()
 
 
 # ------------------------------------------------------------------ robust

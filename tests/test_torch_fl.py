@@ -412,13 +412,16 @@ def test_unported_parts_raise():
                                      malicious=(1,)), M, device="cpu")
     assert callable(fn)
     with pytest.raises(KeyError, match="not ported yet"):
-        tconfigs.get_config("rwkv6-1.6b")
+        tconfigs.get_config("whisper-large-v3")
     assert tconfigs.get_config("paper-logreg").input_dim == 784
-    for family in ("ssm", "hybrid"):
+    for family in ("vlm", "audio"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             t_get_model(ArchConfig(name="m", family=family))
-    # the moe family is ported: its bundle builds
-    assert t_get_model(ArchConfig(name="m", family="moe")).prefill is not None
+    # the moe, ssm and hybrid families are ported: their bundles build
+    for family in ("moe", "ssm", "hybrid"):
+        assert t_get_model(ArchConfig(name="m",
+                                      family=family)).prefill is not None
+    assert tconfigs.get_config("rwkv6-1.6b").family == "ssm"
     with pytest.raises(KeyError, match="unknown aggregator"):
         tserver.build_round_fn(t_loss, tserver.ServerConfig(aggregator="bogus"),
                                M, device="cpu")

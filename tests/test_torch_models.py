@@ -96,13 +96,14 @@ def _tokens(B, S, vocab, seed=0):
 # ------------------------------------------------------------------ layers
 
 def test_configs_are_the_references():
-    for name in ("qwen3-14b", "gemma-7b", "qwen2.5-32b", "starcoder2-15b"):
+    for name in ("qwen3-14b", "gemma-7b", "qwen2.5-32b", "starcoder2-15b",
+                 "rwkv6-1.6b", "zamba2-1.2b"):
         assert get_config(name).__dict__ == j_get_config(name).__dict__
         assert get_config(name).reduced().__dict__ == \
             j_get_config(name).reduced().__dict__
     assert get_config("qwen3_14b") is get_config("qwen3-14b")
     with pytest.raises(KeyError, match="not ported yet"):
-        get_config("rwkv6-1.6b")
+        get_config("whisper-large-v3")
 
 
 def test_layers_match_reference():
@@ -284,9 +285,20 @@ def test_dense_bundle_and_unported_families():
     with pytest.raises(NotImplementedError, match="training slice"):
         ttf.forward_train(cfg, params, torch.zeros(1, 4, dtype=torch.int32),
                           remat="full")
-    for family in ("ssm", "hybrid"):
+    for family in ("vlm", "audio"):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
             get_model(cfg.with_overrides(family=family))
+    # the ssm and hybrid families run now (tests/test_torch_recurrent.py
+    # holds them to the reference)
+    for rec in (get_config("rwkv6-1.6b").reduced(num_layers=1),
+                cfg.with_overrides(family="ssm", ssm_state=8),
+                cfg.with_overrides(family="hybrid", ssm_state=8,
+                                   attn_every=1)):
+        rb = get_model(rec)
+        logits = rb.forward(rb.init(0, device="cpu"), {"tokens": torch.zeros(
+            1, 4, dtype=torch.int32)})
+        assert logits.shape == (1, 4, rec.vocab_size)
+        assert torch.isfinite(logits).all()
     # the moe family runs now (tests/test_torch_moe.py holds it to the
     # reference)
     moe = get_model(cfg.with_overrides(family="moe", num_experts=4,
