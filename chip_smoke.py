@@ -175,7 +175,22 @@ Phases (any failure exits non-zero and prints no result line):
      min-max of 5) beside its byte bound (weights, the shared block once
      per group, the states read and written, the shared K/V rows), device
      busy ms and kernel launches a step (``torch.profiler``), tokens/s and
-     peak allocated memory, beside the card's name and power limit.
+     peak allocated memory, beside the card's name and power limit;
+  14. whisper — the same lockstep loop on whisper-large-v3 (32 encoder
+     and 32 decoder layers, 1.60 B parameters; the loop's f32 frames
+     (4, 1 500, 1 280) run the encoder and the cached cross K/V in f32, as
+     jnp promotes f32 @ bf16), at RECURRENT's sizes, with the recurrent
+     phase's gates, the f32 one as prefill + decode at t = 0..8 against
+     the teacher-forced ``whisper_forward_train`` (within 2e-3) at full
+     depth, the bf16 one at 1.5x ``LOCKSTEP_LOGIT_FLOOR``; the step's bound
+     counts the decoder's weights, the f32 cross K/V and the self K/V
+     (``lockstep_step_bound``);
+  15. chameleon — the same on chameleon-34b (48 layers, 34.4 B parameters,
+     64.0 GiB of bf16 weights; image embeddings (4, 1 024, 8 192) fused
+     ahead of the 200-token prompts, 1 256 cache rows), after every other
+     phase has freed its tensors; its f32 checks and bf16 floor run on the
+     full-width config cut to its first 4 layers (no f32 copy of the model
+     fits the card), printed on every run.
 
 The kernels phase also holds ``stream_stats``, ``gram_block`` and ``sketch``
 (U Rᵀ against an explicit R) against their plain versions, bitwise
@@ -413,6 +428,23 @@ RECURRENT_CHUNK_TOL = 2e-3
 # projection, mix, gate and norm output rounds to bf16 through 24 / 38
 # layers, where the states and scans stay in f32; the gate is 1.5x it
 RECURRENT_LOGIT_FLOOR = {"rwkv6-1.6b": 5.153e-2, "zamba2-1.2b": 7.160e-2}
+# the whisper and chameleon phases: whisper-large-v3, then chameleon-34b,
+# at full width (all layers, bf16, seeded) through the same lockstep loop
+# at RECURRENT's sizes (batch 4, prompts of 200, 32 new tokens), each
+# freed before the next.  The loop's f32 frames run whisper's encoder in
+# f32 (jnp's promotion, as the reference's loop does).  The f32 checks run
+# whisper at full depth and chameleon on its first CHAMELEON_CUT layers at
+# full width (no f32 copy of the 34.4 B parameters fits the card).
+LOCKSTEP_PHASES = {"whisper": ("whisper-large-v3", None),
+                   "chameleon": ("chameleon-34b", 4)}
+# the bf16 model's lockstep logits against the same weights in f32 on the
+# same tokens, max |dlogit| / max |logit| over the 32 steps, measured on an
+# H100 per model as RECURRENT_LOGIT_FLOOR was: whisper's 32 decoder layers
+# round every projection and residual to bf16 (its encoder and cross K/V
+# are f32 in both runs), chameleon's 4-layer cut the same with qk-norm and
+# RoPE; the gate is 1.5x it
+LOCKSTEP_LOGIT_FLOOR = {"whisper-large-v3": 1.649e-2,
+                        "chameleon-34b": 2.153e-2}
 HIER_ROUNDS = 6
 # the reference's recorded streamed-vs-fused loss gap (BENCH_bigmodel.json)
 STREAMED_LOSS_GAP = 1.4e-3
@@ -533,8 +565,9 @@ PROFILE_ATTEMPTS = 5
 
 def _profile_window(fn, calls: int) -> list:
     """The ``key_averages()`` entries with device time (kernels, not aten
-    ops, runtime calls or the step markers) of ``calls`` calls of ``fn``,
-    recorded after one call in the profiler's warm-up cycle."""
+    ops, runtime calls, the step markers or CUPTI's own buffer activity,
+    which a window of thousands of launches shows once) of ``calls`` calls
+    of ``fn``, recorded after one call in the profiler's warm-up cycle."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
@@ -549,7 +582,8 @@ def _profile_window(fn, calls: int) -> list:
         torch.cuda.synchronize()
         prof.step()
     return [e for e in prof.key_averages() if _device_us(e) > 0
-            and not e.key.startswith(("aten::", "cuda", "ProfilerStep"))]
+            and not e.key.startswith(("aten::", "cuda", "ProfilerStep",
+                                      "Activity Buffer", "Buffer Flush"))]
 
 
 def _device_rows(fn, calls: int) -> list:
@@ -3942,13 +3976,15 @@ def _teacher_forced(cfg, params, prompt, given, max_seq) -> list:
     return out
 
 
-def recurrent_small(small, device: str = "cuda") -> dict:
+def lockstep_small(small, device: str = "cuda") -> dict:
     """The reduced f32 config served through the lockstep loop on the card
-    and on the CPU from the same CPU-drawn weights and prompt: equal greedy
-    tokens, and the first decode step's logits within SERVE_LOGIT_TOL_F32."""
+    and on the CPU from the same CPU-drawn weights and prompt (frames or
+    image embeddings included): equal greedy tokens, and the first decode
+    step's logits within SERVE_LOGIT_TOL_F32."""
     import torch
     from repro_torch.core.flatten import tree_map
-    from repro_torch.launch.serve import lockstep, lockstep_prompt
+    from repro_torch.launch.serve import (lockstep, lockstep_max_seq,
+                                          lockstep_prompt)
     from repro_torch.models import get_model
     bundle = get_model(small)
     gen = torch.Generator()
@@ -3957,8 +3993,10 @@ def recurrent_small(small, device: str = "cuda") -> dict:
     card_params = tree_map(lambda a: a.to(device), cpu_params)
     prompt = lockstep_prompt(small, RECURRENT["batch"],
                              RECURRENT["small_prompt"], torch.device("cpu"))
-    max_seq = RECURRENT["small_prompt"] + RECURRENT["small_new"]
-    card = lockstep(bundle, card_params, prompt.to(device),
+    max_seq = lockstep_max_seq(small, RECURRENT["small_prompt"],
+                               RECURRENT["small_new"])
+    card = lockstep(bundle, card_params,
+                    tree_map(lambda a: a.to(device), prompt),
                     RECURRENT["small_new"], max_seq)
     cpu = lockstep(bundle, cpu_params, prompt, RECURRENT["small_new"],
                    max_seq)
@@ -3975,42 +4013,37 @@ def recurrent_small(small, device: str = "cuda") -> dict:
             "logit_rel_err_card_vs_cpu_all_steps": all_err}
 
 
-def recurrent_model(cfg, small, floor, smi_line: str,
-                    device: str = "cuda") -> dict:
-    """One recurrent config at full width through the lockstep loop, with
-    the phase's gates and numbers (see ``recurrent_phase``)."""
-    import torch
-    from repro_torch.core.flatten import tree_leaves, tree_map
-    from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.launch.serve import lockstep, lockstep_prompt
-    from repro_torch.models import get_model
-    from repro_torch.models import transformer as ttf
-    tag = f"recurrent {cfg.name}"
-    R = RECURRENT
-    bundle = get_model(cfg)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(0)
-    t0 = time.perf_counter()
-    params = bundle.init(gen)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n = sum(p.numel() for p in tree_leaves(params))
-    weight_bytes = sum(p.numel() * p.element_size()
-                       for p in tree_leaves(params))
-    log(f"{tag} ({smi_line}): {cfg.family} L={cfg.num_layers} "
-        f"d={cfg.d_model} d_ff={cfg.d_ff} vocab={cfg.vocab_size}" + (
-            f" heads {cfg.num_heads}/{cfg.num_kv_heads} attn_every "
-            f"{cfg.attn_every} ssm_state {cfg.ssm_state}"
-            if cfg.family == "hybrid" else "")
-        + f" bf16: {n} parameters, {weight_bytes} B, init {init_s:.1f} s")
+def _written(cache) -> list:
+    """The tensors of a lockstep cache that a decode step writes (whisper's
+    cross K/V are written once, by prefill)."""
+    if hasattr(cache, "self_kv"):
+        return list(cache.self_kv)
+    return [t for field in (cache.kv, cache.ssm, cache.shared_kv)
+            if field is not None for t in field]
 
-    # the main path: the lockstep loop of repro_torch.launch.serve
-    prompt = lockstep_prompt(cfg, R["batch"], R["prompt"],
-                             torch.device(device))
-    max_seq = R["prompt"] + R["new"]
+
+def _clone_written(cache):
+    """A copy of a lockstep cache whose written tensors share nothing with
+    ``cache``."""
+    if hasattr(cache, "self_kv"):
+        return cache._replace(self_kv=type(cache.self_kv)(
+            *(t.clone() for t in cache.self_kv)))
+    return _clone_cache(cache)
+
+
+def _lockstep_main_path(tag: str, bundle, params, batch, max_seq: int
+                        ) -> tuple:
+    """The main path: ``repro_torch.launch.serve.lockstep`` on ``batch``
+    with every launch counter reset before it; gates no kernel or plain
+    kernel version launched, every row's RECURRENT["new"] tokens, finite
+    logits.  Returns (run, counts, peak allocated bytes, tokens/s)."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import lockstep
+    R = RECURRENT
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    run = lockstep(bundle, params, prompt, R["new"], max_seq)
+    run = lockstep(bundle, params, batch, R["new"], max_seq)
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     need(not any(counts.values()), f"{tag}: kernels or plain kernel "
@@ -4022,51 +4055,133 @@ def recurrent_model(cfg, small, floor, smi_line: str,
          "logits")
     steps = R["new"] - 1
     tok_s = R["batch"] * steps / run.decode_s
+    inputs = ", ".join(f"{k} {tuple(v.shape)} {v.dtype}"
+                       for k, v in batch.items())
     log(f"{tag}: lockstep batch {R['batch']} prompt {R['prompt']} new "
-        f"{R['new']}: prefill {run.prefill_s * 1e3:.1f} ms (first call), "
-        f"{steps} decode steps {run.decode_s * 1e3:.1f} ms = "
-        f"{tok_s:.1f} tokens/s; peak allocated {peak / 2**30:.2f} GiB; "
-        f"first sequence {run.tokens[0, :16].tolist()}; launch counts all 0")
+        f"{R['new']} ({inputs}; {max_seq} cache rows): prefill "
+        f"{run.prefill_s * 1e3:.1f} ms (first call), {steps} decode steps "
+        f"{run.decode_s * 1e3:.1f} ms = {tok_s:.1f} tokens/s; peak "
+        f"allocated {peak / 2**30:.2f} GiB; first sequence "
+        f"{run.tokens[0, :16].tolist()}; launch counts all 0")
+    return run, counts, peak, tok_s
 
-    # one decode step alone, its byte bound, and its device time
-    _, cache = bundle.prefill(params, {"tokens": prompt}, max_seq)
-    tok = run.tokens[:, 0]
+
+def _lockstep_step(tag: str, bundle, params, batch, max_seq: int, tok,
+                   step_bound, smi_line: str) -> dict:
+    """One decode step alone after a fresh prefill of ``batch``: prefill
+    and step CUDA-event ms, ``step_bound(cache)`` (a dict from ``bound``
+    with its byte parts), device busy ms and launches a step
+    (``_device_rows``), the cache's dtypes; gates no host sync in a step
+    and two steps from copies of one cache bitwise equal."""
+    import torch
+    R = RECURRENT
+    _, cache = bundle.prefill(params, batch, max_seq)
     step = lambda: bundle.decode(params, tok, cache)   # noqa: E731
-    prefill_ms = _event_ms(lambda: bundle.prefill(
-        params, {"tokens": prompt}, max_seq), reps=3, warmup=1)
+    prefill_ms = _event_ms(lambda: bundle.prefill(params, batch, max_seq),
+                           reps=3, warmup=1)
     step_ms = sorted(_event_ms(step, reps=R["timed_steps"]))
     step_med = statistics.median(step_ms)
-    b = recurrent_step_bound(cfg, params, cache)
+    b = step_bound(cache)
     rows = _device_rows(step, 2)
     busy_ms = sum(_device_us(e) for e in rows) / 2 / 1e3
     launches = sum(e.count for e in rows) / 2
     top = sorted(rows, key=lambda e: -_device_us(e))[:6]
+    parts = ", ".join(f"{k} {v} B" for k, v in b.items()
+                      if k.endswith("_bytes"))
     log(f"{tag} ({smi_line}): prefill B={R['batch']} S={R['prompt']} "
-        f"median {statistics.median(prefill_ms):.1f} ms; decode step alone "
+        f"median {statistics.median(prefill_ms):.1f} ms "
+        f"[{min(prefill_ms):.1f}-{max(prefill_ms):.1f}]; decode step alone "
         f"median {step_med:.3f} ms [{step_ms[0]:.3f}-{step_ms[-1]:.3f}] "
-        f"against the {b['bound_ms']:.3f} ms byte bound "
-        f"({b['bound_ms'] / step_med:.1%}; weights {b['weight_bytes']} B, "
-        f"states {b['state_bytes']} B read and written, shared K/V "
-        f"{b['kv_bytes']} B); device busy "
+        f"against the {b['bound_ms']:.3f} ms bound by {b['bound_by']} "
+        f"({b['bound_ms'] / step_med:.1%}; {parts}); device busy "
         + ("not measured (no device time in the trace)" if busy_ms <= 0 else
            f"{busy_ms:.3f} ms a step ({busy_ms / step_med:.1%}, idle "
            f"{1 - busy_ms / step_med:.1%}) in {launches:g} kernel launches; "
            "top: " + "; ".join(f"{e.key[:48]} {_device_us(e) / 2e3:.3f} ms "
                                f"({e.count / 2:g})" for e in top)))
-
-    # no host sync in a step; two steps from copies of one cache bitwise
     mode = torch.cuda.get_sync_debug_mode()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        bundle.decode(params, tok, _clone_cache(cache))
+        bundle.decode(params, tok, _clone_written(cache))
     finally:
         torch.cuda.set_sync_debug_mode(mode)
-    a_lg, a_c = bundle.decode(params, tok, _clone_cache(cache))
-    b_lg, b_c = bundle.decode(params, tok, _clone_cache(cache))
+    a_lg, a_c = bundle.decode(params, tok, _clone_written(cache))
+    b_lg, b_c = bundle.decode(params, tok, _clone_written(cache))
     need(torch.equal(a_lg, b_lg) and all(
-        torch.equal(x, y) for x, y in zip(a_c.ssm, b_c.ssm)),
+        torch.equal(x, y) for x, y in zip(_written(a_c), _written(b_c))),
         f"{tag}: two decode steps from copies of one cache differ")
-    del cache, a_c, b_c
+    dtypes = {str(t.dtype) for t in _written(cache)} | {
+        str(t.dtype) for t in cache if isinstance(t, torch.Tensor)}
+    return {"prefill_ms": statistics.median(prefill_ms),
+            "prefill_ms_all": prefill_ms, "cache_dtypes": sorted(dtypes),
+            "decode_step_ms_alone": step_med,
+            "decode_step_ms_alone_all": step_ms,
+            "decode_step_bound_ms": b["bound_ms"],
+            "decode_step_bound": b,
+            "device_busy_ms": busy_ms if busy_ms > 0 else None,
+            "launches_per_step": launches}
+
+
+def _log_small(tag: str, small, smalled: dict) -> None:
+    log(f"{tag}: reduced f32 {small.name} tokens equal on card and CPU "
+        f"({smalled['tokens']} tokens), first decode step's logits "
+        f"{smalled['logit_rel_err_card_vs_cpu_step']:.3e} apart (all steps "
+        f"{smalled['logit_rel_err_card_vs_cpu_all_steps']:.3e}; tolerance "
+        f"{SERVE_LOGIT_TOL_F32})")
+
+
+def _init_on_card(tag: str, cfg, smi_line: str, device: str) -> tuple:
+    """The model's seeded bf16 params on the card: (bundle, params,
+    parameter count, weight bytes, init seconds)."""
+    import torch
+    from repro_torch.core.flatten import tree_leaves
+    from repro_torch.models import get_model
+    bundle = get_model(cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = bundle.init(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(p.numel() for p in tree_leaves(params))
+    nbytes = sum(p.numel() * p.element_size() for p in tree_leaves(params))
+    log(f"{tag} ({smi_line}): {cfg.family} L={cfg.num_layers} "
+        f"d={cfg.d_model} d_ff={cfg.d_ff} vocab={cfg.vocab_size}"
+        + (f" heads {cfg.num_heads}/{cfg.num_kv_heads}" if cfg.num_heads
+           else "")
+        + (f" attn_every {cfg.attn_every} ssm_state {cfg.ssm_state}"
+           if cfg.family == "hybrid" else "")
+        + (f", {cfg.encoder_layers} encoder layers over "
+           f"{cfg.max_source_positions} frames" if cfg.family == "audio"
+           else "")
+        + (f", {cfg.num_image_tokens} image tokens" if cfg.family == "vlm"
+           else "")
+        + f" bf16: {n} parameters, {nbytes} B, init {init_s:.1f} s")
+    return bundle, params, n, nbytes, init_s
+
+
+def recurrent_model(cfg, small, floor, smi_line: str,
+                    device: str = "cuda") -> dict:
+    """One recurrent config at full width through the lockstep loop, with
+    the phase's gates and numbers (see ``recurrent_phase``)."""
+    import torch
+    from repro_torch.core.flatten import tree_map
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.serve import lockstep_prompt
+    from repro_torch.models import transformer as ttf
+    tag = f"recurrent {cfg.name}"
+    R = RECURRENT
+    bundle, params, n, weight_bytes, init_s = _init_on_card(
+        tag, cfg, smi_line, device)
+    batch = lockstep_prompt(cfg, R["batch"], R["prompt"],
+                            torch.device(device))
+    prompt = batch["tokens"]
+    max_seq = R["prompt"] + R["new"]
+    run, counts, peak, tok_s = _lockstep_main_path(tag, bundle, params,
+                                                   batch, max_seq)
+    numbers = _lockstep_step(
+        tag, bundle, params, batch, max_seq, run.tokens[:, 0],
+        lambda cache: recurrent_step_bound(cfg, params, cache), smi_line)
 
     # the same weights in f32: the bf16 logits against them on the same
     # tokens, and chunked prefill = recurrent decode (TF32 off)
@@ -4094,25 +4209,14 @@ def recurrent_model(cfg, small, floor, smi_line: str,
     del params
     torch.cuda.empty_cache()
 
-    smalled = recurrent_small(small, device)
-    log(f"{tag}: reduced f32 {small.name} tokens equal on card and CPU "
-        f"({smalled['tokens']} tokens), first decode step's logits "
-        f"{smalled['logit_rel_err_card_vs_cpu_step']:.3e} apart (all steps "
-        f"{smalled['logit_rel_err_card_vs_cpu_all_steps']:.3e}; tolerance "
-        f"{SERVE_LOGIT_TOL_F32})")
+    smalled = lockstep_small(small, device)
+    _log_small(tag, small, smalled)
     need(not any(launch_counts().values()), f"{tag}: kernels or plain "
          "kernel versions ran in the phase's checks")
     return {"counts": counts, "parameters": n, "weight_bytes": weight_bytes,
             "init_s": init_s, "prefill_s_first": run.prefill_s,
-            "prefill_ms": statistics.median(prefill_ms),
-            "decode_s": run.decode_s, "decode_steps": steps,
+            **numbers, "decode_s": run.decode_s, "decode_steps": R["new"] - 1,
             "tokens_per_s": tok_s, "peak_allocated_bytes": peak,
-            "decode_step_ms_alone": step_med,
-            "decode_step_ms_alone_all": step_ms,
-            "decode_step_bound_ms": b["bound_ms"],
-            "decode_step_bound": b,
-            "device_busy_ms": busy_ms if busy_ms > 0 else None,
-            "launches_per_step": launches,
             "chunked_vs_recurrent_f32": chunk_err,
             "bf16_vs_f32": bf16_err, "bf16_vs_f32_floor": floor,
             "bf16_vs_f32_tolerance": gate, "reduced_f32": smalled,
@@ -4139,6 +4243,171 @@ def recurrent_phase(smi_line: str, device: str = "cuda",
             out["counts"][key] = out["counts"].get(key, 0) + v
         out["models"][name] = rec
     return out
+
+
+# ------------------------------------------------ encoder-decoder and VLM
+
+def lockstep_step_bound(cfg, params, cache) -> dict:
+    """The bound of one whisper or chameleon decode step at
+    ``cache.position``.
+
+    Bytes: every weight the step reads once (whisper: the decoder's, not
+    the cross-attention's wk / wv, whose K/V were cached at prefill, nor the
+    encoder's; chameleon: all but ``img_proj``), the B embedding rows, the
+    self K/V rows up to the position read and one row written in every
+    layer, and whisper's cross K/V read whole (f32 under the loop's f32
+    frames).  Operations: 2 per weight and token at the bf16 tensor-core
+    rate, plus the attention's q·k and p·v over those rows in f32 (the
+    plain step computes them in f32)."""
+    from repro_torch.core.flatten import tree_leaves_with_path
+    kv = _written(cache)
+    L, B = kv[0].shape[0], kv[0].shape[1]
+    embed = params["embed"]
+    skip = (("embed", "enc_blocks", "enc_norm", "dec_blocks/cross/wk",
+             "dec_blocks/cross/wv") if cfg.family == "audio"
+            else ("embed", "img_proj"))
+    weights = [t for path, t in tree_leaves_with_path(params)
+               if not any(path == k or path.startswith(k + "/")
+                          for k in skip)]
+    weight_bytes = sum(t.numel() * t.element_size() for t in weights) + \
+        B * embed[0].numel() * embed.element_size()
+    rows = cache.position + 1
+    row = kv[0][0, :, 0].numel() * kv[0].element_size()
+    kv_bytes = 2 * L * row * (rows + 1)
+    cross_bytes = 0
+    if cfg.family == "audio":
+        cross_bytes = sum(t.numel() * t.element_size()
+                          for t in (cache.cross_k, cache.cross_v))
+        rows += cache.cross_k.shape[2]
+    attn_ops = 4 * B * cfg.num_heads * cfg.resolved_head_dim * rows * L
+    n = sum(t.numel() for t in weights)
+    ops_s = 2 * n * B / PEAK_FLOPS["bfloat16"] + \
+        attn_ops / PEAK_FLOPS["float32"]
+    return dict(bound(weight_bytes + kv_bytes + cross_bytes, ops_s),
+                weight_bytes=weight_bytes, kv_bytes=kv_bytes,
+                cross_bytes=cross_bytes)
+
+
+def _cut_model(cfg, params, layers: int):
+    """The config and a copy of params holding only the first ``layers``
+    decoder layers (everything else copied too, so the full tree can be
+    freed)."""
+    from repro_torch.core.flatten import tree_map
+    cut = {k: (tree_map(lambda a: a[:layers].clone(), v) if k == "blocks"
+               else tree_map(lambda a: a.clone(), v))
+           for k, v in params.items()}
+    return cfg.with_overrides(num_layers=layers), cut
+
+
+def _f32_checks(cfg, params, batch, bf16_run, max_seq) -> tuple:
+    """The same weights in f32 (TF32 off) on the bf16 run's tokens: (bf16
+    vs f32 logits over every step, prefill + decode at t = 0..given vs the
+    teacher-forced forward), each max |dlogit| / max |logit|."""
+    import torch
+    from repro_torch.core.flatten import tree_map
+    from repro_torch.models import get_model
+    R = RECURRENT
+    b32 = get_model(cfg.with_overrides(dtype="float32"))
+    p32 = tree_map(lambda a: a.float(), params)
+    logits, cache = b32.prefill(p32, batch, max_seq)
+    f32 = [logits]
+    for t in range(R["new"] - 1):
+        logits, cache = b32.decode(p32, bf16_run.tokens[:, t], cache)
+        f32.append(logits)
+    del cache
+    bf16_err = max(_logit_err(bf16_run.logits[:, t], f32[t])
+                   for t in range(R["new"]))
+    toks = torch.cat([batch["tokens"], bf16_run.tokens[:, :R["given"]]], 1)
+    full = b32.forward(p32, dict(batch, tokens=toks))
+    off = cfg.num_image_tokens if cfg.family == "vlm" else 0
+    last = off + batch["tokens"].shape[1] - 1
+    decode_err = max(_logit_err(f32[t], full[:, last + t])
+                     for t in range(R["given"] + 1))
+    return bf16_err, decode_err
+
+
+def lockstep_model(phase: str, cfg, small, floor, smi_line: str,
+                   cut=None, device: str = "cuda") -> dict:
+    """One encoder-decoder or VLM config at full width through the lockstep
+    loop, with the phase's gates and numbers (see ``lockstep_phase``)."""
+    import torch
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.serve import (lockstep, lockstep_max_seq,
+                                          lockstep_prompt)
+    from repro_torch.models import get_model
+    tag = f"{phase} {cfg.name}"
+    R = RECURRENT
+    torch.cuda.empty_cache()
+    bundle, params, n, weight_bytes, init_s = _init_on_card(
+        tag, cfg, smi_line, device)
+    batch = lockstep_prompt(cfg, R["batch"], R["prompt"],
+                            torch.device(device))
+    max_seq = lockstep_max_seq(cfg, R["prompt"], R["new"])
+    run, counts, peak, tok_s = _lockstep_main_path(tag, bundle, params,
+                                                   batch, max_seq)
+    numbers = _lockstep_step(
+        tag, bundle, params, batch, max_seq, run.tokens[:, 0],
+        lambda cache: lockstep_step_bound(cfg, params, cache), smi_line)
+
+    # f32 (TF32 off): bf16 vs f32 on the same tokens, and prefill + decode
+    # = the teacher-forced forward; chameleon on its first `cut` layers
+    if cut:
+        ccfg, cparams = _cut_model(cfg, params, cut)
+        del params
+        torch.cuda.empty_cache()
+        crun = lockstep(get_model(ccfg), cparams, batch, R["new"], max_seq)
+        log(f"{tag}: f32 checks on the full-width config cut to its first "
+            f"{cut} of {cfg.num_layers} layers (bf16 run of the cut, then "
+            "its f32 copy)")
+    else:
+        ccfg, cparams, crun = cfg, params, run
+        del params
+    bf16_err, decode_err = _f32_checks(ccfg, cparams, batch, crun, max_seq)
+    del cparams, crun
+    torch.cuda.empty_cache()
+    gate = None if floor is None else 1.5 * floor
+    log(f"{tag}: f32 at " + (f"the {cut}-layer cut" if cut else "full depth")
+        + f" (the bf16 run's cache dtypes {numbers['cache_dtypes']}): "
+        f"prefill + decode t = 0..{R['given']} vs the teacher-forced "
+        f"forward {decode_err:.3e} of max |logit| (gate "
+        f"{RECURRENT_CHUNK_TOL}); bf16 vs f32 logits over {R['new']} steps "
+        f"{bf16_err:.3e} (floor {floor}, gate "
+        + ("not set" if gate is None else f"{gate:.4g}") + ")")
+    need(decode_err <= RECURRENT_CHUNK_TOL, f"{tag}: decode vs forward "
+         f"{decode_err:.3e} > {RECURRENT_CHUNK_TOL}")
+    need(gate is not None and bf16_err <= gate, f"{tag}: bf16 vs f32 "
+         f"logits {bf16_err:.3e}, gate {gate}")
+
+    smalled = lockstep_small(small, device)
+    _log_small(tag, small, smalled)
+    need(not any(launch_counts().values()), f"{tag}: kernels or plain "
+         "kernel versions ran in the phase's checks")
+    return {"counts": counts, "parameters": n, "weight_bytes": weight_bytes,
+            "init_s": init_s, "prefill_s_first": run.prefill_s,
+            **numbers, "decode_s": run.decode_s, "decode_steps": R["new"] - 1,
+            "tokens_per_s": tok_s, "peak_allocated_bytes": peak,
+            "f32_layers": cut or cfg.num_layers,
+            "decode_vs_forward_f32": decode_err,
+            "bf16_vs_f32": bf16_err, "bf16_vs_f32_floor": floor,
+            "bf16_vs_f32_tolerance": gate, "reduced_f32": smalled,
+            "nvidia_smi": smi_line}
+
+
+def lockstep_phase(smi_line: str, phase: str, device: str = "cuda",
+                   cfgs=None) -> dict:
+    """The ``whisper`` or ``chameleon`` phase: its config at full width
+    through the lockstep loop (``lockstep_model``), then freed.  ``cfgs``
+    ((cfg, small)) and ``device`` other than the defaults rehearse the
+    phase's control flow at a small size."""
+    import torch
+    from repro_torch.configs import get_config
+    name, cut = LOCKSTEP_PHASES[phase]
+    cfg, small = cfgs if cfgs else (get_config(name),
+                                    get_config(name).reduced())
+    rec = lockstep_model(phase, cfg, small, LOCKSTEP_LOGIT_FLOOR[name],
+                         smi_line, cut, device)
+    torch.cuda.empty_cache()
+    return {"counts": rec.pop("counts"), "models": {name: rec}}
 
 
 # -------------------------------------------------------------------- main
@@ -4395,13 +4664,18 @@ def main() -> int:
         served = on_cuda_core("serve", serve_phase)
         moed = on_cuda_core("moe", moe_phase, smi_line)
         recurred = on_cuda_core("recurrent", recurrent_phase, smi_line)
+        lockstepped = {phase: on_cuda_core(phase, lockstep_phase, smi_line,
+                                           phase)
+                       for phase in LOCKSTEP_PHASES}
         by_path = {"sync": sync_counts, "async": asynced["counts"],
                    "hier": hier_counts,
                    "streamed": streamed_counts, "robust": robusted["counts"],
                    "fleet": fleeted["counts"],
                    "scaffold": scaffolded["counts"],
                    "bigmodel": big["counts"], "serve": served["counts"],
-                   "moe": moed["counts"], "recurrent": recurred["counts"]}
+                   "moe": moed["counts"], "recurrent": recurred["counts"],
+                   **{phase: rec["counts"]
+                      for phase, rec in lockstepped.items()}}
         for path, counts in by_path.items():
             need(gram_bodies[path]["cuda_core"] >= counts.get("gram/cuda", 0),
                  f"{path}: {counts.get('gram/cuda', 0)} gram launches, "
@@ -4486,6 +4760,10 @@ def main() -> int:
     # no kernel lies on the recurrent path (its launches are 0 for every
     # op); its numbers ride on the serving entry
     entries[names.index("flash_decode")]["recurrent"] = recurred["models"]
+    # nor on the whisper and chameleon paths (both decode through the plain
+    # attention_decode, as the reference)
+    for phase, rec in lockstepped.items():
+        entries[names.index("flash_decode")][phase] = rec["models"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi_line, flush=True)

@@ -1,11 +1,11 @@
 """Architecture configs of the port (copies of ``repro.configs``).
 
-The paper's own model, the dense transformers, the MoE family and the
-recurrent families (rwkv6-1.6b, the zamba2-1.2b hybrid) are ported;
-``get_config(name)`` returns the full production config and
-``get_config(name).reduced()`` the CPU smoke variant.  The other names of
-``repro.configs`` (whisper-large-v3, chameleon-34b) raise ``KeyError`` until
-their model family lands.
+Every config of the reference is here: the paper's own model, the dense
+transformers, the MoE family, the recurrent families (rwkv6-1.6b, the
+zamba2-1.2b hybrid), the encoder-decoder whisper-large-v3 and the early-
+fusion VLM chameleon-34b.  ``get_config(name)`` returns the full
+production config and ``get_config(name).reduced()`` the CPU smoke
+variant; an unknown name raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -16,7 +16,8 @@ from ..models.config import ArchConfig
 
 _MODULES = ["paper_logreg", "qwen3_14b", "gemma_7b", "qwen2p5_32b",
             "starcoder2_15b", "olmoe_1b_7b", "deepseek_moe_16b",
-            "rwkv6_1p6b", "zamba2_1p2b"]
+            "rwkv6_1p6b", "zamba2_1p2b", "whisper_large_v3",
+            "chameleon_34b"]
 
 _ALIASES = {
     "paper-logreg": "paper_logreg",
@@ -28,15 +29,15 @@ _ALIASES = {
     "deepseek-moe-16b": "deepseek_moe_16b",
     "rwkv6-1.6b": "rwkv6_1p6b",
     "zamba2-1.2b": "zamba2_1p2b",
+    "whisper-large-v3": "whisper_large_v3",
+    "chameleon-34b": "chameleon_34b",
 }
-
-PORTED = list(_ALIASES)
 
 
 def get_config(name: str) -> ArchConfig:
     mod_name = _ALIASES.get(name, name)
     if mod_name not in _MODULES:
-        raise KeyError(f"config '{name}' is not ported yet; the port has "
+        raise KeyError(f"unknown config '{name}'; the port has "
                        f"{sorted(_ALIASES)}")
     return import_module(f".{mod_name}", __package__).CONFIG
 

@@ -1,7 +1,9 @@
 """Attention of the port (``repro.models.attention``): GQA/MQA with RoPE,
 qk-norm, QKV bias, logit softcap, causal / sliding-window / bidirectional
-masking, a chunked flash-style path for long rows, and single-token decode
-against a KV cache.
+masking, a chunked flash-style path for long rows, whisper's cross-
+attention against precomputed encoder K/V, and single-token decode against
+a KV cache.  Projections promote mixed dtypes as jnp does
+(``layers.matmul``).
 
 Prefill attention (``naive_attention``, and ``flash_attention`` past
 ``flash_threshold`` rows) is plain torch, as the reference computes it in
@@ -19,7 +21,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from .config import ArchConfig
-from .layers import apply_rope, dense_init, rms_norm, softcap
+from .layers import apply_rope, dense_init, matmul, rms_norm, softcap
 
 NEG_INF = -1e30
 
@@ -51,9 +53,9 @@ def _project_qkv(cfg: ArchConfig, params: Dict, x: torch.Tensor,
     """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,KV,hd) with rope/qk-norm applied."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
+    q = matmul(x, params["wq"])
+    k = matmul(x, params["wk"])
+    v = matmul(x, params["wv"])
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     q = q.reshape(B, S, cfg.num_heads, hd)
@@ -173,10 +175,30 @@ def attention_forward(cfg: ArchConfig, params: Dict, x: torch.Tensor,
         o = naive_attention(q, k, v, **kwargs)
     else:
         o = flash_attention(q, k, v, **kwargs)
-    out = o.reshape(B, S, -1) @ params["wo"]
+    out = matmul(o.reshape(B, S, -1), params["wo"])
     if return_kv:
         return out, (k, v)
     return out
+
+
+def cross_attention_forward(cfg: ArchConfig, params: Dict, x: torch.Tensor,
+                            enc_k: torch.Tensor, enc_v: torch.Tensor
+                            ) -> torch.Tensor:
+    """Decoder cross-attention (whisper): queries of x (B, S, d), with the
+    optional ``bq`` bias, against precomputed encoder K/V (B, Se, KV, hd),
+    unmasked.  ``naive_attention`` for Se <= 2 048, ``flash_attention``
+    above, as the reference."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = matmul(x, params["wq"]).reshape(B, S, cfg.num_heads, hd)
+    if cfg.qkv_bias:
+        q = q + params["bq"].reshape(cfg.num_heads, hd)
+    Se = enc_k.shape[1]
+    attend = naive_attention if Se <= 2048 else flash_attention
+    o = attend(q, enc_k, enc_v,
+               q_positions=torch.arange(S, device=x.device),
+               k_positions=torch.arange(Se, device=x.device), mode="bidir")
+    return matmul(o.reshape(B, S, -1), params["wo"])
 
 
 class KVCache(NamedTuple):
@@ -190,6 +212,15 @@ def init_kv_cache(cfg: ArchConfig, batch: int, max_seq: int,
     shape = (batch, max_seq, cfg.num_kv_heads, hd)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
+
+
+def check_capacity(position: int, capacity: int) -> None:
+    """Refuse a decode step at a host ``position`` past the cache's rows."""
+    if position >= capacity:
+        raise ValueError(
+            f"decode position {position} is past the KV cache's capacity "
+            f"S={capacity} (rows 0..{capacity - 1}); allocate the cache with "
+            f"max_seq > {position}")
 
 
 def _grouped(cfg: ArchConfig, q: torch.Tensor) -> torch.Tensor:
@@ -213,10 +244,16 @@ def attention_decode(cfg: ArchConfig, params: Dict, x: torch.Tensor,
     lands at ``position % S`` and every resident row is inside the window by
     construction (row j holds the one p ≡ j (mod S) with p ≤ position), so
     a step reads O(S) rows, not O(max_seq).  Keys keep their absolute-
-    position RoPE, so the scores equal the dense cache's."""
+    position RoPE, so the scores equal the dense cache's.
+
+    Outside ring mode a ``position`` at or past the capacity S raises
+    before anything is written.  The reference's ``dynamic_update_slice``
+    clamps such a write onto row S - 1 and decodes on; the port refuses."""
     B = x.shape[0]
     S = cache.k.shape[1]
     ring = window is not None and S <= window
+    if not ring:
+        check_capacity(position, S)
     pos_arr = torch.full((B, 1), position, dtype=torch.int32,
                          device=x.device)
     q, k_new, v_new = _project_qkv(cfg, params, x,

@@ -1,0 +1,197 @@
+"""Whisper-style encoder-decoder of the port (``repro.models.encdec``): the
+audio family.
+
+The mel-spectrogram and conv frontend are a stub, as in the reference: the
+caller supplies frame embeddings (B, T_enc, d_model).  A bidirectional
+encoder (sinusoidal positions, no RoPE) feeds a causal decoder whose layers
+attend to the encoder output through cross-attention.
+
+Layers are stacked on a leading L axis under ``enc_blocks`` and
+``dec_blocks``, as the reference's ``vmap``-ed init leaves them; the
+reference's ``lax.scan`` over layers is a Python loop over the stack's
+per-layer views.  The cache is written in place and ``position`` is a host
+int, as ``LMCache``'s.
+
+Dtypes follow jnp's promotion: f32 frames against bf16 weights run the
+encoder in f32 (``layers.matmul`` casts the weight up), so ``encode``'s
+output and the cached cross K/V are f32 while the decoder stays in the
+model dtype.  The serving loop draws f32 frames, as the reference's does.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Tuple
+
+import torch
+
+from .attention import (KVCache, attention_decode, attention_forward,
+                        check_capacity, cross_attention_forward,
+                        init_attention)
+from .config import ArchConfig
+from .layers import (dtype_of, embed_init, matmul, rms_norm,
+                     sinusoidal_positions)
+from .mlp import init_mlp, mlp_forward
+from .transformer import _stacked_layers, layer_views, refuse_remat
+
+Pytree = Any
+
+
+def _enc_block(cfg: ArchConfig, gen: torch.Generator,
+               dtype: torch.dtype) -> Dict:
+    zeros = lambda: torch.zeros((cfg.d_model,), dtype=dtype,  # noqa: E731
+                                device=gen.device)
+    return {"ln1": zeros(), "attn": init_attention(cfg, gen, dtype),
+            "ln2": zeros(), "mlp": init_mlp(cfg, gen, dtype)}
+
+
+def _dec_block(cfg: ArchConfig, gen: torch.Generator,
+               dtype: torch.dtype) -> Dict:
+    zeros = lambda: torch.zeros((cfg.d_model,), dtype=dtype,  # noqa: E731
+                                device=gen.device)
+    return {"ln1": zeros(), "attn": init_attention(cfg, gen, dtype),
+            "ln_x": zeros(), "cross": init_attention(cfg, gen, dtype),
+            "ln2": zeros(), "mlp": init_mlp(cfg, gen, dtype)}
+
+
+def init_whisper(cfg: ArchConfig, gen: torch.Generator) -> Pytree:
+    """Random params on the generator's device, layer by layer; the
+    reference's tree (``embed``, ``enc_blocks``, ``enc_norm``,
+    ``dec_blocks``, ``final_norm``, ``lm_head``)."""
+    dtype = dtype_of(cfg.dtype)
+    zeros = lambda: torch.zeros((cfg.d_model,), dtype=dtype,  # noqa: E731
+                                device=gen.device)
+    embed = embed_init(gen, cfg.vocab_size, cfg.d_model, dtype)
+    enc = _stacked_layers(cfg, gen, dtype, (cfg.encoder_layers,), _enc_block)
+    dec = _stacked_layers(cfg, gen, dtype, (cfg.num_layers,), _dec_block)
+    head = embed_init(gen, cfg.vocab_size, cfg.d_model, dtype).T.contiguous()
+    return {"embed": embed, "enc_blocks": enc, "enc_norm": zeros(),
+            "dec_blocks": dec, "final_norm": zeros(), "lm_head": head}
+
+
+def encode(cfg: ArchConfig, params: Pytree, frames: torch.Tensor,
+           remat=False) -> torch.Tensor:
+    """frames (B, T_enc, d_model), the stub frontend's embeddings → the
+    encoder output in frames' dtype (or wider, by promotion)."""
+    refuse_remat(remat, "repro.models.encdec encode")
+    T = frames.shape[1]
+    pos = sinusoidal_positions(T, cfg.d_model, frames.device)
+    x = frames + pos.to(frames.dtype)
+    positions = torch.arange(T, device=frames.device)
+    for p in layer_views(params["enc_blocks"], cfg.encoder_layers):
+        a = rms_norm(x, p["ln1"], cfg.norm_eps)
+        x = x + attention_forward(cfg, p["attn"], a, positions, mode="bidir",
+                                  use_rope=False)
+        m = rms_norm(x, p["ln2"], cfg.norm_eps)
+        x = x + mlp_forward(cfg, p["mlp"], m)
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _cross_kv(cfg: ArchConfig, p: Dict, enc_out: torch.Tensor):
+    B, T, _ = enc_out.shape
+    hd = cfg.resolved_head_dim
+    k = matmul(enc_out, p["wk"]).reshape(B, T, cfg.num_kv_heads, hd)
+    v = matmul(enc_out, p["wv"]).reshape(B, T, cfg.num_kv_heads, hd)
+    return k, v
+
+
+def _embed_tokens(cfg: ArchConfig, params: Pytree,
+                  tokens: torch.Tensor) -> torch.Tensor:
+    """Token embeddings plus positions 0..S-1, in the embedding's dtype."""
+    emb = params["embed"]
+    pos = sinusoidal_positions(tokens.shape[1], cfg.d_model, emb.device)
+    return emb[tokens] + pos.to(emb.dtype)
+
+
+def _dec_layer(cfg: ArchConfig, p: Dict, h: torch.Tensor,
+               positions: torch.Tensor, enc_out: torch.Tensor):
+    """One decoder layer over the full sequence: (h, (k, v), (ek, ev))."""
+    a = rms_norm(h, p["ln1"], cfg.norm_eps)
+    attn, kv = attention_forward(cfg, p["attn"], a, positions, mode="causal",
+                                 use_rope=False, return_kv=True)
+    h = h + attn
+    c = rms_norm(h, p["ln_x"], cfg.norm_eps)
+    ek, ev = _cross_kv(cfg, p["cross"], enc_out)
+    h = h + cross_attention_forward(cfg, p["cross"], c, ek, ev)
+    m = rms_norm(h, p["ln2"], cfg.norm_eps)
+    return h + mlp_forward(cfg, p["mlp"], m), kv, (ek, ev)
+
+
+def _head(cfg: ArchConfig, params: Pytree, x: torch.Tensor) -> torch.Tensor:
+    return rms_norm(x, params["final_norm"], cfg.norm_eps) @ params["lm_head"]
+
+
+def whisper_forward_train(cfg: ArchConfig, params: Pytree,
+                          frames: torch.Tensor, tokens: torch.Tensor,
+                          remat=False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced logits (B, S, V) for tokens (B, S) given frames, and
+    a zero aux loss."""
+    refuse_remat(remat, "repro.models.encdec whisper_forward_train")
+    enc_out = encode(cfg, params, frames)
+    x = _embed_tokens(cfg, params, tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    for p in layer_views(params["dec_blocks"], cfg.num_layers):
+        x = _dec_layer(cfg, p, x, positions, enc_out)[0]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _head(cfg, params, x), aux
+
+
+class WhisperCache(NamedTuple):
+    self_kv: KVCache          # (L, B, S_max, KV, hd), the model dtype
+    cross_k: torch.Tensor     # (L, B, T_enc, KV, hd), the encoder's dtype
+    cross_v: torch.Tensor
+    position: int
+
+
+def whisper_prefill(cfg: ArchConfig, params: Pytree, frames: torch.Tensor,
+                    tokens: torch.Tensor, max_seq: int
+                    ) -> Tuple[torch.Tensor, WhisperCache]:
+    """Encode the audio and run the decoder prompt, building both caches:
+    the prompt's self K/V in the first S of ``max_seq`` rows (model dtype),
+    every layer's cross K/V (the encoder output's dtype).  Returns the last
+    position's logits (B, V)."""
+    enc_out = encode(cfg, params, frames)
+    B, S = tokens.shape
+    x = _embed_tokens(cfg, params, tokens)
+    positions = torch.arange(S, device=tokens.device)
+    L, dtype = cfg.num_layers, dtype_of(cfg.dtype)
+    kc = vc = ck = cv = None
+    for i, p in enumerate(layer_views(params["dec_blocks"], L)):
+        x, (k, v), (ek, ev) = _dec_layer(cfg, p, x, positions, enc_out)
+        if kc is None:
+            kc, vc = (torch.zeros((L, B, max_seq) + tuple(k.shape[2:]),
+                                  dtype=dtype, device=k.device)
+                      for _ in range(2))
+            ck, cv = (torch.empty((L,) + tuple(ek.shape), dtype=ek.dtype,
+                                  device=ek.device) for _ in range(2))
+        kc[i, :, :S] = k
+        vc[i, :, :S] = v
+        ck[i] = ek
+        cv[i] = ev
+    logits = _head(cfg, params, x[:, -1:, :])[:, 0]
+    return logits, WhisperCache(KVCache(kc, vc), ck, cv, S)
+
+
+def whisper_decode_step(cfg: ArchConfig, params: Pytree, token: torch.Tensor,
+                        cache: WhisperCache
+                        ) -> Tuple[torch.Tensor, WhisperCache]:
+    """token (B,) → (logits (B, V), cache), every row at
+    ``cache.position``; the self K/V row is written in place.  A position
+    at or past the self cache's S_max rows raises before anything is
+    written (the reference clamps its position row and K/V write there).
+    ``max_target_positions`` is not enforced, as in the reference."""
+    S = cache.self_kv.k.shape[2]
+    pos = cache.position
+    check_capacity(pos, S)
+    emb = params["embed"]
+    row = sinusoidal_positions(S, cfg.d_model, emb.device)[pos]
+    x = emb[token][:, None, :] + row.to(emb.dtype)
+    for i, p in enumerate(layer_views(params["dec_blocks"], cfg.num_layers)):
+        kv = KVCache(cache.self_kv.k[i], cache.self_kv.v[i])
+        a = rms_norm(x, p["ln1"], cfg.norm_eps)
+        x = x + attention_decode(cfg, p["attn"], a, kv, pos,
+                                 use_rope=False)[0]
+        c = rms_norm(x, p["ln_x"], cfg.norm_eps)
+        x = x + cross_attention_forward(cfg, p["cross"], c, cache.cross_k[i],
+                                        cache.cross_v[i])
+        m = rms_norm(x, p["ln2"], cfg.norm_eps)
+        x = x + mlp_forward(cfg, p["mlp"], m)
+    return _head(cfg, params, x)[:, 0], cache._replace(position=pos + 1)

@@ -86,6 +86,34 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+@functools.lru_cache(maxsize=8)
+def sinusoidal_positions(num_positions: int, dim: int,
+                         device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal embeddings (num_positions, dim) in f32:
+    ``[sin, cos]`` of ``pos / 10000 ** (2i / dim)``, as the reference
+    computes them.  Cached per (num_positions, dim, device) like
+    ``rope_frequencies``: a decode step reads one row of the same table in
+    every step.  Callers must not write into the result."""
+    pos = torch.arange(num_positions, dtype=torch.float32,
+                       device=device)[:, None]
+    i = torch.arange(dim // 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(10_000.0, 2 * i / dim)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
+# ---------------------------------------------------------------- matmuls
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with jnp's type promotion: where the dtypes differ both
+    are cast up to the wider one (f32 activations against bf16 weights give
+    an f32 product, as ``jnp.matmul`` does; torch's ``@`` refuses the mix).
+    The whisper encoder meets this when bf16 weights see f32 frames."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        return x.to(dt) @ w.to(dt)
+    return x @ w
+
+
 # ----------------------------------------------------------------- activations
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,7 @@ from typing import Dict
 import torch
 
 from .config import ArchConfig
-from .layers import activation_fn, dense_init
+from .layers import activation_fn, dense_init, matmul
 
 
 def init_mlp(cfg: ArchConfig, gen: torch.Generator, dtype: torch.dtype,
@@ -22,9 +22,9 @@ def init_mlp(cfg: ArchConfig, gen: torch.Generator, dtype: torch.dtype,
 
 def mlp_forward(cfg: ArchConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
     act = activation_fn(cfg.activation)
-    up = x @ params["w_up"]
+    up = matmul(x, params["w_up"])
     if "w_gate" in params:
-        up = act(x @ params["w_gate"]) * up
+        up = act(matmul(x, params["w_gate"])) * up
     else:
         up = act(up)
-    return up @ params["w_down"]
+    return matmul(up, params["w_down"])

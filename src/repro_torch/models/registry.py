@@ -1,11 +1,10 @@
 """Model registry of the port — one bundle per architecture family.
 
-The ``logreg``, ``dense``, ``moe``, ``ssm`` and ``hybrid`` families are
-ported (one decoder-only bundle serves the last four); ``vlm`` and
-``audio`` of ``repro.models.registry`` raise ``NotImplementedError``,
-naming ``repro.models.vlm`` / ``repro.models.encdec``, until their slice
-lands.  The bundle keeps
-the reference's field names:
+Every family of ``repro.models.registry`` is ported: ``logreg``, the
+decoder-only ``dense``, ``moe``, ``ssm`` and ``hybrid`` (one bundle), the
+early-fusion ``vlm`` (``repro_torch.models.vlm``) and the encoder-decoder
+``audio`` (``repro_torch.models.encdec``).  The bundle keeps the
+reference's field names:
 
     bundle.init(seed | Generator, device="cuda")  -> params
     bundle.train_loss(params, batch)              -> (scalar_loss, aux)
@@ -16,7 +15,17 @@ the reference's field names:
     bundle.batch_spec(batch, seq)                 -> {name: (shape, dtype)}
 
 ``init`` takes a seed or a ``torch.Generator`` in place of a ``jax.random``
-key; a seed makes a generator on ``device``.
+key; a seed makes a generator on ``device``.  Batch layouts per family, as
+the reference's:
+
+    dense/moe/ssm/hybrid: {"tokens": (B, S) int32}
+    vlm:                  {"tokens": (B, S - n_img) int32,
+                           "image_embeds": (B, n_img, d_model)}
+    audio (whisper):      {"frames": (B, T_enc, d_model),
+                           "tokens": (B, S) int32}
+
+(``batch_spec`` gives ``frames`` and ``image_embeds`` in the model dtype;
+the serving loop draws them in f32, as the reference's does.)
 """
 from __future__ import annotations
 
@@ -28,10 +37,13 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from .config import ArchConfig
+from .encdec import (init_whisper, whisper_decode_step, whisper_forward_train,
+                     whisper_prefill)
 from .layers import cross_entropy_loss
 from .logistic import init_logistic, logistic_apply, logistic_loss
 from .transformer import (check_family, decode_step, forward_train, init_lm,
                           init_lm_cache, prefill)
+from .vlm import init_vlm, vlm_forward_train, vlm_prefill
 
 
 @dataclass(frozen=True)
@@ -63,6 +75,25 @@ def _lm_next_token_loss(cfg: ArchConfig, params, batch: Dict,
     return ce + cfg.router_aux_coef * aux, aux
 
 
+def _vlm_loss(cfg: ArchConfig, params, batch: Dict,
+              window: Optional[int] = None, remat: bool = False):
+    """Next-token CE on the text positions only: ``logits[:, n_img:-1]``."""
+    logits, aux = vlm_forward_train(cfg, params, batch["tokens"],
+                                    batch["image_embeds"], window=window,
+                                    remat=remat)
+    n_img = batch["image_embeds"].shape[1]
+    ce = cross_entropy_loss(logits[:, n_img:-1], batch["tokens"][:, 1:])
+    return ce + cfg.router_aux_coef * aux, aux
+
+
+def _whisper_loss(cfg: ArchConfig, params, batch: Dict,
+                  window: Optional[int] = None, remat: bool = False):
+    logits, aux = whisper_forward_train(cfg, params, batch["frames"],
+                                        batch["tokens"], remat=remat)
+    ce = cross_entropy_loss(logits[:, :-1], batch["tokens"][:, 1:])
+    return ce, aux
+
+
 def get_model(cfg: ArchConfig) -> ModelBundle:
     if cfg.family == "logreg":
         return ModelBundle(
@@ -75,6 +106,43 @@ def get_model(cfg: ArchConfig) -> ModelBundle:
             batch_spec=lambda batch, seq: {
                 "x": ((batch, cfg.input_dim), torch.float32),
                 "y": ((batch,), torch.int32)})
+
+    dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    if cfg.family == "audio":
+        return ModelBundle(
+            config=cfg,
+            init=lambda seed, device="cuda": init_whisper(
+                cfg, _generator(seed, device)),
+            train_loss=partial(_whisper_loss, cfg),
+            forward=lambda p, b: whisper_forward_train(cfg, p, b["frames"],
+                                                       b["tokens"])[0],
+            prefill=lambda p, b, max_seq: whisper_prefill(
+                cfg, p, b["frames"], b["tokens"], max_seq),
+            decode=lambda p, tok, cache: whisper_decode_step(cfg, p, tok,
+                                                             cache),
+            init_cache=None,   # built by prefill
+            batch_spec=lambda batch, seq: {
+                "frames": ((batch, cfg.max_source_positions, cfg.d_model),
+                           dtype),
+                "tokens": ((batch, seq), torch.int32)})
+
+    if cfg.family == "vlm":
+        return ModelBundle(
+            config=cfg,
+            init=lambda seed, device="cuda": init_vlm(
+                cfg, _generator(seed, device)),
+            train_loss=partial(_vlm_loss, cfg),
+            forward=lambda p, b: vlm_forward_train(cfg, p, b["tokens"],
+                                                   b["image_embeds"])[0],
+            prefill=lambda p, b, max_seq: vlm_prefill(
+                cfg, p, b["tokens"], b["image_embeds"], max_seq),
+            decode=lambda p, tok, cache: decode_step(cfg, p, tok, cache),
+            init_cache=lambda batch, max_seq, device="cuda": init_lm_cache(
+                cfg, batch, max_seq, device=device),
+            batch_spec=lambda batch, seq: {
+                "tokens": ((batch, seq - cfg.num_image_tokens), torch.int32),
+                "image_embeds": ((batch, cfg.num_image_tokens, cfg.d_model),
+                                 dtype)})
 
     check_family(cfg)
     return ModelBundle(

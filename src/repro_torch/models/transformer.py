@@ -1,5 +1,7 @@
 """Decoder-only LM of the port (``repro.models.transformer``): the dense,
-MoE, SSM (RWKV6 or Mamba2) and hybrid (Zamba2) families.
+MoE, SSM (RWKV6 or Mamba2) and hybrid (Zamba2) families, and the early-
+fusion VLM's decoder (``repro_torch.models.vlm`` feeds it fused image and
+text embeddings and decodes through ``decode_step``).
 
 Layers are stacked on a leading L axis under ``params["blocks"]``, as the
 reference's tree; the reference's ``lax.scan`` over layers is a Python loop
@@ -21,9 +23,9 @@ MLP block (``shared_attn``) after every group.  Entry points:
 A ``moe`` layer holds ``moe`` (``repro_torch.models.moe``) where a dense
 layer holds ``mlp``; an ``ssm`` layer holds ``rwkv``
 (``repro_torch.models.rwkv``) or ``mamba`` (``repro_torch.models.ssd``).
-The vlm and audio families raise ``NotImplementedError`` naming the
-reference module that holds them.  Caches are updated in place and
-returned (the reference returns new arrays); ``LMCache.position`` is a
+The audio family (whisper) is an encoder-decoder and lives in
+``repro_torch.models.encdec``; these functions raise for it, naming that
+module.  Caches are updated in place and returned (the reference returns new arrays); ``LMCache.position`` is a
 host int.  The recurrent states (``LMCache.ssm``) are stacked over
 ``num_layers`` with the hybrid's remainder layers at the tail, and the
 hybrid's ``shared_kv`` over its groups: each application of the one shared
@@ -51,20 +53,29 @@ from .ssd import init_mamba2, init_ssm_state, mamba2_decode, mamba2_forward
 
 Pytree = Any
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
-_NOT_PORTED = {
-    "vlm": "reference: repro.models.vlm; ROADMAP queue 1",
-    "audio": "reference: repro.models.encdec; ROADMAP queue 1",
-}
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
 def check_family(cfg: ArchConfig) -> None:
-    """Raise for a family the port does not run yet (``FAMILIES`` run)."""
-    if cfg.family not in FAMILIES:
-        item = _NOT_PORTED.get(cfg.family, "ROADMAP queue 1")
+    """Raise for a family these decoder-only functions do not run
+    (``FAMILIES`` run; audio is ``repro_torch.models.encdec``'s)."""
+    if cfg.family == "audio":
         raise NotImplementedError(
-            f"model family {cfg.family!r} ({cfg.name}) is not ported yet: "
-            f"{item}")
+            f"model family 'audio' ({cfg.name}) is an encoder-decoder: use "
+            "repro_torch.models.encdec (or get_model's bundle)")
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"unknown model family {cfg.family!r} ({cfg.name}); the port "
+            f"runs {FAMILIES}, audio and logreg")
+
+
+def refuse_remat(remat, where: str) -> None:
+    """Activation checkpointing waits for the training slice."""
+    if remat:
+        raise NotImplementedError(
+            f"remat={remat!r} waits for the training slice of repro_torch "
+            f"(reference: {where}(remat=...); ROADMAP queue 1); only "
+            "remat=False runs")
 
 
 # --------------------------------------------------------------------- init
@@ -90,13 +101,15 @@ def _init_block(cfg: ArchConfig, gen: torch.Generator,
 
 
 def _stacked_layers(cfg: ArchConfig, gen: torch.Generator,
-                    dtype: torch.dtype, lead: Tuple[int, ...]) -> Pytree:
-    """Layers of ``_init_block`` stacked on the leading dims ``lead``, drawn
-    in row-major order, each apart and copied into its slice, so only one
-    layer's f32 draws exist at a time."""
+                    dtype: torch.dtype, lead: Tuple[int, ...],
+                    make: Callable = _init_block) -> Pytree:
+    """Layers of ``make(cfg, gen, dtype)`` (``_init_block`` by default)
+    stacked on the leading dims ``lead``, drawn in row-major order, each
+    apart and copied into its slice, so only one layer's f32 draws exist at
+    a time."""
     blocks = None
     for i in range(math.prod(lead)):
-        layer = _init_block(cfg, gen, dtype)
+        layer = make(cfg, gen, dtype)
         if blocks is None:
             blocks = tree_map(lambda a: torch.empty(
                 lead + tuple(a.shape), dtype=a.dtype, device=a.device),
@@ -192,17 +205,11 @@ def forward_train(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
     """tokens (B, S) → (logits (B, S, V), aux_loss).  Activation
     checkpointing (``remat``) waits for the training slice and raises."""
     check_family(cfg)
-    if remat:
-        raise NotImplementedError(
-            f"remat={remat!r} waits for the training slice of repro_torch "
-            "(reference: repro.models.transformer forward_train(remat=...); "
-            "ROADMAP queue 1); only remat=False runs")
-    S = tokens.shape[1]
+    refuse_remat(remat, "repro.models.transformer forward_train")
     window = window if window is not None else cfg.sliding_window
     x = params["embed"][tokens]
-    positions = torch.arange(S, device=tokens.device)
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     if cfg.family == "hybrid":
+        positions = torch.arange(x.shape[1], device=x.device)
         mode = "window" if window is not None else "causal"
         x = _hybrid_pass(
             cfg, params, x,
@@ -210,7 +217,18 @@ def forward_train(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
             lambda _, a: attention_forward(cfg, params["shared_attn"]["attn"],
                                            a, positions, mode=mode,
                                            window=window))
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return _logits(cfg, params, x), aux
+    return forward_embedded(cfg, params, x, window)
+
+
+def forward_embedded(cfg: ArchConfig, params: Pytree, x: torch.Tensor,
+                     window: Optional[int]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The stack of ``params["blocks"]`` over embeddings x (B, S, d) at
+    positions 0..S-1: (logits (B, S, V), the summed aux loss)."""
+    positions = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in layer_views(params["blocks"], cfg.num_layers):
         x, a, _ = _block_forward(cfg, p, x, positions, window)
         aux = aux + a
@@ -316,6 +334,17 @@ def prefill(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
                 _put_state(cache.ssm, i, st)
         logits = _logits(cfg, params, x[:, -1:, :])
         return logits[:, 0], cache._replace(position=S)
+    return prefill_embedded(cfg, params, x, max_seq, window)
+
+
+def prefill_embedded(cfg: ArchConfig, params: Pytree, x: torch.Tensor,
+                     max_seq: int, window: Optional[int]
+                     ) -> Tuple[torch.Tensor, LMCache]:
+    """A KV-cache family's prefill over embeddings x (B, S, d): every
+    layer's K/V ring-placed into a cache of ``cache_capacity`` rows, and
+    the last position's logits."""
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)
     ks, vs = [], []
     for p in layer_views(params["blocks"], cfg.num_layers):
         x, _, (k, v) = _block_forward(cfg, p, x, positions, window,

@@ -1,0 +1,66 @@
+"""Chameleon-style early-fusion VLM of the port (``repro.models.vlm``).
+
+The image tokenizer is a stub, as in the reference: the caller supplies
+patch/code embeddings (B, n_img, d_model).  They are projected
+(``img_proj``) and placed ahead of the text embeddings in one causal
+stream, which the dense decoder of ``repro_torch.models.transformer`` runs.
+Decode continues text-only through the dense ``decode_step``.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional, Tuple
+
+import torch
+
+from .config import ArchConfig
+from .layers import dense_init, dtype_of
+from .transformer import (LMCache, decode_step, forward_embedded, init_lm,
+                          prefill_embedded, refuse_remat)
+
+Pytree = Any
+
+
+def init_vlm(cfg: ArchConfig, gen: torch.Generator) -> Pytree:
+    """The dense LM's params, then ``img_proj`` (d, d) drawn after them."""
+    params = init_lm(cfg, gen)
+    params["img_proj"] = dense_init(gen, cfg.d_model, cfg.d_model,
+                                    dtype_of(cfg.dtype))
+    return params
+
+
+def _fuse(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
+          image_embeds: torch.Tensor) -> torch.Tensor:
+    """[projected image embeddings ; text embeddings] along the seq axis;
+    the image embeddings are cast to the embedding's dtype first."""
+    emb = params["embed"]
+    img = image_embeds.to(emb.dtype) @ params["img_proj"]
+    return torch.cat([img, emb[tokens]], dim=1)
+
+
+def vlm_forward_train(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
+                      image_embeds: torch.Tensor,
+                      window: Optional[int] = None, remat=False
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S_text), image_embeds (B, n_img, d) → logits over the
+    whole fused sequence (B, n_img + S_text, V) and the aux loss (the
+    training loss masks the image positions)."""
+    refuse_remat(remat, "repro.models.vlm vlm_forward_train")
+    window = window if window is not None else cfg.sliding_window
+    return forward_embedded(cfg, params,
+                            _fuse(cfg, params, tokens, image_embeds), window)
+
+
+def vlm_prefill(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
+                image_embeds: torch.Tensor, max_seq: int,
+                window: Optional[int] = None
+                ) -> Tuple[torch.Tensor, LMCache]:
+    """Prefill over the fused stream (its K/V ring-placed into
+    ``cache_capacity(cfg, max_seq)`` rows; ``max_seq`` counts the image
+    tokens); decode then continues text-only at position n_img + S_text."""
+    window = window if window is not None else cfg.sliding_window
+    return prefill_embedded(cfg, params,
+                            _fuse(cfg, params, tokens, image_embeds),
+                            max_seq, window)
+
+
+vlm_decode_step = decode_step   # decode continues text-only, as the dense LM

@@ -1,7 +1,9 @@
 """Streaming observability for the port: trackers and dual-clock spans.
 
-Copies of ``repro.obs.{tracker,spans,jsonl}`` (stdlib + numpy), so the port
-logs the same events and spans as the reference without importing it.
+Copies of ``repro.obs.{tracker,spans,jsonl,perfetto}`` (stdlib + numpy), so
+the port logs the same events and spans as the reference without importing
+it, and ``python -m repro_torch.obs.perfetto`` exports its traces for
+Perfetto.
 """
 from . import spans
 from .jsonl import JsonlTracker, iter_trace, read_trace

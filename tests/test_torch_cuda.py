@@ -1378,7 +1378,7 @@ def test_recurrent_lockstep_on_the_card_equals_the_cpu(cuda_device, name):
     prompt = lockstep_prompt(cfg, 3, 45, torch.device("cpu"))
     reset_launch_counts()
     card = lockstep(bundle, tree_map(lambda a: a.to(cuda_device), params),
-                    prompt.to(cuda_device), 6, 51)
+                    tree_map(lambda a: a.to(cuda_device), prompt), 6, 51)
     assert not any(launch_counts().values())
     cpu = lockstep(bundle, params, prompt, 6, 51)
     assert torch.equal(card.tokens.cpu(), cpu.tokens)

@@ -411,12 +411,17 @@ def test_unported_parts_raise():
         t_loss, tserver.ServerConfig(aggregator="contextual_mom",
                                      malicious=(1,)), M, device="cpu")
     assert callable(fn)
-    with pytest.raises(KeyError, match="not ported yet"):
-        tconfigs.get_config("whisper-large-v3")
+    # every config and family of the reference is ported now: whisper's
+    # config and the vlm / audio bundles build; unknown ones still raise
+    assert tconfigs.get_config("whisper-large-v3").family == "audio"
+    with pytest.raises(KeyError, match="unknown config"):
+        tconfigs.get_config("whisper-small")
     assert tconfigs.get_config("paper-logreg").input_dim == 784
     for family in ("vlm", "audio"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            t_get_model(ArchConfig(name="m", family=family))
+        assert t_get_model(ArchConfig(name="m", family=family)).prefill \
+            is not None
+    with pytest.raises(NotImplementedError, match="unknown model family"):
+        t_get_model(ArchConfig(name="m", family="bogus"))
     # the moe, ssm and hybrid families are ported: their bundles build
     for family in ("moe", "ssm", "hybrid"):
         assert t_get_model(ArchConfig(name="m",

@@ -97,13 +97,16 @@ def _tokens(B, S, vocab, seed=0):
 
 def test_configs_are_the_references():
     for name in ("qwen3-14b", "gemma-7b", "qwen2.5-32b", "starcoder2-15b",
-                 "rwkv6-1.6b", "zamba2-1.2b"):
+                 "rwkv6-1.6b", "zamba2-1.2b", "whisper-large-v3",
+                 "chameleon-34b"):
         assert get_config(name).__dict__ == j_get_config(name).__dict__
         assert get_config(name).reduced().__dict__ == \
             j_get_config(name).reduced().__dict__
     assert get_config("qwen3_14b") is get_config("qwen3-14b")
-    with pytest.raises(KeyError, match="not ported yet"):
-        get_config("whisper-large-v3")
+    # every config of the reference is ported; an unknown name raises
+    assert get_config("whisper-large-v3").family == "audio"
+    with pytest.raises(KeyError, match="unknown config 'whisper-large-v2'"):
+        get_config("whisper-large-v2")
 
 
 def test_layers_match_reference():
@@ -285,9 +288,22 @@ def test_dense_bundle_and_unported_families():
     with pytest.raises(NotImplementedError, match="training slice"):
         ttf.forward_train(cfg, params, torch.zeros(1, 4, dtype=torch.int32),
                           remat="full")
+    # the vlm and audio families build their bundles now
+    # (tests/test_torch_vlm.py and test_torch_encdec.py hold them to the
+    # reference); an unknown family still raises, and audio on the
+    # decoder-only functions names its module
     for family in ("vlm", "audio"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            get_model(cfg.with_overrides(family=family))
+        fb = get_model(cfg.with_overrides(family=family, encoder_layers=1,
+                                          max_source_positions=8,
+                                          num_image_tokens=2))
+        assert fb.prefill is not None and fb.decode is not None
+        assert "embed" in fb.init(0, device="cpu")
+    with pytest.raises(NotImplementedError, match="unknown model family"):
+        get_model(cfg.with_overrides(family="diffusion"))
+    with pytest.raises(NotImplementedError,
+                       match="repro_torch.models.encdec"):
+        ttf.init_lm(cfg.with_overrides(family="audio"),
+                    torch.Generator())
     # the ssm and hybrid families run now (tests/test_torch_recurrent.py
     # holds them to the reference)
     for rec in (get_config("rwkv6-1.6b").reduced(num_layers=1),
@@ -313,6 +329,51 @@ def test_dense_bundle_and_unported_families():
         if torch.cuda.is_available():
             raise RuntimeError("device='cpu' (a card is present)")
         bundle.init(0)
+
+
+def test_decode_past_capacity_refused():
+    """Reduced qwen3-14b, a 6-token prompt in a 7-row cache: the step at
+    position 6 fills the last row, the next one raises before any write,
+    naming the capacity and the position."""
+    name = "qwen3"
+    _, tp = _params(name)
+    cfg = ARCHS[name]
+    _, tt = _tokens(2, 6, cfg.vocab_size, seed=4)
+    logits, cache = ttf.prefill(cfg, tp, tt, max_seq=7)
+    tok = logits.argmax(-1).to(torch.int32)
+    _, cache = ttf.decode_step(cfg, tp, tok, cache)
+    assert cache.position == 7
+    before = [t.clone() for t in cache.kv]
+    with pytest.raises(ValueError, match=r"position 7 .*capacity S=7"):
+        ttf.decode_step(cfg, tp, tok, cache)
+    for t, b in zip(cache.kv, before):
+        assert torch.equal(t, b)
+    # ring mode (a window at least the capacity) keeps wrapping
+    ring = ARCHS["starcoder2-ring"]
+    _, rp = _params("starcoder2-ring")
+    logits, rc = ttf.prefill(ring, rp, tt, max_seq=7)
+    for _ in range(4):
+        logits, rc = ttf.decode_step(ring, rp, tok, rc)
+    assert rc.position == 10 and torch.isfinite(logits).all()
+
+
+def test_reference_decode_past_capacity_clamp_recorded():
+    """The reference decodes on past max_seq = 7: its ``attention_decode``
+    writes with ``dynamic_update_slice``, which clamps the row to S − 1, and
+    positions 7, 8 and 9 give finite logits.  This records the reference's
+    behaviour the port refuses."""
+    name = "qwen3"
+    jp, _ = _params(name)
+    jcfg = _jax_cfg(name)
+    tj, _ = _tokens(2, 6, jcfg.vocab_size, seed=4)
+    decode = jax.jit(jtf.decode_step, static_argnums=0)
+    logits, cache = jtf.prefill(jcfg, jp, tj, max_seq=7)
+    for pos in range(6, 10):
+        assert int(cache.position) == pos
+        logits, cache = decode(jcfg, jp, jnp.argmax(logits, -1).astype(
+            jnp.int32), cache)
+        assert np.isfinite(np.asarray(logits)).all()
+    assert int(cache.position) == 10
 
 
 def test_params_from_jax_carries_a_stacked_bf16_tree():

@@ -498,10 +498,19 @@ def test_families_and_cache_layout():
         ttf.decode_slots(cfg, params, tok, cache, tok)
     with pytest.raises(ValueError, match="KV-cache family"):
         ttf.prefill_chunk(cfg, params, tok, cache, 0, 0)
-    for family, module in (("vlm", "repro.models.vlm"),
-                           ("audio", "repro.models.encdec")):
-        with pytest.raises(NotImplementedError, match=module):
-            get_model(cfg.with_overrides(family=family))
+    # the vlm and audio families build their bundles now; an unknown
+    # family still raises, and the decoder-only prefill names encdec for
+    # audio
+    for family in ("vlm", "audio"):
+        fb = get_model(cfg.with_overrides(family=family, encoder_layers=1,
+                                          num_image_tokens=2))
+        assert fb.prefill is not None and fb.batch_spec(1, 4)
+    with pytest.raises(NotImplementedError, match="unknown model family"):
+        get_model(cfg.with_overrides(family="bogus"))
+    with pytest.raises(NotImplementedError,
+                       match="repro_torch.models.encdec"):
+        ttf.prefill(cfg.with_overrides(family="audio"), params, tok[None],
+                    4)
 
 
 # --------------------------------------------------- checkpoints and serve
@@ -555,11 +564,14 @@ def test_lockstep_equals_prefill_then_decode():
     cfg = get_config("zamba2-1.2b").reduced(num_layers=3)
     bundle = get_model(cfg)
     params = bundle.init(0, device="cpu")
-    prompt = tserve.lockstep_prompt(cfg, 2, 11, torch.device("cpu"))
+    batch = tserve.lockstep_prompt(cfg, 2, 11, torch.device("cpu"))
+    assert list(batch) == ["tokens"]       # no frames or image embeddings
+    prompt = batch["tokens"]
     assert prompt.dtype == torch.int32 and prompt.shape == (2, 11)
     assert torch.equal(prompt, tserve.lockstep_prompt(
-        cfg, 2, 11, torch.device("cpu")))
-    run = tserve.lockstep(bundle, params, prompt, 4, 15)
+        cfg, 2, 11, torch.device("cpu"))["tokens"])
+    assert tserve.lockstep_max_seq(cfg, 11, 4) == 15
+    run = tserve.lockstep(bundle, params, batch, 4, 15)
     assert run.tokens.shape == (2, 4) and run.logits.shape == (2, 4, 512)
     logits, cache = ttf.prefill(cfg, params, prompt, 15)
     for t in range(4):
@@ -569,11 +581,18 @@ def test_lockstep_equals_prefill_then_decode():
         logits, cache = ttf.decode_step(cfg, params, tok, cache)
 
 
-def test_unported_families_still_raise():
+def test_unported_families_still_raise(capsys):
+    """whisper-large-v3 and chameleon-34b serve now through the lockstep
+    loop; an unknown arch name or family still raises."""
     for name in ("whisper-large-v3", "chameleon-34b"):
-        with pytest.raises(KeyError, match="not ported yet"):
-            tserve.main(["--arch", name, "--device", "cpu"])
-    for family, module in (("vlm", "repro.models.vlm"),
-                           ("audio", "repro.models.encdec")):
-        with pytest.raises(NotImplementedError, match=module):
-            get_model(ArchConfig(name="m", family=family))
+        tserve.main(["--arch", name, "--device", "cpu", "--prompt-len", "6",
+                     "--new-tokens", "3", "--batch", "1"])
+        out = capsys.readouterr().out.splitlines()
+        assert out[0].startswith(f"arch={name}-smoke device=cpu batch=1")
+    with pytest.raises(KeyError, match="unknown config"):
+        tserve.main(["--arch", "whisper-tiny", "--device", "cpu"])
+    for family in ("vlm", "audio"):
+        assert get_model(ArchConfig(name="m", family=family)).decode \
+            is not None
+    with pytest.raises(NotImplementedError, match="unknown model family"):
+        get_model(ArchConfig(name="m", family="bogus"))
