@@ -190,7 +190,29 @@ Phases (any failure exits non-zero and prints no result line):
      ahead of the 200-token prompts, 1 256 cache rows), after every other
      phase has freed its tensors; its f32 checks and bf16 floor run on the
      full-width config cut to its first 4 layers (no f32 copy of the model
-     fits the card), printed on every run.
+     fits the card), printed on every run;
+  16. train — the reference's training driver, ``python -m
+     repro_torch.launch.train --arch olmoe-1b-7b --steps 3 --batch 8 --seq
+     128``, in-process on the host mesh of the card (C = 1, remat "full";
+     6.92·10⁹ parameters, three stacked expert leaves of 2³¹ elements):
+     finite losses, α = 1/(1+ridge) to 1e-5 every step, the first step's
+     new params within one ulp of p + αΔ and (bf16 leaves) of p − lr·g in
+     every element, gram once a step (``gram.cu``) and combine once a leaf
+     a step, no plain version; then C = 4 cohorts of the full zamba2-1.2b
+     on an emulated (4, 1) mesh, 3 contextual steps (Theorem 1's bound
+     g(α) < 0 each) and 3 fedavg steps, the first of each held kernel by
+     kernel on its own inputs (the gram of the K = 4 scope, and each
+     leaf's K = 4 combine, within one ulp of the exact sum on the step's
+     α: fedavg's 1/4, against their plain versions); the path's
+     kernel shapes timed beside their bounds (the combine at 2³¹ + 8 bf16
+     elements, within one ulp of f64; the gram of olmoe's K = 1 scope of
+     103 M columns); the reduced f32 zamba2 and olmoe steps on the card
+     equal to the CPU's under remat False, "full" and "dots" (TF32 off);
+     ``hierarchical_contextual_combine`` on a one-rank NCCL group equal to
+     the local math.  Numbers: ms a step (CUDA events, median of steps 2-3)
+     beside the bound of one forward and one backward a cohort plus the
+     apply (remat's re-forward beside it), tokens/s, peak allocated,
+     device busy and launches a step (``torch.profiler``).
 
 The kernels phase also holds ``stream_stats``, ``gram_block`` and ``sketch``
 (U Rᵀ against an explicit R) against their plain versions, bitwise
@@ -221,6 +243,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -445,6 +468,20 @@ LOCKSTEP_PHASES = {"whisper": ("whisper-large-v3", None),
 # RoPE; the gate is 1.5x it
 LOCKSTEP_LOGIT_FLOOR = {"whisper-large-v3": 1.649e-2,
                         "chameleon-34b": 2.153e-2}
+# the train phase: the reference's training driver (launch.train) on the
+# full olmoe-1b-7b at its defaults (the one card's host mesh: C = 1, remat
+# "full"), then C = 4 cohorts of the full zamba2-1.2b on an emulated (4, 1)
+# mesh (3 contextual steps, then 3 fedavg), the reduced f32 configs card =
+# CPU under each remat policy, and the collectives on a one-rank NCCL group
+TRAIN = dict(arch="olmoe-1b-7b", steps=3, batch=8, seq=128, lr=0.02,
+             ridge=1e-6)
+TRAIN_COHORTS = dict(arch="zamba2-1.2b", mesh=(4, 1), batch=8, seq=128,
+                     steps=3, lr=0.02)
+TRAIN_SMALL = ("zamba2-1.2b", "olmoe-1b-7b")
+TRAIN_SMALL_SHAPE = dict(batch=8, seq=32)
+TRAIN_REMATS = (False, "full", "dots")
+TRAIN_TOL = 1e-5            # relative to max(1, max |p|), as the CPU tests
+TRAIN_ALPHA_TOL = 1e-5      # α = 1/(1 + ridge) at C = 1
 HIER_ROUNDS = 6
 # the reference's recorded streamed-vs-fused loss gap (BENCH_bigmodel.json)
 STREAMED_LOSS_GAP = 1.4e-3
@@ -4410,6 +4447,692 @@ def lockstep_phase(smi_line: str, phase: str, device: str = "cuda",
     return {"counts": rec.pop("counts"), "models": {name: rec}}
 
 
+# ------------------------------------------------------------------- train
+
+_MANTISSA_BITS = {"bfloat16": 8, "float16": 11, "float32": 24}
+
+
+def _ulp(x, dtype) -> "torch.Tensor":
+    """The spacing of ``dtype`` numbers at each |x| (f32 tensor)."""
+    import torch
+    _, e = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32),
+                       e - _MANTISSA_BITS[_dtype_name(dtype)])
+
+
+def sgd_step_check(cfg, params, new, batch, lr: float, alpha: float,
+                   remat, chunk: int = 1 << 26) -> dict:
+    """A C = 1 step's new params against plain SGD, leaf by leaf in chunks
+    (g by autograd on the same batch): against the step's own formula,
+    (p + α·Δ) in f32 cast once, Δ = (−lr·g in f32) cast to the leaf dtype
+    (``max_ulps``), and against the plain step p − lr·g (``sgd_max_ulps``;
+    α = 1/(1+ridge) is within a bf16 ulp of 1).  Each is the most any
+    element is off, in ulps of the leaf's dtype at the largest of |p|,
+    |Δ| and the plain value (an add's rounding, which cancellation can
+    make many ulps of a small result); ``sgd_max_ulps_bf16`` takes the
+    bf16 leaves alone."""
+    import torch
+    from repro_torch.core.flatten import tree_leaves_with_path
+    from repro_torch.launch.steps import _loss_and_grads
+    from repro_torch.models import get_model
+    bundle = get_model(cfg)
+    _, grads = _loss_and_grads(
+        lambda p, b: bundle.train_loss(p, b, remat=remat)[0], params, batch)
+    worst = {"max_ulps": (0.0, None), "sgd_max_ulps": (0.0, None),
+             "sgd_max_ulps_bf16": (0.0, None)}
+    largest = (None, 0)
+
+    def off(got, want, mag, dt):
+        return float(((got.float() - want.float()).abs()
+                      / _ulp(torch.maximum(mag, want.float().abs()),
+                             dt)).max())
+
+    for i, ((name, p0), p1) in enumerate(zip(
+            tree_leaves_with_path(params),
+            [p for _, p in tree_leaves_with_path(new)])):
+        a, b, g = p0.reshape(-1), p1.reshape(-1), grads[i].reshape(-1)
+        for s in range(0, a.numel(), chunk):
+            a_s, g_s, b_s = (a[s:s + chunk].float(), g[s:s + chunk].float(),
+                             b[s:s + chunk])
+            delta = (-lr * g_s).to(a.dtype).float()
+            mag = torch.maximum(a_s.abs(), delta.abs())
+            found = {"max_ulps": off(b_s, (a_s + alpha * delta).to(a.dtype),
+                                     mag, a.dtype)}
+            found["sgd_max_ulps"] = off(b_s, (a_s - lr * g_s).to(a.dtype),
+                                        mag, a.dtype)
+            if a.dtype == torch.bfloat16:
+                found["sgd_max_ulps_bf16"] = found["sgd_max_ulps"]
+            for k, v in found.items():
+                if v > worst[k][0]:
+                    worst[k] = (v, name)
+        if a.numel() > largest[1]:
+            largest = (name, a.numel())
+        grads[i] = None
+    return {**{k: v for k, (v, _) in worst.items()},
+            **{k + "_leaf": name for k, (_, name) in worst.items()},
+            "largest_leaf": largest[0], "largest_leaf_numel": largest[1]}
+
+
+def train_step_bound(cfg, params, tokens: int, cohorts: int) -> dict:
+    """The least time of one train step: bytes — per cohort the weights
+    read by one forward and one backward and the grads written (3W), then
+    the apply's reads of w and the C stacked Δ and its write ((C + 2)W) —
+    against 6 FLOP per active parameter per token (forward 2, backward 4;
+    MoE experts counted at top-k of E) at the bf16 peak.  What remat
+    "full" adds on top, the re-forward (W a cohort, 2 FLOP per active
+    parameter-token), is kept apart as ``reforward_*`` and
+    ``bound_with_reforward_ms``: the cost of the policy, not of the step."""
+    from repro_torch.core.flatten import tree_leaves_with_path
+    leaves = tree_leaves_with_path(params)
+    W = sum(p.numel() * p.element_size() for _, p in leaves)
+    n = sum(p.numel() for _, p in leaves)
+    experts = sum(p.numel() for name, p in leaves if "moe/w_" in name)
+    active = n - experts + (experts * cfg.experts_per_token
+                            / cfg.num_experts if experts else 0)
+    flops = 6 * active * tokens
+    b = bound((3 * cohorts + cohorts + 2) * W,
+              flops / PEAK_FLOPS["bfloat16"])
+    re_bytes, re_flops = cohorts * W, 2 * active * tokens
+    b.update(weight_bytes=W, parameters=n, active_parameters=active,
+             flops=flops, cohorts=cohorts, tokens=tokens,
+             reforward_bytes=re_bytes, reforward_flops=re_flops,
+             bound_with_reforward_ms=bound(
+                 b["bytes"] + re_bytes,
+                 (flops + re_flops) / PEAK_FLOPS["bfloat16"])["bound_ms"])
+    return b
+
+
+def _train_device(tag: str, fn, step_ms: float, smi_line: str) -> dict:
+    """Device busy ms, idle share and launches of one call of ``fn`` (a
+    train step) from ``_device_rows``, with the top kernels logged."""
+    rows = _device_rows(fn, 1)
+    busy = sum(_device_us(e) for e in rows) / 1e3
+    launches = sum(e.count for e in rows)
+    top = sorted(rows, key=lambda e: -_device_us(e))[:6]
+    log(f"{tag} ({smi_line}): device busy "
+        + ("not measured (no device time in the trace)" if busy <= 0 else
+           f"{busy:.2f} ms of a {step_ms:.2f} ms step (idle "
+           f"{1 - busy / step_ms:.1%}) in {launches} kernel launches; top: "
+           + "; ".join(f"{e.key[:48]} {_device_us(e) / 1e3:.2f} ms "
+                       f"({e.count})" for e in top)))
+    return {"device_busy_ms": busy if busy > 0 else None,
+            "idle_share": 1 - busy / step_ms if busy > 0 else None,
+            "launches_per_step": launches}
+
+
+def _path_counts(tag: str, counts: dict, want: dict) -> None:
+    """Every launch counter of a train run: the ``want`` ones exactly, the
+    rest 0 (no plain version ran on the card)."""
+    got = {k: v for k, v in counts.items() if v}
+    need(got == {k: v for k, v in want.items() if v},
+         f"{tag}: launches {got}, want {want}")
+
+
+def train_entry(smi_line: str, device: str = "cuda",
+                reduced: bool = False) -> dict:
+    """(a) ``python -m repro_torch.launch.train --arch olmoe-1b-7b --steps
+    3 --batch 8 --seq 128`` in-process (``launch.train.run``): the host
+    mesh of one card, C = 1, remat "full".  Gates finite losses, α =
+    1/(1+ridge) to ``TRAIN_ALPHA_TOL`` every step, the first step's new
+    params within one ulp of a plain SGD step in every element, gram once
+    and combine once per leaf a step (the 2³¹-element expert leaves among
+    them) and no plain version.  ``reduced`` and ``device="cpu"``
+    rehearse the control flow at a small size."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.flatten import tree_leaves_with_path
+    from repro_torch.kernels import (combine, gram, launch_counts,
+                                     reset_launch_counts)
+    from repro_torch.launch import train as tr
+    from repro_torch.models import get_model
+    T = TRAIN
+    tag = f"train {T['arch']}"
+    args = tr.parse_args(["--arch", T["arch"], "--steps", str(T["steps"]),
+                          "--batch", str(T["batch"]), "--seq", str(T["seq"]),
+                          "--lr", str(T["lr"]), "--device", device]
+                         + (["--reduced"] if reduced else []))
+    cfg = get_config(args.arch)
+    cfg = cfg.reduced() if reduced else cfg
+    remat = not reduced
+    checks, peaks = {}, []
+
+    def on_step(i, params, new, batch, metrics):
+        peaks.append(torch.cuda.max_memory_allocated())
+        if i == 0:
+            checks.update(sgd_step_check(
+                cfg, params, new, batch, T["lr"],
+                float(metrics["alpha"][0]), remat))
+            checks["bound"] = train_step_bound(cfg, params,
+                                               T["batch"] * T["seq"], 1)
+            checks["leaves"] = [(name, p.numel())
+                                for name, p in tree_leaves_with_path(params)]
+            checks["batch"] = batch
+            torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    gram.reset_body_launches()
+    combine.reset_body_launches()
+    t0 = time.perf_counter()
+    out = tr.run(args, on_step=on_step)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    gram_bodies = gram.body_launches()
+    combine_bodies = combine.body_launches()
+    peak = max(peaks + [torch.cuda.max_memory_allocated()])
+    hist, steps = out["history"], T["steps"]
+    n_leaves = len(checks["leaves"])
+    want_alpha = 1.0 / (1.0 + T["ridge"])
+    for i, h in enumerate(hist):
+        need(math.isfinite(h["loss"]), f"{tag}: step {i} loss {h['loss']}")
+        need(abs(float(h["alpha"][0]) - want_alpha) <= TRAIN_ALPHA_TOL,
+             f"{tag}: step {i} alpha {h['alpha']}, want {want_alpha}")
+    need(checks["max_ulps"] <= 1.0 and checks["sgd_max_ulps_bf16"] <= 1.0,
+         f"{tag}: new params {checks['max_ulps']:.3g} ulp from p + alpha "
+         f"Delta (leaf {checks['max_ulps_leaf']}), bf16 leaves "
+         f"{checks['sgd_max_ulps_bf16']:.3g} ulp from p - lr g (leaf "
+         f"{checks['sgd_max_ulps_bf16_leaf']})")
+    _path_counts(tag, counts, {"gram/cuda": steps,
+                               "combine/cuda": steps * n_leaves})
+    need(gram_bodies == {"mma": 0, "cuda_core": steps},
+         f"{tag}: gram bodies {gram_bodies}")
+    big = [(name, n) for name, n in checks["leaves"] if n >= 1 << 31]
+    need(reduced or len(big) == 3, f"{tag}: leaves of 2^31 elements {big}")
+    step_ms = statistics.median(h["ms"] for h in hist[1:])
+    tokens = T["batch"] * T["seq"]
+    b = checks["bound"]
+    log(f"{tag} ({smi_line}): launch.train --steps {steps} --batch "
+        f"{T['batch']} --seq {T['seq']} on mesh {dict(out['mesh'].shape)}, "
+        f"remat {remat}: losses {[round(h['loss'], 4) for h in hist]}, "
+        f"alpha {[float(h['alpha'][0]) for h in hist]} (want "
+        f"{want_alpha!r}); step ms {[round(h['ms'], 2) for h in hist]} "
+        f"(median of steps 2-{steps}: {step_ms:.2f}) against the "
+        f"{b['bound_ms']:.2f} ms bound by {b['bound_by']} "
+        f"({b['bound_ms'] / step_ms:.1%}; {b['bytes'] / 1e9:.1f} GB, "
+        f"{b['flops'] / 1e12:.2f} TFLOP; "
+        f"{b['bound_with_reforward_ms']:.2f} ms with remat's re-forward); "
+        f"{tokens / step_ms * 1e3:.0f} "
+        f"tokens/s; peak allocated {peak / 2**30:.2f} GiB; {wall:.1f} s in "
+        f"all (init included); new params {checks['max_ulps']:.3g} ulp at "
+        f"most from p + alpha Delta, {checks['sgd_max_ulps']:.3g} from "
+        f"p - lr g ({checks['sgd_max_ulps_bf16']:.3g} on the bf16 leaves; "
+        f"leaf {checks['sgd_max_ulps_leaf']}); {n_leaves} "
+        f"leaves, {len(big)} of >= 2^31 elements {big}; launches "
+        f"{ {k: v for k, v in counts.items() if v} }; gram bodies "
+        f"{gram_bodies}, combine bodies {combine_bodies}")
+    params, step, batch = out["params"], out["step"], checks.pop("batch")
+    del out
+    dev = _train_device(tag, lambda: step(params, batch), step_ms, smi_line)
+    del params, batch
+    torch.cuda.empty_cache()
+    return {"counts": counts, "record": {
+        "arch": cfg.name, "mesh": {"data": 1, "model": 1}, "cohorts": 1,
+        "remat": "full" if remat else False, "batch": T["batch"],
+        "seq": T["seq"], "losses": [h["loss"] for h in hist],
+        "alpha": [float(h["alpha"][0]) for h in hist],
+        "step_ms_all": [h["ms"] for h in hist], "step_ms": step_ms,
+        "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "bound": b,
+        "tokens_per_s": tokens / step_ms * 1e3,
+        "peak_allocated_bytes": peak, "wall_s": wall,
+        "step_formula_max_ulps": checks["max_ulps"],
+        "sgd_max_ulps": checks["sgd_max_ulps"],
+        "sgd_max_ulps_bf16": checks["sgd_max_ulps_bf16"], "leaves_2e31": big,
+        "gram_bodies": gram_bodies, "combine_bodies": combine_bodies,
+        **dev, "nvidia_smi": smi_line}}
+
+
+def _combine_vs_formula(out, w, U, alpha, chunk: int = 1 << 24) -> dict:
+    """One combine launch's output against w + Σ α_k U_k on the same
+    inputs, by chunks: in ulps of w's dtype against the f64 sum cast once
+    (at the larger of |w| + Σ|α_k U_k| and the result), and in max |err|
+    against the plain version (f32 sum cast once)."""
+    import torch
+    from repro_torch.kernels import ref
+    ulps, err, rel = 0.0, 0.0, 0.0
+    a64 = alpha.double()[:, None]
+    for s in range(0, w.numel(), chunk):
+        w_s, U_s, o_s = w[s:s + chunk], U[:, s:s + chunk], out[s:s + chunk]
+        terms = a64 * U_s.double()
+        exact = w_s.double() + terms.sum(0)
+        mag = (w_s.double().abs() + terms.abs().sum(0)).float()
+        del terms
+        want = exact.to(w.dtype)
+        ulps = max(ulps, float(((o_s.double() - want.double()).abs()
+                                / _ulp(torch.maximum(mag, want.float().abs()),
+                                       w.dtype).double()).max()))
+        plain = ref.combine_ref(w_s, U_s, alpha)
+        err = max(err, _max_err(o_s, plain))
+        rel = max(rel, _max_err(o_s, plain) / _scale(plain))
+    return {"max_ulps": ulps, "max_abs_err": err, "max_rel_err": rel}
+
+
+def _combine_ulp_gate(dtype, K: int) -> float:
+    """The most a combine output may be off the exact sum cast once, in
+    ulps of its dtype at |w| + Σ|α_k U_k|: bf16, one (the f32 sum is far
+    finer than a bf16 step, and both round to a neighbour of the exact
+    value); f32, (K + 2)/2 (K fmaf roundings and the add of w, each at
+    most half an ulp, and the cast of the exact sum)."""
+    import torch
+    return 1.0 if dtype == torch.bfloat16 else (K + 2) / 2
+
+
+@contextlib.contextmanager
+def checked_train_ops(found: dict):
+    """While open, the train step's gram and combine calls
+    (``launch.steps``' own names) launch their kernels as always, and each
+    output is then held against its plain version on the same inputs:
+    G and c against ``gram_ref`` (relative to max(1, max |plain|)), each
+    leaf's combine against :func:`_combine_vs_formula`.  ``found`` gets
+    one record a call.  The plain versions are the ``ref`` functions
+    themselves, so no launch is counted for them."""
+    from repro_torch.kernels import ref
+    from repro_torch.launch import steps
+    gram_fn, combine_fn = steps.gram_and_cross, steps.weighted_combine
+
+    def gram_checked(U, g, **kw):
+        G, c = gram_fn(U, g, **kw)
+        Gp, cp = ref.gram_ref(U, g)
+        found.setdefault("gram", []).append({
+            "K": U.shape[0], "n": U.shape[1], "dtype": _dtype_name(U.dtype),
+            "max_abs_err": max(_max_err(G, Gp), _max_err(c, cp)),
+            "max_rel_err": max(_max_err(G, Gp) / _scale(Gp),
+                               _max_err(c, cp) / _scale(cp))})
+        return G, c
+
+    def combine_checked(w, U, alpha, **kw):
+        out = combine_fn(w, U, alpha, **kw)
+        rec = _combine_vs_formula(out, w, U, alpha)
+        rec.update(K=U.shape[0], n=U.shape[1], dtype=_dtype_name(w.dtype),
+                   alpha=alpha.tolist(),
+                   gate_ulps=_combine_ulp_gate(w.dtype, U.shape[0]))
+        found.setdefault("combine", []).append(rec)
+        return out
+
+    steps.gram_and_cross = gram_checked
+    steps.weighted_combine = combine_checked
+    try:
+        yield found
+    finally:
+        steps.gram_and_cross, steps.weighted_combine = gram_fn, combine_fn
+
+
+def _gate_checked_step(tag: str, found: dict, n_leaves: int, alpha,
+                       scope_n=None) -> dict:
+    """Gates one checked step (:func:`checked_train_ops`): a combine per
+    leaf, each within its ulp gate of the exact sum and within
+    ``TOL[("combine", dtype)]`` of the plain version, on the α the step
+    reports; with ``scope_n``, one gram of that many columns within
+    ``TOL[("gram", dtype)]`` of the plain version.  Returns the worst."""
+    comb = found.get("combine", [])
+    need(len(comb) == n_leaves, f"{tag}: {len(comb)} combine calls checked, "
+         f"want {n_leaves}")
+    for r in comb:
+        need(r["alpha"] == list(alpha), f"{tag}: the combine got alpha "
+             f"{r['alpha']}, the step reports {list(alpha)}")
+        need(r["max_ulps"] <= r["gate_ulps"]
+             and r["max_rel_err"] <= TOL[("combine", r["dtype"])],
+             f"{tag}: combine K={r['K']} n={r['n']} {r['dtype']} "
+             f"{r['max_ulps']:.3g} ulp from the exact sum (gate "
+             f"{r['gate_ulps']}), {r['max_rel_err']:.3e} from plain")
+    worst = {"combine_calls": len(comb),
+             "combine_max_ulps": max(r["max_ulps"] for r in comb),
+             "combine_max_abs_err": max(r["max_abs_err"] for r in comb),
+             "combine_largest_n": max(r["n"] for r in comb)}
+    grams = found.get("gram", [])
+    need(len(grams) == (scope_n is not None),
+         f"{tag}: {len(grams)} gram calls checked")
+    for r in grams:
+        need(r["n"] == scope_n, f"{tag}: the gram took {r['n']} columns, "
+             f"the scope has {scope_n}")
+        need(r["max_rel_err"] <= TOL[("gram", r["dtype"])],
+             f"{tag}: gram K={r['K']} n={r['n']} {r['max_rel_err']:.3e} "
+             "off plain")
+        worst.update(gram_K=r["K"], gram_n=r["n"],
+                     gram_max_abs_err=r["max_abs_err"],
+                     gram_max_rel_err=r["max_rel_err"])
+    return worst
+
+
+def train_cohorts(smi_line: str, device: str = "cuda",
+                  reduced: bool = False) -> dict:
+    """(b) C = 4 cohorts of the full zamba2-1.2b on ``emulated_mesh((4, 1),
+    ("data", "model"))``: batch 8 (2 sequences a cohort), seq 128, remat
+    "full", 3 contextual steps then 3 fedavg steps.  The first step of each
+    runs under :func:`checked_train_ops`: its gram (K = 4 over the
+    lm_head + final_norm scope) and every leaf's combine (K = 4) against
+    their plain versions on the same inputs, the combine on fedavg's α =
+    1/4.  Gates those, finite losses, Theorem 1's bound < 0 at every
+    contextual step, gram once a contextual step, combine once per leaf a
+    step and no plain version launched.  Peak memory is read over the
+    unchecked steps."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.flatten import tree_leaves, tree_leaves_with_path
+    from repro_torch.kernels import (combine, gram, launch_counts,
+                                     reset_launch_counts)
+    from repro_torch.launch.mesh import emulated_mesh
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.train import make_batches
+    from repro_torch.models import get_model
+    T = TRAIN_COHORTS
+    cfg = get_config(T["arch"])
+    cfg = cfg.reduced() if reduced else cfg
+    tag = f"train {T['arch']} C = 4"
+    bundle = get_model(cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    params = bundle.init(gen)
+    mesh = emulated_mesh(T["mesh"], ("data", "model"))
+    shape = InputShape("custom", "train", T["seq"], T["batch"])
+    C = T["mesh"][0]
+    batches = list(make_batches(cfg, bundle, T["batch"], T["seq"],
+                                T["steps"], device=device))
+    b = train_step_bound(cfg, params, T["batch"] * T["seq"], C)
+    n_leaves = len(tree_leaves(params))
+    scope_n = sum(p.numel() for name, p in tree_leaves_with_path(params)
+                  if "lm_head" in name or "final_norm" in name)
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    gram.reset_body_launches()
+    combine.reset_body_launches()
+    runs, checked, peaks = {}, {}, []
+    for agg in ("contextual", "fedavg"):
+        step = build_train_step(cfg, mesh, shape, aggregator=agg,
+                                lr=T["lr"], remat="full")
+        rec = runs[agg] = {"ms": [], "loss": [], "alpha": [], "bound": []}
+        for i, batch in enumerate(batches):
+            found = {}
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            with (checked_train_ops(found) if i == 0
+                  else contextlib.nullcontext()):
+                ev[0].record()
+                params, m = step(params, batch)
+                ev[1].record()
+                torch.cuda.synchronize()
+            rec["ms"].append(ev[0].elapsed_time(ev[1]))
+            rec["loss"].append(float(m["loss"]))
+            rec["alpha"].append(m["alpha"].cpu().tolist())
+            if "bound" in m:
+                rec["bound"].append(float(m["bound"]))
+            if i > 0:
+                peaks.append(torch.cuda.max_memory_allocated())
+            else:
+                checked[agg] = _gate_checked_step(
+                    f"{tag} {agg}", found, n_leaves, rec["alpha"][0],
+                    scope_n if agg == "contextual" else None)
+                del found
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+    counts = launch_counts()
+    gram_bodies = gram.body_launches()
+    combine_bodies = combine.body_launches()
+    peak = max(peaks)
+    steps = T["steps"]
+    for agg, rec in runs.items():
+        need(all(math.isfinite(x) for x in rec["loss"]),
+             f"{tag} {agg}: losses {rec['loss']}")
+    need(len(runs["contextual"]["bound"]) == steps
+         and all(x < 0 for x in runs["contextual"]["bound"]),
+         f"{tag}: Theorem 1's bound {runs['contextual']['bound']}, want < 0")
+    need(runs["fedavg"]["alpha"][0] == [1.0 / C] * C,
+         f"{tag}: the combine of fedavg's checked step got alpha "
+         f"{runs['fedavg']['alpha'][0]}, want {[1.0 / C] * C}")
+    _path_counts(tag, counts, {"gram/cuda": steps,
+                               "combine/cuda": 2 * steps * n_leaves})
+    need(gram_bodies == {"mma": 0, "cuda_core": steps},
+         f"{tag}: gram bodies {gram_bodies}")
+    ctx = runs["contextual"]
+    step_ms = statistics.median(ctx["ms"][1:])
+    fed_ms = statistics.median(runs["fedavg"]["ms"][1:])
+    tokens = T["batch"] * T["seq"]
+    log(f"{tag} ({smi_line}): emulated mesh {dict(mesh.shape)}, batch "
+        f"{T['batch']} seq {T['seq']}, remat full; contextual losses "
+        f"{[round(x, 4) for x in ctx['loss']]}, alpha "
+        f"{[[round(a, 4) for a in x] for x in ctx['alpha']]}, bound "
+        f"{ctx['bound']}; fedavg losses "
+        f"{[round(x, 4) for x in runs['fedavg']['loss']]}, alpha "
+        f"{runs['fedavg']['alpha'][0]}; step ms contextual "
+        f"{[round(x, 2) for x in ctx['ms']]} (the first checked; median of "
+        f"2-{steps}: {step_ms:.2f}), fedavg "
+        f"{[round(x, 2) for x in runs['fedavg']['ms']]}"
+        f" ({fed_ms:.2f}) against the {b['bound_ms']:.2f} ms bound by "
+        f"{b['bound_by']} ({b['bound_ms'] / step_ms:.1%}; "
+        f"{b['bytes'] / 1e9:.1f} GB, {b['flops'] / 1e12:.2f} TFLOP; "
+        f"{b['bound_with_reforward_ms']:.2f} ms with remat's re-forward); "
+        f"{tokens / step_ms * 1e3:.0f} tokens/s; peak allocated "
+        f"{peak / 2**30:.2f} GiB; launches "
+        f"{ {k: v for k, v in counts.items() if v} }; gram bodies "
+        f"{gram_bodies}, combine bodies {combine_bodies}")
+    for agg, w in checked.items():
+        log(f"{tag} {agg}, checked first step: {w['combine_calls']} combine "
+            f"calls (K = {C}, largest n {w['combine_largest_n']}) at most "
+            f"{w['combine_max_ulps']:.3g} ulp from the exact sum, max |err| "
+            f"vs plain {w['combine_max_abs_err']:.3e}"
+            + (f"; gram K = {w['gram_K']} n = {w['gram_n']} max |err| vs "
+               f"plain {w['gram_max_abs_err']:.3e} (relative "
+               f"{w['gram_max_rel_err']:.3e}, tolerance "
+               f"{TOL[('gram', 'float32')]})" if "gram_n" in w else ""))
+    step = build_train_step(cfg, mesh, shape, lr=T["lr"], remat="full")
+    dev = _train_device(tag, lambda: step(params, batches[0]), step_ms,
+                        smi_line)
+    del params, batches
+    torch.cuda.empty_cache()
+    return {"counts": counts, "record": {
+        "arch": cfg.name, "mesh": dict(mesh.shape), "cohorts": C,
+        "remat": "full", "batch": T["batch"], "seq": T["seq"],
+        "contextual": ctx, "fedavg": runs["fedavg"], "step_ms": step_ms,
+        "fedavg_step_ms": fed_ms, "bound_ms": b["bound_ms"],
+        "bound_by": b["bound_by"], "bound": b,
+        "tokens_per_s": tokens / step_ms * 1e3,
+        "peak_allocated_bytes": peak, "checked_first_steps": checked,
+        "gram_bodies": gram_bodies, "combine_bodies": combine_bodies,
+        **dev, "nvidia_smi": smi_line}}
+
+
+def train_card_vs_cpu(device: str = "cuda") -> dict:
+    """(c) The reduced f32 zamba2 and olmoe configs, C = 4 on an emulated
+    (4, 1) mesh, one contextual step under each remat policy with TF32
+    off: the card's new params equal the CPU's, and each policy's equal
+    remat=False's, at ``TRAIN_TOL`` (relative to max(1, max |p|))."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.flatten import tree_leaves, tree_map
+    from repro_torch.launch.mesh import emulated_mesh
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.train import make_batches
+    from repro_torch.models import get_model
+    S = TRAIN_SMALL_SHAPE
+    mesh = emulated_mesh((4, 1), ("data", "model"))
+    shape = InputShape("custom", "train", S["seq"], S["batch"])
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for name in TRAIN_SMALL:
+            cfg = get_config(name).reduced()
+            bundle = get_model(cfg)
+            cpu = bundle.init(0, device="cpu")
+            card = tree_map(lambda a: a.to(device), cpu)
+            batch = next(make_batches(cfg, bundle, S["batch"], S["seq"], 1))
+            on_card = {k: v.to(device) for k, v in batch.items()}
+            news, errs = {}, {}
+            for remat in TRAIN_REMATS:
+                step = build_train_step(cfg, mesh, shape, remat=remat)
+                got, m = step(card, on_card)
+                want, _ = step(cpu, batch)
+                news[remat] = got
+                errs[f"card_vs_cpu_{remat}"] = max(
+                    _train_rel(a.cpu(), b) for a, b in
+                    zip(tree_leaves(got), tree_leaves(want)))
+            for remat in TRAIN_REMATS[1:]:
+                errs[f"remat_{remat}_vs_false"] = max(
+                    _train_rel(a, b) for a, b in
+                    zip(tree_leaves(news[remat]), tree_leaves(news[False])))
+            log(f"train {cfg.name} C = 4, f32, TF32 off: "
+                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                + f" (tolerance {TRAIN_TOL})")
+            for k, v in errs.items():
+                need(v <= TRAIN_TOL, f"train {cfg.name}: {k} {v:.3e} > "
+                     f"{TRAIN_TOL}")
+            out[name] = errs
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out
+
+
+def _train_rel(got, want) -> float:
+    scale = max(1.0, float(want.float().abs().max()))
+    return float((got.float() - want.float()).abs().max()) / scale
+
+
+def train_nccl(device: str = "cuda") -> dict:
+    """(d) A one-rank NCCL process group (a ``FileStore`` in a temporary
+    directory), ``hierarchical_contextual_combine`` on a (1, 1, 1)
+    ``make_mesh`` with CUDA tensors: equal to the local math at
+    ``TRAIN_TOL``; the group is destroyed."""
+    import os
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.distributed import hierarchical_contextual_combine
+    from repro_torch.core.solve import solve_alpha_simple
+    from repro_torch.launch.mesh import make_mesh
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    n, beta = 1 << 20, 10.0
+    g = torch.randn(n, generator=gen, device=device)
+    u = -0.1 * (g + 0.5 * torch.randn(n, generator=gen, device=device))
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        dist.init_process_group(backend, store=store, rank=0, world_size=1)
+        try:
+            mesh = make_mesh((1, 1, 1), ("pod", "data", "model"))
+            comb, a_intra, a_pods = hierarchical_contextual_combine(
+                mesh, u, g, beta)
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+    # the local math: one cohort in one pod, twice
+    a1 = solve_alpha_simple((u @ u)[None, None], (u @ g)[None], beta, 1e-6)
+    intra = a1[0] * u
+    a2 = solve_alpha_simple((intra @ intra)[None, None], (intra @ g)[None],
+                            beta, 1e-6)
+    want = a2[0] * intra
+    errs = {"combined": _train_rel(comb, want),
+            "alpha_intra": _train_rel(a_intra, a1),
+            "alpha_pods": _train_rel(a_pods, a2)}
+    log(f"train collectives on a one-rank {backend} group, mesh "
+        f"{dict(mesh.shape)}: hierarchical_contextual_combine at n = {n} "
+        f"vs the local math " + ", ".join(f"{k} {v:.3e}"
+                                         for k, v in errs.items())
+        + f" (tolerance {TRAIN_TOL}); alpha intra {a_intra.tolist()}, "
+        f"pods {a_pods.tolist()}")
+    for k, v in errs.items():
+        need(v <= TRAIN_TOL, f"train collectives: {k} {v:.3e} > {TRAIN_TOL}")
+    need(not dist.is_initialized(), "train collectives: the process group "
+         "was not destroyed")
+    return {"backend": backend, **errs}
+
+
+def train_kernel_rows(device: str = "cuda", n_leaf: int = (1 << 31) + 8,
+                      n_scope: int = 50304 * 2048 + 2048) -> dict:
+    """The train path's kernel shapes on random inputs, against their plain
+    versions and a one-call PyTorch yardstick, beside the bound: the
+    combine at an expert leaf's size and past it (2³¹ + 8 bf16 elements,
+    K = 1: every element within one bf16 ulp of the f64 formula, by
+    chunks), and the gram of olmoe-1b-7b's scope (K = 1, lm_head and
+    final_norm: 103 M f32 columns)."""
+    import torch
+    from repro_torch.kernels import gram_and_cross, weighted_combine
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    chunk = 1 << 28
+    w = torch.empty(n_leaf, dtype=torch.bfloat16, device=device)
+    U = torch.empty((1, n_leaf), dtype=torch.bfloat16, device=device)
+    for s in range(0, n_leaf, chunk):
+        m = min(chunk, n_leaf - s)
+        w[s:s + m] = torch.randn(m, generator=gen, device=device)
+        U[0, s:s + m] = 0.01 * torch.randn(m, generator=gen, device=device)
+    alpha = torch.tensor([0.75], device=device)
+    out = weighted_combine(w, U, alpha)
+    worst = 0.0
+    for s in range(0, n_leaf, chunk):
+        want = (w[s:s + chunk].double()
+                + 0.75 * U[0, s:s + chunk].double())
+        off = ((out[s:s + chunk].double() - want).abs()
+               / _ulp(want.float(), torch.bfloat16).double()).max()
+        worst = max(worst, float(off))
+    need(worst <= 1.0, f"train: combine at n = {n_leaf} {worst:.3f} ulp off")
+    comb = {"op": "combine", "K": 1, "n": n_leaf, "dtype": "bfloat16",
+            "max_ulps_vs_f64": worst,
+            "ms": time_ms(lambda: weighted_combine(w, U, alpha, out=out),
+                          reps=5, warmup=1),
+            "library_ms": time_ms(lambda: torch.add(w, U[0], alpha=0.75),
+                                  reps=5, warmup=1),
+            **combine_bound(1, n_leaf, torch.bfloat16)}
+    plain = weighted_combine(w, U, alpha, backend="torch")
+    comb["max_abs_err"] = float((out.float() - plain.float()).abs().max())
+    del plain
+    comb["plain_ms"] = time_ms(
+        lambda: weighted_combine(w, U, alpha, backend="torch"), reps=2,
+        warmup=1)
+    del w, U, out
+    torch.cuda.empty_cache()
+    Us = torch.randn((1, n_scope), generator=gen, device=device)
+    g = torch.randn(n_scope, generator=gen, device=device)
+    G, c = gram_and_cross(Us, g)
+    Gp, cp = gram_and_cross(Us, g, backend="torch")
+    gr = {"op": "gram", "K": 1, "n": n_scope, "dtype": "float32",
+          "max_abs_err": max(_max_err(G, Gp), _max_err(c, cp)),
+          "max_rel_err": max(_max_err(G, Gp) / _scale(Gp),
+                             _max_err(c, cp) / _scale(cp)),
+          "ms": time_ms(lambda: gram_and_cross(Us, g), reps=20),
+          "plain_ms": time_ms(lambda: gram_and_cross(Us, g,
+                                                     backend="torch"),
+                              reps=20),
+          "library_ms": time_ms(lambda: (Us @ Us.T, Us @ g), reps=20),
+          **gram_bound(1, n_scope, torch.float32)}
+    need(gr["max_rel_err"] <= TOL[("gram", "float32")],
+         f"train: gram at olmoe's scope {gr['max_rel_err']:.3e} off plain")
+    del Us, g
+    torch.cuda.empty_cache()
+    for r in (comb, gr):
+        log(f"train kernel row: {r['op']} K=1 n={r['n']} {r['dtype']}: "
+            f"{r['ms'] * 1e3:.1f} us against the {r['bound_ms'] * 1e3:.1f} "
+            f"us bound by {r['bound_by']} ({r['bound_ms'] / r['ms']:.1%}); "
+            f"plain {r['plain_ms'] * 1e3:.1f} us, library "
+            f"{r['library_ms'] * 1e3:.1f} us; max |err| vs plain "
+            f"{r['max_abs_err']:.3e}"
+            + (f", {r['max_ulps_vs_f64']:.3f} ulp at most vs f64 (gate 1)"
+               if "max_ulps_vs_f64" in r else ""))
+    return {"combine": comb, "gram": gr}
+
+
+def train_phase(smi_line: str, device: str = "cuda",
+                reduced: bool = False) -> dict:
+    """The ``train`` phase (see ``TRAIN``): (a) the entry point at full
+    width, (b) four cohorts at full width, the path's kernel shapes timed
+    (the combine at 2³¹ + 8 elements, the gram of olmoe's scope), (c) card
+    = CPU under each remat policy, (d) the collectives on NCCL.  The
+    path's counts are (a)'s and (b)'s runs alone."""
+    entry = train_entry(smi_line, device, reduced)
+    cohorts = train_cohorts(smi_line, device, reduced)
+    counts = dict(entry["counts"])
+    for k, v in cohorts["counts"].items():
+        counts[k] = counts.get(k, 0) + v
+    rows = (train_kernel_rows(device) if not reduced else
+            train_kernel_rows(device, (1 << 20) + 8, 1 << 16))
+    return {"counts": counts, "models": {
+        TRAIN["arch"]: entry["record"],
+        TRAIN_COHORTS["arch"]: cohorts["record"]},
+        "kernel_rows": rows, "card_vs_cpu": train_card_vs_cpu(device),
+        "collectives": train_nccl(device)}
+
+
 # -------------------------------------------------------------------- main
 
 def setup_phase() -> str:
@@ -4667,6 +5390,7 @@ def main() -> int:
         lockstepped = {phase: on_cuda_core(phase, lockstep_phase, smi_line,
                                            phase)
                        for phase in LOCKSTEP_PHASES}
+        trained = on_cuda_core("train", train_phase, smi_line)
         by_path = {"sync": sync_counts, "async": asynced["counts"],
                    "hier": hier_counts,
                    "streamed": streamed_counts, "robust": robusted["counts"],
@@ -4675,7 +5399,8 @@ def main() -> int:
                    "bigmodel": big["counts"], "serve": served["counts"],
                    "moe": moed["counts"], "recurrent": recurred["counts"],
                    **{phase: rec["counts"]
-                      for phase, rec in lockstepped.items()}}
+                      for phase, rec in lockstepped.items()},
+                   "train": trained["counts"]}
         for path, counts in by_path.items():
             need(gram_bodies[path]["cuda_core"] >= counts.get("gram/cuda", 0),
                  f"{path}: {counts.get('gram/cuda', 0)} gram launches, "
@@ -4764,6 +5489,11 @@ def main() -> int:
     # attention_decode, as the reference)
     for phase, rec in lockstepped.items():
         entries[names.index("flash_decode")][phase] = rec["models"]
+    # the train path launches gram (one a contextual step) and combine (one
+    # a leaf a step): its numbers ride on both entries
+    train_numbers = {k: v for k, v in trained.items() if k != "counts"}
+    entries[names.index("gram")]["train"] = train_numbers
+    entries[names.index("combine")]["train"] = train_numbers
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi_line, flush=True)

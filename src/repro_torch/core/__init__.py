@@ -19,7 +19,8 @@ from .flatten import (ChunkedFlatView, LeafSlab, mix_rows, scope_vector,
 from .gram import (blockwise_gram_and_cross, gram_and_cross,
                    gram_and_cross_chunked, gram_block, gram_block_chunked,
                    gram_residual, merge_gram_blocks)
-from .solve import SolveConfig, bound_value, solve_alpha, theorem1_reduction
+from .solve import (SolveConfig, bound_value, solve_alpha, solve_alpha_simple,
+                    theorem1_reduction)
 
 __all__ = [
     "AggregatorConfig", "aggregate", "aggregate_contextual",
@@ -31,5 +32,6 @@ __all__ = [
     "tree_unflatten", "vector_to_tree",
     "blockwise_gram_and_cross", "gram_and_cross", "gram_and_cross_chunked",
     "gram_block", "gram_block_chunked", "gram_residual", "merge_gram_blocks",
-    "SolveConfig", "bound_value", "solve_alpha", "theorem1_reduction",
+    "SolveConfig", "bound_value", "solve_alpha", "solve_alpha_simple",
+    "theorem1_reduction",
 ]

@@ -70,6 +70,18 @@ def solve_alpha(G: torch.Tensor, c: torch.Tensor,
     return alpha
 
 
+def solve_alpha_simple(G: torch.Tensor, c: torch.Tensor, beta: float,
+                       ridge: float = 1e-6) -> torch.Tensor:
+    """The damped solve of the distributed train step and collectives
+    (``repro.core.solve.solve_alpha_simple``): α = −(G + ridge·s·I)⁻¹ c / β
+    with s = max(tr G / K, 1e-30), on G's device with no host sync
+    (``solve_ex`` leaves the singularity check to the caller)."""
+    K = G.shape[0]
+    scale = (torch.trace(G) / K).clamp(min=1e-30)
+    A = G + (ridge * scale) * torch.eye(K, dtype=G.dtype, device=G.device)
+    return -torch.linalg.solve_ex(A, c)[0] / beta
+
+
 def bound_value(G: torch.Tensor, c: torch.Tensor, alpha: torch.Tensor,
                 beta) -> torch.Tensor:
     """g(α) = cᵀα + (β/2) αᵀGα — negative at α*."""

@@ -466,12 +466,6 @@ def _host(t) -> np.ndarray:
             else np.asarray(t))
 
 
-def _not_ported(what: str, module: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (reference: {module}; "
-        "ROADMAP queue 1)")
-
-
 def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
                         init_params: Tree, dataset: FederatedDataset,
                         cfg, topology, num_rounds: int,
@@ -540,8 +534,12 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
     incompatible with ``CompressConfig(device_uplink=True)``); ``"auto"``
     — cohort from 4096 participants a round, else event.  ``rng_stream``
     picks the scheduler's draws (``"v1"`` sequential, ``"v2"``
-    counter-based).  ``mesh`` is not ported yet and raises
-    ``NotImplementedError``.
+    counter-based).  ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`) with
+    a ``'fleet'`` axis splits the cohort's local training over its ranks
+    (``sharding.shard_cohort_fn``: params replicated, each rank its block of
+    rows, the results all-gathered); the streamed engine takes a one-rank
+    mesh (its round placements computed, the round unchanged) and raises
+    ``NotImplementedError`` for more.
 
     ``publish_fn(round, params)`` is called with each round's aggregated
     params the moment the cloud stage applies them; skipped rounds publish
@@ -567,8 +565,11 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
     from .client import client_update, cohort_update, draw_batch_indices
 
     if mesh is not None:
-        raise _not_ported("mesh sharding",
-                          "repro.sharding / repro.core.distributed")
+        from ..launch.mesh import Mesh
+        if not isinstance(mesh, Mesh):
+            raise TypeError(
+                "mesh must be a repro_torch.launch.mesh.Mesh (make_mesh, "
+                f"sharding.fleet_mesh), got {type(mesh).__name__}")
     dev = resolve_device(device)
     fleet = topology.fleet
     virtual = bool(getattr(dataset, "virtual", False))
@@ -617,6 +618,22 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
     if gen is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(selection_seed)
+
+    # the cohort's local training; a mesh with a 'fleet' axis splits it
+    # over the ranks (params replicated, each rank its block of rows, the
+    # results all-gathered)
+    def virtual_update(params, ids, steps, bidx):
+        return cohort_update(loss_fn, params, shard, ids, steps, bidx,
+                             lr=cfg.lr, mu=cfg.mu, chunk=cohort_chunk)
+
+    def batched_update(params, xs, ys, ms, steps, bidx):
+        return client_update(loss_fn, params, xs, ys, ms, steps, bidx,
+                             lr=cfg.lr, mu=cfg.mu)
+
+    if mesh is not None and "fleet" in mesh.shape:
+        from ..sharding.specs import shard_cohort_fn
+        virtual_update = shard_cohort_fn(mesh, virtual_update, 3)
+        batched_update = shard_cohort_fn(mesh, batched_update, 5)
 
     n_model = tree_size(params)
     mbytes = model_payload_bytes(params)
@@ -669,7 +686,8 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
     if engine == "streamed":
         eng = StreamedRoundEngine(params, solve_cfg, tier_mode,
                                   cfg.gram_scope, chunk=stream_chunk,
-                                  donate_params=True, robust=cfg.robust)
+                                  donate_params=True, robust=cfg.robust,
+                                  mesh=mesh)
         # the streamed apply updates the parameters in place (the reference
         # donates them): copy once so that no round writes into the
         # caller's init_params
@@ -759,13 +777,12 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
                     steps_t = torch.as_tensor(num_steps, dtype=torch.long,
                                               device=dev)
                     if virtual:
-                        deltas, grads = cohort_update(
-                            loss_fn, params, shard, sel, steps_t, batch_idx,
-                            lr=cfg.lr, mu=cfg.mu, chunk=cohort_chunk)
+                        deltas, grads = virtual_update(params, sel, steps_t,
+                                                       batch_idx)
                     else:
-                        deltas, grads = client_update(
-                            loss_fn, params, x[sel], y[sel], cm, steps_t,
-                            batch_idx, lr=cfg.lr, mu=cfg.mu)
+                        deltas, grads = batched_update(params, x[sel],
+                                                       y[sel], cm, steps_t,
+                                                       batch_idx)
                 mal_rows = np.isin(part_dev, malicious)
                 if live_attack is not None and mal_rows.any():
                     from ..robust.attacks import corrupt_stacked

@@ -221,7 +221,14 @@ class StreamedRoundEngine:
     def __init__(self, params_template: Tree, solve_cfg: SolveConfig,
                  tier_mode: str, gram_scope: Optional[str] = None, *,
                  chunk: Optional[int] = None, donate_params: bool = False,
-                 robust=None):
+                 robust=None, mesh=None):
+        if mesh is not None and mesh.size > 1:
+            raise NotImplementedError(
+                f"a streamed statistics pass split across {mesh.size} mesh "
+                "devices is not ported to repro_torch yet (reference: "
+                "repro.hier.streamed, whose stream_round_shardings GSPMD "
+                "partitions; ROADMAP queue 1); a one-rank mesh runs")
+        # a one-rank mesh places nothing: the round runs as without one
         self.n = tree_size(params_template)
         self.solve_cfg = solve_cfg
         self.tier_mode = tier_mode

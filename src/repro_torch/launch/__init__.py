@@ -1,1 +1,2 @@
-"""Command-line drivers of the port (``repro.launch``): ``serve`` so far."""
+"""Command-line drivers and step builders of the port (``repro.launch``):
+``serve``, ``train``, ``steps``, ``shapes`` and ``mesh``."""

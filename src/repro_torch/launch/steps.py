@@ -1,0 +1,284 @@
+"""Step builders of the port — the train and serve programs
+(``repro.launch.steps``).
+
+``build_train_step`` runs the paper's FL round at LM scale:
+
+  * the global batch is split into C cohorts (C = |pod|·|data| mesh axes,
+    every axis with ``dp_only``): cohort k takes rows [k·B/C, (k+1)·B/C),
+    each one FL client holding its private shard;
+  * every cohort runs ``local_steps`` of SGD from the same global params
+    (``torch.autograd.grad`` of the bundle's ``train_loss``);
+  * the contextual aggregation forms G and c on the paper's last-layer
+    scope through the ``gram`` op (``gram_pallas``'s function), solves the
+    C×C system (``solve_alpha_simple``) and applies w + Σ α_k Δ_k leaf by
+    leaf through the ``combine`` op (``combine_pallas``'s function, in w's
+    dtype, with no f32 copy of a leaf); ``aggregator='fedavg'`` takes the
+    uniform mean.
+
+On one rank (a host mesh, or an emulated mesh of any shape) every cohort
+runs on it in turn, each Δ written into a preallocated stacked leaf.  On a
+mesh of ranks params are replicated: a rank computes the cohort at its
+``pod``/``data`` coordinates (ranks along ``model`` compute the same one,
+as the reference's result does not depend on that axis), the scoped rows
+of U are all-gathered over the cohort axes and the α-weighted combine is
+all-reduced over them, so every rank ends with the same params.
+
+``build_prefill_step`` / ``build_decode_step`` are the serving programs for
+the inference shapes.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, List, Tuple
+
+import torch
+
+from ..core.distributed import all_gather_rows, all_reduce_sum
+from ..core.flatten import (tree_leaves, tree_leaves_with_path,
+                            tree_unflatten)
+from ..core.solve import solve_alpha_simple
+from ..kernels.ops import gram_and_cross, weighted_combine
+from ..models.config import ArchConfig
+from ..models.registry import get_model
+from ..sharding.specs import (cache_pspecs, map_with_path, named,
+                              param_pspecs, spec_leaves)
+from .mesh import Mesh
+from .shapes import InputShape, TensorSpec, fake_mode, meta_params, to_meta
+
+Pytree = Any
+
+
+def num_cohorts(mesh: Mesh, dp_only: bool = False,
+                batch: int = 1 << 30) -> int:
+    c = 1
+    names = ("pod", "data", "model") if dp_only else ("pod", "data")
+    for a in names:
+        c *= mesh.shape.get(a, 1)
+    if dp_only and batch % c != 0:       # model axis doesn't divide the batch
+        c //= mesh.shape.get("model", 1)
+    return c
+
+
+def cohort_axes(mesh: Mesh, dp_only: bool = False, batch: int = 1 << 30):
+    names = ("pod", "data", "model") if dp_only else ("pod", "data")
+    axes = tuple(a for a in names if a in mesh.shape)
+    if dp_only and batch % num_cohorts(mesh, True, 1 << 30) != 0:
+        axes = tuple(a for a in axes if a != "model")
+    return axes if len(axes) > 1 else axes[0]
+
+
+# --------------------------------------------------------------- parameters
+
+def _with_shardings(mesh: Mesh, tree: Pytree, specs: Pytree) -> Pytree:
+    """Each tensor leaf of ``tree`` as a :class:`TensorSpec` with its spec
+    of ``specs`` (a tree of the same structure) on ``mesh``."""
+    flat = iter([s for _, s in spec_leaves(specs)])
+    return map_with_path(tree, lambda path, t: TensorSpec(
+        t, named(mesh, next(flat))) if torch.is_tensor(t) else t)
+
+
+def params_sds(cfg: ArchConfig, mesh: Mesh, mode: str = "tp") -> Pytree:
+    """The parameters as :class:`TensorSpec` leaves: ``meta`` tensors with
+    their shardings (nothing allocated)."""
+    shapes = meta_params(cfg)
+    return _with_shardings(mesh, shapes,
+                           param_pspecs(cfg, shapes, mesh, mode=mode))
+
+
+def cache_sds(cfg: ArchConfig, mesh: Mesh, shape: InputShape) -> Pytree:
+    """The decode cache as :class:`TensorSpec` leaves (whisper's from a
+    shape-only prefill: self K/V and cross K/V; no cache shape depends on
+    the encoder's depth, so that prefill runs one encoder layer)."""
+    bundle = get_model(cfg)
+    B = shape.global_batch
+    with fake_mode():
+        if bundle.init_cache is not None:
+            cache = bundle.init_cache(B, shape.seq_len, device="cpu")
+        else:
+            bundle = get_model(dataclasses.replace(cfg, encoder_layers=1))
+            params = bundle.init(torch.Generator(device="cpu"), device="cpu")
+            dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+            prompt = {"frames": torch.empty(
+                (B, cfg.max_source_positions, cfg.d_model), dtype=dt),
+                "tokens": torch.zeros((B, 8), dtype=torch.int32)}
+            cache = bundle.prefill(params, prompt, shape.seq_len)[1]
+    cache = to_meta(cache)
+    return _with_shardings(mesh, cache, cache_pspecs(cfg, cache, mesh, B))
+
+
+# --------------------------------------------------------------- train step
+
+def _scoped_matrix(updates: Pytree, scope_paths: Tuple[str, ...],
+                   C: int) -> torch.Tensor:
+    """The gram-scope slice of stacked updates as (C, n_scope) f32 (every
+    leaf when none matches: small models, or a tied head's lone norm)."""
+    flat = tree_leaves_with_path(updates)
+    picked = [leaf.reshape(C, -1).float() for name, leaf in flat
+              if any(s in name for s in scope_paths)]
+    if not picked:
+        picked = [leaf.reshape(C, -1).float() for _, leaf in flat]
+    return torch.cat(picked, dim=1)
+
+
+def _loss_and_grads(loss_fn: Callable, params: Pytree, batch
+                    ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """``loss_fn`` at ``params`` and its grads, leaf by leaf in flattening
+    order, each contiguous and in its leaf's dtype (as ``jax.grad``)."""
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    with torch.enable_grad():
+        loss = loss_fn(tree_unflatten(params, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+    return loss.detach(), [g.contiguous() for g in grads]
+
+
+def build_train_step(cfg: ArchConfig, mesh: Mesh, shape: InputShape, *,
+                     aggregator: str = "contextual", lr: float = 0.02,
+                     local_steps: int = 1,
+                     gram_scope: Tuple[str, ...] = ("lm_head", "final_norm"),
+                     ridge: float = 1e-6, remat="full", dp_only: bool = False,
+                     server_momentum: float = 0.0) -> Callable:
+    """Returns ``train_step(params, batch) -> (params, metrics)`` — or, when
+    ``server_momentum > 0``, ``train_step((params, velocity), batch)`` with
+    an f32 velocity tree (FedAvgM-style: v ← μv + Σα_kΔ_k; w ← w + v).
+
+    ``dp_only=True`` treats every mesh axis as data parallelism.  ``remat``:
+    False | "full" | "dots" (``models.transformer.remat_wrap``).  The
+    metrics are ``loss`` (the mean of the cohorts' losses at w₀),
+    ``alpha`` (C,) and, for the contextual aggregator, ``gram_diag_mean``
+    and ``bound`` (Theorem 1's g(α), negative at α*)."""
+    bundle = get_model(cfg)
+    C = num_cohorts(mesh, dp_only, shape.global_batch)
+    beta = 1.0 / lr                      # paper §III-B: β = 1/l
+    caxes = cohort_axes(mesh, dp_only, shape.global_batch)
+    caxes = (caxes,) if isinstance(caxes, str) else tuple(caxes)
+    ranked = mesh.device_mesh is not None
+    if ranked:
+        k = 0
+        for a in caxes:
+            k = k * mesh.shape[a] + mesh.coordinate(a)
+        local = [k]
+    else:
+        local = list(range(C))
+
+    if cfg.family == "logreg":
+        def loss_fn(p, b):
+            return bundle.train_loss(p, (b["x"], b["y"], None))[0]
+    else:
+        def loss_fn(p, b):
+            return bundle.train_loss(p, b, remat=remat)[0]
+
+    def cohort_update(params: Pytree, cohort_batch) -> Tuple[list, Any]:
+        """One client's local optimisation: (Δ leaves, loss at w₀)."""
+        if local_steps == 1:
+            l0, grads = _loss_and_grads(loss_fn, params, cohort_batch)
+            # one rounding of the f32 product, as (−lr·g in f32) cast
+            return [g.mul_(-lr) for g in grads], l0
+        p0 = tree_leaves(params)
+        cur = params
+        for s in range(local_steps):
+            loss, grads = _loss_and_grads(loss_fn, cur, cohort_batch)
+            if s == 0:
+                l0 = loss
+            cur = tree_unflatten(params, [
+                (p.float() - lr * g.float()).to(p.dtype)
+                for p, g in zip(tree_leaves(cur), grads)])
+            del grads
+        return [pt - p for pt, p in zip(tree_leaves(cur), p0)], l0
+
+    def train_step(params_or_state, batch):
+        if server_momentum > 0.0:
+            params, velocity = params_or_state
+        else:
+            params, velocity = params_or_state, None
+        leaves = tree_leaves(params)
+        B = next(iter(batch.values())).shape[0]
+        rows = B // C
+        stacked, losses = None, []
+        for i, k in enumerate(local):
+            cohort = {name: x[k * rows:(k + 1) * rows]
+                      for name, x in batch.items()}
+            delta, l0 = cohort_update(params, cohort)
+            losses.append(l0)
+            if len(local) == 1:
+                stacked = [d.unsqueeze(0) for d in delta]
+            else:
+                if stacked is None:
+                    stacked = [torch.empty((len(local),) + tuple(d.shape),
+                                           dtype=d.dtype, device=d.device)
+                               for d in delta]
+                for dst, d in zip(stacked, delta):
+                    dst[i].copy_(d)
+            del delta
+        losses = torch.stack(losses).float()
+        dev = losses.device
+        if ranked:
+            losses = all_gather_rows(mesh, losses, caxes)
+
+        if aggregator == "fedavg":
+            alpha = torch.full((C,), 1.0 / C, dtype=torch.float32,
+                               device=dev)
+            info = {}
+        else:
+            # ∇f estimate, K₂=0 form: mean of local first-step directions
+            U = _scoped_matrix(tree_unflatten(params, stacked), gram_scope,
+                               len(local))
+            if ranked:
+                U = all_gather_rows(mesh, U, caxes)
+            gvec = -U.mean(0) / (lr * local_steps)
+            G, c = gram_and_cross(U, gvec)
+            del U, gvec
+            alpha = solve_alpha_simple(G, c, beta, ridge)
+            info = {"gram_diag_mean": torch.diagonal(G).mean(),
+                    "bound": c @ alpha + 0.5 * beta * alpha @ G @ alpha}
+
+        a_local = alpha[local]
+        v_leaves = None if velocity is None else tree_leaves(velocity)
+        new, new_velocity = [], []
+        for j, p in enumerate(leaves):
+            U_j, stacked[j] = stacked[j].reshape(len(local), -1), None
+            a_j = a_local
+            if v_leaves is not None or ranked:
+                # the combined update in f32 (all-reduced over the cohort
+                # axes), then applied by the combine op with weight 1
+                comb = torch.einsum("k,kn->n", a_local, U_j.float())
+                if ranked:
+                    comb = all_reduce_sum(mesh, comb, caxes)
+                if v_leaves is not None:
+                    comb = (server_momentum * v_leaves[j].float().reshape(-1)
+                            + comb)
+                    new_velocity.append(comb.view(p.shape))
+                U_j = comb[None]
+                a_j = torch.ones(1, dtype=torch.float32, device=dev)
+            new.append(weighted_combine(p.reshape(-1), U_j, a_j)
+                       .view(p.shape))
+            del U_j
+        new_params = tree_unflatten(params, new)
+        metrics = {"loss": losses.mean(), "alpha": alpha, **info}
+        if velocity is not None:
+            return (new_params, tree_unflatten(params, new_velocity)), metrics
+        return new_params, metrics
+
+    return train_step
+
+
+# --------------------------------------------------------------- serve steps
+
+def build_prefill_step(cfg: ArchConfig, mesh: Mesh, shape: InputShape
+                       ) -> Callable:
+    bundle = get_model(cfg)
+
+    def prefill_step(params, batch):
+        return bundle.prefill(params, batch, shape.seq_len)
+
+    return prefill_step
+
+
+def build_decode_step(cfg: ArchConfig, mesh: Mesh, shape: InputShape
+                      ) -> Callable:
+    bundle = get_model(cfg)
+
+    def decode_step(params, token, cache):
+        return bundle.decode(params, token, cache)
+
+    return decode_step

@@ -30,7 +30,7 @@ from .config import ArchConfig
 from .layers import (dtype_of, embed_init, matmul, rms_norm,
                      sinusoidal_positions)
 from .mlp import init_mlp, mlp_forward
-from .transformer import _stacked_layers, layer_views, refuse_remat
+from .transformer import _stacked_layers, layer_views, remat_wrap
 
 Pytree = Any
 
@@ -71,17 +71,21 @@ def encode(cfg: ArchConfig, params: Pytree, frames: torch.Tensor,
            remat=False) -> torch.Tensor:
     """frames (B, T_enc, d_model), the stub frontend's embeddings → the
     encoder output in frames' dtype (or wider, by promotion)."""
-    refuse_remat(remat, "repro.models.encdec encode")
     T = frames.shape[1]
     pos = sinusoidal_positions(T, cfg.d_model, frames.device)
     x = frames + pos.to(frames.dtype)
     positions = torch.arange(T, device=frames.device)
-    for p in layer_views(params["enc_blocks"], cfg.encoder_layers):
-        a = rms_norm(x, p["ln1"], cfg.norm_eps)
-        x = x + attention_forward(cfg, p["attn"], a, positions, mode="bidir",
+
+    def body(h, p):
+        a = rms_norm(h, p["ln1"], cfg.norm_eps)
+        h = h + attention_forward(cfg, p["attn"], a, positions, mode="bidir",
                                   use_rope=False)
-        m = rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + mlp_forward(cfg, p["mlp"], m)
+        m = rms_norm(h, p["ln2"], cfg.norm_eps)
+        return h + mlp_forward(cfg, p["mlp"], m)
+
+    body = remat_wrap(body, remat)
+    for p in layer_views(params["enc_blocks"], cfg.encoder_layers):
+        x = body(x, p)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -123,13 +127,16 @@ def whisper_forward_train(cfg: ArchConfig, params: Pytree,
                           frames: torch.Tensor, tokens: torch.Tensor,
                           remat=False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced logits (B, S, V) for tokens (B, S) given frames, and
-    a zero aux loss."""
-    refuse_remat(remat, "repro.models.encdec whisper_forward_train")
-    enc_out = encode(cfg, params, frames)
+    a zero aux loss; ``remat`` is the per-layer activation-checkpoint
+    policy of the encoder's and the decoder's layers
+    (``transformer.remat_wrap``)."""
+    enc_out = encode(cfg, params, frames, remat)
     x = _embed_tokens(cfg, params, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    body = remat_wrap(
+        lambda h, p: _dec_layer(cfg, p, h, positions, enc_out)[0], remat)
     for p in layer_views(params["dec_blocks"], cfg.num_layers):
-        x = _dec_layer(cfg, p, x, positions, enc_out)[0]
+        x = body(x, p)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _head(cfg, params, x), aux
 

@@ -38,7 +38,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..core.flatten import tree_map
+from ..core.flatten import tree_leaves, tree_map, tree_unflatten
 from ..device import DeviceLike, resolve_device
 from .attention import (KVCache, _project_qkv, attention_decode,
                         attention_decode_slots, attention_forward,
@@ -69,13 +69,35 @@ def check_family(cfg: ArchConfig) -> None:
             f"runs {FAMILIES}, audio and logreg")
 
 
-def refuse_remat(remat, where: str) -> None:
-    """Activation checkpointing waits for the training slice."""
-    if remat:
-        raise NotImplementedError(
-            f"remat={remat!r} waits for the training slice of repro_torch "
-            f"(reference: {where}(remat=...); ROADMAP queue 1); only "
-            "remat=False runs")
+# the ops whose outputs remat="dots" saves: the 2-D products (every
+# projection and MLP matmul), as dots_with_no_batch_dims_saveable saves
+# dots without batch dims; batched products (aten.bmm: attention, the MoE
+# experts) and everything elementwise are recomputed
+DOTS_SAVED_OPS = ("mm", "addmm")
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return create_selective_checkpoint_contexts(
+        [getattr(torch.ops.aten, op).default for op in DOTS_SAVED_OPS])
+
+
+def remat_wrap(body: Callable, remat) -> Callable:
+    """Apply the activation-checkpoint policy to a layer body, as
+    ``repro.models.transformer.remat_wrap``: ``False``/``None`` → none;
+    ``True``/``"full"`` → checkpoint everything (recompute the layer in the
+    backward); ``"dots"`` → save the outputs of 2-D products
+    (``DOTS_SAVED_OPS``) and recompute the rest.  Any other value raises
+    ``ValueError``.  Remat changes memory, never values."""
+    if not remat:
+        return body
+    from torch.utils.checkpoint import checkpoint
+    if remat in (True, "full"):
+        return lambda *args: checkpoint(body, *args, use_reentrant=False)
+    if remat == "dots":
+        return lambda *args: checkpoint(body, *args, use_reentrant=False,
+                                        context_fn=_dots_context)
+    raise ValueError(f"unknown remat policy {remat!r}")
 
 
 # --------------------------------------------------------------------- init
@@ -154,8 +176,12 @@ def init_lm(cfg: ArchConfig, gen: torch.Generator) -> Pytree:
 
 
 def layer_views(blocks: Pytree, num_layers: int) -> List[Pytree]:
-    """Per-layer views of the stacked leaves (no copy)."""
-    return [tree_map(lambda a: a[i], blocks) for i in range(num_layers)]
+    """Per-layer views of the stacked leaves (no copy).  ``unbind`` makes
+    them, so a backward writes each stacked leaf's grad once (one stack),
+    not once a layer as a ``select``'s does."""
+    cols = [a.unbind(0) for a in tree_leaves(blocks)]
+    return [tree_unflatten(blocks, [c[i] for c in cols])
+            for i in range(num_layers)]
 
 
 # ------------------------------------------------------------------ forward
@@ -202,35 +228,39 @@ def _logits(cfg: ArchConfig, params: Pytree, x: torch.Tensor) -> torch.Tensor:
 def forward_train(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
                   window: Optional[int] = None, remat=False
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) → (logits (B, S, V), aux_loss).  Activation
-    checkpointing (``remat``) waits for the training slice and raises."""
+    """tokens (B, S) → (logits (B, S, V), aux_loss).  ``remat`` is the
+    per-layer activation-checkpoint policy (:func:`remat_wrap`): every
+    layer of the stack, or the hybrid's Mamba2 layers alone."""
     check_family(cfg)
-    refuse_remat(remat, "repro.models.transformer forward_train")
     window = window if window is not None else cfg.sliding_window
     x = params["embed"][tokens]
     if cfg.family == "hybrid":
         positions = torch.arange(x.shape[1], device=x.device)
         mode = "window" if window is not None else "causal"
+        mamba = remat_wrap(
+            lambda h, p: _block_forward(cfg, p, h, positions, None)[0], remat)
         x = _hybrid_pass(
-            cfg, params, x,
-            lambda h, p, _: _block_forward(cfg, p, h, positions, None)[0],
+            cfg, params, x, lambda h, p, _: mamba(h, p),
             lambda _, a: attention_forward(cfg, params["shared_attn"]["attn"],
                                            a, positions, mode=mode,
                                            window=window))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return _logits(cfg, params, x), aux
-    return forward_embedded(cfg, params, x, window)
+    return forward_embedded(cfg, params, x, window, remat)
 
 
 def forward_embedded(cfg: ArchConfig, params: Pytree, x: torch.Tensor,
-                     window: Optional[int]
+                     window: Optional[int], remat=False
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The stack of ``params["blocks"]`` over embeddings x (B, S, d) at
-    positions 0..S-1: (logits (B, S, V), the summed aux loss)."""
+    positions 0..S-1: (logits (B, S, V), the summed aux loss), each layer
+    under the ``remat`` policy."""
     positions = torch.arange(x.shape[1], device=x.device)
+    body = remat_wrap(
+        lambda h, p: _block_forward(cfg, p, h, positions, window)[:2], remat)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in layer_views(params["blocks"], cfg.num_layers):
-        x, a, _ = _block_forward(cfg, p, x, positions, window)
+        x, a = body(x, p)
         aux = aux + a
     return _logits(cfg, params, x), aux
 
@@ -245,8 +275,8 @@ def _hybrid_pass(cfg: ArchConfig, params: Pytree, x: torch.Tensor,
     normed input ``a``."""
     shared = params["shared_attn"]
     n_groups, rem = divmod(cfg.num_layers, cfg.attn_every)
-    layers = [p for g in range(n_groups) for p in layer_views(
-        tree_map(lambda a: a[g], params["blocks"]), cfg.attn_every)]
+    layers = [p for group in layer_views(params["blocks"], n_groups)
+              for p in layer_views(group, cfg.attn_every)]
     if rem:
         layers += layer_views(params["blocks_rem"], rem)
     for i, p in enumerate(layers):

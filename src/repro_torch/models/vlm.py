@@ -15,7 +15,7 @@ import torch
 from .config import ArchConfig
 from .layers import dense_init, dtype_of
 from .transformer import (LMCache, decode_step, forward_embedded, init_lm,
-                          prefill_embedded, refuse_remat)
+                          prefill_embedded)
 
 Pytree = Any
 
@@ -43,11 +43,12 @@ def vlm_forward_train(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S_text), image_embeds (B, n_img, d) → logits over the
     whole fused sequence (B, n_img + S_text, V) and the aux loss (the
-    training loss masks the image positions)."""
-    refuse_remat(remat, "repro.models.vlm vlm_forward_train")
+    training loss masks the image positions); ``remat`` is the per-layer
+    activation-checkpoint policy of the stack (``transformer.remat_wrap``)."""
     window = window if window is not None else cfg.sliding_window
     return forward_embedded(cfg, params,
-                            _fuse(cfg, params, tokens, image_embeds), window)
+                            _fuse(cfg, params, tokens, image_embeds), window,
+                            remat)
 
 
 def vlm_prefill(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,

@@ -1501,3 +1501,75 @@ def test_robust_hier_runs_through_the_cuda_kernels(cuda_device, engine):
     assert runs[0].times == runs[1].times
     assert runs[0].train_loss == runs[1].train_loss
     assert runs[0].dropped == runs[1].dropped
+
+
+# ------------------------------------------------------------- training
+
+def test_combine_past_int32_elements(cuda_device):
+    """A bf16 leaf of 2³¹ + 8 elements (olmoe's stacked expert leaves hold
+    exactly 2³¹): every element within one bf16 ulp of the f64 formula,
+    taken in chunks, on both bodies."""
+    from repro_torch.kernels import combine
+    n, chunk = (1 << 31) + 8, 1 << 28
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    w = torch.empty(n, dtype=torch.bfloat16, device=cuda_device)
+    U = torch.empty((1, n), dtype=torch.bfloat16, device=cuda_device)
+    for s in range(0, n, chunk):
+        m = min(chunk, n - s)
+        w[s:s + m] = torch.randn(m, generator=gen, device=cuda_device)
+        U[0, s:s + m] = 0.01 * torch.randn(m, generator=gen,
+                                           device=cuda_device)
+    alpha = torch.tensor([0.75], device=cuda_device)
+    for body in ("vec", "scalar"):
+        out = combine_cuda(w, U, alpha, body=body)
+        for s in range(0, n, chunk):
+            want = w[s:s + chunk].double() + 0.75 * U[0, s:s + chunk].double()
+            _, e = torch.frexp(want.float())
+            ulp = torch.ldexp(torch.ones_like(want), e - 8)
+            assert float(((out[s:s + chunk].double() - want).abs()
+                          / ulp).max()) <= 1.0, (body, s)
+        del out
+    assert combine.body_launches()["vec"] >= 1
+
+
+def _reduced_train(name, remat, device):
+    from repro_torch.launch.mesh import emulated_mesh
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.train import make_batches
+    cfg = get_config(name).reduced()
+    bundle = get_model(cfg)
+    params = tree_map(lambda a: a.to(device),
+                      bundle.init(0, device="cpu"))
+    batch = {k: v.to(device) for k, v in
+             next(make_batches(cfg, bundle, 8, 32, 1)).items()}
+    step = build_train_step(cfg, emulated_mesh((4, 1), ("data", "model")),
+                            InputShape("t", "train", 32, 8), remat=remat)
+    return step(params, batch)
+
+
+@pytest.mark.parametrize("name", ["olmoe-1b-7b", "zamba2-1.2b",
+                                  "whisper-large-v3", "chameleon-34b"])
+def test_train_step_on_the_card_equals_the_cpu(cuda_device, name):
+    """C = 4 cohorts of a reduced f32 config: the card's step (gram and
+    combine through their kernels) equals the CPU's at 1e-5."""
+    from repro_torch.core.flatten import tree_leaves
+    reset_launch_counts()
+    got, m = _reduced_train(name, "full", cuda_device)
+    counts = launch_counts()
+    assert counts["gram/cuda"] == 1 and counts["combine/cuda"] > 0
+    assert all(v == 0 for k, v in counts.items() if k.endswith("/torch"))
+    want, wm = _reduced_train(name, "full", "cpu")
+    assert _rel_err(m["alpha"].cpu(), wm["alpha"]) <= 1e-5
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert _rel_err(a.cpu(), b) <= 1e-5
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_remat_on_the_card_equals_no_remat(cuda_device, remat):
+    from repro_torch.core.flatten import tree_leaves
+    for name in ("olmoe-1b-7b", "zamba2-1.2b"):
+        got, _ = _reduced_train(name, remat, cuda_device)
+        want, _ = _reduced_train(name, False, cuda_device)
+        for a, b in zip(tree_leaves(got), tree_leaves(want)):
+            assert _rel_err(a, b) <= 1e-5

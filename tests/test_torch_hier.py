@@ -581,7 +581,11 @@ def test_unported_parts_raise(problem, monkeypatch):
     cfg = th.HierConfig(**BASE)
     run = lambda **kw: t_run("x", t_loss, t_apply, tp, tds, cfg,  # noqa: E731
                              topo, 1, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="repro.sharding"):
+    # the mesh is ported: a one-rank fleet mesh runs the same round, and
+    # an object that is no mesh fails naming the class it wants
+    from repro_torch.sharding import fleet_mesh
+    assert run(mesh=fleet_mesh()).train_loss == run().train_loss
+    with pytest.raises(TypeError, match="launch.mesh.Mesh"):
         run(mesh=object())
     # the cohort scheduler is ported: the same call runs, on the event
     # path's clock

@@ -285,9 +285,16 @@ def test_dense_bundle_and_unported_families():
     cache = bundle.init_cache(2, 8, device="cpu")
     assert cache.kv.k.shape == (1, 2, 8, 4, 64) and cache.position == 0
     assert bundle.batch_spec(2, 8) == {"tokens": ((2, 8), torch.int32)}
-    with pytest.raises(NotImplementedError, match="training slice"):
-        ttf.forward_train(cfg, params, torch.zeros(1, 4, dtype=torch.int32),
-                          remat="full")
+    # activation checkpointing runs and changes no value; an unknown
+    # policy raises, as the reference's remat_wrap
+    tokens = torch.tensor([[1, 5, 9, 3]], dtype=torch.int32)
+    plain = ttf.forward_train(cfg, params, tokens)
+    for remat in ("full", "dots", True):
+        torch.testing.assert_close(
+            ttf.forward_train(cfg, params, tokens, remat=remat), plain,
+            rtol=0, atol=0)
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        ttf.forward_train(cfg, params, tokens, remat="bogus")
     # the vlm and audio families build their bundles now
     # (tests/test_torch_vlm.py and test_torch_encdec.py hold them to the
     # reference); an unknown family still raises, and audio on the

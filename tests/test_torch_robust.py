@@ -889,7 +889,11 @@ def test_unported_parts_still_raise(robust_problem):
     run = lambda **kw: run_hier_simulation(  # noqa: E731
         "x", t_loss, t_apply, params_from_jax(params, device="cpu"), tds,
         cfg, topo, 1, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="repro.sharding"):
+    # the mesh is ported: a one-rank fleet mesh runs the same round, and an
+    # object that is no mesh fails naming the class it wants
+    from repro_torch.sharding import fleet_mesh
+    assert run(mesh=fleet_mesh()).train_loss == run().train_loss
+    with pytest.raises(TypeError, match="launch.mesh.Mesh"):
         run(mesh=object())
     # the cohort scheduler is ported: the same call runs, on the event
     # path's clock

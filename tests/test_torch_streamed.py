@@ -5,10 +5,9 @@ and ``repro.fl.run_hier_simulation``.
 Inputs are made with numpy and handed to both packages.  The tolerance is
 the reference's own ``TOL`` (``tests/test_streamed_engine.py``: rtol 1e-5,
 atol 1e-4): f32 accumulation in another order, the same solves.  The
-reference's streamed tests are ported here except two that have no
-counterpart in the port: the autotune cap (the port dispatches by device,
-with no autotune) and the mesh-sharded chunk axis (``mesh`` raises, naming
-repro.sharding).
+reference's streamed tests are ported here except the autotune cap (the
+port dispatches by device, with no autotune); the mesh-sharded chunk axis
+on one device is ``tests/test_torch_distributed.py``'s.
 """
 import jax
 import jax.numpy as jnp
@@ -556,7 +555,14 @@ def test_compressed_run_reports_dense_fallback_peak(problem):
 
 def test_streamed_unported_parts_still_raise(problem):
     tcfg, _ = _cfgs("contextual")
-    with pytest.raises(NotImplementedError, match="repro.sharding"):
+    # the mesh is ported: a one-rank mesh runs the same streamed round, and
+    # an object that is no mesh fails naming the class it wants
+    from repro_torch.launch.mesh import make_mesh
+    one = _t(problem, tcfg, "streamed", rounds=1,
+             mesh=make_mesh((1,), ("data",)))
+    assert one.train_loss == _t(problem, tcfg, "streamed",
+                                rounds=1).train_loss
+    with pytest.raises(TypeError, match="launch.mesh.Mesh"):
         _t(problem, tcfg, "streamed", rounds=1, mesh=object())
     # the cohort scheduler is ported: the same call runs, on the event
     # path's clock

@@ -249,9 +249,12 @@ def test_bundle_matches_the_references(f32):
     jcache = jb.init_cache(2, 30)
     assert tuple(cache.kv.k.shape) == jcache.kv.k.shape
     assert cache.position == 0
-    with pytest.raises(NotImplementedError, match="training slice"):
+    # activation checkpointing of the stack runs and changes no value
+    torch.testing.assert_close(
         tvlm.vlm_forward_train(f32["cfg"], f32["tp"], f32["tt"], f32["timg"],
-                               remat="full")
+                               remat="full"),
+        tvlm.vlm_forward_train(f32["cfg"], f32["tp"], f32["tt"],
+                               f32["timg"]), rtol=0, atol=0)
     # the dense decoder's functions run the vlm family's text-only stream
     ttf.forward_train(f32["cfg"], f32["tp"], f32["tt"])
 
