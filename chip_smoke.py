@@ -211,8 +211,17 @@ Phases (any failure exits non-zero and prints no result line):
      ``hierarchical_contextual_combine`` on a one-rank NCCL group equal to
      the local math.  Numbers: ms a step (CUDA events, median of steps 2-3)
      beside the bound of one forward and one backward a cohort plus the
-     apply (remat's re-forward beside it), tokens/s, peak allocated,
-     device busy and launches a step (``torch.profiler``).
+     apply (remat's re-forward beside it), tokens/s, peak allocated (and
+     the peak of one step with its inputs resident), device busy and
+     launches a step (``torch.profiler``);
+  17. roofline — no model on the card: the dry run of ``launch.dryrun``
+     (fake tensors, in subprocesses on the CPU) of each train combination
+     predicts its step's peak within 10 % of the train phase's measured
+     one, its FLOPs within [0.5, 2]x the analytic count; the analytic terms
+     of ``launch.analytic`` beside every measured decode and train step,
+     the memory term within [0.5, 2]x the phase's byte bound; three
+     production combinations traced on fake process groups of 256 / 512
+     ranks, each ``ok``.
 
 The kernels phase also holds ``stream_stats``, ``gram_block`` and ``sketch``
 (U Rᵀ against an explicit R) against their plain versions, bitwise
@@ -252,16 +261,25 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+sys.path.insert(0, str(SRC))
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W power limit)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
-F32_CUDA_CORE_FLOPS = 67e12
+# H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W power limit),
+# from the port's one source of them; outside a checkout main() says so and
+# exits before any is read
+try:
+    from repro_torch.launch import hlo_analysis as _rates
+except ImportError:
+    _rates = None
+_F32 = _rates.PEAK_FLOPS_F32 if _rates else math.nan
+HBM_BYTES_PER_S = _rates.HBM_BW if _rates else math.nan
+PEAK_FLOPS = {"float32": _F32,
+              "bfloat16": _rates.PEAK_FLOPS if _rates else math.nan}
+F32_CUDA_CORE_FLOPS = _F32
 # Instruction rates of the pipes the sign hash runs on.  The Hopper SM has
 # 64 INT32 lanes beside its 128 FP32 lanes (NVIDIA H100 architecture white
 # paper); the FP32 lanes' 67 TFLOP/s counts an FMA as 2 operations:
-INT32_OPS = 67e12 / 2 / 2      # shifts and logic ops, per second
-FMA_PIPE_OPS = 67e12 / 2       # FADD, FFMA and integer multiplies (IMAD)
+INT32_OPS = _F32 / 2 / 2       # shifts and logic ops, per second
+FMA_PIPE_OPS = _F32 / 2        # FADD, FFMA and integer multiplies (IMAD)
 # The SM's four schedulers issue one warp instruction each a clock, 128
 # thread operations: the FP32 lanes' rate, and a cap on every instruction
 # whatever its pipe
@@ -482,6 +500,17 @@ TRAIN_SMALL_SHAPE = dict(batch=8, seq=32)
 TRAIN_REMATS = (False, "full", "dots")
 TRAIN_TOL = 1e-5            # relative to max(1, max |p|), as the CPU tests
 TRAIN_ALPHA_TOL = 1e-5      # α = 1/(1 + ridge) at C = 1
+# the roofline phase (after train): the port's dry run (launch.dryrun, on
+# fake tensors, in subprocesses that never touch the card) against the train
+# phase's measured steps, the analytic terms (launch.analytic) beside every
+# measured step, and three production combinations on a fake process group
+ROOFLINE_PEAK_TOL = 0.10                 # |predicted - measured| / measured
+ROOFLINE_FLOPS_RANGE = (0.5, 2.0)        # trace / analytic train FLOPs
+ROOFLINE_BYTES_RANGE = (0.5, 2.0)        # analytic memory term / byte bound
+ROOFLINE_PRODUCTION = (("olmoe-1b-7b", "train_4k", "single"),
+                       ("qwen3-14b", "decode_32k", "single"),
+                       ("rwkv6-1.6b", "decode_32k", "multi"))
+ROOFLINE_TIMEOUT_S = 600                 # for all five dry runs together
 HIER_ROUNDS = 6
 # the reference's recorded streamed-vs-fused loss gap (BENCH_bigmodel.json)
 STREAMED_LOSS_GAP = 1.4e-3
@@ -4560,6 +4589,25 @@ def _train_device(tag: str, fn, step_ms: float, smi_line: str) -> dict:
             "launches_per_step": launches}
 
 
+def _step_peak(tag: str, fn) -> dict:
+    """One call of ``fn`` (a train step) with its inputs resident: the bytes
+    allocated before it and its peak (``reset_peak_memory_stats`` before the
+    step, ``max_memory_allocated`` after) — what the ``roofline`` phase's
+    dry run predicts."""
+    import torch
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    log(f"{tag}: one step with its inputs resident: peak allocated "
+        f"{peak} B ({peak / 2**30:.2f} GiB), {before} B allocated before it")
+    return {"step_peak_allocated_bytes": peak,
+            "allocated_before_step_bytes": before}
+
+
 def _path_counts(tag: str, counts: dict, want: dict) -> None:
     """Every launch counter of a train run: the ``want`` ones exactly, the
     rest 0 (no plain version ran on the card)."""
@@ -4663,6 +4711,7 @@ def train_entry(smi_line: str, device: str = "cuda",
         f"{gram_bodies}, combine bodies {combine_bodies}")
     params, step, batch = out["params"], out["step"], checks.pop("batch")
     del out
+    stepped = _step_peak(tag, lambda: step(params, batch))
     dev = _train_device(tag, lambda: step(params, batch), step_ms, smi_line)
     del params, batch
     torch.cuda.empty_cache()
@@ -4679,7 +4728,7 @@ def train_entry(smi_line: str, device: str = "cuda",
         "sgd_max_ulps": checks["sgd_max_ulps"],
         "sgd_max_ulps_bf16": checks["sgd_max_ulps_bf16"], "leaves_2e31": big,
         "gram_bodies": gram_bodies, "combine_bodies": combine_bodies,
-        **dev, "nvidia_smi": smi_line}}
+        **stepped, **dev, "nvidia_smi": smi_line}}
 
 
 def _combine_vs_formula(out, w, U, alpha, chunk: int = 1 << 24) -> dict:
@@ -4915,6 +4964,7 @@ def train_cohorts(smi_line: str, device: str = "cuda",
                f"{w['gram_max_rel_err']:.3e}, tolerance "
                f"{TOL[('gram', 'float32')]})" if "gram_n" in w else ""))
     step = build_train_step(cfg, mesh, shape, lr=T["lr"], remat="full")
+    stepped = _step_peak(tag, lambda: step(params, batches[0]))
     dev = _train_device(tag, lambda: step(params, batches[0]), step_ms,
                         smi_line)
     del params, batches
@@ -4928,7 +4978,7 @@ def train_cohorts(smi_line: str, device: str = "cuda",
         "tokens_per_s": tokens / step_ms * 1e3,
         "peak_allocated_bytes": peak, "checked_first_steps": checked,
         "gram_bodies": gram_bodies, "combine_bodies": combine_bodies,
-        **dev, "nvidia_smi": smi_line}}
+        **stepped, **dev, "nvidia_smi": smi_line}}
 
 
 def train_card_vs_cpu(device: str = "cuda") -> dict:
@@ -5133,6 +5183,253 @@ def train_phase(smi_line: str, device: str = "cuda",
         "collectives": train_nccl(device)}
 
 
+# ---------------------------------------------------------------- roofline
+
+# one train step of a config at a shape on an emulated mesh, traced on fake
+# tensors (launch.dryrun.dryrun_step); argv[1] is the JSON of its arguments
+_DRYRUN_STEP = """
+import json, sys
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import emulated_mesh
+from repro_torch.launch.shapes import InputShape
+a = json.loads(sys.argv[1])
+rec = dryrun.dryrun_step(
+    get_config(a["arch"]), emulated_mesh(a["mesh"], ("data", "model")),
+    InputShape("custom", "train", a["seq"], a["batch"]),
+    extra={"lr": a["lr"], "remat": "full"})
+print(json.dumps(rec))
+"""
+
+
+@contextlib.contextmanager
+def _dryruns(jobs: dict, out_dir: str):
+    """Starts each job ({key: argv}) in a subprocess of its own, all at
+    once, on the CPU (``CUDA_VISIBLE_DEVICES`` empty), and yields a
+    function that waits for all within ``ROOFLINE_TIMEOUT_S`` of the start
+    and returns {key: (rc, stdout, stderr, seconds)}; on leaving, kills any
+    still running."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    procs = {}
+    t0 = time.perf_counter()
+
+    def wait() -> dict:
+        done = {}
+        for key, (p, out, err) in procs.items():
+            left = ROOFLINE_TIMEOUT_S - (time.perf_counter() - t0)
+            try:
+                rc = p.wait(timeout=max(left, 1))
+            except subprocess.TimeoutExpired:
+                need(False, f"roofline: dry run {key} past "
+                     f"{ROOFLINE_TIMEOUT_S} s")
+            out.seek(0)
+            err.seek(0)
+            done[key] = (rc, out.read(), err.read(),
+                         time.perf_counter() - t0)
+        return done
+
+    try:
+        for i, (key, argv) in enumerate(jobs.items()):
+            out = open(Path(out_dir) / f"{i}.out", "w+")
+            err = open(Path(out_dir) / f"{i}.err", "w+")
+            procs[key] = (subprocess.Popen([sys.executable] + argv, stdout=out,
+                                           stderr=err, env=env, cwd=ROOT),
+                          out, err)
+        yield wait
+    finally:
+        for p, out, err in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            out.close()
+            err.close()
+
+
+def _analytic_rows(records: dict, smi_line: str) -> dict:
+    """(b) The reference's analytic terms (``launch.analytic``, on the H100
+    constants) of every measured step at the shape its phase ran, at one
+    chip, beside the phase's byte bound and step ms.  A train run of C > 1
+    cohorts on an emulated (C, 1) mesh puts C logical devices on the card:
+    its row sums the terms of the C devices with the params replicated, as
+    the port keeps them (``dp_only``), and prints the one-chip terms too."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.analytic import analytic_roofline
+    from repro_torch.launch.serve import lockstep_max_seq
+    from repro_torch.launch.shapes import InputShape
+    R = RECURRENT
+    rows = []
+    for phase, name, rec in records["decode"]:
+        cfg = get_config(name)
+        if phase in ("serve", "moe"):
+            B, S = SERVE["slots"], SERVE["max_seq"]
+        else:
+            B, S = R["batch"], lockstep_max_seq(cfg, R["prompt"], R["new"])
+        a = analytic_roofline(cfg, InputShape("measured", "decode", S, B),
+                              data=1, model=1, pods=1)
+        rows.append((phase, name, f"decode B={B} S={S}", a, 1,
+                     rec["decode_step_bound_ms"],
+                     rec["decode_step_ms_alone"], None))
+    for name, rec in records["train"].items():
+        cfg = get_config(name)
+        C = rec["cohorts"]
+        shape = InputShape("measured", "train", rec["seq"], rec["batch"])
+        one = analytic_roofline(cfg, shape, data=1, model=1, pods=1)
+        a = (one if C == 1 else
+             analytic_roofline(cfg, shape, data=C, model=1, pods=1,
+                               dp_only=True))
+        rows.append(("train", name, f"train B={rec['batch']} "
+                     f"S={rec['seq']} C={C}", a, C, rec["bound_ms"],
+                     rec["step_ms"], None if C == 1 else one))
+    out = {}
+    for phase, name, shape, a, devs, bound_ms, step_ms, one in rows:
+        mem_ms, comp_ms = a.memory_s * devs * 1e3, a.compute_s * devs * 1e3
+        ratio = mem_ms / bound_ms
+        log(f"roofline (b) {phase} {name} {shape} ({smi_line}): analytic "
+            + (f"summed over {devs} devices (params replicated) " if devs > 1
+               else "at one chip ")
+            + f"memory {mem_ms:.3f} ms, compute {comp_ms:.3f} ms, collective "
+            f"{a.collective_s * devs * 1e3:.3f} ms, bottleneck "
+            f"{a.bottleneck}; the phase's byte bound {bound_ms:.3f} ms "
+            f"({ratio:.3f}x); measured step {step_ms:.2f} ms"
+            + ("" if one is None else
+               f"; at one chip memory {one.memory_s * 1e3:.3f} ms "
+               f"({one.memory_s * 1e3 / bound_ms:.3f}x), compute "
+               f"{one.compute_s * 1e3:.3f} ms, bottleneck {one.bottleneck}"))
+        need(ROOFLINE_BYTES_RANGE[0] <= ratio <= ROOFLINE_BYTES_RANGE[1],
+             f"roofline (b) {phase} {name}: analytic memory term "
+             f"{mem_ms:.3f} ms is {ratio:.3f}x the phase's byte bound "
+             f"{bound_ms:.3f} ms, outside {ROOFLINE_BYTES_RANGE}")
+        out[f"{phase} {name}"] = {
+            "shape": shape, "devices": devs, "memory_ms": mem_ms,
+            "compute_ms": comp_ms,
+            "collective_ms": a.collective_s * devs * 1e3,
+            "bottleneck": a.bottleneck, "hbm_bytes": a.hbm_bytes * devs,
+            "flops": a.flops * devs, "phase_bound_ms": bound_ms,
+            "memory_over_bound": ratio, "step_ms": step_ms,
+            **({} if one is None else {
+                "one_chip_memory_ms": one.memory_s * 1e3,
+                "one_chip_compute_ms": one.compute_s * 1e3,
+                "one_chip_bottleneck": one.bottleneck})}
+    return out
+
+
+def roofline_phase(smi_line: str, records: dict) -> dict:
+    """The ``roofline`` phase: it reads the earlier phases' records
+    (``records``: ``"decode"`` [(phase, arch, record)] of the serve, moe,
+    recurrent, whisper and chameleon phases, ``"train"`` {arch: record} of
+    the train phase) and runs no model on the card.
+
+    (a) The dry run of each train combination (olmoe-1b-7b C = 1 on the
+    host mesh, zamba2-1.2b C = 4 on the emulated (4, 1) mesh; remat "full")
+    predicts its step's peak: within ``ROOFLINE_PEAK_TOL`` of the peak the
+    train phase measured with the step's inputs resident; the trace's FLOPs
+    against the analytic ``model_forward_flops`` x 4 (remat "full") within
+    ``ROOFLINE_FLOPS_RANGE``, beside the bound's 6 · active · tokens.
+    (b) ``_analytic_rows``.  (c) ``ROOFLINE_PRODUCTION`` through the CLI
+    (``python -m repro_torch.launch.dryrun``) on a fake process group of
+    256 / 512 ranks: each ``ok``, with its trace seconds, per-rank peak,
+    fit and TFLOP beside the analytic per-device TFLOP.  The five dry runs
+    run at once in subprocesses on the CPU while (b) is computed."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.analytic import (analytic_roofline,
+                                             model_forward_flops)
+    from repro_torch.launch.shapes import INPUT_SHAPES, InputShape
+    t0 = time.perf_counter()
+    trains = {TRAIN["arch"]: dict(TRAIN, mesh=(1, 1)),
+              TRAIN_COHORTS["arch"]: TRAIN_COHORTS}
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = {name: ["-c", _DRYRUN_STEP, json.dumps(
+            {"arch": name, "mesh": list(T["mesh"]), "batch": T["batch"],
+             "seq": T["seq"], "lr": T["lr"]})] for name, T in trains.items()}
+        jobs.update({combo: ["-m", "repro_torch.launch.dryrun", "--arch",
+                             combo[0], "--shape", combo[1], "--mesh",
+                             combo[2], "--out", tmp]
+                     for combo in ROOFLINE_PRODUCTION})
+        with _dryruns(jobs, tmp) as wait:
+            rows = _analytic_rows(records, smi_line)
+            done = wait()
+        for key, (rc, out, err, secs) in done.items():
+            need(rc == 0, f"roofline: dry run {key} exit {rc}: "
+                 f"{(out + err)[-2000:]}")
+        production = {}
+        for arch, shape_name, mesh in ROOFLINE_PRODUCTION:
+            path = Path(tmp) / f"{arch}_{shape_name}_{mesh}.json"
+            production[f"{arch}|{shape_name}|{mesh}"] = json.loads(
+                path.read_text())
+
+    # (a) the train steps: predicted peak and FLOPs against the card's
+    predicted = {}
+    for name, T in trains.items():
+        rc, out, err, secs = done[name]
+        rec = json.loads(out.strip().splitlines()[-1])
+        meas = records["train"][name]
+        cfg = get_config(name)
+        shape = InputShape("custom", "train", T["seq"], T["batch"])
+        pred_peak = rec["memory"]["peak_bytes"]
+        got_peak = meas["step_peak_allocated_bytes"]
+        rel = (pred_peak - got_peak) / got_peak
+        trace = rec["cost"]["flops"]
+        ana = model_forward_flops(cfg, shape, cfg.sliding_window) * 4
+        six = meas["bound"]["flops"]
+        log(f"roofline (a) train {name} C = {meas['cohorts']} mesh "
+            f"{tuple(T['mesh'])} ({smi_line}): dry run (traced in "
+            f"{rec['trace_s']} s, {secs:.1f} s with its process) predicts a "
+            f"peak of {pred_peak} B ({pred_peak / 2**30:.2f} GiB: arguments "
+            f"{rec['memory']['argument_size_in_bytes']} B + temporaries "
+            f"{rec['memory']['temp_size_in_bytes']} B); measured "
+            f"{got_peak} B ({got_peak / 2**30:.2f} GiB, "
+            f"{meas['allocated_before_step_bytes']} B resident before the "
+            f"step): {rel:+.2%} (gate {ROOFLINE_PEAK_TOL:.0%}); trace "
+            f"{trace / 1e12:.3f} TFLOP against the analytic "
+            f"model_forward_flops x 4 {ana / 1e12:.3f} TFLOP "
+            f"({trace / ana:.3f}x, gate {ROOFLINE_FLOPS_RANGE}) and the "
+            f"bound's 6 * active * tokens {six / 1e12:.3f} TFLOP "
+            f"({trace / six:.3f}x)"
+            + ("; the MoE experts' bmm counts every capacity slot"
+               if cfg.family == "moe" else "")
+            + f"; trace bytes {rec['cost']['bytes accessed'] / 1e9:.1f} GB, "
+            f"{rec['dispatched_ops']} ops")
+        need(abs(rel) <= ROOFLINE_PEAK_TOL,
+             f"roofline (a) {name}: predicted peak {pred_peak} B is "
+             f"{rel:+.2%} off the measured {got_peak} B")
+        need(ROOFLINE_FLOPS_RANGE[0] <= trace / ana
+             <= ROOFLINE_FLOPS_RANGE[1],
+             f"roofline (a) {name}: trace / analytic FLOPs "
+             f"{trace / ana:.3f} outside {ROOFLINE_FLOPS_RANGE}")
+        predicted[name] = {
+            "predicted_peak_bytes": pred_peak, "measured_peak_bytes": got_peak,
+            "peak_rel_err": rel, "trace_flops": trace,
+            "analytic_flops": ana, "six_active_tokens_flops": six,
+            "trace_bytes": rec["cost"]["bytes accessed"],
+            "trace_s": rec["trace_s"], "process_s": secs,
+            "dry_run": rec}
+
+    # (c) the production combinations
+    for tag, rec in production.items():
+        need(rec["status"] == "ok", f"roofline (c) {tag}: {rec['status']}")
+        arch, shape_name, mesh = tag.split("|")
+        a = analytic_roofline(get_config(arch), INPUT_SHAPES[shape_name],
+                              pods=2 if mesh == "multi" else 1)
+        m, r = rec["memory"], rec["roofline"]
+        log(f"roofline (c) {tag} on a fake group of {r['num_chips']} ranks: "
+            f"traced in {rec['trace_s']} s; per-rank peak "
+            f"{m['peak_bytes'] / 2**30:.2f} GiB, fits {m['fits']} (sharded "
+            f"arguments {m['sharded_argument_bytes'] / 2**30:.2f} GiB a "
+            f"device, the port's replicated {m['argument_size_in_bytes'] / 2**30:.2f}"
+            f" GiB); per-rank {rec['cost']['flops'] / 1e12:.3f} TFLOP beside "
+            f"the analytic {a.flops / 1e12:.3f} TFLOP a device "
+            f"({rec['cost']['flops'] / a.flops:.1f}x); collectives "
+            f"{ {k: v for k, v in rec['collectives'].items() if v} }")
+        rec["analytic_flops_per_device"] = a.flops
+    wall = time.perf_counter() - t0
+    log(f"roofline: {wall:.1f} s")
+    return {"train": predicted, "analytic": rows,
+            "production": production, "wall_s": wall}
+
+
 # -------------------------------------------------------------------- main
 
 def setup_phase() -> str:
@@ -5332,7 +5629,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
     t_start = time.perf_counter()
     from repro_torch.kernels import (combine, decode_attn, gram, rng_sketch,
                                      sketch)
@@ -5391,6 +5687,14 @@ def main() -> int:
                                            phase)
                        for phase in LOCKSTEP_PHASES}
         trained = on_cuda_core("train", train_phase, smi_line)
+        roofed = roofline_phase(smi_line, {
+            "decode": [("serve", SERVE["arch"], served)]
+            + [("moe", name, rec) for name, rec in moed["models"].items()]
+            + [("recurrent", name, rec)
+               for name, rec in recurred["models"].items()]
+            + [(phase, name, rec) for phase, lst in lockstepped.items()
+               for name, rec in lst["models"].items()],
+            "train": trained["models"]})
         by_path = {"sync": sync_counts, "async": asynced["counts"],
                    "hier": hier_counts,
                    "streamed": streamed_counts, "robust": robusted["counts"],
@@ -5494,6 +5798,8 @@ def main() -> int:
     train_numbers = {k: v for k, v in trained.items() if k != "counts"}
     entries[names.index("gram")]["train"] = train_numbers
     entries[names.index("combine")]["train"] = train_numbers
+    # the analytic tools held to the train steps: on the train path's entry
+    entries[names.index("gram")]["roofline"] = roofed
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi_line, flush=True)

@@ -33,6 +33,12 @@ _ALIASES = {
     "chameleon-34b": "chameleon_34b",
 }
 
+# the reference's production architectures (``repro.configs.ASSIGNED``, in
+# its order): every config but the paper's own model
+ASSIGNED = ["zamba2-1.2b", "starcoder2-15b", "deepseek-moe-16b", "rwkv6-1.6b",
+            "chameleon-34b", "qwen3-14b", "gemma-7b", "whisper-large-v3",
+            "qwen2.5-32b", "olmoe-1b-7b"]
+
 
 def get_config(name: str) -> ArchConfig:
     mod_name = _ALIASES.get(name, name)

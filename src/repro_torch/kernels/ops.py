@@ -1,9 +1,11 @@
 """Public kernel entry points of the port, dispatched by device.
 
-Each op registers two implementations (see :mod:`repro_torch.kernels.registry`):
-``cuda`` (the hand-written Hopper kernel) and ``torch`` (the plain PyTorch
-version in ``kernels.ref``).  A CUDA tensor launches the kernel, a CPU
-tensor runs the plain version; ``backend=`` forces one.  The signatures
+Each op registers three implementations (see
+:mod:`repro_torch.kernels.registry`): ``cuda`` (the hand-written Hopper
+kernel), ``torch`` (the plain PyTorch version in ``kernels.ref``) and
+``meta`` (shapes and costs for a traced step, ``kernels.meta``).  A CUDA
+tensor launches the kernel, a CPU tensor runs the plain version, a ``meta``
+tensor the ``meta`` one; ``backend=`` forces one.  The signatures
 follow ``repro.kernels.ops``; ``use_pallas`` and ``block_n`` are gone
 because the CUDA kernels choose their own tiling.
 """
@@ -13,7 +15,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import ref
+from . import meta, ref
 from .combine import combine_cuda
 from .decode_attn import flash_decode_cuda
 from .gram import gram_block_cuda, gram_cuda
@@ -76,6 +78,8 @@ register_impl("sign_sketch_adjoint", "torch",
               _plain("sign_sketch_adjoint", ref.rng_sketch_adjoint_ref))
 register_impl("flash_decode", "cuda", flash_decode_cuda)
 register_impl("flash_decode", "torch", _flash_decode_plain)
+for _op, _fn in meta.IMPLS.items():
+    register_impl(_op, "meta", _fn)
 
 
 def gram_and_cross(updates: torch.Tensor, grad: torch.Tensor, *,

@@ -6,11 +6,13 @@ Backends:
     tensors.
   * ``torch`` — the plain PyTorch version (``kernels.ref``), for CPU tensors
     and as the yardstick tests and ``chip_smoke.py`` hold the kernel against.
+  * ``meta``  — shapes and costs only (``kernels.meta``), for the fake
+    ``meta`` tensors a dry run traces a step on (``launch.dryrun``).
 
 Selection follows the tensors' device: a CUDA tensor launches ``cuda``, a
-CPU tensor runs ``torch``.  The plain version is never chosen for a CUDA
-tensor unless the caller forces it (``backend="torch"`` at the call, or
-``with force_backend("torch"):``).  There is no autotune and no environment
+CPU tensor runs ``torch``, a ``meta`` tensor ``meta``.  The plain version
+is never chosen for a CUDA tensor unless the caller forces it
+(``backend="torch"`` at the call, or ``with force_backend("torch"):``).  There is no autotune and no environment
 override: with one kernel per op the only other candidate is the plain
 version, and choosing it would hide the kernel.
 
@@ -26,7 +28,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-_DEVICE_BACKEND = {"cuda": "cuda", "cpu": "torch"}
+_DEVICE_BACKEND = {"cuda": "cuda", "cpu": "torch", "meta": "meta"}
 
 
 @dataclass(frozen=True)

@@ -232,7 +232,9 @@ def build_train_step(cfg: ArchConfig, mesh: Mesh, shape: InputShape, *,
             info = {"gram_diag_mean": torch.diagonal(G).mean(),
                     "bound": c @ alpha + 0.5 * beta * alpha @ G @ alpha}
 
-        a_local = alpha[local]
+        # ``local`` is a run of consecutive cohorts: a slice, with no index
+        # tensor made from a list (which a fake-tensor trace refuses)
+        a_local = alpha[local[0]:local[-1] + 1]
         v_leaves = None if velocity is None else tree_leaves(velocity)
         new, new_velocity = [], []
         for j, p in enumerate(leaves):

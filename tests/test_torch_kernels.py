@@ -127,16 +127,11 @@ def test_cpu_tensors_take_the_plain_version_and_count():
     weighted_combine(torch.ones(5), torch.ones(2, 5), torch.ones(2))
     weighted_combine(torch.ones(5), torch.ones(2, 5), torch.ones(2))
     counts = launch_counts()
-    assert counts == {"combine/cuda": 0, "combine/torch": 2,
-                      "flash_decode/cuda": 0, "flash_decode/torch": 0,
-                      "gram/cuda": 0, "gram/torch": 1,
-                      "gram_block/cuda": 0, "gram_block/torch": 0,
-                      "sign_sketch/cuda": 0, "sign_sketch/torch": 0,
-                      "sign_sketch_adjoint/cuda": 0,
-                      "sign_sketch_adjoint/torch": 0,
-                      "sketch/cuda": 0, "sketch/torch": 0,
-                      "stream_stats/cuda": 0, "stream_stats/torch": 0,
-                      "topk/cuda": 0, "topk/torch": 0}
+    ops = ("combine", "flash_decode", "gram", "gram_block", "sign_sketch",
+           "sign_sketch_adjoint", "sketch", "stream_stats", "topk")
+    want = {f"{op}/{be}": 0 for op in ops for be in ("cuda", "meta", "torch")}
+    want.update({"combine/torch": 2, "gram/torch": 1})
+    assert counts == want
     reset_launch_counts()
     assert set(launch_counts().values()) == {0}
 
@@ -145,7 +140,7 @@ def test_registry_misuse_raises():
     for op in ("gram", "combine", "topk", "sign_sketch",
                "sign_sketch_adjoint", "stream_stats", "gram_block", "sketch",
                "flash_decode"):
-        assert backends(op) == ("cuda", "torch")
+        assert backends(op) == ("cuda", "meta", "torch")
     with pytest.raises(KeyError, match="unknown kernel op"):
         registry.dispatch("bogus_op", torch.ones(1))
     with pytest.raises(KeyError, match="not registered"):
