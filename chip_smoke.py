@@ -209,7 +209,12 @@ Phases (any failure exits non-zero and prints no result line):
      103 M columns); the reduced f32 zamba2 and olmoe steps on the card
      equal to the CPU's under remat False, "full" and "dots" (TF32 off);
      ``hierarchical_contextual_combine`` on a one-rank NCCL group equal to
-     the local math.  Numbers: ms a step (CUDA events, median of steps 2-3)
+     the local math; the placed step (``build_train_step`` mode "tp") of
+     olmoe-1b-7b C = 1 on a one-rank NCCL (1, 1) mesh, each leaf's f32
+     update within ``TRAIN_UPDATE_TOL`` of its max |update| of the
+     unplaced step's (a fault planted in the MoE failing that gate), the
+     reduced f32 model at ``TRAIN_TOL``, and gram and combine at the
+     placed step's shapes on a 16-wide 'model' axis.  Numbers: ms a step (CUDA events, median of steps 2-3)
      beside the bound of one forward and one backward a cohort plus the
      apply (remat's re-forward beside it), tokens/s, peak allocated (and
      the peak of one step with its inputs resident), device busy and
@@ -500,6 +505,23 @@ TRAIN_SMALL_SHAPE = dict(batch=8, seq=32)
 TRAIN_REMATS = (False, "full", "dots")
 TRAIN_TOL = 1e-5            # relative to max(1, max |p|), as the CPU tests
 TRAIN_ALPHA_TOL = 1e-5      # α = 1/(1 + ridge) at C = 1
+# the placed full-width bf16 step against the unplaced one: each leaf's f32
+# combined update, max |a - b| over the leaf's max |b|.  Δ = bf16(-lr·g):
+# two correct steps whose bf16 grads round apart differ by one bf16 ulp of
+# an element (at most 2^-7 of it) a rounding, a few roundings deep; a grad
+# that is wrong or missing moves a leaf's update by its own scale
+TRAIN_UPDATE_TOL = 2.0 ** -5
+# faults planted in the placed step's MoE (models.moe.combine), each run
+# through the gate: "router": the combine weights detached (the router's
+# grad from the aux loss alone), gated to fail it; "last": each token's
+# last, smallest-weighted expert dropped, reported
+TRAIN_FAULTS = ("router", "last")
+# the placed step's kernel shapes on a 16-wide 'model' axis: olmoe-1b-7b's
+# scope on one rank (lm_head's 2048 x 50304/16 columns + final_norm's 2048)
+# at K = 16 (one pod) and 32 (two), and an expert leaf's block (2^31 / 16
+# bf16 elements) taking its f32 combined update
+TRAIN_SHARDED = dict(model=16, n_scope=2048 * 50304 // 16 + 2048,
+                     Ks=(16, 32), n_expert=(1 << 31) // 16)
 # the roofline phase (after train): the port's dry run (launch.dryrun, on
 # fake tensors, in subprocesses that never touch the card) against the train
 # phase's measured steps, the analytic terms (launch.analytic) beside every
@@ -511,6 +533,11 @@ ROOFLINE_PRODUCTION = (("olmoe-1b-7b", "train_4k", "single"),
                        ("qwen3-14b", "decode_32k", "single"),
                        ("rwkv6-1.6b", "decode_32k", "multi"))
 ROOFLINE_TIMEOUT_S = 600                 # for all five dry runs together
+# the placed train trace (olmoe-1b-7b|train_4k|single): its per-rank FLOPs
+# at most this many times the analytic per-device FLOPs (the replicated
+# step's were 19.8x), its arguments within this share of the specs' blocks
+ROOFLINE_PLACED_FLOPS_MAX = 2.0
+ROOFLINE_PLACED_ARGS_TOL = 0.01
 HIER_ROUNDS = 6
 # the reference's recorded streamed-vs-fused loss gap (BENCH_bigmodel.json)
 STREAMED_LOSS_GAP = 1.4e-3
@@ -5162,23 +5189,454 @@ def train_kernel_rows(device: str = "cuda", n_leaf: int = (1 << 31) + 8,
     return {"combine": comb, "gram": gr}
 
 
+def _median_step_ms(fn, calls: int) -> tuple:
+    """(median, all) CUDA-event ms of ``calls`` calls of ``fn`` after one
+    warm call."""
+    import torch
+    fn()
+    times = []
+    for _ in range(calls):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        del out
+        times.append(ev[0].elapsed_time(ev[1]))
+    return statistics.median(times), times
+
+
+def _leaf_gap(a, b, chunk: int = 1 << 26) -> dict:
+    """Two leaves (``b`` may lie on the host), by chunks (an expert leaf
+    holds 2³¹ elements): max |a − b|, max |b|, the largest difference in
+    ulps of ``a``'s dtype at each element's magnitude, and the count of
+    elements that differ."""
+    import torch
+    out = {"diff": 0.0, "top": 0.0, "ulps": 0.0, "differing": 0}
+    fa, fb = a.reshape(-1), b.reshape(-1)
+    for s in range(0, fa.numel(), chunk):
+        x = fa[s:s + chunk].float()
+        y = fb[s:s + chunk].to(x.device).float()
+        diff = (x - y).abs()
+        out["diff"] = max(out["diff"], float(diff.max()))
+        out["top"] = max(out["top"], float(y.abs().max()))
+        ulp = _ulp(torch.maximum(x.abs(), y.abs()), a.dtype)
+        out["ulps"] = max(out["ulps"], float((diff / ulp).max()))
+        out["differing"] += int((x != y).sum())
+    return out
+
+
+def _tree_gap(pairs) -> dict:
+    """``(name, a, b)`` leaf by leaf (:func:`_leaf_gap`): the largest
+    difference relative to max(1, max |b|) and in ulps, the count of
+    elements that differ and the three leaves furthest off."""
+    out = {"max_rel": 0.0, "max_ulps": 0.0, "differing": 0}
+    rels = []
+    for name, a, b in pairs:
+        g = _leaf_gap(a, b)
+        rels.append((g["diff"] / max(1.0, g["top"]), name))
+        out["max_ulps"] = max(out["max_ulps"], g["ulps"])
+        out["differing"] += g["differing"]
+    rels.sort(reverse=True)
+    out.update(max_rel=rels[0][0], leaf=rels[0][1],
+               furthest=[(n, r) for r, n in rels[:3]])
+    return out
+
+
+@contextlib.contextmanager
+def _update_tap(fn):
+    """Inside, ``fn(j, update, new)`` sees each leaf's f32 combined update
+    — what ``launch.steps``' train step on a mesh of ranks hands the
+    ``combine`` op with α = 1 — and the new leaf it makes, in flattening
+    order.  The op runs (and counts) as it does outside."""
+    from repro_torch.launch import steps
+    real = steps.weighted_combine
+    leaf = iter(range(1 << 30))
+
+    def tapped(p, U, a, **kw):
+        new = real(p, U, a, **kw)
+        fn(next(leaf), U[0], new)
+        return new
+
+    steps.weighted_combine = tapped
+    try:
+        yield
+    finally:
+        steps.weighted_combine = real
+
+
+class _UpdateGate:
+    """Each leaf's update against the unplaced step's (``ref``, in
+    flattening order, on the host): ``ratio`` max |a − b| / max |b| (the
+    gate, at ``TRAIN_UPDATE_TOL``), the elements that differ, and
+    ``worst``, the leaf furthest off.  ``max_numel`` skips the larger
+    leaves (the ratio is then a lower bound of the gate's)."""
+
+    def __init__(self, names, ref, max_numel: int = 1 << 62):
+        self.names, self.ref, self.max_numel = names, ref, max_numel
+        self.ratio, self.worst, self.differing = 0.0, None, 0
+        self.leaves = 0
+
+    def __call__(self, j: int, update, new) -> None:
+        if update.numel() > self.max_numel:
+            return
+        g = _leaf_gap(update, self.ref[j])
+        ratio = (g["diff"] / g["top"] if g["top"] else
+                 0.0 if g["diff"] == 0 else math.inf)
+        if ratio >= self.ratio:
+            self.ratio, self.worst = ratio, self.names[j]
+        self.differing += g["differing"]
+        self.leaves += 1
+
+    def record(self) -> dict:
+        return {"ratio": self.ratio, "leaf": self.worst,
+                "differing": self.differing, "leaves": self.leaves}
+
+
+@contextlib.contextmanager
+def _planted_fault(name: str):
+    """A fault in ``models.moe.combine`` while inside (see
+    ``TRAIN_FAULTS``)."""
+    import torch
+    from repro_torch.models import moe
+    real = moe.combine
+
+    def router(out_buf, top_p, placed):
+        return real(out_buf, top_p.detach(), placed)
+
+    def last(out_buf, top_p, placed):
+        keep = torch.ones_like(top_p)
+        keep[:, -1] = 0
+        return real(out_buf, top_p * keep, placed)
+
+    moe.combine = {"router": router, "last": last}[name]
+    try:
+        yield
+    finally:
+        moe.combine = real
+
+
+def _placed_vs_unplaced_f32(mesh, device: str) -> dict:
+    """The reduced f32 olmoe-1b-7b, placed and unplaced on ``mesh`` (TF32
+    off): new params at ``TRAIN_TOL`` (relative to max(1, max |p|)), where
+    the full-width bf16 step's can differ by a rounding."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.flatten import tree_leaves, tree_map
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.train import make_batches
+    from repro_torch.models import get_model
+    from repro_torch.sharding import place_batch
+    S = TRAIN_SMALL_SHAPE
+    cfg = get_config(TRAIN["arch"]).reduced()
+    bundle = get_model(cfg)
+    params = tree_map(lambda a: a.to(device), bundle.init(0, device="cpu"))
+    batch = {k: v.to(device) for k, v in next(make_batches(
+        cfg, bundle, S["batch"], S["seq"], 1)).items()}
+    shape = InputShape("custom", "train", S["seq"], S["batch"])
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got, _ = build_train_step(cfg, mesh, shape, remat="full")(
+            params, place_batch(mesh, batch))
+        want, _ = build_train_step(cfg, mesh, shape, remat="full",
+                                   mode="dp")(params, batch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    err = max(_train_rel(a, b) for a, b in zip(tree_leaves(got),
+                                                tree_leaves(want)))
+    need(err <= TRAIN_TOL, f"train placed {cfg.name} f32: {err:.3e} off the "
+         f"unplaced step > {TRAIN_TOL}")
+    return {"arch": cfg.name, "max_rel_err": err}
+
+
+def train_placed(smi_line: str, device: str = "cuda",
+                 reduced: bool = False) -> dict:
+    """(e) The placed step (``launch.steps.build_train_step``, mode "tp")
+    of the full olmoe-1b-7b on a one-rank NCCL group (a ``FileStore`` in a
+    temporary directory) with a (1, 1) mesh of ranks, C = 1, against the
+    unplaced step (mode "dp") on the same params and batch: its blocks
+    are the whole leaves there, every model-parallel collective runs on
+    the group of one.  Gates the placement, each leaf's f32 combined
+    update against the unplaced step's at ``TRAIN_UPDATE_TOL`` of the
+    leaf's max |update| (:func:`_update_tap`), that gate failing a planted
+    fault (``TRAIN_FAULTS``), the reduced f32 model's new params at
+    ``TRAIN_TOL``, α, gram once and combine once a leaf on ``cuda`` in the
+    placed step.  The new params' gap is said, not gated (bitwise equal
+    or not), beside the unplaced step against itself.  Both steps' ms
+    (CUDA events, the median of ``TRAIN["steps"]`` calls after a warm
+    one, taken in turn) and busy share; the group is destroyed."""
+    import os
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.flatten import tree_leaves, tree_leaves_with_path
+    from repro_torch.kernels import (combine, gram, launch_counts,
+                                     reset_launch_counts)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shapes import InputShape, meta_params
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.train import make_batches
+    from repro_torch.models import get_model
+    from repro_torch.sharding import param_pspecs, place_batch, shard_shape
+    from repro_torch.sharding.specs import spec_leaves
+    T = TRAIN
+    cfg = get_config(T["arch"])
+    cfg = cfg.reduced() if reduced else cfg
+    tag = f"train placed {cfg.name}"
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    bundle = get_model(cfg)
+    shape = InputShape("custom", "train", T["seq"], T["batch"])
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        dist.init_process_group(backend, store=store, rank=0, world_size=1)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"))
+            placed = build_train_step(cfg, mesh, shape, lr=T["lr"],
+                                      remat="full")
+            plain = build_train_step(cfg, mesh, shape, lr=T["lr"],
+                                     remat="full", mode="dp")
+            need(placed.placement == "tp" and plain.placement == "replicated",
+                 f"{tag}: placements {placed.placement}, {plain.placement}")
+            gen = torch.Generator(device=device)
+            gen.manual_seed(0)
+            params = bundle.init(gen)
+            # on a (1, 1) mesh every block is its whole leaf: the placed
+            # step takes the params themselves
+            specs = param_pspecs(cfg, meta_params(cfg), mesh, "tp")
+            for (path, spec), p in zip(spec_leaves(specs),
+                                       tree_leaves(params)):
+                need(shard_shape(tuple(p.shape), spec, mesh)
+                     == tuple(p.shape), f"{tag}: {path} block of {spec}")
+            batch = next(make_batches(cfg, bundle, T["batch"], T["seq"], 1,
+                                      device=device))
+            local = place_batch(mesh, batch)
+            names = [name for name, _ in tree_leaves_with_path(params)]
+            # the unplaced step: its f32 updates and new params kept on the
+            # host (the card holds one step beside the params, no more)
+            ref = []
+            with _update_tap(lambda j, u, new: ref.append(u.cpu())):
+                want, m_want = plain(params, batch)
+            want = [t.cpu() for t in tree_leaves(want)]
+            faults = {}
+            for fault in TRAIN_FAULTS:
+                # every leaf but the three 2³¹-element expert leaves
+                gate = _UpdateGate(names, ref, max_numel=1 << 30)
+                with _planted_fault(fault), _update_tap(gate):
+                    placed(params, local)
+                faults[fault] = gate.record()
+            need(faults["router"]["ratio"] > TRAIN_UPDATE_TOL,
+                 f"{tag}: the update gate passes a planted fault (the MoE's "
+                 f"combine weights detached): {faults['router']}")
+            reset_launch_counts()
+            gram.reset_body_launches()
+            combine.reset_body_launches()
+            gate = _UpdateGate(names, ref)
+            with _update_tap(gate):
+                got, m_got = placed(params, local)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            bodies = {"gram": gram.body_launches(),
+                      "combine": combine.body_launches()}
+            _path_counts(tag, counts, {"gram/cuda": 1,
+                                       "combine/cuda": len(names)})
+            update = gate.record()
+            del ref
+            alpha = (float(m_got["alpha"][0]), float(m_want["alpha"][0]))
+            losses = (float(m_got["loss"]), float(m_want["loss"]))
+            gap = _tree_gap(zip(names, tree_leaves(got), want))
+            del got
+            # the unplaced step against itself
+            again, _ = plain(params, batch)
+            self_gap = _tree_gap(zip(names, tree_leaves(again), want))
+            del again, want
+            need(update["ratio"] <= TRAIN_UPDATE_TOL,
+                 f"{tag}: leaf {update['leaf']}'s update off the unplaced "
+                 f"step's by {update['ratio']:.3e} of its max |update| > "
+                 f"{TRAIN_UPDATE_TOL}")
+            need(abs(alpha[0] - alpha[1]) <= TRAIN_ALPHA_TOL,
+                 f"{tag}: alpha {alpha}")
+            times = {}
+            for name, step, b in (("placed", placed, local),
+                                  ("unplaced", plain, batch),
+                                  ("unplaced", plain, batch),
+                                  ("placed", placed, local)):
+                runs = _median_step_ms(lambda: step(params, b),
+                                       T["steps"] - 1)[1]
+                times.setdefault(name, []).extend(runs)
+            step_ms = {k: statistics.median(v) for k, v in times.items()}
+            dev = {name: _train_device(f"{tag} ({name} step)",
+                                       lambda: step(params, b),
+                                       step_ms[name], smi_line)
+                   for name, step, b in (("placed", placed, local),
+                                         ("unplaced", plain, batch))}
+            del params
+            torch.cuda.empty_cache()
+            small = _placed_vs_unplaced_f32(mesh, device)
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    log(f"{tag} C = 1 on a one-rank {backend} group, mesh "
+        f"{dict(mesh.shape)} ({smi_line}): each leaf's f32 update off the "
+        f"unplaced step's by {update['ratio']:.3e} of its max |update| at "
+        f"most (leaf {update['leaf']}, gate {TRAIN_UPDATE_TOL}), "
+        f"{update['differing']} elements differ; planted faults "
+        + ", ".join(f"{k} {v['ratio']:.3e} (leaf {v['leaf']})"
+                    for k, v in faults.items())
+        + f"; new params {gap['max_rel']:.3e} of max(1, max |p|) and "
+        f"{gap['max_ulps']:.3g} ulp at most (furthest {gap['furthest']}), "
+        f"{gap['differing']} elements differ, bitwise equal: "
+        f"{gap['differing'] == 0}; the unplaced step against itself "
+        f"{self_gap['differing']} elements differ; the reduced "
+        f"f32 {small['arch']} placed vs unplaced {small['max_rel_err']:.3e} "
+        f"(tolerance {TRAIN_TOL}, TF32 off); alpha placed / unplaced "
+        f"{alpha}, loss {losses}; step ms placed "
+        f"{[round(t, 2) for t in times['placed']]} (median "
+        f"{step_ms['placed']:.2f}), unplaced "
+        f"{[round(t, 2) for t in times['unplaced']]} (median "
+        f"{step_ms['unplaced']:.2f}): placed / unplaced "
+        f"{step_ms['placed'] / step_ms['unplaced']:.3f}; launches in the "
+        f"placed step {({k: v for k, v in counts.items() if v})}, bodies "
+        f"{bodies}")
+    return {"counts": counts, "record": {
+        "arch": cfg.name, "mesh": dict(mesh.shape), "backend": backend,
+        "placement": "tp", "cohorts": 1, "batch": T["batch"],
+        "seq": T["seq"], "update_vs_unplaced": update,
+        "update_tol": TRAIN_UPDATE_TOL, "planted_faults": faults,
+        "vs_unplaced": gap, "unplaced_vs_itself": self_gap,
+        "bitwise_equal": gap["differing"] == 0, "reduced_f32": small,
+        "alpha": alpha, "loss": losses, "step_ms": step_ms,
+        "step_ms_all": times, "bodies": bodies,
+        **{f"{name}_{k}": v for name, d in dev.items()
+           for k, v in d.items()}, "nvidia_smi": smi_line}}
+
+
+def train_sharded_rows(device: str = "cuda", sizes: dict = None) -> dict:
+    """The placed step's kernel shapes on a 16-wide 'model' axis
+    (``TRAIN_SHARDED``), each against its plain version and its one-call
+    PyTorch yardstick, beside its bound: the gram of one rank's scope
+    columns at K = 16 and 32 (f32); the sum of the 16 column blocks' grams
+    against the gram of the whole U (K = 16, f32: what the all-reduce over
+    'model' adds up); the combine of an expert leaf's block (bf16 w, its
+    f32 combined update, K = 1, α = 1)."""
+    import torch
+    from repro_torch.kernels import gram_and_cross, weighted_combine
+    S = dict(TRAIN_SHARDED, **(sizes or {}))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(9)
+    rows = {}
+    n = S["n_scope"]
+    for K in S["Ks"]:
+        U = torch.randn((K, n), generator=gen, device=device)
+        g = torch.randn(n, generator=gen, device=device)
+        G, c = gram_and_cross(U, g)
+        Gp, cp = gram_and_cross(U, g, backend="torch")
+        r = {"op": "gram", "K": K, "n": n, "dtype": "float32",
+             "max_abs_err": max(_max_err(G, Gp), _max_err(c, cp)),
+             "max_rel_err": max(_max_err(G, Gp) / _scale(Gp),
+                                _max_err(c, cp) / _scale(cp)),
+             "ms": time_ms(lambda: gram_and_cross(U, g), reps=20),
+             "plain_ms": time_ms(lambda: gram_and_cross(
+                 U, g, backend="torch"), reps=20),
+             "library_ms": time_ms(lambda: (U @ U.T, U @ g), reps=20),
+             **gram_bound(K, n, torch.float32)}
+        need(r["max_rel_err"] <= TOL[("gram", "float32")],
+             f"train sharded: gram K={K} {r['max_rel_err']:.3e} off plain")
+        rows[f"gram_K{K}"] = r
+        del U, g
+    # the all-reduce's sum: 16 column blocks' grams against the whole U's
+    K, m = S["Ks"][0], S["model"]
+    U = torch.randn((K, m * n), generator=gen, device=device)
+    g = torch.randn(m * n, generator=gen, device=device)
+    G, c = gram_and_cross(U, g)
+    Gs = torch.zeros_like(G)
+    cs = torch.zeros_like(c)
+    for b in range(m):
+        Gb, cb = gram_and_cross(U[:, b * n:(b + 1) * n].contiguous(),
+                                g[b * n:(b + 1) * n])
+        Gs += Gb
+        cs += cb
+    Gp, cp = gram_and_cross(U, g, backend="torch")
+    r = {"op": "gram", "K": K, "n": m * n, "blocks": m, "dtype": "float32",
+         "sum_vs_whole_rel_err": max(_max_err(Gs, G) / _scale(G),
+                                     _max_err(cs, c) / _scale(c)),
+         "sum_vs_plain_rel_err": max(_max_err(Gs, Gp) / _scale(Gp),
+                                     _max_err(cs, cp) / _scale(cp)),
+         "max_abs_err": max(_max_err(G, Gp), _max_err(c, cp))}
+    need(r["sum_vs_whole_rel_err"] <= TOL[("gram", "float32")]
+         and r["sum_vs_plain_rel_err"] <= TOL[("gram", "float32")],
+         f"train sharded: the sum of {m} column-block grams is "
+         f"{r['sum_vs_whole_rel_err']:.3e} off the whole U's gram, "
+         f"{r['sum_vs_plain_rel_err']:.3e} off plain")
+    rows["gram_block_sum"] = r
+    del U, g, G, Gs, Gp
+    torch.cuda.empty_cache()
+    ne = S["n_expert"]
+    w = torch.randn(ne, generator=gen, device=device).to(torch.bfloat16)
+    U = 0.01 * torch.randn((1, ne), generator=gen, device=device)
+    one = torch.ones(1, device=device)
+    out = weighted_combine(w, U, one)
+    plain = weighted_combine(w, U, one, backend="torch")
+    lib = torch.empty_like(w)
+    r = {"op": "combine", "K": 1, "n": ne, "dtype": "float32",
+         "w_dtype": "bfloat16",
+         "max_abs_err": float((out.float() - plain.float()).abs().max()),
+         "ms": time_ms(lambda: weighted_combine(w, U, one, out=out), reps=20),
+         "plain_ms": time_ms(lambda: weighted_combine(
+             w, U, one, backend="torch"), reps=5),
+         # one call writing bf16, as the kernel: w + U in f32, rounded once
+         "library_ms": time_ms(lambda: torch.add(w, U[0], out=lib), reps=20),
+         **combine_bound(1, ne, torch.float32, torch.bfloat16)}
+    need(r["max_abs_err"] <= TOL[("combine", "bfloat16")],
+         f"train sharded: combine at n = {ne} {r['max_abs_err']:.3e} off "
+         "plain")
+    rows["combine_expert_block"] = r
+    del w, U, out, plain, lib
+    torch.cuda.empty_cache()
+    for key, r in rows.items():
+        log(f"train sharded kernel row {key}: {r['op']} K={r['K']} "
+            f"n={r['n']} {r['dtype']}"
+            + (f": the sum of {r['blocks']} column blocks' grams "
+               f"{r['sum_vs_whole_rel_err']:.3e} off the whole U's gram, "
+               f"{r['sum_vs_plain_rel_err']:.3e} off plain (gate "
+               f"{TOL[('gram', 'float32')]})" if "blocks" in r else
+               (f" (w {r['w_dtype']})" if "w_dtype" in r else "")
+               + f": {r['ms'] * 1e3:.1f} us "
+               f"against the {r['bound_ms'] * 1e3:.1f} us bound by "
+               f"{r['bound_by']} ({r['bound_ms'] / r['ms']:.1%}); plain "
+               f"{r['plain_ms'] * 1e3:.1f} us, library "
+               f"{r['library_ms'] * 1e3:.1f} us; max |err| vs plain "
+               f"{r['max_abs_err']:.3e}"))
+    return rows
+
+
 def train_phase(smi_line: str, device: str = "cuda",
                 reduced: bool = False) -> dict:
     """The ``train`` phase (see ``TRAIN``): (a) the entry point at full
     width, (b) four cohorts at full width, the path's kernel shapes timed
     (the combine at 2³¹ + 8 elements, the gram of olmoe's scope), (c) card
-    = CPU under each remat policy, (d) the collectives on NCCL.  The
-    path's counts are (a)'s and (b)'s runs alone."""
+    = CPU under each remat policy, (d) the collectives on NCCL, (e) the
+    placed step on a one-rank NCCL group against the unplaced one, and
+    the placed step's kernel shapes on a 16-wide 'model' axis.  The
+    path's counts are (a)'s, (b)'s and (e)'s first placed step's."""
     entry = train_entry(smi_line, device, reduced)
     cohorts = train_cohorts(smi_line, device, reduced)
+    placed = train_placed(smi_line, device, reduced)
     counts = dict(entry["counts"])
-    for k, v in cohorts["counts"].items():
+    for k, v in list(cohorts["counts"].items()) + list(
+            placed["counts"].items()):
         counts[k] = counts.get(k, 0) + v
     rows = (train_kernel_rows(device) if not reduced else
             train_kernel_rows(device, (1 << 20) + 8, 1 << 16))
+    rows["sharded"] = train_sharded_rows(device, None if not reduced else
+                                         dict(n_scope=4104, n_expert=1 << 16))
     return {"counts": counts, "models": {
         TRAIN["arch"]: entry["record"],
         TRAIN_COHORTS["arch"]: cohorts["record"]},
+        "placed": placed["record"],
         "kernel_rows": rows, "card_vs_cpu": train_card_vs_cpu(device),
         "collectives": train_nccl(device)}
 
@@ -5407,22 +5865,33 @@ def roofline_phase(smi_line: str, records: dict) -> dict:
             "trace_s": rec["trace_s"], "process_s": secs,
             "dry_run": rec}
 
-    # (c) the production combinations
+    # (c) the production combinations: the train step placed ("tp"), the
+    # decode steps replicated
     for tag, rec in production.items():
         need(rec["status"] == "ok", f"roofline (c) {tag}: {rec['status']}")
         arch, shape_name, mesh = tag.split("|")
         a = analytic_roofline(get_config(arch), INPUT_SHAPES[shape_name],
                               pods=2 if mesh == "multi" else 1)
         m, r = rec["memory"], rec["roofline"]
-        log(f"roofline (c) {tag} on a fake group of {r['num_chips']} ranks: "
-            f"traced in {rec['trace_s']} s; per-rank peak "
-            f"{m['peak_bytes'] / 2**30:.2f} GiB, fits {m['fits']} (sharded "
-            f"arguments {m['sharded_argument_bytes'] / 2**30:.2f} GiB a "
-            f"device, the port's replicated {m['argument_size_in_bytes'] / 2**30:.2f}"
-            f" GiB); per-rank {rec['cost']['flops'] / 1e12:.3f} TFLOP beside "
-            f"the analytic {a.flops / 1e12:.3f} TFLOP a device "
-            f"({rec['cost']['flops'] / a.flops:.1f}x); collectives "
+        ratio = rec["cost"]["flops"] / a.flops
+        args = m["argument_size_in_bytes"] / m["sharded_argument_bytes"] - 1
+        log(f"roofline (c) {tag} on a fake group of {r['num_chips']} ranks "
+            f"({rec['placement']}): traced in {rec['trace_s']} s; per-rank "
+            f"peak {m['peak_bytes'] / 2**30:.2f} GiB, fits {m['fits']} "
+            f"(sharded arguments {m['sharded_argument_bytes'] / 2**30:.3f} "
+            f"GiB a device, the port's {m['argument_size_in_bytes'] / 2**30:.3f}"
+            f" GiB: {args:+.2%}); per-rank {rec['cost']['flops'] / 1e12:.3f} "
+            f"TFLOP beside the analytic {a.flops / 1e12:.3f} TFLOP a device "
+            f"({ratio:.2f}x); collectives "
             f"{ {k: v for k, v in rec['collectives'].items() if v} }")
+        if shape_name.startswith("train"):
+            need(rec["placement"] == "tp" and m["fits"]
+                 and ratio <= ROOFLINE_PLACED_FLOPS_MAX
+                 and abs(args) <= ROOFLINE_PLACED_ARGS_TOL,
+                 f"roofline (c) {tag}: placement {rec['placement']}, fits "
+                 f"{m['fits']}, FLOPs {ratio:.2f}x the analytic (at most "
+                 f"{ROOFLINE_PLACED_FLOPS_MAX}), arguments {args:+.2%} off "
+                 f"the specs' blocks (at most {ROOFLINE_PLACED_ARGS_TOL:.0%})")
         rec["analytic_flops_per_device"] = a.flops
     wall = time.perf_counter() - t0
     log(f"roofline: {wall:.1f} s")

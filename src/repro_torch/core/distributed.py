@@ -19,10 +19,31 @@ the same code runs on gloo (the CPU tests) and NCCL (the card).  A one-rank
 mesh without a process group runs no collective; an emulated mesh
 (``launch.mesh.emulated_mesh``) with more than one coordinate on an axis
 is refused, since its logical devices share one rank.
+
+The placed train step (``launch.steps``) splits one cohort's forward and
+backward over the ``model`` axis, Megatron-style, with the autograd
+collectives below.  Inside :func:`model_parallel` the models read
+:func:`model_shard` and run on the local shards of their weights:
+
+  * :func:`copy_to_model` (identity forward, all-reduce backward) where a
+    tensor every rank holds whole enters a computation each rank does a
+    part of, and :func:`reduce_from_model` (all-reduce forward, identity
+    backward) where the parts are summed back: so every replicated leaf's
+    grad is whole and the same on every rank;
+  * :func:`gather_from_model` (all-gather of the last dim; backward: this
+    rank's slice) for a column-parallel output that the whole stream reads;
+  * :func:`cols_to_rows` / :func:`rows_to_cols` (all-to-all) to trade a
+    column shard of every row for every column of a row shard,
+    :func:`gather_for_rows` (all-gather of the last dim; backward:
+    reduce-scatter) for a tensor that each rank's part reads whole, and
+    :func:`sum_for_parts` (all-reduce both ways) for a sum each part
+    reads.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import contextlib
+from dataclasses import dataclass
+from typing import Any, Iterator, Optional, Sequence, Tuple
 
 import torch
 
@@ -71,6 +92,28 @@ def all_reduce_sum(mesh: Mesh, t: torch.Tensor,
         t = t.contiguous()
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group(axis))
     return t
+
+
+def all_gather_dim(mesh: Mesh, t: torch.Tensor, dim: int,
+                   axes: Sequence[str]) -> torch.Tensor:
+    """:func:`all_gather_rows` along ``dim``: every rank's block of that
+    dim, in coordinate order over ``axes``."""
+    return all_gather_rows(mesh, t.movedim(dim, 0), axes).movedim(0, dim)
+
+
+def reduce_scatter_dim(mesh: Mesh, t: torch.Tensor, dim: int,
+                       axis: str) -> torch.Tensor:
+    """The sum over ``axis`` of every rank's ``t``, this rank's block of
+    ``dim`` only (the inverse placement of :func:`all_gather_dim`)."""
+    import torch.distributed as dist
+    if not _live_axes(mesh, (axis,)):
+        return t
+    moved = t.movedim(dim, 0).contiguous()
+    out = torch.empty((moved.shape[0] // mesh.shape[axis],)
+                      + tuple(moved.shape[1:]), dtype=t.dtype,
+                      device=t.device)
+    dist.reduce_scatter_tensor(out, moved, group=mesh.group(axis))
+    return out.movedim(0, dim)
 
 
 def _axes(axis: Optional[str]) -> Tuple[str, ...]:
@@ -138,3 +181,224 @@ def hierarchical_contextual_combine(mesh: Mesh, u_shard: torch.Tensor,
     alpha_pods = solve_alpha_simple(G2, c2, beta, ridge)
     combined = sharded_combine(mesh, intra, alpha_pods, pod_axis)
     return combined, alpha_intra, alpha_pods
+
+
+# ---------------------------------------------------- tensor parallelism
+
+@dataclass(frozen=True)
+class ModelShard:
+    """This rank's place on the ``model`` axis of a placed step: the
+    axis's process group, its size and this rank's coordinate."""
+    group: Any
+    size: int
+    rank: int
+
+
+# a module global, not a context variable: autograd's device threads read
+# it when they recompute a checkpointed layer in the backward pass
+_MODEL_SHARD: Optional[ModelShard] = None
+
+
+@contextlib.contextmanager
+def model_parallel(mesh: Mesh, axis: str = "model") -> Iterator[ModelShard]:
+    """Run the models on this rank's shards of ``axis`` (a mesh of ranks)
+    inside the block; :func:`model_shard` reads it."""
+    global _MODEL_SHARD
+    if mesh.device_mesh is None:
+        raise ValueError(f"model_parallel needs a mesh of ranks, not {mesh!r}")
+    prev = _MODEL_SHARD
+    _MODEL_SHARD = ModelShard(mesh.group(axis), mesh.shape[axis],
+                              mesh.coordinate(axis))
+    try:
+        yield _MODEL_SHARD
+    finally:
+        _MODEL_SHARD = prev
+
+
+def model_shard() -> Optional[ModelShard]:
+    """The active :class:`ModelShard` (None outside :func:`model_parallel`:
+    the models run on whole weights)."""
+    return _MODEL_SHARD
+
+
+def _summed(t: torch.Tensor, group, op=None) -> torch.Tensor:
+    import torch.distributed as dist
+    out = t.contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM if op is None else op,
+                    group=group)
+    return out
+
+
+def _gather_last(t: torch.Tensor, shard: ModelShard) -> torch.Tensor:
+    """(..., c) on every rank → (..., m·c), rank order along the last dim."""
+    import torch.distributed as dist
+    parts = [torch.empty_like(t) for _ in range(shard.size)]
+    dist.all_gather(parts, t.contiguous(), group=shard.group)
+    return torch.cat(parts, dim=-1)
+
+
+def _scatter_last(t: torch.Tensor, shard: ModelShard) -> torch.Tensor:
+    """(..., m·c) on every rank → (..., c): the sum over ranks of each
+    rank's slice ``shard.rank`` (a reduce-scatter of the last dim)."""
+    import torch.distributed as dist
+    m = shard.size
+    c = t.shape[-1] // m
+    lead = t.shape[:-1]
+    chunks = t.reshape(-1, m, c).transpose(0, 1).contiguous()  # (m, R, c)
+    out = torch.empty(chunks.shape[1:], dtype=t.dtype, device=t.device)
+    dist.reduce_scatter_tensor(out, chunks.view(-1, c), group=shard.group)
+    return out.reshape(*lead, c)
+
+
+def _all_to_all(t: torch.Tensor, shard: ModelShard) -> torch.Tensor:
+    import torch.distributed as dist
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t.contiguous(), group=shard.group)
+    return out
+
+
+def _cols_to_rows(t: torch.Tensor, shard: ModelShard) -> torch.Tensor:
+    m = shard.size
+    R, c = t.shape
+    got = _all_to_all(t, shard).view(m, R // m, c)    # block j: rank j's cols
+    return got.transpose(0, 1).reshape(R // m, m * c)
+
+
+def _rows_to_cols(t: torch.Tensor, shard: ModelShard) -> torch.Tensor:
+    m = shard.size
+    r, mc = t.shape
+    c = mc // m
+    sent = t.view(r, m, c).transpose(0, 1).contiguous()  # block j: j's cols
+    return _all_to_all(sent, shard).view(m * r, c)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard = shard
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.shard.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shard):
+        return _summed(x, shard.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard, ctx.c = shard, x.shape[-1]
+        return _gather_last(x, shard)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = ctx.shard.rank
+        return g[..., r * ctx.c:(r + 1) * ctx.c].contiguous(), None
+
+
+class _GatherForRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard = shard
+        return _gather_last(x, shard)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_last(g, ctx.shard), None
+
+
+class _SumForParts(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard = shard
+        return _summed(x, shard.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.shard.group), None
+
+
+class _ColsToRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard = shard
+        return _cols_to_rows(x, shard)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _rows_to_cols(g, ctx.shard), None
+
+
+class _RowsToCols(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard = shard
+        return _rows_to_cols(x, shard)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _cols_to_rows(g, ctx.shard), None
+
+
+def _through(fn, x: torch.Tensor) -> torch.Tensor:
+    shard = _MODEL_SHARD
+    return x if shard is None else fn.apply(x, shard)
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (whole on every rank) entering a per-rank part: identity
+    forward, its grads summed over ``model`` backward."""
+    return _through(_CopyToModel, x)
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """Every rank's part summed over ``model``; identity backward."""
+    return _through(_ReduceFromModel, x)
+
+
+def gather_from_model(x: torch.Tensor) -> torch.Tensor:
+    """A column shard (..., c) → the whole (..., m·c) that every rank then
+    reads alike; backward keeps this rank's columns of the grad."""
+    return _through(_GatherFromModel, x)
+
+
+def gather_for_rows(x: torch.Tensor) -> torch.Tensor:
+    """A column shard (..., c) → the whole (..., m·c) that each rank's row
+    shard reads differently; backward sums every rank's grad of this
+    rank's columns (a reduce-scatter)."""
+    return _through(_GatherForRows, x)
+
+
+def sum_for_parts(x: torch.Tensor) -> torch.Tensor:
+    """Every rank's part summed over ``model`` for a per-rank computation
+    that reads the sum (a norm over a split dim): its grads summed too."""
+    return _through(_SumForParts, x)
+
+
+def cols_to_rows(x: torch.Tensor) -> torch.Tensor:
+    """(R, c): this rank's columns of every row → (R/m, m·c): every column
+    of this rank's block of R/m rows (an all-to-all)."""
+    return _through(_ColsToRows, x)
+
+
+def rows_to_cols(x: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`cols_to_rows`: (R/m, m·c) → (R, c)."""
+    return _through(_RowsToCols, x)
+
+
+def max_over_model(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max of ``x`` over ``model`` (no grad: a shift)."""
+    import torch.distributed as dist
+    shard = _MODEL_SHARD
+    x = x.detach()
+    return x if shard is None else _summed(x, shard.group,
+                                           dist.ReduceOp.MAX)

@@ -22,11 +22,18 @@ and return at once, nothing is sent) — the counterpart of the reference's
 process-global: it is made by :func:`dryrun_one` (the CLI's process, or a
 test's subprocess), never at import.
 
-The port's step replicates the parameters on a mesh of ranks and computes
-one cohort per ``pod``/``data`` coordinate (``launch.steps``), so its
-per-rank FLOPs and memory are a replicated rank's, where the reference's
-GSPMD partitions them.  ``sharded_argument_bytes`` is what the specs would
-place on one device (the reference's ``memory_analysis`` argument size).
+The train step is placed as the reference's GSPMD program is
+(``launch.steps.train_placement``): rank 0 is handed its blocks of the
+params under ``param_pspecs`` and splits its cohort's compute with the
+other ranks of its ``model`` axis ("tp"; from 7 B params the leaves are
+also split over ``data`` and gathered for the step: "fsdp").  A family
+whose models do not run on shards (``launch.steps.TP_FAMILIES``) keeps the
+replicated step, and so do the prefill and decode steps: each record's
+``placement`` says which ("tp" / "fsdp" / "replicated") and
+``placement_note`` why a step replicates.  ``sharded_argument_bytes`` is
+what the specs place on one device (the reference's ``memory_analysis``
+argument size); a placed step's ``argument_size_in_bytes`` is that (its
+blocks of the params and its cohort's rows of the batch).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmoe-1b-7b \\
@@ -50,13 +57,13 @@ import torch
 
 from ..configs import ASSIGNED, get_config
 from ..models.config import ArchConfig
-from ..sharding.specs import map_with_path, spec_leaves
+from ..sharding.specs import map_with_path, shard_shape, spec_leaves
 from . import hlo_analysis
 from .mesh import Mesh, make_mesh, make_production_mesh
 from .shapes import (INPUT_SHAPES, InputShape, TensorSpec, arch_for_shape,
                      fake_mode, input_specs)
 from .steps import (build_decode_step, build_prefill_step, build_train_step,
-                    cache_sds, params_sds)
+                    cache_sds, params_sds, placement_note)
 
 REDUCED_BATCH = 8          # --reduced: the shape cut to this batch
 REDUCED_SEQ = 32           # and this sequence
@@ -83,33 +90,30 @@ def fake_mesh(shape: Sequence[int]) -> Mesh:
     return make_mesh(tuple(shape), axes)
 
 
-def to_fake(tree):
+def _block(a: TensorSpec) -> tuple:
+    return shard_shape(tuple(a.shape), a.sharding.spec, a.sharding.mesh)
+
+
+def to_fake(tree, local: bool = False):
     """Each :class:`TensorSpec` or tensor leaf as an empty tensor of its
     shape and dtype on ``meta`` — a fake tensor when called under
-    ``fake_mode()``."""
-    return map_with_path(tree, lambda path, a: torch.empty(
-        a.shape, dtype=a.dtype, device="meta")
-        if isinstance(a, (TensorSpec, torch.Tensor)) else a)
+    ``fake_mode()``; ``local``: a :class:`TensorSpec` as the block its spec
+    places on one rank."""
+    def fake(path, a):
+        if not isinstance(a, (TensorSpec, torch.Tensor)):
+            return a
+        shape = _block(a) if local and isinstance(a, TensorSpec) else a.shape
+        return torch.empty(shape, dtype=a.dtype, device="meta")
+    return map_with_path(tree, fake)
 
 
 def sharded_bytes(tree) -> int:
     """Σ over the :class:`TensorSpec` leaves of the bytes of the shard that
     its spec places on one device (each sharded dim cut by the product of
     its axes, rounded up)."""
-    total = 0
-    for _, leaf in spec_leaves(tree):
-        if not isinstance(leaf, TensorSpec):
-            continue
-        shard = 1
-        spec = tuple(leaf.sharding.spec) + (None,) * (
-            len(leaf.shape) - len(leaf.sharding.spec))
-        for dim, names in zip(leaf.shape, spec):
-            names = () if names is None else (
-                (names,) if isinstance(names, str) else names)
-            ways = math.prod(leaf.sharding.mesh.shape[a] for a in names)
-            shard *= -(-int(dim) // ways)
-        total += shard * leaf.tensor.element_size()
-    return total
+    return sum(math.prod(_block(leaf)) * leaf.tensor.element_size()
+               for _, leaf in spec_leaves(tree)
+               if isinstance(leaf, TensorSpec))
 
 
 def _storages(tree) -> set:
@@ -145,12 +149,17 @@ def dryrun_step(cfg: ArchConfig, mesh: Mesh, shape: InputShape,
     if shape.kind == "train":
         step = build_train_step(cfg, mesh, shape, aggregator=aggregator,
                                 **extra)
-    elif shape.kind == "prefill":
-        step = build_prefill_step(cfg, mesh, shape)
+        placement = step.placement
+        note = placement_note(cfg, placement)
     else:
-        step = build_decode_step(cfg, mesh, shape)
+        step = (build_prefill_step if shape.kind == "prefill"
+                else build_decode_step)(cfg, mesh, shape)
+        placement = "replicated"
+        note = (f"the {shape.kind} step is not placed: params and caches "
+                "whole on every rank")
+    placed = placement != "replicated"
     with fake_mode():
-        args = tuple(to_fake(tree) for tree in specs.values())
+        args = tuple(to_fake(tree, local=placed) for tree in specs.values())
         with hlo_analysis.TraceCost(args) as tc:
             t0 = time.perf_counter()
             out = step(*args)
@@ -166,7 +175,8 @@ def dryrun_step(cfg: ArchConfig, mesh: Mesh, shape: InputShape,
                                   model_flops(cfg, shape),
                                   num_chips=mesh.size)
     return {
-        "status": "ok", "window_variant": cfg.sliding_window,
+        "status": "ok", "placement": placement, "placement_note": note,
+        "window_variant": cfg.sliding_window,
         "trace_s": round(trace_s, 2), "cost": tc.cost,
         "memory": {"argument_size_in_bytes": arg_bytes,
                    "sharded_argument_bytes": sharded_bytes(specs),
@@ -224,6 +234,7 @@ def _line(rec: dict) -> str:
                   f"coll={r['collective_s']:.3e}s "
                   f"bottleneck={r['bottleneck']} "
                   f"peak={m['peak_bytes'] / 2**30:.2f}GiB fits={m['fits']} "
+                  f"placement={rec['placement']} "
                   f"trace={rec['trace_s']}s")
     elif rec["status"] == "fail":
         detail = " " + rec["error"].splitlines()[0][:160]

@@ -152,7 +152,10 @@ def _dispatch_counter():
             if ns == "c10d":
                 kind = _C10D_KIND.get(name)
                 if kind is not None:
-                    moved = out if name != "send" else args
+                    # send and alltoall_base_ return no tensor: their
+                    # payload is the sent tensor, the filled output
+                    moved = (args if name == "send" else args[0]
+                             if name == "alltoall_base_" else out)
                     nbytes = tensor_bytes(moved)
                     self.collectives[kind] += nbytes
                     self.collectives["count"] += 1

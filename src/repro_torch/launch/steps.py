@@ -17,11 +17,32 @@
 
 On one rank (a host mesh, or an emulated mesh of any shape) every cohort
 runs on it in turn, each Δ written into a preallocated stacked leaf.  On a
-mesh of ranks params are replicated: a rank computes the cohort at its
-``pod``/``data`` coordinates (ranks along ``model`` compute the same one,
-as the reference's result does not depend on that axis), the scoped rows
-of U are all-gathered over the cohort axes and the α-weighted combine is
-all-reduced over them, so every rank ends with the same params.
+mesh of ranks a rank computes the cohort at its ``pod``/``data``
+coordinates, and the step is placed (:func:`train_placement`):
+
+  * ``"tp"``: every leaf is this rank's block under
+    ``param_pspecs(mode="tp")`` (``sharding.place_params``) and the batch
+    is its cohort's rows (``sharding.place_batch``); the ranks
+    along ``model`` split their cohort's forward and backward
+    (``core.distributed.model_parallel``: column- / row-parallel
+    projections, vocab-parallel embedding and loss, expert-parallel MoE,
+    head-parallel Mamba2 and RWKV6);
+    the scoped U is this rank's columns (a leaf whole on every ``model``
+    rank counted on the first one only), its rows all-gathered over the
+    cohort axes, G and c from the ``gram`` op on those columns summed over
+    ``model``, α solved on every rank; each leaf's α_k Δ_k is all-reduced
+    over the cohort axes and combined into the local block;
+  * ``"fsdp"`` (≥ ``FSDP_THRESHOLD`` params): "tp" with the leaves also
+    split over ``data``, all-gathered over ``data`` once a step for the
+    cohort's compute; their α_k Δ_k is reduce-scattered over ``data``
+    (all-reduced over ``pod``) back to the local block;
+  * ``"replicated"`` (``mode="dp"``, ``dp_only``, or a model that does
+    not run on shards: the logistic model): every rank holds every leaf
+    whole, ranks along ``model`` compute the same cohort, the scoped rows
+    of U are all-gathered and the combine all-reduced over the cohort
+    axes.
+
+Every rank ends with its block of the same new params.
 
 ``build_prefill_step`` / ``build_decode_step`` are the serving programs for
 the inference shapes.
@@ -29,19 +50,23 @@ the inference shapes.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, List, Tuple
+import re
+from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
-from ..core.distributed import all_gather_rows, all_reduce_sum
+from ..core.distributed import (all_gather_dim, all_gather_rows,
+                                all_reduce_sum, model_parallel,
+                                reduce_scatter_dim)
 from ..core.flatten import (tree_leaves, tree_leaves_with_path,
                             tree_unflatten)
 from ..core.solve import solve_alpha_simple
 from ..kernels.ops import gram_and_cross, weighted_combine
 from ..models.config import ArchConfig
 from ..models.registry import get_model
-from ..sharding.specs import (cache_pspecs, map_with_path, named,
-                              param_pspecs, spec_leaves)
+from ..sharding.specs import (FSDP_THRESHOLD, cache_pspecs, dropped_axes,
+                              map_with_path, named, param_pspecs,
+                              spec_leaves)
 from .mesh import Mesh
 from .shapes import InputShape, TensorSpec, fake_mode, meta_params, to_meta
 
@@ -108,16 +133,71 @@ def cache_sds(cfg: ArchConfig, mesh: Mesh, shape: InputShape) -> Pytree:
 
 # --------------------------------------------------------------- train step
 
+# families whose models run on 'model' shards (``core.distributed.
+# model_parallel``); the others (logreg) keep the replicated step on a
+# mesh of ranks
+TP_FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")
+# a vocabulary leaf may stay whole over 'model' (its dim does not divide):
+# the models then look up, project and take the loss on the whole of it
+_WHOLE_OK = re.compile(r"(^|/)(embed|lm_head)$")
+
+
+def train_placement(cfg: ArchConfig, mesh: Mesh, mode: str = "tp",
+                    dp_only: bool = False) -> str:
+    """How :func:`build_train_step` holds the params: ``"tp"``,
+    ``"fsdp"`` or ``"replicated"`` (a one-rank mesh without a process
+    group and an emulated mesh always replicate)."""
+    if mode not in ("tp", "dp"):
+        raise ValueError(f"unknown placement mode {mode!r}")
+    if (mode == "dp" or dp_only or mesh.device_mesh is None
+            or cfg.family not in TP_FAMILIES):
+        return "replicated"
+    return ("fsdp" if cfg.param_count_estimate() >= FSDP_THRESHOLD
+            else "tp")
+
+
+def placement_note(cfg: ArchConfig, placement: str) -> Optional[str]:
+    """Why a step on a mesh of ranks is replicated, where that is the
+    family's doing (None otherwise)."""
+    if placement == "replicated" and cfg.family not in TP_FAMILIES:
+        return (f"family {cfg.family!r} keeps the replicated step: its "
+                "model does not run on 'model' shards")
+    return None
+
+
+def _placed_layout(cfg: ArchConfig, mesh: Mesh) -> Tuple[list, list]:
+    """Per leaf, in flattening order: the dim split over ``data`` (None)
+    and whether the leaf is split over ``model``.  Raises when a rule's
+    axis does not divide its dim (the rules would replicate it), but for a
+    vocabulary leaf's ``model`` axis, which the models run whole."""
+    shapes = meta_params(cfg)
+    bad = [(path, dim, axis) for path, dim, axis in
+           dropped_axes(cfg, shapes, mesh)
+           if not (axis == "model" and _WHOLE_OK.search(path))]
+    if bad:
+        raise ValueError(
+            f"{cfg.name} on {dict(mesh.shape)}: the placed step needs every "
+            "rule's axis to divide its dim; these do not: " + ", ".join(
+                f"{path} dim {dim} over {axis!r}" for path, dim, axis in bad))
+    data_dim, split = [], []
+    for _, spec in spec_leaves(param_pspecs(cfg, shapes, mesh, "tp")):
+        axes = [(d, n if isinstance(n, tuple) else (n,))
+                for d, n in enumerate(spec) if n is not None]
+        data_dim.append(next((d for d, n in axes if "data" in n), None))
+        split.append(any("model" in n for _, n in axes))
+    return data_dim, split
+
+
 def _scoped_matrix(updates: Pytree, scope_paths: Tuple[str, ...],
                    C: int) -> torch.Tensor:
     """The gram-scope slice of stacked updates as (C, n_scope) f32 (every
     leaf when none matches: small models, or a tied head's lone norm)."""
     flat = tree_leaves_with_path(updates)
-    picked = [leaf.reshape(C, -1).float() for name, leaf in flat
-              if any(s in name for s in scope_paths)]
-    if not picked:
-        picked = [leaf.reshape(C, -1).float() for _, leaf in flat]
-    return torch.cat(picked, dim=1)
+    picked = [leaf for name, leaf in flat
+              if any(s in name for s in scope_paths)] or [
+                  leaf for _, leaf in flat]
+    return torch.cat([leaf.reshape(C, leaf.numel() // C).float()
+                      for leaf in picked], dim=1)
 
 
 def _loss_and_grads(loss_fn: Callable, params: Pytree, batch
@@ -137,22 +217,37 @@ def build_train_step(cfg: ArchConfig, mesh: Mesh, shape: InputShape, *,
                      local_steps: int = 1,
                      gram_scope: Tuple[str, ...] = ("lm_head", "final_norm"),
                      ridge: float = 1e-6, remat="full", dp_only: bool = False,
-                     server_momentum: float = 0.0) -> Callable:
+                     server_momentum: float = 0.0, mode: str = "tp"
+                     ) -> Callable:
     """Returns ``train_step(params, batch) -> (params, metrics)`` — or, when
     ``server_momentum > 0``, ``train_step((params, velocity), batch)`` with
     an f32 velocity tree (FedAvgM-style: v ← μv + Σα_kΔ_k; w ← w + v).
 
     ``dp_only=True`` treats every mesh axis as data parallelism.  ``remat``:
-    False | "full" | "dots" (``models.transformer.remat_wrap``).  The
-    metrics are ``loss`` (the mean of the cohorts' losses at w₀),
-    ``alpha`` (C,) and, for the contextual aggregator, ``gram_diag_mean``
-    and ``bound`` (Theorem 1's g(α), negative at α*)."""
+    False | "full" | "dots" (``models.transformer.remat_wrap``).  ``mode``:
+    "tp" places the params by ``param_pspecs`` on a mesh of ranks, "dp"
+    replicates them (:func:`train_placement`; the step's ``placement``
+    attribute says which): a placed step takes and returns this rank's
+    blocks (``sharding.place_params``), the velocity's too, and takes its
+    cohort's rows of the batch (``sharding.place_batch``).  The metrics
+    are ``loss`` (the mean of the cohorts' losses at w₀), ``alpha`` (C,)
+    and, for the contextual aggregator, ``gram_diag_mean`` and ``bound``
+    (Theorem 1's g(α), negative at α*)."""
     bundle = get_model(cfg)
     C = num_cohorts(mesh, dp_only, shape.global_batch)
     beta = 1.0 / lr                      # paper §III-B: β = 1/l
     caxes = cohort_axes(mesh, dp_only, shape.global_batch)
     caxes = (caxes,) if isinstance(caxes, str) else tuple(caxes)
     ranked = mesh.device_mesh is not None
+    placement = train_placement(cfg, mesh, mode, dp_only)
+    placed = placement != "replicated"
+    if placed:
+        if shape.global_batch % C:
+            raise ValueError(
+                f"the placed step splits the batch of {shape.global_batch} "
+                f"rows into {C} cohorts over {caxes}: it does not divide")
+        data_dim, split = _placed_layout(cfg, mesh)
+        first_model_rank = mesh.coordinate("model") == 0
     if ranked:
         k = 0
         for a in caxes:
@@ -194,11 +289,26 @@ def build_train_step(cfg: ArchConfig, mesh: Mesh, shape: InputShape, *,
         leaves = tree_leaves(params)
         B = next(iter(batch.values())).shape[0]
         rows = B // C
+        if placed and B != shape.global_batch // C:
+            raise ValueError(
+                f"the placed step takes this rank's cohort of "
+                f"{shape.global_batch // C} rows (sharding.place_batch), "
+                f"not {B}")
         stacked, losses = None, []
         for i, k in enumerate(local):
-            cohort = {name: x[k * rows:(k + 1) * rows]
-                      for name, x in batch.items()}
-            delta, l0 = cohort_update(params, cohort)
+            cohort = batch if placed else {
+                name: x[k * rows:(k + 1) * rows] for name, x in batch.items()}
+            if placed:
+                # FSDP leaves whole over 'data' for the cohort's compute
+                work = tree_unflatten(params, [
+                    p if dim is None else all_gather_dim(mesh, p, dim,
+                                                         ("data",))
+                    for p, dim in zip(leaves, data_dim)])
+                with model_parallel(mesh):
+                    delta, l0 = cohort_update(work, cohort)
+                del work
+            else:
+                delta, l0 = cohort_update(params, cohort)
             losses.append(l0)
             if len(local) == 1:
                 stacked = [d.unsqueeze(0) for d in delta]
@@ -221,13 +331,25 @@ def build_train_step(cfg: ArchConfig, mesh: Mesh, shape: InputShape, *,
             info = {}
         else:
             # ∇f estimate, K₂=0 form: mean of local first-step directions
-            U = _scoped_matrix(tree_unflatten(params, stacked), gram_scope,
+            # placed: this rank's columns; a leaf whole on every 'model'
+            # rank counts on the first one only
+            held = stacked if not placed else [
+                d if split[j] or first_model_rank else
+                d.new_empty((d.shape[0], 0)) for j, d in enumerate(stacked)]
+            U = _scoped_matrix(tree_unflatten(params, held), gram_scope,
                                len(local))
             if ranked:
                 U = all_gather_rows(mesh, U, caxes)
             gvec = -U.mean(0) / (lr * local_steps)
-            G, c = gram_and_cross(U, gvec)
+            if U.shape[1]:
+                G, c = gram_and_cross(U, gvec)
+            else:
+                G = U.new_zeros((U.shape[0], U.shape[0]))
+                c = U.new_zeros((U.shape[0],))
             del U, gvec
+            if placed:
+                G = all_reduce_sum(mesh, G, ("model",))
+                c = all_reduce_sum(mesh, c, ("model",))
             alpha = solve_alpha_simple(G, c, beta, ridge)
             info = {"gram_diag_mean": torch.diagonal(G).mean(),
                     "bound": c @ alpha + 0.5 * beta * alpha @ G @ alpha}
@@ -237,6 +359,7 @@ def build_train_step(cfg: ArchConfig, mesh: Mesh, shape: InputShape, *,
         a_local = alpha[local[0]:local[-1] + 1]
         v_leaves = None if velocity is None else tree_leaves(velocity)
         new, new_velocity = [], []
+        stacked_shape = [tuple(d.shape[1:]) for d in stacked]
         for j, p in enumerate(leaves):
             U_j, stacked[j] = stacked[j].reshape(len(local), -1), None
             a_j = a_local
@@ -244,7 +367,13 @@ def build_train_step(cfg: ArchConfig, mesh: Mesh, shape: InputShape, *,
                 # the combined update in f32 (all-reduced over the cohort
                 # axes), then applied by the combine op with weight 1
                 comb = torch.einsum("k,kn->n", a_local, U_j.float())
-                if ranked:
+                if placed and data_dim[j] is not None:
+                    whole = stacked_shape[j]
+                    comb = reduce_scatter_dim(mesh, comb.view(whole),
+                                              data_dim[j], "data")
+                    comb = all_reduce_sum(mesh, comb, tuple(
+                        a for a in caxes if a != "data")).reshape(-1)
+                elif ranked:
                     comb = all_reduce_sum(mesh, comb, caxes)
                 if v_leaves is not None:
                     comb = (server_momentum * v_leaves[j].float().reshape(-1)
@@ -261,6 +390,7 @@ def build_train_step(cfg: ArchConfig, mesh: Mesh, shape: InputShape, *,
             return (new_params, tree_unflatten(params, new_velocity)), metrics
         return new_params, metrics
 
+    train_step.placement = placement
     return train_step
 
 

@@ -12,7 +12,10 @@ token stream, bit for bit.
       --steps 3 --batch 8 --seq 128       # full width on the card
 
 Without ``--reduced`` every layer is checkpointed (``remat="full"``), as
-the reference's run.
+the reference's run.  On a mesh of ranks the step is placed
+(``launch.steps.train_placement``): each rank holds its blocks of the
+params (``sharding.place_params``) and takes its cohort's rows of each
+batch, the ranks along ``model`` splitting the cohort's compute.
 """
 from __future__ import annotations
 
@@ -28,8 +31,9 @@ from ..configs import get_config
 from ..data.synthetic import make_token_stream
 from ..device import DeviceLike, resolve_device
 from ..models.registry import get_model
+from ..sharding import param_pspecs, place_batch, place_params
 from .mesh import make_host_mesh, make_production_mesh
-from .shapes import InputShape
+from .shapes import InputShape, meta_params
 from .steps import build_train_step
 
 
@@ -94,13 +98,20 @@ def run(args: argparse.Namespace,
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     params = bundle.init(gen)
+    placed = step.placement != "replicated"
+    if placed:
+        params = place_params(mesh, params, param_pspecs(
+            cfg, meta_params(cfg), mesh, "tp"))
     print(f"arch={cfg.name} params={cfg.param_count_estimate()/1e6:.1f}M "
-          f"mesh={dict(mesh.shape)} aggregator={args.aggregator}",
-          flush=True)
+          f"mesh={dict(mesh.shape)} "
+          + (f"placement={step.placement} " if placed else "")
+          + f"aggregator={args.aggregator}", flush=True)
     history = []
     t_last = time.time()
     for i, batch in enumerate(make_batches(cfg, bundle, args.batch, args.seq,
                                            args.steps, device=dev)):
+        if placed:
+            batch = place_batch(mesh, batch)
         if dev.type == "cuda":
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()

@@ -10,6 +10,13 @@ Prefill attention (``naive_attention``, and ``flash_attention`` past
 jnp outside any Pallas kernel.  The serving engine's decode step
 (:func:`attention_decode_slots`) goes through the ``flash_decode`` kernel.
 
+Inside ``core.distributed.model_parallel`` (the placed train step)
+:func:`attention_forward` runs on this rank's columns of ``wq`` / ``wk`` /
+``wv`` (and ``bq`` / ``bk`` / ``bv``) and rows of ``wo``: on whole local
+heads when the heads and KV heads divide over ``model``, else on a block
+of whole-head rows (:func:`_attend_row_block`); the output projection's
+parts are summed over ``model``.
+
 Caches are updated in place: the reference returns new arrays, the port
 writes the new rows into the tensors it was given and returns them, so the
 serving engine keeps one (L, B, S, KV, hd) cache and never copies it.
@@ -20,6 +27,9 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..core.distributed import (ModelShard, cols_to_rows, copy_to_model,
+                                gather_for_rows, model_shard,
+                                reduce_from_model, rows_to_cols)
 from .config import ArchConfig
 from .layers import apply_rope, dense_init, matmul, rms_norm, softcap
 
@@ -61,12 +71,8 @@ def _project_qkv(cfg: ArchConfig, params: Dict, x: torch.Tensor,
     q = q.reshape(B, S, cfg.num_heads, hd)
     k = k.reshape(B, S, cfg.num_kv_heads, hd)
     v = v.reshape(B, S, cfg.num_kv_heads, hd)
-    if cfg.qk_norm:
-        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
-    if use_rope and positions is not None:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+    q, k = _norm_rope(cfg, params, q, k, positions, positions,
+                      use_rope and positions is not None, cfg.qk_norm)
     return q, k, v
 
 
@@ -168,37 +174,136 @@ def attention_forward(cfg: ArchConfig, params: Dict, x: torch.Tensor,
     """Full-sequence attention (train / prefill).  Returns out (B,S,d) and
     optionally the (k, v) tensors for KV-cache seeding."""
     B, S, _ = x.shape
+    attend = naive_attention if S <= flash_threshold else flash_attention
+    kwargs = dict(mode=mode, window=window,
+                  logit_softcap=cfg.attn_logit_softcap)
+    shard = model_shard()
+    if shard is not None:
+        if return_kv:
+            raise NotImplementedError(
+                "a K/V cache of a model-parallel attention (the placed "
+                "prefill) is not ported; the placed step is the train step")
+        return _attention_sharded(cfg, params, x, positions, use_rope,
+                                  shard, attend, kwargs)
     q, k, v = _project_qkv(cfg, params, x, positions, use_rope)
-    kwargs = dict(q_positions=positions, k_positions=positions, mode=mode,
-                  window=window, logit_softcap=cfg.attn_logit_softcap)
-    if S <= flash_threshold:
-        o = naive_attention(q, k, v, **kwargs)
-    else:
-        o = flash_attention(q, k, v, **kwargs)
+    o = attend(q, k, v, q_positions=positions, k_positions=positions,
+               **kwargs)
     out = matmul(o.reshape(B, S, -1), params["wo"])
     if return_kv:
         return out, (k, v)
     return out
 
 
+def _attention_sharded(cfg: ArchConfig, params: Dict, x: torch.Tensor,
+                       positions: torch.Tensor, use_rope: bool, shard,
+                       attend, kwargs) -> torch.Tensor:
+    """:func:`attention_forward` on this rank's shards (``_sharded_heads``);
+    ``wo``'s rows of its columns, the parts summed over ``model``.  The
+    qk-norm weights, whole on every rank, get their grads summed over
+    ``model``."""
+    p = dict(params)
+    for name in ("q_norm", "k_norm"):
+        if name in p:
+            p[name] = copy_to_model(p[name])
+    x = copy_to_model(x)
+    q, k, v = (matmul(x, p[w]) for w in ("wq", "wk", "wv"))
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    o = _sharded_heads(cfg, p, q, k, v, positions, positions, use_rope,
+                       cfg.qk_norm, shard, attend, kwargs)
+    return reduce_from_model(matmul(o, p["wo"]))
+
+
+def _norm_rope(cfg: ArchConfig, p: Dict, q, k, q_pos, k_pos,
+               use_rope: bool, norm: bool):
+    """Head-shaped q / k with the qk-norm (``norm``) and RoPE at their
+    positions (``use_rope``) applied."""
+    if norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if use_rope:
+        q = apply_rope(q, q_pos, cfg.rope_theta)
+        k = apply_rope(k, k_pos, cfg.rope_theta)
+    return q, k
+
+
+def _sharded_heads(cfg: ArchConfig, p: Dict, q: torch.Tensor,
+                   k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tensor,
+                   k_pos: torch.Tensor, use_rope: bool, norm: bool, shard,
+                   attend, kwargs) -> torch.Tensor:
+    """Attention of this rank's projection columns — q (B, Sq, ·), k and v
+    (B, Sk, ·), biases added — on its H/m heads and KV/m KV heads where
+    both divide over ``model`` (head-parallel), else on a block of
+    whole-head rows (:func:`_attend_row_block`).  Returns this rank's
+    columns of the output (B, Sq, ·)."""
+    B, Sq, _ = q.shape
+    m, hd = shard.size, cfg.resolved_head_dim
+    if cfg.num_heads % m or cfg.num_kv_heads % m:
+        return _attend_row_block(cfg, p, q, k, v, q_pos, k_pos, use_rope,
+                                 norm, shard, attend, kwargs)
+    q = q.reshape(B, Sq, cfg.num_heads // m, hd)
+    k, v = (t.reshape(B, t.shape[1], cfg.num_kv_heads // m, hd)
+            for t in (k, v))
+    q, k = _norm_rope(cfg, p, q, k, q_pos, k_pos, use_rope, norm)
+    o = attend(q, k, v, q_positions=q_pos, k_positions=k_pos, **kwargs)
+    return o.reshape(B, Sq, -1)
+
+
+def _attend_row_block(cfg: ArchConfig, p: Dict, q: torch.Tensor,
+                      k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tensor,
+                      k_pos: torch.Tensor, use_rope: bool, norm: bool, shard,
+                      attend, kwargs) -> torch.Tensor:
+    """Attention with heads that do not divide over ``model`` (qwen3's 40
+    on 16 ranks): q's column shard of all B·Sq rows becomes every head of
+    this rank's block of B·Sq/m rows (an all-to-all), K/V are gathered
+    whole, the block's queries attend to their sequences' keys, and the
+    output goes back to a column shard of every row.  A block is whole
+    sequences or a run of positions of one sequence."""
+    B, Sq, _ = q.shape
+    Sk = k.shape[1]
+    m, r = shard.size, shard.rank
+    hd = cfg.resolved_head_dim
+    T = B * Sq
+    rows = T // m
+    if T % m or (rows % Sq and Sq % rows):
+        raise NotImplementedError(
+            f"a row block of {T}/{m} tokens must be whole sequences of {Sq} "
+            "or a run within one")
+    q = cols_to_rows(q.reshape(T, -1))
+    k, v = (gather_for_rows(t.reshape(B * Sk, -1)) for t in (k, v))
+    first = r * rows
+    seqs = max(rows // Sq, 1)
+    b0 = first // Sq
+    q_pos = q_pos if rows >= Sq else q_pos[first % Sq:first % Sq + rows]
+    q = q.reshape(seqs, len(q_pos), cfg.num_heads, hd)
+    k, v = (t.reshape(B, Sk, cfg.num_kv_heads, hd)[b0:b0 + seqs]
+            for t in (k, v))
+    q, k = _norm_rope(cfg, p, q, k, q_pos, k_pos, use_rope, norm)
+    o = attend(q, k, v, q_positions=q_pos, k_positions=k_pos, **kwargs)
+    return rows_to_cols(o.reshape(rows, -1)).reshape(B, Sq, -1)
+
+
 def cross_attention_forward(cfg: ArchConfig, params: Dict, x: torch.Tensor,
                             enc_k: torch.Tensor, enc_v: torch.Tensor
                             ) -> torch.Tensor:
     """Decoder cross-attention (whisper): queries of x (B, S, d), with the
-    optional ``bq`` bias, against precomputed encoder K/V (B, Se, KV, hd),
-    unmasked.  ``naive_attention`` for Se <= 2 048, ``flash_attention``
-    above, as the reference."""
+    optional ``bq`` bias, against precomputed encoder K/V — (B, Se, KV, hd)
+    from the cache or this rank's columns (B, Se, ·) (``encdec._cross_kv``)
+    — unmasked.  ``naive_attention`` for Se <= 2 048, ``flash_attention``
+    above, as the reference.  Inside ``model_parallel`` the queries, K/V
+    and ``wo``'s rows are this rank's shards (``_sharded_heads``)."""
     B, S, _ = x.shape
-    hd = cfg.resolved_head_dim
-    q = matmul(x, params["wq"]).reshape(B, S, cfg.num_heads, hd)
-    if cfg.qkv_bias:
-        q = q + params["bq"].reshape(cfg.num_heads, hd)
     Se = enc_k.shape[1]
     attend = naive_attention if Se <= 2048 else flash_attention
-    o = attend(q, enc_k, enc_v,
-               q_positions=torch.arange(S, device=x.device),
-               k_positions=torch.arange(Se, device=x.device), mode="bidir")
-    return matmul(o.reshape(B, S, -1), params["wo"])
+    shard = model_shard() or ModelShard(None, 1, 0)
+    q = matmul(copy_to_model(x), params["wq"])
+    if cfg.qkv_bias:
+        q = q + params["bq"]
+    o = _sharded_heads(cfg, params, q, enc_k, enc_v,
+                       torch.arange(S, device=x.device),
+                       torch.arange(Se, device=x.device), False, False,
+                       shard, attend, dict(mode="bidir"))
+    return reduce_from_model(matmul(o, params["wo"]))
 
 
 class KVCache(NamedTuple):

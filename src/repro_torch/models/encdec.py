@@ -16,6 +16,12 @@ Dtypes follow jnp's promotion: f32 frames against bf16 weights run the
 encoder in f32 (``layers.matmul`` casts the weight up), so ``encode``'s
 output and the cached cross K/V are f32 while the decoder stays in the
 model dtype.  The serving loop draws f32 frames, as the reference's does.
+
+Inside ``core.distributed.model_parallel`` (the placed train step) the
+encoder's and decoder's attention, cross-attention and MLPs run on this
+rank's ``model`` shards, as the dense decoder's; ``embed`` and
+``lm_head`` stay whole when the vocabulary (whisper's 51 866) does not
+divide over ``model``.
 """
 from __future__ import annotations
 
@@ -27,8 +33,9 @@ from .attention import (KVCache, attention_decode, attention_forward,
                         check_capacity, cross_attention_forward,
                         init_attention)
 from .config import ArchConfig
-from .layers import (dtype_of, embed_init, matmul, rms_norm,
-                     sinusoidal_positions)
+from ..core.distributed import copy_to_model
+from .layers import (dtype_of, embed_init, embed_lookup, lm_logits, matmul,
+                     rms_norm, sinusoidal_positions)
 from .mlp import init_mlp, mlp_forward
 from .transformer import _stacked_layers, layer_views, remat_wrap
 
@@ -90,11 +97,10 @@ def encode(cfg: ArchConfig, params: Pytree, frames: torch.Tensor,
 
 
 def _cross_kv(cfg: ArchConfig, p: Dict, enc_out: torch.Tensor):
-    B, T, _ = enc_out.shape
-    hd = cfg.resolved_head_dim
-    k = matmul(enc_out, p["wk"]).reshape(B, T, cfg.num_kv_heads, hd)
-    v = matmul(enc_out, p["wv"]).reshape(B, T, cfg.num_kv_heads, hd)
-    return k, v
+    """The encoder K/V columns (B, T_enc, ·) of a cross-attention: this
+    rank's inside ``model_parallel``."""
+    enc_out = copy_to_model(enc_out)
+    return matmul(enc_out, p["wk"]), matmul(enc_out, p["wv"])
 
 
 def _embed_tokens(cfg: ArchConfig, params: Pytree,
@@ -102,15 +108,19 @@ def _embed_tokens(cfg: ArchConfig, params: Pytree,
     """Token embeddings plus positions 0..S-1, in the embedding's dtype."""
     emb = params["embed"]
     pos = sinusoidal_positions(tokens.shape[1], cfg.d_model, emb.device)
-    return emb[tokens] + pos.to(emb.dtype)
+    return embed_lookup(emb, tokens, cfg.vocab_size) + pos.to(emb.dtype)
 
 
 def _dec_layer(cfg: ArchConfig, p: Dict, h: torch.Tensor,
-               positions: torch.Tensor, enc_out: torch.Tensor):
-    """One decoder layer over the full sequence: (h, (k, v), (ek, ev))."""
+               positions: torch.Tensor, enc_out: torch.Tensor,
+               return_kv: bool = True):
+    """One decoder layer over the full sequence: (h, (k, v), (ek, ev)),
+    the cross K/V as columns (B, T_enc, ·); (k, v) is None without
+    ``return_kv`` (training)."""
     a = rms_norm(h, p["ln1"], cfg.norm_eps)
-    attn, kv = attention_forward(cfg, p["attn"], a, positions, mode="causal",
-                                 use_rope=False, return_kv=True)
+    out = attention_forward(cfg, p["attn"], a, positions, mode="causal",
+                            use_rope=False, return_kv=return_kv)
+    attn, kv = out if return_kv else (out, None)
     h = h + attn
     c = rms_norm(h, p["ln_x"], cfg.norm_eps)
     ek, ev = _cross_kv(cfg, p["cross"], enc_out)
@@ -120,7 +130,8 @@ def _dec_layer(cfg: ArchConfig, p: Dict, h: torch.Tensor,
 
 
 def _head(cfg: ArchConfig, params: Pytree, x: torch.Tensor) -> torch.Tensor:
-    return rms_norm(x, params["final_norm"], cfg.norm_eps) @ params["lm_head"]
+    return lm_logits(rms_norm(x, params["final_norm"], cfg.norm_eps),
+                     params["lm_head"], cfg.vocab_size)
 
 
 def whisper_forward_train(cfg: ArchConfig, params: Pytree,
@@ -134,7 +145,8 @@ def whisper_forward_train(cfg: ArchConfig, params: Pytree,
     x = _embed_tokens(cfg, params, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     body = remat_wrap(
-        lambda h, p: _dec_layer(cfg, p, h, positions, enc_out)[0], remat)
+        lambda h, p: _dec_layer(cfg, p, h, positions, enc_out,
+                                return_kv=False)[0], remat)
     for p in layer_views(params["dec_blocks"], cfg.num_layers):
         x = body(x, p)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -163,6 +175,7 @@ def whisper_prefill(cfg: ArchConfig, params: Pytree, frames: torch.Tensor,
     kc = vc = ck = cv = None
     for i, p in enumerate(layer_views(params["dec_blocks"], L)):
         x, (k, v), (ek, ev) = _dec_layer(cfg, p, x, positions, enc_out)
+        ek, ev = (t.unflatten(-1, (cfg.num_kv_heads, -1)) for t in (ek, ev))
         if kc is None:
             kc, vc = (torch.zeros((L, B, max_seq) + tuple(k.shape[2:]),
                                   dtype=dtype, device=k.device)

@@ -13,6 +13,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..core.distributed import (copy_to_model, max_over_model, model_shard,
+                                reduce_from_model)
+
 
 def dtype_of(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -133,15 +136,80 @@ def softcap(logits: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     return cap * torch.tanh(logits / cap)
 
 
+# ----------------------------------------------------- vocab-parallel parts
+
+def _vocab_split(rows: int, vocab: int) -> bool:
+    """Inside ``model_parallel``: is a vocabulary leaf of ``rows`` rows
+    this rank's V/m block (False: whole on every rank, as the spec rules
+    leave a vocabulary that does not divide)?"""
+    shard = model_shard()
+    return shard is not None and rows * shard.size == vocab
+
+
+def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor,
+                 vocab: int) -> torch.Tensor:
+    """``embed[tokens]``; inside ``model_parallel`` ``embed`` is this
+    rank's block of V/m vocabulary rows: each rank looks up the tokens it
+    holds (zeros elsewhere) and the rows are summed over ``model``, exact
+    (one nonzero term a token)."""
+    if not _vocab_split(embed.shape[0], vocab):
+        return embed[tokens]
+    shard = model_shard()
+    rows = embed.shape[0]
+    local = tokens.long() - shard.rank * rows
+    held = (local >= 0) & (local < rows)
+    x = embed[local.clamp(0, rows - 1)]
+    return reduce_from_model(torch.where(held[..., None], x,
+                                         torch.zeros((), dtype=x.dtype,
+                                                     device=x.device)))
+
+
+def lm_logits(x: torch.Tensor, head: torch.Tensor,
+              vocab: int) -> torch.Tensor:
+    """``x @ head``; inside ``model_parallel`` ``head`` (d, V/m) is this
+    rank's vocabulary columns and so are the logits
+    (:func:`cross_entropy_loss` reads them so)."""
+    if not _vocab_split(head.shape[-1], vocab):
+        return x @ head
+    return copy_to_model(x) @ head
+
+
 # -------------------------------------------------------------------- losses
 
+def _vocab_parallel_nll(logits: torch.Tensor,
+                        labels: torch.Tensor) -> torch.Tensor:
+    """−log softmax(logits)[label] in f32 with the vocabulary split over
+    ``model`` (logits (..., V/m) this rank's columns): the max, Σ exp and
+    the label's logit are each summed (max-reduced) over the ranks, so no
+    rank forms the whole (..., V) row."""
+    shard = model_shard()
+    lf = logits.float()
+    cols = lf.shape[-1]
+    top = max_over_model(lf.amax(dim=-1, keepdim=True))
+    sum_exp = reduce_from_model(torch.exp(lf - top).sum(-1))
+    local = labels.long() - shard.rank * cols
+    held = (local >= 0) & (local < cols)
+    picked = torch.gather(lf, -1, local.clamp(0, cols - 1).unsqueeze(-1)
+                          ).squeeze(-1)
+    picked = reduce_from_model(torch.where(held, picked,
+                                           torch.zeros_like(picked)))
+    return torch.log(sum_exp) + top.squeeze(-1) - picked
+
+
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       weights: Optional[torch.Tensor] = None,
+                       vocab: Optional[int] = None) -> torch.Tensor:
     """Mean token-level CE. logits (..., V), labels (...,) int; with
     ``weights`` the weighted sum over max(Σ weights, 1), as in
-    ``repro.models.layers.cross_entropy_loss``."""
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, labels.long().unsqueeze(-1)).squeeze(-1)
+    ``repro.models.layers.cross_entropy_loss``.  Inside ``model_parallel``
+    logits of V/m columns (``vocab`` = V) are this rank's vocabulary
+    columns (:func:`lm_logits`) and the loss, the same on every rank,
+    comes from :func:`_vocab_parallel_nll`."""
+    if vocab is not None and _vocab_split(logits.shape[-1], vocab):
+        nll = _vocab_parallel_nll(logits, labels)
+    else:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, labels.long().unsqueeze(-1)).squeeze(-1)
     if weights is None:
         return nll.mean()
     w = weights.float()

@@ -25,20 +25,30 @@ plain index assignment over unique slots.  The reference's combine
 ``yt.at[st].add(contrib)`` becomes a gather back to (T, k, d) and k − 1
 adds, in the order the reference's sorted scatter adds them.
 
+Inside ``core.distributed.model_parallel`` the experts are split over
+``model`` (``w_up`` / ``w_gate`` / ``w_down`` hold this rank's E/m
+experts): the router, its aux loss and the dispatch's positions run on
+every rank's whole token set alike, the (E/m, C, d) buffer holds only this
+rank's experts, each token's contributions from them are added in
+ascending expert order, and the parts (with the shared MLP's) are summed
+over ``model`` — a sum in another order than the one-rank layer's.
+
 Two behaviours of the reference are kept on purpose: the gated branch is
 ``silu(gate) * up`` for ``activation == "geglu"`` too, and the ungated
 branch is the tanh GELU (``jax.nn.gelu``'s default).
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..core.distributed import (copy_to_model, model_shard,
+                                reduce_from_model)
 from .config import ArchConfig
 from .layers import _gelu_tanh, dense_init
-from .mlp import init_mlp, mlp_forward
+from .mlp import init_mlp, mlp_partial
 
 
 def init_moe(cfg: ArchConfig, gen: torch.Generator, dtype: torch.dtype
@@ -98,18 +108,24 @@ def aux_loss(cfg: ArchConfig, probs: torch.Tensor, top_e: torch.Tensor
 class Dispatch(NamedTuple):
     """Where each flat entry (t, j) of the top-k lands: ``slot`` (T·k,)
     its row of the (E·C, d) buffer (clamped to the expert's last row when
-    dropped, as the reference's), ``keep`` (T·k,) bool, and ``asc`` (T, k)
-    each token's choices in ascending expert order."""
+    dropped, as the reference's), ``keep`` (T·k,) bool (kept, and held by
+    this rank's experts), and ``asc`` (T, k) each token's choices in
+    ascending expert order."""
     slot: torch.Tensor
     keep: torch.Tensor
     asc: torch.Tensor
 
 
-def dispatch(cfg: ArchConfig, xt: torch.Tensor, top_e: torch.Tensor
+def dispatch(cfg: ArchConfig, xt: torch.Tensor, top_e: torch.Tensor,
+             held: Optional[Tuple[int, int]] = None
              ) -> Tuple[torch.Tensor, Dispatch]:
-    """Scatter the tokens into the (E, C, d) expert buffer."""
+    """Scatter the tokens into the (E, C, d) expert buffer; ``held`` =
+    (first, count) (every expert by default) makes it the (count, C, d)
+    buffer of experts [first, first + count) (each entry's position in its
+    expert is still counted over all entries)."""
     T, d = xt.shape
     E, k = cfg.num_experts, cfg.experts_per_token
+    first, held_e = held or (0, E)
     cap = capacity(cfg, T)
     dev = xt.device
     flat_e = top_e.reshape(-1)                                  # (T·k,)
@@ -120,7 +136,8 @@ def dispatch(cfg: ArchConfig, xt: torch.Tensor, top_e: torch.Tensor
     pos_sorted = torch.arange(T * k, device=dev) - starts[se]
     pos = torch.empty_like(pos_sorted)
     pos[order] = pos_sorted                    # a permutation: unique rows
-    keep = pos < cap
+    keep = (pos < cap) & (flat_e >= first) & (flat_e < first + held_e)
+    E, flat_e = held_e, (flat_e - first).clamp(0, held_e - 1)
     rows = xt[:, None].expand(T, k, d).reshape(T * k, d)     # entry t·k + j
     buf = torch.zeros((E * cap + 1, d), dtype=xt.dtype, device=dev)
     # kept rows are unique; every dropped entry lands in the trash row E·C
@@ -165,8 +182,12 @@ def moe_forward(cfg: ArchConfig, params: Dict, x: torch.Tensor
     xt = x.reshape(B * S, d)
     probs, top_p, top_e = route(cfg, params["router"], xt)
     aux = aux_loss(cfg, probs, top_e)
-    buf, placed = dispatch(cfg, xt, top_e)
-    yt = combine(experts(params, buf), top_p, placed)
+    shard = model_shard()
+    held = params["w_up"].shape[0]            # this rank's E/m experts
+    first = shard.rank * held if shard is not None else 0
+    xin = copy_to_model(xt)
+    buf, placed = dispatch(cfg, xin, top_e, (first, held))
+    yt = combine(experts(params, buf), copy_to_model(top_p), placed)
     if cfg.num_shared_experts:
-        yt = yt + mlp_forward(cfg, params["shared"], xt)
-    return yt.reshape(B, S, d), aux
+        yt = yt + mlp_partial(cfg, params["shared"], xin)
+    return reduce_from_model(yt).reshape(B, S, d), aux

@@ -71,7 +71,8 @@ def _lm_next_token_loss(cfg: ArchConfig, params, batch: Dict,
                         window: Optional[int] = None, remat: bool = False):
     logits, aux = forward_train(cfg, params, batch["tokens"], window=window,
                                 remat=remat)
-    ce = cross_entropy_loss(logits[:, :-1], batch["tokens"][:, 1:])
+    ce = cross_entropy_loss(logits[:, :-1], batch["tokens"][:, 1:],
+                            vocab=cfg.vocab_size)
     return ce + cfg.router_aux_coef * aux, aux
 
 
@@ -82,7 +83,8 @@ def _vlm_loss(cfg: ArchConfig, params, batch: Dict,
                                     batch["image_embeds"], window=window,
                                     remat=remat)
     n_img = batch["image_embeds"].shape[1]
-    ce = cross_entropy_loss(logits[:, n_img:-1], batch["tokens"][:, 1:])
+    ce = cross_entropy_loss(logits[:, n_img:-1], batch["tokens"][:, 1:],
+                            vocab=cfg.vocab_size)
     return ce + cfg.router_aux_coef * aux, aux
 
 
@@ -90,7 +92,8 @@ def _whisper_loss(cfg: ArchConfig, params, batch: Dict,
                   window: Optional[int] = None, remat: bool = False):
     logits, aux = whisper_forward_train(cfg, params, batch["frames"],
                                         batch["tokens"], remat=remat)
-    ce = cross_entropy_loss(logits[:, :-1], batch["tokens"][:, 1:])
+    ce = cross_entropy_loss(logits[:, :-1], batch["tokens"][:, 1:],
+                            vocab=cfg.vocab_size)
     return ce, aux
 
 

@@ -13,6 +13,13 @@ decay products are materialised per channel on (Q, Q, P) tiles, and a
 Python loop over the chunks carries the f32 state (the reference's
 ``lax.scan``).  Decode is the O(1) recurrence.  r, k and v are lifted to f32
 inside the scan; ``w0`` and ``u`` are f32 leaves whatever the model dtype.
+
+Inside ``core.distributed.model_parallel`` :func:`rwkv6_forward` is
+head-parallel: ``wr`` / ``wk`` / ``wv`` / ``wg``, ``w_A``, ``ffn_k`` and
+``ffn_r`` hold this rank's columns, ``wo``, ``w_B`` and ``ffn_v`` its rows;
+the token-shifted mixes are whole on every rank, the wkv scan runs on its
+H/m heads, the output layer norm sums its moments over ``model``, and the
+LoRA decay, ``wo`` and ``ffn_v`` parts are summed.
 """
 from __future__ import annotations
 
@@ -21,6 +28,9 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..core.distributed import (copy_to_model, gather_from_model,
+                                model_shard, reduce_from_model,
+                                sum_for_parts)
 from .config import ArchConfig
 from .layers import dense_init, layer_norm
 
@@ -126,6 +136,13 @@ def rwkv6_forward(cfg: ArchConfig, params: Dict, x: torch.Tensor,
                   init_state: Optional[RWKVState] = None
                   ) -> Tuple[torch.Tensor, RWKVState]:
     """Time-mix + channel-mix for a full sequence. x: (B,S,d)."""
+    shard = model_shard()
+    if shard is not None:
+        if init_state is not None:
+            raise NotImplementedError(
+                "a model-parallel RWKV6 continuing a state (the placed "
+                "prefill) is not ported; the placed step is the train step")
+        return _rwkv6_sharded(cfg, params, x, shard)
     B, S, d = x.shape
     H, P = cfg.rwkv_num_heads, cfg.rwkv_head_dim
     if init_state is None:
@@ -148,6 +165,56 @@ def rwkv6_forward(cfg: ArchConfig, params: Dict, x: torch.Tensor,
     y = layer_norm(y, params["ln_x_w"], params["ln_x_b"], cfg.norm_eps) * g
     out = y @ params["wo"]
     ffn = _channel_mix(params, x, _token_shift(x, prev_f))
+    last = x[:, -1, :]
+    return out + ffn, RWKVState(last, wkv, last)
+
+
+def _rwkv6_sharded(cfg: ArchConfig, params: Dict, x: torch.Tensor, shard
+                   ) -> Tuple[torch.Tensor, RWKVState]:
+    """:func:`rwkv6_forward` on this rank's H/m heads (from zero state).
+    The mixes are whole on every rank and enter each column-parallel
+    product through ``copy_to_model``; the scan's per-head leaves (``w0``,
+    ``u``, ``ln_x_*``) are sliced to this rank's channels after it.
+    Returns this rank's heads' final wkv state."""
+    B, S, d = x.shape
+    H, P = cfg.rwkv_num_heads, cfg.rwkv_head_dim
+    m, r = shard.size, shard.rank
+    if H % m:
+        raise NotImplementedError(
+            f"{H} RWKV6 heads do not divide over {m} 'model' ranks")
+    h, dl = H // m, d // m
+    cols, heads = slice(r * dl, (r + 1) * dl), slice(r * h, (r + 1) * h)
+    zero = torch.zeros((B, d), dtype=x.dtype, device=x.device)
+    xs = _token_shift(x, zero)
+    xr, xk, xv, xg, xw = (copy_to_model(x + (xs - x) * params["mu"][i])
+                          for i in range(5))
+    r_ = (xr @ params["wr"]).reshape(B, S, h, P)
+    k = (xk @ params["wk"]).reshape(B, S, h, P)
+    v = (xv @ params["wv"]).reshape(B, S, h, P)
+    g = F.silu(xg @ params["wg"])
+    lora = sum_for_parts(torch.tanh(xw @ params["w_A"]) @ params["w_B"])
+    logw = -torch.exp(copy_to_model(params["w0"])[cols]
+                      + lora[..., cols].float()).reshape(B, S, h, P)
+    y, wkv = _wkv_chunked(r_, k, v, logw, copy_to_model(params["u"])[heads],
+                          max(cfg.ssm_chunk // 4, 16), torch.zeros(
+                              (B, h, P, P), dtype=torch.float32,
+                              device=x.device))
+    # the layer norm over all d channels: its mean and variance summed
+    # over 'model', in two passes as ``layer_norm``'s
+    y = y.reshape(B, S, dl).to(x.dtype).float()
+    mean = sum_for_parts(y.sum(dim=-1, keepdim=True)) / d
+    var = sum_for_parts((y - mean).square().sum(dim=-1, keepdim=True)) / d
+    y = ((y - mean) * torch.rsqrt(var + cfg.norm_eps)
+         * copy_to_model(params["ln_x_w"])[cols].float()
+         + copy_to_model(params["ln_x_b"])[cols].float()).to(x.dtype) * g
+    out = reduce_from_model(y @ params["wo"])
+    # channel mix (its token shift is the time mix's from zero state):
+    # ffn_k / ffn_r column-parallel, ffn_v row-parallel
+    xk_f, xr_f = (copy_to_model(x + (xs - x) * params["mu_ffn"][i])
+                  for i in range(2))
+    kf = torch.square(torch.relu(xk_f @ params["ffn_k"]))
+    ffn = gather_from_model(torch.sigmoid(xr_f @ params["ffn_r"])) \
+        * reduce_from_model(kf @ params["ffn_v"])
     last = x[:, -1, :]
     return out + ffn, RWKVState(last, wkv, last)
 

@@ -16,6 +16,13 @@ B and C to f32; ``A_log``, ``D`` and ``dt_bias`` are f32 leaves whatever
 the model dtype.  ``F.softplus`` returns x itself above 20 where
 ``jax.nn.softplus`` is ``logaddexp(x, 0)``; over the whole range the two
 stay within two f32 ulps (``tests/test_torch_recurrent.py`` holds it).
+
+Inside ``core.distributed.model_parallel`` :func:`mamba2_forward` is
+head-parallel: ``in_proj``'s column block and ``out_proj``'s row block
+are this rank's; the projection is gathered whole, each rank runs the
+conv and the scan on its H/m heads' channels (B and C whole), the gated
+norm sums its squares over ``model``, and the output projection's parts
+are summed.
 """
 from __future__ import annotations
 
@@ -24,6 +31,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..core.distributed import (copy_to_model, gather_for_rows, model_shard,
+                                reduce_from_model, sum_for_parts)
 from .config import ArchConfig
 from .layers import dense_init, rms_norm
 
@@ -133,6 +142,13 @@ def mamba2_forward(cfg: ArchConfig, params: Dict, x: torch.Tensor,
     """Full-sequence forward. x: (B, S, d) → (out (B,S,d), final SSMState).
     ``init_state`` continues the causal conv across a segment boundary: its
     W−1 carried inputs are prepended in place of zero padding."""
+    shard = model_shard()
+    if shard is not None:
+        if init_state is not None:
+            raise NotImplementedError(
+                "a model-parallel Mamba2 continuing a state (the placed "
+                "prefill) is not ported; the placed step is the train step")
+        return _mamba2_sharded(cfg, params, x, shard)
     B, S, d = x.shape
     di, N = cfg.ssm_d_inner, cfg.ssm_state
     H, P = cfg.ssm_num_heads, cfg.ssm_head_dim
@@ -158,6 +174,48 @@ def mamba2_forward(cfg: ArchConfig, params: Dict, x: torch.Tensor,
     y = y + params["D"][None, None, :, None] * xh.float()
     out = _gate_out(cfg, params, y.reshape(B, S, di).to(x.dtype), z)
     return out, SSMState(hist[:, -(W - 1):, :].to(x.dtype), state)
+
+
+def _mamba2_sharded(cfg: ArchConfig, params: Dict, x: torch.Tensor, shard
+                    ) -> Tuple[torch.Tensor, SSMState]:
+    """:func:`mamba2_forward` on this rank's H/m heads (from zero state):
+    every tensor after the gathered projection is a per-rank part, so the
+    whole weights it reads (conv, ``A_log``, ``D``, ``dt_bias``, ``norm``)
+    enter through ``copy_to_model`` and the projection's grads are summed
+    back (``gather_for_rows``).  Returns this rank's heads' final state."""
+    B, S, d = x.shape
+    di, N = cfg.ssm_d_inner, cfg.ssm_state
+    H, P = cfg.ssm_num_heads, cfg.ssm_head_dim
+    m, r = shard.size, shard.rank
+    if H % m:
+        raise NotImplementedError(
+            f"{H} Mamba2 heads do not divide over {m} 'model' ranks")
+    h, dl = H // m, di // m
+    cols, heads = slice(r * dl, (r + 1) * dl), slice(r * h, (r + 1) * h)
+    z, xin, Bm, Cm, dt_raw = _split_proj(
+        cfg, gather_for_rows(copy_to_model(x) @ params["in_proj"]))
+    w, b = copy_to_model(params["conv_w"]), copy_to_model(params["conv_b"])
+    conv_in = torch.cat([xin[..., cols], Bm, Cm], dim=-1)
+    conv_out = F.silu(_causal_conv(
+        conv_in, torch.cat([w[:, cols], w[:, di:]], dim=1),
+        torch.cat([b[cols], b[di:]])))
+    xin, Bm, Cm = torch.split(conv_out, [dl, N, N], dim=-1)
+    dt = F.softplus(dt_raw[..., heads].float()
+                    + copy_to_model(params["dt_bias"])[heads])
+    A = -torch.exp(copy_to_model(params["A_log"])[heads])
+    xh = xin.reshape(B, S, h, P)
+    y, state = _ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk, torch.zeros(
+        (B, h, P, N), dtype=torch.float32, device=x.device))
+    y = y + copy_to_model(params["D"])[heads][None, None, :, None] \
+        * xh.float()
+    # the gated RMS norm over all di channels: Σ y² over 'model'
+    g = (y.reshape(B, S, dl).to(x.dtype) * F.silu(z[..., cols])).float()
+    var = sum_for_parts(g.square().sum(dim=-1, keepdim=True)) / di
+    g = g * torch.rsqrt(var + cfg.norm_eps)
+    g = (g * (1.0 + copy_to_model(params["norm"])[cols].float())
+         ).to(x.dtype)
+    out = reduce_from_model(g @ params["out_proj"])
+    return out, SSMState(conv_in[:, -(cfg.ssm_conv_width - 1):], state)
 
 
 def init_ssm_state(cfg: ArchConfig, batch: int, dtype: torch.dtype,

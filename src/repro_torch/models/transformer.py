@@ -45,7 +45,7 @@ from .attention import (KVCache, _project_qkv, attention_decode,
                         flash_attention, init_attention, init_kv_cache,
                         naive_attention, ring_place)
 from .config import ArchConfig
-from .layers import dtype_of, embed_init, rms_norm
+from .layers import dtype_of, embed_init, embed_lookup, lm_logits, rms_norm
 from .mlp import init_mlp, mlp_forward
 from .moe import init_moe, moe_forward
 from .rwkv import init_rwkv6, init_rwkv_state, rwkv6_decode, rwkv6_forward
@@ -222,7 +222,7 @@ def _block_forward(cfg: ArchConfig, p: Dict, x: torch.Tensor,
 def _logits(cfg: ArchConfig, params: Pytree, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ head
+    return lm_logits(x, head, cfg.vocab_size)
 
 
 def forward_train(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
@@ -233,7 +233,7 @@ def forward_train(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
     layer of the stack, or the hybrid's Mamba2 layers alone."""
     check_family(cfg)
     window = window if window is not None else cfg.sliding_window
-    x = params["embed"][tokens]
+    x = embed_lookup(params["embed"], tokens, cfg.vocab_size)
     if cfg.family == "hybrid":
         positions = torch.arange(x.shape[1], device=x.device)
         mode = "window" if window is not None else "causal"

@@ -12,8 +12,9 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from ..core.distributed import copy_to_model, gather_from_model
 from .config import ArchConfig
-from .layers import dense_init, dtype_of
+from .layers import dense_init, dtype_of, embed_lookup
 from .transformer import (LMCache, decode_step, forward_embedded, init_lm,
                           prefill_embedded)
 
@@ -31,10 +32,15 @@ def init_vlm(cfg: ArchConfig, gen: torch.Generator) -> Pytree:
 def _fuse(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
           image_embeds: torch.Tensor) -> torch.Tensor:
     """[projected image embeddings ; text embeddings] along the seq axis;
-    the image embeddings are cast to the embedding's dtype first."""
+    the image embeddings are cast to the embedding's dtype first.  Inside
+    ``model_parallel`` ``img_proj`` is this rank's output columns
+    (column-parallel) and the projection is gathered whole over
+    ``model``."""
     emb = params["embed"]
-    img = image_embeds.to(emb.dtype) @ params["img_proj"]
-    return torch.cat([img, emb[tokens]], dim=1)
+    img = gather_from_model(copy_to_model(image_embeds.to(emb.dtype))
+                            @ params["img_proj"])
+    return torch.cat([img, embed_lookup(emb, tokens, cfg.vocab_size)],
+                     dim=1)
 
 
 def vlm_forward_train(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,

@@ -133,6 +133,14 @@ def spec_for_leaf(path_str: str, shape: Tuple[int, ...], mesh: Mesh,
                   fsdp: bool) -> P:
     """Rule table: first match wins.  ``shape`` includes any leading stacked
     layer axes (left unsharded)."""
+    spec = _rule_spec(path_str, shape, fsdp)
+    return P() if spec is None else _guard(spec, shape, mesh)
+
+
+def _rule_spec(path_str: str, shape: Tuple[int, ...],
+               fsdp: bool) -> Optional[Tuple]:
+    """The first matching rule's spec before the divisibility guard (None:
+    no rule, replicated)."""
     d_axis = "data" if fsdp else None
     rules = [
         # --- MoE expert tensors (L, E, d, ff) / (E, d, ff)
@@ -160,9 +168,23 @@ def spec_for_leaf(path_str: str, shape: Tuple[int, ...], mesh: Mesh,
     for pat, builder in rules:
         if re.search(pat, path_str):
             spec = builder(shape)
-            lead = len(shape) - len(spec)
-            return _guard((None,) * lead + tuple(spec), shape, mesh)
-    return P()   # replicate (norms, scalars, small vectors)
+            return (None,) * (len(shape) - len(spec)) + tuple(spec)
+    return None   # replicate (norms, scalars, small vectors)
+
+
+def dropped_axes(cfg: ArchConfig, params_shape: Pytree,
+                 mesh: Mesh) -> list:
+    """``[(path, dim, axis)]`` for each axis a rule assigns that the mesh's
+    size does not divide (``_guard`` replicates that dim instead)."""
+    fsdp = cfg.param_count_estimate() >= FSDP_THRESHOLD
+    out = []
+    for path, leaf in spec_leaves(params_shape):
+        shape = tuple(leaf.shape)
+        raw = _rule_spec(path, shape, fsdp) or ()
+        for dim, (size, name) in enumerate(zip(shape, raw)):
+            if name is not None and not _fits(size, mesh, name):
+                out.append((path, dim, name))
+    return out
 
 
 def param_pspecs(cfg: ArchConfig, params_shape: Pytree, mesh: Mesh,
@@ -221,6 +243,69 @@ def cache_pspecs(cfg: ArchConfig, cache_shape: Pytree, mesh: Mesh,
         return P()
 
     return map_with_path(cache_shape, leaf_spec)
+
+
+# ---------------------------------------------------------- local shards
+
+def _dim_axes(spec: PartitionSpec, ndim: int) -> list:
+    """Per dim the tuple of axis names that shard it (major first)."""
+    spec = tuple(spec) + (None,) * (ndim - len(spec))
+    return [() if n is None else ((n,) if isinstance(n, str) else tuple(n))
+            for n in spec]
+
+
+def shard_shape(shape: Tuple[int, ...], spec: PartitionSpec,
+                mesh: Mesh) -> Tuple[int, ...]:
+    """The shape of the block ``spec`` puts on one device (each sharded
+    dim cut by the product of its axes, rounded up)."""
+    return tuple(-(-int(dim) // math.prod(mesh.shape[a] for a in names))
+                 for dim, names in zip(shape, _dim_axes(spec, len(shape))))
+
+
+def local_shard(t: torch.Tensor, spec: PartitionSpec,
+                mesh: Mesh) -> torch.Tensor:
+    """This rank's block of ``t`` under ``spec`` (a copy, so ``t`` can be
+    freed): along each sharded dim the slice at this rank's coordinate
+    over that dim's axes (major first)."""
+    for dim, names in enumerate(_dim_axes(spec, t.ndim)):
+        if not names:
+            continue
+        ways, at = 1, 0
+        for a in names:
+            ways *= mesh.shape[a]
+            at = at * mesh.shape[a] + mesh.coordinate(a)
+        n = t.shape[dim] // ways
+        t = t.narrow(dim, at * n, n)
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def place_params(mesh: Mesh, params: Pytree, specs: Pytree) -> Pytree:
+    """Each leaf of ``params`` as this rank's block under its spec of
+    ``specs`` (a tree of the same structure)."""
+    flat = iter([s for _, s in spec_leaves(specs)])
+    return map_with_path(params, lambda path, t: local_shard(
+        t, next(flat), mesh))
+
+
+def place_batch(mesh: Mesh, batch: dict) -> dict:
+    """Each input of a global batch as this rank's rows under
+    :func:`batch_pspec`: its cohort's rows.  Raises when the rows do not
+    divide over the cohort axes (``pod`` and ``data``), where the spec
+    would hand a rank other cohorts' rows."""
+    C = math.prod(mesh.shape.get(a, 1) for a in ("pod", "data"))
+    for name, x in batch.items():
+        if x.shape[0] % C:
+            raise ValueError(f"batch input {name!r} of {x.shape[0]} rows "
+                             f"does not divide into {C} cohorts")
+    return {name: local_shard(x, batch_pspec(mesh, x.shape[0]), mesh)
+            for name, x in batch.items()}
+
+
+def local_bytes(params_shape: Pytree, specs: Pytree, mesh: Mesh) -> dict:
+    """``{path: bytes}`` of each leaf's block on one rank."""
+    flat = iter([s for _, s in spec_leaves(specs)])
+    return {path: math.prod(shard_shape(tuple(t.shape), next(flat), mesh))
+            * t.element_size() for path, t in spec_leaves(params_shape)}
 
 
 def named(mesh: Mesh, tree_of_specs: Pytree) -> Pytree:

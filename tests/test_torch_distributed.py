@@ -17,6 +17,13 @@ programs on 8 forced host devices.
   the ranks wait for the reference's files.  Every rank equals the
   reference at 1e-5 relative to max(1, max |x|), α at rtol 1e-3 / atol
   1e-4 (``tests/test_distributed_spmd.py``'s bound).
+* The placed step (params as each rank's blocks under ``param_pspecs``, the
+  batch as its cohort's rows, the cohort split over ``model``) on (4, 2),
+  and on (2, 2, 2) with every leaf also split over ``data``
+  (``FSDP_THRESHOLD`` patched to 0 on the port's side alone): every rank's
+  new blocks equal the same blocks of the reference's (4, 2) result, whose
+  numbers no placement changes, and each rank holds only the blocks its
+  specs name.
 * One rank: the emulated (4, 2) step equals the 8-rank one; a one-rank
   fleet mesh and a one-rank streamed mesh give the mesh-free round; a
   streamed mesh of several devices raises naming ``repro.hier.streamed``.
@@ -25,6 +32,7 @@ programs on 8 forced host devices.
 This file imports no JAX: the reference runs in its subprocess, and the
 port's ranks import this module.
 """
+import contextlib
 import os
 import signal
 import subprocess
@@ -49,15 +57,18 @@ from repro_torch.edge import bimodal_fleet
 from repro_torch.fl import run_hier_simulation
 from repro_torch.fl.client import client_update, cohort_update
 from repro_torch.hier import HierConfig, two_tier_topology
+from repro_torch.launch import steps as tsteps
 from repro_torch.launch.mesh import emulated_mesh, make_mesh
-from repro_torch.launch.shapes import InputShape
+from repro_torch.launch.shapes import InputShape, meta_params
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models import get_model
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.logistic import (init_logistic, logistic_apply,
                                          logistic_loss)
-from repro_torch.sharding import (fleet_mesh, shard_cohort_fn,
+from repro_torch.sharding import (fleet_mesh, param_pspecs, place_batch,
+                                  place_params, shard_cohort_fn, shard_shape,
                                   stream_round_shardings)
+from repro_torch.sharding import specs as tspecs
 
 torch.set_num_threads(1)
 
@@ -270,6 +281,68 @@ def _train_params(ref):
                                  for i in range(len(names))])
 
 
+PLACED = {"tp": ((4, 2), ("data", "model")),
+          "fsdp": ((2, 2, 2), ("pod", "data", "model"))}
+
+
+@contextlib.contextmanager
+def _fsdp_everywhere(on: bool):
+    """``FSDP_THRESHOLD`` 0 (every leaf over 'data' too) in the port's spec
+    rules and step while on."""
+    old = tspecs.FSDP_THRESHOLD
+    if on:
+        tspecs.FSDP_THRESHOLD = tsteps.FSDP_THRESHOLD = 0
+    try:
+        yield
+    finally:
+        tspecs.FSDP_THRESHOLD = tsteps.FSDP_THRESHOLD = old
+
+
+def _placed_specs(tag: str) -> list:
+    """The port's specs of the placed run ``tag``, leaf by leaf."""
+    shape, axes = PLACED[tag]
+    cfg = _train_cfg()
+    with _fsdp_everywhere(tag == "fsdp"):
+        specs = param_pspecs(cfg, meta_params(cfg),
+                             emulated_mesh(shape, axes), "tp")
+    return [spec for _, spec in tspecs.spec_leaves(specs)]
+
+
+def _placed_run(tag: str, mesh, ref) -> dict:
+    """The placed step on this rank's blocks of the reference's params."""
+    cfg = _train_cfg()
+    with _fsdp_everywhere(tag == "fsdp"):
+        specs = param_pspecs(cfg, meta_params(cfg), mesh, "tp")
+        step = build_train_step(cfg, mesh, InputShape("t", "train", 16, 8),
+                                lr=LR, remat="full")
+        new, metrics = step(
+            place_params(mesh, _train_params(ref), specs),
+            place_batch(mesh, {"tokens": torch.from_numpy(ref["tokens"])}))
+    res = {f"{tag}_new_{i}": a.numpy() for i, a in enumerate(tree_leaves(new))}
+    res.update({f"{tag}_placement": np.asarray(step.placement),
+                f"{tag}_coords": np.asarray([mesh.coordinate(a)
+                                             for a in mesh.axis_names]),
+                f"{tag}_alpha": metrics["alpha"].numpy(),
+                f"{tag}_loss": metrics["loss"].numpy(),
+                f"{tag}_bound": metrics["bound"].numpy()})
+    return res
+
+
+def _block(a: np.ndarray, spec, shape: dict, coords: dict) -> np.ndarray:
+    """The block of ``a`` that ``spec`` puts at ``coords`` of a mesh of
+    axis sizes ``shape``."""
+    for dim, names in enumerate(tuple(spec)):
+        if names is None:
+            continue
+        names = (names,) if isinstance(names, str) else names
+        ways, at = 1, 0
+        for n in names:
+            ways, at = ways * shape[n], at * shape[n] + coords[n]
+        size = a.shape[dim] // ways
+        a = np.take(a, range(at * size, (at + 1) * size), axis=dim)
+    return a
+
+
 def _rank_main(rank: int, world: int, out: str) -> None:
     import torch.distributed as dist
     torch.set_num_threads(1)
@@ -298,7 +371,7 @@ def _rank_main(rank: int, world: int, out: str) -> None:
     # the train step on (4, 2): replicated params, this rank's cohort
     step = build_train_step(_train_cfg(), m42, InputShape("t", "train", 16,
                                                           8),
-                            lr=LR, remat="full")
+                            lr=LR, remat="full", mode="dp")
     new, metrics = step(_train_params(ref),
                         {"tokens": torch.from_numpy(ref["tokens"])})
     for i, a in enumerate(tree_leaves(new)):
@@ -306,6 +379,9 @@ def _rank_main(rank: int, world: int, out: str) -> None:
     res.update(step_alpha=metrics["alpha"].numpy(),
                step_loss=metrics["loss"].numpy(),
                step_bound=metrics["bound"].numpy())
+    # the placed steps: tensor-parallel on (4, 2), FSDP on (2, 2, 2)
+    res.update(_placed_run("tp", m42, ref))
+    res.update(_placed_run("fsdp", m222, ref))
     # the fleet axis: the batched cohort update on the reference's shards
     # and draws, and the virtual one against itself without the mesh
     fm = fleet_mesh()
@@ -390,6 +466,36 @@ def test_train_step_on_eight_ranks_matches_reference(runs):
         for i in range(n):
             assert _rel(res[f"new_{i}"], ref[f"new_{i}"]) <= TOL, \
                 ref["param_names"][i]
+
+
+@pytest.mark.parametrize("tag", sorted(PLACED))
+def test_placed_step_on_eight_ranks_matches_reference(runs, tag):
+    """Every rank's new blocks are the reference's new params' blocks
+    under the port's specs (each a proper block: a rank holds no more than
+    its spec names), α at the reference's bound, g(α) < 0; "fsdp" puts
+    every leaf over 'data' too."""
+    ref, ranks = runs
+    shape, axes = PLACED[tag]
+    mesh_shape = dict(zip(axes, shape))
+    specs = _placed_specs(tag)
+    n = len(ref["param_names"])
+    assert len(specs) == n
+    split = [str(sp) for sp in specs if "model" in str(sp)]
+    assert split and all(("data" in sp) == (tag == "fsdp") for sp in split)
+    for res in ranks:
+        assert str(res[f"{tag}_placement"]) == tag
+        coords = dict(zip(axes, (int(c) for c in res[f"{tag}_coords"])))
+        np.testing.assert_allclose(res[f"{tag}_alpha"], ref["step_alpha"],
+                                   rtol=ALPHA_RTOL, atol=ALPHA_ATOL)
+        assert _rel(res[f"{tag}_loss"], ref["step_loss"]) <= TOL
+        assert float(res[f"{tag}_bound"]) < 0
+        for i in range(n):
+            got = res[f"{tag}_new_{i}"]
+            whole = ref[f"new_{i}"]
+            assert got.shape == shard_shape(whole.shape, specs[i],
+                                            emulated_mesh(shape, axes))
+            assert _rel(got, _block(whole, specs[i], mesh_shape, coords)) \
+                <= TOL, (tag, ref["param_names"][i], specs[i])
 
 
 def test_fleet_cohort_on_eight_ranks_matches_reference(runs):

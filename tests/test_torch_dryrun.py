@@ -7,9 +7,12 @@ backend of its kernel ops (``repro_torch.kernels.meta``), on the CPU.
   read once, each output byte written once) and counts one ``op/meta``
   launch, with no plain version run.
 * In a subprocess, the CLI on reduced olmoe-1b-7b over a fake 2×2 mesh
-  prints its ``[ok  ]`` line; its collective bytes are the step's own
-  all-gathers (C scoped f32 rows of U, and the C f32 losses) and its
-  all-reduce of each leaf's combined update in f32, and its
+  prints its ``[ok  ]`` line for the placed step ("tp"): its all-gathers
+  are the step's own (C scoped f32 rows of this rank's U columns, and the
+  C f32 losses), its all-reduces hold each local leaf's combined update in
+  f32, G and c besides the model-parallel sums, nothing is reduce-
+  scattered or sent all-to-all (its heads divide over 'model'), its
+  arguments are its blocks of the params and its cohort's rows, and its
   ``sharded_argument_bytes`` are Σ of the shard shapes by the reference's
   spec rules (which ``tests/test_torch_launch.py`` holds the port's to).
 * A decode step's cache, written in place, counts once in the peak.
@@ -41,6 +44,7 @@ from repro_torch.kernels.meta import cost_sink
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import emulated_mesh
 from repro_torch.launch.shapes import InputShape, meta_params
+from repro_torch.sharding import local_bytes, param_pspecs
 
 torch.set_num_threads(1)
 
@@ -171,7 +175,31 @@ def _ref_sharded_bytes(jcfg, mesh_shape, B, S) -> int:
     return total
 
 
+# the replicated step (mode "dp") on the CLI's fake 2x2 group
+_REPLICATED_2X2 = """
+import json
+from repro_torch.launch import dryrun
+print(json.dumps(dryrun.dryrun_one("olmoe-1b-7b", "train_4k", False,
+                                   extra={"mode": "dp"}, reduced=True,
+                                   mesh_shape=(2, 2))))
+"""
+
+
+def _check_2x2_record(rec, cfg, B, S):
+    mem = rec["memory"]
+    assert mem["sharded_argument_bytes"] == _ref_sharded_bytes(
+        j_get_config("olmoe-1b-7b").reduced(), (2, 2), B, S)
+    assert mem["peak_bytes"] >= mem["argument_size_in_bytes"] + \
+        mem["output_size_in_bytes"]
+    assert mem["fits"] is True
+    r = rec["roofline"]
+    assert r["num_chips"] == 4 and r["flops"] == rec["cost"]["flops"] > 0
+    assert r["model_flops"] == pytest.approx(
+        6 * cfg.active_param_count() * B * S / 4)
+
+
 def test_cli_on_a_fake_2x2_mesh(tmp_path):
+    """The placed step's collectives, exactly, and its arguments."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
@@ -182,6 +210,55 @@ def test_cli_on_a_fake_2x2_mesh(tmp_path):
     assert res.stdout.startswith("[ok  ] olmoe-1b-7b|train_4k|2x2 "), \
         res.stdout
     rec = json.loads((tmp_path / "olmoe-1b-7b_train_4k_2x2.json").read_text())
+    assert rec["placement"] == "tp" and rec["placement_note"] is None
+    cfg = get_config("olmoe-1b-7b").reduced()
+    mesh = emulated_mesh((2, 2), ("data", "model"))
+    shapes = meta_params(cfg)
+    blocks = local_bytes(shapes, param_pspecs(cfg, shapes, mesh, "tp"), mesh)
+    leaves = tree_leaves_with_path(shapes)
+    # rank 0 holds the first 'model' block of lm_head and final_norm whole
+    scope = sum(blocks[name] // 4 for name, _ in leaves
+                if "lm_head" in name or "final_norm" in name)
+    C = 2                                     # the 'data' axis: 2 cohorts
+    B, S = dryrun.REDUCED_BATCH, dryrun.REDUCED_SEQ
+    L, k, hd = cfg.num_layers, cfg.experts_per_token, cfg.resolved_head_dim
+    T = B // C * S                            # the cohort's tokens
+    act = T * cfg.d_model * 4                 # one f32 activation
+    # over 'model', forward: the embedding's lookup, each layer's attention
+    # and MoE outputs, the loss's max, sum of exps and target logits
+    # (S - 1 targets a row); backward: the head's input, and each layer's
+    # attention output recomputed (remat "full", which stops before the
+    # MoE's sum) and the grads of what enters a layer's parts: attention's
+    # input, q_norm and k_norm, the MoE's tokens and top-k weights
+    fwd = [act] * (1 + 2 * L) + [B // C * (S - 1) * 4] * 3
+    bwd = [act] + [act, act, hd * 4, hd * 4, act, T * k * 4] * L
+    # the aggregation: G and c over 'model', every local leaf's α-combined
+    # update in f32 over 'data'
+    agg = [C * C * 4, C * 4] + [blocks[name] for name, _ in leaves]
+    coll = rec["collectives"]
+    # all-gathers: U's scoped f32 rows and the losses
+    assert coll["all-gather"] == C * scope * 4 + C * 4
+    assert coll["all-reduce"] == sum(fwd + bwd + agg)
+    assert coll["reduce-scatter"] == coll["all-to-all"] == 0
+    assert coll["total"] == coll["all-gather"] + coll["all-reduce"]
+    assert coll["count"] == 2 + len(fwd + bwd + agg)
+    mem = rec["memory"]
+    # this rank's blocks of the params and its cohort's rows of the batch
+    assert mem["argument_size_in_bytes"] == \
+        sum(blocks.values()) + B * S * 4 // C == mem["sharded_argument_bytes"]
+    _check_2x2_record(rec, cfg, B, S)
+
+
+def test_replicated_step_on_a_fake_2x2_mesh():
+    """``mode="dp"``: the replicated step, every leaf whole."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", _REPLICATED_2X2],
+                         capture_output=True, text=True, timeout=240,
+                         env=env, cwd=ROOT)
+    assert res.returncode == 0, res.stderr[-3000:]
+    rec = json.loads(res.stdout.strip().splitlines()[-1])
+    assert rec["status"] == "ok"
+    assert rec["placement"] == "replicated" and rec["placement_note"] is None
     cfg = get_config("olmoe-1b-7b").reduced()
     leaves = tree_leaves_with_path(meta_params(cfg))
     scope = sum(p.numel() for name, p in leaves
@@ -196,18 +273,10 @@ def test_cli_on_a_fake_2x2_mesh(tmp_path):
     assert coll["total"] == coll["all-gather"] + coll["all-reduce"]
     assert coll["count"] == 2 + len(leaves)
     B, S = dryrun.REDUCED_BATCH, dryrun.REDUCED_SEQ
-    mem = rec["memory"]
-    assert mem["sharded_argument_bytes"] == _ref_sharded_bytes(
-        j_get_config("olmoe-1b-7b").reduced(), (2, 2), B, S)
     params_bytes = sum(p.numel() * p.element_size() for _, p in leaves)
-    assert mem["argument_size_in_bytes"] == params_bytes + B * S * 4
-    assert mem["peak_bytes"] >= mem["argument_size_in_bytes"] + \
-        mem["output_size_in_bytes"]
-    assert mem["fits"] is True
-    r = rec["roofline"]
-    assert r["num_chips"] == 4 and r["flops"] == rec["cost"]["flops"] > 0
-    assert r["model_flops"] == pytest.approx(
-        6 * cfg.active_param_count() * B * S / 4)
+    assert rec["memory"]["argument_size_in_bytes"] == \
+        params_bytes + B * S * 4
+    _check_2x2_record(rec, cfg, B, S)
 
 
 def test_decode_cache_in_place_counts_once():
