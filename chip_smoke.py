@@ -141,7 +141,21 @@ Phases (any failure exits non-zero and prints no result line):
      against SDPA, a yardstick used nowhere in the port); three staggered
      requests equal to each served alone; a reduced f32 qwen3 served on the
      card (on ``decode_attn.cu``'s body) and on the CPU gives the same
-     tokens, and one decode step's logits on both within 1e-5;
+     tokens, and one decode step's logits on both within 1e-5.  Then the
+     placed part (``serve_placed``): the placed prefill and decode steps
+     (``launch.steps``, mode "tp": qwen3-14b "fsdp", zamba2-1.2b "tp") of
+     qwen3-14b and then zamba2-1.2b at full width, bf16, on a one-rank
+     NCCL (1, 1) mesh — 4 prompts of 200 tokens into a 32 768-row cache,
+     then 8 decode steps — beside the unplaced steps (mode "dp") on the
+     same params and tokens: every call's logits within SERVE_LOGIT_TOL of
+     max |logit| (zamba2-1.2b: within 1.5x its floor, measured in the run
+     as the unplaced steps with f32 attention against f64, call by call:
+     its SSM states carry each step's rounding into the later steps),
+     ``flash_decode`` launched once an attention layer a step
+     (the hybrid's shared block: once a group), all on the tensor-core
+     body, no plain version; the reduced f32 configs placed and unplaced
+     within 1e-5 (TF32 off); ms a decode step (CUDA events) and its busy
+     share, placed and unplaced;
   12. moe    — the serve phase again on each MoE config at full width (all
      layers, bf16, seeded; deepseek-moe-16b, 28 layers, 64 experts top-6
      and 2 shared, 16.9 B parameters, then olmoe-1b-7b, 16 layers, top-8,
@@ -224,9 +238,12 @@ Phases (any failure exits non-zero and prints no result line):
      predicts its step's peak within 10 % of the train phase's measured
      one, its FLOPs within [0.5, 2]x the analytic count; the analytic terms
      of ``launch.analytic`` beside every measured decode and train step,
-     the memory term within [0.5, 2]x the phase's byte bound; three
+     the memory term within [0.5, 2]x the phase's byte bound; four
      production combinations traced on fake process groups of 256 / 512
-     ranks, each ``ok``.
+     ranks, each ``ok``: the train step and the decode steps
+     placed, fitting, their per-rank FLOPs within [0.5, 2]x the analytic
+     per-device FLOPs (olmoe-1b-7b's placed ``decode_32k`` among them,
+     against the drop-free count: every expert over all its T slots).
 
 The kernels phase also holds ``stream_stats``, ``gram_block`` and ``sketch``
 (U Rᵀ against an explicit R) against their plain versions, bitwise
@@ -242,8 +259,15 @@ aligned rows and n % 8 == 0 take the tensor-core body of
 bf16 rows with K <= 64, aligned rows and n % 8 == 0 take
 ``sketch_mma.cu``, every other call ``sketch.cu``), and ``flash_decode``
 (o and lse) at the serve path's shape, the MoE serve path's (KV 16, G 1,
-hd 128), a decode_32k-like cache, gemma-7b's
-and starcoder2-15b's heads (the latter windowed), with ragged, strided,
+hd 128), the placed serve part's (qwen3-14b's and zamba2-1.2b's heads, B
+4 on a 32 768-row cache), a decode_32k-like cache, gemma-7b's
+and starcoder2-15b's heads (the latter windowed), the decode_32k-like
+cache cut into 16 seq blocks of 2 048 rows as the placed decode step calls
+it on each rank's block (each body launched per block with local lengths,
+the partials merged by ``ops.lse_merge``, gated against one whole-cache
+call and the plain version with later blocks empty and a window across
+block edges; the 16 calls plus the merge timed beside the whole call),
+with ragged, strided,
 soft-capped and f32 caches, timed beside SDPA (bf16 q, k and v at hd 64
 or 128 take the tensor-core body of ``decode_attn_mma.cu``, timed in turn
 with ``decode_attn.cu``'s body on the same inputs; every other call
@@ -420,6 +444,21 @@ DECODE_TOL = 1e-4
 # the MoE serve path's shape: both MoE configs have 16 KV heads of hd 128
 # and no grouping (G = 1), on the serve cache and lengths
 DECODE_MOE = (4, 256, 16, 1, 128, None, [1, 97, 200, 256])
+# the serve phase's placed part's own shapes (SERVE_PLACED: 4 rows of a
+# 32 768-row cache on a one-rank mesh, so a rank's block is the whole
+# cache): qwen3-14b's heads, and zamba2-1.2b's shared block (KV 32, G 1,
+# hd 64, the tensor-core body); the lengths of the part's first and last
+# decode steps (201, 208) beside longer ones
+DECODE_PLACED = [(4, 32768, 8, 5, 128, None, [201, 208, 16384, 32768]),
+                 (4, 32768, 32, 1, 64, None, [201, 208, 16384, 32768])]
+# the placed decode step's view of a decode_32k-like cache: 16 seq blocks
+# of 2 048 rows (one a 'model' rank), each launched with local lengths at
+# its offset, the partials merged by ops.lse_merge; gated against one
+# whole-cache call and the plain version on lengths that leave later blocks
+# empty and a window across block edges, timed on full lengths
+DECODE_BLOCKS = dict(B=8, S=32768, KV=8, G=5, hd=128, blocks=16,
+                     lengths=[1, 2048, 2049, 9000, 16384, 20000, 32767,
+                              32768], window=3000)
 # the serve phase: full qwen3-14b (40 layers, bf16, 14.77 B parameters) on
 # examples/serve_decode.py's traffic shape
 SERVE = dict(arch="qwen3-14b", slots=4, max_seq=256, scan_chunk=8,
@@ -436,6 +475,20 @@ SERVE = dict(arch="qwen3-14b", slots=4, max_seq=256, scan_chunk=8,
 SERVE_LOGIT_FLOOR = 2.013e-2
 SERVE_LOGIT_TOL = 1.5 * SERVE_LOGIT_FLOOR
 SERVE_LOGIT_TOL_F32 = 1e-5
+# the serve phase's placed part: the placed prefill and decode steps
+# (launch.steps, mode "tp") of each model at full width, bf16, on a one-rank
+# NCCL (1, 1) mesh, beside the unplaced steps (mode "dp") on the same params
+# and tokens: 4 prompts of 200 tokens into a 32 768-row cache, then 8 decode
+# steps; every logits row within SERVE_LOGIT_TOL of max |logit|, the reduced
+# f32 configs at SERVE_LOGIT_TOL_F32 (TF32 off).  A hybrid's SSM states
+# carry each step's attention rounding into every later step, so its gap
+# grows step by step and qwen3-14b's one-step floor does not bound it: its
+# floor is measured in the run, the unplaced steps with their plain
+# attention in f32 against the same in f64 over the same calls, and its
+# gate is SERVE_PLACED_FLOOR_RATIO x that floor's largest call
+SERVE_PLACED_FLOOR_RATIO = 1.5
+SERVE_PLACED = dict(archs=("qwen3-14b", "zamba2-1.2b"), batch=4, prompt=200,
+                    max_seq=32768, steps=8, small_prompt=20, small_seq=64)
 # the moe phase: both MoE configs at full width (all layers, bf16, seeded)
 # on SERVE's traffic, deepseek-moe-16b (33.8 GB) first, each freed before
 # the next.  Their logit floor is measured per model, as SERVE_LOGIT_FLOOR
@@ -530,14 +583,23 @@ ROOFLINE_PEAK_TOL = 0.10                 # |predicted - measured| / measured
 ROOFLINE_FLOPS_RANGE = (0.5, 2.0)        # trace / analytic train FLOPs
 ROOFLINE_BYTES_RANGE = (0.5, 2.0)        # analytic memory term / byte bound
 ROOFLINE_PRODUCTION = (("olmoe-1b-7b", "train_4k", "single"),
+                       ("olmoe-1b-7b", "decode_32k", "single"),
                        ("qwen3-14b", "decode_32k", "single"),
                        ("rwkv6-1.6b", "decode_32k", "multi"))
-ROOFLINE_TIMEOUT_S = 600                 # for all five dry runs together
+ROOFLINE_TIMEOUT_S = 600                 # for all six dry runs together
 # the placed train trace (olmoe-1b-7b|train_4k|single): its per-rank FLOPs
 # at most this many times the analytic per-device FLOPs (the replicated
 # step's were 19.8x), its arguments within this share of the specs' blocks
 ROOFLINE_PLACED_FLOPS_MAX = 2.0
 ROOFLINE_PLACED_ARGS_TOL = 0.01
+# the placed decode traces: placed, fitting, their per-rank FLOPs
+# within this range of the analytic per-device FLOPs (the replicated steps'
+# were 241-1 459x).  For a MoE model that analytic is the drop-free one:
+# at T <= 256 tokens moe.capacity gives every expert T slots, so each of a
+# rank's E/m experts runs its product over all T (E·T slot products where
+# the k-active count has k·T): launch.analytic with experts_per_token = E
+# (olmoe-1b-7b 3.50x, deepseek-moe-16b 4.12x the k-active count)
+ROOFLINE_DECODE_FLOPS_RANGE = (0.5, 2.0)
 HIER_ROUNDS = 6
 # the reference's recorded streamed-vs-fused loss gap (BENCH_bigmodel.json)
 STREAMED_LOSS_GAP = 1.4e-3
@@ -1741,9 +1803,158 @@ def check_decode(B: int, S: int, KV: int, G: int, hd: int, dt, gen,
     return rec
 
 
+def check_decode_blocks(gen) -> dict:
+    """flash_decode on ``DECODE_BLOCKS``' 16 seq blocks, as the placed
+    decode step calls it on each rank's block: each body (``mma``,
+    ``cuda_core``) launched on every block with local lengths (position + 1
+    - the block's first row), the partials merged by ``ops.lse_merge``.
+    Gates, on lengths that leave later blocks empty, with and without a
+    window that crosses block edges, and on full lengths: no NaN, a row
+    with no live key in its block o = 0 and lse <= -1e30, the merge within
+    DECODE_TOL of one whole-cache call of the same body and of the plain
+    version.  Times (full lengths, CUDA events): the 16 calls plus the
+    merge and the whole call, each body in turn, the plain version on the
+    same blocks plus the merge, SDPA on the whole cache, beside the whole
+    call's byte bound."""
+    import torch
+    from repro_torch.kernels import decode_attn, ops
+    D = DECODE_BLOCKS
+    B, S, KV, G, hd, n = D["B"], D["S"], D["KV"], D["G"], D["hd"], D["blocks"]
+    rows = S // n
+    bf16 = torch.bfloat16
+    q = torch.randn((B, KV, G, hd), generator=gen, device="cuda").to(bf16)
+    k = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(bf16)
+    v = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(bf16)
+    blocks = [(k[:, j * rows:(j + 1) * rows], v[:, j * rows:(j + 1) * rows])
+              for j in range(n)]
+    starts = [j * rows for j in range(n)]
+    what = f"flash_decode on {n} blocks of {rows} rows B={B} S={S}"
+
+    def on_blocks(ln, window, body, backend="cuda"):
+        parts = []
+        for (kb, vb), j0 in zip(blocks, starts):
+            local = ln - j0
+            if backend == "cuda":
+                parts.append(decode_attn.flash_decode_cuda(
+                    q, kb, vb, local, window=window, body=body))
+            else:
+                parts.append(ops.flash_decode(q, kb, vb, local, window=window,
+                                              backend="torch"))
+        return parts
+
+    def merged(parts):
+        return ops.lse_merge(torch.stack([o for o, _ in parts]),
+                             torch.stack([lse for _, lse in parts]))
+
+    full = [S] * B
+    gates, worst = [], 0.0
+    for lengths, window in ((D["lengths"], None), (D["lengths"], D["window"]),
+                            (full, None)):
+        ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        want = ops.flash_decode(q, k, v, ln, window=window, backend="torch")
+        for body in decode_attn.BODIES:
+            parts = on_blocks(ln, window, body)
+            empty = 0
+            for (o, lse), j0 in zip(parts, starts):
+                need(not (torch.isnan(o).any() or torch.isnan(lse).any()),
+                     f"{what} {body} window={window}: NaN in a block")
+                lo = (ln - window).clamp(min=0) if window else 0 * ln
+                dead = (ln - j0 <= 0) | (lo >= j0 + rows)
+                empty += int(dead.sum())
+                need(bool((o[dead] == 0).all() and (lse[dead] <= -1e30).all()),
+                     f"{what} {body} window={window}: a row with no live key "
+                     "is not o = 0, lse <= -1e30")
+            got = merged(parts)
+            whole = decode_attn.flash_decode_cuda(q, k, v, ln, window=window,
+                                                  body=body)
+            err_whole = max(_max_err(a, b) / _scale(b)
+                            for a, b in zip(got, whole))
+            err_plain = max(_max_err(a, b) / _scale(b)
+                            for a, b in zip(got, want))
+            need(err_whole <= DECODE_TOL and err_plain <= DECODE_TOL,
+                 f"{what} {body} window={window}: merged {err_whole:.3e} off "
+                 f"the whole call, {err_plain:.3e} off plain > {DECODE_TOL}")
+            worst = max(worst, err_plain)
+            gates.append({"body": body, "window": window,
+                          "lengths": lengths if lengths is not full
+                          else f"all {S}", "empty_block_rows": empty,
+                          "rel_err_vs_whole": err_whole,
+                          "rel_err_vs_plain": err_plain,
+                          "max_abs_err": max(_max_err(a, b) for a, b in
+                                             zip(got, want))})
+    torch.cuda.synchronize()
+    ln = torch.tensor(full, dtype=torch.int32, device="cuda")
+    b_rec = decode_bound(B, S, KV, G, hd, bf16, full, None)
+    reps = 20
+    fns = {body: (lambda body=body: merged(on_blocks(ln, None, body)))
+           for body in decode_attn.BODIES}
+    whole = {body: (lambda body=body: decode_attn.flash_decode_cuda(
+        q, k, v, ln, body=body)) for body in decode_attn.BODIES}
+    # one rank's call: block 1 of the 16, every row live
+    local = ln - starts[1]
+    one = {body: (lambda body=body: decode_attn.flash_decode_cuda(
+        q, *blocks[1], local, body=body)) for body in decode_attn.BODIES}
+    runs = [time_ms(f, reps) for f in (fns["cuda_core"], fns["mma"],
+                                       fns["mma"], fns["cuda_core"],
+                                       whole["cuda_core"], whole["mma"],
+                                       whole["mma"], whole["cuda_core"],
+                                       one["cuda_core"], one["mma"],
+                                       one["mma"], one["cuda_core"])]
+    one_bound = decode_bound(B, rows, KV, G, hd, bf16, [rows] * B, None)
+    plain_ms = time_ms(lambda: merged(on_blocks(ln, None, None, "torch")), 3)
+    qh = q.reshape(B, KV * G, 1, hd)
+    kh, vh = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    import torch.nn.functional as F
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, enable_gqa=True), reps)
+    del kh, vh
+    kernels = device_kernel_means(fns["mma"])
+    rec = {"set": "blocks", "B": B, "S": S, "KV": KV, "G": G, "hd": hd,
+           "dtype": "bfloat16", "window": None, "lengths": f"all {S}",
+           "blocks": n, "rows_per_block": rows, "body": "mma",
+           "ms": statistics.median(runs[1:3]), "ms_runs": runs[1:3],
+           "cuda_core_ms": statistics.median(runs[0:4:3]),
+           "whole_ms": statistics.median(runs[5:7]),
+           "cuda_core_whole_ms": statistics.median(runs[4:8:3]),
+           "block_ms": statistics.median(runs[9:11]),
+           "cuda_core_block_ms": statistics.median(runs[8:12:3]),
+           "block_bound_ms": one_bound["bound_ms"],
+           "block_device_kernels": device_kernel_means(one["mma"]),
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library": "scaled_dot_product_attention(enable_gqa) on the "
+                      "whole cache: o only; transpose not timed",
+           "device_kernels": kernels,
+           "device_ms": sum(ms for _, ms in kernels.values()),
+           "device_kernels_per_call": len(kernels),
+           "host_ms": host_ms(fns["mma"], reps),
+           "gates": gates, "rel_err": worst, "tolerance": DECODE_TOL,
+           "max_abs_err": max(g["max_abs_err"] for g in gates), **b_rec}
+    log(f"{what}: {n} calls + lse_merge, tensor-core body "
+        f"{' / '.join(f'{t * 1e3:.1f}' for t in runs[1:3])} us, CUDA-core "
+        f"{' / '.join(f'{t * 1e3:.1f}' for t in runs[0:4:3])} us; one "
+        f"whole-cache call tensor-core "
+        f"{' / '.join(f'{t * 1e3:.1f}' for t in runs[5:7])} us, CUDA-core "
+        f"{' / '.join(f'{t * 1e3:.1f}' for t in runs[4:8:3])} us; bound "
+        f"{b_rec['bound_ms'] * 1e3:.1f} us; one rank's block alone "
+        f"tensor-core {' / '.join(f'{t * 1e3:.1f}' for t in runs[9:11])} "
+        f"us, CUDA-core {' / '.join(f'{t * 1e3:.1f}' for t in runs[8:12:3])}"
+        f" us, its bound {one_bound['bound_ms'] * 1e3:.1f} us (device "
+        + _kernel_names({"device_kernels": rec["block_device_kernels"]})
+        + "); plain on the blocks "
+        f"{plain_ms * 1e3:.1f} us, SDPA whole {library_ms * 1e3:.1f} us; "
+        f"device kernels (launches in 3 calls, us per launch) "
+        + _kernel_names(rec) + "; gates (rel err merged vs whole, vs plain): "
+        + "; ".join(f"{g['body']} window={g['window']} "
+                    f"{g['rel_err_vs_whole']:.2e}/{g['rel_err_vs_plain']:.2e}"
+                    f" ({g['empty_block_rows']} empty block rows)"
+                    for g in gates))
+    return rec
+
+
 def decode_phase_records(gen) -> list:
     """flash_decode at the serve path's shape, the MoE serve path's (KV 16,
-    G 1), model shapes, and ragged,
+    G 1), the placed serve part's (qwen3-14b's and zamba2-1.2b's heads on
+    a 32 768-row cache), model shapes, and ragged,
     strided, windowed, soft-capped and f32 shapes (kernels phase); the
     bf16 rows at hd 64 and 128 take the tensor-core body, the rest the
     CUDA-core body."""
@@ -1755,10 +1966,16 @@ def decode_phase_records(gen) -> list:
     B, S, KV, G, hd, window, lengths = DECODE_MOE
     recs.append(dict(check_decode(B, S, KV, G, hd, bf16, gen, lengths,
                                   window), set="moe"))
+    for B, S, KV, G, hd, window, lengths in DECODE_PLACED:
+        recs.append(dict(check_decode(B, S, KV, G, hd, bf16, gen, lengths,
+                                      window), set="placed"))
+        torch.cuda.empty_cache()
     for B, S, KV, G, hd, window, lengths in DECODE_MODEL:
         recs.append(dict(check_decode(B, S, KV, G, hd, bf16, gen, lengths,
                                       window), set="model"))
         torch.cuda.empty_cache()
+    recs.append(check_decode_blocks(gen))
+    torch.cuda.empty_cache()
     ragged = [
         dict(B=4, S=256, KV=8, G=5, hd=128, dt=f32, lengths=[1, 97, 200, 256]),
         dict(B=4, S=256, KV=8, G=5, hd=128, dt=bf16, stacked=True,
@@ -3355,6 +3572,15 @@ def bigmodel_phase() -> dict:
     apply_kernels = device_kernel_means(lambda: sctx.apply(template, sdelta))
     apply_device_ms = sum(c * ms for c, ms in apply_kernels.values()) / 3
     apply_host_ms = host_ms(lambda: sctx.apply(template, sdelta), 5)
+    # the library yardstick of the apply: a torch.add per slab of its
+    # leaf's f32 params and the mix weights' product with the bf16 slab, in
+    # the slab's dtype, as the combine rows' (w + a @ U); not donated
+    from repro_torch.core.flatten import tree_leaves
+    lib_slabs = [(p.reshape(-1), s.matrix) for p, s in zip(
+        tree_leaves(template), sctx._dview.slabs)]
+    mix = {m.dtype: sdelta.w.to(m.dtype) for _, m in lib_slabs}
+    apply_library_ms = time_ms(lambda: [torch.add(f, mix[m.dtype] @ m)
+                                        for f, m in lib_slabs], 5, warmup=1)
     apply_launches = {}
     for k, (c, _) in apply_kernels.items():
         short = k.replace("void ", "").replace(
@@ -3365,8 +3591,10 @@ def bigmodel_phase() -> dict:
         f"{apply_ms * 1e3:.1f} us against a bound of {apply_bound * 1e3:.1f} "
         "us (bytes: the bf16 deltas read, the f32 parameters read and "
         f"written); {apply_device_ms * 1e3:.1f} us a call on the device, "
-        f"{apply_host_ms * 1e3:.1f} us of host time to issue one; the "
-        f"apply's device kernels seen in three calls {apply_launches}")
+        f"{apply_host_ms * 1e3:.1f} us of host time to issue one; library "
+        f"(torch.add of w and a @ U per slab) {apply_library_ms * 1e3:.1f} "
+        f"us; the apply's device kernels seen in three calls "
+        f"{apply_launches}")
 
     with force_backend("torch", op="stream_stats"):
         ref_ctx = seng.begin_round(deltas, grads)
@@ -3412,6 +3640,7 @@ def bigmodel_phase() -> dict:
             "apply_ms": apply_ms, "apply_bound_ms": apply_bound,
             "apply_device_ms": apply_device_ms,
             "apply_host_ms": apply_host_ms,
+            "apply_library_ms": apply_library_ms,
             "apply_launches_in_3_calls": apply_launches,
             "combine_bodies": combine_bodies,
             "memory_rise_bytes": rise,
@@ -3862,6 +4091,261 @@ def serve_phase(device: str = "cuda", cfg=None, small=None,
                  "device_busy": busy, "init_s": init_s, "parameters": n},
                 **({"route_flips": flips} if routes["kernel"] else {}),
                 **more)
+
+
+def _serve_steps(cfg, mesh, mode: str, max_seq: int, B: int) -> tuple:
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.launch.steps import build_decode_step, build_prefill_step
+    return (build_prefill_step(cfg, mesh, InputShape(
+                "custom", "prefill", max_seq, B), mode=mode),
+            build_decode_step(cfg, mesh, InputShape(
+                "custom", "decode", max_seq, B), mode=mode))
+
+
+def _serve_run(cfg, params, mesh, mode: str, prompts, tokens,
+               max_seq: int) -> tuple:
+    """The prefill of ``prompts`` then a decode step per token of
+    ``tokens`` through the steps of ``mode``: (every call's logits on the
+    host, the last cache, the decode step, the steps' placement)."""
+    prefill, decode = _serve_steps(cfg, mesh, mode, max_seq,
+                                   prompts.shape[0])
+    logits, cache = prefill(params, {"tokens": prompts})
+    out = [logits.float().cpu()]
+    for tok in tokens:
+        logits, cache = decode(params, tok, cache)
+        out.append(logits.float().cpu())
+    return out, cache, decode, prefill.placement
+
+
+def _attention_decode_f64(cfg, params, x, cache, position, *, window=None,
+                          use_rope=True):
+    """``attention.attention_decode``'s plain arithmetic (outside ring
+    mode) in f64 where it works in f32: the second correct attention of a
+    placed hybrid's logit floor (``serve_placed_model``)."""
+    import torch
+    from repro_torch.models import attention as A
+    B, S = x.shape[0], cache.k.shape[1]
+    A.check_capacity(position, S)
+    pos = torch.full((B, 1), position, dtype=torch.int32, device=x.device)
+    q, k, v = A._project_qkv(cfg, params, x, pos if use_rope else None,
+                             use_rope)
+    cache.k[:, position] = k[:, 0].to(cache.k.dtype)
+    cache.v[:, position] = v[:, 0].to(cache.v.dtype)
+    hd = cfg.resolved_head_dim
+    s = torch.einsum("bkgd,bskd->bkgs",
+                     A._grouped(cfg, q).double() * hd ** -0.5,
+                     cache.k.double())
+    s = A.softcap(s, cfg.attn_logit_softcap)
+    kpos = torch.arange(S, device=x.device)
+    ok = kpos <= position
+    if window is not None:
+        ok = ok & (kpos > position - window)
+    p = torch.softmax(s.masked_fill(~ok, float("-inf")), dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p, cache.v.double())
+    return o.reshape(B, 1, -1).to(x.dtype) @ params["wo"], cache
+
+
+def _serve_placed_f32(name: str, mesh, device: str) -> float:
+    """The reduced f32 config, placed and unplaced on ``mesh`` (TF32 off):
+    the largest gap of any call's logits over max |logit|."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    P = SERVE_PLACED
+    cfg = get_config(name).reduced()
+    params = get_model(cfg).init(0, device=device)
+    gen = torch.Generator()
+    gen.manual_seed(5)
+    prompts = torch.randint(0, cfg.vocab_size, (P["batch"], P["small_prompt"]),
+                            generator=gen, dtype=torch.int32).to(device)
+    tokens = [torch.randint(0, cfg.vocab_size, (P["batch"],), generator=gen,
+                            dtype=torch.int32).to(device)
+              for _ in range(P["steps"])]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = _serve_run(cfg, params, mesh, "tp", prompts, tokens,
+                         P["small_seq"])[0]
+        want = _serve_run(cfg, params, mesh, "dp", prompts, tokens,
+                          P["small_seq"])[0]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return max(_logit_err(a, b) for a, b in zip(got, want))
+
+
+def serve_placed_model(name: str, mesh, smi_line: str,
+                       device: str = "cuda", reduced: bool = False) -> dict:
+    """One model of :func:`serve_placed_phase`: its bf16 params seeded on
+    the card, the unplaced run (mode "dp"; its decode step timed, then its
+    cache freed), the placed run (mode "tp") as the main path with the
+    launch counters at 0 just before it and read just after, its decode
+    step timed; the logits gated; the reduced f32 config placed and
+    unplaced."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.flatten import tree_leaves
+    from repro_torch.kernels import (decode_attn, launch_counts,
+                                     reset_launch_counts)
+    P = SERVE_PLACED
+    cfg = get_config(name)
+    cfg = cfg.reduced() if reduced else cfg
+    tag = f"serve placed {cfg.name}"
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        bundle, params, n, nbytes, init_s = _init_on_card(tag, cfg, smi_line,
+                                                         device)
+    else:       # a rehearsal of the control flow on the CPU
+        from repro_torch.models import get_model
+        params = get_model(cfg).init(0, device=device)
+        n = sum(p.numel() for p in tree_leaves(params))
+        nbytes = sum(p.numel() * p.element_size()
+                     for p in tree_leaves(params))
+        init_s = None
+    gen = torch.Generator()
+    gen.manual_seed(7)
+    B, S0, max_seq = P["batch"], P["prompt"], P["max_seq"]
+    prompts = torch.randint(0, cfg.vocab_size, (B, S0), generator=gen,
+                            dtype=torch.int32).to(device)
+    tokens = [torch.randint(0, cfg.vocab_size, (B,), generator=gen,
+                            dtype=torch.int32).to(device)
+              for _ in range(P["steps"])]
+    attn_layers = (cfg.num_layers // cfg.attn_every
+                   if cfg.family == "hybrid" else cfg.num_layers)
+
+    def step_numbers(decode, cache, what):
+        tok = tokens[-1]
+        if not on_card:
+            return {"step_ms": None, "step_ms_all": [], "device_busy": None}
+        ms = _event_ms(lambda: decode(params, tok, cache), reps=5)
+        busy = device_busy(lambda: decode(params, tok, cache), steps=2)
+        med = statistics.median(ms)
+        log(f"{tag} {what} decode step at position {cache.position} "
+            f"({smi_line}): median {med:.2f} ms (min {min(ms):.2f}); "
+            + ("device busy not measured (the profiler recorded no device "
+               "time)" if busy is None else
+               f"device busy {busy['busy_ms']:.2f} ms ({busy['busy_ms'] / med:.1%}"
+               f", idle {1 - busy['busy_ms'] / med:.1%}); by kernel (ms, "
+               "launches per step): " + "; ".join(
+                   f"{k} {v[0]:.3f} ({v[1]:g})" for k, v in busy["top"])))
+        return {"step_ms": med, "step_ms_all": ms, "device_busy": busy}
+
+    want, cache, decode, plain_placement = _serve_run(
+        cfg, params, mesh, "dp", prompts, tokens, max_seq)
+    unplaced = step_numbers(decode, cache, "unplaced")
+    del cache, decode
+    if on_card:
+        torch.cuda.empty_cache()
+    floor = None
+    if cfg.family == "hybrid":
+        # the hybrid's floor: the unplaced steps again with their plain
+        # attention in f64, against the f32 run, call by call (its SSM
+        # states carry each step's rounding into every later step)
+        from repro_torch.models import transformer
+        plain = transformer.attention_decode
+        transformer.attention_decode = _attention_decode_f64
+        try:
+            want64 = _serve_run(cfg, params, mesh, "dp", prompts, tokens,
+                                max_seq)[0]
+        finally:
+            transformer.attention_decode = plain
+        floor = [_logit_err(a, b) for a, b in zip(want64, want)]
+        del want64
+        if on_card:
+            torch.cuda.empty_cache()
+    logit_tol = (SERVE_LOGIT_TOL if floor is None
+                 else SERVE_PLACED_FLOOR_RATIO * max(floor))
+
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    reset_launch_counts()
+    before = decode_attn.body_launches()
+    sync()
+    t0 = time.perf_counter()
+    got, cache, decode, placement = _serve_run(cfg, params, mesh, "tp",
+                                               prompts, tokens, max_seq)
+    sync()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    bodies = _tally_since(before, decode_attn.body_launches())
+    need(placement in ("tp", "fsdp") and plain_placement == "replicated",
+         f"{tag}: placements {placement}, {plain_placement}")
+    if on_card:
+        want_launches = attn_layers * P["steps"]
+        need(counts["flash_decode/cuda"] == want_launches,
+             f"{tag}: flash_decode/cuda {counts['flash_decode/cuda']} "
+             f"launches, want {attn_layers} attention layers x "
+             f"{P['steps']} steps = {want_launches}")
+        need(bodies == {"mma": want_launches, "cuda_core": 0},
+             f"{tag}: flash_decode bodies {bodies}, want the tensor-core "
+             "body only")
+        ran = {k: v for k, v in counts.items() if k.endswith("/torch") and v}
+        need(not ran, f"{tag}: plain versions ran on the path: {ran}")
+    need(all(torch.isfinite(g).all() for g in got), f"{tag}: logits not "
+         "finite")
+    errs = [_logit_err(a, b) for a, b in zip(got, want)]
+    need(max(errs) <= logit_tol, f"{tag}: placed vs unplaced logits "
+         f"{max(errs):.3e} of max |logit| > {logit_tol:.4g}")
+    block_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(cache) if torch.is_tensor(t))
+    placed = step_numbers(decode, cache, "placed")
+    del cache, decode
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    del params
+    if on_card:
+        torch.cuda.empty_cache()
+    small_err = _serve_placed_f32(name, mesh, device)
+    need(small_err <= SERVE_LOGIT_TOL_F32, f"{tag}: reduced f32 placed vs "
+         f"unplaced logits {small_err:.3e} > {SERVE_LOGIT_TOL_F32}")
+    log(f"{tag} ({smi_line}): prefill of {B} x {S0} tokens into {max_seq} "
+        f"rows then {P['steps']} decode steps in {wall:.2f} s; logits placed "
+        f"vs unplaced {', '.join(f'{e:.2e}' for e in errs)} of max |logit| "
+        f"(prefill first; gate {logit_tol:.4g}"
+        + ("" if floor is None else
+           f": {SERVE_PLACED_FLOOR_RATIO}x the floor, unplaced f32 vs f64 "
+           f"attention {', '.join(f'{e:.2e}' for e in floor)}")
+        + f"); flash_decode "
+        f"{counts.get('flash_decode/cuda', 0)} launches, bodies {bodies}; "
+        f"cache block {block_bytes} B; peak allocated {peak} B; reduced f32 "
+        f"{small_err:.3e} (gate {SERVE_LOGIT_TOL_F32}); decode step placed "
+        f"{placed['step_ms']} ms, unplaced {unplaced['step_ms']} ms")
+    return {"counts": counts, "bodies": bodies, "placement": placement,
+            "logit_rel_err": errs, "logit_tolerance": logit_tol,
+            "logit_floor_f32_vs_f64": floor,
+            "reduced_f32_logit_rel_err": small_err, "wall_s": wall,
+            "placed": placed, "unplaced": unplaced,
+            "cache_block_bytes": block_bytes, "peak_allocated_bytes": peak,
+            "parameters": n, "weight_bytes": nbytes, "init_s": init_s,
+            "attention_layers": attn_layers}
+
+
+def serve_placed_phase(smi_line: str, device: str = "cuda",
+                       archs=None, reduced: bool = False) -> dict:
+    """The serve phase's placed part (``SERVE_PLACED``): each model's
+    placed prefill and decode steps on a one-rank NCCL group (a
+    ``FileStore`` in a temporary directory; gloo on the CPU) with a (1, 1)
+    mesh of ranks, against the unplaced steps (:func:`serve_placed_model`);
+    the group is destroyed.  The counts are the placed runs' (summed over
+    the models)."""
+    import os
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    models, counts = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        dist.init_process_group(backend, store=store, rank=0, world_size=1)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"))
+            for name in archs or SERVE_PLACED["archs"]:
+                rec = serve_placed_model(name, mesh, smi_line, device,
+                                         reduced)
+                models[name] = rec
+                for key, v in rec["counts"].items():
+                    counts[key] = counts.get(key, 0) + v
+        finally:
+            dist.destroy_process_group()
+    return {"counts": counts, "models": models}
 
 
 # --------------------------------------------------------------------- moe
@@ -5865,8 +6349,8 @@ def roofline_phase(smi_line: str, records: dict) -> dict:
             "trace_s": rec["trace_s"], "process_s": secs,
             "dry_run": rec}
 
-    # (c) the production combinations: the train step placed ("tp"), the
-    # decode steps replicated
+    # (c) the production combinations: the train step and the
+    # decode steps placed
     for tag, rec in production.items():
         need(rec["status"] == "ok", f"roofline (c) {tag}: {rec['status']}")
         arch, shape_name, mesh = tag.split("|")
@@ -5884,6 +6368,28 @@ def roofline_phase(smi_line: str, records: dict) -> dict:
             f"TFLOP beside the analytic {a.flops / 1e12:.3f} TFLOP a device "
             f"({ratio:.2f}x); collectives "
             f"{ {k: v for k, v in rec['collectives'].items() if v} }")
+        if shape_name.startswith("decode"):
+            cfg = get_config(arch)
+            lo, hi = ROOFLINE_DECODE_FLOPS_RANGE
+            gated, what = ratio, "the analytic"
+            if cfg.family == "moe":
+                free = analytic_roofline(
+                    cfg.with_overrides(experts_per_token=cfg.num_experts),
+                    INPUT_SHAPES[shape_name],
+                    pods=2 if mesh == "multi" else 1).flops
+                rec["drop_free_analytic_flops_per_device"] = free
+                gated, what = rec["cost"]["flops"] / free, "the drop-free analytic"
+                log(f"roofline (c) {tag}: the drop-free analytic (every "
+                    f"expert over every slot) {free / 1e12:.3f} TFLOP a "
+                    f"device ({free / a.flops:.2f}x the k-active one); "
+                    f"trace {gated:.2f}x it")
+            need(rec["placement"] in ("tp", "fsdp") and m["fits"]
+                 and lo <= gated <= hi
+                 and abs(args) <= ROOFLINE_PLACED_ARGS_TOL,
+                 f"roofline (c) {tag}: placement {rec['placement']}, fits "
+                 f"{m['fits']}, FLOPs {gated:.2f}x {what} (want "
+                 f"{lo}-{hi:g}), arguments {args:+.2%} off the specs' "
+                 f"blocks (at most {ROOFLINE_PLACED_ARGS_TOL:.0%})")
         if shape_name.startswith("train"):
             need(rec["placement"] == "tp" and m["fits"]
                  and ratio <= ROOFLINE_PLACED_FLOPS_MAX
@@ -6024,7 +6530,8 @@ def setup_phase() -> str:
     from repro_torch.kernels.decode_attn import (
         MMA_HEAD_DIMS, decode_mma_splits, decode_splits, mma_resident_blocks,
         resident_blocks)
-    for B, S, KV, G, hd, window, _ in (DECODE_PATH,) + tuple(DECODE_MODEL):
+    for B, S, KV, G, hd, window, _ in ((DECODE_PATH,) + tuple(DECODE_PLACED)
+                                       + tuple(DECODE_MODEL)):
         resident = resident_blocks(hd, G, True, 0)
         splits, rows = decode_splits(B, S, KV, resident, window)
         log(f"launch: flash_decode B={B} S={S} KV={KV} G={G} hd={hd} "
@@ -6150,6 +6657,8 @@ def main() -> int:
         scaffolded = on_cuda_core("scaffold", scaffold_phase, ds, params)
         big = on_cuda_core("bigmodel", bigmodel_phase)
         served = on_cuda_core("serve", serve_phase)
+        placed_served = on_cuda_core("serve_placed", serve_placed_phase,
+                                     smi_line)
         moed = on_cuda_core("moe", moe_phase, smi_line)
         recurred = on_cuda_core("recurrent", recurrent_phase, smi_line)
         lockstepped = {phase: on_cuda_core(phase, lockstep_phase, smi_line,
@@ -6170,6 +6679,7 @@ def main() -> int:
                    "fleet": fleeted["counts"],
                    "scaffold": scaffolded["counts"],
                    "bigmodel": big["counts"], "serve": served["counts"],
+                   "serve_placed": placed_served["counts"],
                    "moe": moed["counts"], "recurrent": recurred["counts"],
                    **{phase: rec["counts"]
                       for phase, rec in lockstepped.items()},
@@ -6254,6 +6764,8 @@ def main() -> int:
         k: v for k, v in big.items() if k != "counts"}
     entries[names.index("flash_decode")]["serve"] = {
         k: v for k, v in served.items() if k != "counts"}
+    entries[names.index("flash_decode")]["serve_placed"] = placed_served[
+        "models"]
     entries[names.index("flash_decode")]["moe"] = moed["models"]
     # no kernel lies on the recurrent path (its launches are 0 for every
     # op); its numbers ride on the serving entry

@@ -38,6 +38,12 @@ collectives below.  Inside :func:`model_parallel` the models read
     reduce-scatter) for a tensor that each rank's part reads whole, and
     :func:`sum_for_parts` (all-reduce both ways) for a sum each part
     reads.
+
+The placed serve steps run the same model-parallel code without grads,
+and hold a seq block of every KV cache (``model_parallel(mesh, cache=)``,
+:class:`CacheShard`): a decode step's attention runs ``flash_decode`` on
+this rank's block, and :func:`merge_decode_partials` merges the (o, lse)
+partials of every block over the cache's seq axes.
 """
 from __future__ import annotations
 
@@ -47,7 +53,7 @@ from typing import Any, Iterator, Optional, Sequence, Tuple
 
 import torch
 
-from ..kernels.ops import gram_and_cross
+from ..kernels.ops import gram_and_cross, lse_merge
 from ..launch.mesh import Mesh
 from .solve import solve_alpha_simple
 
@@ -70,16 +76,28 @@ def _live_axes(mesh: Mesh, axes: Sequence[str]) -> Tuple[str, ...]:
     return ()
 
 
+def _gather_into(t: torch.Tensor, ways: int, group) -> torch.Tensor:
+    """(ways, *t.shape): every rank's ``t`` (at least 1-D) of ``group`` in
+    rank order, one collective into one tensor (no list of parts to copy
+    together)."""
+    import torch.distributed as dist
+    # torch 2.13 names it all_gather_single and deprecates the old name;
+    # torch 2.11 has only all_gather_into_tensor
+    gather = (getattr(dist, "all_gather_single", None)
+              or dist.all_gather_into_tensor)
+    out = torch.empty((ways * t.shape[0],) + tuple(t.shape[1:]),
+                      dtype=t.dtype, device=t.device)
+    gather(out, t.contiguous(), group=group)
+    return out.view((ways,) + tuple(t.shape))
+
+
 def all_gather_rows(mesh: Mesh, t: torch.Tensor,
                     axes: Sequence[str]) -> torch.Tensor:
     """Every rank's ``t`` (rows on dim 0) concatenated in coordinate order
     over ``axes``, the first axis major: the rank at coordinates (a, b)
     holds rows block a·|b| + b."""
-    import torch.distributed as dist
     for axis in reversed(_live_axes(mesh, axes)):
-        parts = [torch.empty_like(t) for _ in range(mesh.shape[axis])]
-        dist.all_gather(parts, t.contiguous(), group=mesh.group(axis))
-        t = torch.cat(parts)
+        t = _gather_into(t, mesh.shape[axis], mesh.group(axis)).flatten(0, 1)
     return t
 
 
@@ -194,31 +212,96 @@ class ModelShard:
     rank: int
 
 
-# a module global, not a context variable: autograd's device threads read
-# it when they recompute a checkpointed layer in the backward pass
+@dataclass(frozen=True)
+class CacheShard:
+    """Where this rank's block of a placed serve step's cache lies (the
+    rules of ``sharding.cache_pspecs``): ``kv_axes``, the mesh axes that
+    split the seq dim of every KV leaf, ``state_axes``, those that split
+    the head dim of every recurrent state, and ``cross_axes``, those that
+    split the rows of an encoder-decoder's cross K/V, each major first and
+    ending with ``model`` (``()``: the dim is whole on every rank)."""
+    mesh: Mesh
+    kv_axes: Tuple[str, ...] = ()
+    state_axes: Tuple[str, ...] = ()
+    cross_axes: Tuple[str, ...] = ()
+
+    def ways(self, axes: Sequence[str]) -> int:
+        n = 1
+        for a in axes:
+            n *= self.mesh.shape[a]
+        return n
+
+    def index(self, axes: Sequence[str]) -> int:
+        """This rank's block of a dim split over ``axes`` (major first)."""
+        at = 0
+        for a in axes:
+            at = at * self.mesh.shape[a] + self.mesh.coordinate(a)
+        return at
+
+    def kv_start(self, rows: int) -> int:
+        """The global seq position of the first row of this rank's KV
+        block of ``rows`` rows."""
+        return self.index(self.kv_axes) * rows
+
+
+# module globals, not context variables: autograd's device threads read
+# them when they recompute a checkpointed layer in the backward pass
 _MODEL_SHARD: Optional[ModelShard] = None
+_CACHE_SHARD: Optional[CacheShard] = None
 
 
 @contextlib.contextmanager
-def model_parallel(mesh: Mesh, axis: str = "model") -> Iterator[ModelShard]:
+def model_parallel(mesh: Mesh, axis: str = "model",
+                   cache: Optional[CacheShard] = None
+                   ) -> Iterator[ModelShard]:
     """Run the models on this rank's shards of ``axis`` (a mesh of ranks)
-    inside the block; :func:`model_shard` reads it."""
-    global _MODEL_SHARD
+    inside the block; :func:`model_shard` reads it.  ``cache`` places the
+    serve steps' caches (:func:`cache_shard` reads it): without one a
+    model's cache is whole on every rank."""
+    global _MODEL_SHARD, _CACHE_SHARD
     if mesh.device_mesh is None:
         raise ValueError(f"model_parallel needs a mesh of ranks, not {mesh!r}")
-    prev = _MODEL_SHARD
+    prev = _MODEL_SHARD, _CACHE_SHARD
     _MODEL_SHARD = ModelShard(mesh.group(axis), mesh.shape[axis],
                               mesh.coordinate(axis))
+    _CACHE_SHARD = cache if cache is not None else CacheShard(mesh)
     try:
         yield _MODEL_SHARD
     finally:
-        _MODEL_SHARD = prev
+        _MODEL_SHARD, _CACHE_SHARD = prev
 
 
 def model_shard() -> Optional[ModelShard]:
     """The active :class:`ModelShard` (None outside :func:`model_parallel`:
     the models run on whole weights)."""
     return _MODEL_SHARD
+
+
+def cache_shard() -> Optional[CacheShard]:
+    """The active :class:`CacheShard` (None outside
+    :func:`model_parallel`)."""
+    return _CACHE_SHARD
+
+
+def merge_decode_partials(mesh: Mesh, o: torch.Tensor, lse: torch.Tensor,
+                          axes: Sequence[str]
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``flash_decode`` partials of every seq block over ``axes`` —
+    o (B, KV, G, hd) and lse (B, KV, G, 1) f32 on each rank — merged into
+    the whole cache's, on every rank: the (B, KV, G, hd + 1) partials are
+    all-gathered and summed by ``lse_merge``.  A block with no live row
+    (o = 0, lse <= -1e30) weighs 0.  ``axes`` empty: ``(o, lse)``."""
+    if not axes:
+        return o, lse
+    hd = o.shape[-1]
+    parts = all_gather_rows(mesh, torch.cat([o, lse], dim=-1)[None], axes)
+    return lse_merge(parts[..., :hd], parts[..., hd:])
+
+
+def all_to_all_model(t: torch.Tensor) -> torch.Tensor:
+    """(m, ...) → (m, ...): block j of the result is rank j's block of
+    this rank's index along ``model`` (no grad)."""
+    return _all_to_all(t, _MODEL_SHARD)
 
 
 def _summed(t: torch.Tensor, group, op=None) -> torch.Tensor:
@@ -231,10 +314,8 @@ def _summed(t: torch.Tensor, group, op=None) -> torch.Tensor:
 
 def _gather_last(t: torch.Tensor, shard: ModelShard) -> torch.Tensor:
     """(..., c) on every rank → (..., m·c), rank order along the last dim."""
-    import torch.distributed as dist
-    parts = [torch.empty_like(t) for _ in range(shard.size)]
-    dist.all_gather(parts, t.contiguous(), group=shard.group)
-    return torch.cat(parts, dim=-1)
+    got = _gather_into(t, shard.size, shard.group)        # (m, ..., c)
+    return got.movedim(0, -2).reshape(*t.shape[:-1], shard.size * t.shape[-1])
 
 
 def _scatter_last(t: torch.Tensor, shard: ModelShard) -> torch.Tensor:

@@ -396,7 +396,11 @@ extern "C" int flash_decode_launch_config(int hd, int G, int kv_bf16,
 
 // q (B, KV, G, hd) contiguous, f32 or bf16; k, v (B, S, KV, hd), both f32
 // or both bf16, the last dim contiguous, strides in elements (batch, row,
-// head) with 16-byte aligned rows; lengths (B,) int32 >= 1.  o (B, KV, G, hd)
+// head) with 16-byte aligned rows; lengths (B,) int32, any value: a block of
+// a seq-split cache passes position + 1 - its first global row, and a row
+// whose live range [max(0, length - window), min(length, S)) is empty gets
+// o = 0 and lse = -1e30 (l clamped to 1e-30), which weighs 0 in the merge
+// below and in the merge across blocks.  o (B, KV, G, hd)
 // and lse (B, KV, G, 1) f32; scale is hd^-1/2 rounded to f32.  With
 // splits > 1, o_part (splits, B, KV, G, hd) and lse_part (splits, B, KV, G)
 // f32 are scratch and a merge pass follows; with one split they are o and

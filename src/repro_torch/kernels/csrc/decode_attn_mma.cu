@@ -24,7 +24,10 @@
 // Work split.  A block of 4 warps takes one (batch row b, kv head h) and
 // one split of that row's live window [lo_b, len_b), lo_b = max(0, len_b -
 // window) (0 without a window), computed here from lengths[b]: split j
-// covers [lo_b + j·rows, min(lo_b + (j+1)·rows, len_b)).  The wrapper sizes
+// covers [lo_b + j·rows, min(lo_b + (j+1)·rows, len_b)).  A block of a
+// seq-split cache passes local lengths (position + 1 - its first global
+// row, any int): a row with no live key in the block runs no tile and
+// writes o = 0, lse = -1e30, which weighs 0 in every merge.  The wrapper sizes
 // `rows` (a multiple of 64) from the shapes alone (decode_mma_splits), so
 // that ceil(live / rows) splits of all B·KV heads fill one wave, live =
 // min(S, window): at starcoder2's window of 4 096 the grid holds the 16

@@ -189,8 +189,14 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       body: Optional[str] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q (B, KV, G, hd) contiguous; k, v (B, S, KV, hd) strided views (each
-    row's hd entries contiguous); lengths (B,) int32 >= 1 → ``(o (B, KV, G,
-    hd) f32, lse (B, KV, G, 1) f32)``.  Only live rows are read.  The body
+    row's hd entries contiguous); lengths (B,) int32 → ``(o (B, KV, G,
+    hd) f32, lse (B, KV, G, 1) f32)``.  Only live rows are read: rows t
+    with max(0, length - window) <= t < min(length, S).  A block of a
+    seq-split cache passes local lengths (position + 1 - the block's first
+    global row): any int; a row with no live key in the block (length
+    <= 0, or a window that ends before the block) gives o = 0 and lse =
+    -1e30 from both bodies, and weighs 0 in the split merge and in
+    ``ops.lse_merge``.  The body
     is the tensor-core one when :func:`_mma_eligible` holds and the CUDA-core
     one otherwise; ``body="cuda_core"`` runs an eligible call on the CUDA
     cores instead, to compare the two bodies on one input (``"mma"`` on an

@@ -166,8 +166,16 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k, v (B, S, KV, hd) with per-row ``lengths`` (B,) int32 (= position + 1)
     masking, an optional sliding ``window`` and tanh ``softcap`` — the
     serving engine's per-slot contract (``models.attention.
-    attention_decode_slots`` calls it once per layer per decode step).  The
-    plain version reads every row of the cache, so on the card only
+    attention_decode_slots`` calls it once per layer per decode step).
+
+    A block of a cache split on its seq axis (the placed decode step) is
+    passed as it lies, with local lengths: for a block whose first row is
+    global position ``start``, ``lengths = position + 1 - start``.  They
+    may be ≤ 0 (no live row in the block: o = 0, lse ≤ -1e30, no NaN) or
+    past S (every row up to S live); a window keeps rows at global
+    positions > position - window, across a block edge too.  The blocks'
+    partials merge by :func:`lse_merge` into the whole cache's.  The plain
+    version reads every row of the cache, so on the card only
     ``backend="torch"`` or ``force_backend("torch")`` reaches it."""
     return dispatch("flash_decode", q, k, v, lengths, window=window,
                     softcap=softcap, backend=backend)

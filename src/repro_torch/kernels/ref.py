@@ -139,10 +139,14 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o (B, KV, G, hd) f32, lse (B, KV, G, 1) f32) — plain version of
     kernels.decode_attn.  q (B, KV, G, hd); k, v (B, S, KV, hd); lengths
-    (B,) = position + 1.  ``softcap`` applies the tanh logit cap before
-    masking; keys at ``kpos >= length`` are masked, and with ``window``
-    those at ``kpos <= length - 1 - window`` too.  It reads every row of
-    the cache, live or not."""
+    (B,) = position + 1 - the global position of the block's first row
+    (any int: ≤ 0 leaves a row no live key, > S makes every row up to S
+    live).  ``softcap`` applies the tanh logit cap before masking; keys at
+    ``kpos >= length`` are masked, and with ``window`` those at
+    ``kpos <= length - 1 - window`` too.  A masked key weighs exactly 0,
+    so a row with no live key gives o = 0 and lse = -1e30 + log(1e-30)
+    (−1e30 in f32), as the kernel's bodies do.  It reads every row of the
+    cache, live or not."""
     S, hd = k.shape[1], k.shape[3]
     q32 = q.float() * hd ** -0.5
     s = torch.einsum("bkgd,bskd->bkgs", q32, k.float())
@@ -155,7 +159,7 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ok = ok & (kpos > length - 1 - window)
     s = torch.where(ok, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
+    p = torch.where(ok, torch.exp(s - m), torch.zeros((), device=s.device))
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bkgs,bskd->bkgd", p / l.clamp(min=1e-30), v.float())
     lse = m + torch.log(l.clamp(min=1e-30))

@@ -22,18 +22,21 @@ and return at once, nothing is sent) — the counterpart of the reference's
 process-global: it is made by :func:`dryrun_one` (the CLI's process, or a
 test's subprocess), never at import.
 
-The train step is placed as the reference's GSPMD program is
-(``launch.steps.train_placement``): rank 0 is handed its blocks of the
-params under ``param_pspecs`` and splits its cohort's compute with the
-other ranks of its ``model`` axis ("tp"; from 7 B params the leaves are
-also split over ``data`` and gathered for the step: "fsdp").  A family
-whose models do not run on shards (``launch.steps.TP_FAMILIES``) keeps the
-replicated step, and so do the prefill and decode steps: each record's
-``placement`` says which ("tp" / "fsdp" / "replicated") and
-``placement_note`` why a step replicates.  ``sharded_argument_bytes`` is
-what the specs place on one device (the reference's ``memory_analysis``
-argument size); a placed step's ``argument_size_in_bytes`` is that (its
-blocks of the params and its cohort's rows of the batch).
+Every step is placed as the reference's GSPMD program is
+(``launch.steps.train_placement``, the serve steps' too): rank 0 is handed
+its blocks of the params under ``param_pspecs`` and splits the compute
+with the other ranks of its ``model`` axis ("tp"; from 7 B params the
+leaves are also split over ``data`` and gathered for the step: "fsdp");
+a prefill or decode step is also handed its rows of the inputs under
+``batch_pspec`` and its block of every cache leaf under ``cache_pspecs``
+(KV seq over 'model', or over every axis at batch 1).  A family whose
+models do not run on shards (``launch.steps.TP_FAMILIES``) keeps the
+replicated step: each record's ``placement`` says which ("tp" / "fsdp" /
+"replicated") and ``placement_note`` why a step replicates.
+``sharded_argument_bytes`` is what the specs place on one device (the
+reference's ``memory_analysis`` argument size); a placed step's
+``argument_size_in_bytes`` is that (its blocks of the params, its rows of
+the inputs and its blocks of the cache).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmoe-1b-7b \\
@@ -149,14 +152,11 @@ def dryrun_step(cfg: ArchConfig, mesh: Mesh, shape: InputShape,
     if shape.kind == "train":
         step = build_train_step(cfg, mesh, shape, aggregator=aggregator,
                                 **extra)
-        placement = step.placement
-        note = placement_note(cfg, placement)
     else:
         step = (build_prefill_step if shape.kind == "prefill"
-                else build_decode_step)(cfg, mesh, shape)
-        placement = "replicated"
-        note = (f"the {shape.kind} step is not placed: params and caches "
-                "whole on every rank")
+                else build_decode_step)(cfg, mesh, shape, mode=p_mode)
+    placement = step.placement
+    note = placement_note(cfg, placement)
     placed = placement != "replicated"
     with fake_mode():
         args = tuple(to_fake(tree, local=placed) for tree in specs.values())

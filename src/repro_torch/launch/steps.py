@@ -45,7 +45,17 @@ coordinates, and the step is placed (:func:`train_placement`):
 Every rank ends with its block of the same new params.
 
 ``build_prefill_step`` / ``build_decode_step`` are the serving programs for
-the inference shapes.
+the inference shapes.  On a mesh of ranks they are placed as the train
+step is (:func:`train_placement`): the params are this rank's blocks under
+``param_pspecs(mode="tp")`` (FSDP leaves gathered over ``data`` for each
+call), the inputs its rows under ``batch_pspec``, and every cache leaf its
+block under ``cache_pspecs`` (:func:`serve_cache_shard`: KV seq over
+'model', or over ('pod', 'data', 'model') when the batch is replicated,
+as at batch 1).  The models run inside ``model_parallel`` with that cache
+placement: a prefill writes each rank's seq block of the K/V, a decode
+step runs ``flash_decode`` on it and merges the blocks' (o, lse)
+partials.  The logits come back whole over the vocabulary, for this
+rank's rows.
 """
 from __future__ import annotations
 
@@ -55,18 +65,18 @@ from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
-from ..core.distributed import (all_gather_dim, all_gather_rows,
-                                all_reduce_sum, model_parallel,
-                                reduce_scatter_dim)
+from ..core.distributed import (CacheShard, all_gather_dim,
+                                all_gather_rows, all_reduce_sum,
+                                model_parallel, reduce_scatter_dim)
 from ..core.flatten import (tree_leaves, tree_leaves_with_path,
                             tree_unflatten)
 from ..core.solve import solve_alpha_simple
 from ..kernels.ops import gram_and_cross, weighted_combine
 from ..models.config import ArchConfig
 from ..models.registry import get_model
-from ..sharding.specs import (FSDP_THRESHOLD, cache_pspecs, dropped_axes,
-                              map_with_path, named, param_pspecs,
-                              spec_leaves)
+from ..sharding.specs import (FSDP_THRESHOLD, batch_pspec, cache_pspecs,
+                              dim_axes, dropped_axes, map_with_path, named,
+                              param_pspecs, spec_leaves)
 from .mesh import Mesh
 from .shapes import InputShape, TensorSpec, fake_mode, meta_params, to_meta
 
@@ -114,6 +124,14 @@ def cache_sds(cfg: ArchConfig, mesh: Mesh, shape: InputShape) -> Pytree:
     """The decode cache as :class:`TensorSpec` leaves (whisper's from a
     shape-only prefill: self K/V and cross K/V; no cache shape depends on
     the encoder's depth, so that prefill runs one encoder layer)."""
+    cache = cache_shapes(cfg, shape)
+    return _with_shardings(mesh, cache, cache_pspecs(cfg, cache, mesh,
+                                                     shape.global_batch))
+
+
+def cache_shapes(cfg: ArchConfig, shape: InputShape) -> Pytree:
+    """The whole decode cache of ``shape`` as ``meta`` tensors (nothing
+    allocated)."""
     bundle = get_model(cfg)
     B = shape.global_batch
     with fake_mode():
@@ -127,8 +145,7 @@ def cache_sds(cfg: ArchConfig, mesh: Mesh, shape: InputShape) -> Pytree:
                 (B, cfg.max_source_positions, cfg.d_model), dtype=dt),
                 "tokens": torch.zeros((B, 8), dtype=torch.int32)}
             cache = bundle.prefill(params, prompt, shape.seq_len)[1]
-    cache = to_meta(cache)
-    return _with_shardings(mesh, cache, cache_pspecs(cfg, cache, mesh, B))
+    return to_meta(cache)
 
 
 # --------------------------------------------------------------- train step
@@ -396,21 +413,94 @@ def build_train_step(cfg: ArchConfig, mesh: Mesh, shape: InputShape, *,
 
 # --------------------------------------------------------------- serve steps
 
-def build_prefill_step(cfg: ArchConfig, mesh: Mesh, shape: InputShape
-                       ) -> Callable:
+def serve_cache_shard(cfg: ArchConfig, mesh: Mesh,
+                      shape: InputShape) -> CacheShard:
+    """The cache placement of the placed serve steps: the axes that
+    ``cache_pspecs`` puts on the seq dim of the KV leaves and on the head
+    dim of the stacked recurrent states (``()`` where the divisibility
+    guard leaves it whole)."""
+    cache = cache_shapes(cfg, shape)
+    specs = cache_pspecs(cfg, cache, mesh, shape.global_batch)
+    leaves = dict(spec_leaves(specs))
+
+    def axes(*paths):
+        spec = next((leaves[p] for p in paths if p in leaves), None)
+        return dim_axes(spec, 2) if spec is not None else ()
+    return CacheShard(mesh, axes("kv/k", "shared_kv/k", "self_kv/k"),
+                      axes("ssm/wkv", "ssm/ssm"), axes("cross_k"))
+
+
+def _serve_rows(mesh: Mesh, batch: int) -> int:
+    """This rank's rows of a serve input of ``batch`` rows (``batch_pspec``:
+    split over the batch axes where they divide, else whole)."""
+    ways = 1
+    for name in batch_pspec(mesh, batch):
+        for a in ((name,) if isinstance(name, str) else name or ()):
+            ways *= mesh.shape[a]
+    return batch // ways
+
+
+def _placed_serve(cfg: ArchConfig, mesh: Mesh, shape: InputShape,
+                  run: Callable) -> Callable:
+    """``run(params, first_input, *rest)`` as a placed step: the first input
+    must be this rank's rows, the FSDP leaves are gathered over ``data``
+    for the call, the models run inside ``model_parallel`` with the cache
+    placement, and the logits (the first output) come back whole over the
+    vocabulary."""
+    data_dim, _ = _placed_layout(cfg, mesh)
+    cs = serve_cache_shard(cfg, mesh, shape)
+    rows = _serve_rows(mesh, shape.global_batch)
+
+    def step(params, inputs, *rest):
+        got = next(iter(inputs.values())) if isinstance(inputs, dict) \
+            else inputs
+        if got.shape[0] != rows:
+            raise ValueError(
+                f"the placed serve step takes this rank's {rows} of "
+                f"{shape.global_batch} rows (batch_pspec), not "
+                f"{got.shape[0]}")
+        # FSDP leaves whole over 'data' for the call (a 'data' axis of one
+        # rank holds them whole already: no copy of the model)
+        work = params if mesh.shape.get("data", 1) == 1 else tree_unflatten(
+            params, [p if dim is None else
+                     all_gather_dim(mesh, p, dim, ("data",))
+                     for p, dim in zip(tree_leaves(params), data_dim)])
+        with torch.no_grad(), model_parallel(mesh, cache=cs):
+            logits, cache = run(work, inputs, *rest)
+        if logits.shape[-1] != cfg.vocab_size:
+            logits = all_gather_dim(mesh, logits, logits.dim() - 1,
+                                    ("model",))
+        return logits, cache
+
+    return step
+
+
+def _serve_step(cfg: ArchConfig, mesh: Mesh, shape: InputShape, mode: str,
+                run: Callable) -> Callable:
+    """``run`` placed as :func:`train_placement` says (``mode`` as the
+    train step's), with that as the step's ``placement`` attribute."""
+    placement = train_placement(cfg, mesh, mode)
+    inner = run if placement == "replicated" else _placed_serve(
+        cfg, mesh, shape, run)
+
+    def step(*args):
+        return inner(*args)
+
+    step.placement = placement
+    return step
+
+
+def build_prefill_step(cfg: ArchConfig, mesh: Mesh, shape: InputShape,
+                       mode: str = "tp") -> Callable:
+    """``prefill_step(params, batch) -> (last logits, cache)``, placed on a
+    mesh of ranks (the module's docstring)."""
     bundle = get_model(cfg)
-
-    def prefill_step(params, batch):
-        return bundle.prefill(params, batch, shape.seq_len)
-
-    return prefill_step
+    return _serve_step(cfg, mesh, shape, mode,
+                       lambda p, b: bundle.prefill(p, b, shape.seq_len))
 
 
-def build_decode_step(cfg: ArchConfig, mesh: Mesh, shape: InputShape
-                      ) -> Callable:
-    bundle = get_model(cfg)
-
-    def decode_step(params, token, cache):
-        return bundle.decode(params, token, cache)
-
-    return decode_step
+def build_decode_step(cfg: ArchConfig, mesh: Mesh, shape: InputShape,
+                      mode: str = "tp") -> Callable:
+    """``decode_step(params, token, cache) -> (logits, cache)``, placed on
+    a mesh of ranks (the cache this rank's blocks, written in place)."""
+    return _serve_step(cfg, mesh, shape, mode, get_model(cfg).decode)

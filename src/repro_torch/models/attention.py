@@ -17,6 +17,18 @@ heads when the heads and KV heads divide over ``model``, else on a block
 of whole-head rows (:func:`_attend_row_block`); the output projection's
 parts are summed over ``model``.
 
+The placed serve steps (``launch.steps``) run these inside
+``model_parallel(mesh, cache=...)`` too: a prefill returns this rank's
+seq block of the ring-placed K/V (:func:`kv_block`: its rows sliced from
+the K/V the row-block path gathers whole, or, from the head-parallel
+path's local heads, an all-to-all over ``model``), and a decode step
+(:func:`attention_decode`) gathers q, k and v whole over ``model``, writes
+the new row into the block that holds its position, runs ``flash_decode``
+on this rank's block with every head (the kernel on the card; the
+reference computes the whole cache in plain jnp), merges the blocks'
+(o, lse) partials over the cache's seq axes and takes this rank's columns
+of o into the row-parallel ``wo``.
+
 Caches are updated in place: the reference returns new arrays, the port
 writes the new rows into the tensors it was given and returns them, so the
 serving engine keeps one (L, B, S, KV, hd) cache and never copies it.
@@ -27,9 +39,11 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..core.distributed import (ModelShard, cols_to_rows, copy_to_model,
-                                gather_for_rows, model_shard,
-                                reduce_from_model, rows_to_cols)
+from ..core.distributed import (ModelShard, all_gather_dim,
+                                all_to_all_model, cache_shard, cols_to_rows,
+                                copy_to_model, gather_for_rows,
+                                gather_from_model, merge_decode_partials,
+                                model_shard, reduce_from_model, rows_to_cols)
 from .config import ArchConfig
 from .layers import apply_rope, dense_init, matmul, rms_norm, softcap
 
@@ -170,21 +184,24 @@ def naive_attention(q, k, v, *, q_positions, k_positions, mode="causal",
 def attention_forward(cfg: ArchConfig, params: Dict, x: torch.Tensor,
                       positions: torch.Tensor, *, mode: str = "causal",
                       window: Optional[int] = None, use_rope: bool = True,
-                      return_kv: bool = False, flash_threshold: int = 1024):
+                      return_kv: bool = False, flash_threshold: int = 1024,
+                      capacity: Optional[int] = None):
     """Full-sequence attention (train / prefill).  Returns out (B,S,d) and
-    optionally the (k, v) tensors for KV-cache seeding."""
+    optionally the (k, v) tensors for KV-cache seeding: (B, S, KV, hd),
+    or, inside ``model_parallel``, this rank's block of their ring
+    placement into ``capacity`` rows (:func:`kv_block`)."""
     B, S, _ = x.shape
     attend = naive_attention if S <= flash_threshold else flash_attention
     kwargs = dict(mode=mode, window=window,
                   logit_softcap=cfg.attn_logit_softcap)
     shard = model_shard()
     if shard is not None:
-        if return_kv:
-            raise NotImplementedError(
-                "a K/V cache of a model-parallel attention (the placed "
-                "prefill) is not ported; the placed step is the train step")
-        return _attention_sharded(cfg, params, x, positions, use_rope,
-                                  shard, attend, kwargs)
+        out = _attention_sharded(cfg, params, x, positions, use_rope,
+                                 shard, attend, kwargs, return_kv)
+        if not return_kv:
+            return out
+        out, kv = out
+        return out, kv_block(cfg, kv, capacity or S)
     q, k, v = _project_qkv(cfg, params, x, positions, use_rope)
     o = attend(q, k, v, q_positions=positions, k_positions=positions,
                **kwargs)
@@ -196,11 +213,12 @@ def attention_forward(cfg: ArchConfig, params: Dict, x: torch.Tensor,
 
 def _attention_sharded(cfg: ArchConfig, params: Dict, x: torch.Tensor,
                        positions: torch.Tensor, use_rope: bool, shard,
-                       attend, kwargs) -> torch.Tensor:
+                       attend, kwargs, keep_kv: bool = False):
     """:func:`attention_forward` on this rank's shards (``_sharded_heads``);
     ``wo``'s rows of its columns, the parts summed over ``model``.  The
     qk-norm weights, whole on every rank, get their grads summed over
-    ``model``."""
+    ``model``.  ``keep_kv``: also the K/V this rank holds (``_sharded_heads``'
+    second result)."""
     p = dict(params)
     for name in ("q_norm", "k_norm"):
         if name in p:
@@ -210,7 +228,10 @@ def _attention_sharded(cfg: ArchConfig, params: Dict, x: torch.Tensor,
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     o = _sharded_heads(cfg, p, q, k, v, positions, positions, use_rope,
-                       cfg.qk_norm, shard, attend, kwargs)
+                       cfg.qk_norm, shard, attend, kwargs, keep_kv)
+    if keep_kv:
+        o, kv = o
+        return reduce_from_model(matmul(o, p["wo"])), kv
     return reduce_from_model(matmul(o, p["wo"]))
 
 
@@ -218,69 +239,182 @@ def _norm_rope(cfg: ArchConfig, p: Dict, q, k, q_pos, k_pos,
                use_rope: bool, norm: bool):
     """Head-shaped q / k with the qk-norm (``norm``) and RoPE at their
     positions (``use_rope``) applied."""
+    return (_norm_rope_one(cfg, p, q, q_pos, use_rope, norm, "q_norm"),
+            _norm_rope_one(cfg, p, k, k_pos, use_rope, norm, "k_norm"))
+
+
+def _norm_rope_one(cfg: ArchConfig, p: Dict, t, pos, use_rope: bool,
+                   norm: bool, weight: str):
+    """:func:`_norm_rope` of one of q / k (``weight``: its norm's leaf)."""
     if norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        t = rms_norm(t, p[weight], cfg.norm_eps)
     if use_rope:
-        q = apply_rope(q, q_pos, cfg.rope_theta)
-        k = apply_rope(k, k_pos, cfg.rope_theta)
-    return q, k
+        t = apply_rope(t, pos, cfg.rope_theta)
+    return t
 
 
 def _sharded_heads(cfg: ArchConfig, p: Dict, q: torch.Tensor,
                    k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tensor,
                    k_pos: torch.Tensor, use_rope: bool, norm: bool, shard,
-                   attend, kwargs) -> torch.Tensor:
+                   attend, kwargs, keep_kv: bool = False):
     """Attention of this rank's projection columns — q (B, Sq, ·), k and v
     (B, Sk, ·), biases added — on its H/m heads and KV/m KV heads where
     both divide over ``model`` (head-parallel), else on a block of
     whole-head rows (:func:`_attend_row_block`).  Returns this rank's
-    columns of the output (B, Sq, ·)."""
+    columns of the output (B, Sq, ·); ``keep_kv``: and ``(form, k, v)``,
+    the normed and roped K/V it holds — ``"heads"``: its KV/m heads of
+    every row, ``"whole"``: every head (the row-block path gathers them)."""
     B, Sq, _ = q.shape
     m, hd = shard.size, cfg.resolved_head_dim
     if cfg.num_heads % m or cfg.num_kv_heads % m:
         return _attend_row_block(cfg, p, q, k, v, q_pos, k_pos, use_rope,
-                                 norm, shard, attend, kwargs)
+                                 norm, shard, attend, kwargs, keep_kv)
     q = q.reshape(B, Sq, cfg.num_heads // m, hd)
     k, v = (t.reshape(B, t.shape[1], cfg.num_kv_heads // m, hd)
             for t in (k, v))
     q, k = _norm_rope(cfg, p, q, k, q_pos, k_pos, use_rope, norm)
     o = attend(q, k, v, q_positions=q_pos, k_positions=k_pos, **kwargs)
+    if keep_kv:
+        return o.reshape(B, Sq, -1), ("heads", k, v)
     return o.reshape(B, Sq, -1)
 
 
 def _attend_row_block(cfg: ArchConfig, p: Dict, q: torch.Tensor,
                       k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tensor,
                       k_pos: torch.Tensor, use_rope: bool, norm: bool, shard,
-                      attend, kwargs) -> torch.Tensor:
+                      attend, kwargs, keep_kv: bool = False):
     """Attention with heads that do not divide over ``model`` (qwen3's 40
     on 16 ranks): q's column shard of all B·Sq rows becomes every head of
     this rank's block of B·Sq/m rows (an all-to-all), K/V are gathered
     whole, the block's queries attend to their sequences' keys, and the
-    output goes back to a column shard of every row.  A block is whole
-    sequences or a run of positions of one sequence."""
+    output goes back to a column shard of every row.  A block of whole
+    sequences or of a run of positions of one sequence attends in one
+    call; any other (B·Sq not a multiple of m: the rows padded with zeros
+    to one; or a block across a sequence's end) in one call a sequence it
+    touches (:func:`_attend_segments`).  ``keep_kv``: every sequence's K is
+    normed and roped (the cache's rows), not only the block's, and
+    ``("whole", k, v)`` comes back beside the output."""
     B, Sq, _ = q.shape
     Sk = k.shape[1]
     m, r = shard.size, shard.rank
     hd = cfg.resolved_head_dim
     T = B * Sq
-    rows = T // m
-    if T % m or (rows % Sq and Sq % rows):
-        raise NotImplementedError(
-            f"a row block of {T}/{m} tokens must be whole sequences of {Sq} "
-            "or a run within one")
-    q = cols_to_rows(q.reshape(T, -1))
+    pad = (-T) % m
+    rows = (T + pad) // m
+    q = q.reshape(T, -1)
+    if pad:
+        q = torch.nn.functional.pad(q, (0, 0, 0, pad))
+    q = cols_to_rows(q)
     k, v = (gather_for_rows(t.reshape(B * Sk, -1)) for t in (k, v))
     first = r * rows
+    if pad or (rows % Sq and Sq % rows):
+        k, v = (t.reshape(B, Sk, cfg.num_kv_heads, hd) for t in (k, v))
+        k = _norm_rope_one(cfg, p, k, k_pos, use_rope, norm, "k_norm")
+        o = _attend_segments(cfg, p, q, k, v, q_pos, k_pos, first, T,
+                             use_rope, norm, attend, kwargs)
+        out = rows_to_cols(o)[:T].reshape(B, Sq, -1)
+        return (out, ("whole", k, v)) if keep_kv else out
     seqs = max(rows // Sq, 1)
     b0 = first // Sq
     q_pos = q_pos if rows >= Sq else q_pos[first % Sq:first % Sq + rows]
     q = q.reshape(seqs, len(q_pos), cfg.num_heads, hd)
-    k, v = (t.reshape(B, Sk, cfg.num_kv_heads, hd)[b0:b0 + seqs]
-            for t in (k, v))
+    k, v = (t.reshape(B, Sk, cfg.num_kv_heads, hd) for t in (k, v))
+    if not keep_kv:
+        k, v = k[b0:b0 + seqs], v[b0:b0 + seqs]
     q, k = _norm_rope(cfg, p, q, k, q_pos, k_pos, use_rope, norm)
-    o = attend(q, k, v, q_positions=q_pos, k_positions=k_pos, **kwargs)
-    return rows_to_cols(o.reshape(rows, -1)).reshape(B, Sq, -1)
+    kb, vb = (k[b0:b0 + seqs], v[b0:b0 + seqs]) if keep_kv else (k, v)
+    o = attend(q, kb, vb, q_positions=q_pos, k_positions=k_pos, **kwargs)
+    out = rows_to_cols(o.reshape(rows, -1)).reshape(B, Sq, -1)
+    return (out, ("whole", k, v)) if keep_kv else out
+
+
+def _attend_segments(cfg: ArchConfig, p: Dict, q: torch.Tensor,
+                     k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tensor,
+                     k_pos: torch.Tensor, first: int, T: int, use_rope: bool,
+                     norm: bool, attend, kwargs) -> torch.Tensor:
+    """Every head of the query rows [first, first + len(q)) of the B·Sq
+    flattened rows (q (rows, H·hd); k, v (B, Sk, KV, hd) normed and roped)
+    attending to their own sequences' keys, one call a sequence the block
+    touches; rows at or past T (padding) give zeros.  (rows, H·hd)."""
+    Sq = len(q_pos)
+    hd = cfg.resolved_head_dim
+    rows = q.shape[0]
+    outs = []
+    at, end = first, min(first + rows, T)
+    while at < end:
+        b, s0 = divmod(at, Sq)
+        n = min(Sq - s0, end - at)
+        qs = q[at - first:at - first + n].reshape(1, n, cfg.num_heads, hd)
+        qp = q_pos[s0:s0 + n]
+        qs = _norm_rope_one(cfg, p, qs, qp, use_rope, norm, "q_norm")
+        o = attend(qs, k[b:b + 1], v[b:b + 1], q_positions=qp,
+                   k_positions=k_pos, **kwargs)
+        outs.append(o.reshape(n, -1))
+        at += n
+    if end - first < rows:
+        outs.append(q.new_zeros((rows - max(end - first, 0),
+                                 cfg.num_heads * hd)))
+    return torch.cat(outs)
+
+
+def ring_rows(k: torch.Tensor, capacity: int, start: int,
+              rows: int) -> torch.Tensor:
+    """Rows [start, start + rows) of :func:`ring_place` of k (…, S, KV,
+    hd) into ``capacity`` rows, built alone: a prompt of S ≤ capacity rows
+    fills rows 0..S-1 (zeros past it), a longer one puts position p at row
+    p mod capacity for its last ``capacity`` positions.  At most two
+    slices; no index tensor."""
+    S = k.shape[-3]
+    out = k.new_zeros(k.shape[:-3] + (rows,) + k.shape[-2:])
+    if S <= capacity:
+        n = max(0, min(rows, S - start))
+        if n:
+            out[..., :n, :, :] = k[..., start:start + n, :, :]
+        return out
+    base = S - capacity           # row j holds p = base + (j - base) mod cap
+    first = base + (start - base) % capacity
+    n = min(rows, S - first)
+    out[..., :n, :, :] = k[..., first:first + n, :, :]
+    if n < rows:
+        out[..., n:, :, :] = k[..., base:base + rows - n, :, :]
+    return out
+
+
+def kv_block(cfg: ArchConfig, kv, capacity: int):
+    """This rank's seq block of the ring-placed K/V of a placed prefill
+    (``capacity`` rows split over the ``CacheShard``'s ``kv_axes``), from
+    ``_sharded_heads``' ``(form, k, v)``: ``"whole"`` K/V are sliced;
+    ``"heads"`` (this rank's KV/m heads of every row) go through an
+    all-to-all over ``model`` — the rank sends each peer of its ``model``
+    group that peer's rows of its heads — or, with the seq dim whole on
+    every rank, an all-gather of the heads.  Returns (k, v) blocks
+    (B, rows, KV, hd)."""
+    form, k, v = kv
+    cs = cache_shard()
+    axes = cs.kv_axes
+    ways = cs.ways(axes)
+    if capacity % ways:
+        raise ValueError(f"a cache of {capacity} rows does not split over "
+                         f"{axes}")
+    rows = capacity // ways
+    if form == "whole":
+        start = cs.kv_start(rows)
+        return tuple(ring_rows(t, capacity, start, rows) for t in (k, v))
+    if not axes:
+        return tuple(ring_rows(all_gather_dim(cs.mesh, t, 2, ("model",)),
+                               capacity, 0, rows) for t in (k, v))
+    if axes[-1] != "model":
+        raise ValueError(f"the cache's seq axes {axes} must end with 'model'")
+    m = cs.mesh.shape["model"]
+    outer = cs.index(axes[:-1]) * m
+    out = []
+    for t in (k, v):
+        sent = torch.stack([ring_rows(t, capacity, (outer + j) * rows, rows)
+                            for j in range(m)])     # (m, B, rows, KV/m, hd)
+        got = all_to_all_model(sent)                # block j: rank j's heads
+        B, _, h, hd = got.shape[1:]
+        out.append(got.permute(1, 2, 0, 3, 4).reshape(B, rows, m * h, hd))
+    return tuple(out)
 
 
 def cross_attention_forward(cfg: ArchConfig, params: Dict, x: torch.Tensor,
@@ -291,10 +425,15 @@ def cross_attention_forward(cfg: ArchConfig, params: Dict, x: torch.Tensor,
     from the cache or this rank's columns (B, Se, ·) (``encdec._cross_kv``)
     — unmasked.  ``naive_attention`` for Se <= 2 048, ``flash_attention``
     above, as the reference.  Inside ``model_parallel`` the queries, K/V
-    and ``wo``'s rows are this rank's shards (``_sharded_heads``)."""
+    and ``wo``'s rows are this rank's shards (``_sharded_heads``); cached
+    K/V there (4-D: a placed decode step's block) go through
+    :func:`_cross_decode_placed`."""
     B, S, _ = x.shape
     Se = enc_k.shape[1]
     attend = naive_attention if Se <= 2048 else flash_attention
+    if model_shard() is not None and enc_k.dim() == 4:
+        return _cross_decode_placed(cfg, params, x, enc_k, enc_v,
+                                    model_shard())
     shard = model_shard() or ModelShard(None, 1, 0)
     q = matmul(copy_to_model(x), params["wq"])
     if cfg.qkv_bias:
@@ -304,6 +443,37 @@ def cross_attention_forward(cfg: ArchConfig, params: Dict, x: torch.Tensor,
                        torch.arange(Se, device=x.device), False, False,
                        shard, attend, dict(mode="bidir"))
     return reduce_from_model(matmul(o, params["wo"]))
+
+
+def _cross_decode_placed(cfg: ArchConfig, params: Dict, x: torch.Tensor,
+                         enc_k: torch.Tensor, enc_v: torch.Tensor, shard
+                         ) -> torch.Tensor:
+    """A placed decode step's cross-attention (x (B, 1, d)) against this
+    rank's block of the cached cross K/V (B, Se_block, KV, hd), every row
+    live: q gathered whole over ``model``, ``flash_decode`` on the block
+    with every head, the blocks' partials merged over
+    ``CacheShard.cross_axes``, this rank's columns of o into its rows of
+    ``wo``, summed over ``model``."""
+    from ..kernels import ops as kops    # deferred: models import light
+    B, S, _ = x.shape
+    if S != 1:
+        raise ValueError(f"a placed cross-attention against the cache takes "
+                         f"one query a row, not {S}")
+    hd = cfg.resolved_head_dim
+    cs = cache_shard()
+    q = matmul(x, params["wq"])
+    if cfg.qkv_bias:
+        q = q + params["bq"]
+    q = gather_from_model(q).reshape(B, 1, cfg.num_heads, hd)
+    lengths = torch.full((B,), enc_k.shape[1], dtype=torch.int32,
+                         device=x.device)
+    o, lse = kops.flash_decode(_grouped(cfg, q).contiguous(), enc_k, enc_v,
+                               lengths)
+    o, _ = merge_decode_partials(cs.mesh, o, lse, cs.cross_axes)
+    cols = cfg.num_heads * hd // shard.size
+    o = o.reshape(B, 1, cfg.num_heads * hd)[..., shard.rank * cols:
+                                             (shard.rank + 1) * cols]
+    return reduce_from_model(matmul(o.to(q.dtype), params["wo"]))
 
 
 class KVCache(NamedTuple):
@@ -353,7 +523,14 @@ def attention_decode(cfg: ArchConfig, params: Dict, x: torch.Tensor,
 
     Outside ring mode a ``position`` at or past the capacity S raises
     before anything is written.  The reference's ``dynamic_update_slice``
-    clamps such a write onto row S - 1 and decodes on; the port refuses."""
+    clamps such a write onto row S - 1 and decodes on; the port refuses.
+
+    Inside ``model_parallel`` the cache is this rank's seq block
+    (:func:`_attention_decode_placed`)."""
+    shard = model_shard()
+    if shard is not None:
+        return _attention_decode_placed(cfg, params, x, cache, position,
+                                        window, use_rope, shard)
     B = x.shape[0]
     S = cache.k.shape[1]
     ring = window is not None and S <= window
@@ -383,6 +560,61 @@ def attention_decode(cfg: ArchConfig, params: Dict, x: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", p, cache.v.float())
     out = o.reshape(B, 1, cfg.num_heads * hd).to(x.dtype) @ params["wo"]
+    return out, cache
+
+
+def _attention_decode_placed(cfg: ArchConfig, params: Dict,
+                             x: torch.Tensor, cache: KVCache, position: int,
+                             window: Optional[int], use_rope: bool, shard
+                             ) -> Tuple[torch.Tensor, KVCache]:
+    """:func:`attention_decode` with this rank's weight shards and seq
+    block of the cache (rows [start, start + S) of the whole cache's
+    S·ways, ``CacheShard.kv_axes``): q, k and v gathered whole over
+    ``model`` (one all-gather), the new row written by the block that holds it, then
+    ``flash_decode`` on the block with local lengths ``position + 1 -
+    start`` (ring mode: ``min(position + 1, capacity) - start`` and no
+    window), the blocks' partials merged over the seq axes, and this
+    rank's columns of o through its rows of ``wo``, summed over
+    ``model``."""
+    from ..kernels import ops as kops    # deferred: models import light
+    B = x.shape[0]
+    hd = cfg.resolved_head_dim
+    cs = cache_shard()
+    S = cache.k.shape[1]
+    cap = S * cs.ways(cs.kv_axes)
+    start = cs.kv_start(S)
+    ring = window is not None and cap <= window
+    if not ring:
+        check_capacity(position, cap)
+    q, k, v = (matmul(x, params[w]) for w in ("wq", "wk", "wv"))
+    if cfg.qkv_bias:
+        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    # one gather of the three column shards: (B, 1, m, qc + kc + vc)
+    widths = [t.shape[-1] for t in (q, k, v)]
+    qkv = gather_from_model(torch.cat([q, k, v], dim=-1))
+    q, k, v = (t.reshape(B, 1, -1) for t in qkv.unflatten(
+        -1, (shard.size, sum(widths))).split(widths, dim=-1))
+    q = q.reshape(B, 1, cfg.num_heads, hd)
+    k, v = (t.reshape(B, 1, cfg.num_kv_heads, hd) for t in (k, v))
+    pos_arr = torch.full((B, 1), position, dtype=torch.int32,
+                         device=x.device)
+    q, k = _norm_rope(cfg, params, q, k, pos_arr, pos_arr, use_rope,
+                      cfg.qk_norm)
+    at = (position % cap if ring else position) - start
+    if 0 <= at < S:
+        cache.k[:, at] = k[:, 0].to(cache.k.dtype)
+        cache.v[:, at] = v[:, 0].to(cache.v.dtype)
+    length = (min(position + 1, cap) if ring else position + 1) - start
+    lengths = torch.full((B,), length, dtype=torch.int32, device=x.device)
+    o, lse = kops.flash_decode(_grouped(cfg, q).contiguous(), cache.k,
+                               cache.v, lengths,
+                               window=None if ring else window,
+                               softcap=cfg.attn_logit_softcap)
+    o, _ = merge_decode_partials(cs.mesh, o, lse, cs.kv_axes)
+    cols = cfg.num_heads * hd // shard.size
+    o = o.reshape(B, 1, cfg.num_heads * hd)[..., shard.rank * cols:
+                                             (shard.rank + 1) * cols]
+    out = reduce_from_model(o.to(x.dtype) @ params["wo"])
     return out, cache
 
 
@@ -438,13 +670,4 @@ def ring_place(k_stack: torch.Tensor, capacity: int) -> torch.Tensor:
     """Place prompt K/V rows (…, S, KV, hd) into a ring cache of
     ``capacity`` rows: the last ``capacity`` rows land at their
     position-mod-capacity rows."""
-    S = k_stack.shape[-3]
-    if S <= capacity:
-        pad = [0, 0, 0, 0, 0, capacity - S]
-        return torch.nn.functional.pad(k_stack, pad)
-    rows = k_stack[..., S - capacity:, :, :]
-    slots = torch.arange(S - capacity, S, device=k_stack.device) % capacity
-    out = torch.zeros(k_stack.shape[:-3] + (capacity,) + k_stack.shape[-2:],
-                      dtype=k_stack.dtype, device=k_stack.device)
-    out[..., slots, :, :] = rows
-    return out
+    return ring_rows(k_stack, capacity, 0, capacity)

@@ -17,11 +17,16 @@ encoder in f32 (``layers.matmul`` casts the weight up), so ``encode``'s
 output and the cached cross K/V are f32 while the decoder stays in the
 model dtype.  The serving loop draws f32 frames, as the reference's does.
 
-Inside ``core.distributed.model_parallel`` (the placed train step) the
-encoder's and decoder's attention, cross-attention and MLPs run on this
-rank's ``model`` shards, as the dense decoder's; ``embed`` and
+Inside ``core.distributed.model_parallel`` (the placed train and serve
+steps) the encoder's and decoder's attention, cross-attention and MLPs run
+on this rank's ``model`` shards, as the dense decoder's; ``embed`` and
 ``lm_head`` stay whole when the vocabulary (whisper's 51 866) does not
-divide over ``model``.
+divide over ``model``.  The placed prefill writes this rank's seq block of
+the self K/V (``attention.kv_block``) and its block of the cross K/V rows
+(``CacheShard.cross_axes``: whole where the 1 500 rows do not divide), the
+cross K/V gathered whole over ``model`` first; the placed decode step runs
+``flash_decode`` on both blocks (``attention_decode``,
+``attention._cross_decode_placed``).
 """
 from __future__ import annotations
 
@@ -33,7 +38,8 @@ from .attention import (KVCache, attention_decode, attention_forward,
                         check_capacity, cross_attention_forward,
                         init_attention)
 from .config import ArchConfig
-from ..core.distributed import copy_to_model
+from ..core.distributed import (all_gather_dim, cache_shard, copy_to_model,
+                                model_shard)
 from .layers import (dtype_of, embed_init, embed_lookup, lm_logits, matmul,
                      rms_norm, sinusoidal_positions)
 from .mlp import init_mlp, mlp_forward
@@ -113,13 +119,15 @@ def _embed_tokens(cfg: ArchConfig, params: Pytree,
 
 def _dec_layer(cfg: ArchConfig, p: Dict, h: torch.Tensor,
                positions: torch.Tensor, enc_out: torch.Tensor,
-               return_kv: bool = True):
+               return_kv: bool = True, capacity=None):
     """One decoder layer over the full sequence: (h, (k, v), (ek, ev)),
     the cross K/V as columns (B, T_enc, ·); (k, v) is None without
-    ``return_kv`` (training)."""
+    ``return_kv`` (training), this rank's block of a cache of ``capacity``
+    rows when placed."""
     a = rms_norm(h, p["ln1"], cfg.norm_eps)
     out = attention_forward(cfg, p["attn"], a, positions, mode="causal",
-                            use_rope=False, return_kv=return_kv)
+                            use_rope=False, return_kv=return_kv,
+                            capacity=capacity)
     attn, kv = out if return_kv else (out, None)
     h = h + attn
     c = rms_norm(h, p["ln_x"], cfg.norm_eps)
@@ -172,22 +180,42 @@ def whisper_prefill(cfg: ArchConfig, params: Pytree, frames: torch.Tensor,
     x = _embed_tokens(cfg, params, tokens)
     positions = torch.arange(S, device=tokens.device)
     L, dtype = cfg.num_layers, dtype_of(cfg.dtype)
+    placed = model_shard() is not None
     kc = vc = ck = cv = None
     for i, p in enumerate(layer_views(params["dec_blocks"], L)):
-        x, (k, v), (ek, ev) = _dec_layer(cfg, p, x, positions, enc_out)
+        x, (k, v), (ek, ev) = _dec_layer(cfg, p, x, positions, enc_out,
+                                         capacity=max_seq)
+        if placed:
+            ek, ev = (_cross_block(t) for t in (ek, ev))
         ek, ev = (t.unflatten(-1, (cfg.num_kv_heads, -1)) for t in (ek, ev))
         if kc is None:
-            kc, vc = (torch.zeros((L, B, max_seq) + tuple(k.shape[2:]),
+            rows = k.shape[1] if placed else max_seq
+            kc, vc = (torch.zeros((L, B, rows) + tuple(k.shape[2:]),
                                   dtype=dtype, device=k.device)
                       for _ in range(2))
             ck, cv = (torch.empty((L,) + tuple(ek.shape), dtype=ek.dtype,
                                   device=ek.device) for _ in range(2))
-        kc[i, :, :S] = k
-        vc[i, :, :S] = v
+        if placed:      # this rank's block of the ring-less cache rows
+            kc[i] = k
+            vc[i] = v
+        else:
+            kc[i, :, :S] = k
+            vc[i, :, :S] = v
         ck[i] = ek
         cv[i] = ev
     logits = _head(cfg, params, x[:, -1:, :])[:, 0]
     return logits, WhisperCache(KVCache(kc, vc), ck, cv, S)
+
+
+def _cross_block(t: torch.Tensor) -> torch.Tensor:
+    """This rank's columns (B, T_enc, c) of a cross K/V as its block of
+    whole-head rows (B, T_enc / ways, m·c) over ``CacheShard.cross_axes``
+    (the columns gathered over ``model`` first)."""
+    cs = cache_shard()
+    whole = all_gather_dim(cs.mesh, t, 2, ("model",))
+    ways = cs.ways(cs.cross_axes)
+    rows = whole.shape[1] // ways
+    return whole.narrow(1, cs.index(cs.cross_axes) * rows, rows)
 
 
 def whisper_decode_step(cfg: ArchConfig, params: Pytree, token: torch.Tensor,
@@ -199,11 +227,15 @@ def whisper_decode_step(cfg: ArchConfig, params: Pytree, token: torch.Tensor,
     written (the reference clamps its position row and K/V write there).
     ``max_target_positions`` is not enforced, as in the reference."""
     S = cache.self_kv.k.shape[2]
+    cs = cache_shard()
+    if cs is not None:       # placed: S rows of this rank's block
+        S *= cs.ways(cs.kv_axes)
     pos = cache.position
     check_capacity(pos, S)
     emb = params["embed"]
     row = sinusoidal_positions(S, cfg.d_model, emb.device)[pos]
-    x = emb[token][:, None, :] + row.to(emb.dtype)
+    x = embed_lookup(emb, token, cfg.vocab_size)[:, None, :] \
+        + row.to(emb.dtype)
     for i, p in enumerate(layer_views(params["dec_blocks"], cfg.num_layers)):
         kv = KVCache(cache.self_kv.k[i], cache.self_kv.v[i])
         a = rms_norm(x, p["ln1"], cfg.norm_eps)

@@ -19,7 +19,10 @@ head-parallel: ``wr`` / ``wk`` / ``wv`` / ``wg``, ``w_A``, ``ffn_k`` and
 ``ffn_r`` hold this rank's columns, ``wo``, ``w_B`` and ``ffn_v`` its rows;
 the token-shifted mixes are whole on every rank, the wkv scan runs on its
 H/m heads, the output layer norm sums its moments over ``model``, and the
-LoRA decay, ``wo`` and ``ffn_v`` parts are summed.
+LoRA decay, ``wo`` and ``ffn_v`` parts are summed.  A state it continues
+or returns (the placed prefill and decode steps) holds this rank's heads'
+``wkv`` and the whole token shifts; :func:`rwkv6_decode` steps the same
+way, and is that one step on all heads outside it.
 """
 from __future__ import annotations
 
@@ -28,11 +31,11 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..core.distributed import (copy_to_model, gather_from_model,
-                                model_shard, reduce_from_model,
-                                sum_for_parts)
+from ..core.distributed import (ModelShard, copy_to_model,
+                                gather_from_model, model_shard,
+                                reduce_from_model, sum_for_parts)
 from .config import ArchConfig
-from .layers import dense_init, layer_norm
+from .layers import dense_init
 
 
 class RWKVState(NamedTuple):
@@ -118,103 +121,85 @@ def _wkv_chunked(r, k, v, logw, u, chunk: int, init_state):
     return y, state
 
 
-def _decay_log(params: Dict, xw: torch.Tensor) -> torch.Tensor:
-    """log w = -exp(w0 + tanh(xw A) B), f32, ≤ 0."""
-    lora = (torch.tanh(xw @ params["w_A"]) @ params["w_B"]).float()
-    return -torch.exp(params["w0"] + lora)
+def _decay_log(params: Dict, xw: torch.Tensor, cols: slice) -> torch.Tensor:
+    """log w = -exp(w0 + tanh(xw A) B) of the channels ``cols``, f32, ≤ 0
+    (inside ``model_parallel`` the LoRA's parts summed over ``model``)."""
+    lora = sum_for_parts(torch.tanh(xw @ params["w_A"]) @ params["w_B"])
+    return -torch.exp(copy_to_model(params["w0"])[cols]
+                      + lora[..., cols].float())
+
+
+def _ln_x(cfg: ArchConfig, params: Dict, y: torch.Tensor, cols: slice,
+          d: int) -> torch.Tensor:
+    """The output layer norm over all d channels of y, which holds the
+    channels ``cols``, f32: its mean and variance summed over ``model``
+    inside ``model_parallel``, in two passes as ``layer_norm``'s."""
+    y = y.float()
+    mean = sum_for_parts(y.sum(dim=-1, keepdim=True)) / d
+    var = sum_for_parts((y - mean).square().sum(dim=-1, keepdim=True)) / d
+    return ((y - mean) * torch.rsqrt(var + cfg.norm_eps)
+            * copy_to_model(params["ln_x_w"])[cols].float()
+            + copy_to_model(params["ln_x_b"])[cols].float())
 
 
 def _channel_mix(params: Dict, x: torch.Tensor,
                  shifted: torch.Tensor) -> torch.Tensor:
-    xk = x + (shifted - x) * params["mu_ffn"][0]
-    xr = x + (shifted - x) * params["mu_ffn"][1]
+    """The channel mix; inside ``model_parallel`` ``ffn_k`` / ``ffn_r``
+    column-parallel, ``ffn_v`` row-parallel."""
+    xk, xr = (copy_to_model(x + (shifted - x) * params["mu_ffn"][i])
+              for i in range(2))
     kf = torch.square(torch.relu(xk @ params["ffn_k"]))
-    return torch.sigmoid(xr @ params["ffn_r"]) * (kf @ params["ffn_v"])
+    return gather_from_model(torch.sigmoid(xr @ params["ffn_r"])) \
+        * reduce_from_model(kf @ params["ffn_v"])
 
 
-def rwkv6_forward(cfg: ArchConfig, params: Dict, x: torch.Tensor,
-                  init_state: Optional[RWKVState] = None
-                  ) -> Tuple[torch.Tensor, RWKVState]:
-    """Time-mix + channel-mix for a full sequence. x: (B,S,d)."""
-    shard = model_shard()
-    if shard is not None:
-        if init_state is not None:
-            raise NotImplementedError(
-                "a model-parallel RWKV6 continuing a state (the placed "
-                "prefill) is not ported; the placed step is the train step")
-        return _rwkv6_sharded(cfg, params, x, shard)
-    B, S, d = x.shape
-    H, P = cfg.rwkv_num_heads, cfg.rwkv_head_dim
-    if init_state is None:
-        prev = prev_f = torch.zeros((B, d), dtype=x.dtype, device=x.device)
-        state0 = torch.zeros((B, H, P, P), dtype=torch.float32,
-                             device=x.device)
-    else:
-        prev, state0, prev_f = init_state
-    xs = _token_shift(x, prev)
-    xr, xk, xv, xg, xw = (x + (xs - x) * params["mu"][i] for i in range(5))
-    r = (xr @ params["wr"]).reshape(B, S, H, P)
-    k = (xk @ params["wk"]).reshape(B, S, H, P)
-    v = (xv @ params["wv"]).reshape(B, S, H, P)
-    g = F.silu(xg @ params["wg"])
-    logw = _decay_log(params, xw).reshape(B, S, H, P)
-
-    y, wkv = _wkv_chunked(r, k, v, logw, params["u"],
-                          max(cfg.ssm_chunk // 4, 16), state0)
-    y = y.reshape(B, S, d).to(x.dtype)
-    y = layer_norm(y, params["ln_x_w"], params["ln_x_b"], cfg.norm_eps) * g
-    out = y @ params["wo"]
-    ffn = _channel_mix(params, x, _token_shift(x, prev_f))
-    last = x[:, -1, :]
-    return out + ffn, RWKVState(last, wkv, last)
-
-
-def _rwkv6_sharded(cfg: ArchConfig, params: Dict, x: torch.Tensor, shard
-                   ) -> Tuple[torch.Tensor, RWKVState]:
-    """:func:`rwkv6_forward` on this rank's H/m heads (from zero state).
-    The mixes are whole on every rank and enter each column-parallel
-    product through ``copy_to_model``; the scan's per-head leaves (``w0``,
-    ``u``, ``ln_x_*``) are sliced to this rank's channels after it.
-    Returns this rank's heads' final wkv state."""
-    B, S, d = x.shape
-    H, P = cfg.rwkv_num_heads, cfg.rwkv_head_dim
+def _head_split(cfg: ArchConfig, d: int, shard) -> Tuple[int, slice, slice]:
+    """This rank's (H/m, its d/m channels, its heads) of an RWKV6 layer."""
+    H = cfg.rwkv_num_heads
     m, r = shard.size, shard.rank
     if H % m:
         raise NotImplementedError(
             f"{H} RWKV6 heads do not divide over {m} 'model' ranks")
     h, dl = H // m, d // m
-    cols, heads = slice(r * dl, (r + 1) * dl), slice(r * h, (r + 1) * h)
-    zero = torch.zeros((B, d), dtype=x.dtype, device=x.device)
-    xs = _token_shift(x, zero)
+    return h, slice(r * dl, (r + 1) * dl), slice(r * h, (r + 1) * h)
+
+
+def rwkv6_forward(cfg: ArchConfig, params: Dict, x: torch.Tensor,
+                  init_state: Optional[RWKVState] = None
+                  ) -> Tuple[torch.Tensor, RWKVState]:
+    """Time-mix + channel-mix for a full sequence. x: (B,S,d), from zero
+    state or ``init_state``.  Inside ``model_parallel`` on this rank's H/m
+    heads (``init_state`` and the returned state: whole token shifts, this
+    rank's heads' wkv): the mixes are whole on every rank and enter each
+    column-parallel product through ``copy_to_model``; the scan's per-head
+    leaves (``w0``, ``u``, ``ln_x_*``) are sliced to this rank's channels
+    after it."""
+    B, S, d = x.shape
+    P = cfg.rwkv_head_dim
+    shard = model_shard() or ModelShard(None, 1, 0)
+    h, cols, heads = _head_split(cfg, d, shard)
+    dl = d // shard.size
+    if init_state is None:
+        prev = prev_f = torch.zeros((B, d), dtype=x.dtype, device=x.device)
+        state0 = torch.zeros((B, h, P, P), dtype=torch.float32,
+                             device=x.device)
+    else:
+        prev, state0, prev_f = init_state
+    xs = _token_shift(x, prev)
     xr, xk, xv, xg, xw = (copy_to_model(x + (xs - x) * params["mu"][i])
                           for i in range(5))
     r_ = (xr @ params["wr"]).reshape(B, S, h, P)
     k = (xk @ params["wk"]).reshape(B, S, h, P)
     v = (xv @ params["wv"]).reshape(B, S, h, P)
     g = F.silu(xg @ params["wg"])
-    lora = sum_for_parts(torch.tanh(xw @ params["w_A"]) @ params["w_B"])
-    logw = -torch.exp(copy_to_model(params["w0"])[cols]
-                      + lora[..., cols].float()).reshape(B, S, h, P)
+    logw = _decay_log(params, xw, cols).reshape(B, S, h, P)
     y, wkv = _wkv_chunked(r_, k, v, logw, copy_to_model(params["u"])[heads],
-                          max(cfg.ssm_chunk // 4, 16), torch.zeros(
-                              (B, h, P, P), dtype=torch.float32,
-                              device=x.device))
-    # the layer norm over all d channels: its mean and variance summed
-    # over 'model', in two passes as ``layer_norm``'s
-    y = y.reshape(B, S, dl).to(x.dtype).float()
-    mean = sum_for_parts(y.sum(dim=-1, keepdim=True)) / d
-    var = sum_for_parts((y - mean).square().sum(dim=-1, keepdim=True)) / d
-    y = ((y - mean) * torch.rsqrt(var + cfg.norm_eps)
-         * copy_to_model(params["ln_x_w"])[cols].float()
-         + copy_to_model(params["ln_x_b"])[cols].float()).to(x.dtype) * g
+                          max(cfg.ssm_chunk // 4, 16), state0)
+    y = _ln_x(cfg, params, y.reshape(B, S, dl).to(x.dtype), cols,
+              d).to(x.dtype) * g
     out = reduce_from_model(y @ params["wo"])
-    # channel mix (its token shift is the time mix's from zero state):
-    # ffn_k / ffn_r column-parallel, ffn_v row-parallel
-    xk_f, xr_f = (copy_to_model(x + (xs - x) * params["mu_ffn"][i])
-                  for i in range(2))
-    kf = torch.square(torch.relu(xk_f @ params["ffn_k"]))
-    ffn = gather_from_model(torch.sigmoid(xr_f @ params["ffn_r"])) \
-        * reduce_from_model(kf @ params["ffn_v"])
+    xs_f = xs if init_state is None else _token_shift(x, prev_f)
+    ffn = _channel_mix(params, x, xs_f)
     last = x[:, -1, :]
     return out + ffn, RWKVState(last, wkv, last)
 
@@ -231,23 +216,28 @@ def init_rwkv_state(cfg: ArchConfig, batch: int, dtype: torch.dtype,
 
 def rwkv6_decode(cfg: ArchConfig, params: Dict, x: torch.Tensor,
                  state: RWKVState) -> Tuple[torch.Tensor, RWKVState]:
-    """Single-token step. x: (B, 1, d)."""
+    """Single-token step. x: (B, 1, d).  Inside ``model_parallel`` on this
+    rank's H/m heads: ``state``'s wkv is theirs, its token shifts whole;
+    r, k, v, g and the decay of its channels; the LoRA decay's, ``wo``'s
+    and ``ffn_v``'s parts and the layer norm's moments summed over
+    ``model``."""
     B, _, d = x.shape
-    H, P = cfg.rwkv_num_heads, cfg.rwkv_head_dim
+    P = cfg.rwkv_head_dim
+    h, cols, heads = _head_split(cfg, d, model_shard() or ModelShard(None, 1,
+                                                                     0))
     xt = x[:, 0]
     mix = lambda i: xt + (state.shift - xt) * params["mu"][i]  # noqa: E731
-    r = (mix(0) @ params["wr"]).reshape(B, H, P).float()
-    k = (mix(1) @ params["wk"]).reshape(B, H, P).float()
-    v = (mix(2) @ params["wv"]).reshape(B, H, P).float()
+    r = (mix(0) @ params["wr"]).reshape(B, h, P).float()
+    k = (mix(1) @ params["wk"]).reshape(B, h, P).float()
+    v = (mix(2) @ params["wv"]).reshape(B, h, P).float()
     g = F.silu(mix(3) @ params["wg"])
-    w = torch.exp(_decay_log(params, mix(4)).reshape(B, H, P))
-
-    kv = k[..., :, None] * v[..., None, :]                    # (B,H,P,P)
+    w = torch.exp(_decay_log(params, mix(4), cols).reshape(B, h, P))
+    kv = k[..., :, None] * v[..., None, :]                    # (B,h,P,P)
     y = torch.einsum("bhi,bhij->bhj", r,
-                     params["u"][None, :, :, None] * kv + state.wkv)
+                     params["u"][heads][None, :, :, None] * kv + state.wkv)
     wkv_new = state.wkv * w[..., None] + kv
-    y = y.reshape(B, d).to(x.dtype)
-    y = layer_norm(y, params["ln_x_w"], params["ln_x_b"], cfg.norm_eps) * g
-    out = y @ params["wo"]
+    y = _ln_x(cfg, params, y.reshape(B, -1).to(x.dtype), cols,
+              d).to(x.dtype) * g
+    out = reduce_from_model(y @ params["wo"])
     ffn = _channel_mix(params, xt, state.shift_ffn)
     return (out + ffn)[:, None, :], RWKVState(xt, wkv_new, xt)

@@ -22,7 +22,10 @@ head-parallel: ``in_proj``'s column block and ``out_proj``'s row block
 are this rank's; the projection is gathered whole, each rank runs the
 conv and the scan on its H/m heads' channels (B and C whole), the gated
 norm sums its squares over ``model``, and the output projection's parts
-are summed.
+are summed.  A state it continues or returns (the placed prefill and
+decode steps) holds the whole conv window and this rank's heads' SSM
+state; :func:`mamba2_decode` steps the same way, and is that one step
+on all heads outside it.
 """
 from __future__ import annotations
 
@@ -31,10 +34,11 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..core.distributed import (copy_to_model, gather_for_rows, model_shard,
+from ..core.distributed import (ModelShard, copy_to_model, gather_for_rows,
+                                gather_from_model, model_shard,
                                 reduce_from_model, sum_for_parts)
 from .config import ArchConfig
-from .layers import dense_init, rms_norm
+from .layers import dense_init
 
 
 class SSMState(NamedTuple):
@@ -131,9 +135,17 @@ def _split_proj(cfg: ArchConfig, proj: torch.Tensor):
 
 
 def _gate_out(cfg: ArchConfig, params: Dict, y: torch.Tensor,
-              z: torch.Tensor) -> torch.Tensor:
-    y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
-    return y @ params["out_proj"]
+              z: torch.Tensor, cols: slice) -> torch.Tensor:
+    """The gated RMS norm over all di channels, then ``out_proj``: y and z
+    hold the channels ``cols`` (this rank's inside ``model_parallel``, its
+    Σ y² and ``out_proj``'s parts summed over ``model``; else all)."""
+    g = (y * F.silu(z)).float()
+    var = sum_for_parts(g.square().sum(dim=-1, keepdim=True)) \
+        / cfg.ssm_d_inner
+    g = g * torch.rsqrt(var + cfg.norm_eps)
+    g = (g * (1.0 + copy_to_model(params["norm"])[cols].float())
+         ).to(y.dtype)
+    return reduce_from_model(g @ params["out_proj"])
 
 
 def mamba2_forward(cfg: ArchConfig, params: Dict, x: torch.Tensor,
@@ -144,11 +156,7 @@ def mamba2_forward(cfg: ArchConfig, params: Dict, x: torch.Tensor,
     W−1 carried inputs are prepended in place of zero padding."""
     shard = model_shard()
     if shard is not None:
-        if init_state is not None:
-            raise NotImplementedError(
-                "a model-parallel Mamba2 continuing a state (the placed "
-                "prefill) is not ported; the placed step is the train step")
-        return _mamba2_sharded(cfg, params, x, shard)
+        return _mamba2_sharded(cfg, params, x, shard, init_state)
     B, S, d = x.shape
     di, N = cfg.ssm_d_inner, cfg.ssm_state
     H, P = cfg.ssm_num_heads, cfg.ssm_head_dim
@@ -172,50 +180,62 @@ def mamba2_forward(cfg: ArchConfig, params: Dict, x: torch.Tensor,
               torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device))
     y, state = _ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk, state0)
     y = y + params["D"][None, None, :, None] * xh.float()
-    out = _gate_out(cfg, params, y.reshape(B, S, di).to(x.dtype), z)
+    out = _gate_out(cfg, params, y.reshape(B, S, di).to(x.dtype), z,
+                    slice(None))
     return out, SSMState(hist[:, -(W - 1):, :].to(x.dtype), state)
 
 
-def _mamba2_sharded(cfg: ArchConfig, params: Dict, x: torch.Tensor, shard
-                    ) -> Tuple[torch.Tensor, SSMState]:
-    """:func:`mamba2_forward` on this rank's H/m heads (from zero state):
-    every tensor after the gathered projection is a per-rank part, so the
-    whole weights it reads (conv, ``A_log``, ``D``, ``dt_bias``, ``norm``)
-    enter through ``copy_to_model`` and the projection's grads are summed
-    back (``gather_for_rows``).  Returns this rank's heads' final state."""
-    B, S, d = x.shape
-    di, N = cfg.ssm_d_inner, cfg.ssm_state
-    H, P = cfg.ssm_num_heads, cfg.ssm_head_dim
+def _head_split(cfg: ArchConfig, shard) -> Tuple[int, slice, slice]:
+    """This rank's (H/m, its di/m channels, its heads) of a Mamba2 layer."""
+    H = cfg.ssm_num_heads
     m, r = shard.size, shard.rank
     if H % m:
         raise NotImplementedError(
             f"{H} Mamba2 heads do not divide over {m} 'model' ranks")
-    h, dl = H // m, di // m
-    cols, heads = slice(r * dl, (r + 1) * dl), slice(r * h, (r + 1) * h)
+    h, dl = H // m, cfg.ssm_d_inner // m
+    return h, slice(r * dl, (r + 1) * dl), slice(r * h, (r + 1) * h)
+
+
+def _mamba2_sharded(cfg: ArchConfig, params: Dict, x: torch.Tensor, shard,
+                    init_state: Optional[SSMState] = None
+                    ) -> Tuple[torch.Tensor, SSMState]:
+    """:func:`mamba2_forward` on this rank's H/m heads, from zero state or
+    ``init_state`` (the whole conv window, this rank's heads' SSM state):
+    every tensor after the gathered projection is a per-rank part, so the
+    whole weights it reads (conv, ``A_log``, ``D``, ``dt_bias``, ``norm``)
+    enter through ``copy_to_model`` and the projection's grads are summed
+    back (``gather_for_rows``).  Returns the whole conv window and this
+    rank's heads' final state."""
+    B, S, d = x.shape
+    di, N = cfg.ssm_d_inner, cfg.ssm_state
+    P, W = cfg.ssm_head_dim, cfg.ssm_conv_width
+    h, cols, heads = _head_split(cfg, shard)
+    dl = di // shard.size
     z, xin, Bm, Cm, dt_raw = _split_proj(
         cfg, gather_for_rows(copy_to_model(x) @ params["in_proj"]))
     w, b = copy_to_model(params["conv_w"]), copy_to_model(params["conv_b"])
-    conv_in = torch.cat([xin[..., cols], Bm, Cm], dim=-1)
+    full = torch.cat([xin, Bm, Cm], dim=-1)          # every conv channel
+    if init_state is not None:
+        hist = torch.cat([init_state.conv.to(full.dtype), full], dim=1)
+    else:
+        hist = F.pad(full, (0, 0, W - 1, 0))
+    mine = torch.cat([hist[..., cols], hist[..., di:]], dim=-1)
     conv_out = F.silu(_causal_conv(
-        conv_in, torch.cat([w[:, cols], w[:, di:]], dim=1),
-        torch.cat([b[cols], b[di:]])))
+        mine, torch.cat([w[:, cols], w[:, di:]], dim=1),
+        torch.cat([b[cols], b[di:]])))[:, W - 1:]
     xin, Bm, Cm = torch.split(conv_out, [dl, N, N], dim=-1)
     dt = F.softplus(dt_raw[..., heads].float()
                     + copy_to_model(params["dt_bias"])[heads])
     A = -torch.exp(copy_to_model(params["A_log"])[heads])
     xh = xin.reshape(B, S, h, P)
-    y, state = _ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk, torch.zeros(
-        (B, h, P, N), dtype=torch.float32, device=x.device))
+    state0 = (init_state.ssm if init_state is not None else
+              torch.zeros((B, h, P, N), dtype=torch.float32, device=x.device))
+    y, state = _ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk, state0)
     y = y + copy_to_model(params["D"])[heads][None, None, :, None] \
         * xh.float()
-    # the gated RMS norm over all di channels: Σ y² over 'model'
-    g = (y.reshape(B, S, dl).to(x.dtype) * F.silu(z[..., cols])).float()
-    var = sum_for_parts(g.square().sum(dim=-1, keepdim=True)) / di
-    g = g * torch.rsqrt(var + cfg.norm_eps)
-    g = (g * (1.0 + copy_to_model(params["norm"])[cols].float())
-         ).to(x.dtype)
-    out = reduce_from_model(g @ params["out_proj"])
-    return out, SSMState(conv_in[:, -(cfg.ssm_conv_width - 1):], state)
+    out = _gate_out(cfg, params, y.reshape(B, S, dl).to(x.dtype),
+                    z[..., cols], cols)
+    return out, SSMState(hist[:, -(W - 1):].to(x.dtype), state)
 
 
 def init_ssm_state(cfg: ArchConfig, batch: int, dtype: torch.dtype,
@@ -230,25 +250,32 @@ def init_ssm_state(cfg: ArchConfig, batch: int, dtype: torch.dtype,
 
 def mamba2_decode(cfg: ArchConfig, params: Dict, x: torch.Tensor,
                   state: SSMState) -> Tuple[torch.Tensor, SSMState]:
-    """Single-token decode. x: (B, 1, d)."""
+    """Single-token decode. x: (B, 1, d).  Inside ``model_parallel`` on
+    this rank's shards and H/m heads: the projection gathered whole, the
+    conv window stepped whole (it is the state's, whole over ``model``),
+    the SSM step on this rank's heads (``state.ssm``), the gated norm's
+    squares and ``out_proj``'s parts summed over ``model``."""
     B = x.shape[0]
     di, N = cfg.ssm_d_inner, cfg.ssm_state
-    H, P = cfg.ssm_num_heads, cfg.ssm_head_dim
-    z, xin, Bm, Cm, dt_raw = _split_proj(cfg, x[:, 0] @ params["in_proj"])
+    P = cfg.ssm_head_dim
+    shard = model_shard() or ModelShard(None, 1, 0)
+    h, cols, heads = _head_split(cfg, shard)
+    z, xin, Bm, Cm, dt_raw = _split_proj(
+        cfg, gather_from_model(x[:, 0] @ params["in_proj"]))
     conv_in = torch.cat([xin, Bm, Cm], dim=-1)                 # (B, C)
     window = torch.cat([state.conv, conv_in[:, None, :]], dim=1)  # (B,W,C)
     conv_out = F.silu(
         torch.einsum("bwc,wc->bc", window.float(), params["conv_w"].float())
         + params["conv_b"].float()).to(x.dtype)
     xin, Bm, Cm = torch.split(conv_out, [di, N, N], dim=-1)
-
-    dt = F.softplus(dt_raw.float() + params["dt_bias"])        # (B,H)
-    A = -torch.exp(params["A_log"])
-    a = torch.exp(dt * A)                                      # (B,H)
-    xh = xin.reshape(B, H, P).float()
+    dt = F.softplus(dt_raw[:, heads].float() + params["dt_bias"][heads])
+    A = -torch.exp(params["A_log"][heads])
+    a = torch.exp(dt * A)                                      # (B,h)
+    xh = xin[:, cols].reshape(B, h, P).float()
     s_new = state.ssm * a[:, :, None, None] \
         + (dt[:, :, None] * xh)[..., None] * Bm.float()[:, None, None, :]
     y = torch.einsum("bn,bhpn->bhp", Cm.float(), s_new)
-    y = y + params["D"][None, :, None] * xh
-    out = _gate_out(cfg, params, y.reshape(B, di).to(x.dtype), z)
+    y = y + params["D"][heads][None, :, None] * xh
+    out = _gate_out(cfg, params, y.reshape(B, -1).to(x.dtype), z[:, cols],
+                    cols)
     return out[:, None, :], SSMState(window[:, 1:], s_new)

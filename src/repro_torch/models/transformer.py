@@ -30,6 +30,15 @@ host int.  The recurrent states (``LMCache.ssm``) are stacked over
 ``num_layers`` with the hybrid's remainder layers at the tail, and the
 hybrid's ``shared_kv`` over its groups: each application of the one shared
 weight set has its own cache.
+
+Inside ``core.distributed.model_parallel(mesh, cache=...)`` (the placed
+serve steps of ``launch.steps``) ``prefill`` and ``decode_step`` run on
+this rank's weight shards, its rows of the batch and its block of the
+cache: each KV leaf's seq block (``CacheShard.kv_axes``; the attention's
+``kv_block`` and placed decode), each recurrent state's block of heads
+(``CacheShard.state_axes``, converted to and from the heads this rank's
+head-parallel layer computes by :func:`_state_at` / :func:`_put_state`);
+the conv state and the token shifts are whole over ``model``.
 """
 from __future__ import annotations
 
@@ -38,6 +47,8 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..core.distributed import (all_gather_dim, cache_shard,
+                                model_shard)
 from ..core.flatten import tree_leaves, tree_map, tree_unflatten
 from ..device import DeviceLike, resolve_device
 from .attention import (KVCache, _project_qkv, attention_decode,
@@ -196,9 +207,11 @@ def _ffn(cfg: ArchConfig, p: Dict, h: torch.Tensor):
 
 def _block_forward(cfg: ArchConfig, p: Dict, x: torch.Tensor,
                    positions: torch.Tensor, window: Optional[int],
-                   state_in=None, return_kv: bool = False):
+                   state_in=None, return_kv: bool = False,
+                   capacity: Optional[int] = None):
     """One layer. Returns (x, aux, extra): extra is the kv (or None) of an
-    attention layer, the new state of a recurrent one (``state_in`` its
+    attention layer (placed: this rank's block of its ring placement into
+    ``capacity`` rows), the new state of a recurrent one (``state_in`` its
     initial state, None for zeros)."""
     for name, forward in (("rwkv", rwkv6_forward), ("mamba", mamba2_forward)):
         if name in p:
@@ -210,7 +223,8 @@ def _block_forward(cfg: ArchConfig, p: Dict, x: torch.Tensor,
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     mode = "window" if window is not None else "causal"
     out = attention_forward(cfg, p["attn"], h, positions, mode=mode,
-                            window=window, return_kv=return_kv)
+                            window=window, return_kv=return_kv,
+                            capacity=capacity)
     attn, kv = out if return_kv else (out, None)
     x = x + attn
     ff, aux = _ffn(cfg, p, rms_norm(x, p["ln2"], cfg.norm_eps))
@@ -300,13 +314,41 @@ class LMCache(NamedTuple):
 
 
 def _state_at(stacked, i: int):
-    """Layer ``i``'s views of a stacked RWKVState / SSMState."""
-    return type(stacked)(*(f[i] for f in stacked))
+    """Layer ``i``'s views of a stacked RWKVState / SSMState; placed, its
+    head-split field (``wkv`` / ``ssm``, the second) as the heads this
+    rank's head-parallel layer computes (:func:`_state_heads`)."""
+    st = type(stacked)(*(f[i] for f in stacked))
+    if model_shard() is None:
+        return st
+    return st._replace(**{st._fields[1]: _state_heads(st[1], True)})
 
 
 def _put_state(stacked, i: int, new) -> None:
+    if model_shard() is not None:
+        new = new._replace(**{new._fields[1]: _state_heads(new[1], False)})
     for dst, src in zip(stacked, new):
         dst[i].copy_(src)
+
+
+def _state_heads(t: torch.Tensor, to_compute: bool) -> torch.Tensor:
+    """A recurrent state's (B, H·, ...) head dim between the block this
+    rank holds (heads split over ``CacheShard.state_axes``: 'model', or
+    ('data', 'model') at batch 1, or whole) and the H/m heads its
+    head-parallel layer computes (heads split over 'model').  The same
+    split is the identity; another goes through the whole state."""
+    cs, shard = cache_shard(), model_shard()
+    axes = cs.state_axes
+    if axes == ("model",):
+        return t
+    if to_compute:
+        whole = all_gather_dim(cs.mesh, t, 1, axes) if axes else t
+        h = whole.shape[1] // shard.size
+        return whole.narrow(1, shard.rank * h, h).contiguous()
+    whole = all_gather_dim(cs.mesh, t, 1, ("model",))
+    if not axes:
+        return whole
+    h = whole.shape[1] // cs.ways(axes)
+    return whole.narrow(1, cs.index(axes) * h, h).contiguous()
 
 
 def cache_capacity(cfg: ArchConfig, max_seq: int) -> int:
@@ -326,10 +368,19 @@ def init_lm_cache(cfg: ArchConfig, batch: int, max_seq: int,
     dev = resolve_device(device)
     cap = cache_capacity(cfg, max_seq) if ring else max_seq
     dtype = dtype_of(cfg.dtype)
+    cs = cache_shard()
 
     def stack(tree, n):
-        return type(tree)(*(torch.zeros((n,) + tuple(z.shape), dtype=z.dtype,
-                                        device=dev) for z in tree))
+        # placed: a 5-D leaf is this rank's block (a KV leaf's seq dim, a
+        # state's head dim: dim 2 of the stack)
+        def block(z, kv):
+            shape = (n,) + tuple(z.shape)
+            if cs is not None and len(shape) == 5:
+                ways = cs.ways(cs.kv_axes if kv else cs.state_axes)
+                shape = shape[:2] + (shape[2] // ways,) + shape[3:]
+            return torch.zeros(shape, dtype=z.dtype, device=dev)
+        kv = isinstance(tree, KVCache)
+        return type(tree)(*(block(z, kv) for z in tree))
     if cfg.family == "ssm":
         init_state = init_rwkv_state if cfg.rwkv else init_ssm_state
         ssm = stack(init_state(cfg, batch, dtype, "meta"), cfg.num_layers)
@@ -350,7 +401,7 @@ def prefill(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
     check_family(cfg)
     B, S = tokens.shape
     window = window if window is not None else cfg.sliding_window
-    x = params["embed"][tokens]
+    x = embed_lookup(params["embed"], tokens, cfg.vocab_size)
     positions = torch.arange(S, device=tokens.device)
     if cfg.family in ("ssm", "hybrid"):
         cache = init_lm_cache(cfg, B, max_seq, device=tokens.device)
@@ -375,14 +426,24 @@ def prefill_embedded(cfg: ArchConfig, params: Pytree, x: torch.Tensor,
     the last position's logits."""
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
+    cap = cache_capacity(cfg, max_seq)
+    dtype = dtype_of(cfg.dtype)
+    if model_shard() is not None:
+        # placed: each layer's block of rows straight into the cache block
+        cache = init_lm_cache(cfg, x.shape[0], max_seq, device=x.device)
+        for i, p in enumerate(layer_views(params["blocks"], cfg.num_layers)):
+            x, _, kv = _block_forward(cfg, p, x, positions, window,
+                                      return_kv=True, capacity=cap)
+            for dst, new in zip(cache.kv, kv):
+                dst[i].copy_(new)
+        logits = _logits(cfg, params, x[:, -1:, :])
+        return logits[:, 0], cache._replace(position=S)
     ks, vs = [], []
     for p in layer_views(params["blocks"], cfg.num_layers):
         x, _, (k, v) = _block_forward(cfg, p, x, positions, window,
                                       return_kv=True)
         ks.append(k)
         vs.append(v)
-    cap = cache_capacity(cfg, max_seq)
-    dtype = dtype_of(cfg.dtype)
     kc = ring_place(torch.stack(ks), cap).to(dtype)
     vc = ring_place(torch.stack(vs), cap).to(dtype)
     logits = _logits(cfg, params, x[:, -1:, :])
@@ -396,7 +457,10 @@ def _hybrid_prefill(cfg: ArchConfig, params: Pytree, x: torch.Tensor,
     layer's final state at its layer index, each group's shared-block K/V
     ring-placed into its own ``shared_kv`` slice."""
     mode = "window" if window is not None else "causal"
-    capacity = cache.shared_kv.k.shape[2]
+    cs = cache_shard()
+    capacity = cache.shared_kv.k.shape[2] * (
+        cs.ways(cs.kv_axes) if cs is not None else 1)
+    placed = model_shard() is not None
 
     def mamba(h, p, i):
         h, _, st = _block_forward(cfg, p, h, positions, None,
@@ -407,9 +471,9 @@ def _hybrid_prefill(cfg: ArchConfig, params: Pytree, x: torch.Tensor,
     def attend(g, a):
         out, kv = attention_forward(cfg, params["shared_attn"]["attn"], a,
                                     positions, mode=mode, window=window,
-                                    return_kv=True)
+                                    return_kv=True, capacity=capacity)
         for dst, new in zip(cache.shared_kv, kv):
-            dst[g].copy_(ring_place(new, capacity))
+            dst[g].copy_(new if placed else ring_place(new, capacity))
         return out
 
     return _hybrid_pass(cfg, params, x, mamba, attend)
@@ -430,7 +494,7 @@ def decode_step(cfg: ArchConfig, params: Pytree, token: torch.Tensor,
     ``cache.position``; the cache's rows are written in place."""
     check_family(cfg)
     window = window if window is not None else cfg.sliding_window
-    x = params["embed"][token][:, None, :]     # (B,1,d)
+    x = embed_lookup(params["embed"], token, cfg.vocab_size)[:, None, :]
     pos = cache.position
     if cfg.family == "hybrid":
         x = _hybrid_decode(cfg, params, x, cache, window)

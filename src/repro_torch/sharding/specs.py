@@ -214,8 +214,11 @@ def batch_pspec(mesh: Mesh, batch_size: int) -> P:
 def cache_pspecs(cfg: ArchConfig, cache_shape: Pytree, mesh: Mesh,
                  batch_size: int) -> Pytree:
     """KV caches: (L, B, S, KV, hd) → batch@data, seq@model; batch-1 decode
-    shards seq over ('data', 'model').  Recurrent states: batch@data
-    (wkv heads@model).  A host int (``LMCache.position``) is replicated."""
+    shards seq over ('data', 'model').  Recurrent states: batch@data, the
+    heads of a stacked 5-D state ((L, B, H, P, P) wkv, (L, B, H, P, N)
+    SSM) under the first ``ndim == 5`` rule, the KV caches' seq axis: over
+    'model', or ('data', 'model') at batch 1, as the reference's.  A host
+    int (``LMCache.position``) is replicated."""
     bspec = batch_pspec(mesh, batch_size)
     batch_axis = bspec[0] if len(bspec) else None
     seq_axes = ("model",) if batch_axis is not None else \
@@ -277,6 +280,41 @@ def local_shard(t: torch.Tensor, spec: PartitionSpec,
         n = t.shape[dim] // ways
         t = t.narrow(dim, at * n, n)
     return t.clone(memory_format=torch.contiguous_format)
+
+
+def dim_axes(spec: PartitionSpec, dim: int) -> Tuple[str, ...]:
+    """The mesh axes that split dim ``dim`` of a leaf under ``spec``,
+    major first (``()``: the dim is whole on every rank)."""
+    return tuple(_dim_axes(spec, dim + 1)[dim])
+
+
+def place_cache(mesh: Mesh, cache: Pytree, specs: Pytree) -> Pytree:
+    """Each tensor leaf of a whole cache as this rank's block under its
+    spec of ``specs`` (``cache_pspecs``); a host int (``position``) kept."""
+    flat = iter([s for _, s in spec_leaves(specs)])
+
+    def leaf(path, t):
+        spec = next(flat)
+        return local_shard(t, spec, mesh) if torch.is_tensor(t) else t
+    return map_with_path(cache, leaf)
+
+
+def cache_block(cache_shape: Pytree, specs: Pytree, mesh: Mesh,
+                device=None) -> Pytree:
+    """This rank's block of a cache, zeros, allocated alone: each tensor
+    leaf of ``cache_shape`` (the whole cache's shapes, ``meta`` tensors)
+    as zeros of its block's shape under ``specs`` on ``device`` (a whole
+    ``decode_32k`` cache is terabytes; a block is what one card holds).
+    Host ints are kept."""
+    flat = iter([s for _, s in spec_leaves(specs)])
+
+    def leaf(path, t):
+        spec = next(flat)
+        if not torch.is_tensor(t):
+            return t
+        return torch.zeros(shard_shape(tuple(t.shape), spec, mesh),
+                           dtype=t.dtype, device=device)
+    return map_with_path(cache_shape, leaf)
 
 
 def place_params(mesh: Mesh, params: Pytree, specs: Pytree) -> Pytree:

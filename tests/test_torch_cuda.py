@@ -1209,6 +1209,52 @@ def test_flash_decode_first_body_still_serves_bf16_and_skips_dead_rows(
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("body,dtype", [("mma", torch.bfloat16),
+                                        ("cuda_core", torch.bfloat16),
+                                        ("cuda_core", torch.float32)])
+@pytest.mark.parametrize("window", [None, 100, 700])
+def test_flash_decode_on_seq_blocks_merges_to_the_whole(cuda_device, body,
+                                                         dtype, window):
+    """Each body on 16 seq blocks of 64 rows, called with local lengths
+    (position + 1 - the block's first row: <= 0 past the position, past 64
+    before it): every block's partials within DECODE_TOL of the plain
+    version's, a row with no live key in its block o = 0 and lse <= -1e30
+    with no NaN, and the blocks merged by ``lse_merge`` within DECODE_TOL of
+    one whole-cache call and of the plain version.  A window of 100 or 700
+    starts inside a block and crosses block edges."""
+    from repro_torch.kernels.ops import lse_merge
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(17)
+    S, rows = 1024, 64
+    q, k, v, lengths = _decode_case(gen, cuda_device, 4, S, 2, 5, 128, dtype,
+                                    [1, 70, 640, 1024])
+    whole = decode_attn.flash_decode_cuda(q, k, v, lengths, window=window,
+                                          body=body)
+    want = flash_decode(q, k, v, lengths, window=window, backend="torch")
+    parts = []
+    for j in range(S // rows):
+        kb, vb = k[:, j * rows:(j + 1) * rows], v[:, j * rows:(j + 1) * rows]
+        local = lengths - j * rows
+        got = decode_attn.flash_decode_cuda(q, kb, vb, local, window=window,
+                                            body=body)
+        plain = flash_decode(q, kb, vb, local, window=window,
+                             backend="torch")
+        lo = (lengths - window).clamp(min=0) if window else 0 * lengths
+        dead = (local <= 0) | (lo >= (j + 1) * rows)
+        o, lse = got
+        assert not torch.isnan(o).any() and not torch.isnan(lse).any()
+        assert (o[dead] == 0).all() and (lse[dead] <= -1e30).all()
+        assert (plain[1][dead] <= -1e30).all()
+        assert _rel_err(o, plain[0]) <= DECODE_TOL
+        if (~dead).any():       # the dead rows' -1e30 would set the scale
+            assert _rel_err(lse[~dead], plain[1][~dead]) <= DECODE_TOL
+        parts.append(got)
+    merged = lse_merge(torch.stack([o for o, _ in parts]),
+                       torch.stack([lse for _, lse in parts]))
+    for m, a, w in zip(merged, whole, want):
+        assert _rel_err(m, a) <= DECODE_TOL and _rel_err(m, w) <= DECODE_TOL
+
+
 def test_flash_decode_body_choice_is_checked(cuda_device):
     q = torch.zeros(1, 1, 1, 128, device=cuda_device)
     k = torch.zeros(1, 8, 1, 128, device=cuda_device)
