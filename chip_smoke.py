@@ -79,7 +79,17 @@ Phases (any failure exits non-zero and prints no result line):
      100 x 7 840 weight slab on ``combine_vec.cu``), the losses fall and
      agree with the fused engine's to
      1.4e-3, the cloud-uplink bytes are equal; one streamed round on the
-     card matches the same round on the CPU;
+     card matches the same round on the CPU; then its mesh part
+     (``streamed_mesh``): one round of each configuration on the engine's
+     mesh path (a one-rank NCCL group, a ('data',) mesh of ranks) bitwise
+     equal to the round without a mesh, with the same launches, and the
+     big-model round through the engine on each of 8 places of a mesh,
+     its collectives done in-process: (G, C), the weights, the
+     materialized vector and the new params against the round without a
+     mesh and the plain versions, the places bitwise equal, every
+     ``stream_stats`` window on ``stream_stats_mma`` and every ``combine``
+     window on ``combine_vec.cu``, one place's pass time beside its byte
+     bound;
   7. robust  — ``BENCH_robust.json``'s acceptance at its own sizes
      (Synthetic(1,1), dim 20, 64 devices, 16 clients, 10 rounds, 20 %
      adversaries under ``ByzantineGauss(25)``): the loss inflation of
@@ -603,6 +613,19 @@ ROOFLINE_DECODE_FLOPS_RANGE = (0.5, 2.0)
 HIER_ROUNDS = 6
 # the reference's recorded streamed-vs-fused loss gap (BENCH_bigmodel.json)
 STREAMED_LOSS_GAP = 1.4e-3
+# the streamed pass split by the engine's window plan over this many places
+# (one rank each on a mesh of ranks), on the big-model round's slabs: the
+# eight partials summed in place order against the whole pass and the plain
+# version, relative to max |whole| (CROSS_TOL: the bigmodel G/C gate)
+STREAM_SPLIT_RANKS = 8
+# the split round's materialize and apply on the whole round's weights
+# against the whole round's and the plain version's, relative to max
+# |whole|: the same f32 sums per column, in another order where a narrow
+# window splits its rows across warps (combine_vec.cu's W_k)
+SPLIT_COMBINE_TOL = 1e-5
+# the split round's weights against the whole round's: the α bound of
+# tests/test_distributed_spmd.py (a split sums (G, C) in another order)
+ALPHA_RTOL, ALPHA_ATOL = 1e-3, 1e-4
 # benchmarks/bigmodel_round.py's full transformer_stream round
 BIG = dict(d_model=1024, vocab=8192, layers=4, P=16, gateways=4,
            chunk=1 << 18)
@@ -1577,6 +1600,16 @@ def cross_phase_records(gen) -> dict:
         out["stream_stats"].append(dict(check_stream_stats(
             P, n, bf16, gen, body="mma", f64=True), set="model"))
         torch.cuda.empty_cache()
+    # the window a split pass reads (one of 8 ranks): the 2^20 columns at
+    # 3 * 2^20 of a 2^23-column bf16 embedding slab, row stride 2^23
+    P, n, wide = 16, 1 << 20, 1 << 23
+    D = torch.randn((P, wide), generator=gen, device="cuda").to(bf16)
+    GM = torch.randn((P, wide), generator=gen, device="cuda").to(bf16)
+    out["stream_stats"].append(dict(check_stream_stats(
+        P, n, bf16, gen, D=D[:, 3 * n:4 * n], GM=GM[:, 3 * n:4 * n],
+        body="mma", f64=True), set="window", row_stride=wide))
+    del D, GM
+    torch.cuda.empty_cache()
     for Ka, Kb, n in GRAM_BLOCK_PATH:
         ua = torch.randn((Ka, n), generator=gen, device="cuda")
         ub = torch.randn((Kb, n), generator=gen, device="cuda")
@@ -2682,16 +2715,32 @@ def _round_ms(tracker, name: str = "round") -> list:
             if span_fields(e)["name"] == name]
 
 
+def streamed_runs(ds) -> tuple:
+    """The streamed phase's two tiers of 4 gateways over ``ds``'s fleet and
+    its three configurations ``(name, HierConfig, compress ops)``."""
+    from repro_torch.compress import CompressConfig
+    from repro_torch.edge import bimodal_fleet
+    from repro_torch.hier import HierConfig, two_tier_topology
+    fleet = bimodal_fleet(ds.num_devices, slowdown=10.0, dropout_slow=0.05,
+                          seed=0)
+    sketch = dict(aggregator="hier_contextual_sketch", **HIER_CFG)
+    return two_tier_topology(fleet, 4), [
+        ("two_tier", HierConfig(**HIER_CFG), ()),
+        ("topk", HierConfig(compress=CompressConfig(
+            scheme="topk", ratio=3.4, u_frac=0.75), **sketch), ("topk",)),
+        ("sign_sketch", HierConfig(compress=CompressConfig(
+            scheme="sign_sketch", ratio=4.0), **sketch),
+         ("sign_sketch", "sign_sketch_adjoint")),
+    ]
+
+
 def streamed_phase(ds, params) -> dict:
     """The two-tier paper-logreg runs on the streamed engine beside the
     fused engine, on the same mini-batches; returns the streamed runs'
     launch counts, summed."""
     import numpy as np
     import torch
-    from repro_torch.compress import CompressConfig
-    from repro_torch.edge import bimodal_fleet
     from repro_torch.fl import run_hier_simulation
-    from repro_torch.hier import HierConfig, two_tier_topology
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels import _build, combine, stream
     from repro_torch.models.logistic import logistic_apply, logistic_loss
@@ -2706,18 +2755,7 @@ def streamed_phase(ds, params) -> dict:
         verdicts[(U.shape[1], v)] = verdicts.get((U.shape[1], v), 0) + 1
         return v
 
-    fleet = bimodal_fleet(ds.num_devices, slowdown=10.0, dropout_slow=0.05,
-                          seed=0)
-    tiers = two_tier_topology(fleet, 4)
-    sketch = dict(aggregator="hier_contextual_sketch", **HIER_CFG)
-    runs = [
-        ("two_tier", HierConfig(**HIER_CFG), ()),
-        ("topk", HierConfig(compress=CompressConfig(
-            scheme="topk", ratio=3.4, u_frac=0.75), **sketch), ("topk",)),
-        ("sign_sketch", HierConfig(compress=CompressConfig(
-            scheme="sign_sketch", ratio=4.0), **sketch),
-         ("sign_sketch", "sign_sketch_adjoint")),
-    ]
+    tiers, runs = streamed_runs(ds)
     log(f"streamed: two tiers of 4 gateways over {ds.num_devices} devices, "
         f"{HIER_ROUNDS} rounds per run, streamed and fused engines on the "
         "same mini-batches")
@@ -2821,6 +2859,321 @@ def streamed_phase(ds, params) -> dict:
     need(rel <= 1e-4, f"streamed: card round disagrees with the CPU round: "
          f"{rel:.3e}")
     return total
+
+
+def streamed_mesh_phase(smi_line: str, ds, params,
+                        device: str = "cuda") -> dict:
+    """The streamed phase's mesh part.  (a) One round of each of the
+    streamed phase's configurations on the engine's mesh path — a one-rank
+    NCCL group (a ``FileStore`` in a temporary directory; gloo on the CPU)
+    and a ('data',) mesh of ranks: each slab's window (here the whole slab),
+    the all-reduce of the stacked (G, C), the windows' gathers — against
+    the same round without a mesh on the same mini-batches: the new
+    parameters bitwise equal, the same launches, each counted from 0 just
+    before the mesh round.  (b) :func:`streamed_split_round`.  Returns the
+    mesh rounds' launch counts, summed, and the records."""
+    import os
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.flatten import tree_to_vector
+    from repro_torch.fl import run_hier_simulation
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.logistic import logistic_apply, logistic_loss
+    tiers, runs = streamed_runs(ds)
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    total, rounds = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        dist.init_process_group(backend, store=store, rank=0, world_size=1)
+        try:
+            mesh = make_mesh((1,), ("data",))
+            for name, cfg, compress_ops in runs:
+                got = {}
+                for tag, m in (("mesh", mesh), ("no mesh", None)):
+                    batches = torch.Generator(device=device)
+                    batches.manual_seed(42)
+                    new = []
+                    torch.cuda.synchronize()
+                    reset_launch_counts()
+                    run_hier_simulation(
+                        f"{name}_{tag}", logistic_loss, logistic_apply,
+                        params, ds, cfg, tiers, 1, selection_seed=42,
+                        device=device, engine="streamed", mesh=m,
+                        batch_generator=batches,
+                        publish_fn=lambda t, p: new.append(
+                            tree_to_vector(p).clone()))
+                    torch.cuda.synchronize()
+                    got[tag] = (new, launch_counts())
+                new, counts = got["mesh"]
+                need(len(new) == 1 == len(got["no mesh"][0]),
+                     f"streamed mesh {name}: a round was skipped")
+                launched = {k: v for k, v in counts.items() if v}
+                for op in ("stream_stats", "combine") + compress_ops:
+                    need(counts[f"{op}/cuda"] > 0, f"streamed mesh {name}: "
+                         f"no {op}/cuda launch: {launched}")
+                plain = {k: v for k, v in launched.items()
+                         if k.endswith("/torch")}
+                need(not plain, f"streamed mesh {name}: plain versions ran "
+                     f"on the path: {plain}")
+                need(counts == got["no mesh"][1], f"streamed mesh {name}: "
+                     f"launches {launched} vs without a mesh "
+                     f"{ {k: v for k, v in got['no mesh'][1].items() if v} }")
+                equal = torch.equal(new[0], got["no mesh"][0][0])
+                gap = _max_err(new[0], got["no mesh"][0][0])
+                log(f"streamed mesh {name}: one round on a one-rank {backend} "
+                    f"group, mesh {dict(mesh.shape)}, against the round "
+                    f"without a mesh: new params bitwise equal {equal} (max "
+                    f"|diff| {gap:.3e}); launches {launched}")
+                need(equal, f"streamed mesh {name}: the mesh round's params "
+                     f"differ from the mesh-free round's by {gap:.3e}")
+                rounds[name] = {"bitwise_equal": equal, "launches": launched}
+                for key, v in counts.items():
+                    total[key] = total.get(key, 0) + v
+        finally:
+            dist.destroy_process_group()
+    need(not dist.is_initialized(), "streamed mesh: the process group was "
+         "not destroyed")
+    return {"counts": total, "backend": backend, "rounds": rounds,
+            "split": streamed_split_round(smi_line, device)}
+
+
+class _PlaceDeviceMesh:
+    """The ``DeviceMesh`` of one place of a mesh whose places one process
+    drives in turn: its coordinate on every axis is the place."""
+
+    def __init__(self, place: int):
+        self.place = place
+
+    def get_local_rank(self, axis: str) -> int:
+        return self.place
+
+
+class _InProcessCollectives:
+    """The streamed engine's two collectives for places that one process
+    drives in turn (patched into ``repro_torch.hier.streamed``): each call
+    is recorded, and :meth:`complete` finishes every recorded call once
+    every place has made it — the all-reduce a sum in place order, the
+    gather each place's window in place order.  The engine reads no
+    collective's result within the pass that makes it, so a pass run for
+    every place and then completed is the pass the ranks of a mesh run
+    together."""
+
+    def __init__(self, places: int):
+        self.places = places
+        self.drop()
+
+    def drop(self) -> None:
+        self.reduces = [[] for _ in range(self.places)]
+        self.gathers = [[] for _ in range(self.places)]
+
+    def all_reduce_sum(self, mesh, t, axes):
+        self.reduces[mesh.device_mesh.place].append(t)
+        return t
+
+    def all_gather_windows(self, mesh, t, wide, axes, out):
+        self.gathers[mesh.device_mesh.place].append((t, wide, out))
+        return out
+
+    def complete(self) -> dict:
+        """Finish the recorded calls; returns how many of each there were
+        (every place made the same calls)."""
+        import torch
+        for calls in (self.reduces, self.gathers):
+            need(len({len(c) for c in calls}) == 1, f"streamed split: the "
+                 f"places made {[len(c) for c in calls]} collective calls")
+        for calls in zip(*self.reduces):
+            total = calls[0].clone()
+            for t in calls[1:]:
+                total += t
+            for t in calls:
+                t.copy_(total)
+        for calls in zip(*self.gathers):
+            got = torch.cat([torch.nn.functional.pad(t, (0, wide - len(t)))
+                             for t, wide, _ in calls])
+            for _, _, out in calls:
+                out.copy_(got[:len(out)])
+        made = {"all_reduce": len(self.reduces[0]),
+                "gather": len(self.gathers[0])}
+        self.drop()
+        return made
+
+
+def streamed_split_round(smi_line: str, device: str = "cuda") -> dict:
+    """(b) The big-model round (``transformer_stacked``: 29 bf16 slabs,
+    P = 16, n = 58 724 352) through ``StreamedRoundEngine`` on each of
+    ``STREAM_SPLIT_RANKS`` places of a ('data',) mesh, as its ranks run
+    it: one process drives every place's ``begin_round``, stages,
+    ``materialize`` and ``apply`` in turn, with the engine's all-reduce
+    and gather done in-process (:class:`_InProcessCollectives`).  Held
+    against the same round on the engine without a mesh and on the plain
+    versions: (G, C) at ``CROSS_TOL`` of max |whole|, the round's weights
+    at the α bound, the materialized vector and the new parameters at
+    ``SPLIT_COMBINE_TOL`` of max |whole| with the same weights, and the
+    places' new parameters bitwise equal.  Every window launch of
+    ``stream_stats`` takes the tensor-core body and every window of
+    ``combine`` the 16-byte one; one place's pass time beside its byte
+    bound."""
+    import torch
+    from repro_torch.core.flatten import tree_leaves
+    from repro_torch.core.solve import SolveConfig
+    from repro_torch.hier import streamed
+    from repro_torch.hier.streamed import StreamedRoundEngine
+    from repro_torch.kernels import (combine, force_backend, launch_counts,
+                                     reset_launch_counts, stream)
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.sharding.specs import column_windows
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    deltas, grads, template, n = transformer_stacked(gen)
+    P, R = BIG["P"], STREAM_SPLIT_RANKS
+    cfg = SolveConfig(beta=5.0, ridge=1e-6)
+    plan = [column_windows(deltas[k][0].numel(), R) for k in sorted(deltas)]
+    windows = sum(b > a for w in plan for a, b in w)
+    empty = [sum(w[r][1] == w[r][0] for w in plan) for r in range(R)]
+    n0 = sum(w[0][1] - w[0][0] for w in plan)
+    engines = [StreamedRoundEngine(
+        template, cfg, "contextual", chunk=BIG["chunk"],
+        mesh=Mesh((R,), ("data",), device_mesh=_PlaceDeviceMesh(r)))
+        for r in range(R)]
+    need(all(e.split for e in engines), "streamed split: an engine took "
+         "no split")
+    whole_eng = StreamedRoundEngine(template, cfg, "contextual",
+                                    chunk=BIG["chunk"])
+
+    def rel(got, want) -> float:
+        return _max_err(got, want) / float(want.abs().max())
+
+    coll = _InProcessCollectives(R)
+    saved = streamed.all_reduce_sum, streamed.all_gather_windows
+    streamed.all_reduce_sum = coll.all_reduce_sum
+    streamed.all_gather_windows = coll.all_gather_windows
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        stream.reset_body_launches()
+        ctxs = [eng.begin_round(deltas, grads) for eng in engines]
+        made = {"begin_round": coll.complete()}
+        torch.cuda.synchronize()
+        counts, bodies = launch_counts(), stream.body_launches()
+        need(counts["stream_stats/cuda"] == windows
+             and bodies == {"mma": windows, "cross": 0},
+             f"streamed split: {windows} windows, stream_stats launches "
+             f"{counts['stream_stats/cuda']} on {bodies}")
+        rounds = [_big_stages(ctx) for ctx in ctxs]
+        need(all(torch.equal(d.w, rounds[0].w) for d in rounds),
+             "streamed split: the places' P-space stages gave different "
+             "weights on the same (G, C)")
+        reset_launch_counts()
+        combine.reset_body_launches()
+        vecs = [ctx.materialize(d) for ctx, d in zip(ctxs, rounds)]
+        made["materialize"] = coll.complete()
+        news = [ctx.apply(template, d) for ctx, d in zip(ctxs, rounds)]
+        made["apply"] = coll.complete()
+        whole = whole_eng.begin_round(deltas, grads)
+        wdelta = _big_stages(whole)
+        # the windows' combines against the whole slab's on the same weights
+        same_vecs = [ctx.materialize(wdelta) for ctx in ctxs]
+        made["materialize, whole-round weights"] = coll.complete()
+        same_news = [ctx.apply(template, wdelta) for ctx in ctxs]
+        made["apply, whole-round weights"] = coll.complete()
+        torch.cuda.synchronize()
+        cb = combine.body_launches()
+        need(launch_counts()["combine/cuda"] == 4 * windows
+             and cb == {"vec": 4 * windows, "scalar": 0},
+             f"streamed split: {windows} windows, combine launches "
+             f"{launch_counts()['combine/cuda']} on {cb}")
+        # one place's accumulate pass alone (its all-reduce dropped)
+        place_ms = time_ms(lambda: engines[0].begin_round(deltas, grads), 20)
+        kernels = device_kernel_means(
+            lambda: engines[0].begin_round(deltas, grads))
+        place_device_ms = sum(c * ms for c, ms in kernels.values()) / 3
+        place_host_ms = host_ms(lambda: engines[0].begin_round(deltas, grads),
+                                5)
+        coll.drop()
+    finally:
+        streamed.all_reduce_sum, streamed.all_gather_windows = saved
+    whole_ms = time_ms(lambda: whole_eng.begin_round(deltas, grads), 20)
+    wvec = whole.materialize(wdelta)
+    wnew = tree_leaves(whole.apply(template, wdelta))
+    with force_backend("torch"):
+        plain = whole_eng.begin_round(deltas, grads)
+        pvec = plain.materialize(wdelta)
+        pnew = tree_leaves(plain.apply(template, wdelta))
+        # the round itself on the plain versions (for its weights)
+        pdelta = _big_stages(plain)
+    torch.cuda.synchronize()
+    def same(outs) -> bool:
+        first = tree_leaves(outs[0])
+        return all(all(torch.equal(a, b) for a, b in zip(tree_leaves(o),
+                                                         first))
+                   for o in outs[1:])
+    place_bits = (all(torch.equal(c.G, ctxs[0].G)
+                      and torch.equal(c.C, ctxs[0].C) for c in ctxs)
+                  and all(torch.equal(v, vecs[0]) for v in vecs)
+                  and all(torch.equal(v, same_vecs[0]) for v in same_vecs)
+                  and same(news) and same(same_news))
+    errs = {
+        "G, C against the whole pass": max(rel(ctxs[0].G, whole.G),
+                                           rel(ctxs[0].C, whole.C)),
+        "G, C against the plain version": max(rel(ctxs[0].G, plain.G),
+                                              rel(ctxs[0].C, plain.C)),
+        "vector against the whole round": rel(same_vecs[0], wvec),
+        "vector against the plain version": rel(same_vecs[0], pvec),
+        "params against the whole round": max(
+            rel(a, b) for a, b in zip(tree_leaves(same_news[0]), wnew)),
+        "params against the plain version": max(
+            rel(a, b) for a, b in zip(tree_leaves(same_news[0]), pnew)),
+        "the round's own vector against the whole round's":
+            rel(vecs[0], wvec),
+    }
+    weights_ok = all(torch.allclose(rounds[0].w, want.w, rtol=ALPHA_RTOL,
+                                    atol=ALPHA_ATOL)
+                     for want in (wdelta, pdelta))
+    weights_err = max(_max_err(rounds[0].w, want.w)
+                      for want in (wdelta, pdelta))
+    bound = cross_bound(2 * P, n0, P * (P + 1) // 2 + P * P, 2 * P * P,
+                        torch.bfloat16)
+    log(f"streamed split: the big-model round (P = {P} bf16, n = {n}, "
+        f"{len(plan)} slabs) through the engine on each of {R} places of a "
+        f"('data',) mesh, its collectives in-process ({made}): {windows} "
+        f"windows, stream_stats all {bodies}, combine (materialize and "
+        f"apply, twice) all {cb}; empty windows by place {empty}; the "
+        f"places bitwise equal {place_bits}; the round's weights against "
+        f"the whole and plain rounds' max |diff| {weights_err:.3e} (rtol "
+        f"{ALPHA_RTOL}, atol {ALPHA_ATOL}); "
+        + "; ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (max |err| / max |want|: G, C at {CROSS_TOL}, the rest with "
+        f"the whole round's weights at {SPLIT_COMBINE_TOL}, the round's own "
+        f"at {BIG_DELTA_TOL}); place 0's pass ({n0} columns) "
+        f"{place_ms * 1e3:.1f} us against a bound of "
+        f"{bound['bound_ms'] * 1e3:.1f} us ({bound['bound_by']}), "
+        f"{place_device_ms * 1e3:.1f} us on the device, "
+        f"{place_host_ms * 1e3:.1f} us of host time to issue it; the whole "
+        f"pass {whole_ms * 1e3:.1f} us; {smi_line}")
+    need(place_bits, "streamed split: the places' (G, C), vectors or new "
+         "params differ")
+    need(weights_ok, f"streamed split: weights off by {weights_err:.3e}")
+    need(max(errs[k] for k in list(errs)[:2]) <= CROSS_TOL,
+         f"streamed split: {errs}")
+    need(max(list(errs.values())[2:6]) <= SPLIT_COMBINE_TOL,
+         f"streamed split: {errs}")
+    need(list(errs.values())[6] <= BIG_DELTA_TOL, f"streamed split: {errs}")
+    del deltas, grads, ctxs, vecs, news, same_vecs, same_news
+    torch.cuda.empty_cache()
+    return {"places": R, "windows": windows, "stream_stats_bodies": bodies,
+            "combine_bodies": cb, "collectives": made,
+            "empty_windows_by_place": empty, "places_bitwise_equal":
+            place_bits, "weights_max_diff": weights_err, "rel_err": errs,
+            "tolerance": {"G, C": CROSS_TOL, "combine": SPLIT_COMBINE_TOL,
+                          "own weights": BIG_DELTA_TOL,
+                          "weights": [ALPHA_RTOL, ALPHA_ATOL]},
+            "place0_columns": n0, "place0_ms": place_ms,
+            "place0_device_ms": place_device_ms,
+            "place0_host_ms": place_host_ms, "whole_ms": whole_ms,
+            "place0_bound_ms": bound["bound_ms"],
+            "place0_bound_by": bound["bound_by"]}
 
 
 # ------------------------------------------------------------------ robust
@@ -3442,17 +3795,25 @@ def transformer_stacked(gen):
     return deltas, grads, template, n
 
 
-def _big_round(eng, template, deltas, grads):
-    """One tier-tree round through the context API, as the reference's
-    ``_round_once``: gateway solves, the cloud's γ stage, the apply."""
+def _big_stages(ctx):
+    """A tier-tree round's P-space stages, as the reference's
+    ``_round_once``: gateway solves, the cloud's γ stage; returns the
+    round's delta."""
     P, gws = BIG["P"], BIG["gateways"]
     per = P // gws
     cohorts = [list(range(g * per, (g + 1) * per)) for g in range(gws)]
-    ctx = eng.begin_round(deltas, grads)
     sums = [ctx.gateway(c) for c in cohorts]
     counts = [float(len(c)) for c in cohorts]
     ghat = ctx.compose_grads([s["ghat"] for s in sums], counts)
-    delta, info = ctx.cloud_combo([s["u_bar"] for s in sums], counts, ghat)
+    delta, _ = ctx.cloud_combo([s["u_bar"] for s in sums], counts, ghat)
+    return delta
+
+
+def _big_round(eng, template, deltas, grads):
+    """One tier-tree round through the context API: the stages of
+    :func:`_big_stages`, then the apply."""
+    ctx = eng.begin_round(deltas, grads)
+    delta = _big_stages(ctx)
     return ctx, delta, ctx.apply(template, delta)
 
 
@@ -6652,6 +7013,8 @@ def main() -> int:
         asynced = on_cuda_core("async", async_phase, ds, params)
         hier_counts = on_cuda_core("hier", hier_phase, ds, params)
         streamed_counts = on_cuda_core("streamed", streamed_phase, ds, params)
+        meshed = on_cuda_core("streamed_mesh", streamed_mesh_phase, smi_line,
+                              ds, params)
         robusted = on_cuda_core("robust", robust_phase, ds, params)
         fleeted = on_cuda_core("fleet", fleet_phase)
         scaffolded = on_cuda_core("scaffold", scaffold_phase, ds, params)
@@ -6675,7 +7038,9 @@ def main() -> int:
             "train": trained["models"]})
         by_path = {"sync": sync_counts, "async": asynced["counts"],
                    "hier": hier_counts,
-                   "streamed": streamed_counts, "robust": robusted["counts"],
+                   "streamed": streamed_counts,
+                   "streamed_mesh": meshed["counts"],
+                   "robust": robusted["counts"],
                    "fleet": fleeted["counts"],
                    "scaffold": scaffolded["counts"],
                    "bigmodel": big["counts"], "serve": served["counts"],
@@ -6709,9 +7074,9 @@ def main() -> int:
         log(f"combine bodies by path (each phase, its checks against the CPU "
             f"included): {combine_bodies}")
         # every sign sketch and adjoint launch of the hier and streamed
-        # phases took the col body (the phases' card rounds against the CPU
+        # phases (the mesh part too) took the col body (the phases' card rounds against the CPU
         # included: at least the runs' own launches)
-        for path in ("hier", "streamed"):
+        for path in ("hier", "streamed", "streamed_mesh"):
             for op in ("sign_sketch", "sign_sketch_adjoint"):
                 launched = by_path[path].get(f"{op}/cuda", 0)
                 need(launched > 0 and sign_bodies[path][op]["first"] == 0
@@ -6762,6 +7127,8 @@ def main() -> int:
     entries[names.index("gram")]["scaffold"] = scaffolded["numbers"]
     entries[names.index("stream_stats")]["bigmodel"] = {
         k: v for k, v in big.items() if k != "counts"}
+    entries[names.index("stream_stats")]["streamed_mesh"] = {
+        k: v for k, v in meshed.items() if k != "counts"}
     entries[names.index("flash_decode")]["serve"] = {
         k: v for k, v in served.items() if k != "counts"}
     entries[names.index("flash_decode")]["serve_placed"] = placed_served[

@@ -119,6 +119,20 @@ def all_gather_dim(mesh: Mesh, t: torch.Tensor, dim: int,
     return all_gather_rows(mesh, t.movedim(dim, 0), axes).movedim(0, dim)
 
 
+def all_gather_windows(mesh: Mesh, t: torch.Tensor, wide: int,
+                       axes: Sequence[str], out: torch.Tensor) -> torch.Tensor:
+    """Every rank's window of ``out``'s rows, written into ``out``: the
+    rank at place r (coordinate order over ``axes``, the first axis major)
+    holds rows ``[r·wide, (r+1)·wide)`` of ``out`` in ``t``, cut at its
+    end (the last nonempty window short, any after it empty).  Each window
+    is padded to ``wide`` rows for one gather, whose first ``len(out)``
+    rows are ``out`` in order; ``t`` may be ``out``'s own window."""
+    if t.shape[0] < wide:
+        t = torch.cat([t, t.new_zeros((wide - t.shape[0],)
+                                      + tuple(t.shape[1:]))])
+    return out.copy_(all_gather_rows(mesh, t, axes)[:out.shape[0]])
+
+
 def reduce_scatter_dim(mesh: Mesh, t: torch.Tensor, dim: int,
                        axis: str) -> torch.Tensor:
     """The sum over ``axis`` of every rank's ``t``, this rank's block of

@@ -537,9 +537,11 @@ def run_hier_simulation(name: str, loss_fn: Callable, apply_fn: Callable,
     counter-based).  ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`) with
     a ``'fleet'`` axis splits the cohort's local training over its ranks
     (``sharding.shard_cohort_fn``: params replicated, each rank its block of
-    rows, the results all-gathered); the streamed engine takes a one-rank
-    mesh (its round placements computed, the round unchanged) and raises
-    ``NotImplementedError`` for more.
+    rows, the results all-gathered); a mesh of ranks of any axes splits the
+    streamed engine's passes over its ranks' column windows
+    (``sharding.stream_windows``), and every rank ends each round with the
+    same parameters.  A mesh without a process group (one rank, or
+    emulated) runs the round whole on this rank.
 
     ``publish_fn(round, params)`` is called with each round's aggregated
     params the moment the cloud stage applies them; skipped rounds publish

@@ -34,7 +34,16 @@ On the card the kernels take each slab as it lies, of any width, with no
 pad and no copy; there is no autotune
 (``ROADMAP.md``'s dispatch contract), so the reference's capped timing
 (``AUTOTUNE_CAP_COLS``, ``select_impl_for``) has no counterpart here.
-``tests/test_torch_streamed.py`` holds every stage against the reference.
+
+On a mesh of ranks (``mesh``) each rank reads only its column windows of
+each slab (``sharding.stream_windows``: one window a rank over the slab's
+flattened columns, edges on 256-column multiples) in all three passes:
+its (G, C) partials are summed by one all-reduce, and the materialized
+vectors and the applied parameters are gathered window by window, so every
+rank ends the round with the same bits.  The P-space stages and the fused
+stages above a compression hop run whole on every rank.
+``tests/test_torch_streamed.py`` holds every stage against the reference,
+``tests/test_torch_streamed_mesh.py`` the split on 8 ranks.
 """
 from __future__ import annotations
 
@@ -45,11 +54,13 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.distributed import all_gather_windows, all_reduce_sum
 from ..core.flatten import (ChunkedFlatView, mix_rows, tree_leaves,
                             tree_map, tree_size)
 from ..core.solve import SolveConfig, bound_value, solve_alpha
 from ..kernels.ops import stream_stats, weighted_combine
 from ..obs import current_tracker, spans
+from ..sharding.specs import stream_axes, stream_windows, window_width
 from .fused import (_robust_on, apply_delta, cloud_stage, scope_indices,
                     summary_stage, weighted_mean_rows)
 from .gateway import solve_diagnostics
@@ -212,9 +223,11 @@ class StreamedRoundEngine:
     """Peer of :class:`repro_torch.hier.fused.HierRoundEngine` with the same
     constructor plus ``chunk`` — the reference's column chunk, which sets
     the memory model :meth:`peak_round_bytes` reports; the kernel walks
-    each slab in tiles of its own — and ``donate_params``: :meth:`apply`
+    each slab in tiles of its own — ``donate_params``: :meth:`apply`
     then updates the parameter tensors in place (the reference donates
-    them)."""
+    them) — and ``mesh``: on a mesh of ranks each pass reads only this
+    rank's column windows (the reference's ``stream_round_shardings``
+    placement, as flat windows)."""
 
     name = "streamed"
 
@@ -222,13 +235,12 @@ class StreamedRoundEngine:
                  tier_mode: str, gram_scope: Optional[str] = None, *,
                  chunk: Optional[int] = None, donate_params: bool = False,
                  robust=None, mesh=None):
-        if mesh is not None and mesh.size > 1:
-            raise NotImplementedError(
-                f"a streamed statistics pass split across {mesh.size} mesh "
-                "devices is not ported to repro_torch yet (reference: "
-                "repro.hier.streamed, whose stream_round_shardings GSPMD "
-                "partitions; ROADMAP queue 1); a one-rank mesh runs")
-        # a one-rank mesh places nothing: the round runs as without one
+        # a mesh of ranks splits every pass over its ranks' column windows
+        # (sharding.stream_windows); a mesh without a process group (one
+        # rank, or emulated) runs the round whole on this rank
+        self.mesh = mesh
+        self.split = mesh is not None and mesh.device_mesh is not None
+        self.axes = stream_axes(mesh) if self.split else ()
         self.n = tree_size(params_template)
         self.solve_cfg = solve_cfg
         self.tier_mode = tier_mode
@@ -258,10 +270,27 @@ class StreamedRoundEngine:
         return float(2 * P * bn * 4 + 2 * P * P * 4
                      + 2 * dense_fallback_members * self.n * 4)
 
+    def window(self, width: int) -> Tuple[int, int]:
+        """This rank's column window of a slab of ``width`` columns
+        (``sharding.stream_windows``); without a split, the whole slab."""
+        return stream_windows(self.mesh, width) if self.split else (0, width)
+
+    def gather(self, part: torch.Tensor, out: torch.Tensor) -> None:
+        """Every rank's window of a slab's columns into ``out`` (the slab's
+        (width,) row), in rank order; ``part`` is this rank's, which may lie
+        in ``out`` at its own window.  Without a split ``part`` is ``out``."""
+        if self.split:
+            all_gather_windows(self.mesh, part,
+                               window_width(out.shape[0], self.mesh.size),
+                               self.axes, out)
+
     def begin_round(self, stacked_deltas: Tree,
                     stacked_grads: Tree) -> "StreamedRoundContext":
         """One pass over the scoped leaf slabs: (G, C) summed in slab order
-        by ``stream_stats`` (the kernel adds each slab into them)."""
+        by ``stream_stats`` (the kernel adds each slab into them).  On a
+        mesh of ranks each rank reads only its window of each slab (an
+        empty window launches nothing), and one all-reduce over every mesh
+        axis sums the stacked (2, P, P) partials."""
         dview = ChunkedFlatView(stacked_deltas, self.gram_scope)
         gview = ChunkedFlatView(stacked_grads, self.gram_scope)
         P = dview.K
@@ -273,8 +302,13 @@ class StreamedRoundEngine:
         with spans.span("stream_accumulate", P=P, chunks=n_chunks,
                         chunk_cols=self.chunk, slabs=len(scoped)):
             for s in scoped:
-                stream_stats(s.matrix, gview.slabs[s.index].matrix,
-                             out=(G, C))
+                w0, w1 = self.window(s.width)
+                if w1 > w0:
+                    stream_stats(s.matrix[:, w0:w1],
+                                 gview.slabs[s.index].matrix[:, w0:w1],
+                                 out=(G, C))
+            if self.split:
+                all_reduce_sum(self.mesh, stats, self.axes)
         tr = current_tracker()
         if tr.active:
             tr.scope("hier/streamed").log({
@@ -402,27 +436,35 @@ class StreamedRoundContext:
     # -- vector materialization / final apply --------------------------------
 
     def materialize(self, ref) -> torch.Tensor:
-        """A ref as an (n,) f32 vector: one ``mix_rows`` per leaf slab, each
-        written into its columns — the only full-width vector this engine
-        builds, and only when compression needs one."""
+        """A ref as an (n,) f32 vector: one ``mix_rows`` per leaf slab (on
+        a mesh, per window, the windows then gathered), each written into
+        its columns — the only full-width vector this engine builds, and
+        only when compression needs one."""
         if not _is_mix(ref):
             return ref
         view = self._dview if ref.src == "delta" else self._gview
+        eng = self.engine
         with spans.span("stream_materialize", src=ref.src, P=self.P):
             out = torch.empty((view.n,), dtype=torch.float32,
                               device=self.device)
             for s in view.slabs:
-                mix_rows(ref.w, s.matrix, out=out[s.offset:s.offset + s.width])
+                part = out[s.offset:s.offset + s.width]
+                w0, w1 = eng.window(s.width)
+                if w1 > w0:
+                    mix_rows(ref.w, s.matrix[:, w0:w1], out=part[w0:w1])
+                eng.gather(part[w0:w1], part)
             return out
 
     def apply(self, params: Tree, delta_ref) -> Tree:
         """``w ← w + α @ U`` leaf by leaf through the ``combine`` kernel (the
         weights rounded to each leaf's dtype, f32 accumulation, as
         ``mix_rows``; rounded once per dtype, not per leaf), into the
-        parameter tensors themselves when the engine donates them."""
+        parameter tensors themselves when the engine donates them.  On a
+        mesh each rank combines its windows and gathers the others'."""
         if not _is_mix(delta_ref):
             return apply_delta(params, delta_ref)
-        donate = self.engine.donate_params
+        eng = self.engine
+        donate = eng.donate_params
         slabs = iter(self._dview.slabs)
         weights = {}
 
@@ -431,8 +473,12 @@ class StreamedRoundContext:
             if m.dtype not in weights:
                 weights[m.dtype] = delta_ref.w.to(m.dtype).float()
             flat = p.view(-1) if donate else p.reshape(-1)
-            new = weighted_combine(flat, m, weights[m.dtype],
-                                   out=flat if donate else None)
+            new = flat if donate else torch.empty_like(flat)
+            w0, w1 = eng.window(m.shape[1])
+            if w1 > w0:
+                weighted_combine(flat[w0:w1], m[:, w0:w1], weights[m.dtype],
+                                 out=new[w0:w1])
+            eng.gather(new[w0:w1], new)
             return p if donate else new.view(p.shape)
 
         with spans.span("stream_apply", P=self.P):

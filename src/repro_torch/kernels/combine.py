@@ -6,7 +6,9 @@ U, w and out all start 16-byte aligned runs on ``csrc/combine_vec.cu``
 (16-byte loads, rows split across the warps of a block where n is too small
 to fill the card: :func:`combine_vec_split`); every other call (odd n,
 31 400-byte f32 rows, views a few bytes in) on ``csrc/combine.cu``
-(one element a lane per row).  Each source says what bounds it on the H100
+(one element a lane per row).  Both read U with its row stride, so a
+(K, n) window of a wider slab — a rank's columns in the streamed engine's
+split — is taken as it lies.  Each source says what bounds it on the H100
 and how the pass is laid out; this module checks the inputs in one pass,
 allocates the output with ``torch.empty`` (or writes into the caller's
 ``out``, which may be the base itself) and launches on the current stream
@@ -38,18 +40,27 @@ _BODY_LAUNCHES = {body: 0 for body in BODIES}
 def _vec_eligible(params_vec: torch.Tensor, updates: torch.Tensor,
                   out: Optional[torch.Tensor] = None) -> bool:
     """Whether a call takes ``combine_vec.cu``: w and U each f32 or bf16,
-    1 <= K <= ``MAX_K``, every row of U 16-byte aligned (``data_ptr()``
-    and n · element size multiples of 16; U is contiguous) and w and out
-    16-byte aligned (``out`` None: a fresh allocation, which is).  Reads
-    only dtypes, shapes and pointers."""
+    1 <= K <= ``MAX_K``, every row of U 16-byte aligned (``data_ptr()``,
+    n · element size and the row stride · element size multiples of 16) and
+    w and out 16-byte aligned (``out`` None: a fresh allocation, which is).
+    Reads only dtypes, shapes, strides and pointers."""
     K, n = updates.shape
+    elem = updates.element_size()
     return (updates.dtype in SUPPORTED_DTYPES
             and params_vec.dtype in SUPPORTED_DTYPES
             and 1 <= K <= MAX_K and n >= 1
             and updates.data_ptr() % VEC_BYTES == 0
-            and n * updates.element_size() % VEC_BYTES == 0
+            and n * elem % VEC_BYTES == 0
+            and _row_stride(updates) * elem % VEC_BYTES == 0
             and params_vec.data_ptr() % VEC_BYTES == 0
             and (out is None or out.data_ptr() % VEC_BYTES == 0))
+
+
+def _row_stride(updates: torch.Tensor) -> int:
+    """Elements between U's rows (n for one row, whose stride is never
+    read)."""
+    K, n = updates.shape
+    return int(updates.stride(0)) if K > 1 else n
 
 
 def body_launches() -> Dict[str, int]:
@@ -148,7 +159,7 @@ def _check(params_vec: torch.Tensor, updates: torch.Tensor,
         if t.device != dev:
             raise ValueError(f"combine_cuda: {name} on {t.device}, updates "
                              f"on {dev}")
-        if not t.is_contiguous():
+        if t is not updates and not t.is_contiguous():
             raise ValueError(f"combine_cuda: {name} must be contiguous")
     for name, t in (("params_vec", params_vec), ("updates", updates)):
         if t.dtype not in SUPPORTED_DTYPES:
@@ -170,6 +181,10 @@ def _check(params_vec: torch.Tensor, updates: torch.Tensor,
         raise ValueError(f"combine_cuda: K={K} outside [1, {MAX_K}]")
     if n < 1:
         raise ValueError("combine_cuda: n must be >= 1")
+    if (n > 1 and updates.stride(1) != 1) or _row_stride(updates) < n:
+        raise ValueError(f"combine_cuda: updates need unit-strided columns "
+                         f"and rows at least n apart (strides "
+                         f"{updates.stride()})")
     if out is not None and (out.device != dev or out.dtype != params_vec.dtype
                             or out.shape != params_vec.shape
                             or not out.is_contiguous()):
@@ -182,7 +197,9 @@ def combine_cuda(params_vec: torch.Tensor, updates: torch.Tensor,
                  out: Optional[torch.Tensor] = None,
                  body: Optional[str] = None) -> torch.Tensor:
     """``params_vec (n,)``, ``updates (K, n)`` (each f32 or bf16),
-    ``alpha (K,)`` f32, contiguous on one CUDA device → ``(n,)`` in
+    ``alpha (K,)`` f32 on one CUDA device, w and alpha contiguous and U
+    with unit-strided columns (any row stride: a window of a wider slab is
+    read as it lies) → ``(n,)`` in
     params_vec's dtype, written into ``out`` if given (which may be
     ``params_vec`` itself: an update in place).  The body is
     ``combine_vec.cu`` when :func:`_vec_eligible` holds and ``combine.cu``
@@ -200,6 +217,7 @@ def combine_cuda(params_vec: torch.Tensor, updates: torch.Tensor,
                          "out that all start 16-byte aligned")
     vec = vec and body != "scalar"
     K, n = updates.shape
+    ld = _row_stride(updates)
     dev = updates.device
     lib, scalar_fn, vec_fn, max_blocks = _launchers(dev.index)
     u_bf16 = updates.dtype == torch.bfloat16
@@ -207,11 +225,11 @@ def combine_cuda(params_vec: torch.Tensor, updates: torch.Tensor,
     if vec:
         wk, blocks, _ = vec_plan(K, n, u_bf16, w_bf16, dev.index)
         fn, args = vec_fn, (params_vec.data_ptr(), updates.data_ptr(),
-                            alpha.data_ptr(), out.data_ptr(), K, n,
+                            alpha.data_ptr(), out.data_ptr(), K, n, ld,
                             int(u_bf16), int(w_bf16), wk, blocks)
     else:
         fn, args = scalar_fn, (params_vec.data_ptr(), updates.data_ptr(),
-                               alpha.data_ptr(), out.data_ptr(), K, n,
+                               alpha.data_ptr(), out.data_ptr(), K, n, ld,
                                int(u_bf16), int(w_bf16), max_blocks)
     # the current stream's handle, without building a torch.cuda.Stream
     # object on every call

@@ -26,6 +26,10 @@
 // wrapper chooses WK from the shapes (kernels/combine.py
 // combine_vec_split).
 //
+// U's rows lie ld elements apart (ld >= n), so a (K, n) window of a wider
+// slab, such as one rank's columns of the streamed engine's slab, is read as
+// it lies; ld too is a whole number of vectors.
+//
 // w and out may alias (an update in place) and carry no __restrict__: each
 // w vector is read once, by the lane that then writes the same out vector.
 // U and α are read-only (ld.global.nc; α staged in shared memory).  The
@@ -122,7 +126,8 @@ template <typename TU, typename TW, int WK>
 __global__ void __launch_bounds__(kThreads,
                                   sizeof(TU) == 4 ? kMinBlocksF32 : kMinBlocksBf16)
 combine_vec_kernel(const TW* w, const TU* __restrict__ U,
-                   const float* __restrict__ alpha, TW* out, int K, int64_t n) {
+                   const float* __restrict__ alpha, TW* out, int K, int64_t n,
+                   int64_t ld) {
   constexpr int VEC = 16 / sizeof(TU);
   constexpr int WC = kWarps / WK;
   constexpr int64_t kChunk = (int64_t)WC * 32 * VEC;  // columns of a block's chunk
@@ -150,11 +155,11 @@ combine_vec_kernel(const TW* w, const TU* __restrict__ U,
         uint4 v[kRowsInFlight];
 #pragma unroll
         for (int r = 0; r < kRowsInFlight; ++r)
-          v[r] = load_stream16(col + (int64_t)(k + r) * n);
+          v[r] = load_stream16(col + (int64_t)(k + r) * ld);
 #pragma unroll
         for (int r = 0; r < kRowsInFlight; ++r) fma_vec<TU>(acc, alpha_s[k + r], v[r]);
       }
-      for (; k < k1; ++k) fma_vec<TU>(acc, alpha_s[k], load_stream16(col + (int64_t)k * n));
+      for (; k < k1; ++k) fma_vec<TU>(acc, alpha_s[k], load_stream16(col + (int64_t)k * ld));
     }
     if constexpr (WK > 1) {
       if (ks > 0) {
@@ -214,24 +219,27 @@ extern "C" int combine_vec_launch_config(int u_bf16, int w_bf16, int wk, int K,
       blocks_per_sm, fn, kThreads, K * sizeof(float)));
 }
 
-// w (n,), U (K, n) row-major, each f32 or bf16, every row of U and w and out
-// 16-byte aligned (n a whole number of 16-byte vectors of U); alpha (K,)
-// f32; out (n,) in w's dtype, possibly w itself.  wk in {1, 2, 4, 8} row
+// w (n,), U (K, n) with unit-strided columns and rows ld >= n elements
+// apart, each f32 or bf16, every row of U and w and out 16-byte aligned (n
+// and ld whole numbers of 16-byte vectors of U); alpha (K,) f32; out (n,) in
+// w's dtype, possibly w itself.  wk in {1, 2, 4, 8} row
 // slices; `blocks` blocks stride over the chunks.  Returns
 // cudaGetLastError() after the launch on `stream`.
 extern "C" int combine_vec_launch(const void* w, const void* U, const void* alpha,
-                                  void* out, int K, long long n, int u_bf16,
-                                  int w_bf16, int wk, int blocks, void* stream) {
+                                  void* out, int K, long long n, long long ld,
+                                  int u_bf16, int w_bf16, int wk, int blocks,
+                                  void* stream) {
   const void* fn = kernel_for(u_bf16, w_bf16, wk);
   const long long vec = u_bf16 ? 8 : 4;
-  if (fn == nullptr || K < 1 || K > kMaxK || n < 1 || n % vec != 0 || blocks < 1)
+  if (fn == nullptr || K < 1 || K > kMaxK || n < 1 || n % vec != 0 || ld < n ||
+      ld % vec != 0 || blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(U) |
        reinterpret_cast<uintptr_t>(out)) % 16 != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
-  int64_t n64 = n;
+  int64_t n64 = n, ld64 = ld;
   void* args[] = {(void*)&w, (void*)&U, (void*)&alpha, (void*)&out, (void*)&K,
-                  (void*)&n64};
+                  (void*)&n64, (void*)&ld64};
   cudaError_t err = cudaLaunchKernel(fn, dim3(blocks), dim3(kThreads), args,
                                      K * sizeof(float),
                                      static_cast<cudaStream_t>(stream));

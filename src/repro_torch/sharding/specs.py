@@ -27,6 +27,7 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
+from ..kernels.cross import GRANULE
 from ..launch.mesh import Mesh, make_mesh, world_size
 from ..models.config import ArchConfig
 
@@ -390,6 +391,55 @@ def stream_round_shardings(mesh: Mesh, stacked: Pytree) -> Pytree:
         return NamedSharding(mesh, _guard(spec, shape, mesh))
 
     return map_with_path(stacked, leaf_sharding)
+
+
+_STREAM_ORDER = ("fleet", "pod", "data", "model")
+
+
+def stream_axes(mesh: Mesh) -> Tuple[str, ...]:
+    """Every axis of ``mesh`` in the streamed engine's rank order:
+    ``'fleet'`` major, then ``pod``, ``data``, ``model``, then any other
+    axis in the mesh's order."""
+    return (tuple(a for a in _STREAM_ORDER if a in mesh.shape)
+            + tuple(a for a in mesh.axis_names if a not in _STREAM_ORDER))
+
+
+def window_width(width: int, ranks: int) -> int:
+    """Columns of each window of :func:`column_windows` but the last
+    nonempty one: ceil(width / ranks), rounded up to a multiple of
+    ``kernels.cross.GRANULE`` (256; so a bf16 window of a 16-byte aligned
+    slab keeps 16-byte aligned rows)."""
+    per = -(-width // ranks)
+    return -(-per // GRANULE) * GRANULE
+
+
+def column_windows(width: int, ranks: int) -> list:
+    """``[(start, stop)]`` of each of ``ranks`` places over ``width``
+    columns: one contiguous window each, in place order, ``window_width``
+    columns wide, the last nonempty window short and any after it
+    empty."""
+    per = window_width(width, ranks)
+    return [(min(r * per, width), min((r + 1) * per, width))
+            for r in range(ranks)]
+
+
+def stream_windows(mesh: Mesh, width: int) -> Tuple[int, int]:
+    """This rank's ``(start, stop)`` column window of a slab of ``width``
+    flattened columns, the port's placement of the streamed round: its
+    place is its coordinates in :func:`stream_axes`' order.
+
+    The reference (:func:`stream_round_shardings`) splits the trailing dim
+    of every >= 2-D leaf, guarded by divisibility, and with ``'fleet'``
+    the leading P dim too.  A trailing-dim block of a (P, a, b) leaf is no
+    2-D view with one row stride, and the kernels would need a copy of it;
+    a window of the leaf's flattened (P, width) slab is such a view.  The
+    cohort's rows are already on every rank (``shard_cohort_fn``
+    all-gathers them), so the ``'fleet'`` axis splits the columns too."""
+    place = 0
+    for a in stream_axes(mesh):
+        place = place * mesh.shape[a] + mesh.coordinate(a)
+    per = window_width(width, mesh.size)
+    return min(place * per, width), min((place + 1) * per, width)
 
 
 def fleet_mesh() -> Mesh:

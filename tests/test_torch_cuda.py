@@ -225,6 +225,47 @@ def test_combine_vec_body_takes_aligned_views(cuda_device):
         assert _rel_err(out, ref.combine_ref(w, U, a)) <= 1e-5
 
 
+@pytest.mark.parametrize("width,body", [(4104, "vec"), (4102, "scalar")])
+@pytest.mark.parametrize("u_dt,w_dt", DTYPE_PAIRS)
+def test_combine_and_mix_rows_on_windows_of_a_wider_slab(cuda_device, width,
+                                                         body, u_dt, w_dt):
+    """combine and mix_rows on the (P, window) views of a wider slab that
+    the streamed engine's split reads (``column_windows`` over 8 places):
+    each window within COMBINE_TOL of the plain version on the same view,
+    on combine_vec.cu where the slab's rows are 16-byte multiples and on
+    combine.cu where they are not, and the windows written side by side
+    within COMBINE_TOL of the whole-slab call."""
+    from repro_torch.core.flatten import mix_rows
+    from repro_torch.kernels import combine
+    from repro_torch.sharding.specs import column_windows
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(width)
+    P = 16
+    U = torch.randn((P, width), generator=gen, device=cuda_device).to(u_dt)
+    w = torch.randn(width, generator=gen, device=cuda_device).to(w_dt)
+    a = torch.randn(P, generator=gen, device=cuda_device) / P
+    windows = [(a0, b0) for a0, b0 in column_windows(width, 8) if b0 > a0]
+    new = torch.empty_like(w)
+    mixed = torch.empty(width, device=cuda_device)
+    combine.reset_body_launches()
+    for a0, b0 in windows:
+        view = U[:, a0:b0]
+        assert view.stride() == (width, 1)
+        got = combine_cuda(w[a0:b0], view, a, out=new[a0:b0])
+        assert got.data_ptr() == new[a0:b0].data_ptr()
+        assert _rel_err(got, ref.combine_ref(w[a0:b0], view, a)) \
+            <= COMBINE_TOL[w_dt]
+        mix_rows(a, view, out=mixed[a0:b0])
+        want = ref.combine_ref(torch.zeros(b0 - a0, device=cuda_device), view,
+                               a.to(u_dt).float())
+        assert _rel_err(mixed[a0:b0], want) <= 1e-5
+    assert combine.body_launches() == {body: 2 * len(windows),
+                                       ("scalar" if body == "vec" else "vec"):
+                                       0}
+    assert _rel_err(new, combine_cuda(w, U, a)) <= COMBINE_TOL[w_dt]
+    assert _rel_err(mixed, mix_rows(a, U)) <= 1e-5
+
+
 def test_combine_body_choice_is_checked(cuda_device):
     from repro_torch.kernels import combine
     U = torch.ones(2, 10, device=cuda_device)       # 40-byte rows

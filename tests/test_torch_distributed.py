@@ -25,8 +25,8 @@ programs on 8 forced host devices.
   numbers no placement changes, and each rank holds only the blocks its
   specs name.
 * One rank: the emulated (4, 2) step equals the 8-rank one; a one-rank
-  fleet mesh and a one-rank streamed mesh give the mesh-free round; a
-  streamed mesh of several devices raises naming ``repro.hier.streamed``.
+  fleet mesh and a one-rank streamed mesh give the mesh-free round (the
+  streamed split on 8 ranks is ``tests/test_torch_streamed_mesh.py``'s).
 * The collectives refuse an emulated mesh.
 
 This file imports no JAX: the reference runs in its subprocess, and the
@@ -571,12 +571,6 @@ def test_one_rank_streamed_mesh_gives_the_mesh_free_round(hier_problem):
     got = _hier(hier_problem, engine="streamed",
                 mesh=make_mesh((1,), ("data",)))
     assert got.train_loss == base.train_loss
-
-
-def test_several_device_streamed_mesh_is_refused(hier_problem):
-    with pytest.raises(NotImplementedError, match="repro.hier.streamed"):
-        _hier(hier_problem, engine="streamed",
-              mesh=emulated_mesh((4,), ("fleet",)))
 
 
 def test_collectives_refuse_an_emulated_mesh():

@@ -613,3 +613,52 @@ def test_unported_parts_raise(problem, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         t_run("x", t_loss, t_apply, tp, tds, cfg, topo, 1)
+
+
+EXAMPLE_ROWS = {"torch_edge_hier": ("flat-contextual", "hier-contextual",
+                                    "hier-fedavg", "hier-relay"),
+                "torch_edge_compressed": ("hier", "hier+topk", "hier+srht",
+                                          "hier+lowrank")}
+
+
+@pytest.mark.parametrize("name", sorted(EXAMPLE_ROWS))
+def test_torch_edge_hier_examples_run_on_the_cpu(name):
+    """``examples/torch_edge_{hier,compressed}.py`` under EXAMPLE_SMOKE=1 on
+    the CPU: every method's row with finite numbers, the reference's byte
+    margin (bytes do not depend on the draws), the hier twin's ACCEPTANCE
+    line (the reference prints it in smoke mode too, the compressed one
+    only in full runs), and no JAX or reference import."""
+    import ast
+    import os
+    import re
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parent.parent
+    script = root / "examples" / f"{name}.py"
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(EXAMPLE_SMOKE="1", OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, str(script), "--device", "cpu"],
+                         capture_output=True, text=True, timeout=300,
+                         env=env, cwd=root)
+    assert out.returncode == 0, out.stderr
+    rows = {l.split()[0]: l.split() for l in out.stdout.splitlines()
+            if l.split() and l.split()[0] in EXAMPLE_ROWS[name]
+            and l.split()[-2].endswith("MB")}
+    assert sorted(rows) == sorted(EXAMPLE_ROWS[name])
+    assert all(np.isfinite([float(r[-4]), float(r[-3])]).all()
+               for r in rows.values())
+    fewer = float(re.search(r"([0-9.]+)x fewer", out.stdout).group(1))
+    if name == "torch_edge_hier":
+        assert fewer >= 5.0
+        assert "ACCEPTANCE: loss within 5% AND >=5x fewer cloud-uplink " \
+            "bytes - PASS" in out.stdout
+    else:
+        assert fewer >= 4.0
+    tree = ast.parse(script.read_text())
+    tops = {n.split(".")[0] for node in ast.walk(tree)
+            for n in ([a.name for a in node.names]
+                      if isinstance(node, ast.Import) else
+                      [node.module] if isinstance(node, ast.ImportFrom)
+                      and node.level == 0 else [])}
+    assert "repro_torch" in tops and not tops & {"jax", "jaxlib", "repro"}

@@ -791,6 +791,15 @@ _VEC_CASES = {
                                                     out_in="w"), False),
     "f16 U": (_vec_case(3, 1024, torch.float16, torch.float32), False),
     "f64 w": (_vec_case(3, 1024, torch.float32, torch.float64), False),
+    "bf16 U a 256-column window of an 8 192-wide slab": (
+        (torch.zeros(256), torch.zeros(16, 8192, dtype=torch.bfloat16)[
+            :, 512:768], None), True),
+    "f32 U a window of a 1 028-wide slab (rows 4 112 bytes apart)": (
+        (torch.zeros(256), torch.zeros(3, 1028)[:, 256:512], None), True),
+    "f32 U a window of a 1 030-wide slab (rows 4 120 bytes apart)": (
+        (torch.zeros(256), torch.zeros(3, 1030)[:, 256:512], None), False),
+    "f32 U the short last window (n = 6) of a 262-wide slab": (
+        (torch.zeros(6), torch.zeros(3, 262)[:, 256:], None), False),
     "K = 4 096": (_vec_case(4096, 8), True),
     "K = 4 097": (_vec_case(4097, 8), False),
 }
@@ -799,9 +808,10 @@ _VEC_CASES = {
 @pytest.mark.parametrize("case", list(_VEC_CASES))
 def test_combine_vec_eligible_rule(case):
     """combine_vec.cu takes w and U each f32 or bf16, 1 <= K <= 4 096,
-    every row of U 16-byte aligned (data_ptr and n · element size), and w
-    and out 16-byte aligned (out may be w); every other call keeps
-    combine.cu."""
+    every row of U 16-byte aligned (data_ptr, n · element size and the row
+    stride · element size: a window of a wider slab qualifies where its
+    slab's rows do), and w and out 16-byte aligned (out may be w); every
+    other call keeps combine.cu."""
     from repro_torch.kernels.combine import _vec_eligible
     (w, U, out), want = _VEC_CASES[case]
     assert _vec_eligible(w, U, out) is want
@@ -922,9 +932,9 @@ def test_combine_vec_body_is_built_and_bound():
                                                 ctypes.POINTER(I)]
     assert ('extern "C" int combine_vec_launch(const void* w, const void* U, '
             'const void* alpha,' in text)
-    # w, U, alpha, out, K, n, u_bf16, w_bf16, wk, blocks, stream
-    assert sig["combine_vec_launch"] == [VP, VP, VP, VP, I, LL, I, I, I, I,
-                                         VP]
+    # w, U, alpha, out, K, n, ld, u_bf16, w_bf16, wk, blocks, stream
+    assert sig["combine_vec_launch"] == [VP, VP, VP, VP, I, LL, LL, I, I, I,
+                                         I, VP]
     for wk in VEC_SPLITS:
         assert f"case {wk}: return reinterpret_cast<const void*>(" \
                f"combine_vec_kernel<TU, TW, {wk}>);" in text
