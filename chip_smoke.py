@@ -12,9 +12,12 @@ Phases (any failure exits non-zero and prints no result line):
      kernels from ``src/repro_torch/kernels/csrc`` (build seconds, the
      ``ptxas -v`` registers per kernel, and the dynamic shared memory and
      resident blocks per SM each launch uses);
-  2. kernels — ``gram`` (K up to 100, the gateways' 23-25 among them; the
-     body each call took: the bf16 tensor-core body of ``gram_mma.cu`` for
-     bf16 U and g with K <= 127 and n % 8 == 0, ``gram.cu`` for the rest),
+  2. kernels — ``gram`` (K up to 100, the gateways' 23-25 among them, the
+     train path's scopes; the body each call took: ``gram_f32.cu`` for f32
+     U and g, timed in turn with ``gram.cu`` on the same inputs, one device
+     kernel a call, against an f64 product at model width; the bf16
+     tensor-core body of ``gram_mma.cu`` for bf16 U and g with K <= 127 and
+     n % 8 == 0; ``gram.cu`` for the rest),
      ``combine`` (the body each call took: ``combine_vec.cu`` where every
      row of U, w and out starts 16-byte aligned, timed in turn with
      ``combine.cu`` on the same inputs and bitwise equal to it where the
@@ -67,8 +70,8 @@ Phases (any failure exits non-zero and prints no result line):
      summaries.  The counters must show ``gram`` on every round and ``topk``
      or ``sign_sketch`` + ``sign_sketch_adjoint`` on every compressed round,
      and no plain version (every ``gram`` launch of the sync, hier,
-     streamed, bigmodel, serve and moe phases runs ``gram.cu``'s body: their
-     inputs are f32); the losses must fall; compressed cloud uplink
+     streamed, bigmodel, serve and moe phases runs ``gram_f32.cu``'s body:
+     their inputs are f32); the losses must fall; compressed cloud uplink
      below uncompressed below star; one uncompressed and one
      ``sign_sketch`` round on the card match the same round on the CPU;
   6. streamed — the same two-tier runs (uncompressed, ``topk``,
@@ -221,7 +224,7 @@ Phases (any failure exits non-zero and prints no result line):
      6.92·10⁹ parameters, three stacked expert leaves of 2³¹ elements):
      finite losses, α = 1/(1+ridge) to 1e-5 every step, the first step's
      new params within one ulp of p + αΔ and (bf16 leaves) of p − lr·g in
-     every element, gram once a step (``gram.cu``) and combine once a leaf
+     every element, gram once a step (``gram_f32.cu``) and combine once a leaf
      a step, no plain version; then C = 4 cohorts of the full zamba2-1.2b
      on an emulated (4, 1) mesh, 3 contextual steps (Theorem 1's bound
      g(α) < 0 each) and 3 fedavg steps, the first of each held kernel by
@@ -373,6 +376,9 @@ COMBINE_VEC_RAGGED = [(1, 8), (3, 136), (17, 2056), (16, 1024), (8, 4104),
                       (100, 7840), (64, (1 << 20) + 8)]
 GRAM_GATEWAY = [(25, 7850), (23, 7850)]
 GRAM_WIDE = [(65, 7850), (100, 7850), (100, 1 << 24)]
+# the train path's gram scopes (f32): olmoe-1b-7b's lm_head + final_norm at
+# K = 1, and one placed rank's scope columns at K = 16 and 32
+GRAM_TRAIN_SCOPES = [(1, 103_024_640), (16, 6_440_960), (32, 6_440_960)]
 # gram's tensor-core body (bf16, K <= 127, n % 8 == 0): every 16-row tile
 # count of [U; g] and its edges, with ragged last staged tiles; the model
 # rows K = 10, 64 (MODEL) and 100 (GRAM_WIDE) at n = 2^24 take it timed
@@ -921,18 +927,22 @@ def _kernel_names(rec: dict) -> str:
 def check_gram(K: int, n: int, dt, gen, timed: bool = True, body: str = None,
                f64: bool = False, U=None, g=None) -> dict:
     """gram against its plain version: two calls bitwise equal, G symmetric,
-    within the tolerance, and the body both took (``mma``: gram_mma.cu,
-    ``cuda_core``: gram.cu; ``body``, if given, must be it); with ``timed``
-    the spread of kernel, plain and ``torch.matmul`` times and the device
-    kernels; with ``f64`` the kernel's and the plain version's error
-    against an f64 product (the kernel's within the tolerance)."""
+    within the tolerance, and the body both took (``f32``: gram_f32.cu,
+    ``mma``: gram_mma.cu, ``cuda_core``: gram.cu; ``body``, if given, must
+    be it); with ``timed`` the spread of kernel, plain and ``torch.matmul``
+    times and the device kernels, and on an ``f32`` row gram.cu
+    (``body="cuda_core"``) on the same inputs too: within the tolerance,
+    timed in turn, its device kernels, one device kernel a call of the f32
+    body, and both bodies' host µs to issue a call; with ``f64`` the
+    kernel's and the plain version's error against an f64 product (the
+    kernel's within the tolerance)."""
     import torch
     from repro_torch.kernels import gram, ops, ref
     if U is None:
         U = torch.randn((K, n), generator=gen, device="cuda").to(dt)
         g = torch.randn((n,), generator=gen, device="cuda").to(dt)
     dt = U.dtype
-    took = "mma" if gram._mma_eligible(U, g) else "cuda_core"
+    took = gram._body(U, g)
     what = f"gram K={K} n={n} {_dtype_name(U.dtype)}/{_dtype_name(g.dtype)}"
     need(body is None or took == body,
          f"{what}: takes the {took} body, want {body}")
@@ -964,18 +974,45 @@ def check_gram(K: int, n: int, dt, gen, timed: bool = True, body: str = None,
             f"(tolerance {tol})")
         need(rec["f64_rel_err"] <= tol,
              f"{what}: {rec['f64_rel_err']:.3e} off an f64 product")
+    fns = {"ms": lambda: ops.gram_and_cross(U, g, backend="cuda")}
+    if took == "f32":
+        fns["cuda_core_ms"] = lambda: gram.gram_cuda(U, g, body="cuda_core")
+        Gc, cc = fns["cuda_core_ms"]()
+        rec["cuda_core_rel_err"] = max(_max_err(Gc, Gr) / _scale(Gr),
+                                       _max_err(cc, cr) / _scale(cr))
+        need(rec["cuda_core_rel_err"] <= tol,
+             f"{what}: gram.cu {rec['cuda_core_rel_err']:.3e} off plain")
+        del Gc, cc
     if timed:
         reps = reps_for(U.numel() * U.element_size())
-        _time_record(rec, {
-            "ms": lambda: ops.gram_and_cross(U, g, backend="cuda"),
+        _time_record(rec, dict(fns, **{
             "plain_ms": lambda: ref.gram_ref(U, g),
-            "library_ms": lambda: (U @ U.T, U @ g)}, reps)
+            "library_ms": lambda: (U @ U.T, U @ g)}), reps)
         rec.update(gram_bound(K, n, dt))
         log(f"{what}: device kernels (launches in 3 calls, us per launch) "
             + _kernel_names(rec))
         if took == "mma":
             need(any("gram_mma_partial" in k for k in rec["device_kernels"]),
                  f"{what}: device kernels {rec['device_kernels']}")
+        if took == "f32":
+            kern = rec["device_kernels"]
+            need(len(kern) == 1 and all("gram_f32" in name and cnt % 3 == 0
+                                        for name, (cnt, _) in kern.items()),
+                 f"{what}: want one gram_f32 kernel a call, got {kern}")
+            cck = device_kernel_means(fns["cuda_core_ms"])
+            rec["cuda_core_device_kernels"] = cck
+            rec["cuda_core_device_ms"] = sum(ms for _, ms in cck.values())
+            log(f"{what}: gram.cu in turn {_fmt_spread(rec, 'cuda_core_ms')}"
+                f"us, device {rec['cuda_core_device_ms'] * 1e3:.1f}us in "
+                f"{len(cck)} kernels; the f32 body "
+                f"{rec['ms'] / rec['bound_ms']:.2f}x its bound, "
+                f"torch.matmul {rec['library_ms'] / rec['ms']:.2f}x it")
+    if timed and took == "f32":
+        rec["host_ms"] = host_ms(fns["ms"], 50)
+        rec["cuda_core_host_ms"] = host_ms(fns["cuda_core_ms"], 50)
+        log(f"{what}: host us to issue a call: f32 body "
+            f"{rec['host_ms'] * 1e3:.1f}, gram.cu "
+            f"{rec['cuda_core_host_ms'] * 1e3:.1f}")
     return rec
 
 
@@ -2080,17 +2117,20 @@ def kernels_phase() -> dict:
     K, n = PATH_SHAPE
     for name, check in (("gram", check_gram), ("combine", check_combine)):
         out[name].append(dict(check(K, n, f32, gen, **(
-            dict(f64=True) if name == "combine" else {})), set="path"))
+            dict(f64=True) if name == "combine" else {})),
+            set="path"))
         for Kr, nr in RAGGED:
             for dt in (f32, bf16):
                 out[name].append(dict(check(Kr, nr, dt, gen, timed=False),
                                       set="ragged"))
         for Km, nm in MODEL:
             for dt in (f32, bf16):
-                # gram's bf16 rows at n = 2^24 take the tensor-core body;
+                # gram's bf16 rows at n = 2^24 take the tensor-core body,
+                # its f32 rows the f32 body, both held to an f64 product;
                 # combine's f32 rows are held to an f64 sum too
                 mma = name == "gram" and dt == bf16 and nm % 8 == 0
-                kw = (dict(body="mma" if mma else "cuda_core", f64=mma)
+                kw = (dict(body="mma" if mma else "f32" if dt == f32
+                           else "cuda_core", f64=mma or dt == f32)
                       if name == "gram" else dict(f64=dt == f32))
                 out[name].append(dict(check(Km, nm, dt, gen, **kw),
                                       set="model"))
@@ -2115,14 +2155,23 @@ def kernels_phase() -> dict:
     for Kw, nw in GRAM_GATEWAY + GRAM_WIDE:
         for dt in (f32, bf16):
             mma = dt == bf16 and nw % 8 == 0
+            path = nw == N_PATH
             out["gram"].append(dict(
-                check_gram(Kw, nw, dt, gen, f64=mma,
-                           body="mma" if mma else "cuda_core"),
-                set="path" if nw == N_PATH else "model"))
+                check_gram(Kw, nw, dt, gen, f64=mma or (dt == f32 and not path),
+                           body="mma" if mma else "f32" if dt == f32
+                           else "cuda_core"),
+                set="path" if path else "model"))
             torch.cuda.empty_cache()
+    # the f32 body at the train path's scopes: olmoe-1b-7b's lm_head +
+    # final_norm (K = 1) and one placed rank's columns at K = 16 and 32
+    for Kt, nt in GRAM_TRAIN_SCOPES:
+        out["gram"].append(dict(check_gram(Kt, nt, f32, gen, body="f32",
+                                           f64=True), set="model"))
+        torch.cuda.empty_cache()
     # gram's tensor-core body at every tile count with ragged last tiles
-    # (against f64 too), and bf16 calls that keep gram.cu's body: K = 128,
-    # n % 8 != 0, U starting 2 bytes into its buffer, and an f32 U
+    # (against f64 too), and calls that keep gram.cu's body: bf16 K = 128,
+    # bf16 at n % 8 != 0, a bf16 U starting 2 bytes into its buffer, and an
+    # f32 U with a bf16 g
     for Km in GRAM_MMA_K:
         for nm in GRAM_MMA_N:
             out["gram"].append(dict(check_gram(Km, nm, bf16, gen, timed=False,
@@ -2175,21 +2224,18 @@ def kernels_phase() -> dict:
     # gram over the five flattened updates, combine_vec.cu on W's rows and
     # combine.cu on b's 40-byte rows, timed with their plain versions and
     # yardsticks as the path rows
-    out["gram"].append(dict(check_gram(5, N_PATH, f32, gen), set="async"))
+    out["gram"].append(dict(check_gram(5, N_PATH, f32, gen, body="f32"),
+                            set="async"))
     for n_leaf in (784 * 10, 10):
         out["combine"].append(dict(check_combine(5, n_leaf, f32, gen),
                                    set="async"))
-    # gram at the fleet path's shapes (n = 68 f32: gram.cu), a gateway's
-    # 500 members and the cloud over 200 and 2 000 gateways, with the host
-    # time to issue a call beside the event times
-    from repro_torch.kernels import ops
+    # gram at the fleet path's shapes (n = 68 f32: the f32 body, one block
+    # a slice, no scratch), a gateway's 500 members and the cloud over 200
+    # and 2 000 gateways, with the host time to issue a call beside the
+    # event times
     for Kf, nf in GRAM_FLEET:
-        Uf = torch.randn((Kf, nf), generator=gen, device="cuda")
-        gf = torch.randn((nf,), generator=gen, device="cuda")
-        rec = check_gram(Kf, nf, f32, gen, body="cuda_core", U=Uf, g=gf)
-        rec["host_ms"] = host_ms(
-            lambda: ops.gram_and_cross(Uf, gf, backend="cuda"), 50)
-        out["gram"].append(dict(rec, set="fleet"))
+        out["gram"].append(dict(check_gram(Kf, nf, f32, gen, body="f32"),
+                                set="fleet"))
     out.update(cross_phase_records(gen))
     out["flash_decode"] = decode_phase_records(gen)
     torch.cuda.empty_cache()
@@ -2505,7 +2551,8 @@ def async_flush_kernels(cfg, items, params) -> dict:
         kind = ("combine_vec" if "combine_vec_kernel" in key else
                 "combine" if "combine_kernel" in key else
                 "gram_finish" if "gram_finish" in key else
-                "gram" if "gram_partial" in key else None)
+                "gram" if "gram_partial" in key or "gram_f32" in key
+                else None)
         if kind is not None:
             out[kind] = {"launches_in_3_flushes": count, "device_ms": ms}
     need(set(out) >= {"combine_vec", "combine", "gram"},
@@ -5555,7 +5602,7 @@ def train_entry(smi_line: str, device: str = "cuda",
          f"{checks['sgd_max_ulps_bf16_leaf']})")
     _path_counts(tag, counts, {"gram/cuda": steps,
                                "combine/cuda": steps * n_leaves})
-    need(gram_bodies == {"mma": 0, "cuda_core": steps},
+    need(gram_bodies == {"mma": 0, "f32": steps, "cuda_core": 0},
          f"{tag}: gram bodies {gram_bodies}")
     big = [(name, n) for name, n in checks["leaves"] if n >= 1 << 31]
     need(reduced or len(big) == 3, f"{tag}: leaves of 2^31 elements {big}")
@@ -5802,7 +5849,7 @@ def train_cohorts(smi_line: str, device: str = "cuda",
          f"{runs['fedavg']['alpha'][0]}, want {[1.0 / C] * C}")
     _path_counts(tag, counts, {"gram/cuda": steps,
                                "combine/cuda": 2 * steps * n_leaves})
-    need(gram_bodies == {"mma": 0, "cuda_core": steps},
+    need(gram_bodies == {"mma": 0, "f32": steps, "cuda_core": 0},
          f"{tag}: gram bodies {gram_bodies}")
     ctx = runs["contextual"]
     step_ms = statistics.median(ctx["ms"][1:])
@@ -6288,6 +6335,8 @@ def train_placed(smi_line: str, device: str = "cuda",
                       "combine": combine.body_launches()}
             _path_counts(tag, counts, {"gram/cuda": 1,
                                        "combine/cuda": len(names)})
+            need(bodies["gram"] == {"mma": 0, "f32": 1, "cuda_core": 0},
+                 f"{tag}: gram bodies {bodies['gram']}")
             update = gate.record()
             del ref
             alpha = (float(m_got["alpha"][0]), float(m_want["alpha"][0]))
@@ -6802,18 +6851,31 @@ def setup_phase() -> str:
         f"{build_s['decode_attn_mma.cu']:.2f} beside decode_attn.cu (32) "
         f"{build_s['decode_attn.cu']:.2f}, sketch_mma.cu (8) "
         f"{build_s['sketch_mma.cu']:.2f}, gram_block_mma.cu (32) "
-        f"{build_s['gram_block_mma.cu']:.2f} and gram_mma.cu (8) "
-        f"{build_s['gram_mma.cu']:.2f}; slowest "
+        f"{build_s['gram_block_mma.cu']:.2f}, gram_mma.cu (8) "
+        f"{build_s['gram_mma.cu']:.2f} and gram_f32.cu (20) "
+        f"{build_s['gram_f32.cu']:.2f}; slowest "
         f"{max(build_s, key=build_s.get)} {max(build_s.values()):.2f}")
     _build.load_library()
     for K in (PATH_SHAPE[0], 25, 64, 100):
         for dt in ("f32", "bf16"):
             per_sm, smem = gram.launch_config(K, dt == "bf16", dt == "bf16", 0)
-            log(f"launch: gram partial K={K} {dt}: {smem} B dynamic shared "
+            log(f"launch: gram.cu partial K={K} {dt}: {smem} B dynamic shared "
                 f"memory per block, {per_sm} blocks per SM, "
                 f"{gram.row_slices(K)} grid slices; gram finish: 0 B; "
                 f"combine: 4*K = {4 * K} B (alpha)")
     sms = _build.sm_count(0)
+    for K, n in ((1, 103_024_640), (5, N_PATH), (PATH_SHAPE[0], N_PATH),
+                 (16, 6_440_960), (32, 6_440_960), (64, 1 << 24),
+                 (100, 1 << 24), (100, N_PATH), (500, 68), (2000, 68)):
+        vec = n % 4 == 0
+        per_sm, smem, threads = gram.f32_launch_config(K, vec, 0)
+        blocks, cols, floats = gram.f32_call_plan(K, n, vec, 0)
+        log(f"launch: gram_f32 K={K} n={n} ({'16' if vec else '4'}-byte "
+            f"reads, {'stream' if K <= gram.F32_STREAM_MAX_K else 'tiles'}): "
+            f"{threads} threads, {smem} B dynamic shared memory, {per_sm} "
+            f"blocks per SM; {gram.f32_num_slices(K)} slices x {blocks} "
+            f"blocks of {cols} columns, scratch {floats} floats, "
+            f"{'one launch' if blocks == 1 else 'one cooperative launch'}")
     from repro_torch.kernels import combine
     for K, n, u16, w16 in ((100, 7840, False, False),
                            (BIG["P"], BIG_SLABS[0], True, False),
@@ -6913,7 +6975,7 @@ def setup_phase() -> str:
 
 
 KERNEL_SOURCES = {
-    "gram": ("src/repro_torch/kernels/csrc/gram.cu",
+    "gram": ("src/repro_torch/kernels/csrc/gram_f32.cu",
              "src/repro/kernels/gram.py:104"),
     "combine": ("src/repro_torch/kernels/csrc/combine.cu",
                 "src/repro/kernels/combine.py:30"),
@@ -6972,11 +7034,11 @@ def main() -> int:
     gram_bodies, block_bodies, sketch_bodies, decode_bodies = {}, {}, {}, {}
     combine_bodies, sign_bodies = {}, {}
 
-    def on_cuda_core(path: str, phase, *args):
-        """Run a path phase; every gram launch in it must take gram.cu's
-        body (the paths hand gram f32 inputs), no path but the robust one
-        reaches gram_block, and that one only its cross.cuh body (f32
-        inputs), and no path reaches sketch."""
+    def on_path(path: str, phase, *args):
+        """Run a path phase; every gram launch in it must take the f32 body
+        (gram_f32.cu: the paths hand gram f32 inputs), no path but the
+        robust one reaches gram_block, and that one only its cross.cuh body
+        (f32 inputs), and no path reaches sketch."""
         gram.reset_body_launches()
         gram.reset_block_body_launches()
         sketch.reset_body_launches()
@@ -6990,8 +7052,9 @@ def main() -> int:
         block_bodies[path] = gram.block_body_launches()
         sketch_bodies[path] = sketch.body_launches()
         decode_bodies[path] = decode_attn.body_launches()
-        need(gram_bodies[path]["mma"] == 0,
-             f"{path}: gram bodies {gram_bodies[path]}, want cuda_core only")
+        need(gram_bodies[path]["mma"] == 0
+             and gram_bodies[path]["cuda_core"] == 0,
+             f"{path}: gram bodies {gram_bodies[path]}, want f32 only")
         if path == "robust":
             need(block_bodies[path]["mma"] == 0
                  and block_bodies[path]["cross"] > 0,
@@ -7009,25 +7072,25 @@ def main() -> int:
     try:
         smi_line = setup_phase()
         kern = kernels_phase()
-        sync_counts, ds, params = on_cuda_core("sync", path_phase)
-        asynced = on_cuda_core("async", async_phase, ds, params)
-        hier_counts = on_cuda_core("hier", hier_phase, ds, params)
-        streamed_counts = on_cuda_core("streamed", streamed_phase, ds, params)
-        meshed = on_cuda_core("streamed_mesh", streamed_mesh_phase, smi_line,
+        sync_counts, ds, params = on_path("sync", path_phase)
+        asynced = on_path("async", async_phase, ds, params)
+        hier_counts = on_path("hier", hier_phase, ds, params)
+        streamed_counts = on_path("streamed", streamed_phase, ds, params)
+        meshed = on_path("streamed_mesh", streamed_mesh_phase, smi_line,
                               ds, params)
-        robusted = on_cuda_core("robust", robust_phase, ds, params)
-        fleeted = on_cuda_core("fleet", fleet_phase)
-        scaffolded = on_cuda_core("scaffold", scaffold_phase, ds, params)
-        big = on_cuda_core("bigmodel", bigmodel_phase)
-        served = on_cuda_core("serve", serve_phase)
-        placed_served = on_cuda_core("serve_placed", serve_placed_phase,
+        robusted = on_path("robust", robust_phase, ds, params)
+        fleeted = on_path("fleet", fleet_phase)
+        scaffolded = on_path("scaffold", scaffold_phase, ds, params)
+        big = on_path("bigmodel", bigmodel_phase)
+        served = on_path("serve", serve_phase)
+        placed_served = on_path("serve_placed", serve_placed_phase,
                                      smi_line)
-        moed = on_cuda_core("moe", moe_phase, smi_line)
-        recurred = on_cuda_core("recurrent", recurrent_phase, smi_line)
-        lockstepped = {phase: on_cuda_core(phase, lockstep_phase, smi_line,
+        moed = on_path("moe", moe_phase, smi_line)
+        recurred = on_path("recurrent", recurrent_phase, smi_line)
+        lockstepped = {phase: on_path(phase, lockstep_phase, smi_line,
                                            phase)
                        for phase in LOCKSTEP_PHASES}
-        trained = on_cuda_core("train", train_phase, smi_line)
+        trained = on_path("train", train_phase, smi_line)
         roofed = roofline_phase(smi_line, {
             "decode": [("serve", SERVE["arch"], served)]
             + [("moe", name, rec) for name, rec in moed["models"].items()]
@@ -7050,7 +7113,7 @@ def main() -> int:
                       for phase, rec in lockstepped.items()},
                    "train": trained["counts"]}
         for path, counts in by_path.items():
-            need(gram_bodies[path]["cuda_core"] >= counts.get("gram/cuda", 0),
+            need(gram_bodies[path]["f32"] >= counts.get("gram/cuda", 0),
                  f"{path}: {counts.get('gram/cuda', 0)} gram launches, "
                  f"bodies {gram_bodies[path]}")
         log(f"gram bodies by path (each phase, its checks against the CPU "
@@ -7095,7 +7158,8 @@ def main() -> int:
     names = [e["name"] for e in entries]
     entries[names.index("gram")].update(
         sources=[KERNEL_SOURCES["gram"][0],
-                 "src/repro_torch/kernels/csrc/gram_mma.cu"],
+                 "src/repro_torch/kernels/csrc/gram_mma.cu",
+                 "src/repro_torch/kernels/csrc/gram.cu"],
         bodies_by_path=gram_bodies)
     entries[names.index("gram_block")].update(
         sources=[KERNEL_SOURCES["gram_block"][0],

@@ -1,7 +1,8 @@
 // PTX helpers of the bf16 tensor-core bodies (stream_stats.cu's
 // stream_stats_mma, gram_mma.cu's gram_mma_partial, gram_block_mma.cu's
 // gram_block_mma_partial, sketch_mma.cu's sketch_mma_partial and
-// decode_attn_mma.cu's decode_mma_partial).
+// decode_attn_mma.cu's decode_mma_partial); gram_f32.cu's tile body uses
+// the cp.async ones.
 #pragma once
 
 #include <type_traits>

@@ -1,17 +1,31 @@
 """``gram``: G = U Uᵀ and c = U g in one pass over n, and ``gram_block``:
 G_ab = U_a U_bᵀ and c_a = U_a g — the Hopper kernels.
 
-``gram_cuda`` replaces ``repro.kernels.gram.gram_pallas``.  It has two
-bodies, chosen from the inputs alone (:func:`_mma_eligible`): a call with U
-and g both bf16, 1 <= K <= 127, n % 8 == 0 and 16-byte aligned pointers runs
-on the bf16 tensor cores (``csrc/gram_mma.cu``), every other call on the f32
-CUDA cores (``csrc/gram.cu``: K up to 64 in one piece and above it as one
-grid slice per pair (a, b >= a) of 64-row blocks of U).  Each source says
-what bounds it on the H100 and how its deterministic two-pass split
-reduction is laid out; this module checks the inputs, allocates the outputs
-and the per-block scratch with ``torch.empty``, and launches both passes on
-the current stream without synchronising.  ``body_launches()`` tallies the
-launches by body, so a run can show which body its path took.
+``gram_cuda`` replaces ``repro.kernels.gram.gram_pallas``.  It has three
+bodies, chosen from dtypes, shapes and pointers alone (:func:`_body`):
+
+* ``f32`` (``csrc/gram_f32.cu``): every call with U and g both f32 — every
+  launch of the paths, which flatten U to f32.  K <= 8 streams the rows
+  through registers; K >= 9 runs 8 x 8 register tiles over a ``cp.async``
+  ring, [U; g] in one slice up to K = 127 and one slice a pair of row blocks
+  above (:func:`f32_slices`).  One launch a call: a slice whose columns one
+  block owns writes G and c itself, else the blocks' partials are summed
+  after one grid barrier of a cooperative launch (:func:`f32_call_plan`).
+* ``mma`` (``csrc/gram_mma.cu``): U and g both bf16 with 1 <= K <= 127,
+  n % 8 == 0 and 16-byte aligned pointers (:func:`_mma_eligible`), on the
+  bf16 tensor cores.
+* ``cuda_core`` (``csrc/gram.cu``): the rest — mixed dtypes, and bf16 at
+  odd n, unaligned or K >= 128 — on the f32 CUDA cores, K up to 64 in one
+  piece and above it one grid slice per pair (a, b >= a) of 64-row blocks,
+  then a finish kernel.  ``gram_cuda(..., body="cuda_core")`` runs any call
+  there, so the card can time it beside the ``f32`` body on f32 inputs.
+
+No f32 operand is rounded to reach a tensor core.  Each source says what
+bounds it on the H100 and how its deterministic reduction is laid out;
+this module checks the inputs, allocates the outputs (and a scratch only
+where a body needs one) with ``torch.empty``, and launches on the current
+stream without synchronising.  ``body_launches()`` tallies the launches by
+body, so a run can show which body its path took.
 
 ``gram_block_cuda`` replaces ``repro.kernels.gram.gram_block_pallas``.  It
 has two bodies as well, chosen from the inputs alone
@@ -21,15 +35,14 @@ strides that are multiples of 8 runs on the bf16 tensor cores
 (``csrc/gram_block_mma.cu``), every other call on the shared cross-product
 body of ``csrc/cross.cuh`` (``csrc/gram_block.cu``: any Ka and Kb, f32 or
 bf16 each, no pad).  Both take A = U_a and B = [U_b; g] by pointer and row
-stride, so U_a and U_b may be row blocks of one matrix.  No f32 operand is
-rounded to bf16 to reach a tensor core.  ``block_body_launches()`` tallies
-its launches by body.
+stride, so U_a and U_b may be row blocks of one matrix.
+``block_body_launches()`` tallies its launches by body.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -44,7 +57,19 @@ MMA_WARPS = 8             # warps of a block of the tensor-core body
 MMA_STAGE_COLS = 128      # columns of one staged tile of [U; g]
 BLOCK_MMA_MAX_KA = 64     # gram_block's tensor-core body: U_a in 64 rows
 BLOCK_MMA_MAX_KB = 63     # and [U_b; g] in 64
-_BODY_LAUNCHES = {"mma": 0, "cuda_core": 0}
+BODIES = ("mma", "f32", "cuda_core")
+# the f32 body (csrc/gram_f32.cu); its planner below mirrors the source's
+F32_STREAM_MAX_K = 8      # K <= 8: the register-only stream
+F32_MAX_ROWS = 128        # staged rows of one side of a slice: K <= 127 whole
+F32_THREADS = 256         # threads of a tile block, at most
+F32_NARROW_THREADS = 192  # ... where one slice holds 10 tiles or more
+F32_STAGES = 3            # the cp.async ring
+F32_STAGE_BYTES = 32768   # one stage, at most
+F32_GROUP = 4             # columns of a staged group: one float4 a row
+# the largest K the f32 body takes: its nb(nb+1)/2 slices fit gridDim.y
+# (65 535) at nb = 361 row blocks of 127
+F32_MAX_K = 361 * 127
+_BODY_LAUNCHES = {body: 0 for body in BODIES}
 _BLOCK_BODY_LAUNCHES = {"mma": 0, "cross": 0}
 
 
@@ -59,8 +84,27 @@ def _mma_eligible(updates: torch.Tensor, grad: torch.Tensor) -> bool:
             and updates.data_ptr() % 16 == 0 and grad.data_ptr() % 16 == 0)
 
 
+def _body(updates: torch.Tensor, grad: torch.Tensor) -> str:
+    """The body a call takes: ``mma`` where :func:`_mma_eligible` holds,
+    ``f32`` for U and g both f32, ``cuda_core`` for the rest."""
+    if _mma_eligible(updates, grad):
+        return "mma"
+    if updates.dtype == torch.float32 and grad.dtype == torch.float32:
+        return "f32"
+    return "cuda_core"
+
+
+def _f32_vec(updates: torch.Tensor, grad: torch.Tensor) -> bool:
+    """Whether the f32 body reads 16 bytes a row at a time: every row of the
+    contiguous U and g starts 16-byte aligned (n % 4 == 0, both
+    ``data_ptr()`` % 16 == 0); else it reads 4 bytes at a time."""
+    return (updates.shape[1] % F32_GROUP == 0
+            and updates.data_ptr() % 16 == 0 and grad.data_ptr() % 16 == 0)
+
+
 def body_launches() -> Dict[str, int]:
-    """``{"mma": launches, "cuda_core": launches}`` since the last reset."""
+    """``{"mma": launches, "f32": launches, "cuda_core": launches}`` since
+    the last reset."""
     return dict(_BODY_LAUNCHES)
 
 
@@ -179,6 +223,153 @@ def scratch_rows(K: int) -> int:
     return (K + 1 + 3) // 4 * 4 if K <= MAX_K else 2 * MAX_K
 
 
+# ------------------------------------------------ the f32 body's planner
+
+def _round8(x: int) -> int:
+    return -(-x // 8) * 8
+
+
+def f32_row_blocks(K: int) -> List[Tuple[int, int]]:
+    """``(first row, rows)`` of each row block of U in the f32 tile body:
+    one block up to K = 127, else nb = ceil(K / 127) blocks, block a
+    starting at a·K // nb (each floor or ceil(K / nb) <= 127 rows)."""
+    nb = 1 if K <= F32_MAX_ROWS - 1 else -(-K // (F32_MAX_ROWS - 1))
+    starts = [a * K // nb for a in range(nb + 1)]
+    return [(starts[a], starts[a + 1] - starts[a]) for a in range(nb)]
+
+
+def f32_budget(K: int) -> int:
+    """Threads a tile block may use (``budget_of`` in the source): 192 for
+    one slice of 10 tiles or more (K >= 24: 168 registers a thread), else
+    256 (128 registers; the slices past K = 127 hold up to 256 tiles)."""
+    one = len(f32_row_blocks(K)) == 1
+    return (F32_NARROW_THREADS if one and _round8(K + 1) // 8 >= 4
+            else F32_THREADS)
+
+
+class F32Slice(NamedTuple):
+    """One slice of the f32 tile body: side A is U_a's rows; side B is
+    [U_a; g] (a diagonal slice: the upper triangle of its product) or U_b's
+    rows (a cross slice: the rectangle).  Staged rows [0, rows_a) are side
+    A, [rows_a, rows) side B of a cross slice, each padded with zeros to a
+    multiple of 8."""
+    a0: int
+    Ka: int
+    b0: int
+    Kb: int
+    diag: bool
+    rows_a: int
+    rows: int
+    tb: int        # tile columns (a diagonal slice: T = rows / 8)
+    tiles: int     # 8 x 8 tiles
+    phases: int    # column phases: the thread budget // tiles
+
+    @classmethod
+    def of(cls, a0: int, Ka: int, b0: int, Kb: int,
+           budget: int = F32_THREADS) -> "F32Slice":
+        diag = a0 == b0
+        if diag:
+            rows_a = rows = _round8(Ka + 1)
+            tb = rows // 8
+            tiles = tb * (tb + 1) // 2
+        else:
+            rows_a = _round8(Ka)
+            rows = rows_a + _round8(Kb)
+            tb = (rows - rows_a) // 8
+            tiles = rows_a // 8 * tb
+        return cls(a0, Ka, b0, Kb, diag, rows_a, rows, tb, tiles,
+                   budget // tiles)
+
+    def deal(self) -> List[Tuple[int, int]]:
+        """Tile (i, j) of tile index q = thread % tiles: the upper triangle
+        row-major, or the rectangle row-major."""
+        if self.diag:
+            return [(i, j) for i in range(self.tb) for j in range(i, self.tb)]
+        return [(i, j) for i in range(self.rows_a // 8)
+                for j in range(self.tb)]
+
+    def target(self, x: int, y: int):
+        """Where entry (x, y) of the product goes (x: side A's staged row,
+        y: side B's, from side B's first row): ``("G", row, col)`` (written
+        with its mirror), ``("c", row)`` or None (padding, or below a
+        diagonal slice's diagonal)."""
+        if x >= self.Ka:
+            return None
+        if self.diag:
+            if y < self.Ka and x <= y:
+                return ("G", self.a0 + x, self.a0 + y)
+            return ("c", self.a0 + x) if y == self.Ka else None
+        return ("G", self.a0 + x, self.b0 + y) if y < self.Kb else None
+
+
+def f32_slices(K: int) -> List[F32Slice]:
+    """The tile body's slices (blockIdx.y), pairs (a, b >= a) of row blocks
+    in row-major order."""
+    blocks = f32_row_blocks(K)
+    budget = f32_budget(K)
+    return [F32Slice.of(*blocks[a], *blocks[b], budget)
+            for a in range(len(blocks)) for b in range(a, len(blocks))]
+
+
+def f32_stream_entries(K: int) -> List[Tuple]:
+    """The stream body's K(K+1)/2 + K sums in register order: ``("G", i,
+    j)`` for j >= i row-major, then ``("c", i)``."""
+    return ([("G", i, j) for i in range(K) for j in range(i, K)]
+            + [("c", i) for i in range(K)])
+
+
+def f32_tile_plan(K: int) -> Dict[str, int]:
+    """What a tile launch is, from K alone, as ``gram_f32.cu``'s
+    ``tile_plan``: the widest slices it can hold (the tallest row block on
+    every side) size a stage and the shared memory.  ``threads`` a block,
+    ``groups`` of 4 columns a stage, ``slots`` (16 bytes) a staged group,
+    ``max_tiles`` (a partial is 64 floats a tile of the widest slice),
+    ``smem_bytes`` (ring, phase sums or the product, the largest)."""
+    nb = len(f32_row_blocks(K))
+    budget = f32_budget(K)
+    hi = -(-K // nb)
+    d_rows = _round8(hi + 1)
+    d_tiles = (d_rows // 8) * (d_rows // 8 + 1) // 2
+    rows, tiles, phases = d_rows, d_tiles, budget // d_tiles
+    out = d_rows * (d_rows + 1)
+    if nb > 1:
+        ct = _round8(hi) // 8
+        rows, tiles = max(rows, 16 * ct), max(tiles, ct * ct)
+        phases = min(phases, budget // (ct * ct))
+        out = max(out, 8 * ct * (8 * ct + 1))
+        threads = budget
+    else:
+        threads = -(-d_tiles * phases // 32) * 32
+    slots = rows + rows // 8
+    groups = phases * max(1, F32_STAGE_BYTES // (phases * slots * 16))
+    ring = F32_STAGES * groups * slots * 16
+    return {"nb": nb, "budget": budget, "threads": threads, "groups": groups,
+            "slots": slots, "max_tiles": tiles,
+            "smem_bytes": max(ring, threads * 64 * 4, out * 4)}
+
+
+def f32_num_slices(K: int) -> int:
+    """Grid slices of the f32 body: 1 for K <= 127 (and the stream)."""
+    nb = len(f32_row_blocks(K))
+    return nb * (nb + 1) // 2
+
+
+def f32_partial_floats(K: int) -> int:
+    """Floats of one block's partial: the stream's K(K+1)/2 + K sums, or 64
+    a tile of the widest slice."""
+    if K <= F32_STREAM_MAX_K:
+        return K * (K + 1) // 2 + K
+    return 64 * f32_tile_plan(K)["max_tiles"]
+
+
+def f32_scratch_floats(K: int, num_blocks: int) -> int:
+    """The f32 body's scratch: none where one block owns a slice's columns
+    (it writes G and c itself), else every block's partial."""
+    if num_blocks == 1:
+        return 0
+    return f32_num_slices(K) * num_blocks * f32_partial_floats(K)
+
+
 @functools.lru_cache(maxsize=None)
 def _resident(config_fn: str, dims: Tuple[int, ...],
               device_index: int) -> Tuple[int, int]:
@@ -216,16 +407,106 @@ def block_mma_launch_config(Ka: int, Kb: int,
     return _resident("gram_block_mma_launch_config", (Ka, Kb), device_index)
 
 
-def gram_cuda(updates: torch.Tensor, grad: torch.Tensor
+@functools.lru_cache(maxsize=None)
+def f32_launch_config(K: int, vec: bool, device_index: int
+                      ) -> Tuple[int, int, int]:
+    """``(blocks resident per SM, dynamic shared memory bytes, threads a
+    block)`` of the f32 body's kernel for this K (``vec``: 16-byte rows)."""
+    lib = _build.load_library()
+    blocks, smem, threads = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        rc = lib.gram_f32_launch_config(K, int(vec), ctypes.byref(blocks),
+                                        ctypes.byref(smem),
+                                        ctypes.byref(threads))
+    _build.check(lib, rc, "gram_f32_launch_config occupancy query")
+    if blocks.value < 1:
+        raise RuntimeError(f"gram_f32: the kernel cannot be resident at K={K}")
+    return blocks.value, smem.value, threads.value
+
+
+@functools.lru_cache(maxsize=4096)
+def f32_call_plan(K: int, n: int, vec: bool,
+                  device_index: int) -> Tuple[int, int, int]:
+    """``(num_blocks, cols_per_block, scratch floats)`` of an f32 call: the
+    grid is one resident wave (``grid`` over the slices), so a split may
+    take one cooperative launch; the scratch is 0 where one block owns a
+    slice's columns."""
+    per_sm = f32_launch_config(K, vec, device_index)[0]
+    num_blocks, cols = grid(n, _build.sm_count(device_index), per_sm,
+                            f32_num_slices(K))
+    return num_blocks, cols, f32_scratch_floats(K, num_blocks)
+
+
+@functools.lru_cache(maxsize=None)
+def _launchers(device_index: int):
+    """``(lib, gram_f32_launch)`` of a device, looked up once."""
+    lib = _build.load_library()
+    return lib, lib.gram_f32_launch
+
+
+def _launch_f32(updates: torch.Tensor, grad: torch.Tensor, G: torch.Tensor,
+                c: torch.Tensor) -> None:
+    K, n = updates.shape
+    dev = updates.device
+    vec = _f32_vec(updates, grad)
+    num_blocks, cols, floats = f32_call_plan(K, n, vec, dev.index)
+    partial = (torch.empty((floats,), dtype=torch.float32, device=dev)
+               if floats else None)
+    lib, fn = _launchers(dev.index)
+    args = (updates.data_ptr(), grad.data_ptr(),
+            partial.data_ptr() if floats else None, floats, G.data_ptr(),
+            c.data_ptr(), K, n, int(vec), num_blocks, cols,
+            torch._C._cuda_getCurrentRawStream(dev.index))
+    if dev.index == torch.cuda.current_device():
+        rc = fn(*args)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args)
+    _build.check(lib, rc, "gram_f32")
+
+
+def gram_cuda(updates: torch.Tensor, grad: torch.Tensor, *,
+              body: Optional[str] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``updates (K, n)``, ``grad (n,)`` (f32 or bf16, contiguous, on one
-    CUDA device) → ``(G (K, K) f32, c (K,) f32)``."""
+    CUDA device) → ``(G (K, K) f32, c (K,) f32)``, on the body
+    :func:`_body` picks; ``body=`` forces one (``"cuda_core"`` takes any
+    call; ``"f32"`` wants U and g f32, ``"mma"`` an eligible call)."""
     _check(updates, grad)
+    if body not in (None,) + BODIES:
+        raise ValueError(f"gram_cuda: body {body!r} not in {BODIES}")
+    took = _body(updates, grad)
+    if body == "mma" and took != "mma":
+        raise ValueError("gram_cuda: the mma body takes bf16 U and g with "
+                         f"1 <= K <= {MMA_MAX_K}, n % 8 == 0 and 16-byte "
+                         "aligned pointers")
+    if body == "f32" and not (updates.dtype == grad.dtype == torch.float32):
+        raise ValueError("gram_cuda: the f32 body takes f32 U and g")
+    took = body or took
+    K, n = updates.shape
+    if took == "f32" and K > F32_MAX_K:
+        raise ValueError(f"gram_cuda: the f32 body takes K <= {F32_MAX_K}, "
+                         f"got {K}")
+    dev = updates.device
+    out = torch.empty((K * K + K,), dtype=torch.float32, device=dev)
+    G, c = out[:K * K].view(K, K), out[K * K:]
+    if took == "f32":
+        _launch_f32(updates, grad, G, c)
+    else:
+        _launch_two_pass(updates, grad, G, c, took == "mma")
+    count_launch("gram", "cuda")
+    _BODY_LAUNCHES[took] += 1
+    return G, c
+
+
+def _launch_two_pass(updates: torch.Tensor, grad: torch.Tensor,
+                     G: torch.Tensor, c: torch.Tensor, mma: bool) -> None:
+    """gram_mma.cu or gram.cu: a partial kernel over one wave of blocks,
+    then a finish kernel over their partials."""
     K, n = updates.shape
     dev = updates.device
     u_bf16 = updates.dtype == torch.bfloat16
     g_bf16 = grad.dtype == torch.bfloat16
-    mma = _mma_eligible(updates, grad)
     if mma:
         per_sm, _ = mma_launch_config(K, dev.index)
         slices, R = 1, mma_rows(K)
@@ -233,8 +514,6 @@ def gram_cuda(updates: torch.Tensor, grad: torch.Tensor
         per_sm, _ = launch_config(K, u_bf16, g_bf16, dev.index)
         slices, R = row_slices(K), scratch_rows(K)
     num_blocks, cols = grid(n, _build.sm_count(dev.index), per_sm, slices)
-    out = torch.empty((K * K + K,), dtype=torch.float32, device=dev)
-    G, c = out[:K * K].view(K, K), out[K * K:]
     partial = torch.empty((slices * num_blocks * R * R,), dtype=torch.float32,
                           device=dev)
     lib = _build.load_library()
@@ -251,9 +530,6 @@ def gram_cuda(updates: torch.Tensor, grad: torch.Tensor
                 partial.numel(), G.data_ptr(), c.data_ptr(), K, n,
                 int(u_bf16), int(g_bf16), num_blocks, cols, stream)
     _build.check(lib, rc, "gram")
-    count_launch("gram", "cuda")
-    _BODY_LAUNCHES["mma" if mma else "cuda_core"] += 1
-    return G, c
 
 
 def gram_block_cuda(ua: torch.Tensor, ub: torch.Tensor, grad: torch.Tensor

@@ -87,12 +87,18 @@ def gram(updates: torch.Tensor, grad: torch.Tensor
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     K, n = updates.shape
     out = _empty((K * K + K,), F32, updates)
-    mma = (updates.dtype == BF16 and grad.dtype == BF16
-           and 1 <= K <= _gram_mod.MMA_MAX_K and n % 8 == 0)
-    slices, R = ((1, _gram_mod.mma_rows(K)) if mma else
-                 (_gram_mod.row_slices(K), _gram_mod.scratch_rows(K)))
-    blocks, _ = _gram_mod.grid(n, SMS, MAX_BLOCKS_PER_SM, slices)
-    partial = _empty((slices * blocks * R * R,), F32, updates)  # noqa: F841
+    if updates.dtype == F32 and grad.dtype == F32:     # gram_f32.cu
+        blocks, _ = _gram_mod.grid(n, SMS, MAX_BLOCKS_PER_SM,
+                                   _gram_mod.f32_num_slices(K))
+        floats = _gram_mod.f32_scratch_floats(K, blocks)
+    else:
+        mma = (updates.dtype == BF16 and grad.dtype == BF16
+               and 1 <= K <= _gram_mod.MMA_MAX_K and n % 8 == 0)
+        slices, R = ((1, _gram_mod.mma_rows(K)) if mma else
+                     (_gram_mod.row_slices(K), _gram_mod.scratch_rows(K)))
+        blocks, _ = _gram_mod.grid(n, SMS, MAX_BLOCKS_PER_SM, slices)
+        floats = slices * blocks * R * R
+    partial = _empty((floats,), F32, updates)  # noqa: F841
     _record("gram", 2 * n * (K * (K + 1) // 2 + K),
             _bytes(updates, grad, out))
     return out[:K * K].view(K, K), out[K * K:]

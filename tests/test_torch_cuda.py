@@ -318,7 +318,7 @@ def _check_gram_mma(U, g):
     G2, c2 = gram_and_cross(U, g)
     assert launch_counts()["gram/cuda"] == 2
     assert launch_counts()["gram/torch"] == 0
-    assert gram.body_launches() == {"mma": 2, "cuda_core": 0}
+    assert gram.body_launches() == {"mma": 2, "f32": 0, "cuda_core": 0}
     assert torch.equal(G, G2) and torch.equal(c, c2)      # no float atomics
     assert torch.equal(G, G.T)
     Gr, cr = ref.gram_ref(U, g)
@@ -367,8 +367,9 @@ def test_gram_mma_body_against_f64_at_model_width(cuda_device):
 
 
 def test_gram_other_calls_keep_the_cuda_core_body(cuda_device):
-    """bf16 K = 128, bf16 with n % 8 != 0, mixed dtypes either way, f32,
-    and a bf16 U starting 2 bytes into its buffer keep gram.cu's body."""
+    """bf16 K = 128, bf16 with n % 8 != 0, mixed dtypes either way and a
+    bf16 U starting 2 bytes into its buffer keep gram.cu's body; f32 U and g
+    take the f32 body (csrc/gram_f32.cu)."""
     from repro_torch.kernels import gram
     gen = torch.Generator(device=cuda_device)
     gen.manual_seed(128)
@@ -385,12 +386,128 @@ def test_gram_other_calls_keep_the_cuda_core_body(cuda_device):
              (shifted.view(10, 1024), g1024)]
     for U, g in cases:
         assert not gram._mma_eligible(U, g)
+        f32 = U.dtype == g.dtype == torch.float32
         gram.reset_body_launches()
         G, c = gram_and_cross(U, g)
-        assert gram.body_launches() == {"mma": 0, "cuda_core": 1}
+        assert gram.body_launches() == {"mma": 0, "f32": int(f32),
+                                        "cuda_core": int(not f32)}
         Gr, cr = ref.gram_ref(U, g)
         assert torch.equal(G, G.T)
         assert _rel_err(G, Gr) <= 1e-4 and _rel_err(c, cr) <= 1e-4
+
+
+# gram's f32 body (csrc/gram_f32.cu): the stream's K <= 8 and its edge,
+# the tile body's one slice (K + 1 = 64, 65, 66; 101; 128) and its slices
+# past 127 rows; n ragged (4-byte reads) and n % 4 == 0 (16-byte reads)
+GRAM_F32_K = [1, 2, 8, 9, 17, 63, 64, 65, 100, 127, 128, 129, 500]
+GRAM_F32_N = [1, 3, 130, 4096, 7850, (1 << 20) + 3, 1 << 20]
+
+
+def _check_gram_f32(U, g):
+    """Two calls of gram's f32 body: one launch each on ``f32``, bitwise
+    equal, G exactly symmetric, within 1e-4 of the plain version."""
+    from repro_torch.kernels import gram
+    gram.reset_body_launches()
+    reset_launch_counts()
+    G, c = gram_and_cross(U, g)
+    G2, c2 = gram_and_cross(U, g)
+    assert launch_counts()["gram/cuda"] == 2
+    assert launch_counts()["gram/torch"] == 0
+    assert gram.body_launches() == {"mma": 0, "f32": 2, "cuda_core": 0}
+    assert torch.equal(G, G2) and torch.equal(c, c2)      # no float atomics
+    assert torch.equal(G, G.T)
+    Gr, cr = ref.gram_ref(U, g)
+    assert _rel_err(G, Gr) <= 1e-4 and _rel_err(c, cr) <= 1e-4
+    return G, c
+
+
+@pytest.mark.parametrize("n", GRAM_F32_N)
+@pytest.mark.parametrize("K", GRAM_F32_K)
+def test_gram_f32_body(cuda_device, K, n):
+    """f32 U and g take the f32 body, aligned and as row views that start 4
+    bytes into their buffers (4-byte reads however n falls)."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(K * 7919 + n)
+    U = _randn(gen, (K, n), torch.float32, cuda_device)
+    g = _randn(gen, (n,), torch.float32, cuda_device)
+    _check_gram_f32(U, g)
+    shifted = _randn(gen, (K * n + 1,), torch.float32, cuda_device)[1:]
+    g_shifted = _randn(gen, (n + 1,), torch.float32, cuda_device)[1:]
+    from repro_torch.kernels import gram
+    assert not gram._f32_vec(shifted.view(K, n), g_shifted)
+    _check_gram_f32(shifted.view(K, n), g_shifted)
+
+
+@pytest.mark.parametrize("K,n", [(1, 1), (5, 7850), (4, 1 << 20), (9, 130),
+                                 (100, 7850), (100, 1 << 20), (500, 68),
+                                 (2000, 68), (129, 1 << 16)])
+def test_gram_f32_body_is_one_kernel_a_call(cuda_device, K, n):
+    """One device kernel a call, whether one block owns each slice (it
+    writes G and c) or the blocks' partials are summed in the same launch,
+    and no allocation past the outputs where one block owns a slice."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import gram
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(K + n)
+    U = _randn(gen, (K, n), torch.float32, cuda_device)
+    g = _randn(gen, (n,), torch.float32, cuda_device)
+    gram_and_cross(U, g)
+    torch.cuda.synchronize()
+    calls = 3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            gram_and_cross(U, g)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_time_total > 0 and "gram" in e.key}
+    assert len(kernels) == 1 and sum(kernels.values()) == calls, kernels
+    assert "gram_f32" in next(iter(kernels))
+    vec = gram._f32_vec(U, g)
+    blocks, _, floats = gram.f32_call_plan(K, n, vec, U.device.index)
+    assert (floats == 0) is (blocks == 1)
+    if n <= 128:
+        assert blocks == 1
+
+
+def test_gram_f32_body_against_f64_at_model_width(cuda_device):
+    """K = 100, n = 2^22 f32: the f32 body and the plain version, each
+    against an f64 product (the kernel within 1e-4)."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(101)
+    U = _randn(gen, (100, 1 << 22), torch.float32, cuda_device)
+    g = _randn(gen, (1 << 22,), torch.float32, cuda_device)
+    G, c = _check_gram_f32(U, g)
+    G64, c64 = _gram_f64(U, g)
+    Gr, cr = ref.gram_ref(U, g)
+    kernel = max(_rel_err(G.double(), G64), _rel_err(c.double(), c64))
+    plain = max(_rel_err(Gr.double(), G64), _rel_err(cr.double(), c64))
+    print(f"gram K=100 n=2^22 f32 against f64: kernel {kernel:.3e}, "
+          f"plain {plain:.3e}")
+    assert kernel <= 1e-4
+
+
+def test_gram_body_is_forced_and_checked(cuda_device):
+    """``body="cuda_core"`` runs an f32 call on gram.cu (the comparison
+    body) within 1e-4 of the f32 body's; ``body="f32"`` on bf16 and
+    ``body="mma"`` on f32 raise; an unknown body raises."""
+    from repro_torch.kernels import gram
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(7)
+    U = _randn(gen, (25, 7850), torch.float32, cuda_device)
+    g = _randn(gen, (7850,), torch.float32, cuda_device)
+    gram.reset_body_launches()
+    G, c = gram_cuda(U, g)
+    G1, c1 = gram_cuda(U, g, body="cuda_core")
+    G2, c2 = gram_cuda(U, g, body="f32")
+    assert gram.body_launches() == {"mma": 0, "f32": 2, "cuda_core": 1}
+    assert torch.equal(G, G2) and torch.equal(c, c2)
+    assert _rel_err(G1, G) <= 1e-4 and _rel_err(c1, c) <= 1e-4
+    with pytest.raises(ValueError, match="f32 body"):
+        gram_cuda(U.bfloat16(), g.bfloat16(), body="f32")
+    with pytest.raises(ValueError, match="mma body"):
+        gram_cuda(U, g, body="mma")
+    with pytest.raises(ValueError, match="body"):
+        gram_cuda(U, g, body="wide")
 
 
 def _tie_vectors(device, n=130):
