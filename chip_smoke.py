@@ -823,6 +823,23 @@ def host_ms(fn, reps: int, repeats: int = 5) -> float:
     return statistics.median(runs)
 
 
+def host_ms_in_turn(fns: dict, reps: int, repeats: int = 5) -> dict:
+    """``{name: median host ms per call}``: :func:`host_ms` of every fn,
+    the fns taken in turn within each of ``repeats`` rounds, so that drift
+    of the host hits all alike."""
+    import torch
+    runs = {name: [] for name in fns}
+    for _ in range(repeats):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            runs[name].append((time.perf_counter() - t0) / reps * 1e3)
+    torch.cuda.synchronize()
+    return {name: statistics.median(r) for name, r in runs.items()}
+
+
 def reps_for(nbytes: int) -> int:
     return 200 if nbytes < (1 << 24) else 20
 
@@ -1386,15 +1403,15 @@ def _outs(x) -> tuple:
 
 def check_cross(op: str, args: tuple, shape: dict, dt, bound_rec: dict,
                 timed: bool = True, library=None,
-                plain_gate: bool = True) -> dict:
+                plain_gate: bool = True, extra: dict = None) -> dict:
     """One of the cross-product kernels (``stream_stats``, ``gram_block``,
     ``sketch``) against its plain version on ``args``: bitwise equal over
     two calls and within CROSS_TOL of max |plain| (unless ``plain_gate`` is
     False: then the caller gates on an f64 product and the distance from
     the plain version is only recorded); with ``timed``, CUDA-event times
-    of the kernel, the plain version and ``library`` (the median and
-    min-max of ``TOPK_REPEATS`` rounds taken in turn) and the kernel's
-    device kernels and device time per call."""
+    of the kernel, the plain version, ``library`` and the ``extra`` calls
+    (the median and min-max of ``TOPK_REPEATS`` rounds taken in turn) and
+    the kernel's device kernels and device time per call."""
     import torch
     from repro_torch.kernels import registry
     out = _outs(registry.dispatch(op, *args, backend="cuda"))
@@ -1416,12 +1433,47 @@ def check_cross(op: str, args: tuple, shape: dict, dt, bound_rec: dict,
     if timed:
         reps = reps_for(args[0].numel() * args[0].element_size()
                         + args[1].numel() * args[1].element_size())
-        _time_record(rec, {
+        _time_record(rec, dict({
             "ms": lambda: registry.dispatch(op, *args, backend="cuda"),
             "plain_ms": lambda: registry.dispatch(op, *args, backend="torch"),
-            "library_ms": library}, reps)
+            "library_ms": library}, **(extra or {})), reps)
         rec.update(bound_rec)
     return rec
+
+
+def _f32_body_checks(rec: dict, what: str, call, cross_call, want,
+                     timed: bool) -> None:
+    """An f32 row of gram_block or stream_stats (``csrc/cross_f32.cu``):
+    one device kernel a call, ``cross_f32_tiles`` (the timed rows' kernels,
+    else one profiled call); on a timed row cross.cuh's body on the same
+    inputs (``cross_call``: ``body="cross"``, timed in turn by
+    :func:`check_cross`) within CROSS_TOL of the plain version ``want``,
+    its device kernels, and both bodies' host µs to issue a call (taken in
+    turn)."""
+    calls = 3 if timed else 1
+    kern = rec["device_kernels"] if timed else device_kernel_means(call, 1)
+    need(len(kern) == 1 and all("cross_f32" in name and cnt % calls == 0
+                                for name, (cnt, _) in kern.items()),
+         f"{what}: want one cross_f32 kernel a call, got {kern}")
+    rec["one_kernel_a_call"] = True
+    if not timed:
+        return
+    got = _outs(cross_call())
+    rec["cross_rel_err"] = max(_max_err(a, b) / _scale(b)
+                               for a, b in zip(got, want))
+    need(rec["cross_rel_err"] <= CROSS_TOL,
+         f"{what}: cross.cuh's body {rec['cross_rel_err']:.3e} off plain")
+    cck = device_kernel_means(cross_call)
+    rec["cross_device_kernels"] = cck
+    rec["cross_device_ms"] = sum(ms for _, ms in cck.values())
+    host = host_ms_in_turn({"f32": call, "cross": cross_call}, 50)
+    rec["host_ms"], rec["cross_host_ms"] = host["f32"], host["cross"]
+    log(f"{what}: cross.cuh in turn {_fmt_spread(rec, 'cross_ms')}us, device "
+        f"{rec['cross_device_ms'] * 1e3:.1f}us in {len(cck)} kernels, host "
+        f"{rec['cross_host_ms'] * 1e3:.1f}us; the f32 body device "
+        f"{rec['device_ms'] * 1e3:.1f}us, host {rec['host_ms'] * 1e3:.1f}us, "
+        f"{rec['ms'] / rec['bound_ms']:.2f}x its bound, the library "
+        f"{rec['library_ms'] / rec['ms']:.2f}x it")
 
 
 def _f64_err(got, d64, g64) -> float:
@@ -1436,29 +1488,38 @@ def check_stream_stats(P: int, n: int, dt, gen, timed: bool = True,
                        f64: bool = False) -> dict:
     """``check_cross`` for stream_stats, plus the body the calls took
     (``body``, if given, must be it: ``mma`` for the tensor-core body,
-    ``cross`` for cross.cuh's) and, with ``f64``, the kernel's and the
-    plain version's error against an f64 product (the kernel's within
+    ``f32`` for cross_f32.cu's, ``cross`` for cross.cuh's; an ``f32`` row
+    also as :func:`_f32_body_checks`) and, with ``f64``, the kernel's and
+    the plain version's error against an f64 product (the kernel's within
     CROSS_TOL)."""
     import torch
-    from repro_torch.kernels import ops, stream
+    from repro_torch.kernels import ops, ref, stream
     if D is None:
         D = torch.randn((P, n), generator=gen, device="cuda").to(dt)
         GM = torch.randn((P, n), generator=gen, device="cuda").to(dt)
-    took = "mma" if stream._mma_eligible(D, GM) else "cross"
+    took = stream._body(D, GM)
+    what = f"stream_stats P={P} n={n} {_dtype_name(D.dtype)}/" \
+        f"{_dtype_name(GM.dtype)}"
     need(body is None or took == body,
-         f"stream_stats P={P} n={n} {dt}: takes the {took} body, want {body}")
+         f"{what}: takes the {took} body, want {body}")
+    cross_call = lambda: stream.stream_stats_cuda(D, GM, body="cross")  # noqa: E731
     stream.reset_body_launches()
     rec = check_cross(
         "stream_stats", (D, GM), {"P": P, "n": n}, dt,
         cross_bound(2 * P, n, P * (P + 1) // 2 + P * P, 2 * P * P, dt),
-        timed, library=lambda: (D @ D.T, D @ GM.T))
+        timed, library=lambda: (D @ D.T, D @ GM.T),
+        extra={"cross_ms": cross_call} if took == "f32" else None)
     tally = stream.body_launches()
-    need(tally[took] >= 2 and sum(tally.values()) == tally[took],
-         f"stream_stats P={P} n={n} {dt}: body launches {tally}, want only "
-         f"{took}")
+    need(tally[took] >= 2 and tally[took] + (tally["cross"] if took == "f32"
+                                             else 0) == sum(tally.values()),
+         f"{what}: body launches {tally}, want only {took}")
     rec["body"] = took
+    if took == "f32":
+        _f32_body_checks(rec, what, lambda: ops.stream_stats(
+            D, GM, backend="cuda"), cross_call, ref.stream_stats_ref(D, GM),
+            timed)
     if timed:
-        log(f"stream_stats P={P} n={n} {_dtype_name(dt)}: device kernels "
+        log(f"{what}: device kernels "
             "(launches in 3 calls, us per launch) " + _kernel_names(rec))
     if timed and took == "mma":
         need(any("stream_stats_mma" in k for k in rec["device_kernels"]),
@@ -1485,33 +1546,41 @@ def check_gram_block(Ka: int, Kb: int, n: int, dt, gen,
                      g=None) -> dict:
     """``check_cross`` for gram_block (U_a and U_b row blocks of one matrix
     unless given), plus the body the calls took (``body``, if given, must
-    be it: ``mma`` for gram_block_mma.cu, ``cross`` for gram_block.cu) and,
-    with ``f64``, the kernel's and the plain version's error against an
-    f64 product (the kernel's within CROSS_TOL).  ``plain_gate=False``
+    be it: ``mma`` for gram_block_mma.cu, ``f32`` for cross_f32.cu,
+    ``cross`` for gram_block.cu; an ``f32`` row also as
+    :func:`_f32_body_checks`) and, with ``f64``, the kernel's and the plain
+    version's error against an f64 product (the kernel's within CROSS_TOL).  ``plain_gate=False``
     (with ``f64``) gates on the f64 product alone: at n = 4 104 a c_a that
     cancels below 1 leaves the plain f32 version itself beyond CROSS_TOL of
     it."""
     import torch
-    from repro_torch.kernels import gram, ops
+    from repro_torch.kernels import gram, ops, ref
     if ua is None:
         U = torch.randn((Ka + Kb, n), generator=gen, device="cuda").to(dt)
         ua, ub = U[:Ka], U[Ka:]              # row blocks of one matrix
         g = torch.randn((n,), generator=gen, device="cuda").to(dt)
-    took = "mma" if gram._block_mma_eligible(ua, ub, g) else "cross"
+    took = gram._block_body(ua, ub, g)
     what = (f"gram_block Ka={Ka} Kb={Kb} n={n} {_dtype_name(ua.dtype)}/"
             f"{_dtype_name(ub.dtype)}/{_dtype_name(g.dtype)}")
     need(body is None or took == body,
          f"{what}: takes the {took} body, want {body}")
+    cross_call = lambda: gram.gram_block_cuda(ua, ub, g, body="cross")  # noqa: E731
     gram.reset_block_body_launches()
     rec = check_cross(
         "gram_block", (ua, ub, g), {"Ka": Ka, "Kb": Kb, "n": n}, dt,
         cross_bound(Ka + Kb + 1, n, Ka * (Kb + 1), Ka * Kb + Ka, dt),
         timed, library=lambda: (ua @ ub.T, ua @ g),
-        plain_gate=plain_gate or not f64)
+        plain_gate=plain_gate or not f64,
+        extra={"cross_ms": cross_call} if took == "f32" else None)
     tally = gram.block_body_launches()
-    need(tally[took] >= 2 and sum(tally.values()) == tally[took],
+    need(tally[took] >= 2 and tally[took] + (tally["cross"] if took == "f32"
+                                             else 0) == sum(tally.values()),
          f"{what}: body launches {tally}, want only {took}")
     rec["body"] = took
+    if took == "f32":
+        _f32_body_checks(rec, what, lambda: ops.gram_block_and_cross(
+            ua, ub, g, backend="cuda"), cross_call,
+            ref.gram_block_ref(ua, ub, g), timed)
     if timed:
         log(f"{what}: device kernels (launches in 3 calls, us per launch) "
             + _kernel_names(rec))
@@ -1595,18 +1664,70 @@ def check_sketch_apply(K: int, n: int, m: int, dt, gen, timed: bool = True,
     return rec
 
 
+def stream_stats_out_row(gen) -> dict:
+    """The streamed engine's use of ``out=``: the paper path's two leaf
+    slabs (P = 100: the 100 x 7 840 weights, the 100 x 10 biases) added in
+    turn into running (G, C) from zero, on the f32 body, twice: bitwise
+    equal, G exactly symmetric, within CROSS_TOL of the plain versions'
+    sum, one cross_f32 kernel a slab."""
+    import torch
+    from repro_torch.kernels import ref, stream
+    P = STREAM_PATH[0][0]
+    slabs = [(torch.randn((P, n), generator=gen, device="cuda"),
+              torch.randn((P, n), generator=gen, device="cuda"))
+             for _, n in STREAM_PATH]
+
+    def run():
+        G = torch.zeros((P, P), device="cuda")
+        C = torch.zeros((P, P), device="cuda")
+        for D, GM in slabs:
+            stream.stream_stats_cuda(D, GM, out=(G, C))
+        return G, C
+
+    stream.reset_body_launches()
+    got, again = run(), run()
+    tally = stream.body_launches()
+    want = [sum(parts) for parts in zip(*(ref.stream_stats_ref(D, GM)
+                                          for D, GM in slabs))]
+    torch.cuda.synchronize()
+    what = f"stream_stats out= P={P} slabs {[n for _, n in STREAM_PATH]}"
+    need(tally == {"mma": 0, "f32": 2 * len(slabs), "cross": 0},
+         f"{what}: body launches {tally}")
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    need(bitwise, f"{what}: two runs differ bitwise")
+    need(torch.equal(got[0], got[0].T), f"{what}: G is not symmetric")
+    err = max(_max_err(a, b) / _scale(b) for a, b in zip(got, want))
+    need(err <= CROSS_TOL, f"{what}: relative err {err:.3e} > {CROSS_TOL}")
+    kern = {k: c for k, (c, _) in device_kernel_means(run, 1).items()
+            if "cross" in k or "stream_stats" in k}
+    need(all("cross_f32" in k for k in kern)
+         and sum(kern.values()) == len(slabs),
+         f"{what}: want one cross_f32 kernel a slab, got {kern}")
+    log(f"{what}: added into running (G, C), relative err {err:.3e} "
+        f"(tolerance {CROSS_TOL}), bitwise over two runs, one kernel a slab")
+    return {"P": P, "n": sum(n for _, n in STREAM_PATH), "out": True,
+            "dtype": "float32", "body": "f32",
+            "max_abs_err": max(_max_err(a, b) for a, b in zip(got, want)),
+            "rel_err": err, "tolerance": CROSS_TOL,
+            "bitwise_repeatable": bitwise, "gated_on": "plain"}
+
+
 def cross_phase_records(gen) -> dict:
     """The three cross-product kernels at their shapes (kernels phase)."""
     import torch
     f32, bf16 = torch.float32, torch.bfloat16
     out = {"stream_stats": [], "gram_block": [], "sketch": []}
+    # every f32 row takes cross_f32.cu (one kernel a call, bitwise twice);
+    # the timed ones beside cross.cuh's body in turn on the same inputs
     for P, n in STREAM_PATH:
         out["stream_stats"].append(dict(
-            check_stream_stats(P, n, f32, gen, body="cross"), set="path"))
+            check_stream_stats(P, n, f32, gen, body="f32"), set="path"))
     for P, n in STREAM_RAGGED:
         for dt in (f32, bf16):
             out["stream_stats"].append(dict(
-                check_stream_stats(P, n, dt, gen, timed=False), set="ragged"))
+                check_stream_stats(P, n, dt, gen, timed=False,
+                                   body="f32" if dt == f32 else "cross"),
+                set="ragged"))
     # slab views of a stacked leaf, and a strided column window (row stride
     # 400): taken as they lie
     leaf = torch.randn((3, 43, 7), generator=gen, device="cuda")
@@ -1615,8 +1736,9 @@ def cross_phase_records(gen) -> dict:
     for D, GM in ((leaf.reshape(3, -1), gleaf.reshape(3, -1)),
                   (wide[:, 5:305], wide[:, 90:390])):
         out["stream_stats"].append(dict(check_stream_stats(
-            D.shape[0], D.shape[1], f32, gen, timed=False, D=D, GM=GM),
-            set="ragged"))
+            D.shape[0], D.shape[1], f32, gen, timed=False, D=D, GM=GM,
+            body="f32"), set="ragged"))
+    out["stream_stats"].append(dict(stream_stats_out_row(gen), set="ragged"))
     # the tensor-core body: column views of 1 024-wide bf16 rows (16-byte
     # aligned) with ragged tails; a misaligned bf16 view and a mixed
     # f32/bf16 pair keep cross.cuh's body
@@ -1652,16 +1774,17 @@ def cross_phase_records(gen) -> dict:
         ub = torch.randn((Kb, n), generator=gen, device="cuda")
         g = torch.randn((n,), generator=gen, device="cuda")
         out["gram_block"].append(dict(
-            check_gram_block(Ka, Kb, n, f32, gen, body="cross", ua=ua, ub=ub,
+            check_gram_block(Ka, Kb, n, f32, gen, body="f32", ua=ua, ub=ub,
                              g=g), set="path"))
     for Ka, Kb, n in GRAM_BLOCK_BENCH:
         out["gram_block"].append(dict(
-            check_gram_block(Ka, Kb, n, f32, gen, body="cross"), set="bench"))
+            check_gram_block(Ka, Kb, n, f32, gen, body="f32"), set="bench"))
     for Ka, Kb, n in GRAM_BLOCK_RAGGED:
         for dt in (f32, bf16):
             out["gram_block"].append(dict(
                 check_gram_block(Ka, Kb, n, dt, gen, timed=False,
-                                 body="cross"), set="ragged"))
+                                 body="f32" if dt == f32 else "cross"),
+                set="ragged"))
     # the tensor-core body at every instance's edges and ragged last tiles,
     # held to an f64 product (the plain version's distance recorded); a
     # bf16 U_a starting 2 bytes into its buffer and a mixed f32/bf16 call
@@ -1680,12 +1803,13 @@ def cross_phase_records(gen) -> dict:
         out["gram_block"].append(dict(check_gram_block(
             10, 5, 1024, ua.dtype, gen, timed=False, body="cross", ua=ua,
             ub=ub, g=g1024), set="ragged"))
+    # the model rows: bf16 on the tensor cores, f32 on cross_f32.cu, both
+    # held to an f64 product
     for Ka, Kb, n, dts in GRAM_BLOCK_MODEL:
         for dt in (getattr(torch, name) for name in dts):
-            mma = dt == bf16
             out["gram_block"].append(dict(check_gram_block(
-                Ka, Kb, n, dt, gen, body="mma" if mma else "cross", f64=mma),
-                set="model"))
+                Ka, Kb, n, dt, gen, body="mma" if dt == bf16 else "f32",
+                f64=True), set="model"))
             torch.cuda.empty_cache()
     for K, n, m in SKETCH_APPLY_BENCH:
         out["sketch"].append(dict(check_sketch_apply(K, n, m, f32, gen,
@@ -2843,10 +2967,10 @@ def streamed_phase(ds, params) -> dict:
             need(not plain, f"streamed {name} ({engine}): plain versions ran "
                  f"on the path: {plain}")
             if engine == "streamed":
-                # the paper path's P = 100 f32 slabs keep cross.cuh's body
+                # the paper path's P = 100 f32 slabs take the f32 body
                 bodies = stream.body_launches()
-                need(bodies == {"mma": 0,
-                                "cross": counts["stream_stats/cuda"]},
+                need(bodies == {"mma": 0, "f32": counts["stream_stats/cuda"],
+                                "cross": 0},
                      f"streamed {name}: stream_stats bodies {bodies}")
                 # combine: each call on the body _vec_eligible gave it; the
                 # uncompressed run's apply takes vec for the 100 x 7 840
@@ -2925,7 +3049,7 @@ def streamed_mesh_phase(smi_line: str, ds, params,
     import torch.distributed as dist
     from repro_torch.core.flatten import tree_to_vector
     from repro_torch.fl import run_hier_simulation
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import launch_counts, reset_launch_counts, stream
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.logistic import logistic_apply, logistic_loss
     tiers, runs = streamed_runs(ds)
@@ -2944,6 +3068,7 @@ def streamed_mesh_phase(smi_line: str, ds, params,
                     new = []
                     torch.cuda.synchronize()
                     reset_launch_counts()
+                    stream.reset_body_launches()
                     run_hier_simulation(
                         f"{name}_{tag}", logistic_loss, logistic_apply,
                         params, ds, cfg, tiers, 1, selection_seed=42,
@@ -2953,6 +3078,13 @@ def streamed_mesh_phase(smi_line: str, ds, params,
                             tree_to_vector(p).clone()))
                     torch.cuda.synchronize()
                     got[tag] = (new, launch_counts())
+                    # the P = 100 f32 slabs (a rank's windows) on f32
+                    bodies = stream.body_launches()
+                    need(torch.device(device).type != "cuda" or bodies == {
+                        "mma": 0, "f32": got[tag][1]["stream_stats/cuda"],
+                        "cross": 0},
+                         f"streamed mesh {name} ({tag}): stream_stats "
+                         f"bodies {bodies}")
                 new, counts = got["mesh"]
                 need(len(new) == 1 == len(got["no mesh"][0]),
                      f"streamed mesh {name}: a round was skipped")
@@ -3105,7 +3237,7 @@ def streamed_split_round(smi_line: str, device: str = "cuda") -> dict:
         torch.cuda.synchronize()
         counts, bodies = launch_counts(), stream.body_launches()
         need(counts["stream_stats/cuda"] == windows
-             and bodies == {"mma": windows, "cross": 0},
+             and bodies == {"mma": windows, "f32": 0, "cross": 0},
              f"streamed split: {windows} windows, stream_stats launches "
              f"{counts['stream_stats/cuda']} on {bodies}")
         rounds = [_big_stages(ctx) for ctx in ctxs]
@@ -3296,7 +3428,8 @@ def robust_phase(ds, params) -> dict:
     from repro_torch.fl import (ServerConfig, run_hier_simulation,
                                 run_simulation)
     from repro_torch.hier import HierConfig, star_topology, two_tier_topology
-    from repro_torch.kernels import gram, launch_counts, reset_launch_counts
+    from repro_torch.kernels import (gram, launch_counts, reset_launch_counts,
+                                     stream)
     from repro_torch.models.logistic import logistic_apply, logistic_loss
     from repro_torch.obs import InMemoryTracker, use_tracker
     from repro_torch.robust import (ByzantineGauss, RobustConfig,
@@ -3322,19 +3455,25 @@ def robust_phase(ds, params) -> dict:
         torch.cuda.synchronize()
         reset_launch_counts()
         before = gram.block_body_launches()
+        stream_before = stream.body_launches()
         with use_tracker(tracker):
             res = run(lambda t, p: snaps.append(launch_counts()))
         torch.cuda.synchronize()
         counts = launch_counts()
         bodies = _tally_since(before, gram.block_body_launches())
+        stream_bodies = _tally_since(stream_before, stream.body_launches())
         plain = {k: v for k, v in counts.items() if k.endswith("/torch") and v}
         need(not plain, f"robust {name}: plain versions ran: {plain}")
         need(np.isfinite(res.train_loss).all(),
              f"robust {name}: non-finite losses {res.train_loss}")
-        need(bodies["mma"] == 0
-             and bodies["cross"] == counts["gram_block/cuda"],
+        need(bodies == {"mma": 0, "f32": counts["gram_block/cuda"],
+                        "cross": 0},
              f"robust {name}: gram_block bodies {bodies}, "
              f"{counts['gram_block/cuda']} launches")
+        need(stream_bodies == {"mma": 0, "f32": counts["stream_stats/cuda"],
+                               "cross": 0},
+             f"robust {name}: stream_stats bodies {stream_bodies}, "
+             f"{counts['stream_stats/cuda']} launches")
         prev = {k: 0 for k in counts}
         ops = (("gram", "gram_block") if fused_rounds else
                ("stream_stats", "combine") if streamed else ())
@@ -3353,10 +3492,12 @@ def robust_phase(ds, params) -> dict:
         log(f"robust {name:28s} loss {res.train_loss[0]:.6f} -> "
             f"{res.train_loss[-1]:.6f}  dropped {getattr(res, 'dropped', '-')}"
             f"  round ms median {statistics.median(ms):.2f} (first "
-            f"{ms[0]:.2f})  launches {launched}  gram_block bodies {bodies}")
+            f"{ms[0]:.2f})  launches {launched}  gram_block bodies {bodies}"
+            f"  stream_stats bodies {stream_bodies}")
         numbers["runs"][name] = {"loss": res.train_loss, "round_ms": ms,
                                  "launches": launched,
-                                 "gram_block_bodies": bodies}
+                                 "gram_block_bodies": bodies,
+                                 "stream_stats_bodies": stream_bodies}
         return res
 
     # the flat contextual_mom path: G from gram, C = U Gmᵀ from gram_block
@@ -3901,7 +4042,7 @@ def bigmodel_phase() -> dict:
          f"bigmodel: begin_round launched {launch_counts()}")
     # every slab of the accumulate pass takes the tensor-core body
     bodies = stream.body_launches()
-    need(bodies == {"mma": len(deltas), "cross": 0},
+    need(bodies == {"mma": len(deltas), "f32": 0, "cross": 0},
          f"bigmodel: begin_round's stream_stats bodies {bodies}")
     log(f"bigmodel: begin_round raised allocated memory by {rise} B "
         f"(limit {BIG_MEMORY_RISE}; one f32 (P, n) copy: {P * n * 4} B)")
@@ -3944,7 +4085,8 @@ def bigmodel_phase() -> dict:
     need(counts["stream_stats/cuda"] == 4 * len(deltas)
          and counts["combine/cuda"] == 4 * len(deltas),
          f"bigmodel: 4 rounds launched {counts}")
-    need(stream.body_launches() == {"mma": 4 * len(deltas), "cross": 0},
+    need(stream.body_launches() == {"mma": 4 * len(deltas), "f32": 0,
+                                    "cross": 0},
          f"bigmodel: 4 rounds' stream_stats bodies {stream.body_launches()}")
     # every slab's apply has 16-byte rows: all on combine_vec.cu
     combine_bodies = _tally_since(combine_before, combine.body_launches())
@@ -6852,8 +6994,9 @@ def setup_phase() -> str:
         f"{build_s['decode_attn.cu']:.2f}, sketch_mma.cu (8) "
         f"{build_s['sketch_mma.cu']:.2f}, gram_block_mma.cu (32) "
         f"{build_s['gram_block_mma.cu']:.2f}, gram_mma.cu (8) "
-        f"{build_s['gram_mma.cu']:.2f} and gram_f32.cu (20) "
-        f"{build_s['gram_f32.cu']:.2f}; slowest "
+        f"{build_s['gram_mma.cu']:.2f}, gram_f32.cu (20) "
+        f"{build_s['gram_f32.cu']:.2f} and cross_f32.cu (4) "
+        f"{build_s['cross_f32.cu']:.2f}; slowest "
         f"{max(build_s, key=build_s.get)} {max(build_s.values()):.2f}")
     _build.load_library()
     for K in (PATH_SHAPE[0], 25, 64, 100):
@@ -6876,6 +7019,27 @@ def setup_phase() -> str:
             f"blocks per SM; {gram.f32_num_slices(K)} slices x {blocks} "
             f"blocks of {cols} columns, scratch {floats} floats, "
             f"{'one launch' if blocks == 1 else 'one cooperative launch'}")
+    for ma, m1, m2, sym, n in ((PATH_SHAPE[0], PATH_SHAPE[0], 1, False, N_PATH),
+                               (25, 25, 1, False, N_PATH),
+                               (100, 100, 1, False, N_PATH),
+                               (64, 32, 1, False, 1 << 24),
+                               (100, 100, 100, True, 7840),
+                               (100, 100, 100, True, 10)):
+        vec = n % 4 == 0
+        level, blocks, cols, floats = cross.f32_call_plan(ma, m1, m2, sym, n,
+                                                          vec, 0)
+        per_sm, slices, _ = cross.f32_launch_config(ma, m1, m2, sym, level,
+                                                    vec, 0)
+        plan = cross.f32_plan(cross.F32Cuts.of(ma, m1, m2, sym, level),
+                              cols // cross.F32_GROUP)
+        what = (f"stream_stats P={ma}" if sym else
+                f"gram_block Ka={ma} Kb={m1}")
+        log(f"launch: cross_f32 {what} n={n} ({'16' if vec else '4'}-byte "
+            f"copies): level {level}, {slices} slices x {blocks} blocks of "
+            f"{cols} columns, {plan['budget']} threads, a ring of "
+            f"{plan['ring']} x {plan['groups']} groups ({plan['smem_bytes']} "
+            f"B), {per_sm} blocks per SM at the widest ring; scratch {floats} "
+            f"floats, {'one launch' if blocks == 1 else 'one cooperative launch'}")
     from repro_torch.kernels import combine
     for K, n, u16, w16 in ((100, 7840, False, False),
                            (BIG["P"], BIG_SLABS[0], True, False),
@@ -6985,9 +7149,9 @@ KERNEL_SOURCES = {
                     "src/repro/kernels/rng_sketch.py:127"),
     "sign_sketch_adjoint": ("src/repro_torch/kernels/csrc/rng_sketch_col.cu",
                             "src/repro/kernels/rng_sketch.py:94"),
-    "stream_stats": ("src/repro_torch/kernels/csrc/stream_stats.cu",
+    "stream_stats": ("src/repro_torch/kernels/csrc/cross_f32.cu",
                      "src/repro/kernels/stream.py:102"),
-    "gram_block": ("src/repro_torch/kernels/csrc/gram_block.cu",
+    "gram_block": ("src/repro_torch/kernels/csrc/cross_f32.cu",
                    "src/repro/kernels/gram.py:60"),
     "sketch": ("src/repro_torch/kernels/csrc/sketch.cu",
                "src/repro/kernels/sketch.py:39"),
@@ -7030,21 +7194,25 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     from repro_torch.kernels import (combine, decode_attn, gram, rng_sketch,
-                                     sketch)
+                                     sketch, stream)
     gram_bodies, block_bodies, sketch_bodies, decode_bodies = {}, {}, {}, {}
-    combine_bodies, sign_bodies = {}, {}
+    combine_bodies, sign_bodies, stream_bodies = {}, {}, {}
 
     def on_path(path: str, phase, *args):
         """Run a path phase; every gram launch in it must take the f32 body
         (gram_f32.cu: the paths hand gram f32 inputs), no path but the
-        robust one reaches gram_block, and that one only its cross.cuh body
-        (f32 inputs), and no path reaches sketch."""
+        robust one reaches gram_block, and that one only its f32 body
+        (cross_f32.cu: f32 inputs), no path takes cross.cuh's stream_stats
+        body (the f32 paths' slabs take cross_f32.cu, the big-model ones
+        the tensor cores; the phases gate each run's bodies themselves),
+        and no path reaches sketch."""
         gram.reset_body_launches()
         gram.reset_block_body_launches()
         sketch.reset_body_launches()
         decode_attn.reset_body_launches()
         combine.reset_body_launches()
         rng_sketch.reset_body_launches()
+        stream.reset_body_launches()
         result = phase(*args)
         combine_bodies[path] = combine.body_launches()
         sign_bodies[path] = rng_sketch.body_launches()
@@ -7052,17 +7220,24 @@ def main() -> int:
         block_bodies[path] = gram.block_body_launches()
         sketch_bodies[path] = sketch.body_launches()
         decode_bodies[path] = decode_attn.body_launches()
+        stream_bodies[path] = stream.body_launches()
         need(gram_bodies[path]["mma"] == 0
              and gram_bodies[path]["cuda_core"] == 0,
              f"{path}: gram bodies {gram_bodies[path]}, want f32 only")
         if path == "robust":
             need(block_bodies[path]["mma"] == 0
-                 and block_bodies[path]["cross"] > 0,
+                 and block_bodies[path]["cross"] == 0
+                 and block_bodies[path]["f32"] > 0,
                  f"{path}: gram_block bodies {block_bodies[path]}, want "
-                 "cross only")
+                 "f32 only")
         else:
             need(sum(block_bodies[path].values()) == 0,
                  f"{path}: gram_block bodies {block_bodies[path]}, want none")
+        need(stream_bodies[path]["cross"] == 0
+             and (path != "bigmodel" or stream_bodies[path]["f32"] == 0)
+             and (path not in ("streamed", "robust")
+                  or stream_bodies[path]["mma"] == 0),
+             f"{path}: stream_stats bodies {stream_bodies[path]}")
         need(sum(sketch_bodies[path].values()) == 0,
              f"{path}: sketch bodies {sketch_bodies[path]}, want none")
         need(all(t["first"] == 0 for t in sign_bodies[path].values()),
@@ -7120,11 +7295,22 @@ def main() -> int:
             f"included): {gram_bodies}")
         # every gram_block launch of the robust runs was counted by body
         # (each run gated exactly); the phase's card-vs-CPU rounds add more
-        need(block_bodies["robust"]["cross"]
+        need(block_bodies["robust"]["f32"]
              >= robusted["counts"]["gram_block/cuda"] > 0,
              f"robust: gram_block bodies {block_bodies['robust']}, "
              f"{robusted['counts']['gram_block/cuda']} launches in the runs")
         log(f"gram_block bodies by path: {block_bodies}")
+        # stream_stats: the f32 slabs of the streamed, robust-streamed and
+        # mesh rounds on cross_f32.cu, the big-model slabs and the split
+        # pass's windows on the tensor cores
+        for path in ("streamed", "robust"):
+            need(stream_bodies[path]["f32"] > 0,
+                 f"{path}: stream_stats bodies {stream_bodies[path]}")
+        need(stream_bodies["bigmodel"]["mma"]
+             >= big["counts"]["stream_stats/cuda"] > 0,
+             f"bigmodel: stream_stats bodies {stream_bodies['bigmodel']}")
+        log(f"stream_stats bodies by path (the last run's of each phase, "
+            f"each run gated in its phase): {stream_bodies}")
         # combine: the sync path's K = 10 x 7 850 f32 rows (31 400 bytes)
         # keep combine.cu; every big-model slab takes combine_vec.cu
         need(combine_bodies["sync"]["vec"] == 0
@@ -7163,8 +7349,13 @@ def main() -> int:
         bodies_by_path=gram_bodies)
     entries[names.index("gram_block")].update(
         sources=[KERNEL_SOURCES["gram_block"][0],
-                 "src/repro_torch/kernels/csrc/gram_block_mma.cu"],
+                 "src/repro_torch/kernels/csrc/gram_block_mma.cu",
+                 "src/repro_torch/kernels/csrc/gram_block.cu"],
         bodies_by_path=block_bodies)
+    entries[names.index("stream_stats")].update(
+        sources=[KERNEL_SOURCES["stream_stats"][0],
+                 "src/repro_torch/kernels/csrc/stream_stats.cu"],
+        bodies_by_path=stream_bodies)
     entries[names.index("sketch")].update(
         sources=[KERNEL_SOURCES["sketch"][0],
                  "src/repro_torch/kernels/csrc/sketch_mma.cu"],

@@ -72,6 +72,11 @@ _SIGNATURES = {
                             _I, _LL, _VP, _VP, _I, _VP],
     "stream_stats_mma_launch": [_VP, _LL, _VP, _LL, _I, _LL, _VP, _LL, _I,
                                 _LL, _VP, _VP, _I, _VP],
+    "cross_f32_launch_config": [_I, _I, _I, _I, _I, _I, ctypes.POINTER(_I),
+                                ctypes.POINTER(_I), ctypes.POINTER(_I)],
+    "cross_f32_launch": [_VP, _LL, _I, _VP, _LL, _I, _VP, _LL, _I, _I, _LL,
+                         _I, _I, _VP, _LL, _I, _LL, _VP, _LL, _VP, _LL, _I,
+                         _VP],
     "gram_block_launch_config": [_I, _I, ctypes.POINTER(_I),
                                  ctypes.POINTER(_LL)],
     "gram_block_launch": [_VP, _LL, _I, _I, _VP, _LL, _I, _I, _VP, _I, _LL,

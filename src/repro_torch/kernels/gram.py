@@ -28,14 +28,18 @@ stream without synchronising.  ``body_launches()`` tallies the launches by
 body, so a run can show which body its path took.
 
 ``gram_block_cuda`` replaces ``repro.kernels.gram.gram_block_pallas``.  It
-has two bodies as well, chosen from the inputs alone
-(:func:`_block_mma_eligible`): a call with U_a, U_b and g all bf16,
-1 <= Ka <= 64, 1 <= Kb <= 63, n % 8 == 0, 16-byte aligned pointers and row
-strides that are multiples of 8 runs on the bf16 tensor cores
-(``csrc/gram_block_mma.cu``), every other call on the shared cross-product
-body of ``csrc/cross.cuh`` (``csrc/gram_block.cu``: any Ka and Kb, f32 or
-bf16 each, no pad).  Both take A = U_a and B = [U_b; g] by pointer and row
-stride, so U_a and U_b may be row blocks of one matrix.
+has three bodies, chosen from the inputs alone (:func:`_block_body`): a
+call with U_a, U_b and g all bf16, 1 <= Ka <= 64, 1 <= Kb <= 63, n % 8 ==
+0, 16-byte aligned pointers and row strides that are multiples of 8 runs on
+the bf16 tensor cores (``mma``, ``csrc/gram_block_mma.cu``); every call with
+all three f32 — every launch of the robust path — on the f32 body of
+``csrc/cross_f32.cu`` (``f32``: 8 x 8 register tiles over a ``cp.async``
+ring, one launch a call; its planner is in ``cross.py``); the rest (mixed
+dtypes, unaligned or odd-n bf16) on the cross-product body of
+``csrc/cross.cuh`` (``cross``, ``csrc/gram_block.cu``), which
+``gram_block_cuda(..., body="cross")`` also takes for any call, so the card
+can time it beside the f32 body.  All take A = U_a and B = [U_b; g] by
+pointer and row stride, so U_a and U_b may be row blocks of one matrix.
 ``block_body_launches()`` tallies its launches by body.
 """
 from __future__ import annotations
@@ -70,7 +74,8 @@ F32_GROUP = 4             # columns of a staged group: one float4 a row
 # (65 535) at nb = 361 row blocks of 127
 F32_MAX_K = 361 * 127
 _BODY_LAUNCHES = {body: 0 for body in BODIES}
-_BLOCK_BODY_LAUNCHES = {"mma": 0, "cross": 0}
+BLOCK_BODIES = ("mma", "f32", "cross")
+_BLOCK_BODY_LAUNCHES = {body: 0 for body in BLOCK_BODIES}
 
 
 def _mma_eligible(updates: torch.Tensor, grad: torch.Tensor) -> bool:
@@ -145,9 +150,22 @@ def _block_mma_eligible(ua: torch.Tensor, ub: torch.Tensor,
             and ua.stride(0) % 8 == 0 and ub.stride(0) % 8 == 0)
 
 
+def _block_body(ua: torch.Tensor, ub: torch.Tensor,
+                grad: torch.Tensor) -> str:
+    """The body a ``gram_block`` call takes: ``mma`` where
+    :func:`_block_mma_eligible` holds, ``f32`` for U_a, U_b and g all f32,
+    ``cross`` for the rest.  Reads only dtypes, shapes, strides and
+    pointers."""
+    if _block_mma_eligible(ua, ub, grad):
+        return "mma"
+    if ua.dtype == ub.dtype == grad.dtype == torch.float32:
+        return "f32"
+    return "cross"
+
+
 def block_body_launches() -> Dict[str, int]:
-    """``{"mma": launches, "cross": launches}`` of ``gram_block`` since the
-    last reset."""
+    """``{"mma": launches, "f32": launches, "cross": launches}`` of
+    ``gram_block`` since the last reset."""
     return dict(_BLOCK_BODY_LAUNCHES)
 
 
@@ -532,56 +550,70 @@ def _launch_two_pass(updates: torch.Tensor, grad: torch.Tensor,
     _build.check(lib, rc, "gram")
 
 
-def gram_block_cuda(ua: torch.Tensor, ub: torch.Tensor, grad: torch.Tensor
+def gram_block_cuda(ua: torch.Tensor, ub: torch.Tensor, grad: torch.Tensor,
+                    *, body: Optional[str] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``ua (Ka, n)``, ``ub (Kb, n)`` (any row stride, unit-strided columns)
     and ``grad (n,)``, f32 or bf16 each, on one CUDA device →
-    ``(G_ab (Ka, Kb), c_a (Ka,))`` f32, on the tensor-core body when
-    :func:`_block_mma_eligible` holds and on cross.cuh's otherwise."""
+    ``(G_ab (Ka, Kb), c_a (Ka,))`` f32, on the body :func:`_block_body`
+    picks; ``body=`` forces one (``"cross"`` takes any call; ``"f32"``
+    wants all three f32, ``"mma"`` an eligible call)."""
     dev = ua.device
     lda = cross.row_stride("gram_block_cuda", "ua", ua, dev)
     ldb = cross.row_stride("gram_block_cuda", "ub", ub, dev)
-    if grad.dim() != 1:
-        raise ValueError(f"gram_block_cuda: grad must be 1-D, got shape "
-                         f"{tuple(grad.shape)}")
-    cross.row_stride("gram_block_cuda", "grad", grad[None, :], dev)
+    cross.vector_check("gram_block_cuda", "grad", grad, dev)
     (Ka, n), (Kb, nb) = ua.shape, ub.shape
     if nb != n or grad.shape[0] != n:
         raise ValueError(f"gram_block_cuda: operands disagree on n: {n}, {nb} "
                          f"and {grad.shape[0]}")
     if Ka < 1 or Kb < 1:
         raise ValueError(f"gram_block_cuda: Ka={Ka} and Kb={Kb} must be >= 1")
+    if body not in (None,) + BLOCK_BODIES:
+        raise ValueError(f"gram_block_cuda: body {body!r} not in "
+                         f"{BLOCK_BODIES}")
+    took = _block_body(ua, ub, grad)
+    if body == "mma" and took != "mma":
+        raise ValueError("gram_block_cuda: the mma body takes bf16 U_a, U_b "
+                         f"and g with Ka <= {BLOCK_MMA_MAX_KA}, Kb <= "
+                         f"{BLOCK_MMA_MAX_KB}, n % 8 == 0 and aligned rows")
+    if body == "f32" and took != "f32":
+        raise ValueError("gram_block_cuda: the f32 body takes f32 U_a, U_b "
+                         "and g")
+    took = body or took
     out = torch.empty((Ka * Kb + Ka,), dtype=torch.float32, device=dev)
     G, c = out[:Ka * Kb].view(Ka, Kb), out[Ka * Kb:]
     if n == 0:
         out.zero_()
         return G, c
-    mma = _block_mma_eligible(ua, ub, grad)
-    lib = _build.load_library()
-    if mma:
-        per_sm, _ = block_mma_launch_config(Ka, Kb, dev.index)
-        num_blocks, cols = grid(n, _build.sm_count(dev.index), per_sm)
-        ra, rb = block_mma_rows(Ka, Kb)
-        partial = torch.empty((num_blocks * ra * rb,), dtype=torch.float32,
-                              device=dev)
-        with torch.cuda.device(dev):
-            rc = lib.gram_block_mma_launch(
-                ua.data_ptr(), lda, Ka, ub.data_ptr(), ldb, Kb,
-                grad.data_ptr(), n, partial.data_ptr(), partial.numel(),
-                num_blocks, cols, G.data_ptr(), c.data_ptr(),
-                cross.stream_of(dev))
+    if took == "f32":
+        cross.launch_f32("gram_block", ua, Ka, lda, ub, Kb, ldb, grad, 1, 0,
+                         False, n, G, Kb, c, 1, False)
     else:
-        partial, num_blocks, cols = cross.scratch("gram_block_launch_config",
-                                                  (Ka, Kb), n, dev)
-        bf16 = torch.bfloat16
-        with torch.cuda.device(dev):
-            rc = lib.gram_block_launch(
-                ua.data_ptr(), lda, int(ua.dtype == bf16), Ka,
-                ub.data_ptr(), ldb, int(ub.dtype == bf16), Kb,
-                grad.data_ptr(), int(grad.dtype == bf16), n,
-                partial.data_ptr(), partial.numel(), num_blocks, cols,
-                G.data_ptr(), c.data_ptr(), cross.stream_of(dev))
-    _build.check(lib, rc, "gram_block")
+        lib = _build.load_library()
+        if took == "mma":
+            per_sm, _ = block_mma_launch_config(Ka, Kb, dev.index)
+            num_blocks, cols = grid(n, _build.sm_count(dev.index), per_sm)
+            ra, rb = block_mma_rows(Ka, Kb)
+            partial = torch.empty((num_blocks * ra * rb,),
+                                  dtype=torch.float32, device=dev)
+            with torch.cuda.device(dev):
+                rc = lib.gram_block_mma_launch(
+                    ua.data_ptr(), lda, Ka, ub.data_ptr(), ldb, Kb,
+                    grad.data_ptr(), n, partial.data_ptr(), partial.numel(),
+                    num_blocks, cols, G.data_ptr(), c.data_ptr(),
+                    cross.stream_of(dev))
+        else:
+            partial, num_blocks, cols = cross.scratch(
+                "gram_block_launch_config", (Ka, Kb), n, dev)
+            bf16 = torch.bfloat16
+            with torch.cuda.device(dev):
+                rc = lib.gram_block_launch(
+                    ua.data_ptr(), lda, int(ua.dtype == bf16), Ka,
+                    ub.data_ptr(), ldb, int(ub.dtype == bf16), Kb,
+                    grad.data_ptr(), int(grad.dtype == bf16), n,
+                    partial.data_ptr(), partial.numel(), num_blocks, cols,
+                    G.data_ptr(), c.data_ptr(), cross.stream_of(dev))
+        _build.check(lib, rc, "gram_block")
     count_launch("gram_block", "cuda")
-    _BLOCK_BODY_LAUNCHES["mma" if mma else "cross"] += 1
+    _BLOCK_BODY_LAUNCHES[took] += 1
     return G, c

@@ -34,6 +34,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from . import cross as _cross_mod
 from . import gram as _gram_mod
 from . import topk as _topk_mod
 from .cross import GRANULE, PARTIAL_FLOATS
@@ -83,6 +84,16 @@ def _cross_scratch(rows_a: int, rows_b: int, n: int, like) -> torch.Tensor:
     return _empty((slices * blocks * PARTIAL_FLOATS,), F32, like)
 
 
+def _cross_f32_scratch(ma: int, m1: int, m2: int, sym: bool, n: int,
+                       like) -> torch.Tensor:
+    """cross_f32.cu's partials: none where one block owns a slice's
+    columns, else one per slice and column block, over one wave."""
+    level = _cross_mod.f32_level(ma, m1, m2, sym, n, SMS)
+    cuts = _cross_mod.F32Cuts.of(ma, m1, m2, sym, level)
+    blocks, _ = _cross_mod.f32_grid(n, SMS, MAX_BLOCKS_PER_SM, cuts.slices())
+    return _empty((_cross_mod.f32_scratch_floats(cuts, blocks),), F32, like)
+
+
 def gram(updates: torch.Tensor, grad: torch.Tensor
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     K, n = updates.shape
@@ -114,6 +125,8 @@ def gram_block(ua: torch.Tensor, ub: torch.Tensor, grad: torch.Tensor
         blocks, _ = _gram_mod.grid(n, SMS, MAX_BLOCKS_PER_SM)
         ra, rb = _gram_mod.block_mma_rows(Ka, Kb)
         partial = _empty((blocks * ra * rb,), F32, ua)  # noqa: F841
+    elif all(t.dtype == F32 for t in (ua, ub, grad)):     # cross_f32.cu
+        partial = _cross_f32_scratch(Ka, Kb, 1, False, n, ua)  # noqa: F841
     else:
         partial = _cross_scratch(Ka, Kb + 1, n, ua)  # noqa: F841
     _record("gram_block", 2 * n * Ka * (Kb + 1), _bytes(ua, ub, grad, out))
@@ -126,7 +139,10 @@ def stream_stats(deltas: torch.Tensor, grads: torch.Tensor, *,
     P, n = deltas.shape
     res = tuple(_empty((2, P, P), F32, deltas).unbind(0)) if out is None \
         else tuple(out)
-    partial = _cross_scratch(P, 2 * P, n, deltas)  # noqa: F841
+    if deltas.dtype == F32 and grads.dtype == F32:      # cross_f32.cu
+        partial = _cross_f32_scratch(P, P, P, True, n, deltas)  # noqa: F841
+    else:
+        partial = _cross_scratch(P, 2 * P, n, deltas)  # noqa: F841
     # with ``out`` the statistics are added into it: read, then written
     _record("stream_stats", 2 * n * (P * (P + 1) // 2 + P * P),
             _bytes(deltas, grads, *res) + (0 if out is None else _bytes(*res)))

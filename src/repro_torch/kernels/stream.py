@@ -1,21 +1,27 @@
 """``stream_stats``: the round statistics G = D Dᵀ and C = D GMᵀ of the
 streamed round engine in one pass over n — the Hopper kernel.
 
-Replaces ``repro.kernels.stream.stream_stats_pallas``.  The CUDA source
-(``csrc/stream_stats.cu``) says what bounds it on the H100 and how the
-deterministic split reduction is laid out.  It has two bodies: a tensor-core
-body (``stream_stats_mma``) for the calls :func:`_mma_eligible` accepts —
-D and GM both bf16, P <= 32, rows 16-byte aligned, as every slab of the
-big-model round — and the shared cross product of ``csrc/cross.cuh`` for
-every other call (f32 or mixed inputs, P > 32, unaligned views).  The
-choice follows from the inputs alone.
+Replaces ``repro.kernels.stream.stream_stats_pallas``.  It has three
+bodies, chosen from the inputs alone (:func:`_body`):
 
-This module checks the inputs, allocates the outputs and the scratch with
-``torch.empty`` and launches on the current stream without synchronising.
-D and GM are taken as they lie — a (P, width) view of a stacked leaf, any
-row stride — with no copy, pad or upcast; ``out=(G, C)`` adds this slab's
-statistics into running sums.  ``body_launches()`` tallies the launches by
-body, so a run can show which body its path took.
+* ``mma`` (``csrc/stream_stats.cu``'s ``stream_stats_mma``): the calls
+  :func:`_mma_eligible` accepts — D and GM both bf16, P <= 32, rows 16-byte
+  aligned, as every slab of the big-model round — on the bf16 tensor cores.
+* ``f32`` (``csrc/cross_f32.cu``): D and GM both f32 — every launch of the
+  streamed paths' P = 100 slabs — 8 x 8 register tiles over a ``cp.async``
+  ring, the upper triangle of D Dᵀ only, one launch a call (its planner is
+  in ``cross.py``).
+* ``cross`` (``csrc/cross.cuh``): the rest (mixed inputs, P > 32 or
+  unaligned bf16), which ``stream_stats_cuda(..., body="cross")`` also
+  takes for any call, so the card can time it beside the f32 body.
+
+This module checks the inputs, allocates the outputs (and a scratch only
+where a body needs one) with ``torch.empty`` and launches on the current
+stream without synchronising.  D and GM are taken as they lie — a (P,
+width) view of a stacked leaf, any row stride — with no copy, pad or
+upcast; ``out=(G, C)`` adds this slab's statistics into running sums.
+``body_launches()`` tallies the launches by body, so a run can show which
+body its path took.
 """
 from __future__ import annotations
 
@@ -27,7 +33,8 @@ from . import _build, cross
 from .registry import count_launch
 
 MMA_MAX_ROWS = 32     # the tensor-core body's P: two 16-row tiles
-_BODY_LAUNCHES = {"mma": 0, "cross": 0}
+BODIES = ("mma", "f32", "cross")
+_BODY_LAUNCHES = {body: 0 for body in BODIES}
 
 
 def _mma_eligible(deltas: torch.Tensor, grads: torch.Tensor) -> bool:
@@ -42,8 +49,19 @@ def _mma_eligible(deltas: torch.Tensor, grads: torch.Tensor) -> bool:
                     for t in (deltas, grads)))
 
 
+def _body(deltas: torch.Tensor, grads: torch.Tensor) -> str:
+    """The body a call takes: ``mma`` where :func:`_mma_eligible` holds,
+    ``f32`` for D and GM both f32, ``cross`` for the rest."""
+    if _mma_eligible(deltas, grads):
+        return "mma"
+    if deltas.dtype == grads.dtype == torch.float32:
+        return "f32"
+    return "cross"
+
+
 def body_launches() -> Dict[str, int]:
-    """``{"mma": launches, "cross": launches}`` since the last reset."""
+    """``{"mma": launches, "f32": launches, "cross": launches}`` since the
+    last reset."""
     return dict(_BODY_LAUNCHES)
 
 
@@ -62,10 +80,13 @@ def _check_out(out, P: int, device: torch.device) -> None:
 
 
 def stream_stats_cuda(deltas: torch.Tensor, grads: torch.Tensor, *,
-                      out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                      out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                      body: Optional[str] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``deltas``, ``grads`` (P, n), f32 or bf16 each, unit-strided columns,
-    on one CUDA device → ``(G (P, P), C (P, P))`` f32.  With ``out`` the
+    on one CUDA device → ``(G (P, P), C (P, P))`` f32, on the body
+    :func:`_body` picks; ``body=`` forces one (``"cross"`` takes any call;
+    ``"f32"`` wants both f32, ``"mma"`` an eligible call).  With ``out`` the
     statistics are added into ``out`` (which is returned)."""
     dev = deltas.device
     ldd = cross.row_stride("stream_stats_cuda", "deltas", deltas, dev)
@@ -76,6 +97,15 @@ def stream_stats_cuda(deltas: torch.Tensor, grads: torch.Tensor, *,
     P, n = deltas.shape
     if P < 1:
         raise ValueError("stream_stats_cuda: P must be >= 1")
+    if body not in (None,) + BODIES:
+        raise ValueError(f"stream_stats_cuda: body {body!r} not in {BODIES}")
+    took = _body(deltas, grads)
+    if body == "mma" and took != "mma":
+        raise ValueError("stream_stats_cuda: the mma body takes bf16 D and GM "
+                         f"with P <= {MMA_MAX_ROWS} and 16-byte aligned rows")
+    if body == "f32" and took != "f32":
+        raise ValueError("stream_stats_cuda: the f32 body takes f32 D and GM")
+    took = body or took
     if out is None:
         both = torch.empty((2, P, P), dtype=torch.float32, device=dev)
         G, C = both[0], both[1]
@@ -88,23 +118,30 @@ def stream_stats_cuda(deltas: torch.Tensor, grads: torch.Tensor, *,
         if out is None:
             both.zero_()
         return (G, C) if out is None else out
-    mma = _mma_eligible(deltas, grads)
-    partial, num_blocks, cols = cross.scratch("stream_stats_launch_config",
-                                              (P, int(mma)), n, dev)
-    lib = _build.load_library()
-    with torch.cuda.device(dev):
-        if mma:
-            rc = lib.stream_stats_mma_launch(
-                deltas.data_ptr(), ldd, grads.data_ptr(), ldg, P, n,
-                partial.data_ptr(), partial.numel(), num_blocks, cols,
-                G.data_ptr(), C.data_ptr(), accumulate, cross.stream_of(dev))
-        else:
-            rc = lib.stream_stats_launch(
-                deltas.data_ptr(), ldd, int(deltas.dtype == torch.bfloat16),
-                grads.data_ptr(), ldg, int(grads.dtype == torch.bfloat16), P,
-                n, partial.data_ptr(), partial.numel(), num_blocks, cols,
-                G.data_ptr(), C.data_ptr(), accumulate, cross.stream_of(dev))
-    _build.check(lib, rc, "stream_stats")
+    if took == "f32":
+        cross.launch_f32("stream_stats", deltas, P, ldd, deltas, P, ldd,
+                         grads, P, ldg, True, n, G, P, C, P, bool(accumulate))
+    else:
+        mma = took == "mma"
+        partial, num_blocks, cols = cross.scratch(
+            "stream_stats_launch_config", (P, int(mma)), n, dev)
+        lib = _build.load_library()
+        with torch.cuda.device(dev):
+            if mma:
+                rc = lib.stream_stats_mma_launch(
+                    deltas.data_ptr(), ldd, grads.data_ptr(), ldg, P, n,
+                    partial.data_ptr(), partial.numel(), num_blocks, cols,
+                    G.data_ptr(), C.data_ptr(), accumulate,
+                    cross.stream_of(dev))
+            else:
+                rc = lib.stream_stats_launch(
+                    deltas.data_ptr(), ldd,
+                    int(deltas.dtype == torch.bfloat16), grads.data_ptr(),
+                    ldg, int(grads.dtype == torch.bfloat16), P, n,
+                    partial.data_ptr(), partial.numel(), num_blocks, cols,
+                    G.data_ptr(), C.data_ptr(), accumulate,
+                    cross.stream_of(dev))
+        _build.check(lib, rc, "stream_stats")
     count_launch("stream_stats", "cuda")
-    _BODY_LAUNCHES["mma" if mma else "cross"] += 1
+    _BODY_LAUNCHES[took] += 1
     return (G, C) if out is None else out

@@ -857,7 +857,7 @@ def _check_mma_body(D, GM):
     G, C = stream_stats(D, GM)
     G2, C2 = stream_stats(D, GM)
     assert launch_counts()["stream_stats/cuda"] == 2
-    assert stream.body_launches() == {"mma": 2, "cross": 0}
+    assert stream.body_launches() == {"mma": 2, "f32": 0, "cross": 0}
     assert torch.equal(G, G2) and torch.equal(C, C2)     # no float atomics
     assert torch.equal(G, G.T)
     Gr, Cr = ref.stream_stats_ref(D, GM)
@@ -898,7 +898,8 @@ def test_stream_stats_mma_body_at_the_embedding_slab(cuda_device):
 
 def test_stream_stats_other_calls_take_cross_partial(cuda_device):
     """A misaligned bf16 view, a mixed f32/bf16 pair and P = 33 keep the
-    cross.cuh body, with its results unchanged."""
+    cross.cuh body (each the body ``_body`` gives it), with its results
+    unchanged."""
     from repro_torch.kernels import stream
     gen = torch.Generator(device=cuda_device)
     gen.manual_seed(33)
@@ -910,9 +911,13 @@ def test_stream_stats_other_calls_take_cross_partial(cuda_device):
               _randn(gen, (33, 1000), torch.bfloat16, cuda_device))]
     for D, GM in cases:
         assert not stream._mma_eligible(D, GM)
+        took = stream._body(D, GM)
+        assert took == "cross"
         stream.reset_body_launches()
         G, C = stream_stats(D, GM)
-        assert stream.body_launches() == {"mma": 0, "cross": 1}
+        want = dict.fromkeys(stream.BODIES, 0)
+        want[took] = 1
+        assert stream.body_launches() == want
         Gr, Cr = ref.stream_stats_ref(D, GM)
         assert torch.equal(G, G.T)
         assert _rel_err(G, Gr) <= CROSS_TOL and _rel_err(C, Cr) <= CROSS_TOL
@@ -957,7 +962,7 @@ def _check_gram_block_mma(ua, ub, g):
     G2, c2 = gram_block_and_cross(ua, ub, g)
     assert launch_counts()["gram_block/cuda"] == 2
     assert launch_counts()["gram_block/torch"] == 0
-    assert gram.block_body_launches() == {"mma": 2, "cross": 0}
+    assert gram.block_body_launches() == {"mma": 2, "f32": 0, "cross": 0}
     assert torch.equal(G, G2) and torch.equal(c, c2)      # no float atomics
     (Ka, n), Kb = ua.shape, ub.shape[0]
     assert tuple(G.shape) == (Ka, Kb) and tuple(c.shape) == (Ka,)
@@ -1010,8 +1015,8 @@ def test_gram_block_mma_body_against_f64_at_model_width(cuda_device):
 
 def test_gram_block_other_calls_keep_cross(cuda_device):
     """Mixed dtypes each way, Ka = 65, Kb = 64, n % 8 != 0 and a bf16 U_a
-    starting 2 bytes into its buffer keep cross.cuh's body, with its results
-    unchanged."""
+    starting 2 bytes into its buffer keep cross.cuh's body (each the body
+    ``_block_body`` gives it), with its results unchanged."""
     from repro_torch.kernels import gram
     gen = torch.Generator(device=cuda_device)
     gen.manual_seed(6564)
@@ -1031,11 +1036,270 @@ def test_gram_block_other_calls_keep_cross(cuda_device):
              (shifted, r(5, 1024), g)]
     for ua, ub, gg in cases:
         assert not gram._block_mma_eligible(ua, ub, gg)
+        took = gram._block_body(ua, ub, gg)
+        assert took == "cross"
         gram.reset_block_body_launches()
         G, c = gram_block_and_cross(ua, ub, gg)
-        assert gram.block_body_launches() == {"mma": 0, "cross": 1}
+        want = dict.fromkeys(gram.BLOCK_BODIES, 0)
+        want[took] = 1
+        assert gram.block_body_launches() == want
         Gr, cr = ref.gram_block_ref(ua, ub, gg)
         assert _rel_err(G, Gr) <= CROSS_TOL and _rel_err(c, cr) <= CROSS_TOL
+
+
+# the f32 body of gram_block and stream_stats (csrc/cross_f32.cu): every
+# row count's tile edges (1, 7-9, 63-65, 127-128 rows), the paths' 10, 25
+# and 100, and two row groups a side past 128; n ragged (4-byte copies),
+# 130 (one block a slice), the paths' 7 850 and 2^20 + 3 (split columns)
+CROSS_F32_K = [1, 7, 8, 9, 10, 25, 32, 63, 64, 65, 100, 127, 128, 200]
+CROSS_F32_N = [1, 3, 130, 7850, (1 << 20) + 3]
+CROSS_F32_P = [1, 3, 16, 65, 100, 128]
+
+
+def _joint_err(got, want) -> float:
+    """max |got - want| over every output of one product, relative to
+    max(1, max |want|) over all of them: the product A Bᵀ the f32 body
+    forms, B = [U_b; g] (or [D; GM]), as one (Ka, Kb + 1) output, since a
+    lone entry that cancels (Ka = Kb = 1 at n = 2^20 + 3: 1.45 out of terms
+    of 666 000 in magnitude, the plain version itself 6e-5 off an f64
+    product) is no scale for f32 sums on its own."""
+    scale = max(1.0, max(float(w.float().abs().max()) for w in want))
+    return max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(got, want)) / scale
+
+
+def _check_gram_block_f32(ua, ub, g):
+    """Two calls of gram_block's f32 body: one launch each on ``f32``,
+    bitwise equal, within CROSS_TOL of the plain version (over (G_ab, c_a)
+    as one product, :func:`_joint_err`)."""
+    from repro_torch.kernels import gram
+    assert gram._block_body(ua, ub, g) == "f32"
+    gram.reset_block_body_launches()
+    reset_launch_counts()
+    G, c = gram_block_and_cross(ua, ub, g)
+    G2, c2 = gram_block_and_cross(ua, ub, g)
+    assert launch_counts()["gram_block/cuda"] == 2
+    assert launch_counts()["gram_block/torch"] == 0
+    assert gram.block_body_launches() == {"mma": 0, "f32": 2, "cross": 0}
+    assert torch.equal(G, G2) and torch.equal(c, c2)      # no float atomics
+    (Ka, n), Kb = ua.shape, ub.shape[0]
+    assert tuple(G.shape) == (Ka, Kb) and tuple(c.shape) == (Ka,)
+    assert _joint_err((G, c), ref.gram_block_ref(ua, ub, g)) <= CROSS_TOL
+    return G, c
+
+
+@pytest.mark.parametrize("Kb", CROSS_F32_K)
+@pytest.mark.parametrize("Ka", CROSS_F32_K)
+def test_gram_block_f32_body(cuda_device, Ka, Kb):
+    """f32 U_a, U_b and g take the f32 body at every n of CROSS_F32_N, as
+    row blocks of one matrix."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(Ka * 7919 + Kb)
+    for n in CROSS_F32_N:
+        U = _randn(gen, (Ka + Kb, n), torch.float32, cuda_device)
+        g = _randn(gen, (n,), torch.float32, cuda_device)
+        _check_gram_block_f32(U[:Ka], U[Ka:], g)
+
+
+@pytest.mark.parametrize("n", [3, 130, 7840, 7850])
+def test_gram_block_f32_body_on_views_and_windows(cuda_device, n):
+    """Column windows of wider matrices (row strides 8 000 and 8 003, the
+    16-byte copies where every row and n allow them) and a g that starts 4
+    bytes into its buffer go in as they lie."""
+    from repro_torch.kernels import cross
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(n)
+    for width, start, g_in in ((8000, 100, 0), (8000, 101, 0),
+                               (8003, 100, 1)):
+        wa = _randn(gen, (25, width), torch.float32, cuda_device)
+        wb = _randn(gen, (100, width), torch.float32, cuda_device)
+        g = _randn(gen, (n + g_in,), torch.float32, cuda_device)[g_in:]
+        ua, ub = wa[:, start:start + n], wb[:, start:start + n]
+        assert not ua.is_contiguous()
+        vec = cross.f32_vec(n, ua.data_ptr(), ua.stride(0), 25,
+                            ub.data_ptr(), ub.stride(0), 100, g.data_ptr(),
+                            1, 1)
+        assert vec == (n % 4 == 0 and width % 4 == 0 and start % 4 == 0
+                       and g_in == 0)
+        _check_gram_block_f32(ua, ub, g)
+        _check_gram_block_f32(ub, ua, g)
+
+
+def _check_stream_stats_f32(D, GM):
+    """Two calls of stream_stats' f32 body: one launch each on ``f32``,
+    bitwise equal, G exactly symmetric, within CROSS_TOL of the plain
+    version (over (G, C) as one product, :func:`_joint_err`), and ``out=``
+    adding into running sums."""
+    from repro_torch.kernels import stream
+    assert stream._body(D, GM) == "f32"
+    stream.reset_body_launches()
+    reset_launch_counts()
+    G, C = stream_stats(D, GM)
+    G2, C2 = stream_stats(D, GM)
+    assert launch_counts()["stream_stats/cuda"] == 2
+    assert launch_counts()["stream_stats/torch"] == 0
+    assert stream.body_launches() == {"mma": 0, "f32": 2, "cross": 0}
+    assert torch.equal(G, G2) and torch.equal(C, C2)      # no float atomics
+    assert torch.equal(G, G.T)
+    Gr, Cr = ref.stream_stats_ref(D, GM)
+    assert _joint_err((G, C), (Gr, Cr)) <= CROSS_TOL
+    out = (G.clone(), C.clone())
+    assert stream_stats(D, GM, out=out) is out            # adds into out
+    assert torch.equal(out[0], out[0].T)
+    assert _joint_err(out, (2 * Gr, 2 * Cr)) <= CROSS_TOL
+    assert stream.body_launches()["f32"] == 3
+    return G, C
+
+
+@pytest.mark.parametrize("n", CROSS_F32_N + [7840])
+@pytest.mark.parametrize("P", CROSS_F32_P)
+def test_stream_stats_f32_body(cuda_device, P, n):
+    """f32 D and GM take the f32 body; with ``out=`` it adds."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(P * 131 + n)
+    _check_stream_stats_f32(_randn(gen, (P, n), torch.float32, cuda_device),
+                            _randn(gen, (P, n), torch.float32, cuda_device))
+
+
+def test_stream_stats_f32_body_on_views_and_windows(cuda_device):
+    """A (P, width) view of a stacked leaf, rank windows of a slab (row
+    stride 400, and 7 840 with 16-byte copies) and two slabs summed into
+    running (G, C) as the streamed engine sums a round's leaves."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(400)
+    leaf = _randn(gen, (100, 784, 10), torch.float32, cuda_device)
+    gleaf = _randn(gen, (100, 784, 10), torch.float32, cuda_device)
+    _check_stream_stats_f32(leaf.reshape(100, -1), gleaf.reshape(100, -1))
+    wide = _randn(gen, (5, 400), torch.float32, cuda_device)
+    _check_stream_stats_f32(wide[:, 5:305], wide[:, 90:390])
+    slab = _randn(gen, (100, 7840), torch.float32, cuda_device)
+    gslab = _randn(gen, (100, 7840), torch.float32, cuda_device)
+    _check_stream_stats_f32(slab[:, 1960:3920], gslab[:, 3920:5880])
+    bias = _randn(gen, (100, 10), torch.float32, cuda_device)
+    gbias = _randn(gen, (100, 10), torch.float32, cuda_device)
+    G = torch.zeros(100, 100, device=cuda_device)
+    C = torch.zeros(100, 100, device=cuda_device)
+    for D, GM in ((slab, gslab), (bias, gbias)):
+        stream_stats(D, GM, out=(G, C))
+    Gw, Cw = ref.stream_stats_ref(slab, gslab)
+    Gb, Cb = ref.stream_stats_ref(bias, gbias)
+    assert torch.equal(G, G.T)
+    assert _rel_err(G, Gw + Gb) <= CROSS_TOL
+    assert _rel_err(C, Cw + Cb) <= CROSS_TOL
+
+
+@pytest.mark.parametrize("op,rows,n", [
+    ("gram_block", (10, 10), 7850), ("gram_block", (25, 25), 7850),
+    ("gram_block", (100, 100), 7850), ("gram_block", (64, 32), 1 << 20),
+    ("gram_block", (3, 130), 130), ("stream_stats", 100, 7840),
+    ("stream_stats", 100, 10), ("stream_stats", 65, 1000)])
+def test_cross_f32_body_is_one_kernel_a_call(cuda_device, op, rows, n):
+    """One device kernel a call, whether one block owns each slice (it
+    writes the outputs) or the blocks' partials are summed in the same
+    launch; no scratch where one block owns a slice."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch.kernels import cross
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(n)
+    if op == "gram_block":
+        Ka, Kb = rows
+        args = (_randn(gen, (Ka, n), torch.float32, cuda_device),
+                _randn(gen, (Kb, n), torch.float32, cuda_device),
+                _randn(gen, (n,), torch.float32, cuda_device))
+        call, plan = gram_block_and_cross, (Ka, Kb, 1, False)
+    else:
+        args = (_randn(gen, (rows, n), torch.float32, cuda_device),
+                _randn(gen, (rows, n), torch.float32, cuda_device))
+        call, plan = stream_stats, (rows, rows, rows, True)
+    call(*args)
+    torch.cuda.synchronize()
+    calls = 3
+    # a warm-up cycle first: a window that starts recording as it opens
+    # can miss its first launches on an H100
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        call(*args)
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(calls):
+            call(*args)
+        torch.cuda.synchronize()
+        prof.step()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_time_total > 0 and "cross" in e.key}
+    assert len(kernels) == 1 and sum(kernels.values()) == calls, kernels
+    assert "cross_f32" in next(iter(kernels))
+    if op == "gram_block":
+        srcs = [(t.data_ptr(), t.stride(0), t.shape[0] if t.dim() == 2 else 1)
+                for t in args]
+    else:
+        srcs = [(t.data_ptr(), t.stride(0), rows) for t in (args[0], *args)]
+    vec = cross.f32_vec(n, *(v for src in srcs for v in src))
+    level, blocks, _, floats = cross.f32_call_plan(*plan, n, vec,
+                                                   args[0].device.index)
+    per_sm, slices, block_floats = cross.f32_launch_config(
+        *plan, level, vec, args[0].device.index)
+    cuts = cross.F32Cuts.of(*plan, level)
+    assert slices == cuts.slices()
+    assert block_floats == 64 * cross.f32_plan(cuts)["budget"]
+    assert floats == cross.f32_scratch_floats(cuts, blocks)
+    assert (floats == 0) is (blocks == 1)
+    if n <= 128:
+        assert blocks == 1
+
+
+def test_cross_f32_body_against_f64_at_model_width(cuda_device):
+    """gram_block at Ka = 64, Kb = 32, n = 2^22 f32: the f32 body and the
+    plain version, each against an f64 product (the kernel within
+    CROSS_TOL)."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(6432)
+    U = _randn(gen, (96, 1 << 22), torch.float32, cuda_device)
+    g = _randn(gen, (1 << 22,), torch.float32, cuda_device)
+    G, c = _check_gram_block_f32(U[:64], U[64:], g)
+    G64, c64 = _gram_block_f64(U[:64], U[64:], g)
+    Gr, cr = ref.gram_block_ref(U[:64], U[64:], g)
+    kernel = max(_rel_err(G.double(), G64), _rel_err(c.double(), c64))
+    plain = max(_rel_err(Gr.double(), G64), _rel_err(cr.double(), c64))
+    print(f"gram_block 64 x 32 n=2^22 f32 against f64: kernel {kernel:.3e}, "
+          f"plain {plain:.3e}")
+    assert kernel <= CROSS_TOL
+
+
+def test_cross_f32_bodies_are_forced_and_checked(cuda_device):
+    """``body="cross"`` runs an f32 call on cross.cuh (the comparison body)
+    within CROSS_TOL of the f32 body's; ``body="f32"`` equals the default
+    on f32 and raises on bf16; ``body="mma"`` on f32 raises."""
+    from repro_torch.kernels import gram, stream
+    from repro_torch.kernels.stream import stream_stats_cuda
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(9)
+    ua = _randn(gen, (25, 7850), torch.float32, cuda_device)
+    ub = _randn(gen, (25, 7850), torch.float32, cuda_device)
+    g = _randn(gen, (7850,), torch.float32, cuda_device)
+    gram.reset_block_body_launches()
+    G, c = gram_block_cuda(ua, ub, g)
+    G1, c1 = gram_block_cuda(ua, ub, g, body="cross")
+    G2, c2 = gram_block_cuda(ua, ub, g, body="f32")
+    assert gram.block_body_launches() == {"mma": 0, "f32": 2, "cross": 1}
+    assert torch.equal(G, G2) and torch.equal(c, c2)
+    assert _rel_err(G1, G) <= CROSS_TOL and _rel_err(c1, c) <= CROSS_TOL
+    with pytest.raises(ValueError, match="f32 body"):
+        gram_block_cuda(ua.bfloat16(), ub.bfloat16(), g.bfloat16(),
+                        body="f32")
+    with pytest.raises(ValueError, match="mma body"):
+        gram_block_cuda(ua, ub, g, body="mma")
+    D, GM = ua[:, :7840], ub[:, :7840]
+    stream.reset_body_launches()
+    G, C = stream_stats_cuda(D, GM)
+    G1, C1 = stream_stats_cuda(D, GM, body="cross")
+    assert stream.body_launches() == {"mma": 0, "f32": 1, "cross": 1}
+    assert _rel_err(G1, G) <= CROSS_TOL and _rel_err(C1, C) <= CROSS_TOL
+    with pytest.raises(ValueError, match="f32 body"):
+        stream_stats_cuda(D.bfloat16(), GM.bfloat16(), body="f32")
+    with pytest.raises(ValueError, match="body"):
+        stream_stats_cuda(D, GM, body="wide")
 
 
 @pytest.mark.parametrize("K,m,n", [(1, 1, 1), (3, 17, 130), (8, 1024, 4099),
@@ -1627,7 +1891,7 @@ def test_recurrent_decode_never_syncs_and_repeats_bitwise(cuda_device, name):
 def test_robust_aggregators_on_the_card_match_the_cpu(cuda_device, name):
     """The flat robust aggregators on the card against the same call on the
     CPU (plain versions): G from ``gram``, the cross matrix from
-    ``gram_block`` (its cross.cuh body: f32 inputs), the step through
+    ``gram_block`` (its f32 body: f32 inputs), the step through
     ``combine``; krum's selection equal."""
     from repro_torch.core import AggregatorConfig, SolveConfig, aggregate
     from repro_torch.kernels import gram
@@ -1656,7 +1920,7 @@ def test_robust_aggregators_on_the_card_match_the_cpu(cuda_device, name):
             assert counts["combine/cuda"] == 1
             contextual = name.startswith("contextual")
             assert counts["gram_block/cuda"] == int(contextual)
-            assert bodies == {"mma": 0, "cross": int(contextual)}
+            assert bodies == {"mma": 0, "f32": int(contextual), "cross": 0}
     (got, ginfo), (want, winfo) = outs["cuda"], outs["cpu"]
     for k in params:
         assert _rel_err(got[k].cpu(), want[k]) <= 1e-4
@@ -1669,7 +1933,7 @@ def test_robust_aggregators_on_the_card_match_the_cpu(cuda_device, name):
 @pytest.mark.parametrize("engine", ["fused", "streamed"])
 def test_robust_hier_runs_through_the_cuda_kernels(cuda_device, engine):
     """Attack, churn and ``HierConfig.robust`` on the card: the fused
-    engine's robust stages launch ``gram_block`` (cross body), the
+    engine's robust stages launch ``gram_block`` (f32 body), the
     streamed engine's none; two runs bitwise equal; no plain version."""
     from repro_torch.kernels import gram
     from repro_torch.robust import (ByzantineGauss, RobustConfig,
@@ -1697,7 +1961,7 @@ def test_robust_hier_runs_through_the_cuda_kernels(cuda_device, engine):
         assert all(v == 0 for k, v in counts.items() if k.endswith("/torch"))
         if engine == "fused":       # one per gateway a round
             assert counts["gram_block/cuda"] == 3 * 3
-            assert bodies == {"mma": 0, "cross": 3 * 3}
+            assert bodies == {"mma": 0, "f32": 3 * 3, "cross": 0}
         else:
             assert counts["gram_block/cuda"] == 0
             assert counts["stream_stats/cuda"] == 3 * 2
