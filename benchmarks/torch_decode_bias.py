@@ -8,8 +8,10 @@ step's logits.  Needs one CUDA card and the CUDA toolkit; imports no JAX.
 It builds the full qwen3-14b (40 layers, bf16, weights from a seeded
 generator on the card), fills a 4-slot, 256-row KV cache with normal noise,
 and runs one decode step at depths 200-230 through ``models.transformer.
-decode_slots`` with each attention: the tensor-core body
-(``csrc/decode_attn_mma.cu``), the CUDA-core body (``csrc/decode_attn.cu``),
+decode_slots`` with each attention: the two-launch tensor-core body
+(``csrc/decode_attn_mma.cu``; at this shape the cluster body that serves
+every bf16 call, ``csrc/decode_attn_cluster.cu``, has its split plan and
+is bitwise equal to it), the CUDA-core body (``csrc/decode_attn.cu``),
 the plain version (``kernels.ref``, f32) and the plain arithmetic in f64.
 It prints:
 
@@ -133,7 +135,8 @@ def main() -> int:
     layers = {"mma": [], "cuda_core": [], "plain": []}
     for q, k, v, lengths in captured:
         exact = exact_attention(q, k, v, lengths)
-        outs = {"mma": decode_attn.flash_decode_cuda(q, k, v, lengths)[0],
+        outs = {"mma": decode_attn.flash_decode_cuda(q, k, v, lengths,
+                                                     body="mma")[0],
                 "cuda_core": decode_attn.flash_decode_cuda(
                     q, k, v, lengths, body="cuda_core")[0],
                 "plain": ref.flash_decode_ref(q, k, v, lengths)[0]}

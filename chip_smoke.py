@@ -146,7 +146,8 @@ Phases (any failure exits non-zero and prints no result line):
      serve 8 requests (prompts of 48-200 tokens, 32 or 4 new) with one
      mid-flight publish on the ``ModelBus``.  Every request completes, the
      versions are monotone, ``flash_decode`` launches L x decode steps, all
-     on the tensor-core body, and no plain version runs; tokens/s, one decode step and one prefill chunk
+     on the cluster body, and no plain version runs; tokens/s, one decode
+     step and one prefill chunk
      alone (CUDA events) beside the step's byte bound, the device busy time
      per step from ``torch.profiler``, the swap stall; one step's logits
      with the kernel against the plain ``flash_decode``, beside the floor
@@ -274,17 +275,21 @@ bf16 rows with K <= 64, aligned rows and n % 8 == 0 take
 (o and lse) at the serve path's shape, the MoE serve path's (KV 16, G 1,
 hd 128), the placed serve part's (qwen3-14b's and zamba2-1.2b's heads, B
 4 on a 32 768-row cache), a decode_32k-like cache, gemma-7b's
-and starcoder2-15b's heads (the latter windowed), the decode_32k-like
+and starcoder2-15b's heads (the latter windowed), few heads on a
+131 072-row cache (where the cluster body's cap binds), the decode_32k-like
 cache cut into 16 seq blocks of 2 048 rows as the placed decode step calls
 it on each rank's block (each body launched per block with local lengths,
 the partials merged by ``ops.lse_merge``, gated against one whole-cache
 call and the plain version with later blocks empty and a window across
 block edges; the 16 calls plus the merge timed beside the whole call),
-with ragged, strided,
-soft-capped and f32 caches, timed beside SDPA (bf16 q, k and v at hd 64
-or 128 take the tensor-core body of ``decode_attn_mma.cu``, timed in turn
-with ``decode_attn.cu``'s body on the same inputs; every other call
-``decode_attn.cu``; device µs of both bodies' partial and merge kernels).
+with ragged, strided, soft-capped and f32 caches, timed beside SDPA (bf16
+q, k and v at hd 64 or 128 take the cluster body of
+``decode_attn_cluster.cu``, one kernel a call, timed in turn with the
+two-launch body of ``decode_attn_mma.cu`` (bitwise equal where the two
+split plans agree) and ``decode_attn.cu``'s body on the same inputs, by
+events, device µs and host µs to issue; every other call
+``decode_attn.cu``; the ctypes call's own cost, 27 arguments against the
+cluster body's plan by pointer).
 
 The last lines are one ``{"kernels": [...]}`` JSON object, the
 ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device": ...}``.
@@ -460,6 +465,9 @@ DECODE_TOL = 1e-4
 # the MoE serve path's shape: both MoE configs have 16 KV heads of hd 128
 # and no grouping (G = 1), on the serve cache and lengths
 DECODE_MOE = (4, 256, 16, 1, 128, None, [1, 97, 200, 256])
+# few heads on a long cache, where the cluster body's cap of 16 splits a
+# head binds (the two-launch body takes 33): 537 MB of K and V
+DECODE_LONG = (1, 131072, 8, 5, 128, None, None)
 # the serve phase's placed part's own shapes (SERVE_PLACED: 4 rows of a
 # 32 768-row cache on a one-rank mesh, so a rank's block is the whole
 # cache): qwen3-14b's heads, and zamba2-1.2b's shared block (KV 32, G 1,
@@ -1874,18 +1882,60 @@ def decode_bound(B: int, S: int, KV: int, G: int, hd: int, dt, lengths,
             "bytes": nbytes, "flops": flops, "live_rows": live}
 
 
+def decode_plans(q, k, window=None, softcap=None) -> dict:
+    """``{body: [splits, rows]}`` of the two tensor-core bodies for a bf16
+    call (the cluster body's plan and the two-launch body's)."""
+    from repro_torch.kernels import decode_attn
+    B, S, KV, hd = k.shape
+    key = (B, S, KV, q.shape[2], hd, True, True, k.stride(), k.stride(),
+           window, softcap, k.device.index)
+    return {body: [p.splits, p.rows] for body, p in (
+        (body, decode_attn._plan(body, *key)) for body in ("cluster", "mma"))}
+
+
+def ctypes_call_us(reps: int = 20000) -> dict:
+    """Host µs of the ctypes call alone, each refused by the library at
+    once (hd 0): the two-launch body's 27 arguments against the cluster
+    body's 7 (its per-plan constants in one ClusterPlan by pointer); median
+    of 5 rounds taken in turn."""
+    import ctypes
+    from repro_torch.kernels import _build, decode_attn
+    lib = _build.load_library()
+    plan = decode_attn.ClusterPlan()
+    addr = ctypes.addressof(plan)
+    calls = {
+        "args_27": lambda: lib.flash_decode_mma_launch(
+            0, 0, 0, 0, 0, 0, 0, 0, 4, 256, 8, 5, 0, 8, 8, 8, 8, 8, 8, 4, 64,
+            0.088, 0, 0, 0, 0.0, 0),
+        "plan_by_pointer_7": lambda: lib.flash_decode_cluster_launch(
+            addr, 0, 0, 0, 0, 0, 0)}
+    runs = {name: [] for name in calls}
+    for _ in range(5):
+        for name, fn in calls.items():
+            need(fn() != 0, f"ctypes probe: {name} was not refused")
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            runs[name].append((time.perf_counter() - t0) / reps * 1e6)
+    return {name: statistics.median(r) for name, r in runs.items()}
+
+
 def check_decode(B: int, S: int, KV: int, G: int, hd: int, dt, gen,
                  lengths=None, window=None, softcap=None, timed=True,
                  stacked=False) -> dict:
     """flash_decode against its plain version on the card (o and lse within
     DECODE_TOL, two calls bitwise equal, both on the body the inputs route
-    to: ``mma``, decode_attn_mma.cu, for bf16 q, k and v at hd 64 or 128,
-    ``cuda_core``, decode_attn.cu, otherwise); with ``timed``, CUDA-event
-    times of the kernel, the plain version and SDPA on the same rows and
-    the device µs of the call's kernels from ``torch.profiler``.  A row on
-    the tensor-core body also times the CUDA-core body on the same inputs
-    (held to the same tolerance), the two bodies in turn (CUDA-core,
-    tensor-core, tensor-core, CUDA-core)."""
+    to: ``cluster``, decode_attn_cluster.cu, for bf16 q, k and v at hd 64
+    or 128, ``cuda_core``, decode_attn.cu, otherwise); a cluster row also
+    runs the two-launch body (``mma``, decode_attn_mma.cu) and the
+    CUDA-core body on the same inputs, each within DECODE_TOL, the first
+    bitwise equal to the cluster body where the two split plans agree.
+    With ``timed``: CUDA-event times of the kernel, the plain version and
+    SDPA on the same rows, the device µs of the call's kernels from
+    ``torch.profiler`` (a cluster call must be the one ``decode_cluster``
+    kernel) and the host µs to issue a call; a cluster row times the three
+    bodies in turn (CUDA-core, mma, cluster, cluster, mma, CUDA-core), by
+    events, device and host."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attn, ops
@@ -1899,7 +1949,7 @@ def check_decode(B: int, S: int, KV: int, G: int, hd: int, dt, gen,
         v = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dt)
     ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     kw = dict(window=window, softcap=softcap)
-    body = "mma" if decode_attn._mma_eligible(q, k, v) else "cuda_core"
+    body = "cluster" if decode_attn._mma_eligible(q, k, v) else "cuda_core"
     decode_attn.reset_body_launches()
     got = ops.flash_decode(q, k, v, ln, backend="cuda", **kw)
     again = ops.flash_decode(q, k, v, ln, backend="cuda", **kw)
@@ -1921,29 +1971,44 @@ def check_decode(B: int, S: int, KV: int, G: int, hd: int, dt, gen,
            "max_abs_err": max(_max_err(a, b) for a, b in zip(got, want)),
            "rel_err": err, "tolerance": DECODE_TOL,
            "bitwise_repeatable": bitwise, "body": body}
-    if body == "mma":
-        first = decode_attn.flash_decode_cuda(q, k, v, ln, body="cuda_core",
-                                              **kw)
-        rec["cuda_core_rel_err"] = max(_max_err(a, b) / _scale(b)
-                                       for a, b in zip(first, want))
-        need(rec["cuda_core_rel_err"] <= DECODE_TOL,
-             f"{what}: the CUDA-core body {rec['cuda_core_rel_err']:.3e} "
-             f"off plain")
+    others = ("mma", "cuda_core") if body == "cluster" else ()
+    for other in others:
+        res = decode_attn.flash_decode_cuda(q, k, v, ln, body=other, **kw)
+        rec[f"{other}_rel_err"] = max(_max_err(a, b) / _scale(b)
+                                      for a, b in zip(res, want))
+        need(rec[f"{other}_rel_err"] <= DECODE_TOL,
+             f"{what}: the {other} body {rec[f'{other}_rel_err']:.3e} off "
+             "plain")
+        if other == "mma":
+            rec["plans"] = decode_plans(q, k, window, softcap)
+            rec["mma_bitwise"] = all(torch.equal(a, b)
+                                     for a, b in zip(got, res))
+            need(rec["mma_bitwise"] or rec["plans"]["cluster"]
+                 != rec["plans"]["mma"], f"{what}: the cluster and mma "
+                 f"bodies differ on one split plan {rec['plans']}")
     if timed:
         b_rec = decode_bound(B, S, KV, G, hd, dt, lengths, window)
         reps = reps_for(b_rec["bytes"])
         kernel = lambda: ops.flash_decode(q, k, v, ln, backend="cuda", **kw)  # noqa: E731
-        if body == "mma":
-            parent = lambda: decode_attn.flash_decode_cuda(  # noqa: E731
-                q, k, v, ln, body="cuda_core", **kw)
-            runs = [time_ms(fn, reps) for fn in (parent, kernel, kernel,
-                                                 parent)]
-            rec["ms_runs"], rec["cuda_core_ms_runs"] = runs[1:3], runs[::3]
-            rec["ms"] = statistics.median(runs[1:3])
-            rec["cuda_core_ms"] = statistics.median(runs[::3])
-            kernels = device_kernel_means(parent)
-            rec["cuda_core_device_kernels"] = kernels
-            rec["cuda_core_device_ms"] = sum(ms for _, ms in kernels.values())
+        if others:
+            fns = {"cluster": kernel}
+            for other in others:
+                fns[other] = (lambda other=other: decode_attn.flash_decode_cuda(
+                    q, k, v, ln, body=other, **kw))
+            order = ("cuda_core", "mma", "cluster", "cluster", "mma",
+                     "cuda_core")
+            runs = [time_ms(fns[name], reps) for name in order]
+            for name in fns:
+                mine = [t for t, n in zip(runs, order) if n == name]
+                pre = "" if name == "cluster" else f"{name}_"
+                rec[f"{pre}ms_runs"] = mine
+                rec[f"{pre}ms"] = statistics.median(mine)
+            for other in others:
+                kernels = device_kernel_means(fns[other])
+                rec[f"{other}_device_kernels"] = kernels
+                rec[f"{other}_device_ms"] = sum(ms for _, ms in
+                                                kernels.values())
+            rec["host_ms_in_turn"] = host_ms_in_turn(fns, reps)
         else:
             rec["ms"] = time_ms(kernel, reps)
         rec["plain_ms"] = time_ms(
@@ -1952,10 +2017,13 @@ def check_decode(B: int, S: int, KV: int, G: int, hd: int, dt, gen,
         rec["device_kernels"] = kernels
         rec["device_ms"] = sum(ms for _, ms in kernels.values())
         rec["device_kernels_per_call"] = len(kernels)
-        rec["host_ms"] = host_ms(kernel, reps)
-        if body == "mma":
-            need(any("decode_mma_partial" in name for name in kernels),
-                 f"{what}: device kernels {list(kernels)}")
+        rec["host_ms"] = (rec["host_ms_in_turn"]["cluster"] if others
+                          else host_ms(kernel, reps))
+        if body == "cluster":
+            need(len(kernels) == 1 and "decode_cluster" in next(iter(kernels))
+                 and not any("merge" in n for n in kernels),
+                 f"{what}: device kernels {list(kernels)}, want the one "
+                 "decode_cluster kernel a call")
         # SDPA on the same rows with a length (and window) mask; it returns
         # o but no lse.  k and v are transposed to (B, KV, S, hd) once,
         # outside the timing.
@@ -1976,21 +2044,30 @@ def check_decode(B: int, S: int, KV: int, G: int, hd: int, dt, gen,
                     ms for _, ms in device_kernel_means(lib).values())
         except (RuntimeError, TypeError) as exc:
             rec["library_ms"], rec["library_error"] = None, str(exc)[:200]
+        del kh, vh
         rec["library"] = ("scaled_dot_product_attention(enable_gqa, bool "
                           "length mask): o only, no lse; transpose not timed")
         rec.update(b_rec)
-        if body == "mma":
-            log(f"{what} window={window}: tensor-core body "
+        if others:
+            log(f"{what} window={window}: plans {rec['plans']}, cluster = "
+                f"mma bitwise {rec['mma_bitwise']}; by events cluster "
                 f"{' / '.join(f'{t * 1e3:.1f}' for t in rec['ms_runs'])} us, "
-                f"CUDA-core body "
+                f"mma {' / '.join(f'{t * 1e3:.1f}' for t in rec['mma_ms_runs'])}"
+                f" us, CUDA-core "
                 f"{' / '.join(f'{t * 1e3:.1f}' for t in rec['cuda_core_ms_runs'])}"
-                f" us (in turn: CUDA-core, tensor-core, tensor-core, "
-                f"CUDA-core); device kernels (launches in 3 calls, us per "
-                f"launch) tensor-core: " + _kernel_names(rec) + "; CUDA-core: "
+                f" us (in turn: CUDA-core, mma, cluster, cluster, mma, "
+                f"CUDA-core); host us to issue, in turn: "
+                + ", ".join(f"{n} {t * 1e3:.1f}"
+                            for n, t in rec["host_ms_in_turn"].items())
+                + "; device kernels (launches in 3 calls, us per launch) "
+                "cluster: " + _kernel_names(rec) + "; mma: "
+                + _kernel_names({"device_kernels": rec["mma_device_kernels"]})
+                + "; CUDA-core: "
                 + _kernel_names({"device_kernels":
                                  rec["cuda_core_device_kernels"]})
-                + f"; SDPA device {rec.get('library_device_ms', 0) * 1e3:.1f}"
-                " us")
+                + f"; SDPA {_fmt_us(rec['library_ms']).strip()} us, device "
+                f"{rec.get('library_device_ms', 0) * 1e3:.1f} us; bound "
+                f"{rec['bound_ms'] * 1e3:.1f} us")
         else:
             log(f"{what} window={window}: device kernels (launches in 3 "
                 f"calls, us per launch) " + _kernel_names(rec))
@@ -1999,17 +2076,19 @@ def check_decode(B: int, S: int, KV: int, G: int, hd: int, dt, gen,
 
 def check_decode_blocks(gen) -> dict:
     """flash_decode on ``DECODE_BLOCKS``' 16 seq blocks, as the placed
-    decode step calls it on each rank's block: each body (``mma``,
-    ``cuda_core``) launched on every block with local lengths (position + 1
-    - the block's first row), the partials merged by ``ops.lse_merge``.
+    decode step calls it on each rank's block: each body (``cluster``,
+    ``mma``, ``cuda_core``) launched on every block with local lengths
+    (position + 1 - the block's first row), the partials merged by
+    ``ops.lse_merge``.
     Gates, on lengths that leave later blocks empty, with and without a
     window that crosses block edges, and on full lengths: no NaN, a row
     with no live key in its block o = 0 and lse <= -1e30, the merge within
     DECODE_TOL of one whole-cache call of the same body and of the plain
     version.  Times (full lengths, CUDA events): the 16 calls plus the
-    merge and the whole call, each body in turn, the plain version on the
-    same blocks plus the merge, SDPA on the whole cache, beside the whole
-    call's byte bound."""
+    merge, the whole call and one rank's block alone, each body in turn
+    (CUDA-core, mma, cluster, cluster, mma, CUDA-core), with the host µs to
+    issue them, the plain version on the same blocks plus the merge, SDPA
+    on the whole cache, beside the whole call's byte bound."""
     import torch
     from repro_torch.kernels import decode_attn, ops
     D = DECODE_BLOCKS
@@ -2080,20 +2159,23 @@ def check_decode_blocks(gen) -> dict:
     ln = torch.tensor(full, dtype=torch.int32, device="cuda")
     b_rec = decode_bound(B, S, KV, G, hd, bf16, full, None)
     reps = 20
+    bodies = decode_attn.BODIES
     fns = {body: (lambda body=body: merged(on_blocks(ln, None, body)))
-           for body in decode_attn.BODIES}
+           for body in bodies}
     whole = {body: (lambda body=body: decode_attn.flash_decode_cuda(
-        q, k, v, ln, body=body)) for body in decode_attn.BODIES}
+        q, k, v, ln, body=body)) for body in bodies}
     # one rank's call: block 1 of the 16, every row live
     local = ln - starts[1]
     one = {body: (lambda body=body: decode_attn.flash_decode_cuda(
-        q, *blocks[1], local, body=body)) for body in decode_attn.BODIES}
-    runs = [time_ms(f, reps) for f in (fns["cuda_core"], fns["mma"],
-                                       fns["mma"], fns["cuda_core"],
-                                       whole["cuda_core"], whole["mma"],
-                                       whole["mma"], whole["cuda_core"],
-                                       one["cuda_core"], one["mma"],
-                                       one["mma"], one["cuda_core"])]
+        q, *blocks[1], local, body=body)) for body in bodies}
+    order = ("cuda_core", "mma", "cluster", "cluster", "mma", "cuda_core")
+    runs = {}
+    for what_, group in (("blocks", fns), ("whole", whole), ("one", one)):
+        times = [time_ms(group[body], reps) for body in order]
+        runs[what_] = {body: [t for t, b in zip(times, order) if b == body]
+                       for body in bodies}
+    med = {what_: {body: statistics.median(r) for body, r in by.items()}
+           for what_, by in runs.items()}
     one_bound = decode_bound(B, rows, KV, G, hd, bf16, [rows] * B, None)
     plain_ms = time_ms(lambda: merged(on_blocks(ln, None, None, "torch")), 3)
     qh = q.reshape(B, KV * G, 1, hd)
@@ -2102,42 +2184,58 @@ def check_decode_blocks(gen) -> dict:
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qh, kh, vh, enable_gqa=True), reps)
     del kh, vh
-    kernels = device_kernel_means(fns["mma"])
+    kernels = device_kernel_means(fns["cluster"])
+    host = host_ms_in_turn(fns, reps)
+    one_host = host_ms_in_turn(one, reps)
     rec = {"set": "blocks", "B": B, "S": S, "KV": KV, "G": G, "hd": hd,
            "dtype": "bfloat16", "window": None, "lengths": f"all {S}",
-           "blocks": n, "rows_per_block": rows, "body": "mma",
-           "ms": statistics.median(runs[1:3]), "ms_runs": runs[1:3],
-           "cuda_core_ms": statistics.median(runs[0:4:3]),
-           "whole_ms": statistics.median(runs[5:7]),
-           "cuda_core_whole_ms": statistics.median(runs[4:8:3]),
-           "block_ms": statistics.median(runs[9:11]),
-           "cuda_core_block_ms": statistics.median(runs[8:12:3]),
+           "blocks": n, "rows_per_block": rows, "body": "cluster",
+           "ms": med["blocks"]["cluster"], "ms_runs": runs["blocks"]["cluster"],
+           "mma_ms": med["blocks"]["mma"],
+           "cuda_core_ms": med["blocks"]["cuda_core"],
+           "whole_ms": med["whole"]["cluster"],
+           "mma_whole_ms": med["whole"]["mma"],
+           "cuda_core_whole_ms": med["whole"]["cuda_core"],
+           "block_ms": med["one"]["cluster"],
+           "mma_block_ms": med["one"]["mma"],
+           "cuda_core_block_ms": med["one"]["cuda_core"],
+           "runs_in_turn": runs,
            "block_bound_ms": one_bound["bound_ms"],
-           "block_device_kernels": device_kernel_means(one["mma"]),
+           "block_device_kernels": device_kernel_means(one["cluster"]),
+           "mma_block_device_kernels": device_kernel_means(one["mma"]),
+           "block_host_ms_in_turn": one_host,
            "plain_ms": plain_ms, "library_ms": library_ms,
            "library": "scaled_dot_product_attention(enable_gqa) on the "
                       "whole cache: o only; transpose not timed",
            "device_kernels": kernels,
            "device_ms": sum(ms for _, ms in kernels.values()),
            "device_kernels_per_call": len(kernels),
-           "host_ms": host_ms(fns["mma"], reps),
+           "host_ms": host["cluster"], "host_ms_in_turn": host,
            "gates": gates, "rel_err": worst, "tolerance": DECODE_TOL,
            "max_abs_err": max(g["max_abs_err"] for g in gates), **b_rec}
-    log(f"{what}: {n} calls + lse_merge, tensor-core body "
-        f"{' / '.join(f'{t * 1e3:.1f}' for t in runs[1:3])} us, CUDA-core "
-        f"{' / '.join(f'{t * 1e3:.1f}' for t in runs[0:4:3])} us; one "
-        f"whole-cache call tensor-core "
-        f"{' / '.join(f'{t * 1e3:.1f}' for t in runs[5:7])} us, CUDA-core "
-        f"{' / '.join(f'{t * 1e3:.1f}' for t in runs[4:8:3])} us; bound "
-        f"{b_rec['bound_ms'] * 1e3:.1f} us; one rank's block alone "
-        f"tensor-core {' / '.join(f'{t * 1e3:.1f}' for t in runs[9:11])} "
-        f"us, CUDA-core {' / '.join(f'{t * 1e3:.1f}' for t in runs[8:12:3])}"
-        f" us, its bound {one_bound['bound_ms'] * 1e3:.1f} us (device "
+
+    def us(what_, body):
+        return " / ".join(f"{t * 1e3:.1f}" for t in runs[what_][body])
+    log(f"{what}: {n} calls + lse_merge, in turn (CUDA-core, mma, cluster, "
+        f"cluster, mma, CUDA-core): cluster {us('blocks', 'cluster')} us, mma "
+        f"{us('blocks', 'mma')}, CUDA-core {us('blocks', 'cuda_core')}; one "
+        f"whole-cache call cluster {us('whole', 'cluster')}, mma "
+        f"{us('whole', 'mma')}, CUDA-core {us('whole', 'cuda_core')}; bound "
+        f"{b_rec['bound_ms'] * 1e3:.1f} us; one rank's block alone cluster "
+        f"{us('one', 'cluster')}, mma {us('one', 'mma')}, CUDA-core "
+        f"{us('one', 'cuda_core')}, its bound "
+        f"{one_bound['bound_ms'] * 1e3:.1f} us (device cluster "
         + _kernel_names({"device_kernels": rec["block_device_kernels"]})
-        + "); plain on the blocks "
-        f"{plain_ms * 1e3:.1f} us, SDPA whole {library_ms * 1e3:.1f} us; "
-        f"device kernels (launches in 3 calls, us per launch) "
-        + _kernel_names(rec) + "; gates (rel err merged vs whole, vs plain): "
+        + "; mma "
+        + _kernel_names({"device_kernels": rec["mma_block_device_kernels"]})
+        + "; host to issue, in turn: "
+        + ", ".join(f"{b} {t * 1e3:.1f}" for b, t in one_host.items())
+        + f"); host to issue the 16 calls + merge: "
+        + ", ".join(f"{b} {t * 1e3:.1f}" for b, t in host.items())
+        + f"; plain on the blocks {plain_ms * 1e3:.1f} us, SDPA whole "
+        f"{library_ms * 1e3:.1f} us; device kernels (launches in 3 calls, "
+        f"us per launch) " + _kernel_names(rec)
+        + "; gates (rel err merged vs whole, vs plain): "
         + "; ".join(f"{g['body']} window={g['window']} "
                     f"{g['rel_err_vs_whole']:.2e}/{g['rel_err_vs_plain']:.2e}"
                     f" ({g['empty_block_rows']} empty block rows)"
@@ -2148,15 +2246,18 @@ def check_decode_blocks(gen) -> dict:
 def decode_phase_records(gen) -> list:
     """flash_decode at the serve path's shape, the MoE serve path's (KV 16,
     G 1), the placed serve part's (qwen3-14b's and zamba2-1.2b's heads on
-    a 32 768-row cache), model shapes, and ragged,
-    strided, windowed, soft-capped and f32 shapes (kernels phase); the
-    bf16 rows at hd 64 and 128 take the tensor-core body, the rest the
-    CUDA-core body."""
+    a 32 768-row cache), model shapes, few heads on a 131 072-row cache
+    (``DECODE_LONG``: the cluster body's cap binds), and ragged, strided,
+    windowed, soft-capped and f32 shapes (kernels phase); the bf16 rows at
+    hd 64 and 128 take the cluster body, the rest the CUDA-core body."""
     import torch
     bf16, f32 = torch.bfloat16, torch.float32
     B, S, KV, G, hd, window, lengths = DECODE_PATH
     recs = [dict(check_decode(B, S, KV, G, hd, bf16, gen, lengths, window),
-                 set="path")]
+                 set="path", ctypes_call_us=ctypes_call_us())]
+    log("flash_decode host path: the ctypes call alone, us (refused at once "
+        "by the library; median of 5 rounds in turn): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in recs[0]["ctypes_call_us"].items()))
     B, S, KV, G, hd, window, lengths = DECODE_MOE
     recs.append(dict(check_decode(B, S, KV, G, hd, bf16, gen, lengths,
                                   window), set="moe"))
@@ -2168,6 +2269,10 @@ def decode_phase_records(gen) -> list:
         recs.append(dict(check_decode(B, S, KV, G, hd, bf16, gen, lengths,
                                       window), set="model"))
         torch.cuda.empty_cache()
+    B, S, KV, G, hd, window, lengths = DECODE_LONG
+    recs.append(dict(check_decode(B, S, KV, G, hd, bf16, gen, lengths,
+                                  window), set="long"))
+    torch.cuda.empty_cache()
     recs.append(check_decode_blocks(gen))
     torch.cuda.empty_cache()
     ragged = [
@@ -4493,9 +4598,9 @@ def serve_phase(device: str = "cuda", cfg=None, small=None,
     need(counts["flash_decode/cuda"] == L * steps,
          f"{tag}: flash_decode/cuda {counts['flash_decode/cuda']} launches, "
          f"want L x decode steps = {L * steps}")
-    need(bodies == {"mma": L * steps, "cuda_core": 0},
+    need(bodies == {"cluster": L * steps, "mma": 0, "cuda_core": 0},
          f"{tag}: flash_decode bodies {bodies}, want all {L * steps} bf16 "
-         "launches on the tensor-core body")
+         "launches on the cluster body")
     plain = {k: v for k, v in counts.items() if k.endswith("/torch") and v}
     need(not plain, f"{tag}: plain versions ran on the path: {plain}")
     chunk_ms = sorted(ms / SERVE["scan_chunk"]
@@ -4598,7 +4703,8 @@ def serve_phase(device: str = "cuda", cfg=None, small=None,
     on_card = _staggered(_engine(small, small_card, device, **kw),
                          small_reqs)
     small_bodies = _tally_since(before, decode_attn.body_launches())
-    need(small_bodies["mma"] == 0 and small_bodies["cuda_core"] > 0,
+    need(small_bodies["cluster"] == small_bodies["mma"] == 0
+         and small_bodies["cuda_core"] > 0,
          f"{tag}: reduced f32 flash_decode bodies {small_bodies}, want the "
          "CUDA-core body only")
     on_cpu = _staggered(_engine(small, small_cpu, "cpu", **kw), small_reqs)
@@ -4824,9 +4930,10 @@ def serve_placed_model(name: str, mesh, smi_line: str,
              f"{tag}: flash_decode/cuda {counts['flash_decode/cuda']} "
              f"launches, want {attn_layers} attention layers x "
              f"{P['steps']} steps = {want_launches}")
-        need(bodies == {"mma": want_launches, "cuda_core": 0},
-             f"{tag}: flash_decode bodies {bodies}, want the tensor-core "
-             "body only")
+        need(bodies == {"cluster": want_launches, "mma": 0,
+                        "cuda_core": 0},
+             f"{tag}: flash_decode bodies {bodies}, want the cluster body "
+             "only")
         ran = {k: v for k, v in counts.items() if k.endswith("/torch") and v}
         need(not ran, f"{tag}: plain versions ran on the path: {ran}")
     need(all(torch.isfinite(g).all() for g in got), f"{tag}: logits not "
@@ -6989,7 +7096,8 @@ def setup_phase() -> str:
             build_s[name] = float(secs.split()[0])
     log("build: nvcc seconds, combine_vec.cu (16 instances) "
         f"{build_s['combine_vec.cu']:.2f} beside combine.cu (4) "
-        f"{build_s['combine.cu']:.2f}, decode_attn_mma.cu (2 instances) "
+        f"{build_s['combine.cu']:.2f}, decode_attn_cluster.cu (2 instances) "
+        f"{build_s['decode_attn_cluster.cu']:.2f} and decode_attn_mma.cu (2) "
         f"{build_s['decode_attn_mma.cu']:.2f} beside decode_attn.cu (32) "
         f"{build_s['decode_attn.cu']:.2f}, sketch_mma.cu (8) "
         f"{build_s['sketch_mma.cu']:.2f}, gram_block_mma.cu (32) "
@@ -7115,9 +7223,16 @@ def setup_phase() -> str:
             f"{cross.grid(n, sms, per_sm, slices)}, {per_sm} blocks of 256 "
             "threads per SM")
     from repro_torch.kernels.decode_attn import (
-        MMA_HEAD_DIMS, decode_mma_splits, decode_splits, mma_resident_blocks,
-        resident_blocks)
-    for B, S, KV, G, hd, window, _ in ((DECODE_PATH,) + tuple(DECODE_PLACED)
+        MAX_CLUSTER, MMA_HEAD_DIMS, cluster_cap, cluster_launch_config,
+        decode_cluster_splits, decode_mma_splits, decode_splits,
+        mma_resident_blocks, resident_blocks)
+    for hd in MMA_HEAD_DIMS:
+        log(f"launch: flash_decode cluster body hd={hd}: clusters the card "
+            "co-schedules by size (load-balancing policy) "
+            + str({size: cluster_launch_config(hd, size, 0)[1]
+                   for size in range(1, MAX_CLUSTER + 1)}))
+    for B, S, KV, G, hd, window, _ in ((DECODE_PATH, DECODE_MOE, DECODE_LONG)
+                                       + tuple(DECODE_PLACED)
                                        + tuple(DECODE_MODEL)):
         resident = resident_blocks(hd, G, True, 0)
         splits, rows = decode_splits(B, S, KV, resident, window)
@@ -7135,6 +7250,14 @@ def setup_phase() -> str:
                 f"rows of each row's live window -> {splits * KV * B} "
                 "blocks" + (f", then a merge of {B * KV * G} blocks of {hd}"
                             " threads" if splits > 1 else ""))
+            resident = cluster_launch_config(hd, 1, 0)[0]
+            cap = cluster_cap(hd, B * KV, 0)
+            splits, rows = decode_cluster_splits(B, S, KV, resident, cap,
+                                                 window)
+            log(f"launch: flash_decode B={B} S={S} KV={KV} G={G} hd={hd} "
+                f"window={window} bf16, cluster body: cap {cap} for "
+                f"{B * KV} heads; {splits} splits x {rows} rows -> "
+                f"{B * KV} clusters of {splits} blocks, one launch")
     return smi_line
 
 
@@ -7155,7 +7278,7 @@ KERNEL_SOURCES = {
                    "src/repro/kernels/gram.py:60"),
     "sketch": ("src/repro_torch/kernels/csrc/sketch.cu",
                "src/repro/kernels/sketch.py:39"),
-    "flash_decode": ("src/repro_torch/kernels/csrc/decode_attn_mma.cu",
+    "flash_decode": ("src/repro_torch/kernels/csrc/decode_attn_cluster.cu",
                      "src/repro/kernels/decode_attn.py:72"),
 }
 
@@ -7366,6 +7489,7 @@ def main() -> int:
         bodies_by_path=combine_bodies)
     entries[names.index("flash_decode")].update(
         sources=[KERNEL_SOURCES["flash_decode"][0],
+                 "src/repro_torch/kernels/csrc/decode_attn_mma.cu",
                  "src/repro_torch/kernels/csrc/decode_attn.cu"],
         bodies_by_path=decode_bodies)
     for op in ("sign_sketch", "sign_sketch_adjoint"):

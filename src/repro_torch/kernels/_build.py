@@ -99,6 +99,10 @@ _SIGNATURES = {
                             _I, _I, ctypes.c_float, _I, _I, _I,
                             ctypes.c_float, _VP],
     "flash_decode_mma_launch_config": [_I, ctypes.POINTER(_I)],
+    "flash_decode_cluster_launch_config": [_I, _I, ctypes.POINTER(_I),
+                                           ctypes.POINTER(_I)],
+    # the plan (a ClusterPlan), q, k, v, lengths, out, stream
+    "flash_decode_cluster_launch": [_VP, _VP, _VP, _VP, _VP, _VP, _VP],
     "flash_decode_mma_launch": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I,
                                 _I, _I, _I, _I, _LL, _LL, _LL, _LL, _LL, _LL,
                                 _I, _I, ctypes.c_float, _I, _I, _I,

@@ -1,25 +1,37 @@
 """``flash_decode``: single-token GQA attention against a KV cache — the
 Hopper kernel.
 
-Replaces ``repro.kernels.decode_attn.flash_decode_pallas``.  It has two
-bodies, chosen from the inputs alone (:func:`_mma_eligible`): a call with
-q, k and v all bf16, hd 64 or 128, G <= 16 and 16-byte aligned pointers
-runs on the bf16 tensor cores (``csrc/decode_attn_mma.cu``), its splits
-anchored at each row's live window (:func:`decode_mma_splits`); every
-other call (f32 caches, f32 q against a bf16 cache, hd 256) on the CUDA
-cores (``csrc/decode_attn.cu``), its splits tiling the whole cache
-(:func:`decode_splits`).  No f32 operand is rounded to bf16 to reach a
-tensor core.  Each source says what bounds it on the H100 and how the work
-is laid out; this module checks the inputs, chooses the seq-axis split from
-the shapes alone, allocates the outputs and the split partials with
-``torch.empty`` and launches on the current stream without synchronising.
-``body_launches()`` tallies the launches by body.
+Replaces ``repro.kernels.decode_attn.flash_decode_pallas``.  It has three
+bodies, chosen from the inputs alone: a call with q, k and v all bf16, hd
+64 or 128, G <= 16 and 16-byte aligned pointers (:func:`_mma_eligible`)
+runs on the bf16 tensor cores in one launch
+(``csrc/decode_attn_cluster.cu``, ``"cluster"``): the splits of a head are
+one thread-block cluster and merge through distributed shared memory,
+their plan anchored at each row's live window and capped at the largest
+cluster of which the card co-schedules one a head
+(:func:`decode_cluster_splits`, :func:`cluster_cap`).  Every other call
+(f32 caches, f32 q against a bf16 cache, hd 256) runs on the CUDA cores
+(``csrc/decode_attn.cu``, ``"cuda_core"``), its splits tiling the whole
+cache (:func:`decode_splits`) and merged by a second launch.
+``body="mma"`` runs an eligible call on the tensor-core body of two
+launches (``csrc/decode_attn_mma.cu``, :func:`decode_mma_splits`), and
+``body="cuda_core"`` on the CUDA cores, to compare bodies on one input.
+No f32 operand is rounded to bf16 to reach a tensor core.  Each source says
+what bounds it on the H100 and how the work is laid out.
+
+The host path: one validation pass that reads only dtypes, shapes,
+strides, pointers and ``get_device()`` (:func:`_validate`); a plan cached
+per shapes, dtypes, strides, window, cap, body and device (:func:`_plan`:
+the splits, the launch function and its per-plan arguments; the cluster
+body's as one ``ClusterPlan`` passed by pointer); one ``torch.empty`` that
+holds o, lse and any split scratch; the launch on the current stream
+without synchronising.  ``body_launches()`` tallies the launches by body.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -32,14 +44,16 @@ MAX_G_X_HD = 2048          # G · hd: the registers of a lane's accumulators
 SPLIT_GRANULE = 64         # a split's rows are a multiple of this
 MAX_SPLITS = 4096          # the merge keeps one weight per split in 16 KB
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
-MMA_HEAD_DIMS = (64, 128)  # the tensor-core body's instances
-MMA_TILE_ROWS = 64         # rows of its staged tiles; its splits' multiple
-BODIES = ("mma", "cuda_core")
+MMA_HEAD_DIMS = (64, 128)  # the tensor-core bodies' instances
+MMA_TILE_ROWS = 64         # rows of their staged tiles; their splits' multiple
+PORTABLE_CLUSTER = 8       # blocks of a cluster every sm_90 card schedules
+MAX_CLUSTER = 16           # with the non-portable size opted in
+BODIES = ("cluster", "mma", "cuda_core")
 _BODY_LAUNCHES = {body: 0 for body in BODIES}
 
 
 def _mma_eligible(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
-    """Whether a call takes the tensor-core body: q, k and v all bf16,
+    """Whether a call takes a tensor-core body: q, k and v all bf16,
     hd in (64, 128), 1 <= G <= 16, q contiguous, k and v with a contiguous
     last dim and strides of whole 16-byte units, and all three
     ``data_ptr()`` 16-byte aligned.  Reads only dtypes, shapes, strides and
@@ -54,7 +68,8 @@ def _mma_eligible(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
 
 
 def body_launches() -> Dict[str, int]:
-    """``{"mma": launches, "cuda_core": launches}`` since the last reset."""
+    """``{"cluster": launches, "mma": launches, "cuda_core": launches}``
+    since the last reset."""
     return dict(_BODY_LAUNCHES)
 
 
@@ -72,8 +87,22 @@ def decode_mma_splits(B: int, S: int, KV: int, resident: int,
     holds (one split a head when B·KV alone fills it).  The kernel anchors
     split j of batch row b at its own window: rows [lo_b + j·rows,
     min(lo_b + (j+1)·rows, len_b)), lo_b = max(0, len_b - window)."""
+    return decode_cluster_splits(B, S, KV, resident, None, window)
+
+
+def decode_cluster_splits(B: int, S: int, KV: int, resident: int,
+                          cap: Optional[int],
+                          window: Optional[int] = None) -> Tuple[int, int]:
+    """``(splits, rows per split)`` of the cluster body: the rule of
+    :func:`decode_mma_splits` (each row's live window, whole 64-row
+    splits, one wave of the ``resident`` blocks) with the splits of a head
+    at most ``cap``, the largest cluster of which the card co-schedules
+    one a head (:func:`cluster_cap`); ``cap=None`` caps nothing.  Where
+    the cap does not bind, the two plans are equal."""
     live = min(S, window) if window else S
     per_row = max(1, resident // (B * KV))
+    if cap is not None:
+        per_row = min(per_row, cap)
     splits = max(1, min(per_row, -(-live // MMA_TILE_ROWS)))
     rows = -(-live // splits)
     rows = -(-rows // MMA_TILE_ROWS) * MMA_TILE_ROWS
@@ -128,59 +157,184 @@ def mma_resident_blocks(hd: int, device_index: int) -> int:
     return per_sm.value * _build.sm_count(device_index)
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           lengths: torch.Tensor, window: Optional[int],
-           softcap: Optional[float]) -> None:
+@functools.lru_cache(maxsize=None)
+def cluster_launch_config(hd: int, size: int,
+                          device_index: int) -> Tuple[int, int]:
+    """``(blocks resident, clusters co-scheduled)`` of the cluster body at
+    head dim ``hd`` for clusters of ``size`` blocks: the occupancy query ×
+    the SMs, and ``cudaOccupancyMaxActiveClusters`` (0 past 8 blocks where
+    the non-portable size is refused)."""
+    lib = _build.load_library()
+    per_sm, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        rc = lib.flash_decode_cluster_launch_config(
+            hd, size, ctypes.byref(per_sm), ctypes.byref(clusters))
+    _build.check(lib, rc, "flash_decode_cluster occupancy query")
+    if per_sm.value < 1:
+        raise RuntimeError(f"flash_decode: the cluster body cannot be "
+                           f"resident for hd={hd}")
+    return per_sm.value * _build.sm_count(device_index), clusters.value
+
+
+def cluster_cap(hd: int, heads: int, device_index: int) -> int:
+    """The most splits a head takes on the cluster body in a call of
+    ``heads`` (batch row, kv head) pairs: the largest cluster, up to 16
+    where the card grants the non-portable size (else 8), of which it
+    co-schedules one for every head (``cudaOccupancyMaxActiveClusters``),
+    so that the call's clusters run in one wave; 1 (no cluster) where not
+    even clusters of 2 fit."""
+    top = (MAX_CLUSTER if cluster_launch_config(hd, MAX_CLUSTER,
+                                                device_index)[1] >= 1
+           else PORTABLE_CLUSTER)
+    for size in range(top, 1, -1):
+        if cluster_launch_config(hd, size, device_index)[1] >= heads:
+            return size
+    return 1
+
+
+class ClusterPlan(ctypes.Structure):
+    """The per-plan constants of ``flash_decode_cluster_launch``, field for
+    field ``csrc/decode_attn_cluster.cu``'s ``ClusterPlan``."""
+    _fields_ = [("ks_b", ctypes.c_longlong), ("ks_s", ctypes.c_longlong),
+                ("ks_h", ctypes.c_longlong), ("vs_b", ctypes.c_longlong),
+                ("vs_s", ctypes.c_longlong), ("vs_h", ctypes.c_longlong),
+                ("lse_offset", ctypes.c_longlong),
+                ("B", ctypes.c_int), ("S", ctypes.c_int),
+                ("KV", ctypes.c_int), ("G", ctypes.c_int),
+                ("hd", ctypes.c_int), ("splits", ctypes.c_int),
+                ("split_rows", ctypes.c_int), ("has_window", ctypes.c_int),
+                ("window", ctypes.c_int), ("has_cap", ctypes.c_int),
+                ("scale", ctypes.c_float), ("cap", ctypes.c_float)]
+
+
+def _refuse(what: str, exc=ValueError):
+    raise exc(f"flash_decode_cuda: {what}")
+
+
+def _refuse_devices(q, k, v, lengths) -> None:
     for name, t in (("q", q), ("k", k), ("v", v), ("lengths", lengths)):
         if not t.is_cuda:
-            raise ValueError(f"flash_decode_cuda needs CUDA tensors; {name} "
-                             f"is on {t.device}")
+            _refuse(f"needs CUDA tensors; {name} is on {t.device}")
         if t.device != k.device:
-            raise ValueError(f"flash_decode_cuda: {name} on {t.device}, k on "
-                             f"{k.device}")
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError("flash_decode_cuda: want q (B, KV, G, hd) and k, v "
-                         f"(B, S, KV, hd); got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
-    B, S, KV, hd = k.shape
-    if q.shape[0] != B or q.shape[1] != KV or q.shape[3] != hd:
-        raise ValueError(f"flash_decode_cuda: q {tuple(q.shape)} does not "
-                         f"match k {tuple(k.shape)}")
-    G = q.shape[2]
+            _refuse(f"{name} on {t.device}, k on {k.device}")
+    _refuse("needs CUDA tensors on one device")
+
+
+def _validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              lengths: torch.Tensor, window: Optional[int],
+              softcap: Optional[float]) -> Tuple[int, bool]:
+    """One pass over dtypes, shapes, strides, pointers and ``get_device()``
+    that raises where the kernels cannot take a call, and returns ``(device
+    index, whether the tensor-core bodies take it)``: :func:`_mma_eligible`
+    on inputs that pass the rest."""
+    idx = k.get_device()
+    if idx < 0 or q.get_device() != idx or v.get_device() != idx \
+            or lengths.get_device() != idx:
+        _refuse_devices(q, k, v, lengths)
+    qs, ks = q.shape, k.shape
+    if len(qs) != 4 or len(ks) != 4 or v.shape != ks:
+        _refuse(f"want q (B, KV, G, hd) and k, v (B, S, KV, hd); got "
+                f"{tuple(qs)}, {tuple(ks)}, {tuple(v.shape)}")
+    B, S, KV, hd = ks
+    if qs[0] != B or qs[1] != KV or qs[3] != hd:
+        _refuse(f"q {tuple(qs)} does not match k {tuple(ks)}")
+    G = qs[2]
     if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_decode_cuda: head_dim {hd} not in "
-                         f"{HEAD_DIMS}")
+        _refuse(f"head_dim {hd} not in {HEAD_DIMS}")
     if not 1 <= G <= MAX_G or G * hd > MAX_G_X_HD:
-        raise ValueError(f"flash_decode_cuda: G={G} with head_dim {hd}; "
-                         f"want G <= {MAX_G} and G*hd <= {MAX_G_X_HD}")
+        _refuse(f"G={G} with head_dim {hd}; want G <= {MAX_G} and G*hd <= "
+                f"{MAX_G_X_HD}")
     if B < 1 or S < 1 or B > 65535 or KV > 65535:
-        raise ValueError(f"flash_decode_cuda: B={B}, S={S}, KV={KV} outside "
-                         "the grid")
-    if q.dtype not in SUPPORTED_DTYPES or k.dtype not in SUPPORTED_DTYPES:
-        raise TypeError(f"flash_decode_cuda: q {q.dtype}, k {k.dtype}; want "
-                        f"{SUPPORTED_DTYPES}")
-    if v.dtype != k.dtype:
-        raise TypeError(f"flash_decode_cuda: k is {k.dtype}, v {v.dtype}")
+        _refuse(f"B={B}, S={S}, KV={KV} outside the grid")
+    qd, kd = q.dtype, k.dtype
+    if qd not in SUPPORTED_DTYPES or kd not in SUPPORTED_DTYPES:
+        _refuse(f"q {qd}, k {kd}; want {SUPPORTED_DTYPES}", TypeError)
+    if v.dtype != kd:
+        _refuse(f"k is {kd}, v {v.dtype}", TypeError)
     if not q.is_contiguous():
-        raise ValueError("flash_decode_cuda: q must be contiguous")
+        _refuse("q must be contiguous")
     if lengths.dtype != torch.int32 or lengths.shape != (B,) \
             or not lengths.is_contiguous():
-        raise ValueError("flash_decode_cuda: lengths must be a contiguous "
-                         f"(B,) int32 tensor; got {lengths.dtype} "
-                         f"{tuple(lengths.shape)}")
+        _refuse(f"lengths must be a contiguous (B,) int32 tensor; got "
+                f"{lengths.dtype} {tuple(lengths.shape)}")
     # each lane reads 16 aligned bytes of a row: rows in place, any stride
     # of whole 16-byte units
-    unit = 16 // k.element_size()
+    bf16 = kd == torch.bfloat16
+    unit = 8 if bf16 else 4
     for name, t in (("k", k), ("v", v)):
-        if t.stride(3) != 1 or any(s % unit for s in t.stride()[:3]) \
+        st = t.stride()
+        if st[3] != 1 or st[0] % unit or st[1] % unit or st[2] % unit \
                 or t.data_ptr() % 16:
-            raise ValueError(f"flash_decode_cuda: {name} needs a contiguous "
-                             "last dim, 16-byte aligned rows and strides of "
-                             f"whole 16-byte units; strides {t.stride()}")
+            _refuse(f"{name} needs a contiguous last dim, 16-byte aligned "
+                    f"rows and strides of whole 16-byte units; strides {st}")
     if window is not None and window < 1:
-        raise ValueError(f"flash_decode_cuda: window {window} < 1")
+        _refuse(f"window {window} < 1")
     if softcap is not None and not softcap > 0:
-        raise ValueError(f"flash_decode_cuda: softcap {softcap} <= 0")
+        _refuse(f"softcap {softcap} <= 0")
+    return idx, (bf16 and qd == torch.bfloat16 and hd in MMA_HEAD_DIMS
+                 and q.data_ptr() % 16 == 0)
+
+
+class _Plan(NamedTuple):
+    """A call's launch, fixed by its key: ``fn`` the library's launch
+    function, ``floats`` the output buffer's size (o, lse, then any split
+    scratch), o's and lse's views of it, the byte offsets of the split
+    partials (o and lse themselves with one split; unused by the cluster
+    body), and ``consts``, the arguments that do not change between calls
+    (the cluster body: the address of ``plan``, kept alive here)."""
+    splits: int
+    rows: int
+    floats: int
+    o_view: Tuple[Tuple[int, ...], Tuple[int, ...]]
+    lse_view: Tuple[Tuple[int, ...], Tuple[int, ...], int]
+    part_offsets: Tuple[int, int]
+    lib: ctypes.CDLL
+    fn: object
+    consts: tuple
+    plan: Optional[ClusterPlan]
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan(body: str, B: int, S: int, KV: int, G: int, hd: int, q_bf16: bool,
+          kv_bf16: bool, kst: Tuple[int, ...], vst: Tuple[int, ...],
+          window: Optional[int], softcap: Optional[float],
+          device_index: int) -> _Plan:
+    """The launch of a validated call on ``body``, from its key."""
+    lib = _build.load_library()
+    n_o, n_lse = B * KV * G * hd, B * KV * G
+    flags = (int(window is not None), window or 0, int(softcap is not None),
+             softcap or 0.0)
+    scale = hd ** -0.5
+    plan = None
+    if body == "cluster":
+        resident = cluster_launch_config(hd, 1, device_index)[0]
+        splits, rows = decode_cluster_splits(
+            B, S, KV, resident, cluster_cap(hd, B * KV, device_index), window)
+        plan = ClusterPlan(*kst[:3], *vst[:3], n_o, B, S, KV, G, hd, splits,
+                           rows, *flags[:3], scale, flags[3])
+        fn, consts, scratch = (lib.flash_decode_cluster_launch,
+                               (ctypes.addressof(plan),), 0)
+    else:
+        if body == "mma":
+            splits, rows = decode_mma_splits(
+                B, S, KV, mma_resident_blocks(hd, device_index), window)
+            fn = lib.flash_decode_mma_launch
+        else:
+            splits, rows = decode_splits(
+                B, S, KV, resident_blocks(hd, G, kv_bf16, device_index),
+                window)
+            fn = lib.flash_decode_launch
+        consts = (B, S, KV, G, hd, *kst[:3], *vst[:3], splits, rows, scale,
+                  *flags)
+        # the partials from a 256-byte boundary past lse
+        at = -(-(n_o + n_lse) // 64) * 64
+        scratch = (at - n_o - n_lse + splits * (n_o + n_lse) if splits > 1
+                   else 0)
+    parts = ((4 * at, 4 * (at + splits * n_o)) if scratch else (0, 4 * n_o))
+    return _Plan(splits, rows, n_o + n_lse + scratch,
+                 ((B, KV, G, hd), (KV * G * hd, G * hd, hd, 1)),
+                 ((B, KV, G, 1), (KV * G, G, 1, 1), n_o), parts, lib, fn,
+                 consts, plan)
 
 
 def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -190,64 +344,54 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q (B, KV, G, hd) contiguous; k, v (B, S, KV, hd) strided views (each
     row's hd entries contiguous); lengths (B,) int32 → ``(o (B, KV, G,
-    hd) f32, lse (B, KV, G, 1) f32)``.  Only live rows are read: rows t
-    with max(0, length - window) <= t < min(length, S).  A block of a
-    seq-split cache passes local lengths (position + 1 - the block's first
-    global row): any int; a row with no live key in the block (length
-    <= 0, or a window that ends before the block) gives o = 0 and lse =
-    -1e30 from both bodies, and weighs 0 in the split merge and in
-    ``ops.lse_merge``.  The body
-    is the tensor-core one when :func:`_mma_eligible` holds and the CUDA-core
-    one otherwise; ``body="cuda_core"`` runs an eligible call on the CUDA
-    cores instead, to compare the two bodies on one input (``"mma"`` on an
+    hd) f32, lse (B, KV, G, 1) f32)``, two views of one buffer.  Only live
+    rows are read: rows t with max(0, length - window) <= t < min(length,
+    S).  A block of a seq-split cache passes local lengths (position + 1 -
+    the block's first global row): any int; a row with no live key in the
+    block (length <= 0, or a window that ends before the block) gives o = 0
+    and lse = -1e30 from every body, and weighs 0 in the split merge and in
+    ``ops.lse_merge``.  The body is ``"cluster"`` when the tensor cores take
+    the call (:func:`_mma_eligible`) and ``"cuda_core"`` otherwise;
+    ``body="mma"`` or ``"cuda_core"`` runs an eligible call on that body
+    instead, to compare bodies on one input (a tensor-core body on an
     ineligible call raises)."""
-    _check(q, k, v, lengths, window, softcap)
+    idx, tc = _validate(q, k, v, lengths, window, softcap)
     if body not in (None,) + BODIES:
         raise ValueError(f"flash_decode_cuda: body {body!r} not in {BODIES}")
-    eligible = _mma_eligible(q, k, v)
-    if body == "mma" and not eligible:
+    if body is None:
+        body = "cluster" if tc else "cuda_core"
+    elif body != "cuda_core" and not tc:
         raise ValueError("flash_decode_cuda: the tensor-core body takes bf16 "
                          f"q, k, v with hd in {MMA_HEAD_DIMS}, G <= {MAX_G} "
                          "and 16-byte aligned rows")
-    mma = eligible if body is None else body == "mma"
     B, S, KV, hd = k.shape
-    G = q.shape[2]
-    dev = k.device
-    o = torch.empty((B, KV, G, hd), dtype=torch.float32, device=dev)
-    lse = torch.empty((B, KV, G, 1), dtype=torch.float32, device=dev)
-    if mma:
-        splits, rows = decode_mma_splits(
-            B, S, KV, mma_resident_blocks(hd, dev.index), window)
+    p = _plan(body, B, S, KV, q.shape[2], hd, q.dtype == torch.bfloat16,
+              k.dtype == torch.bfloat16, k.stride(), v.stride(), window,
+              softcap, idx)
+    out = torch.empty(p.floats, dtype=torch.float32, device=k.device)
+    o, lse = out.as_strided(*p.o_view), out.as_strided(*p.lse_view)
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    base = out.data_ptr()
+    if body == "cluster":
+        args = (*p.consts, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                lengths.data_ptr(), base, stream)
+    elif body == "mma":
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+                base, base + 4 * p.lse_view[2], base + p.part_offsets[0],
+                base + p.part_offsets[1], *p.consts, stream)
     else:
-        splits, rows = decode_splits(
-            B, S, KV, resident_blocks(hd, G, k.dtype == torch.bfloat16,
-                                      dev.index), window)
-    if splits > 1:
-        o_part = torch.empty((splits, B, KV, G, hd), dtype=torch.float32,
-                             device=dev)
-        lse_part = torch.empty((splits, B, KV, G), dtype=torch.float32,
-                               device=dev)
-    else:
-        o_part, lse_part = o, lse
-    lib = _build.load_library()
-    flags = (int(window is not None), window or 0, int(softcap is not None),
-             softcap or 0.0, torch.cuda.current_stream(dev).cuda_stream)
-    with torch.cuda.device(dev):
-        if mma:
-            rc = lib.flash_decode_mma_launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-                o.data_ptr(), lse.data_ptr(), o_part.data_ptr(),
-                lse_part.data_ptr(), B, S, KV, G, hd, *k.stride()[:3],
-                *v.stride()[:3], splits, rows, hd ** -0.5, *flags)
-        else:
-            rc = lib.flash_decode_launch(
-                q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(),
+        args = (q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(),
                 v.data_ptr(), int(k.dtype == torch.bfloat16),
-                lengths.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                o_part.data_ptr(), lse_part.data_ptr(), B, S, KV, G, hd,
-                *k.stride()[:3], *v.stride()[:3], splits, rows, hd ** -0.5,
-                *flags)
-    _build.check(lib, rc, "flash_decode")
+                lengths.data_ptr(), base, base + 4 * p.lse_view[2],
+                base + p.part_offsets[0], base + p.part_offsets[1],
+                *p.consts, stream)
+    if idx == torch._C._cuda_getDevice():
+        rc = p.fn(*args)
+    else:
+        with torch.cuda.device(idx):
+            rc = p.fn(*args)
+    if rc:
+        _build.check(p.lib, rc, "flash_decode")
     count_launch("flash_decode", "cuda")
-    _BODY_LAUNCHES["mma" if mma else "cuda_core"] += 1
+    _BODY_LAUNCHES[body] += 1
     return o, lse

@@ -38,8 +38,7 @@ from . import cross as _cross_mod
 from . import gram as _gram_mod
 from . import topk as _topk_mod
 from .cross import GRANULE, PARTIAL_FLOATS
-from .decode_attn import (MAX_G, MMA_HEAD_DIMS, decode_mma_splits,
-                          decode_splits)
+from .decode_attn import MAX_G, MMA_HEAD_DIMS, decode_splits
 from .registry import count_launch
 
 SMS = 132                  # SMs of one H100 SXM
@@ -207,10 +206,11 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     G = q.shape[2]
     o = _empty((B, KV, G, hd), F32, q)
     lse = _empty((B, KV, G, 1), F32, q)
-    mma = (all(t.dtype == BF16 for t in (q, k, v)) and hd in MMA_HEAD_DIMS
-           and 1 <= G <= MAX_G)
-    splits, _ = (decode_mma_splits if mma else decode_splits)(
-        B, S, KV, WAVE, window)
+    # the tensor-core calls merge their splits inside a cluster: no
+    # partials; the CUDA-core body's splits go through scratch
+    cluster = (all(t.dtype == BF16 for t in (q, k, v))
+               and hd in MMA_HEAD_DIMS and 1 <= G <= MAX_G)
+    splits = 1 if cluster else decode_splits(B, S, KV, WAVE, window)[0]
     if splits > 1:
         parts = (_empty((splits, B, KV, G, hd), F32, q),  # noqa: F841
                  _empty((splits, B, KV, G), F32, q))

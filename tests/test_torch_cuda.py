@@ -1501,9 +1501,9 @@ def _decode_case(gen, dev, B, S, KV, G, hd, dtype, lengths):
 
 def _check_decode(q, k, v, lengths, **kw):
     """Two kernel calls, bitwise equal and within DECODE_TOL of the plain
-    version, both on the body the inputs route to (the tensor-core body for
+    version, both on the body the inputs route to (the cluster body for
     bf16 q, k and v at hd 64 or 128, the CUDA-core body otherwise)."""
-    body = "mma" if decode_attn._mma_eligible(q, k, v) else "cuda_core"
+    body = "cluster" if decode_attn._mma_eligible(q, k, v) else "cuda_core"
     reset_launch_counts()
     decode_attn.reset_body_launches()
     got = flash_decode(q, k, v, lengths, **kw)
@@ -1617,7 +1617,8 @@ def test_flash_decode_first_body_still_serves_bf16_and_skips_dead_rows(
     first = decode_attn.flash_decode_cuda(q, k, v, lengths, window=window,
                                           body="cuda_core")
     mma = decode_attn.flash_decode_cuda(q, k, v, lengths, window=window)
-    assert decode_attn.body_launches() == {"mma": 1, "cuda_core": 1}
+    assert decode_attn.body_launches() == {"cluster": 1, "mma": 0,
+                                           "cuda_core": 1}
     want = flash_decode(q, k, v, lengths, window=window, backend="torch")
     for f, m, w in zip(first, mma, want):
         assert _rel_err(f, w) <= DECODE_TOL and _rel_err(m, w) <= DECODE_TOL
@@ -1631,7 +1632,8 @@ def test_flash_decode_first_body_still_serves_bf16_and_skips_dead_rows(
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("body,dtype", [("mma", torch.bfloat16),
+@pytest.mark.parametrize("body,dtype", [("cluster", torch.bfloat16),
+                                        ("mma", torch.bfloat16),
                                         ("cuda_core", torch.bfloat16),
                                         ("cuda_core", torch.float32)])
 @pytest.mark.parametrize("window", [None, 100, 700])
@@ -1677,12 +1679,132 @@ def test_flash_decode_on_seq_blocks_merges_to_the_whole(cuda_device, body,
         assert _rel_err(m, a) <= DECODE_TOL and _rel_err(m, w) <= DECODE_TOL
 
 
+def _plans(q, k, window=None, softcap=None):
+    """``(cluster plan, mma plan)`` of a bf16 call: (splits, rows)."""
+    B, S, KV, hd = k.shape
+    key = (B, S, KV, q.shape[2], hd, True, True, k.stride(), k.stride(),
+           window, softcap, k.device.index)
+    return tuple((p.splits, p.rows) for p in (
+        decode_attn._plan("cluster", *key), decode_attn._plan("mma", *key)))
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("G", [1, 4, 5, 8, 12, 16])
+@pytest.mark.parametrize("window,softcap", [(None, None), (300, None),
+                                            (300, 30.0), (None, 50.0)])
+def test_flash_decode_cluster_body_is_bitwise_the_mma_body(cuda_device, hd,
+                                                            G, window,
+                                                            softcap):
+    """The cluster body (one launch, the splits merged through distributed
+    shared memory in split order) against the mma body's two launches on
+    the same split plan (8 heads: the cluster cap does not bind): bitwise
+    equal, o and lse; both within DECODE_TOL of plain."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(7 * hd + G)
+    S = 1000
+    lengths = [1, 63, 64, 65, 299, 300, 301, S]
+    q, k, v, ln = _decode_case(gen, cuda_device, len(lengths), S, 1, G, hd,
+                               torch.bfloat16, lengths)
+    kw = dict(window=window, softcap=softcap)
+    cluster_plan, mma_plan = _plans(q, k, window, softcap)
+    assert cluster_plan == mma_plan and cluster_plan[0] > 1
+    decode_attn.reset_body_launches()
+    got = decode_attn.flash_decode_cuda(q, k, v, ln, **kw)
+    mma = decode_attn.flash_decode_cuda(q, k, v, ln, body="mma", **kw)
+    assert decode_attn.body_launches() == {"cluster": 1, "mma": 1,
+                                           "cuda_core": 0}
+    want = flash_decode(q, k, v, ln, backend="torch", **kw)
+    for g, m, w in zip(got, mma, want):
+        assert torch.equal(g, m)
+        assert _rel_err(g, w) <= DECODE_TOL
+
+
+@pytest.mark.parametrize("S,KV,window", [(8192, 1, None), (20000, 2, 4096),
+                                         (131072, 1, None)])
+def test_flash_decode_cluster_body_at_the_cap(cuda_device, S, KV, window):
+    """Few heads on a long cache: the splits of a head are capped at the
+    largest cluster the card co-schedules (16 on an H100), where the
+    two-launch body takes more; still within DECODE_TOL of plain, and
+    bitwise repeatable."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(S + KV)
+    q, k, v, ln = _decode_case(gen, cuda_device, 2, S, KV, 5, 128,
+                               torch.bfloat16, [S, S // 2 + 3])
+    cap = decode_attn.cluster_cap(128, 2 * KV, k.device.index)
+    cluster_plan, mma_plan = _plans(q, k, window)
+    assert cluster_plan[0] <= cap < mma_plan[0]
+    _check_decode(q, k, v, ln, window=window)
+
+
+@pytest.mark.parametrize("lengths,window", [
+    ([0, -64, 1, 1000], None),         # splits of rows 0-2 have no live row
+    ([-5, 3, 640, 1000], 100),         # a window inside one split
+    ([0, 0, 0, 0], None), ([-1000, -1, 0, 0], 50)])   # no live key at all
+def test_flash_decode_cluster_with_dead_splits_returns(cuda_device, lengths,
+                                                       window):
+    """Splits with no live row still reach both cluster barriers: the call
+    returns, rows with no live key give o = 0 and lse = -1e30 (no NaN), and
+    the live rows agree with plain and, bitwise, with the mma body."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(29)
+    q, k, v, ln = _decode_case(gen, cuda_device, 4, 1000, 2, 5, 128,
+                               torch.bfloat16, lengths)
+    o, lse = decode_attn.flash_decode_cuda(q, k, v, ln, window=window)
+    torch.cuda.synchronize()
+    mma = decode_attn.flash_decode_cuda(q, k, v, ln, window=window,
+                                        body="mma")
+    assert not torch.isnan(o).any() and not torch.isnan(lse).any()
+    dead = ln <= 0
+    assert (o[dead] == 0).all() and (lse[dead] <= -1e30).all()
+    assert torch.equal(o, mma[0]) and torch.equal(lse, mma[1])
+    if (~dead).any():
+        want = flash_decode(q, k, v, ln, window=window, backend="torch")
+        assert _rel_err(o[~dead], want[0][~dead]) <= DECODE_TOL
+        assert _rel_err(lse[~dead], want[1][~dead]) <= DECODE_TOL
+
+
+@pytest.mark.parametrize("B,S,KV,G,hd", [(4, 256, 8, 5, 128),
+                                         (4, 256, 16, 1, 128),
+                                         (4, 4096, 32, 1, 64)])
+def test_flash_decode_cluster_is_one_kernel_a_call(cuda_device, B, S, KV, G,
+                                                   hd):
+    """``torch.profiler``: a call of the cluster body is one kernel, no
+    ``decode_mma_merge`` and no copy or fill; the mma body's is two."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(B * S)
+    q, k, v, ln = _decode_case(gen, cuda_device, B, S, KV, G, hd,
+                               torch.bfloat16, [1, S // 3, S - 1, S])
+    assert _plans(q, k)[0][0] > 1
+    for body, want in (("cluster", ["decode_cluster"]),
+                       ("mma", ["decode_mma_partial", "decode_mma_merge"])):
+        decode_attn.flash_decode_cuda(q, k, v, ln, body=body)
+        torch.cuda.synchronize()
+        seen = []
+        for _ in range(3):      # a trace may lose its first launches
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(4):
+                    decode_attn.flash_decode_cuda(q, k, v, ln, body=body)
+                torch.cuda.synchronize()
+            seen = [e for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.count > 0]
+            if sum(e.count for e in seen) >= 4 * len(want):
+                break
+        names = [e.key for e in seen]
+        assert len(names) == len(want), names
+        for w in want:
+            assert any(w in n for n in names), names
+
+
 def test_flash_decode_body_choice_is_checked(cuda_device):
     q = torch.zeros(1, 1, 1, 128, device=cuda_device)
     k = torch.zeros(1, 8, 1, 128, device=cuda_device)
     one = torch.ones(1, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="tensor-core body"):
         decode_attn.flash_decode_cuda(q, k, k, one, body="mma")   # f32
+    with pytest.raises(ValueError, match="tensor-core body"):
+        decode_attn.flash_decode_cuda(q, k, k, one, body="cluster")
     with pytest.raises(ValueError, match="body"):
         decode_attn.flash_decode_cuda(q, k, k, one, body="wgmma")
 
