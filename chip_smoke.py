@@ -265,13 +265,16 @@ repeatable, at the paths' (``gram_block``: the robust path's f32 cross
 terms, K = 10, 25 and 100 at n = 7 850), the reference benchmark's and
 model shapes
 (timed rows as the median and min-max of five rounds, with device µs;
-``stream_stats``, ``gram_block`` and ``sketch``: which of their two bodies
+``stream_stats``, ``gram_block`` and ``sketch``: which of their bodies
 each shape took, and the model rows and the tensor-core bodies' ragged
 shapes also against an f64 product; ``gram_block``'s bf16 rows with
 aligned rows and n % 8 == 0 take the tensor-core body of
 ``gram_block_mma.cu``, every other call ``gram_block.cu``; ``sketch``'s
 bf16 rows with K <= 64, aligned rows and n % 8 == 0 take
-``sketch_mma.cu``, every other call ``sketch.cu``), and ``flash_decode``
+``sketch_mma.cu``, its other bf16 rows with K <= 64 (odd n, unaligned
+views) ``sketch_realign.cu`` (bitwise equal to ``sketch_mma.cu`` on
+shifted views), its f32 rows ``cross_f32.cu`` (one kernel a call), each
+timed beside ``sketch.cu`` in turn, every other call ``sketch.cu``), and ``flash_decode``
 (o and lse) at the serve path's shape, the MoE serve path's (KV 16, G 1,
 hd 128), the placed serve part's (qwen3-14b's and zamba2-1.2b's heads, B
 4 on a 32 768-row cache), a decode_32k-like cache, gemma-7b's
@@ -434,14 +437,23 @@ GRAM_BLOCK_MODEL = [(64, 32, 1 << 24, ("float32", "bfloat16")),
 GRAM_BLOCK_MMA_KA = (1, 16, 17, 32, 33, 48, 49, 64)
 GRAM_BLOCK_MMA_KB = (1, 7, 8, 16, 24, 32, 40, 48, 63)
 GRAM_BLOCK_MMA_N = (8, 4104)
-# sketch (K, n, m): kernel_bench's shape, ragged, and n = 2^20 + 3 (f32
-# and bf16 on cross.cuh: a row of odd n starts only 2-byte aligned); the
-# bf16 (11, 1 000, 129) takes the tensor-core body, every other of these
-# rows cross.cuh's
+# sketch (K, n, m): kernel_bench's shape (f32), ragged, and n = 2^20 + 3
+# (bf16 and f32: a bf16 row of odd n starts only 2-byte aligned); f32 rows
+# take cross_f32.cu, bf16 rows with K <= 64 the tensor-core bodies (the
+# aligned (11, 1 000, 129) sketch_mma.cu, the others sketch_realign.cu),
+# the bf16 (100, 777, 65) cross.cuh; then the realigning body's second
+# model row, K = 64 against m = 256 at an odd n
 SKETCH_APPLY_BENCH = [(8, 1 << 16, 1024)]
 SKETCH_APPLY_RAGGED = [(1, 1, 1), (3, 130, 17), (11, 1000, 129),
                        (100, 777, 65)]
 SKETCH_APPLY_MODEL = [(8, (1 << 20) + 3, 1024)]
+SKETCH_REALIGN_MODEL = [(64, (1 << 22) + 3, 256)]
+# the f32 model row's aligned twin (16-byte copies) on cross_f32.cu
+SKETCH_F32_TWIN = [(8, 1 << 20, 1024)]
+# the realigning body against sketch_mma.cu bit for bit: U and R viewed
+# 2·s bytes into their buffers (s = 1..7, R at 3s mod 8), n % 8 == 0
+SKETCH_REALIGN_M = (1, 129, 1024)
+SKETCH_REALIGN_N = (8, 4104)
 # sketch's tensor-core body (bf16, K <= 64, n % 8 == 0): the aligned twin of
 # the model row and K = 64 against m = 256, timed; then untimed the edges of
 # every instance NB = ceil(K / 8) and of the 128-row slices of R, with a
@@ -753,6 +765,14 @@ def time_ms_spread(fns: dict, reps: int, repeats: int = 5) -> dict:
 # function here launches the same kernels) is profiled again, up to this
 # many times in all.  A lost launch is a lost trace, never a result.
 PROFILE_ATTEMPTS = 5
+# Late in a long run the first launch of a window was lost in every one of
+# the five attempts (the sign_sketch_adjoint row: 2 of 3 launches each
+# time), as the profiler drops device activity whose converted time stamp
+# falls outside the window's host-clock bounds.  So the recorded calls sit
+# this many seconds of idle inside each edge of the window, and a trace
+# drops launches but never adds one: the attempts are merged kernel by
+# kernel, each at the most launches any attempt saw.
+PROFILE_PAD_S = 0.005
 
 
 def _profile_window(fn, calls: int) -> list:
@@ -769,9 +789,11 @@ def _profile_window(fn, calls: int) -> list:
         fn()
         torch.cuda.synchronize()
         prof.step()
+        time.sleep(PROFILE_PAD_S)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
         prof.step()
     return [e for e in prof.key_averages() if _device_us(e) > 0
             and not e.key.startswith(("aten::", "cuda", "ProfilerStep",
@@ -780,21 +802,23 @@ def _profile_window(fn, calls: int) -> list:
 
 def _device_rows(fn, calls: int) -> list:
     """:func:`_profile_window` of ``calls`` calls of ``fn`` after a warm-up
-    call; an incomplete trace is taken again (``PROFILE_ATTEMPTS``), and
-    if none is complete the one with the most launches is returned."""
+    call; an incomplete trace is taken again (``PROFILE_ATTEMPTS``), each
+    kernel kept from the attempt that saw it most often, until the merged
+    rows are complete or the attempts are spent."""
     import torch
     fn()
     torch.cuda.synchronize()
-    best = []
+    best = {}
     for _ in range(PROFILE_ATTEMPTS):
         rows = _profile_window(fn, calls)
-        if rows and all(e.count % calls == 0 for e in rows):
-            return rows
+        for e in rows:
+            if e.key not in best or e.count > best[e.key].count:
+                best[e.key] = e
+        if best and all(e.count % calls == 0 for e in best.values()):
+            return list(best.values())
         log(f"profiler: incomplete trace of {calls} calls "
             f"{ {e.key[:40]: e.count for e in rows} }, profiled again")
-        if sum(e.count for e in rows) > sum(e.count for e in best):
-            best = rows
-    return best
+    return list(best.values())
 
 
 def device_kernels(fn) -> tuple:
@@ -1449,36 +1473,52 @@ def check_cross(op: str, args: tuple, shape: dict, dt, bound_rec: dict,
     return rec
 
 
+def _realign_kernels(kern: dict) -> bool:
+    """Whether a call's device kernels are the realigning tensor-core body's
+    two: ``sketch_mma_partial<NB, true>`` (sketch_realign.cu's instance)
+    and ``sketch_mma_finish``."""
+    return (len(kern) == 2
+            and any("sketch_mma_partial<" in k and ", true>" in k
+                    for k in kern)
+            and any("sketch_mma_finish" in k for k in kern))
+
+
 def _f32_body_checks(rec: dict, what: str, call, cross_call, want,
-                     timed: bool) -> None:
-    """An f32 row of gram_block or stream_stats (``csrc/cross_f32.cu``):
-    one device kernel a call, ``cross_f32_tiles`` (the timed rows' kernels,
-    else one profiled call); on a timed row cross.cuh's body on the same
-    inputs (``cross_call``: ``body="cross"``, timed in turn by
+                     timed: bool, body: str = "f32") -> None:
+    """An f32 row of gram_block, stream_stats or sketch
+    (``csrc/cross_f32.cu``): one device kernel a call, ``cross_f32_tiles``
+    (the timed rows' kernels, else one profiled call); or, with
+    ``body="realign"``, a realigned bf16 row of sketch: the partial kernel
+    of sketch_realign.cu and the finish.  On a timed row cross.cuh's body
+    on the same inputs (``cross_call``: ``body="cross"``, timed in turn by
     :func:`check_cross`) within CROSS_TOL of the plain version ``want``,
     its device kernels, and both bodies' host µs to issue a call (taken in
     turn)."""
     calls = 3 if timed else 1
     kern = rec["device_kernels"] if timed else device_kernel_means(call, 1)
-    need(len(kern) == 1 and all("cross_f32" in name and cnt % calls == 0
-                                for name, (cnt, _) in kern.items()),
-         f"{what}: want one cross_f32 kernel a call, got {kern}")
-    rec["one_kernel_a_call"] = True
+    if body == "f32":
+        need(len(kern) == 1 and all("cross_f32" in name and cnt % calls == 0
+                                    for name, (cnt, _) in kern.items()),
+             f"{what}: want one cross_f32 kernel a call, got {kern}")
+        rec["one_kernel_a_call"] = True
+    else:
+        need(_realign_kernels(kern),
+             f"{what}: want the realigning partial and the finish, got {kern}")
     if not timed:
         return
     got = _outs(cross_call())
     rec["cross_rel_err"] = max(_max_err(a, b) / _scale(b)
-                               for a, b in zip(got, want))
+                               for a, b in zip(got, _outs(want)))
     need(rec["cross_rel_err"] <= CROSS_TOL,
          f"{what}: cross.cuh's body {rec['cross_rel_err']:.3e} off plain")
     cck = device_kernel_means(cross_call)
     rec["cross_device_kernels"] = cck
     rec["cross_device_ms"] = sum(ms for _, ms in cck.values())
-    host = host_ms_in_turn({"f32": call, "cross": cross_call}, 50)
-    rec["host_ms"], rec["cross_host_ms"] = host["f32"], host["cross"]
+    host = host_ms_in_turn({body: call, "cross": cross_call}, 50)
+    rec["host_ms"], rec["cross_host_ms"] = host[body], host["cross"]
     log(f"{what}: cross.cuh in turn {_fmt_spread(rec, 'cross_ms')}us, device "
         f"{rec['cross_device_ms'] * 1e3:.1f}us in {len(cck)} kernels, host "
-        f"{rec['cross_host_ms'] * 1e3:.1f}us; the f32 body device "
+        f"{rec['cross_host_ms'] * 1e3:.1f}us; the {body} body device "
         f"{rec['device_ms'] * 1e3:.1f}us, host {rec['host_ms'] * 1e3:.1f}us, "
         f"{rec['ms'] / rec['bound_ms']:.2f}x its bound, the library "
         f"{rec['library_ms'] / rec['ms']:.2f}x it")
@@ -1626,35 +1666,52 @@ def check_sketch_apply(K: int, n: int, m: int, dt, gen, timed: bool = True,
                        body: str = None, f64: bool = False,
                        plain_gate: bool = True, U=None, R=None) -> dict:
     """``check_cross`` for sketch, plus the body the calls took (``body``,
-    if given, must be it: ``mma`` for sketch_mma.cu, ``cross`` for
-    sketch.cu) and, with ``f64``, the kernel's and the plain version's
-    error against an f64 product (the kernel's within CROSS_TOL).
-    ``plain_gate=False`` (with ``f64``) gates on the f64 product alone, as
-    gram_block's sweep does."""
+    if given, must be it: ``mma`` for sketch_mma.cu, ``realign`` for
+    sketch_realign.cu, ``f32`` for cross_f32.cu, ``cross`` for sketch.cu;
+    ``f32`` and ``realign`` rows also as :func:`_f32_body_checks`, timed
+    beside cross.cuh's body in turn) and, with ``f64``, the kernel's and
+    the plain version's error against an f64 product (the kernel's within
+    CROSS_TOL).  ``plain_gate=False`` (with ``f64``) gates on the f64
+    product alone, as gram_block's sweep does."""
     import torch
-    from repro_torch.kernels import ops, sketch
+    from repro_torch.kernels import ops, ref, sketch
     if U is None:
         U = torch.randn((K, n), generator=gen, device="cuda").to(dt)
         R = torch.randn((m, n), generator=gen, device="cuda").to(dt)
-    took = "mma" if sketch._mma_eligible(U, R) else "cross"
+    took = sketch._body(U, R)
     what = (f"sketch K={K} n={n} m={m} {_dtype_name(U.dtype)}/"
             f"{_dtype_name(R.dtype)}")
     need(body is None or took == body,
          f"{what}: takes the {took} body, want {body}")
+    beside = took in ("f32", "realign")
+    cross_call = lambda: sketch.sketch_apply_cuda(U, R, body="cross")  # noqa: E731
+    # a timed aligned row also times the realigning body forced on it, in
+    # turn: its landing and loop without a shift to undo
+    extra = ({"cross_ms": cross_call} if beside
+             else {"realign_ms": lambda: sketch.sketch_apply_cuda(
+                 U, R, body="realign")} if took == "mma" and timed else None)
     sketch.reset_body_launches()
     rec = check_cross(
         "sketch", (U, R), {"K": K, "n": n, "m": m}, dt,
         cross_bound(K + m, n, K * m, K * m, dt), timed,
-        library=lambda: U @ R.T, plain_gate=plain_gate or not f64)
+        library=lambda: U @ R.T, plain_gate=plain_gate or not f64,
+        extra=extra)
     tally = sketch.body_launches()
-    need(tally[took] >= 2 and sum(tally.values()) == tally[took],
+    also = {"cross_ms": "cross", "realign_ms": "realign"}
+    need(tally[took] >= 2 and tally[took] + sum(
+        tally[also[k]] for k in (extra or {})) == sum(tally.values()),
          f"{what}: body launches {tally}, want only {took}")
     rec["body"] = took
+    if beside:
+        _f32_body_checks(rec, what, lambda: ops.sketch_apply(
+            U, R, backend="cuda"), cross_call, ref.sketch_ref(U, R), timed,
+            body=took)
     if timed:
         log(f"{what}: device kernels (launches in 3 calls, us per launch) "
             + _kernel_names(rec))
         if took == "mma":
-            need(any("sketch_mma_partial" in k for k in rec["device_kernels"])
+            need(any("sketch_mma_partial<" in k and ", false>" in k
+                     for k in rec["device_kernels"])
                  and any("sketch_mma_finish" in k
                          for k in rec["device_kernels"]),
                  f"{what}: device kernels {rec['device_kernels']}")
@@ -1670,6 +1727,53 @@ def check_sketch_apply(K: int, n: int, m: int, dt, gen, timed: bool = True,
         need(rec["f64_rel_err"] <= CROSS_TOL,
              f"{what}: {rec['f64_rel_err']:.3e} off an f64 product")
     return rec
+
+
+def sketch_realign_bitwise_row(gen) -> dict:
+    """The realigning body against sketch_mma.cu bit for bit: for every
+    K of SKETCH_MMA_K, s = 1..7, m in SKETCH_REALIGN_M and n in
+    SKETCH_REALIGN_N (n % 8 == 0, n = 4 104 with a ragged last tile), U
+    viewed 2·s bytes into its buffer and R 2·(3s mod 8) bytes into its own
+    take ``realign``, their aligned copies ``mma``, and the two results
+    are equal; ``body="realign"`` on the aligned copies too."""
+    import torch
+    from repro_torch.kernels import sketch
+    bf16 = torch.bfloat16
+    cases = 0
+    sketch.reset_body_launches()
+    for K in SKETCH_MMA_K:
+        for s in range(1, 8):
+            for m in SKETCH_REALIGN_M:
+                for n in SKETCH_REALIGN_N:
+                    views = []
+                    for rows, skip in ((K, s), (m, 3 * s % 8)):
+                        buf = torch.randn((rows * n + 8,), generator=gen,
+                                          device="cuda").to(bf16)
+                        views.append(buf[skip:skip + rows * n].view(rows, n))
+                    U, R = views
+                    what = f"sketch realign K={K} m={m} n={n} shift {s}"
+                    need(sketch._body(U, R) == "realign"
+                         and sketch._body(U.clone(), R.clone()) == "mma",
+                         f"{what}: bodies")
+                    got = sketch.sketch_apply_cuda(U, R)
+                    want = sketch.sketch_apply_cuda(U.clone(), R.clone())
+                    forced = sketch.sketch_apply_cuda(U.clone(), R.clone(),
+                                                      body="realign")
+                    need(torch.equal(got, want) and torch.equal(forced, want),
+                         f"{what}: differs from sketch_mma.cu bitwise")
+                    cases += 1
+    tally = sketch.body_launches()
+    need(tally == {"mma": cases, "realign": 2 * cases, "f32": 0, "cross": 0},
+         f"sketch realign bitwise: body launches {tally}")
+    log(f"sketch realign = sketch_mma.cu bitwise on {cases} shifted views "
+        f"(K {SKETCH_MMA_K}, s 1..7, m {SKETCH_REALIGN_M}, n "
+        f"{SKETCH_REALIGN_N})")
+    return {"K": list(SKETCH_MMA_K), "m": list(SKETCH_REALIGN_M),
+            "n": list(SKETCH_REALIGN_N), "shifts": list(range(1, 8)),
+            "cases": cases, "dtype": "bfloat16", "body": "realign",
+            "bitwise_vs_mma": True, "max_abs_err": 0.0, "rel_err": 0.0,
+            "tolerance": CROSS_TOL, "bitwise_repeatable": True,
+            "gated_on": "plain"}
 
 
 def stream_stats_out_row(gen) -> dict:
@@ -1718,6 +1822,69 @@ def stream_stats_out_row(gen) -> dict:
             "max_abs_err": max(_max_err(a, b) for a, b in zip(got, want)),
             "rel_err": err, "tolerance": CROSS_TOL,
             "bitwise_repeatable": bitwise, "gated_on": "plain"}
+
+
+def sketch_records(gen) -> list:
+    """sketch's rows of the kernels phase: every body at its shapes."""
+    import torch
+    f32, bf16 = torch.float32, torch.bfloat16
+    out = []
+    for K, n, m in SKETCH_APPLY_BENCH:
+        out.append(dict(check_sketch_apply(K, n, m, f32, gen, body="f32"),
+                        set="bench"))
+    for K, n, m in SKETCH_APPLY_RAGGED:
+        for dt in (f32, bf16):
+            body = ("f32" if dt == f32 else "cross" if K > 64
+                    else "mma" if n % 8 == 0 else "realign")
+            out.append(dict(
+                check_sketch_apply(K, n, m, dt, gen, timed=False, body=body),
+                set="ragged"))
+    # the tensor-core body at every instance's and slice's edges, U and R
+    # row blocks of one matrix, held to an f64 product (the plain version's
+    # distance recorded); row blocks at an odd n and a bf16 U starting 2
+    # bytes into its buffer take the realigning body, a mixed f32/bf16 pair
+    # cross.cuh's; the realigning body on shifted views equals sketch_mma.cu
+    for K in SKETCH_MMA_K:
+        for m in SKETCH_MMA_M:
+            for n in SKETCH_MMA_N:
+                M = torch.randn((K + m, n), generator=gen,
+                                device="cuda").to(bf16)
+                out.append(dict(check_sketch_apply(
+                    K, n, m, bf16, gen, timed=False, body="mma", f64=True,
+                    plain_gate=False, U=M[:K], R=M[K:]), set="ragged"))
+    M = torch.randn((8 + 129, 1001), generator=gen, device="cuda").to(bf16)
+    shifted = torch.randn((8 * 1024 + 1,), generator=gen,
+                          device="cuda").to(bf16)[1:].view(8, 1024)
+    r1024 = torch.randn((129, 1024), generator=gen, device="cuda").to(bf16)
+    for U, R, body in ((M[:8], M[8:], "realign"), (shifted, r1024, "realign"),
+                       (shifted.float(), r1024, "cross")):
+        out.append(dict(check_sketch_apply(
+            8, U.shape[1], 129, U.dtype, gen, timed=False, body=body, U=U,
+            R=R, f64=body == "realign"), set="ragged"))
+    out.append(dict(sketch_realign_bitwise_row(gen), set="ragged"))
+    # the model rows: bf16 at an odd n on the realigning body first (the
+    # kernels line's row), f32 on cross_f32.cu, both beside cross.cuh's body
+    # in turn and held to an f64 product; then the aligned twins on
+    # sketch_mma.cu
+    for K, n, m in SKETCH_APPLY_MODEL:
+        for dt in (bf16, f32):
+            out.append(dict(check_sketch_apply(
+                K, n, m, dt, gen, body="realign" if dt == bf16 else "f32",
+                f64=True), set="model"))
+            torch.cuda.empty_cache()
+    for K, n, m in SKETCH_REALIGN_MODEL:
+        out.append(dict(check_sketch_apply(
+            K, n, m, bf16, gen, body="realign", f64=True), set="model"))
+        torch.cuda.empty_cache()
+    for K, n, m in SKETCH_F32_TWIN:
+        out.append(dict(check_sketch_apply(
+            K, n, m, f32, gen, body="f32", f64=True), set="model"))
+        torch.cuda.empty_cache()
+    for K, n, m in SKETCH_MMA_MODEL:
+        out.append(dict(check_sketch_apply(
+            K, n, m, bf16, gen, body="mma", f64=True), set="model"))
+        torch.cuda.empty_cache()
+    return out
 
 
 def cross_phase_records(gen) -> dict:
@@ -1819,47 +1986,7 @@ def cross_phase_records(gen) -> dict:
                 Ka, Kb, n, dt, gen, body="mma" if dt == bf16 else "f32",
                 f64=True), set="model"))
             torch.cuda.empty_cache()
-    for K, n, m in SKETCH_APPLY_BENCH:
-        out["sketch"].append(dict(check_sketch_apply(K, n, m, f32, gen,
-                                                     body="cross"),
-                                  set="bench"))
-    for K, n, m in SKETCH_APPLY_RAGGED:
-        for dt in (f32, bf16):
-            mma = dt == bf16 and (K, n, m) == (11, 1000, 129)
-            out["sketch"].append(dict(
-                check_sketch_apply(K, n, m, dt, gen, timed=False,
-                                   body="mma" if mma else "cross"),
-                set="ragged"))
-    # the tensor-core body at every instance's and slice's edges, U and R
-    # row blocks of one matrix, held to an f64 product (the plain version's
-    # distance recorded); row blocks at an odd n, a bf16 U starting 2 bytes
-    # into its buffer and a mixed f32/bf16 pair keep cross.cuh's body
-    for K in SKETCH_MMA_K:
-        for m in SKETCH_MMA_M:
-            for n in SKETCH_MMA_N:
-                M = torch.randn((K + m, n), generator=gen,
-                                device="cuda").to(bf16)
-                out["sketch"].append(dict(check_sketch_apply(
-                    K, n, m, bf16, gen, timed=False, body="mma", f64=True,
-                    plain_gate=False, U=M[:K], R=M[K:]), set="ragged"))
-    M = torch.randn((8 + 129, 1001), generator=gen, device="cuda").to(bf16)
-    shifted = torch.randn((8 * 1024 + 1,), generator=gen,
-                          device="cuda").to(bf16)[1:].view(8, 1024)
-    r1024 = torch.randn((129, 1024), generator=gen, device="cuda").to(bf16)
-    for U, R in ((M[:8], M[8:]), (shifted, r1024), (shifted.float(), r1024)):
-        out["sketch"].append(dict(check_sketch_apply(
-            8, U.shape[1], 129, U.dtype, gen, timed=False, body="cross", U=U,
-            R=R), set="ragged"))
-    for K, n, m in SKETCH_APPLY_MODEL:
-        for dt in (f32, bf16):
-            out["sketch"].append(dict(check_sketch_apply(K, n, m, dt, gen,
-                                                         body="cross"),
-                                      set="model"))
-            torch.cuda.empty_cache()
-    for K, n, m in SKETCH_MMA_MODEL:
-        out["sketch"].append(dict(check_sketch_apply(
-            K, n, m, bf16, gen, body="mma", f64=True), set="model"))
-        torch.cuda.empty_cache()
+    out["sketch"] = sketch_records(gen)
     return out
 
 
@@ -7100,7 +7227,8 @@ def setup_phase() -> str:
         f"{build_s['decode_attn_cluster.cu']:.2f} and decode_attn_mma.cu (2) "
         f"{build_s['decode_attn_mma.cu']:.2f} beside decode_attn.cu (32) "
         f"{build_s['decode_attn.cu']:.2f}, sketch_mma.cu (8) "
-        f"{build_s['sketch_mma.cu']:.2f}, gram_block_mma.cu (32) "
+        f"{build_s['sketch_mma.cu']:.2f} and sketch_realign.cu (8) "
+        f"{build_s['sketch_realign.cu']:.2f}, gram_block_mma.cu (32) "
         f"{build_s['gram_block_mma.cu']:.2f}, gram_mma.cu (8) "
         f"{build_s['gram_mma.cu']:.2f}, gram_f32.cu (20) "
         f"{build_s['gram_f32.cu']:.2f} and cross_f32.cu (4) "
@@ -7185,6 +7313,19 @@ def setup_phase() -> str:
             f"{max(len(w) for w in sketch.mma_deal(K))}): {per_sm} blocks of "
             f"256 threads per SM; n={n}: (slices, blocks per slice, columns "
             f"per block) {sketch.mma_grid(n, m, sms, per_sm)}")
+    for K, n, m in SKETCH_APPLY_MODEL + SKETCH_REALIGN_MODEL:
+        per_sm, _ = cross.launch_config("sketch_realign_launch_config",
+                                        (K, m), 0)
+        aligned, _ = cross.launch_config("sketch_mma_launch_config", (K, m),
+                                         0)
+        need(per_sm == aligned, f"sketch K={K} m={m}: the realigning body's "
+             f"{per_sm} blocks an SM against sketch_mma.cu's {aligned}")
+        log(f"launch: sketch realign K={K} m={m} bf16: {per_sm} blocks of "
+            f"256 threads per SM (as sketch_mma.cu); n={n}: (slices, blocks "
+            f"per slice, columns per block) "
+            f"{sketch.mma_grid(n, m, sms, per_sm)}; f32: cross_f32.cu "
+            f"(level, blocks, columns, scratch floats) "
+            f"{cross.f32_call_plan(K, m, 0, False, n, False, 0)}")
     for n, k in TOPK_PATH:
         p2 = 1 << (k - 1).bit_length()
         log(f"launch: topk n={n} k={k}: one block of 1024 threads, "
@@ -7276,7 +7417,7 @@ KERNEL_SOURCES = {
                      "src/repro/kernels/stream.py:102"),
     "gram_block": ("src/repro_torch/kernels/csrc/cross_f32.cu",
                    "src/repro/kernels/gram.py:60"),
-    "sketch": ("src/repro_torch/kernels/csrc/sketch.cu",
+    "sketch": ("src/repro_torch/kernels/csrc/sketch_realign.cu",
                "src/repro/kernels/sketch.py:39"),
     "flash_decode": ("src/repro_torch/kernels/csrc/decode_attn_cluster.cu",
                      "src/repro/kernels/decode_attn.py:72"),
@@ -7481,7 +7622,9 @@ def main() -> int:
         bodies_by_path=stream_bodies)
     entries[names.index("sketch")].update(
         sources=[KERNEL_SOURCES["sketch"][0],
-                 "src/repro_torch/kernels/csrc/sketch_mma.cu"],
+                 "src/repro_torch/kernels/csrc/cross_f32.cu",
+                 "src/repro_torch/kernels/csrc/sketch_mma.cu",
+                 "src/repro_torch/kernels/csrc/sketch.cu"],
         bodies_by_path=sketch_bodies)
     entries[names.index("combine")].update(
         sources=[KERNEL_SOURCES["combine"][0],

@@ -16,8 +16,10 @@ Ops (``cuda`` / ``torch`` backends, selected by the tensors' device — see
     (``csrc/stream_stats.cu``)
   * ``gram_block`` — G_ab = U_a U_bᵀ, c_a = U_a g (``csrc/gram_block.cu``;
     bf16: ``csrc/gram_block_mma.cu``)
-  * ``sketch``  — U Rᵀ against an explicit R (``csrc/sketch.cu``; bf16:
-    ``csrc/sketch_mma.cu``)
+  * ``sketch``  — U Rᵀ against an explicit R (bf16, K <= 64:
+    ``csrc/sketch_mma.cu``, or ``csrc/sketch_realign.cu`` for rows that
+    start only 2-byte aligned; f32: ``csrc/cross_f32.cu``; the rest:
+    ``csrc/sketch.cu``)
   * ``flash_decode`` — single-token GQA attention against a KV cache, with
     the (o, lse) partials (``csrc/decode_attn.cu``); ``lse_merge`` combines
     partials of a split cache in plain torch

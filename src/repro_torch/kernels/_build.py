@@ -93,6 +93,10 @@ _SIGNATURES = {
                                  ctypes.POINTER(_LL)],
     "sketch_mma_launch": [_VP, _LL, _I, _VP, _LL, _I, _LL, _VP, _LL, _I, _LL,
                           _VP, _VP],
+    "sketch_realign_launch_config": [_I, _I, ctypes.POINTER(_I),
+                                     ctypes.POINTER(_LL)],
+    "sketch_realign_launch": [_VP, _LL, _I, _VP, _LL, _I, _LL, _VP, _LL, _I,
+                              _LL, _VP, _VP],
     "flash_decode_launch_config": [_I, _I, _I, ctypes.POINTER(_I)],
     "flash_decode_launch": [_VP, _I, _VP, _VP, _I, _VP, _VP, _VP, _VP, _VP,
                             _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _LL, _LL,

@@ -7,11 +7,12 @@ serve it on the f32 CUDA cores:
 
 * ``csrc/cross.cuh`` (every body's first): a grid of (A row block, B row
   block) slices times a split of the columns, then a finish pass that sums
-  the per-block partials in order.  ``sketch`` takes it for every call,
-  ``stream_stats`` and ``gram_block`` for mixed or unaligned bf16 calls and
-  when forced (``body="cross"``).
-* ``csrc/cross_f32.cu``: every ``gram_block`` and ``stream_stats`` call
-  whose row sources are all f32.  8 x 8 register tiles over a ``cp.async``
+  the per-block partials in order.  ``sketch`` takes it for mixed calls
+  and bf16 K > 64, ``stream_stats`` and ``gram_block`` for mixed or
+  unaligned bf16 calls, each also when forced (``body="cross"``).
+* ``csrc/cross_f32.cu``: every ``gram_block``, ``stream_stats`` and
+  ``sketch`` call whose row sources are all f32 (``sketch``: A = U against
+  B1 = R, no B2).  8 x 8 register tiles over a ``cp.async``
   ring sized to the block's column range, one launch a call (a cooperative
   launch with one grid barrier where a slice's columns are split).  Its
   planner below (``F32Cuts``, ``F32Slice``, :func:`f32_plan`,
@@ -129,7 +130,8 @@ F32_THREADS = 256         # a block's threads, at most
 F32_NARROW_THREADS = 192  # ... where the widest slice holds 10-192 tiles
 F32_SIDE_TILES = 16       # 8-row tiles of one side of a slice, at most
 F32_STAGES = 3            # the cp.async ring, at most
-F32_STAGE_BYTES = 32768   # one stage, at most
+F32_STAGE_BYTES = 32768   # one stage, at most ...
+F32_LINE_GROUPS = 16      # ... or 16 groups (256 bytes a row) in a ring of 2
 F32_GROUP = 4             # columns of a staged group: one float4 a row
 F32_GRANULE = 128         # a block's column range is a multiple of this
 F32_MAX_SLICES = 65535    # gridDim.y
@@ -311,14 +313,24 @@ def f32_phases(budget: int, tiles: int, groups: int) -> int:
     return max(1, min(budget // tiles, groups // 4))
 
 
+def f32_line_stages(slots: int) -> bool:
+    """Whether a plan of ``slots`` 16-byte slots a staged group takes two
+    stages of F32_LINE_GROUPS groups (256 bytes of each row) instead of up
+    to three of 32 KB: where 16 groups pass 32 KB but two such stages fit
+    the same 96 KB (the source's rule)."""
+    stage = F32_LINE_GROUPS * slots * 16
+    return stage > F32_STAGE_BYTES and 2 * stage <= F32_STAGES * F32_STAGE_BYTES
+
+
 def f32_plan(cuts: F32Cuts, block_groups: int = 0) -> Dict[str, int]:
     """A launch of these cuts, as the source's ``plan_of``: ``budget``
     threads a block (192 where the widest slice holds 10-192 tiles, else
     256), ``slots`` (16 bytes) a staged group, ``groups`` of 4 columns a
-    stage (32 KB at most, a multiple of the widest slice's phases, or the
-    block's ``block_groups``), ``ring``
-    stages (3 at most, or the block's stages), ``max_tiles`` and
-    ``smem_bytes`` (the ring, or the tiles' sums by phase, the larger).  ``block_groups`` 0: the widest
+    stage (32 KB at most, a multiple of the widest slice's phases, or 16
+    where :func:`f32_line_stages` holds, or the block's ``block_groups``),
+    ``ring`` stages (3 at most, 2 under :func:`f32_line_stages`, or the
+    block's stages), ``max_tiles`` and ``smem_bytes`` (the ring, or the
+    tiles' sums by phase, the larger).  ``block_groups`` 0: the widest
     ring, which the occupancy query takes."""
     counts = f32_tile_counts(cuts)
     max_tiles = max(counts)
@@ -329,10 +341,13 @@ def f32_plan(cuts: F32Cuts, block_groups: int = 0) -> Dict[str, int]:
     full = max(1, F32_STAGE_BYTES // (slots * 16))
     wide_phases = max(1, budget // max_tiles)
     stage = full // wide_phases * wide_phases if full >= wide_phases else full
+    max_ring = F32_STAGES
+    if f32_line_stages(slots):
+        stage, max_ring = F32_LINE_GROUPS, 2
     bg = block_groups if block_groups > 0 else 1 << 30
     groups = min(stage, bg)
-    ring = min(F32_STAGES, _cdiv(bg, groups)) if block_groups > 0 \
-        else F32_STAGES
+    ring = min(max_ring, _cdiv(bg, groups)) if block_groups > 0 \
+        else max_ring
     red = max(64 * (f32_phases(budget, t, bg) * t + 1) for t in counts)
     return {"budget": budget, "slots": slots, "groups": groups, "ring": ring,
             "max_tiles": max_tiles,

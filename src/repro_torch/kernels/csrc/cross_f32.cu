@@ -1,14 +1,16 @@
 // cross_f32: out = A Bᵀ over n columns for f32 row sources, on the f32 CUDA
-// cores, one launch a call — the f32 body of gram_block and stream_stats.
-// Every call whose row sources are all f32 takes it
-// (kernels/gram.py::_block_body, kernels/stream.py::_body); bf16 calls that
-// the tensor-core bodies take stay there, and the rest (mixed dtypes,
-// unaligned bf16) on cross.cuh, which `body="cross"` also reaches for f32,
-// to compare the two.
+// cores, one launch a call — the f32 body of gram_block, stream_stats and
+// sketch.  Every call whose row sources are all f32 takes it
+// (kernels/gram.py::_block_body, kernels/stream.py::_body,
+// kernels/sketch.py::_body); bf16 calls that the tensor-core bodies take
+// stay there, and the rest (mixed dtypes, unaligned bf16 gram_block and
+// stream_stats calls) on cross.cuh, which `body="cross"` also reaches for
+// f32, to compare the two.
 //
 // Replaces, for these calls, the Pallas TPU kernels
-// repro/kernels/gram.py:60 gram_block_pallas (_gram_block_kernel) and
-// repro/kernels/stream.py:102 stream_stats_pallas (_stream_stats_kernel),
+// repro/kernels/gram.py:60 gram_block_pallas (_gram_block_kernel),
+// repro/kernels/stream.py:102 stream_stats_pallas (_stream_stats_kernel)
+// and repro/kernels/sketch.py:39 sketch_apply_pallas (_sketch_kernel),
 // which pad the rows to 8 and n to a block multiple and carry the sums
 // across the sequential grid of one TPU core.  No TF32 and no tensor cores:
 // no f32 operand is rounded to reach a tensor core.
@@ -22,6 +24,9 @@
 //   stream_stats  A = D, B1 = D, B2 = GM, sym: G = D Dᵀ (the upper triangle
 //                 computed, then mirrored), C = D GMᵀ; `accumulate` adds
 //                 into the given outputs (a round's slabs, in slab order)
+//   sketch        A = U, B1 = R, no B2 (m2 = 0): S_U = U Rᵀ; at K = 8,
+//                 m = 1024 eight slices of 1 x 16 tiles, U's 8 rows staged
+//                 beside each, R read once
 //
 // What bounds it on the H100 (3.35 TB/s; 33.45 TFMA/s f32).  gram_block at
 // Ka = 64, Kb = 32, n = 2^24 reads 97 rows, 6.51 GB: 1.94 ms of bytes
@@ -74,7 +79,17 @@
 //   block's column range: a stage holds at most 32 KB (a multiple of the
 //   widest slice's phases) or the block's groups, and the ring has
 //   min(3, the block's stages) of them, so a short range (128 columns at
-//   the paths' n) is one stage loaded at once, or a few.
+//   the paths' n) is one stage loaded at once, or a few.  Where 16 groups
+//   (256 bytes of each row, every lane of a warp's 8-group pass copying
+//   two) pass 32 KB but two such stages fit the ring's 96 KB (staged rows
+//   of 114-171: sketch's 8 rows of U beside 128 of R, stream_stats' P =
+//   100), a stage holds 16 groups and the ring 2, at the same occupancy
+//   and grid: at K = 8, m = 1 024,
+//   n = 2^20 + 3 the 12-group stages of the rule above left 4 of a warp's
+//   8 group lanes a second pass of four 4-byte copies a group and ran
+//   4 353 us, two 16-group stages 2 540 (aligned rows: 2 410 either way).
+//   A stage's size changes no sum: a thread's groups, and their order,
+//   follow from its phase.
 // Products.  Per group a thread reads its tile's 8 A rows (eight float4)
 //   and, one at a time, its 8 B rows, and makes 4 FMAs per (A row, B row),
 //   in column order: 16 LDS.128 for 256 FFMA.
@@ -152,6 +167,7 @@ constexpr int kGranule = 128;        // a block's column range is a multiple
 constexpr int kMaxSlices = 65535;    // gridDim.y
 constexpr int kMaxSmem = 128 * 1024; // opted in for the kernel's instances
 constexpr int kDirectPhases = 8;     // phases a split slice's partial holds as they are
+constexpr int kLineGroups = 16;      // a stage of 256 bytes a row, where 32 KB holds fewer
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
@@ -656,11 +672,16 @@ Plan plan_of(const Cuts& c, int block_groups) {
   // then takes as many of a whole stage), at most 32 KB
   const int full = imax(1, kStageBytes / (p.slots * 16));
   const int wide_phases = imax(1, p.budget / p.max_tiles);
-  const int stage = full >= wide_phases ? full / wide_phases * wide_phases
-                                        : full;
+  int stage = full >= wide_phases ? full / wide_phases * wide_phases : full;
+  int max_ring = kStages;
+  if (kLineGroups * p.slots * 16 > kStageBytes &&
+      2 * kLineGroups * p.slots * 16 <= kStages * kStageBytes) {
+    stage = kLineGroups;   // two stages of whole lines, the same 96 KB
+    max_ring = 2;
+  }
   const int bg = block_groups > 0 ? block_groups : 1 << 30;
   p.groups = imin(stage, bg);
-  p.ring = block_groups > 0 ? imin(kStages, cdiv(bg, p.groups)) : kStages;
+  p.ring = block_groups > 0 ? imin(max_ring, cdiv(bg, p.groups)) : max_ring;
   int red = 0;
   for (int i = 0; i < k; ++i) {
     red = imax(red, 64 * (phases_of(p.budget, counts[i], bg) * counts[i] + 1));

@@ -5,7 +5,11 @@
 // (_sketch_kernel), a split-K contraction over n that pads K and m to 8 rows
 // and n to a block_n multiple and carries S_U across the sequential grid of
 // one TPU core.  Here the body is the shared cross product of cross.cuh with
-// A = U and B = R: any K and m, no pad, f32 or bf16 each.  R is cut into
+// A = U and B = R: any K and m, no pad, f32 or bf16 each.  It takes the
+// calls no other body takes — mixed f32/bf16 U and R, bf16 with K > 64 —
+// and any call forced with body="cross" (kernels/sketch.py::_body: bf16
+// with K <= 64 runs sketch_mma.cu or sketch_realign.cu, f32 cross_f32.cu).
+// R is cut into
 // 64-row blocks, one grid slice each, and U is staged beside every block, so
 // R is read once and U once per slice (from L2 after the first).  Two calls
 // give bitwise-equal results (no float atomics).

@@ -1,34 +1,49 @@
 """``sketch``: S_U = U Rᵀ against an explicit sketch matrix R — the Hopper
 kernel.
 
-Replaces ``repro.kernels.sketch.sketch_apply_pallas``.  It has two bodies,
-chosen from the inputs alone (:func:`_mma_eligible`): a call with U and R
-both bf16, 1 <= K <= 64, n % 8 == 0, 16-byte aligned pointers and row
-strides that are multiples of 8 runs on the bf16 tensor cores
-(``csrc/sketch_mma.cu``), every other call on the shared cross-product body
-of ``csrc/cross.cuh`` (``csrc/sketch.cu``: any K and m, f32 or bf16 each, no
-pad).  No f32 operand is rounded to bf16 to reach a tensor core.  Each
-source says what bounds it on the H100 and how its deterministic split
-reduction is laid out; this module checks the inputs, allocates the output
-and the scratch with ``torch.empty`` and launches on the current stream
-without synchronising.  ``body_launches()`` tallies the launches by body.
-For the counter-based sign sketch, whose R is never stored, see
-``rng_sketch.py``.
+Replaces ``repro.kernels.sketch.sketch_apply_pallas``.  It has four bodies,
+chosen from dtypes, shapes, strides and pointers alone (:func:`_body`):
+
+* ``mma`` (``csrc/sketch_mma.cu``): U and R both bf16, 1 <= K <= 64,
+  n % 8 == 0, 16-byte aligned pointers and row strides that are multiples
+  of 8 (:func:`_mma_eligible`), on the bf16 tensor cores;
+* ``realign`` (``csrc/sketch_realign.cu``): the other bf16 calls with
+  1 <= K <= 64 (odd n, unaligned views or row strides), the same tensor-core
+  loop on tiles staged from the aligned-down 16-byte chunks of each row and
+  shifted into place in shared memory (:func:`realign_plan` mirrors it);
+* ``f32`` (``csrc/cross_f32.cu``, the f32 body of ``gram_block`` and
+  ``stream_stats``): U and R both f32, A = U against B1 = R, one launch;
+* ``cross`` (``csrc/sketch.cu`` on ``csrc/cross.cuh``): mixed f32/bf16
+  calls and bf16 K > 64; ``body="cross"`` forces any call onto it, to
+  compare.
+
+No f32 operand is rounded to bf16 to reach a tensor core.  Each source says
+what bounds it on the H100 and how its deterministic split reduction is laid
+out; this module checks the inputs, allocates the output and the scratch
+with ``torch.empty`` and launches on the current stream without
+synchronising.  ``body_launches()`` tallies the launches by body.  For the
+counter-based sign sketch, whose R is never stored, see ``rng_sketch.py``.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from . import _build, cross, gram
 from .registry import count_launch
 
-SKETCH_MMA_MAX_K = 64     # the tensor-core body's K: U in 8·NB <= 64 rows
+SKETCH_MMA_MAX_K = 64     # the tensor-core bodies' K: U in 8·NB <= 64 rows
 MMA_SLICE_ROWS = 128      # rows of R a block of the tensor-core body takes
 MMA_WARPS = 8             # warps of a block: one 16-row tile of R each
 MMA_STAGE_COLS = 128      # columns of one staged tile
-_BODY_LAUNCHES = {"mma": 0, "cross": 0}
+REALIGN_CHUNK = 8         # entries of a 16-byte chunk
+BODIES = ("mma", "realign", "f32", "cross")
+_BODY_LAUNCHES = {body: 0 for body in BODIES}
+# the tensor-core bodies' launchers: (occupancy query, launch)
+_TC_FUNCS = {"mma": ("sketch_mma_launch_config", "sketch_mma_launch"),
+             "realign": ("sketch_realign_launch_config",
+                         "sketch_realign_launch")}
 
 
 def _mma_eligible(updates: torch.Tensor, sketch: torch.Tensor) -> bool:
@@ -45,8 +60,40 @@ def _mma_eligible(updates: torch.Tensor, sketch: torch.Tensor) -> bool:
                     for t in (updates, sketch)))
 
 
+def _realign_eligible(updates: torch.Tensor, sketch: torch.Tensor) -> bool:
+    """Whether the realigning tensor-core body can take a call: U and R
+    both bf16, 1 <= K <= 64, m >= 1, n >= 1, any row strides and
+    pointers."""
+    (K, n), m = updates.shape, sketch.shape[0]
+    return (updates.dtype == torch.bfloat16 and sketch.dtype == torch.bfloat16
+            and 1 <= K <= SKETCH_MMA_MAX_K and m >= 1 and n >= 1)
+
+
+def _f32_eligible(updates: torch.Tensor, sketch: torch.Tensor) -> bool:
+    """Whether cross_f32.cu can take a call: U and R both f32 and the
+    slices of (K, m) fit its grid (:func:`cross.f32_shape_ok`)."""
+    (K, _), m = updates.shape, sketch.shape[0]
+    return (updates.dtype == torch.float32 and sketch.dtype == torch.float32
+            and K >= 1 and m >= 1 and cross.f32_shape_ok(K, m, 0, False))
+
+
+def _body(updates: torch.Tensor, sketch: torch.Tensor) -> str:
+    """The body a call takes: ``mma`` where :func:`_mma_eligible` holds,
+    ``realign`` for the other bf16 calls with K <= 64, ``f32`` for f32 U
+    and R, ``cross`` for the rest (mixed dtypes, K > 64).  Reads only
+    dtypes, shapes, strides and pointers."""
+    if _mma_eligible(updates, sketch):
+        return "mma"
+    if _realign_eligible(updates, sketch):
+        return "realign"
+    if _f32_eligible(updates, sketch):
+        return "f32"
+    return "cross"
+
+
 def body_launches() -> Dict[str, int]:
-    """``{"mma": launches, "cross": launches}`` since the last reset."""
+    """``{body: launches}`` for ``mma``, ``realign``, ``f32`` and ``cross``
+    since the last reset."""
     return dict(_BODY_LAUNCHES)
 
 
@@ -82,12 +129,85 @@ def mma_grid(n: int, m: int, sm_count: int,
     return (slices, *gram.grid(n, sm_count, blocks_per_sm, slices))
 
 
-def sketch_apply_cuda(updates: torch.Tensor, sketch: torch.Tensor
-                      ) -> torch.Tensor:
+def realign_shift(address: int) -> int:
+    """The shift of a bf16 row starting at byte ``address``: (address / 2)
+    mod 8, its entries past the 16-byte boundary below it (the source's
+    ``shift_of``)."""
+    return (address >> 1) & 7
+
+
+def realign_plan(shift: int, base: int, col1: int
+                 ) -> Tuple[List[Tuple[int, bool]],
+                            List[Optional[Tuple[int, int]]], bool]:
+    """How ``sketch_realign.cu`` stages one row's tile of columns [base,
+    base + 128) in a block whose range ends at column col1, the row's shift
+    being ``shift``: ``(chunks, staged, shifted)``.
+
+    ``chunks``: each aligned-down 16-byte chunk landed in the staged row,
+    as (its first column, read?): 17 where shift != 0, else 16; read only if
+    it starts before col1, else zero-filled.  ``staged``: for each entry j
+    of the tile, the (chunk, lane) of the landed entry it takes after the
+    realign pass, or None where it is zeroed (column base + j >= col1).
+    ``shifted``: whether the pass rewrites the row (shift != 0, or the tile
+    ends past col1); else the landed chunks stand as they are."""
+    chunks = []
+    for c in range(MMA_STAGE_COLS // REALIGN_CHUNK + (1 if shift else 0)):
+        col = base - shift + REALIGN_CHUNK * c
+        chunks.append((col, col < col1))
+    staged = [divmod(shift + j, REALIGN_CHUNK) if base + j < col1 else None
+              for j in range(MMA_STAGE_COLS)]
+    return chunks, staged, shift != 0 or col1 - base < MMA_STAGE_COLS
+
+
+def _launch_tensor_cores(body: str, updates: torch.Tensor, ldu: int,
+                         sketch: torch.Tensor, ldr: int, S: torch.Tensor
+                         ) -> None:
+    """sketch_mma.cu or sketch_realign.cu: a partial kernel over one wave
+    of blocks, then the finish."""
+    (K, n), m = updates.shape, sketch.shape[0]
+    dev = updates.device
+    config_fn, launch_fn = _TC_FUNCS[body]
+    per_sm, _ = cross.launch_config(config_fn, (K, m), dev.index)
+    slices, num_blocks, cols = mma_grid(n, m, _build.sm_count(dev.index),
+                                        per_sm)
+    partial = torch.empty(
+        (slices * num_blocks * MMA_SLICE_ROWS * mma_rows(K),),
+        dtype=torch.float32, device=dev)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        rc = getattr(lib, launch_fn)(
+            updates.data_ptr(), ldu, K, sketch.data_ptr(), ldr, m, n,
+            partial.data_ptr(), partial.numel(), num_blocks, cols,
+            S.data_ptr(), cross.stream_of(dev))
+    _build.check(lib, rc, f"sketch ({body})")
+
+
+def _launch_cross(updates: torch.Tensor, ldu: int, sketch: torch.Tensor,
+                  ldr: int, S: torch.Tensor) -> None:
+    """sketch.cu: cross.cuh's partial and finish kernels."""
+    (K, n), m = updates.shape, sketch.shape[0]
+    dev = updates.device
+    partial, num_blocks, cols = cross.scratch("sketch_apply_launch_config",
+                                              (K, m), n, dev)
+    bf16 = torch.bfloat16
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        rc = lib.sketch_apply_launch(
+            updates.data_ptr(), ldu, int(updates.dtype == bf16), K,
+            sketch.data_ptr(), ldr, int(sketch.dtype == bf16), m, n,
+            partial.data_ptr(), partial.numel(), num_blocks, cols,
+            S.data_ptr(), cross.stream_of(dev))
+    _build.check(lib, rc, "sketch (cross)")
+
+
+def sketch_apply_cuda(updates: torch.Tensor, sketch: torch.Tensor, *,
+                      body: Optional[str] = None) -> torch.Tensor:
     """``updates (K, n)`` and ``sketch (m, n)``, f32 or bf16 each, any row
     stride with unit-strided columns, on one CUDA device → ``(K, m)`` f32,
-    on the tensor-core body when :func:`_mma_eligible` holds and on
-    cross.cuh's otherwise."""
+    on the body :func:`_body` picks; ``body=`` forces one (``"cross"``
+    takes any call; ``"mma"`` an eligible call, ``"realign"`` bf16 U and R
+    with K <= 64, ``"f32"`` f32 U and R) and raises where the call does
+    not fit it."""
     dev = updates.device
     ldu = cross.row_stride("sketch_apply_cuda", "updates", updates, dev)
     ldr = cross.row_stride("sketch_apply_cuda", "sketch", sketch, dev)
@@ -96,35 +216,31 @@ def sketch_apply_cuda(updates: torch.Tensor, sketch: torch.Tensor
         raise ValueError(f"sketch operands disagree on n: {n} vs {ns}")
     if K < 1 or m < 1:
         raise ValueError(f"sketch_apply_cuda: K={K} and m={m} must be >= 1")
+    if body not in (None,) + BODIES:
+        raise ValueError(f"sketch_apply_cuda: body {body!r} not in {BODIES}")
+    took = _body(updates, sketch)
+    if body == "mma" and took != "mma":
+        raise ValueError("sketch_apply_cuda: the mma body takes bf16 U and R "
+                         f"with 1 <= K <= {SKETCH_MMA_MAX_K}, n % 8 == 0, "
+                         "16-byte aligned pointers and row strides that are "
+                         "multiples of 8")
+    if body == "realign" and not _realign_eligible(updates, sketch):
+        raise ValueError("sketch_apply_cuda: the realign body takes bf16 U "
+                         f"and R with 1 <= K <= {SKETCH_MMA_MAX_K} and n >= 1")
+    if body == "f32" and took != "f32":
+        raise ValueError("sketch_apply_cuda: the f32 body takes f32 U and R "
+                         "whose slices fit its grid")
+    took = body or took
     S = torch.empty((K, m), dtype=torch.float32, device=dev)
     if n == 0:
         return S.zero_()
-    mma = _mma_eligible(updates, sketch)
-    lib = _build.load_library()
-    if mma:
-        per_sm, _ = cross.launch_config("sketch_mma_launch_config", (K, m),
-                                        dev.index)
-        slices, num_blocks, cols = mma_grid(n, m, _build.sm_count(dev.index),
-                                            per_sm)
-        partial = torch.empty(
-            (slices * num_blocks * MMA_SLICE_ROWS * mma_rows(K),),
-            dtype=torch.float32, device=dev)
-        with torch.cuda.device(dev):
-            rc = lib.sketch_mma_launch(
-                updates.data_ptr(), ldu, K, sketch.data_ptr(), ldr, m, n,
-                partial.data_ptr(), partial.numel(), num_blocks, cols,
-                S.data_ptr(), cross.stream_of(dev))
+    if took == "f32":
+        cross.launch_f32("sketch", updates, K, ldu, sketch, m, ldr, sketch,
+                         0, 0, False, n, S, m, S, 0, False)
+    elif took == "cross":
+        _launch_cross(updates, ldu, sketch, ldr, S)
     else:
-        partial, num_blocks, cols = cross.scratch("sketch_apply_launch_config",
-                                                  (K, m), n, dev)
-        bf16 = torch.bfloat16
-        with torch.cuda.device(dev):
-            rc = lib.sketch_apply_launch(
-                updates.data_ptr(), ldu, int(updates.dtype == bf16), K,
-                sketch.data_ptr(), ldr, int(sketch.dtype == bf16), m, n,
-                partial.data_ptr(), partial.numel(), num_blocks, cols,
-                S.data_ptr(), cross.stream_of(dev))
-    _build.check(lib, rc, "sketch")
+        _launch_tensor_cores(took, updates, ldu, sketch, ldr, S)
     count_launch("sketch", "cuda")
-    _BODY_LAUNCHES["mma" if mma else "cross"] += 1
+    _BODY_LAUNCHES[took] += 1
     return S

@@ -208,9 +208,10 @@ def test_stream_stats_deal_covers_every_entry_once(P):
 def test_plan_fits_every_slice(rows):
     """At every level: each slice's staged rows and tiles fit the plan's
     slots, its tiles the block's threads; a ring holds 3 stages of at most
-    32 KB for a long column range and one stage for a range the stage
-    holds; the shared memory fits an H100 block; the source's tile counts
-    hold every slice's."""
+    32 KB for a long column range, or 2 stages of 16 groups where 16 groups
+    pass 32 KB and two such stages fit 96 KB, and one stage for a range the
+    stage holds; the shared memory fits an H100 block; the source's tile
+    counts hold every slice's."""
     ma, m1, m2, sym = rows
     k = 1
     while True:
@@ -225,7 +226,14 @@ def test_plan_fits_every_slice(rows):
             assert plan["budget"] in (192, 256)
             assert plan["smem_bytes"] <= 128 * 1024
             assert 1 <= plan["ring"] <= 3
-            if bg == 0 or bg == 1 << 20:
+            line = 16 * 16 * plan["slots"]
+            assert cross.f32_line_stages(plan["slots"]) is (
+                line > cross.F32_STAGE_BYTES
+                and 2 * line <= 3 * cross.F32_STAGE_BYTES)
+            if (bg == 0 or bg == 1 << 20) and cross.f32_line_stages(
+                    plan["slots"]):
+                assert plan["ring"] == 2 and plan["groups"] == 16
+            elif bg == 0 or bg == 1 << 20:
                 wide = plan["budget"] // plan["max_tiles"]
                 assert plan["ring"] == 3
                 assert (16 * plan["groups"] * plan["slots"]

@@ -1333,7 +1333,8 @@ def _check_sketch_mma(U, R):
     S2 = sketch_apply(U, R)
     assert launch_counts()["sketch/cuda"] == 2
     assert launch_counts()["sketch/torch"] == 0
-    assert sketch.body_launches() == {"mma": 2, "cross": 0}
+    assert sketch.body_launches() == {"mma": 2, "realign": 0, "f32": 0,
+                                      "cross": 0}
     assert torch.equal(S, S2)                       # no float atomics
     (K, n), m = U.shape, R.shape[0]
     assert tuple(S.shape) == (K, m) and S.dtype == torch.float32
@@ -1384,10 +1385,13 @@ def test_sketch_mma_body_against_f64_at_model_width(cuda_device):
 
 
 def test_sketch_other_calls_keep_cross(cuda_device):
-    """f32 and mixed dtypes each way, K = 65, n % 8 != 0, row blocks of one
-    matrix at an odd n, a row stride that is no multiple of 8, and a bf16 U
-    or R starting 2 bytes into its buffer keep cross.cuh's body, with its
-    results unchanged."""
+    """The calls the aligned tensor-core body does not take, each on the
+    body it now takes, within CROSS_TOL of the plain version: f32 on
+    cross_f32.cu (``f32``); mixed dtypes each way and K = 65 keep
+    cross.cuh's body (``cross``); n % 8 != 0, row blocks of one matrix at
+    an odd n, a row stride that is no multiple of 8, and a bf16 U or R
+    starting 2 bytes into its buffer take the realigning tensor-core body
+    (``realign``)."""
     from repro_torch.kernels import sketch
     gen = torch.Generator(device=cuda_device)
     gen.manual_seed(6565)
@@ -1397,21 +1401,169 @@ def test_sketch_other_calls_keep_cross(cuda_device):
         return _randn(gen, shape, dtype, cuda_device)
 
     M = r(8 + 129, 1001)
-    cases = [(r(8, 1024, dtype=f32), r(129, 1024, dtype=f32)),
-             (r(8, 1024, dtype=f32), r(129, 1024)),
-             (r(8, 1024), r(129, 1024, dtype=f32)),
-             (r(65, 1024), r(129, 1024)),
-             (r(8, 1001), r(129, 1001)),
-             (M[:8], M[8:]),
-             (r(8, 1028)[:, :1024], r(129, 1024)),
-             (r(8 * 1024 + 1)[1:].view(8, 1024), r(129, 1024)),
-             (r(8, 1024), r(129 * 1024 + 1)[1:].view(129, 1024))]
-    for U, R in cases:
+    cases = [(r(8, 1024, dtype=f32), r(129, 1024, dtype=f32), "f32"),
+             (r(8, 1024, dtype=f32), r(129, 1024), "cross"),
+             (r(8, 1024), r(129, 1024, dtype=f32), "cross"),
+             (r(65, 1024), r(129, 1024), "cross"),
+             (r(8, 1001), r(129, 1001), "realign"),
+             (M[:8], M[8:], "realign"),
+             (r(8, 1028)[:, :1024], r(129, 1024), "realign"),
+             (r(8 * 1024 + 1)[1:].view(8, 1024), r(129, 1024), "realign"),
+             (r(8, 1024), r(129 * 1024 + 1)[1:].view(129, 1024), "realign")]
+    for U, R, body in cases:
         assert not sketch._mma_eligible(U, R)
+        assert sketch._body(U, R) == body
         sketch.reset_body_launches()
         S = sketch_apply(U, R)
-        assert sketch.body_launches() == {"mma": 0, "cross": 1}
+        assert sketch.body_launches() == dict(
+            {"mma": 0, "realign": 0, "f32": 0, "cross": 0}, **{body: 1})
         assert _rel_err(S, ref.sketch_ref(U, R)) <= CROSS_TOL
+
+
+def _shifted(gen, rows, n, skip, device, dtype=torch.bfloat16):
+    """A (rows, n) bf16 view starting ``skip`` entries into a fresh buffer:
+    every row starts 2·skip bytes past a 16-byte boundary when n % 8 == 0."""
+    buf = _randn(gen, (rows * n + 8,), dtype, device)
+    return buf[skip:skip + rows * n].view(rows, n)
+
+
+SKETCH_REALIGN_M = [1, 17, 128, 129, 1024]
+
+
+@pytest.mark.parametrize("skip", range(1, 8))
+@pytest.mark.parametrize("K", SKETCH_MMA_K)
+def test_sketch_realign_equals_mma_bitwise(cuda_device, K, skip):
+    """U and R viewed 2·s bytes into their buffers (s = 1..7; R at another
+    shift) take the realigning body, and at n % 8 == 0 it equals
+    sketch_mma.cu on an aligned copy of the same values bit for bit, for m
+    across the slices' edges and a ragged last staged tile (n = 4 104);
+    ``body="realign"`` on the aligned copy gives the same bits too."""
+    from repro_torch.kernels import sketch
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(K * 64 + skip)
+    for m in SKETCH_REALIGN_M:
+        for n in (8, 4104):
+            U = _shifted(gen, K, n, skip, cuda_device)
+            R = _shifted(gen, m, n, (3 * skip) % 8, cuda_device)
+            Ua, Ra = U.clone(), R.clone()
+            assert sketch._body(U, R) == "realign"
+            assert sketch._body(Ua, Ra) == "mma"
+            sketch.reset_body_launches()
+            S = sketch_apply(U, R)
+            Sa = sketch_apply(Ua, Ra)
+            Sf = sketch_apply_cuda(Ua, Ra, body="realign")
+            assert sketch.body_launches() == {"mma": 1, "realign": 2,
+                                              "f32": 0, "cross": 0}
+            assert torch.equal(S, Sa) and torch.equal(Sf, Sa), (m, n)
+
+
+@pytest.mark.parametrize("K,m,n", [(1, 1, 1), (7, 5, 7), (8, 129, 1001),
+                                   (3, 17, 1003), (64, 256, 4103),
+                                   (9, 1025, 4097), (57, 130, 2049),
+                                   (8, 1024, (1 << 20) + 3)])
+def test_sketch_realign_against_f64_at_odd_n(cuda_device, K, m, n):
+    """bf16 U and R at an odd n (every row but the first starts only 2-byte
+    aligned) take the realigning body: two calls bitwise equal, within
+    CROSS_TOL of an f64 product and of the plain version."""
+    from repro_torch.kernels import sketch
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(K * 131 + m + n)
+    U = _randn(gen, (K, n), torch.bfloat16, cuda_device)
+    R = _randn(gen, (m, n), torch.bfloat16, cuda_device)
+    sketch.reset_body_launches()
+    S = sketch_apply(U, R)
+    S2 = sketch_apply(U, R)
+    assert sketch.body_launches()["realign"] == 2
+    assert torch.equal(S, S2)
+    S64 = U.double() @ R.double().T
+    assert _rel_err(S.double(), S64) <= CROSS_TOL
+    assert _rel_err(S, ref.sketch_ref(U, R)) <= CROSS_TOL
+
+
+@pytest.mark.parametrize("K,m,n", [(8, 1024, 1 << 16),
+                                   (8, 1024, (1 << 20) + 3), (3, 17, 130),
+                                   (100, 65, 777), (1, 1, 1), (65, 129, 1001)])
+def test_sketch_f32_body_is_one_kernel_a_call(cuda_device, K, m, n):
+    """f32 U and R take cross_f32.cu (``f32``): one device kernel a call
+    (``torch.profiler``), two calls bitwise equal, within CROSS_TOL of
+    cross.cuh's body (``body="cross"``) and of an f64 product."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch.kernels import sketch
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(K + m + n)
+    U = _randn(gen, (K, n), torch.float32, cuda_device)
+    R = _randn(gen, (m, n), torch.float32, cuda_device)
+    sketch.reset_body_launches()
+    S = sketch_apply(U, R)
+    S2 = sketch_apply(U, R)
+    X = sketch_apply_cuda(U, R, body="cross")
+    assert sketch.body_launches() == {"mma": 0, "realign": 0, "f32": 2,
+                                      "cross": 1}
+    assert torch.equal(S, S2)
+    assert _rel_err(S, X) <= CROSS_TOL
+    assert _rel_err(S.double(), U.double() @ R.double().T) <= CROSS_TOL
+    calls = 3
+    # a warm-up cycle first, as test_cross_f32_body_is_one_kernel_a_call
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        sketch_apply(U, R)
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(calls):
+            sketch_apply(U, R)
+        torch.cuda.synchronize()
+        prof.step()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_time_total > 0 and ("cross" in e.key
+                                               or "sketch" in e.key)}
+    assert len(kernels) == 1 and sum(kernels.values()) == calls, kernels
+    assert "cross_f32" in next(iter(kernels))
+
+
+def test_sketch_body_choice_is_checked(cuda_device):
+    """``body=`` names one of four bodies and refuses a call the body cannot
+    take: ``mma`` off aligned bf16 rows, ``realign`` on f32 or K > 64,
+    ``f32`` on bf16; ``cross`` takes any call, within CROSS_TOL of the
+    default body."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(40)
+    U = _randn(gen, (8, 1001), torch.bfloat16, cuda_device)
+    R = _randn(gen, (129, 1001), torch.bfloat16, cuda_device)
+    with pytest.raises(ValueError, match="mma body"):
+        sketch_apply_cuda(U, R, body="mma")
+    with pytest.raises(ValueError, match="f32 body"):
+        sketch_apply_cuda(U, R, body="f32")
+    with pytest.raises(ValueError, match="realign body"):
+        sketch_apply_cuda(U.float(), R.float(), body="realign")
+    with pytest.raises(ValueError, match="realign body"):
+        sketch_apply_cuda(_randn(gen, (65, 1001), torch.bfloat16,
+                                 cuda_device), R, body="realign")
+    with pytest.raises(ValueError, match="body"):
+        sketch_apply_cuda(U, R, body="wide")
+    S = sketch_apply_cuda(U, R)
+    for u, rr in ((U, R), (U.float(), R.float()), (U.float(), R)):
+        X = sketch_apply_cuda(u, rr, body="cross")
+        assert _rel_err(X, sketch_apply_cuda(u, rr)) <= CROSS_TOL
+    assert _rel_err(sketch_apply_cuda(U, R, body="cross"), S) <= CROSS_TOL
+
+
+@pytest.mark.parametrize("body", ["mma", "realign", "f32", "cross"])
+def test_sketch_bodies_are_bitwise_repeatable(cuda_device, body):
+    """Two calls of each body on the same inputs are bitwise equal (no
+    float atomics): bf16 K = 8, m = 1 025, n = 4 104 for ``mma`` and
+    ``realign`` (forced on the aligned rows too), f32 for ``f32``, mixed
+    for ``cross``."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(4104)
+    dt = torch.float32 if body == "f32" else torch.bfloat16
+    U = _randn(gen, (8, 4104), dt, cuda_device)
+    R = _randn(gen, (1025, 4104), dt, cuda_device)
+    if body == "cross":
+        U = U.float()
+    S = sketch_apply_cuda(U, R, body=body)
+    assert torch.equal(S, sketch_apply_cuda(U, R, body=body))
+    assert _rel_err(S, ref.sketch_ref(U, R)) <= CROSS_TOL
 
 
 def test_cross_wrappers_reject_bad_inputs(cuda_device):

@@ -14,6 +14,8 @@ reference in ``tests/test_torch_streamed.py``.  The CUDA kernels themselves are 
 by ``tests/test_torch_cuda.py``.
 """
 import ctypes
+import itertools
+from collections import Counter
 
 import jax.numpy as jnp
 import numpy as np
@@ -256,10 +258,12 @@ def test_build_key_covers_every_source():
     names = {p.name for p in _build.sources()}
     assert {"gram.cu", "combine.cu", "combine_vec.cu", "topk.cu",
             "rng_sketch.cu", "stream_stats.cu", "gram_block.cu",
-            "sketch.cu"} <= names
+            "sketch.cu", "sketch_mma.cu", "sketch_realign.cu",
+            "cross_f32.cu"} <= names
     # a header edit rebuilds too (the hash covers every .cuh)
     assert (_build.CSRC / "rng_hash.cuh").is_file()
     assert (_build.CSRC / "cross.cuh").is_file()
+    assert (_build.CSRC / "sketch_mma.cuh").is_file()
     assert len(_build.source_hash()) == 16
     assert _build.build_dir().parent == _build.BUILD_ROOT
 
@@ -291,7 +295,10 @@ def test_gram_block_plain_matches_pallas(Ka, Kb, n, dtype):
 @pytest.mark.parametrize("K,m,n,dtype", [(5, 11, 333, "float32"),
                                          (1, 1, 7, "float32"),
                                          (8, 130, 1000, "bfloat16"),
-                                         (8, 1024, 256, "bfloat16")])
+                                         (8, 1024, 256, "bfloat16"),
+                                         (8, 129, 1001, "bfloat16"),
+                                         (3, 17, 1003, "bfloat16"),
+                                         (8, 64, 4103, "float32")])
 def test_sketch_apply_plain_matches_pallas(K, m, n, dtype):
     rng = np.random.RandomState(K + m + n)
     Uj, Ut = _pair(rng.randn(K, n), dtype)
@@ -639,32 +646,43 @@ def _sketch_row_blocks(K, m, n):
 
 
 _SKETCH_MMA_CASES = {
-    "bf16, separate tensors": (_sketch_pair(8, 1024, 1024), True),
-    "bf16, row blocks of one matrix": (_sketch_row_blocks(8, 129, 1024), True),
-    "row blocks, n = 1 001": (_sketch_row_blocks(8, 129, 1001), False),
-    "K = 1": (_sketch_pair(1, 129, 64), True),
-    "K = 64": (_sketch_pair(64, 129, 64), True),
-    "K = 65": (_sketch_pair(65, 129, 64), False),
-    "m = 1": (_sketch_pair(8, 1, 64), True),
-    "m = 1 025": (_sketch_pair(8, 1025, 1024), True),
-    "n = 8": (_sketch_pair(8, 129, 8), True),
-    "n = 7 850 (% 8 = 2)": (_sketch_pair(8, 129, 7850), False),
-    "n = 2^20 + 3": (_sketch_pair(1, 1, (1 << 20) + 3), False),
-    "n = 0": (_sketch_pair(8, 129, 0), False),
-    "f32": (_sketch_pair(8, 129, 1024, (_F32, _F32)), False),
-    "U f32, R bf16": (_sketch_pair(8, 129, 1024, (_F32, _BF16)), False),
-    "U bf16, R f32": (_sketch_pair(8, 129, 1024, (_BF16, _F32)), False),
-    "f16": (_sketch_pair(8, 129, 1024, (torch.float16,) * 2), False),
+    "bf16, separate tensors": (_sketch_pair(8, 1024, 1024), "mma"),
+    "bf16, row blocks of one matrix": (_sketch_row_blocks(8, 129, 1024),
+                                       "mma"),
+    "row blocks, n = 1 001": (_sketch_row_blocks(8, 129, 1001), "realign"),
+    "K = 1": (_sketch_pair(1, 129, 64), "mma"),
+    "K = 64": (_sketch_pair(64, 129, 64), "mma"),
+    "K = 65": (_sketch_pair(65, 129, 64), "cross"),
+    "m = 1": (_sketch_pair(8, 1, 64), "mma"),
+    "m = 1 025": (_sketch_pair(8, 1025, 1024), "mma"),
+    "n = 8": (_sketch_pair(8, 129, 8), "mma"),
+    "n = 7 850 (% 8 = 2)": (_sketch_pair(8, 129, 7850), "realign"),
+    "n = 2^20 + 3": (_sketch_pair(1, 1, (1 << 20) + 3), "realign"),
+    "n = 0": (_sketch_pair(8, 129, 0), "cross"),
+    "f32": (_sketch_pair(8, 129, 1024, (_F32, _F32)), "f32"),
+    "U f32, R bf16": (_sketch_pair(8, 129, 1024, (_F32, _BF16)), "cross"),
+    "U bf16, R f32": (_sketch_pair(8, 129, 1024, (_BF16, _F32)), "cross"),
+    "f16": (_sketch_pair(8, 129, 1024, (torch.float16,) * 2), "cross"),
     "row strides 1 032 (% 8 = 0)": (_sketch_pair(8, 129, 1024, ldu=1032,
-                                                 ldr=1032), True),
+                                                 ldr=1032), "mma"),
     "U's row stride 1 028 (% 8 = 4)": (_sketch_pair(8, 129, 1024, ldu=1028),
-                                       False),
+                                       "realign"),
     "R's row stride 1 025 (odd)": (_sketch_pair(8, 129, 1024, ldr=1025),
-                                   False),
+                                   "realign"),
     "data_ptrs 16 bytes in": (_sketch_pair(8, 129, 1024, u_in=8, r_in=8),
-                              True),
-    "U's data_ptr 2 bytes in": (_sketch_pair(8, 129, 1024, u_in=1), False),
-    "R's data_ptr 2 bytes in": (_sketch_pair(8, 129, 1024, r_in=1), False),
+                              "mma"),
+    "U's data_ptr 2 bytes in": (_sketch_pair(8, 129, 1024, u_in=1),
+                                "realign"),
+    "R's data_ptr 2 bytes in": (_sketch_pair(8, 129, 1024, r_in=1),
+                                "realign"),
+    "odd n (1 001), separate tensors": (_sketch_pair(8, 129, 1001),
+                                        "realign"),
+    "row strides 1 028": (_sketch_pair(8, 129, 1024, ldu=1028, ldr=1028),
+                          "realign"),
+    "K = 65, odd n": (_sketch_pair(65, 129, 1001), "cross"),
+    "f32, K = 65": (_sketch_pair(65, 129, 1024, (_F32, _F32)), "f32"),
+    "f32, odd n, row stride 1 025": (_sketch_pair(8, 129, 1001, (_F32, _F32),
+                                                  ldr=1025), "f32"),
 }
 
 
@@ -672,12 +690,126 @@ _SKETCH_MMA_CASES = {
 def test_sketch_mma_eligible_rule(case):
     """sketch's tensor-core body takes U and R both bf16 with 1 <= K <= 64,
     any m, n >= 1, n % 8 == 0, 16-byte aligned pointers and row strides
-    that are multiples of 8; every other call keeps cross.cuh's body
-    (sketch.cu)."""
+    that are multiples of 8; every other call takes another body
+    (:func:`test_sketch_body_rule`)."""
     from repro_torch.kernels.sketch import SKETCH_MMA_MAX_K, _mma_eligible
-    (U, R), want = _SKETCH_MMA_CASES[case]
+    (U, R), body = _SKETCH_MMA_CASES[case]
     assert SKETCH_MMA_MAX_K == 64
-    assert _mma_eligible(U, R) is want
+    assert _mma_eligible(U, R) is (body == "mma")
+
+
+@pytest.mark.parametrize("case", list(_SKETCH_MMA_CASES))
+def test_sketch_body_rule(case):
+    """Each call names its body from dtypes, shapes, strides and pointers:
+    ``mma`` (sketch_mma.cu) for aligned bf16 rows with K <= 64 and
+    n % 8 == 0, ``realign`` (sketch_realign.cu) for the other bf16 calls
+    with 1 <= K <= 64 and n >= 1, ``f32`` (cross_f32.cu) for f32 U and R,
+    ``cross`` (sketch.cu) for the rest: mixed dtypes, K > 64 in bf16."""
+    from repro_torch.kernels import sketch
+    (U, R), body = _SKETCH_MMA_CASES[case]
+    assert sketch.BODIES == ("mma", "realign", "f32", "cross")
+    assert sketch._body(U, R) == body
+    assert sketch._realign_eligible(U, R) is (body in ("mma", "realign"))
+
+
+def test_sketch_bodies_are_tallied_and_refused_off_the_card():
+    """``body_launches()`` has a key for each of the four bodies; the
+    wrapper wants CUDA tensors before it reads ``body=``."""
+    from repro_torch.kernels import sketch
+    sketch.reset_body_launches()
+    assert sketch.body_launches() == {"mma": 0, "realign": 0, "f32": 0,
+                                      "cross": 0}
+    U, R = _sketch_pair(8, 129, 1001)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sketch.sketch_apply_cuda(U, R, body="realign")
+
+
+def _realign_rows(n, ld, start):
+    """Shifts of 9 rows ``ld`` entries apart whose first starts ``start``
+    entries past a 16-byte boundary."""
+    from repro_torch.kernels.sketch import realign_shift
+    return [realign_shift(1024 + 2 * (start + r * ld)) for r in range(9)]
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 1001, 4103])
+def test_sketch_realign_stages_every_entry_once(n):
+    """The realign body's staging, mirrored (``sketch.realign_plan``): for
+    every shift 0-7 and every block range of the one-wave grid (ragged
+    last tiles included), each landed chunk starts on a 16-byte boundary,
+    inside the 16-byte granule of the row's first entry or after it, and
+    before the block's last column (so no read starts past the row's last
+    entry); each entry of a tile takes the landed entry of its own column,
+    from a chunk that was read; the entries past the range are zero; and
+    over the blocks every column of the row is staged exactly once.  A row
+    with shift 0 whose tile ends inside the range is not rewritten."""
+    from repro_torch.kernels.sketch import (MMA_STAGE_COLS, mma_grid,
+                                            realign_plan, realign_shift)
+    assert [realign_shift(16 * 7 + 2 * k) for k in range(10)] == \
+        [0, 1, 2, 3, 4, 5, 6, 7, 0, 1]
+    shifts = set()
+    for ld, start in ((n, 0), (n, 3), (1028, 1), (n + 1, 5)):
+        shifts.update(_realign_rows(n, ld, start))
+    assert shifts == set(range(8)) or n < 8
+    for s, per_sm, sms in itertools.product(range(8), (1, 2), (2, 132)):
+        _, blocks, cols = mma_grid(n, 129, sms, per_sm)
+        staged = Counter()
+        for b in range(blocks):
+            col0, col1 = b * cols, min(b * cols + cols, n)
+            for base in range(col0, col1, MMA_STAGE_COLS):
+                chunks, entries, shifted = realign_plan(s, base, col1)
+                assert len(chunks) == 16 + (s != 0)
+                for col, read in chunks:
+                    assert (col + s) % 8 == 0 and col >= -s
+                    assert read is (col < col1)
+                for j, e in enumerate(entries):
+                    if base + j >= col1:
+                        assert e is None
+                        continue
+                    c, lane = e
+                    assert chunks[c][1] and chunks[c][0] + lane == base + j
+                    staged[base + j] += 1
+                assert shifted is (s != 0 or col1 - base < MMA_STAGE_COLS)
+                if not shifted:
+                    assert entries == [divmod(j, 8) for j in range(128)]
+        assert staged == Counter(range(n))
+
+
+@pytest.mark.parametrize("K,m", [(8, 1024), (1, 1), (3, 17), (8, 129),
+                                 (100, 65), (65, 1025)])
+def test_sketch_f32_plan_covers_every_entry(K, m):
+    """sketch's f32 calls on cross_f32.cu: A = U (K rows) against B1 = R (m
+    rows), no B2.  Every slice's tiles reach each entry of S (K, m) exactly
+    once as ("out1", k, j), at level 1 and with every group one tile; at
+    the model shape (K = 8, m = 1 024) 8 slices of 1 x 16 tiles, a
+    192-thread budget, 12 phases and two 16-group stages."""
+    from repro_torch.kernels import cross
+    assert cross.f32_shape_ok(K, m, 0, False)
+    levels, cuts = [1], cross.F32Cuts.of(K, m, 0, False, 1)
+    while not cuts.saturated():
+        levels.append(levels[-1] + 1)
+        cuts = cross.F32Cuts.of(K, m, 0, False, levels[-1])
+    for level in (levels[0], levels[-1]):
+        seen = Counter()
+        for sl in cross.f32_slices(cross.F32Cuts.of(K, m, 0, False, level)):
+            for q in range(sl.tiles):
+                for e in range(64):
+                    t = sl.target(*sl.entry(q, e), m, False)
+                    if t is not None:
+                        assert t[0] == "out1" and not t[3]
+                        seen[t[1:3]] += 1
+        assert seen == Counter((k, j) for k in range(K) for j in range(m))
+    if (K, m) == (8, 1024):
+        cuts = cross.F32Cuts.of(8, 1024, 0, False, 1)
+        sl = cross.f32_slices(cuts)
+        assert cuts.slices() == 8 and {(s.ta, s.tb) for s in sl} == {(1, 16)}
+        plan = cross.f32_plan(cuts)
+        assert plan["budget"] == 192 and plan["max_tiles"] == 16
+        assert cross.f32_phases(plan["budget"], 16, 1 << 20) == 12
+        # 136 staged rows in 153 slots: two stages of 16 groups, 256 bytes
+        # of each row, in the 96 KB three 32 KB stages would take
+        assert plan["slots"] == 153 and cross.f32_line_stages(153)
+        assert (plan["groups"], plan["ring"]) == (16, 2)
+        assert plan["smem_bytes"] == 2 * 16 * 153 * 16
 
 
 @pytest.mark.parametrize("nb", range(1, 9))
@@ -723,12 +855,14 @@ def test_sketch_mma_deal_covers_every_tile(nb):
 
 def test_sketch_mma_body_is_built_and_bound():
     """``sketch_mma.cu`` defines the two launchers the wrapper binds, with
-    the argument counts and types ``_build`` gives them, stages with
-    ``cp.async``, loads fragments with ``ldmatrix`` and multiplies through
-    mma.cuh's bf16 ``mma.sync``; ``sketch.cu`` still runs cross.cuh."""
+    the argument counts and types ``_build`` gives them; its body (in
+    ``sketch_mma.cuh``, which it includes) stages with ``cp.async``, loads
+    fragments with ``ldmatrix`` and multiplies through mma.cuh's bf16
+    ``mma.sync``; ``sketch.cu`` still runs cross.cuh."""
     src = _build.CSRC / "sketch_mma.cu"
     assert src in _build.sources()
-    text = src.read_text()
+    assert '#include "sketch_mma.cuh"' in src.read_text()
+    text = src.read_text() + (_build.CSRC / "sketch_mma.cuh").read_text()
     sig = _build._SIGNATURES
     I, LL, VP = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
     assert ('extern "C" int sketch_mma_launch_config(int K, int m, '
@@ -749,6 +883,37 @@ def test_sketch_mma_body_is_built_and_bound():
     sketch_cu = (_build.CSRC / "sketch.cu").read_text()
     assert '#include "cross.cuh"' in sketch_cu
     assert "mma_bf16(" not in sketch_cu
+
+
+def test_sketch_realign_body_is_built_and_bound():
+    """``sketch_realign.cu`` is built, defines the two launchers the wrapper
+    binds with the argument counts and types ``_build`` gives them (the
+    same as ``sketch_mma.cu``'s), and runs the shared body of
+    ``sketch_mma.cuh`` with its realigned staging: aligned-down 16-byte
+    ``cp.async`` chunks, a funnel shift between warp syncs."""
+    src = _build.CSRC / "sketch_realign.cu"
+    assert src in _build.sources()
+    text = src.read_text()
+    sig = _build._SIGNATURES
+    I, LL, VP = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+    assert ('extern "C" int sketch_realign_launch_config(int K, int m, '
+            'int* blocks_per_sm,' in text)
+    assert "long long* slices)" in text
+    assert sig["sketch_realign_launch_config"] == [I, I, ctypes.POINTER(I),
+                                                   ctypes.POINTER(LL)]
+    assert ('extern "C" int sketch_realign_launch(const void* U, '
+            'long long ldu, int K,' in text)
+    # U, ldu, K, R, ldr, m, n, partial, partial_floats, num_blocks,
+    # cols_per_block, S, stream
+    assert sig["sketch_realign_launch"] == sig["sketch_mma_launch"] == [
+        VP, LL, I, VP, LL, I, LL, VP, LL, I, LL, VP, VP]
+    assert '#include "sketch_mma.cuh"' in text
+    assert "tc_launch<true>(" in text and "tc_launch_config<true>(" in text
+    body = (_build.CSRC / "sketch_mma.cuh").read_text()
+    assert "template <int NB, bool kRealign>" in body
+    assert "__funnelshift_r(" in body and "__syncwarp()" in body
+    assert "if constexpr (kRealign)" in body
+    assert "tc_launch<false>(" in (_build.CSRC / "sketch_mma.cu").read_text()
 
 
 # ------------------------------------------------- combine's vec body
