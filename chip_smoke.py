@@ -17,7 +17,14 @@ Phases (any failure exits non-zero and prints no result line):
      U and g, timed in turn with ``gram.cu`` on the same inputs, one device
      kernel a call, against an f64 product at model width; the bf16
      tensor-core body of ``gram_mma.cu`` for bf16 U and g with K <= 127 and
-     n % 8 == 0; ``gram.cu`` for the rest),
+     n % 8 == 0; ``gram_realign.cu``, the same loop on realigned tiles, for
+     the other bf16 calls with K <= 127: bitwise equal to ``gram_mma.cu`` on
+     shifted views and as resident, the odd-n model rows timed in turn with
+     ``gram.cu`` beside an aligned twin (the realigning body forced on it
+     in turn) and their speed targets recorded; ``gram.cu`` for the rest,
+     timed at bf16 K = 128 and at a bf16 U with an f32 g; and cross.cuh's
+     bf16 ``gram_block`` at an odd n, ``stream_stats`` at P = 64 and
+     ``sketch`` at K = 100 timed once each),
      ``combine`` (the body each call took: ``combine_vec.cu`` where every
      row of U, w and out starts 16-byte aligned, timed in turn with
      ``combine.cu`` on the same inputs and bitwise equal to it where the
@@ -392,6 +399,18 @@ GRAM_TRAIN_SCOPES = [(1, 103_024_640), (16, 6_440_960), (32, 6_440_960)]
 # rows K = 10, 64 (MODEL) and 100 (GRAM_WIDE) at n = 2^24 take it timed
 GRAM_MMA_K = (1, 15, 16, 17, 31, 32, 63, 64, 65, 100, 127)
 GRAM_MMA_N = (8, 72, 4104)
+# the bf16 MODEL rows at n = 2^20 + 3 take the realigning body
+# (gram_realign.cu), each beside an aligned twin at this n on gram_mma.cu
+GRAM_TWIN_N = 1 << 20
+# bodies that had no timed row, one row each at a model width, 50 warm calls
+# of each function timed (TIMED_ONCE_REPS a round): gram.cu at bf16
+# K = 128 and at a bf16 U with an f32 g; cross.cuh for bf16 gram_block at
+# an odd n, bf16 stream_stats at P > 32 and bf16 sketch at K > 64
+GRAM_CUDA_CORE_TIMED = [(128, 1 << 20, "bfloat16"), (64, 1 << 20, "float32")]
+GRAM_BLOCK_CROSS_TIMED = (25, 25, (1 << 20) + 3)
+STREAM_CROSS_TIMED = (64, 1 << 20)
+SKETCH_CROSS_TIMED = (100, 1 << 20, 256)
+TIMED_ONCE_REPS = 10
 N_PATH = 7850
 # topk (n, k): the hier path's summaries (ū and ĝ at ratio 3.4 / u_frac
 # 0.75, and the default ratio 8), ragged, ties, and model widths
@@ -769,10 +788,21 @@ PROFILE_ATTEMPTS = 5
 # the five attempts (the sign_sketch_adjoint row: 2 of 3 launches each
 # time), as the profiler drops device activity whose converted time stamp
 # falls outside the window's host-clock bounds.  So the recorded calls sit
-# this many seconds of idle inside each edge of the window, and a trace
-# drops launches but never adds one: the attempts are merged kernel by
-# kernel, each at the most launches any attempt saw.
+# this many seconds of idle inside each edge of the window.  A window has
+# also shown one launch more than its calls made (4 of 3 calls of one
+# gram_block row: the warm-up call's, counted in the recorded cycle).  So
+# an attempt whose every count is a multiple of the calls stands as it is;
+# otherwise the attempts are merged kernel by kernel, a count that is a
+# multiple of the calls kept before one that is not, the larger of two
+# alike.
 PROFILE_PAD_S = 0.005
+
+
+def _better_count(new: int, old: int, calls: int) -> bool:
+    """Whether a kernel's launch count ``new`` from one profiler attempt
+    replaces ``old`` from another: a multiple of ``calls`` before one that
+    is not, else the larger."""
+    return (new % calls == 0, new) > (old % calls == 0, old)
 
 
 def _profile_window(fn, calls: int) -> list:
@@ -802,17 +832,22 @@ def _profile_window(fn, calls: int) -> list:
 
 def _device_rows(fn, calls: int) -> list:
     """:func:`_profile_window` of ``calls`` calls of ``fn`` after a warm-up
-    call; an incomplete trace is taken again (``PROFILE_ATTEMPTS``), each
-    kernel kept from the attempt that saw it most often, until the merged
-    rows are complete or the attempts are spent."""
+    call; an incomplete trace is taken again (``PROFILE_ATTEMPTS``): an
+    attempt complete by itself is the result, else each kernel is kept from
+    the attempt that saw it a multiple of ``calls`` times (the most such),
+    or else most often, until the merged rows are complete or the attempts
+    are spent."""
     import torch
     fn()
     torch.cuda.synchronize()
     best = {}
     for _ in range(PROFILE_ATTEMPTS):
         rows = _profile_window(fn, calls)
+        if rows and all(e.count % calls == 0 for e in rows):
+            return rows
         for e in rows:
-            if e.key not in best or e.count > best[e.key].count:
+            if e.key not in best or _better_count(e.count, best[e.key].count,
+                                                  calls):
                 best[e.key] = e
         if best and all(e.count % calls == 0 for e in best.values()):
             return list(best.values())
@@ -892,10 +927,11 @@ def _dtype_name(dt) -> str:
     return str(dt).replace("torch.", "")
 
 
-def gram_bound(K: int, n: int, dt) -> dict:
+def gram_bound(K: int, n: int, dt, g_dt=None) -> dict:
     import torch
     size = torch.finfo(dt).bits // 8
-    nbytes = (K + 1) * n * size + (K * K + K) * 4
+    g_size = torch.finfo(g_dt or dt).bits // 8
+    nbytes = K * n * size + n * g_size + (K * K + K) * 4
     flops = 2 * n * (K * (K + 1) // 2 + K)   # upper triangle of G, and c
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[_dtype_name(dt)] * 1e3
@@ -974,15 +1010,20 @@ def _kernel_names(rec: dict) -> str:
 
 
 def check_gram(K: int, n: int, dt, gen, timed: bool = True, body: str = None,
-               f64: bool = False, U=None, g=None) -> dict:
+               f64: bool = False, U=None, g=None, realign_in_turn: bool = False,
+               reps: int = None) -> dict:
     """gram against its plain version: two calls bitwise equal, G symmetric,
     within the tolerance, and the body both took (``f32``: gram_f32.cu,
-    ``mma``: gram_mma.cu, ``cuda_core``: gram.cu; ``body``, if given, must
-    be it); with ``timed`` the spread of kernel, plain and ``torch.matmul``
-    times and the device kernels, and on an ``f32`` row gram.cu
-    (``body="cuda_core"``) on the same inputs too: within the tolerance,
-    timed in turn, its device kernels, one device kernel a call of the f32
-    body, and both bodies' host µs to issue a call; with ``f64`` the
+    ``mma``: gram_mma.cu, ``realign``: gram_realign.cu, ``cuda_core``:
+    gram.cu; ``body``, if given, must be it); with ``timed`` the spread of
+    kernel, plain and ``torch.matmul`` times (``reps`` calls a round, else
+    by size) and the device kernels, and on an ``f32`` or ``realign`` row
+    gram.cu (``body="cuda_core"``) on the same inputs too: within the
+    tolerance, timed in turn, its device kernels; an ``f32`` row one
+    device kernel a call and both bodies' host µs to issue a call, a
+    ``realign`` row its two kernels (partial and finish) a call; with
+    ``realign_in_turn`` (an ``mma`` row) the realigning body forced on the
+    same rows, bitwise equal to it and timed in turn; with ``f64`` the
     kernel's and the plain version's error against an f64 product (the
     kernel's within the tolerance)."""
     import torch
@@ -1015,6 +1056,8 @@ def check_gram(K: int, n: int, dt, gen, timed: bool = True, body: str = None,
     rec = {"K": K, "n": n, "dtype": _dtype_name(dt), "max_abs_err": abs_err,
            "rel_err": err, "tolerance": tol, "bitwise_repeatable": bitwise,
            "body": took}
+    if g.dtype != dt:
+        rec["g_dtype"] = _dtype_name(g.dtype)
     if f64:
         rec["f64_rel_err"] = _gram_f64_err((G, c), U, g)
         rec["plain_f64_rel_err"] = _gram_f64_err((Gr, cr), U, g)
@@ -1024,7 +1067,7 @@ def check_gram(K: int, n: int, dt, gen, timed: bool = True, body: str = None,
         need(rec["f64_rel_err"] <= tol,
              f"{what}: {rec['f64_rel_err']:.3e} off an f64 product")
     fns = {"ms": lambda: ops.gram_and_cross(U, g, backend="cuda")}
-    if took == "f32":
+    if took in ("f32", "realign"):
         fns["cuda_core_ms"] = lambda: gram.gram_cuda(U, g, body="cuda_core")
         Gc, cc = fns["cuda_core_ms"]()
         rec["cuda_core_rel_err"] = max(_max_err(Gc, Gr) / _scale(Gr),
@@ -1032,30 +1075,55 @@ def check_gram(K: int, n: int, dt, gen, timed: bool = True, body: str = None,
         need(rec["cuda_core_rel_err"] <= tol,
              f"{what}: gram.cu {rec['cuda_core_rel_err']:.3e} off plain")
         del Gc, cc
+    if realign_in_turn:
+        need(took == "mma", f"{what}: realign in turn on a {took} row")
+        fns["realign_ms"] = lambda: gram.gram_cuda(U, g, body="realign")
+        Gf, cf = fns["realign_ms"]()
+        need(torch.equal(Gf, G) and torch.equal(cf, c),
+             f"{what}: the realigning body forced on aligned rows differs "
+             "from gram_mma.cu bitwise")
+        del Gf, cf
     if timed:
-        reps = reps_for(U.numel() * U.element_size())
+        reps = reps or reps_for(U.numel() * U.element_size())
+        g_lib = g if g.dtype == dt else g.to(dt)
         _time_record(rec, dict(fns, **{
             "plain_ms": lambda: ref.gram_ref(U, g),
-            "library_ms": lambda: (U @ U.T, U @ g)}), reps)
-        rec.update(gram_bound(K, n, dt))
+            "library_ms": lambda: (U @ U.T, U @ g_lib)}), reps)
+        rec.update(gram_bound(K, n, dt, g.dtype))
         log(f"{what}: device kernels (launches in 3 calls, us per launch) "
             + _kernel_names(rec))
+        kern = rec["device_kernels"]
         if took == "mma":
-            need(any("gram_mma_partial" in k for k in rec["device_kernels"]),
-                 f"{what}: device kernels {rec['device_kernels']}")
+            need(any("gram_mma_partial<" in k and ", false>" in k
+                     for k in kern), f"{what}: device kernels {kern}")
+        if took == "realign":
+            need(_realign_kernels(kern, "gram")
+                 and all(cnt % 3 == 0 for cnt, _ in kern.values()),
+                 f"{what}: want the realigning partial and the finish a "
+                 f"call, got {kern}")
         if took == "f32":
-            kern = rec["device_kernels"]
             need(len(kern) == 1 and all("gram_f32" in name and cnt % 3 == 0
                                         for name, (cnt, _) in kern.items()),
                  f"{what}: want one gram_f32 kernel a call, got {kern}")
+        if took in ("f32", "realign"):
             cck = device_kernel_means(fns["cuda_core_ms"])
             rec["cuda_core_device_kernels"] = cck
             rec["cuda_core_device_ms"] = sum(ms for _, ms in cck.values())
             log(f"{what}: gram.cu in turn {_fmt_spread(rec, 'cuda_core_ms')}"
                 f"us, device {rec['cuda_core_device_ms'] * 1e3:.1f}us in "
-                f"{len(cck)} kernels; the f32 body "
+                f"{len(cck)} kernels; the {took} body "
                 f"{rec['ms'] / rec['bound_ms']:.2f}x its bound, "
                 f"torch.matmul {rec['library_ms'] / rec['ms']:.2f}x it")
+        if realign_in_turn:
+            rk = device_kernel_means(fns["realign_ms"])
+            need(_realign_kernels(rk, "gram"),
+                 f"{what}: forced realign device kernels {rk}")
+            rec["realign_device_kernels"] = rk
+            rec["realign_device_ms"] = sum(ms for _, ms in rk.values())
+            log(f"{what}: realign forced in turn "
+                f"{_fmt_spread(rec, 'realign_ms')}us, device "
+                f"{rec['realign_device_ms'] * 1e3:.1f}us (mma device "
+                f"{rec['device_ms'] * 1e3:.1f}us)")
     if timed and took == "f32":
         rec["host_ms"] = host_ms(fns["ms"], 50)
         rec["cuda_core_host_ms"] = host_ms(fns["cuda_core_ms"], 50)
@@ -1063,6 +1131,95 @@ def check_gram(K: int, n: int, dt, gen, timed: bool = True, body: str = None,
             f"{rec['host_ms'] * 1e3:.1f}, gram.cu "
             f"{rec['cuda_core_host_ms'] * 1e3:.1f}")
     return rec
+
+
+def gram_realign_bitwise_row(gen) -> dict:
+    """The realigning body against gram_mma.cu bit for bit, and the two
+    instances' occupancy: for every K of GRAM_MMA_K the realigning partial
+    kernel is as resident as the aligned one (whose occupancy sizes both
+    grids), and for s = 1..7 and n in GRAM_MMA_N (n % 8 == 0, n = 4 104
+    with a ragged last tile) U viewed 2·s bytes into its buffer and g
+    2·(3s mod 8) bytes into its own take ``realign``, their aligned copies
+    ``mma``, and the two results are equal; ``body="realign"`` on the
+    aligned copies too."""
+    import torch
+    from repro_torch.kernels import gram
+    bf16 = torch.bfloat16
+    occupancy = {}
+    for K in GRAM_MMA_K:
+        occupancy[K] = (gram.mma_launch_config(K, 0),
+                        gram.realign_launch_config(K, 0))
+        need(occupancy[K][0][0] == occupancy[K][1][0],
+             f"gram realign K={K}: (blocks an SM, shared memory) "
+             f"{occupancy[K][1]}, the aligned instance's {occupancy[K][0]}")
+    cases = 0
+    gram.reset_body_launches()
+    for K in GRAM_MMA_K:
+        for s in range(1, 8):
+            for n in GRAM_MMA_N:
+                views = []
+                for rows, skip in ((K, s), (1, 3 * s % 8)):
+                    buf = torch.randn((rows * n + 8,), generator=gen,
+                                      device="cuda").to(bf16)
+                    views.append(buf[skip:skip + rows * n])
+                U, g = views[0].view(K, n), views[1]
+                what = f"gram realign K={K} n={n} shift {s}"
+                need(gram._body(U, g) == "realign"
+                     and gram._body(U.clone(), g.clone()) == "mma",
+                     f"{what}: bodies")
+                got = gram.gram_cuda(U, g)
+                want = gram.gram_cuda(U.clone(), g.clone())
+                forced = gram.gram_cuda(U.clone(), g.clone(), body="realign")
+                need(all(torch.equal(a, b) and torch.equal(b, f)
+                         for a, b, f in zip(got, want, forced)),
+                     f"{what}: differs from gram_mma.cu bitwise")
+                cases += 1
+    tally = gram.body_launches()
+    need(tally == {"mma": cases, "realign": 2 * cases, "f32": 0,
+                   "cuda_core": 0},
+         f"gram realign bitwise: body launches {tally}")
+    log(f"gram realign = gram_mma.cu bitwise on {cases} shifted views (K "
+        f"{GRAM_MMA_K}, s 1..7, n {GRAM_MMA_N}); blocks an SM equal for "
+        f"both instances, (blocks, shared bytes) aligned / realigning: "
+        f"{ {K: (o[0], o[1][1]) for K, o in occupancy.items()} }")
+    return {"K": list(GRAM_MMA_K), "n": list(GRAM_MMA_N),
+            "shifts": list(range(1, 8)), "cases": cases, "dtype": "bfloat16",
+            "body": "realign", "bitwise_vs_mma": True,
+            "occupancy": {K: [*o[0], o[1][1]] for K, o in occupancy.items()},
+            "max_abs_err": 0.0, "rel_err": 0.0,
+            "tolerance": TOL[("gram", "bfloat16")],
+            "bitwise_repeatable": True, "gated_on": "plain"}
+
+
+def gram_realign_targets(recs: list) -> dict:
+    """The realigning body's speed targets at each MODEL row it takes
+    (bf16, n = 2^20 + 3), recorded as met or not (no gate): faster than
+    ``torch.matmul``; device time at most 1.3x the aligned twin's (n =
+    2^20, gram_mma.cu); at least 4x faster than gram.cu in turn."""
+    out = {}
+    for rec in recs:
+        if rec.get("body") != "realign" or rec["set"] != "model":
+            continue
+        twin = next(r for r in recs if r["set"] == "model"
+                    and r["body"] == "mma" and r["K"] == rec["K"]
+                    and r["n"] == GRAM_TWIN_N)
+        got = {"below_library": rec["ms"] < rec["library_ms"],
+               "device_vs_twin": rec["device_ms"] / twin["device_ms"],
+               "vs_cuda_core": rec["cuda_core_ms"] / rec["ms"]}
+        got["within_1.3x_twin"] = got["device_vs_twin"] <= 1.3
+        got["4x_cuda_core"] = got["vs_cuda_core"] >= 4.0
+        rec["targets"] = got
+        out[rec["K"]] = got
+        log(f"gram realign K={rec['K']} n={rec['n']} targets: "
+            f"{rec['ms'] * 1e3:.1f}us by events, torch.matmul "
+            f"{rec['library_ms'] * 1e3:.1f}us ("
+            f"{'met' if got['below_library'] else 'not met'}); device "
+            f"{rec['device_ms'] * 1e3:.1f}us, {got['device_vs_twin']:.3f}x "
+            f"the aligned twin's {twin['device_ms'] * 1e3:.1f}us (<= 1.3x "
+            f"{'met' if got['within_1.3x_twin'] else 'not met'}); gram.cu "
+            f"{rec['cuda_core_ms'] * 1e3:.1f}us, {got['vs_cuda_core']:.2f}x "
+            f"it (>= 4x {'met' if got['4x_cuda_core'] else 'not met'})")
+    return out
 
 
 def _combine_f64_err(out, w, U, a, chunk: int = 1 << 21) -> float:
@@ -1435,7 +1592,8 @@ def _outs(x) -> tuple:
 
 def check_cross(op: str, args: tuple, shape: dict, dt, bound_rec: dict,
                 timed: bool = True, library=None,
-                plain_gate: bool = True, extra: dict = None) -> dict:
+                plain_gate: bool = True, extra: dict = None,
+                reps: int = None) -> dict:
     """One of the cross-product kernels (``stream_stats``, ``gram_block``,
     ``sketch``) against its plain version on ``args``: bitwise equal over
     two calls and within CROSS_TOL of max |plain| (unless ``plain_gate`` is
@@ -1443,7 +1601,8 @@ def check_cross(op: str, args: tuple, shape: dict, dt, bound_rec: dict,
     the plain version is only recorded); with ``timed``, CUDA-event times
     of the kernel, the plain version, ``library`` and the ``extra`` calls
     (the median and min-max of ``TOPK_REPEATS`` rounds taken in turn) and
-    the kernel's device kernels and device time per call."""
+    the kernel's device kernels and device time per call (``reps`` calls a
+    round, else by size)."""
     import torch
     from repro_torch.kernels import registry
     out = _outs(registry.dispatch(op, *args, backend="cuda"))
@@ -1463,8 +1622,8 @@ def check_cross(op: str, args: tuple, shape: dict, dt, bound_rec: dict,
                rel_err=err, tolerance=CROSS_TOL, bitwise_repeatable=bitwise,
                gated_on="plain" if plain_gate else "f64")
     if timed:
-        reps = reps_for(args[0].numel() * args[0].element_size()
-                        + args[1].numel() * args[1].element_size())
+        reps = reps or reps_for(args[0].numel() * args[0].element_size()
+                                + args[1].numel() * args[1].element_size())
         _time_record(rec, dict({
             "ms": lambda: registry.dispatch(op, *args, backend="cuda"),
             "plain_ms": lambda: registry.dispatch(op, *args, backend="torch"),
@@ -1473,14 +1632,14 @@ def check_cross(op: str, args: tuple, shape: dict, dt, bound_rec: dict,
     return rec
 
 
-def _realign_kernels(kern: dict) -> bool:
-    """Whether a call's device kernels are the realigning tensor-core body's
-    two: ``sketch_mma_partial<NB, true>`` (sketch_realign.cu's instance)
-    and ``sketch_mma_finish``."""
+def _realign_kernels(kern: dict, op: str = "sketch") -> bool:
+    """Whether a call's device kernels are a realigning tensor-core body's
+    two: ``<op>_mma_partial<..., true>`` (sketch_realign.cu's or
+    gram_realign.cu's instance) and ``<op>_mma_finish``."""
     return (len(kern) == 2
-            and any("sketch_mma_partial<" in k and ", true>" in k
+            and any(f"{op}_mma_partial<" in k and ", true>" in k
                     for k in kern)
-            and any("sketch_mma_finish" in k for k in kern))
+            and any(f"{op}_mma_finish" in k for k in kern))
 
 
 def _f32_body_checks(rec: dict, what: str, call, cross_call, want,
@@ -1533,7 +1692,7 @@ def _f64_err(got, d64, g64) -> float:
 
 def check_stream_stats(P: int, n: int, dt, gen, timed: bool = True,
                        D=None, GM=None, body: str = None,
-                       f64: bool = False) -> dict:
+                       f64: bool = False, reps: int = None) -> dict:
     """``check_cross`` for stream_stats, plus the body the calls took
     (``body``, if given, must be it: ``mma`` for the tensor-core body,
     ``f32`` for cross_f32.cu's, ``cross`` for cross.cuh's; an ``f32`` row
@@ -1556,7 +1715,7 @@ def check_stream_stats(P: int, n: int, dt, gen, timed: bool = True,
         "stream_stats", (D, GM), {"P": P, "n": n}, dt,
         cross_bound(2 * P, n, P * (P + 1) // 2 + P * P, 2 * P * P, dt),
         timed, library=lambda: (D @ D.T, D @ GM.T),
-        extra={"cross_ms": cross_call} if took == "f32" else None)
+        extra={"cross_ms": cross_call} if took == "f32" else None, reps=reps)
     tally = stream.body_launches()
     need(tally[took] >= 2 and tally[took] + (tally["cross"] if took == "f32"
                                              else 0) == sum(tally.values()),
@@ -1591,7 +1750,7 @@ def check_stream_stats(P: int, n: int, dt, gen, timed: bool = True,
 def check_gram_block(Ka: int, Kb: int, n: int, dt, gen,
                      timed: bool = True, body: str = None, f64: bool = False,
                      plain_gate: bool = True, ua=None, ub=None,
-                     g=None) -> dict:
+                     g=None, reps: int = None) -> dict:
     """``check_cross`` for gram_block (U_a and U_b row blocks of one matrix
     unless given), plus the body the calls took (``body``, if given, must
     be it: ``mma`` for gram_block_mma.cu, ``f32`` for cross_f32.cu,
@@ -1619,7 +1778,7 @@ def check_gram_block(Ka: int, Kb: int, n: int, dt, gen,
         cross_bound(Ka + Kb + 1, n, Ka * (Kb + 1), Ka * Kb + Ka, dt),
         timed, library=lambda: (ua @ ub.T, ua @ g),
         plain_gate=plain_gate or not f64,
-        extra={"cross_ms": cross_call} if took == "f32" else None)
+        extra={"cross_ms": cross_call} if took == "f32" else None, reps=reps)
     tally = gram.block_body_launches()
     need(tally[took] >= 2 and tally[took] + (tally["cross"] if took == "f32"
                                              else 0) == sum(tally.values()),
@@ -1664,7 +1823,8 @@ def _sketch_f64_err(got, U, R, chunk: int = 1 << 20) -> float:
 
 def check_sketch_apply(K: int, n: int, m: int, dt, gen, timed: bool = True,
                        body: str = None, f64: bool = False,
-                       plain_gate: bool = True, U=None, R=None) -> dict:
+                       plain_gate: bool = True, U=None, R=None,
+                       reps: int = None) -> dict:
     """``check_cross`` for sketch, plus the body the calls took (``body``,
     if given, must be it: ``mma`` for sketch_mma.cu, ``realign`` for
     sketch_realign.cu, ``f32`` for cross_f32.cu, ``cross`` for sketch.cu;
@@ -1695,7 +1855,7 @@ def check_sketch_apply(K: int, n: int, m: int, dt, gen, timed: bool = True,
         "sketch", (U, R), {"K": K, "n": n, "m": m}, dt,
         cross_bound(K + m, n, K * m, K * m, dt), timed,
         library=lambda: U @ R.T, plain_gate=plain_gate or not f64,
-        extra=extra)
+        extra=extra, reps=reps)
     tally = sketch.body_launches()
     also = {"cross_ms": "cross", "realign_ms": "realign"}
     need(tally[took] >= 2 and tally[took] + sum(
@@ -1987,6 +2147,23 @@ def cross_phase_records(gen) -> dict:
                 f64=True), set="model"))
             torch.cuda.empty_cache()
     out["sketch"] = sketch_records(gen)
+    # cross.cuh's bf16 calls that had no timed row: gram_block at an odd n,
+    # stream_stats at P > 32, sketch at K > 64
+    Ka, Kb, n = GRAM_BLOCK_CROSS_TIMED
+    out["gram_block"].append(dict(check_gram_block(
+        Ka, Kb, n, bf16, gen, body="cross", f64=True, reps=TIMED_ONCE_REPS),
+        set="model"))
+    torch.cuda.empty_cache()
+    P, n = STREAM_CROSS_TIMED
+    out["stream_stats"].append(dict(check_stream_stats(
+        P, n, bf16, gen, body="cross", f64=True, reps=TIMED_ONCE_REPS),
+        set="model"))
+    torch.cuda.empty_cache()
+    K, n, m = SKETCH_CROSS_TIMED
+    out["sketch"].append(dict(check_sketch_apply(
+        K, n, m, bf16, gen, body="cross", f64=True, reps=TIMED_ONCE_REPS),
+        set="model"))
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2477,16 +2654,20 @@ def kernels_phase() -> dict:
             set="path"))
         for Kr, nr in RAGGED:
             for dt in (f32, bf16):
-                out[name].append(dict(check(Kr, nr, dt, gen, timed=False),
-                                      set="ragged"))
+                # gram's bf16 rows (n = 1, 130, 7 850) take the realigning
+                # body, held to an f64 product too
+                kw = (dict(body="f32" if dt == f32 else "realign",
+                           f64=dt == bf16) if name == "gram" else {})
+                out[name].append(dict(check(Kr, nr, dt, gen, timed=False,
+                                            **kw), set="ragged"))
         for Km, nm in MODEL:
             for dt in (f32, bf16):
-                # gram's bf16 rows at n = 2^24 take the tensor-core body,
-                # its f32 rows the f32 body, both held to an f64 product;
-                # combine's f32 rows are held to an f64 sum too
-                mma = name == "gram" and dt == bf16 and nm % 8 == 0
-                kw = (dict(body="mma" if mma else "f32" if dt == f32
-                           else "cuda_core", f64=mma or dt == f32)
+                # gram's bf16 rows take the tensor-core body at n = 2^24
+                # and the realigning one at n = 2^20 + 3 (gram.cu timed
+                # in turn), its f32 rows the f32 body, all held to an f64
+                # product; combine's f32 rows are held to an f64 sum too
+                kw = (dict(body="f32" if dt == f32 else "mma" if nm % 8 == 0
+                           else "realign", f64=True)
                       if name == "gram" else dict(f64=dt == f32))
                 out[name].append(dict(check(Km, nm, dt, gen, **kw),
                                       set="model"))
@@ -2508,14 +2689,24 @@ def kernels_phase() -> dict:
             rec = check_combine(Kr, nr, dt, gen, timed=False, w_dt=w_dt)
             need(rec["body"] == "vec", f"combine K={Kr} n={nr}: {rec['body']}")
             out["combine"].append(dict(rec, set="ragged"))
+    # the aligned twins of the realigning MODEL rows, the realigning body
+    # forced on the same rows in turn (bitwise equal to gram_mma.cu), then
+    # the realigning rows' speed targets
+    for Km in sorted({Km for Km, _ in MODEL}):
+        out["gram"].append(dict(check_gram(Km, GRAM_TWIN_N, bf16, gen,
+                                           body="mma", f64=True,
+                                           realign_in_turn=True),
+                                set="model"))
+        torch.cuda.empty_cache()
+    gram_realign_targets(out["gram"])
     for Kw, nw in GRAM_GATEWAY + GRAM_WIDE:
         for dt in (f32, bf16):
             mma = dt == bf16 and nw % 8 == 0
             path = nw == N_PATH
             out["gram"].append(dict(
-                check_gram(Kw, nw, dt, gen, f64=mma or (dt == f32 and not path),
+                check_gram(Kw, nw, dt, gen, f64=dt == bf16 or not path,
                            body="mma" if mma else "f32" if dt == f32
-                           else "cuda_core"),
+                           else "realign"),
                 set="path" if path else "model"))
             torch.cuda.empty_cache()
     # the f32 body at the train path's scopes: olmoe-1b-7b's lm_head +
@@ -2525,23 +2716,40 @@ def kernels_phase() -> dict:
                                            f64=True), set="model"))
         torch.cuda.empty_cache()
     # gram's tensor-core body at every tile count with ragged last tiles
-    # (against f64 too), and calls that keep gram.cu's body: bf16 K = 128,
-    # bf16 at n % 8 != 0, a bf16 U starting 2 bytes into its buffer, and an
-    # f32 U with a bf16 g
+    # (against f64 too), the realigning body bitwise equal to it on shifted
+    # views (and as resident), and the calls around them: bf16 at
+    # n % 8 != 0 and a bf16 U starting 2 bytes into its buffer take the
+    # realigning body, bf16 K = 128 and an f32 U with a bf16 g gram.cu's
     for Km in GRAM_MMA_K:
         for nm in GRAM_MMA_N:
             out["gram"].append(dict(check_gram(Km, nm, bf16, gen, timed=False,
                                                body="mma", f64=True),
                                     set="ragged"))
+    out["gram"].append(dict(gram_realign_bitwise_row(gen), set="ragged"))
     shifted = torch.randn((10 * 1024 + 1,), generator=gen,
                           device="cuda").to(bf16)[1:].view(10, 1024)
     g1024 = torch.randn((1024,), generator=gen, device="cuda").to(bf16)
-    for Km, nm, U_, g_ in ((128, 1024, None, None), (10, 1001, None, None),
-                           (10, 1024, shifted, g1024),
-                           (10, 1024, shifted.float(), g1024)):
+    for Km, nm, U_, g_, body in ((128, 1024, None, None, "cuda_core"),
+                                 (10, 1001, None, None, "realign"),
+                                 (10, 1024, shifted, g1024, "realign"),
+                                 (10, 1024, shifted.float(), g1024,
+                                  "cuda_core")):
         out["gram"].append(dict(check_gram(Km, nm, bf16, gen, timed=False,
-                                           body="cuda_core", U=U_, g=g_),
+                                           body=body, U=U_, g=g_,
+                                           f64=body == "realign"),
                                 set="ragged"))
+    # gram.cu's bodies with no timed row before: bf16 at K = 128, and a
+    # bf16 U with an f32 g
+    for Kc, nc, g_name in GRAM_CUDA_CORE_TIMED:
+        U_ = torch.randn((Kc, nc), generator=gen, device="cuda").to(bf16)
+        g_ = torch.randn((nc,), generator=gen,
+                         device="cuda").to(getattr(torch, g_name))
+        out["gram"].append(dict(check_gram(Kc, nc, bf16, gen,
+                                           body="cuda_core", U=U_, g=g_,
+                                           reps=TIMED_ONCE_REPS),
+                                set="model"))
+        del U_, g_
+        torch.cuda.empty_cache()
 
     for nk in TOPK_PATH:
         out["topk"].append(dict(check_topk(*nk, gen), set="path"))
@@ -5978,7 +6186,8 @@ def train_entry(smi_line: str, device: str = "cuda",
          f"{checks['sgd_max_ulps_bf16_leaf']})")
     _path_counts(tag, counts, {"gram/cuda": steps,
                                "combine/cuda": steps * n_leaves})
-    need(gram_bodies == {"mma": 0, "f32": steps, "cuda_core": 0},
+    need(gram_bodies == {"mma": 0, "realign": 0, "f32": steps,
+                         "cuda_core": 0},
          f"{tag}: gram bodies {gram_bodies}")
     big = [(name, n) for name, n in checks["leaves"] if n >= 1 << 31]
     need(reduced or len(big) == 3, f"{tag}: leaves of 2^31 elements {big}")
@@ -6225,7 +6434,8 @@ def train_cohorts(smi_line: str, device: str = "cuda",
          f"{runs['fedavg']['alpha'][0]}, want {[1.0 / C] * C}")
     _path_counts(tag, counts, {"gram/cuda": steps,
                                "combine/cuda": 2 * steps * n_leaves})
-    need(gram_bodies == {"mma": 0, "f32": steps, "cuda_core": 0},
+    need(gram_bodies == {"mma": 0, "realign": 0, "f32": steps,
+                         "cuda_core": 0},
          f"{tag}: gram bodies {gram_bodies}")
     ctx = runs["contextual"]
     step_ms = statistics.median(ctx["ms"][1:])
@@ -6711,7 +6921,8 @@ def train_placed(smi_line: str, device: str = "cuda",
                       "combine": combine.body_launches()}
             _path_counts(tag, counts, {"gram/cuda": 1,
                                        "combine/cuda": len(names)})
-            need(bodies["gram"] == {"mma": 0, "f32": 1, "cuda_core": 0},
+            need(bodies["gram"] == {"mma": 0, "realign": 0, "f32": 1,
+                                    "cuda_core": 0},
                  f"{tag}: gram bodies {bodies['gram']}")
             update = gate.record()
             del ref
@@ -7446,6 +7657,33 @@ def kernel_entry(name: str, recs: list, launches: dict) -> dict:
             "shapes": [r for r in recs if "ms" in r]}
 
 
+def gram_realign_entry(recs: list, bodies_by_path: dict) -> dict:
+    """The realigning body of gram (gram_realign.cu) on the kernels line:
+    its numbers at the K = 64, n = 2^20 + 3 bf16 MODEL row, with its aligned
+    twin's, gram.cu's in turn and its speed targets; its launches are each
+    path's ``realign`` tally (no path takes it)."""
+    row = next(r for r in recs if r["set"] == "model"
+               and r["body"] == "realign" and r["K"] == 64)
+    twin = next(r for r in recs if r["set"] == "model" and r["body"] == "mma"
+                and r["K"] == 64 and r["n"] == GRAM_TWIN_N)
+    launches = {path: b["realign"] for path, b in bodies_by_path.items()}
+    return {"name": "gram_realign", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/gram_realign.cu",
+            "replaces": KERNEL_SOURCES["gram"][1],
+            "launches": sum(launches.values()), "launches_by_path": launches,
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "device_ms": row["device_ms"],
+            "cuda_core_ms": row["cuda_core_ms"],
+            "twin_ms": twin["ms"], "twin_device_ms": twin["device_ms"],
+            "twin_realign_ms": twin["realign_ms"],
+            "twin_realign_device_ms": twin["realign_device_ms"],
+            "shape": {"K": row["K"], "n": row["n"], "dtype": row["dtype"]},
+            "tolerance": row["tolerance"], "f64_rel_err": row["f64_rel_err"],
+            "targets": row["targets"]}
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -7485,8 +7723,8 @@ def main() -> int:
         sketch_bodies[path] = sketch.body_launches()
         decode_bodies[path] = decode_attn.body_launches()
         stream_bodies[path] = stream.body_launches()
-        need(gram_bodies[path]["mma"] == 0
-             and gram_bodies[path]["cuda_core"] == 0,
+        need(gram_bodies[path]["mma"] == gram_bodies[path]["realign"]
+             == gram_bodies[path]["cuda_core"] == 0,
              f"{path}: gram bodies {gram_bodies[path]}, want f32 only")
         if path == "robust":
             need(block_bodies[path]["mma"] == 0
@@ -7609,8 +7847,10 @@ def main() -> int:
     entries[names.index("gram")].update(
         sources=[KERNEL_SOURCES["gram"][0],
                  "src/repro_torch/kernels/csrc/gram_mma.cu",
+                 "src/repro_torch/kernels/csrc/gram_realign.cu",
                  "src/repro_torch/kernels/csrc/gram.cu"],
-        bodies_by_path=gram_bodies)
+        bodies_by_path=gram_bodies,
+        gram_realign=gram_realign_entry(kern["gram"], gram_bodies))
     entries[names.index("gram_block")].update(
         sources=[KERNEL_SOURCES["gram_block"][0],
                  "src/repro_torch/kernels/csrc/gram_block_mma.cu",

@@ -3,8 +3,9 @@
 Ops (``cuda`` / ``torch`` backends, selected by the tensors' device — see
 ``registry.py``):
 
-  * ``gram``    — fused G = U Uᵀ, c = U g (``csrc/gram.cu``; bf16:
-    ``csrc/gram_mma.cu``)
+  * ``gram``    — fused G = U Uᵀ, c = U g (f32: ``csrc/gram_f32.cu``;
+    bf16, K <= 127: ``csrc/gram_mma.cu``, or ``csrc/gram_realign.cu`` for
+    rows that start only 2-byte aligned; the rest: ``csrc/gram.cu``)
   * ``combine`` — α-weighted update combine w + Σ α_k U_k
     (``csrc/combine.cu``; rows 16-byte aligned: ``csrc/combine_vec.cu``)
   * ``topk``    — the k largest-|v| entries, radix select (``csrc/topk.cu``)

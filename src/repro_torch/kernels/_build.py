@@ -48,6 +48,11 @@ _SIGNATURES = {
     "gram_launch_config": [_I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
     "gram_mma_launch": [_VP, _VP, _VP, _LL, _VP, _VP, _I, _LL, _I, _LL, _VP],
     "gram_mma_launch_config": [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
+    # the realigning instance's: the same argument lists
+    "gram_realign_launch": [_VP, _VP, _VP, _LL, _VP, _VP, _I, _LL, _I, _LL,
+                            _VP],
+    "gram_realign_launch_config": [_I, ctypes.POINTER(_I),
+                                   ctypes.POINTER(_I)],
     "gram_f32_launch": [_VP, _VP, _VP, _LL, _VP, _VP, _I, _LL, _I, _I, _LL,
                         _VP],
     "gram_f32_launch_config": [_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I),

@@ -47,13 +47,14 @@
 // product bounds it.  On this design the full cross slice sets the time: its
 // 256 tiles keep every thread reading two 16-byte operands from shared
 // memory per 16 FMAs, while the diagonal slices, with as many blocks, finish
-// early.  gram has three bodies, chosen by kernels/gram.py::_body from the
+// early.  gram has four bodies, chosen by kernels/gram.py::_body from the
 // dtypes, shapes and pointers: f32 U and g take gram_f32.cu (every launch of
 // the paths; one launch a call), bf16 U and g with K <= 127, n % 8 == 0 and
-// aligned pointers take gram_mma.cu (mma.sync, bf16 in, f32 accumulate), and
-// this body takes the rest: mixed dtypes, and bf16 at odd n, unaligned or
-// K >= 128.  gram_cuda(..., body="cuda_core") runs an f32 call here too, so
-// the card can time the two f32 bodies in turn.
+// aligned pointers take gram_mma.cu (mma.sync, bf16 in, f32 accumulate), the
+// other bf16 calls with K <= 127 (odd n, unaligned views) gram_realign.cu
+// (the same loop on realigned tiles), and this body takes the rest: mixed
+// dtypes, and bf16 at K >= 128.  gram_cuda(..., body="cuda_core") runs any
+// call here, so the card can time this body beside the others in turn.
 // U's rows start at byte 4·k·n, which is not 16-byte aligned for odd n, so the
 // global loads are scalar (coalesced along the columns).
 

@@ -8,6 +8,8 @@
 // tile reaches its ring slot (and, at NB >= 2, in the ring's depth and the
 // warps that share a row tile), so on the same values (n % 8 == 0) they
 // stage the same tiles, meet the same mma sequence and give the same bits.
+// The realigned staging's device helpers (land_chunk, realign_rows) live in
+// realign.cuh, shared with gram_mma.cuh.
 
 #pragma once
 
@@ -16,6 +18,7 @@
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "realign.cuh"
 
 namespace {
 
@@ -30,6 +33,7 @@ constexpr int kChunks = kCols / 8;  // 16-byte chunks of a staged row
 constexpr int kRowChunks = kStride / 8;   // 16-byte chunks a staged row spans
 constexpr int kStepStages = 256 / kCols;  // stages of one accuracy step
 constexpr int kFinishThreads = 128;
+static_assert(kCols == kRealignCols, "realign.cuh stages 128-column tiles");
 
 constexpr int nb_of(int K) { return (K + 7) / 8; }
 // The realigning instances at NB >= 2 realign each tile one ahead, beside
@@ -73,39 +77,6 @@ __device__ __forceinline__ void warp_stage(unsigned a_addr, unsigned b_addr,
     for (int j = 0; j < NT; ++j)
       mma_bf16(step[j], a[0], a[1], a[2], a[3], b[j][0], b[j][1]);
   }
-}
-
-// The element shift of a bf16 row starting at p: (address / 2) mod 8, the
-// entries between the 16-byte boundary below it and its first entry.
-__device__ __forceinline__ int shift_of(const __nv_bfloat16* p) {
-  return (int)((reinterpret_cast<uintptr_t>(p) >> 1) & 7);
-}
-
-// Chunk j of a row realigned by `s` entries: entries s + 8j .. s + 8j + 7
-// of the landed aligned-down chunks j (lo) and j + 1 (hi).  The words
-// x[q .. q + 4] (q = s / 2) are picked by a tree of selects on the bits of
-// q, then a funnel shift by half a word takes an odd shift; entries from
-// `valid` on are zeroed (the columns past the block's range), which only
-// the last tile of a range needs.
-__device__ __forceinline__ uint4 realigned(uint4 lo, uint4 hi, int s,
-                                           long long valid) {
-  const unsigned x[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-  unsigned y[7], z[5], o[4];
-#pragma unroll
-  for (int k = 0; k < 7; ++k) y[k] = (s & 2) ? x[k + 1] : x[k];
-#pragma unroll
-  for (int k = 0; k < 5; ++k) z[k] = (s & 4) ? y[k + 2] : y[k];
-  const unsigned sh = 16u * (s & 1);
-#pragma unroll
-  for (int w = 0; w < 4; ++w) o[w] = __funnelshift_r(z[w], z[w + 1], sh);
-  if (valid < 8) {
-    const int v = valid > 0 ? (int)valid : 0;
-#pragma unroll
-    for (int w = 0; w < 4; ++w)
-      o[w] &= (2 * w < v ? 0x0000ffffu : 0u) |
-              (2 * w + 1 < v ? 0xffff0000u : 0u);
-  }
-  return make_uint4(o[0], o[1], o[2], o[3]);
 }
 
 // Block s·num_blocks + b covers columns [b·cols_per_block, +cols_per_block)
@@ -179,8 +150,7 @@ sketch_mma_partial(const __nv_bfloat16* __restrict__ U, long long ldu, int K,
     for (int it = 0, i = tid / kChunks; it < kIters && i < rows + K;
          ++it, i += kRowStep) {
       int srow;
-      shifts |= (unsigned long long)(8 | shift_of(row_of(i, &srow)))
-                << (4 * it);
+      shifts |= (unsigned long long)shift_code(row_of(i, &srow)) << (4 * it);
     }
   }
 
@@ -198,14 +168,8 @@ sketch_mma_partial(const __nv_bfloat16* __restrict__ U, long long ldu, int K,
       int srow;
       const __nv_bfloat16* row = row_of(i, &srow);
       const int s = kRealign ? (int)(shifts >> (4 * it)) & 7 : 0;
-      const long long col = base - s + 8 * part;
-      const bool in = col < col1;
-      const unsigned to = dst + (srow * kStride + 8 * part) * 2;
-      cp_async16(to, row + (in ? col : -s), in ? 16 : 0);
-      if (kRealign && part == kChunks - 1 && s != 0) {
-        const bool in2 = col + 8 < col1;
-        cp_async16(to + 16, row + (in2 ? col + 8 : -s), in2 ? 16 : 0);
-      }
+      land_chunk<kRealign>(dst + (srow * kStride + 8 * part) * 2, row, base,
+                           s, part, col1);
     }
   };
 
@@ -215,33 +179,12 @@ sketch_mma_partial(const __nv_bfloat16* __restrict__ U, long long ldu, int K,
   // lane l reads the landed chunks l and l + 1 of kBatch rows, the warp
   // syncs, lane l writes chunk l of each.
   auto realign_tile = [&](int tt, int st) {
-    constexpr int kBatch = 2;
-    const long long lim = col1 - (col0 + (long long)tt * kCols);
     uint4* const slot = smem + st * (kSliceRows + RB) * kRowChunks + part;
-#pragma unroll
-    for (int b0 = 0; b0 < kIters; b0 += kBatch) {
-      uint4 lo[kBatch], hi[kBatch];
-      uint4* at[kBatch];
-      int sh[kBatch];
-      bool act[kBatch];
-#pragma unroll
-      for (int j = 0; j < kBatch; ++j) {
-        const unsigned code =
-            b0 + j < kIters ? (unsigned)(shifts >> (4 * (b0 + j))) & 15u : 0u;
-        const int i = tid / kChunks + kRowStep * (b0 + j);
-        sh[j] = (int)(code & 7u);
-        act[j] = (code & 8u) && (sh[j] != 0 || lim < kCols);
-        at[j] = slot + (i < rows ? i : kSliceRows + (i - rows)) * kRowChunks;
-        if (act[j]) {
-          lo[j] = at[j][0];
-          hi[j] = at[j][1];
-        }
-      }
-      __syncwarp();
-#pragma unroll
-      for (int j = 0; j < kBatch; ++j)
-        if (act[j]) *at[j] = realigned(lo[j], hi[j], sh[j], lim - 8 * part);
-    }
+    realign_rows<kIters>(
+        shifts, col1 - (col0 + (long long)tt * kCols), part, [&](int it) {
+          const int i = tid / kChunks + kRowStep * it;
+          return slot + (i < rows ? i : kSliceRows + (i - rows)) * kRowChunks;
+        });
   };
 
   // the lane's ldmatrix rows: for A (x4) row lane % 16 of the warp's row

@@ -1,7 +1,7 @@
 """``gram``: G = U Uᵀ and c = U g in one pass over n, and ``gram_block``:
 G_ab = U_a U_bᵀ and c_a = U_a g — the Hopper kernels.
 
-``gram_cuda`` replaces ``repro.kernels.gram.gram_pallas``.  It has three
+``gram_cuda`` replaces ``repro.kernels.gram.gram_pallas``.  It has four
 bodies, chosen from dtypes, shapes and pointers alone (:func:`_body`):
 
 * ``f32`` (``csrc/gram_f32.cu``): every call with U and g both f32 — every
@@ -14,11 +14,20 @@ bodies, chosen from dtypes, shapes and pointers alone (:func:`_body`):
 * ``mma`` (``csrc/gram_mma.cu``): U and g both bf16 with 1 <= K <= 127,
   n % 8 == 0 and 16-byte aligned pointers (:func:`_mma_eligible`), on the
   bf16 tensor cores.
+* ``realign`` (``csrc/gram_realign.cu``): the other bf16 calls with
+  1 <= K <= 127 (an odd n, n % 8 != 0, a pointer only 2-byte aligned), the
+  same tensor-core loop (``csrc/gram_mma.cuh``) on tiles staged from the
+  aligned-down 16-byte chunks of each row of [U; g] and shifted into place
+  in shared memory (:func:`realign_shifts` and ``realign.realign_plan``
+  mirror it), on the aligned body's grid, so bitwise equal to it wherever
+  n % 8 == 0.  ``gram_cuda(..., body="realign")`` forces it on any bf16
+  call with K <= 127, aligned rows too, so the card can time the
+  structure's cost.
 * ``cuda_core`` (``csrc/gram.cu``): the rest — mixed dtypes, and bf16 at
-  odd n, unaligned or K >= 128 — on the f32 CUDA cores, K up to 64 in one
-  piece and above it one grid slice per pair (a, b >= a) of 64-row blocks,
-  then a finish kernel.  ``gram_cuda(..., body="cuda_core")`` runs any call
-  there, so the card can time it beside the ``f32`` body on f32 inputs.
+  K >= 128 — on the f32 CUDA cores, K up to 64 in one piece and above it
+  one grid slice per pair (a, b >= a) of 64-row blocks, then a finish
+  kernel.  ``gram_cuda(..., body="cuda_core")`` runs any call there, so
+  the card can time it beside the other bodies.
 
 No f32 operand is rounded to reach a tensor core.  Each source says what
 bounds it on the H100 and how its deterministic reduction is laid out;
@@ -51,6 +60,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from . import _build, cross
+from .realign import realign_shift
 from .registry import count_launch
 
 MAX_K = 64                # rows of U in one piece, and in each row block above
@@ -61,7 +71,7 @@ MMA_WARPS = 8             # warps of a block of the tensor-core body
 MMA_STAGE_COLS = 128      # columns of one staged tile of [U; g]
 BLOCK_MMA_MAX_KA = 64     # gram_block's tensor-core body: U_a in 64 rows
 BLOCK_MMA_MAX_KB = 63     # and [U_b; g] in 64
-BODIES = ("mma", "f32", "cuda_core")
+BODIES = ("mma", "realign", "f32", "cuda_core")
 # the f32 body (csrc/gram_f32.cu); its planner below mirrors the source's
 F32_STREAM_MAX_K = 8      # K <= 8: the register-only stream
 F32_MAX_ROWS = 128        # staged rows of one side of a slice: K <= 127 whole
@@ -89,11 +99,24 @@ def _mma_eligible(updates: torch.Tensor, grad: torch.Tensor) -> bool:
             and updates.data_ptr() % 16 == 0 and grad.data_ptr() % 16 == 0)
 
 
+def _realign_eligible(updates: torch.Tensor, grad: torch.Tensor) -> bool:
+    """Whether the realigning tensor-core body can take a call: U and g
+    both bf16, 1 <= K <= 127, n >= 1, any pointers (every ``data_ptr()`` of
+    a bf16 tensor is at least 2-byte aligned)."""
+    K, n = updates.shape
+    return (updates.dtype == torch.bfloat16 and grad.dtype == torch.bfloat16
+            and 1 <= K <= MMA_MAX_K and n >= 1)
+
+
 def _body(updates: torch.Tensor, grad: torch.Tensor) -> str:
     """The body a call takes: ``mma`` where :func:`_mma_eligible` holds,
-    ``f32`` for U and g both f32, ``cuda_core`` for the rest."""
+    ``realign`` for the other bf16 calls with 1 <= K <= 127, ``f32`` for U
+    and g both f32, ``cuda_core`` for the rest (mixed dtypes, bf16
+    K >= 128)."""
     if _mma_eligible(updates, grad):
         return "mma"
+    if _realign_eligible(updates, grad):
+        return "realign"
     if updates.dtype == torch.float32 and grad.dtype == torch.float32:
         return "f32"
     return "cuda_core"
@@ -108,8 +131,8 @@ def _f32_vec(updates: torch.Tensor, grad: torch.Tensor) -> bool:
 
 
 def body_launches() -> Dict[str, int]:
-    """``{"mma": launches, "f32": launches, "cuda_core": launches}`` since
-    the last reset."""
+    """``{"mma": launches, "realign": launches, "f32": launches,
+    "cuda_core": launches}`` since the last reset."""
     return dict(_BODY_LAUNCHES)
 
 
@@ -133,6 +156,15 @@ def mma_deal(K: int) -> List[List[Tuple[int, int]]]:
     tiles = [(i, j) for i in range(mt) for j in range(2 * i, 2 * mt)]
     per_warp = -(-len(tiles) // MMA_WARPS)
     return [tiles[w * per_warp:(w + 1) * per_warp] for w in range(MMA_WARPS)]
+
+
+def realign_shifts(updates_ptr: int, grad_ptr: int, K: int,
+                   n: int) -> List[int]:
+    """The shift of each row of [U; g] in the realigning body, as its
+    threads find them: rows r < K at ``updates_ptr + 2·r·n`` (U contiguous),
+    row K at ``grad_ptr`` (``realign.realign_shift`` of each)."""
+    return ([realign_shift(updates_ptr + 2 * r * n) for r in range(K)]
+            + [realign_shift(grad_ptr)])
 
 
 def _block_mma_eligible(ua: torch.Tensor, ub: torch.Tensor,
@@ -414,8 +446,15 @@ def launch_config(K: int, u_bf16: bool, g_bf16: bool,
 
 
 def mma_launch_config(K: int, device_index: int) -> Tuple[int, int]:
-    """:func:`_resident` of gram's tensor-core partial kernel for this K."""
+    """:func:`_resident` of gram's tensor-core partial kernel for this K
+    (its grid is the realigning instance's too)."""
     return _resident("gram_mma_launch_config", (K,), device_index)
+
+
+def realign_launch_config(K: int, device_index: int) -> Tuple[int, int]:
+    """:func:`_resident` of the realigning partial kernel for this K: built
+    for the aligned instance's residency, which the card checks it has."""
+    return _resident("gram_realign_launch_config", (K,), device_index)
 
 
 def block_mma_launch_config(Ka: int, Kb: int,
@@ -489,7 +528,8 @@ def gram_cuda(updates: torch.Tensor, grad: torch.Tensor, *,
     """``updates (K, n)``, ``grad (n,)`` (f32 or bf16, contiguous, on one
     CUDA device) → ``(G (K, K) f32, c (K,) f32)``, on the body
     :func:`_body` picks; ``body=`` forces one (``"cuda_core"`` takes any
-    call; ``"f32"`` wants U and g f32, ``"mma"`` an eligible call)."""
+    call; ``"f32"`` wants U and g f32, ``"mma"`` an eligible call,
+    ``"realign"`` bf16 U and g with K <= 127)."""
     _check(updates, grad)
     if body not in (None,) + BODIES:
         raise ValueError(f"gram_cuda: body {body!r} not in {BODIES}")
@@ -498,6 +538,9 @@ def gram_cuda(updates: torch.Tensor, grad: torch.Tensor, *,
         raise ValueError("gram_cuda: the mma body takes bf16 U and g with "
                          f"1 <= K <= {MMA_MAX_K}, n % 8 == 0 and 16-byte "
                          "aligned pointers")
+    if body == "realign" and not _realign_eligible(updates, grad):
+        raise ValueError("gram_cuda: the realign body takes bf16 U and g "
+                         f"with 1 <= K <= {MMA_MAX_K}")
     if body == "f32" and not (updates.dtype == grad.dtype == torch.float32):
         raise ValueError("gram_cuda: the f32 body takes f32 U and g")
     took = body or took
@@ -511,21 +554,23 @@ def gram_cuda(updates: torch.Tensor, grad: torch.Tensor, *,
     if took == "f32":
         _launch_f32(updates, grad, G, c)
     else:
-        _launch_two_pass(updates, grad, G, c, took == "mma")
+        _launch_two_pass(updates, grad, G, c, took)
     count_launch("gram", "cuda")
     _BODY_LAUNCHES[took] += 1
     return G, c
 
 
 def _launch_two_pass(updates: torch.Tensor, grad: torch.Tensor,
-                     G: torch.Tensor, c: torch.Tensor, mma: bool) -> None:
-    """gram_mma.cu or gram.cu: a partial kernel over one wave of blocks,
-    then a finish kernel over their partials."""
+                     G: torch.Tensor, c: torch.Tensor, body: str) -> None:
+    """gram_mma.cu, gram_realign.cu or gram.cu: a partial kernel over one
+    wave of blocks, then a finish kernel over their partials.  Both
+    tensor-core instances take the aligned one's grid."""
     K, n = updates.shape
     dev = updates.device
     u_bf16 = updates.dtype == torch.bfloat16
     g_bf16 = grad.dtype == torch.bfloat16
-    if mma:
+    tc = body in ("mma", "realign")
+    if tc:
         per_sm, _ = mma_launch_config(K, dev.index)
         slices, R = 1, mma_rows(K)
     else:
@@ -537,8 +582,10 @@ def _launch_two_pass(updates: torch.Tensor, grad: torch.Tensor,
     lib = _build.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        if mma:
-            rc = lib.gram_mma_launch(
+        if tc:
+            launch = (lib.gram_mma_launch if body == "mma"
+                      else lib.gram_realign_launch)
+            rc = launch(
                 updates.data_ptr(), grad.data_ptr(), partial.data_ptr(),
                 partial.numel(), G.data_ptr(), c.data_ptr(), K, n,
                 num_blocks, cols, stream)
@@ -547,7 +594,7 @@ def _launch_two_pass(updates: torch.Tensor, grad: torch.Tensor,
                 updates.data_ptr(), grad.data_ptr(), partial.data_ptr(),
                 partial.numel(), G.data_ptr(), c.data_ptr(), K, n,
                 int(u_bf16), int(g_bf16), num_blocks, cols, stream)
-    _build.check(lib, rc, "gram")
+    _build.check(lib, rc, f"gram ({body})")
 
 
 def gram_block_cuda(ua: torch.Tensor, ub: torch.Tensor, grad: torch.Tensor,

@@ -10,7 +10,8 @@ chosen from dtypes, shapes, strides and pointers alone (:func:`_body`):
 * ``realign`` (``csrc/sketch_realign.cu``): the other bf16 calls with
   1 <= K <= 64 (odd n, unaligned views or row strides), the same tensor-core
   loop on tiles staged from the aligned-down 16-byte chunks of each row and
-  shifted into place in shared memory (:func:`realign_plan` mirrors it);
+  shifted into place in shared memory (``realign.realign_plan`` mirrors
+  it; :func:`realign_plan` here too);
 * ``f32`` (``csrc/cross_f32.cu``, the f32 body of ``gram_block`` and
   ``stream_stats``): U and R both f32, A = U against B1 = R, one launch;
 * ``cross`` (``csrc/sketch.cu`` on ``csrc/cross.cuh``): mixed f32/bf16
@@ -31,13 +32,15 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from . import _build, cross, gram
+# the realigned staging's mirror, importable here as before
+from .realign import CHUNK as REALIGN_CHUNK  # noqa: F401
+from .realign import realign_plan, realign_shift  # noqa: F401
 from .registry import count_launch
 
 SKETCH_MMA_MAX_K = 64     # the tensor-core bodies' K: U in 8·NB <= 64 rows
 MMA_SLICE_ROWS = 128      # rows of R a block of the tensor-core body takes
 MMA_WARPS = 8             # warps of a block: one 16-row tile of R each
 MMA_STAGE_COLS = 128      # columns of one staged tile
-REALIGN_CHUNK = 8         # entries of a 16-byte chunk
 BODIES = ("mma", "realign", "f32", "cross")
 _BODY_LAUNCHES = {body: 0 for body in BODIES}
 # the tensor-core bodies' launchers: (occupancy query, launch)
@@ -127,36 +130,6 @@ def mma_grid(n: int, m: int, sm_count: int,
     resident wave over all slices, each block over whole staged tiles."""
     slices = mma_slices(m)
     return (slices, *gram.grid(n, sm_count, blocks_per_sm, slices))
-
-
-def realign_shift(address: int) -> int:
-    """The shift of a bf16 row starting at byte ``address``: (address / 2)
-    mod 8, its entries past the 16-byte boundary below it (the source's
-    ``shift_of``)."""
-    return (address >> 1) & 7
-
-
-def realign_plan(shift: int, base: int, col1: int
-                 ) -> Tuple[List[Tuple[int, bool]],
-                            List[Optional[Tuple[int, int]]], bool]:
-    """How ``sketch_realign.cu`` stages one row's tile of columns [base,
-    base + 128) in a block whose range ends at column col1, the row's shift
-    being ``shift``: ``(chunks, staged, shifted)``.
-
-    ``chunks``: each aligned-down 16-byte chunk landed in the staged row,
-    as (its first column, read?): 17 where shift != 0, else 16; read only if
-    it starts before col1, else zero-filled.  ``staged``: for each entry j
-    of the tile, the (chunk, lane) of the landed entry it takes after the
-    realign pass, or None where it is zeroed (column base + j >= col1).
-    ``shifted``: whether the pass rewrites the row (shift != 0, or the tile
-    ends past col1); else the landed chunks stand as they are."""
-    chunks = []
-    for c in range(MMA_STAGE_COLS // REALIGN_CHUNK + (1 if shift else 0)):
-        col = base - shift + REALIGN_CHUNK * c
-        chunks.append((col, col < col1))
-    staged = [divmod(shift + j, REALIGN_CHUNK) if base + j < col1 else None
-              for j in range(MMA_STAGE_COLS)]
-    return chunks, staged, shift != 0 or col1 - base < MMA_STAGE_COLS
 
 
 def _launch_tensor_cores(body: str, updates: torch.Tensor, ldu: int,

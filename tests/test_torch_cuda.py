@@ -80,6 +80,68 @@ def _rel_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max()) / scale
 
 
+# torch.profiler on an H100 loses device activity at the edges of a window
+# (its first launches, and launches whose converted time stamps fall just
+# outside the window's host-clock bounds), and once counted the warm-up
+# call's launch in the recorded cycle.  So a window runs one call in the
+# profiler's warm-up cycle, records the next calls with PROFILE_PAD_S of
+# idle inside each edge, and an incomplete window is taken again, up to
+# PROFILE_ATTEMPTS in all: an attempt whose every count is a multiple of the
+# calls stands, else each kernel is kept at a count that is a multiple of
+# the calls where an attempt saw one, else at the most launches any attempt
+# saw (as chip_smoke.py's _device_rows).
+PROFILE_ATTEMPTS = 5
+PROFILE_PAD_S = 0.005
+
+
+def _device_kernels(fn, calls: int, match=None) -> dict:
+    """``{kernel name: launches}`` of ``calls`` calls of ``fn`` on the card:
+    the entries with device time of their own (kernels, copies, fills; not
+    aten ops or runtime calls) the profiler saw, optionally only those
+    whose name holds one of the ``match`` substrings, taken again and
+    merged until every count is a multiple of ``calls``."""
+    import time
+    from torch.profiler import ProfilerActivity, profile, schedule
+    fn()
+    torch.cuda.synchronize()
+    best = {}
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+            prof.step()
+        seen = {}
+        for e in prof.key_averages():
+            own_us = getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+            if (own_us <= 0 or e.count < 1
+                    or e.key.startswith(("aten::", "cuda", "ProfilerStep",
+                                         "Activity Buffer", "Buffer Flush"))
+                    or (match and not any(m in e.key for m in match))):
+                continue
+            seen[e.key] = e.count
+        if seen and all(c % calls == 0 for c in seen.values()):
+            return seen
+        for key, c in seen.items():
+            old = best.get(key)
+            # a multiple of the calls before a count that is not, else the
+            # larger
+            if old is None or ((c % calls == 0, c) > (old % calls == 0, old)):
+                best[key] = c
+        if best and all(c % calls == 0 for c in best.values()):
+            break
+    return best
+
+
 @pytest.mark.parametrize("K,n", [(1, 1), (3, 130), (10, 7850), (23, 7850),
                                  (25, 7850), (64, 4097)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -318,7 +380,8 @@ def _check_gram_mma(U, g):
     G2, c2 = gram_and_cross(U, g)
     assert launch_counts()["gram/cuda"] == 2
     assert launch_counts()["gram/torch"] == 0
-    assert gram.body_launches() == {"mma": 2, "f32": 0, "cuda_core": 0}
+    assert gram.body_launches() == {"mma": 2, "realign": 0, "f32": 0,
+                                    "cuda_core": 0}
     assert torch.equal(G, G2) and torch.equal(c, c2)      # no float atomics
     assert torch.equal(G, G.T)
     Gr, cr = ref.gram_ref(U, g)
@@ -367,9 +430,10 @@ def test_gram_mma_body_against_f64_at_model_width(cuda_device):
 
 
 def test_gram_other_calls_keep_the_cuda_core_body(cuda_device):
-    """bf16 K = 128, bf16 with n % 8 != 0, mixed dtypes either way and a
-    bf16 U starting 2 bytes into its buffer keep gram.cu's body; f32 U and g
-    take the f32 body (csrc/gram_f32.cu)."""
+    """bf16 K = 128 and mixed dtypes either way keep gram.cu's body; bf16
+    with n % 8 != 0 and a bf16 U starting 2 bytes into its buffer take the
+    realigning body (csrc/gram_realign.cu); f32 U and g take the f32 body
+    (csrc/gram_f32.cu)."""
     from repro_torch.kernels import gram
     gen = torch.Generator(device=cuda_device)
     gen.manual_seed(128)
@@ -387,12 +451,130 @@ def test_gram_other_calls_keep_the_cuda_core_body(cuda_device):
     for U, g in cases:
         assert not gram._mma_eligible(U, g)
         f32 = U.dtype == g.dtype == torch.float32
+        realign = (U.dtype == g.dtype == bf16
+                   and U.shape[0] <= gram.MMA_MAX_K)
         gram.reset_body_launches()
         G, c = gram_and_cross(U, g)
-        assert gram.body_launches() == {"mma": 0, "f32": int(f32),
-                                        "cuda_core": int(not f32)}
+        assert gram.body_launches() == {
+            "mma": 0, "realign": int(realign), "f32": int(f32),
+            "cuda_core": int(not (f32 or realign))}
         Gr, cr = ref.gram_ref(U, g)
         assert torch.equal(G, G.T)
+        assert _rel_err(G, Gr) <= 1e-4 and _rel_err(c, cr) <= 1e-4
+
+
+def _gram_shifted(gen, K, n, skip, device):
+    """U (K, n) ``skip`` entries and g (n,) ``3·skip mod 8`` entries into
+    fresh buffers (:func:`_shifted`)."""
+    return (_shifted(gen, K, n, skip, device),
+            _shifted(gen, 1, n, 3 * skip % 8, device)[0])
+
+
+@pytest.mark.parametrize("skip", range(1, 8))
+@pytest.mark.parametrize("K", GRAM_MMA_K)
+def test_gram_realign_equals_mma_bitwise(cuda_device, K, skip):
+    """U viewed 2·s bytes into its buffer (s = 1..7) and g at another shift
+    take the realigning body (csrc/gram_realign.cu), and at n % 8 == 0 it
+    equals gram_mma.cu on aligned copies of the same values bit for bit,
+    for every 16-row tile count and n = 8, 72 and 4 104 (a ragged last
+    staged tile); ``body="realign"`` on the aligned copies gives the same
+    bits too."""
+    from repro_torch.kernels import gram
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(K * 64 + skip)
+    for n in (8, 72, 4104):
+        U, g = _gram_shifted(gen, K, n, skip, cuda_device)
+        Ua, ga = U.clone(), g.clone()
+        assert gram._body(U, g) == "realign"
+        assert gram._body(Ua, ga) == "mma"
+        gram.reset_body_launches()
+        G, c = gram_and_cross(U, g)
+        Ga, ca = gram_and_cross(Ua, ga)
+        Gf, cf = gram_cuda(Ua, ga, body="realign")
+        assert gram.body_launches() == {"mma": 1, "realign": 2, "f32": 0,
+                                        "cuda_core": 0}
+        assert torch.equal(G, Ga) and torch.equal(c, ca), (K, n)
+        assert torch.equal(Gf, Ga) and torch.equal(cf, ca), (K, n)
+
+
+@pytest.mark.parametrize("n", [1, 7, 1001, (1 << 20) + 3])
+@pytest.mark.parametrize("K", [1, 10, 64, 100, 127])
+def test_gram_realign_against_f64_at_odd_n(cuda_device, K, n):
+    """bf16 U and g at an odd n (every row of U but the first starts only
+    2-byte aligned) take the realigning body: two calls bitwise equal, G
+    exactly symmetric, within 1e-4 of the plain version and of an f64
+    product."""
+    from repro_torch.kernels import gram
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(K * 131 + n)
+    U = _randn(gen, (K, n), torch.bfloat16, cuda_device)
+    g = _randn(gen, (n,), torch.bfloat16, cuda_device)
+    gram.reset_body_launches()
+    G, c = gram_and_cross(U, g)
+    G2, c2 = gram_and_cross(U, g)
+    assert gram.body_launches() == {"mma": 0, "realign": 2, "f32": 0,
+                                    "cuda_core": 0}
+    assert torch.equal(G, G2) and torch.equal(c, c2)
+    assert torch.equal(G, G.T)
+    Gr, cr = ref.gram_ref(U, g)
+    assert _rel_err(G, Gr) <= 1e-4 and _rel_err(c, cr) <= 1e-4
+    G64, c64 = _gram_f64(U, g)
+    assert _rel_err(G.double(), G64) <= 1e-4
+    assert _rel_err(c.double(), c64) <= 1e-4
+
+
+@pytest.mark.parametrize("K,n", [(10, (1 << 20) + 3), (64, 1001), (127, 7)])
+def test_gram_realign_is_two_kernels_a_call(cuda_device, K, n):
+    """``torch.profiler``: a call of the realigning body is its partial
+    kernel (``gram_mma_partial<MT, true>``) and the finish, once each."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(K + n)
+    U = _randn(gen, (K, n), torch.bfloat16, cuda_device)
+    g = _randn(gen, (n,), torch.bfloat16, cuda_device)
+    calls = 3
+    kernels = _device_kernels(lambda: gram_and_cross(U, g), calls, ("gram",))
+    assert len(kernels) == 2 and sum(kernels.values()) == 2 * calls, kernels
+    assert any("gram_mma_partial<" in k and ", true>" in k
+               for k in kernels), kernels
+    assert any("gram_mma_finish" in k for k in kernels), kernels
+
+
+def test_gram_realign_has_the_mma_grid(cuda_device):
+    """For every 16-row tile count the realigning partial kernel is as
+    resident as the aligned one (the grid both take is sized from the
+    aligned one's occupancy); its ring holds one stage more at MT = 5, 6."""
+    from repro_torch.kernels import gram
+    for K in (1, 15, 16, 31, 32, 47, 48, 63, 64, 79, 80, 95, 96, 111, 112,
+              127):
+        blocks, smem = gram.mma_launch_config(K, cuda_device.index or 0)
+        got = gram.realign_launch_config(K, cuda_device.index or 0)
+        mt = gram.mma_rows(K) // 16
+        assert got == (blocks, smem * (4 if mt in (5, 6) else 3) // 3), K
+
+
+def test_gram_realign_body_choice_is_checked(cuda_device):
+    """``body="realign"`` takes any bf16 call with K <= 127 and refuses f32,
+    mixed dtypes and K = 128; ``body="mma"`` refuses an odd n and a view 2
+    bytes in; ``cuda_core`` takes them all, within 1e-4 of the plain
+    version."""
+    from repro_torch.kernels import gram
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(41)
+    bf16 = torch.bfloat16
+    U = _randn(gen, (10, 1001), bf16, cuda_device)
+    g = _randn(gen, (1001,), bf16, cuda_device)
+    with pytest.raises(ValueError, match="mma body"):
+        gram_cuda(U, g, body="mma")
+    shifted, g1024 = _gram_shifted(gen, 10, 1024, 1, cuda_device)
+    with pytest.raises(ValueError, match="mma body"):
+        gram_cuda(shifted, g1024, body="mma")
+    for u, gg in ((U.float(), g.float()), (U, g.float()), (U.float(), g),
+                  (_randn(gen, (128, 1001), bf16, cuda_device), g)):
+        with pytest.raises(ValueError, match="realign body"):
+            gram_cuda(u, gg, body="realign")
+    Gr, cr = ref.gram_ref(U, g)
+    for body in ("realign", "cuda_core"):
+        G, c = gram_cuda(U, g, body=body)
         assert _rel_err(G, Gr) <= 1e-4 and _rel_err(c, cr) <= 1e-4
 
 
@@ -413,7 +595,8 @@ def _check_gram_f32(U, g):
     G2, c2 = gram_and_cross(U, g)
     assert launch_counts()["gram/cuda"] == 2
     assert launch_counts()["gram/torch"] == 0
-    assert gram.body_launches() == {"mma": 0, "f32": 2, "cuda_core": 0}
+    assert gram.body_launches() == {"mma": 0, "realign": 0, "f32": 2,
+                                    "cuda_core": 0}
     assert torch.equal(G, G2) and torch.equal(c, c2)      # no float atomics
     assert torch.equal(G, G.T)
     Gr, cr = ref.gram_ref(U, g)
@@ -445,21 +628,13 @@ def test_gram_f32_body_is_one_kernel_a_call(cuda_device, K, n):
     """One device kernel a call, whether one block owns each slice (it
     writes G and c) or the blocks' partials are summed in the same launch,
     and no allocation past the outputs where one block owns a slice."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import gram
     gen = torch.Generator(device=cuda_device)
     gen.manual_seed(K + n)
     U = _randn(gen, (K, n), torch.float32, cuda_device)
     g = _randn(gen, (n,), torch.float32, cuda_device)
-    gram_and_cross(U, g)
-    torch.cuda.synchronize()
     calls = 3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            gram_and_cross(U, g)
-        torch.cuda.synchronize()
-    kernels = {e.key: e.count for e in prof.key_averages()
-               if e.device_time_total > 0 and "gram" in e.key}
+    kernels = _device_kernels(lambda: gram_and_cross(U, g), calls, ("gram",))
     assert len(kernels) == 1 and sum(kernels.values()) == calls, kernels
     assert "gram_f32" in next(iter(kernels))
     vec = gram._f32_vec(U, g)
@@ -489,7 +664,8 @@ def test_gram_f32_body_against_f64_at_model_width(cuda_device):
 def test_gram_body_is_forced_and_checked(cuda_device):
     """``body="cuda_core"`` runs an f32 call on gram.cu (the comparison
     body) within 1e-4 of the f32 body's; ``body="f32"`` on bf16 and
-    ``body="mma"`` on f32 raise; an unknown body raises."""
+    ``body="mma"`` or ``body="realign"`` on f32 raise; an unknown body
+    raises."""
     from repro_torch.kernels import gram
     gen = torch.Generator(device=cuda_device)
     gen.manual_seed(7)
@@ -499,13 +675,16 @@ def test_gram_body_is_forced_and_checked(cuda_device):
     G, c = gram_cuda(U, g)
     G1, c1 = gram_cuda(U, g, body="cuda_core")
     G2, c2 = gram_cuda(U, g, body="f32")
-    assert gram.body_launches() == {"mma": 0, "f32": 2, "cuda_core": 1}
+    assert gram.body_launches() == {"mma": 0, "realign": 0, "f32": 2,
+                                    "cuda_core": 1}
     assert torch.equal(G, G2) and torch.equal(c, c2)
     assert _rel_err(G1, G) <= 1e-4 and _rel_err(c1, c) <= 1e-4
     with pytest.raises(ValueError, match="f32 body"):
         gram_cuda(U.bfloat16(), g.bfloat16(), body="f32")
     with pytest.raises(ValueError, match="mma body"):
         gram_cuda(U, g, body="mma")
+    with pytest.raises(ValueError, match="realign body"):
+        gram_cuda(U, g, body="realign")
     with pytest.raises(ValueError, match="body"):
         gram_cuda(U, g, body="wide")
 
@@ -567,20 +746,14 @@ def test_topk_kernel_ties(cuda_device, case, n, k):
 def test_topk_single_block_is_one_launch(cuda_device, n, k):
     """At the paths' shapes a call is one kernel on the card (the one-block
     select-and-order), counted once."""
-    from torch.profiler import ProfilerActivity, profile
     assert single_block(n, k)
     v = torch.randn(n, device=cuda_device)
     topk_cuda(v, k)
     torch.cuda.synchronize()
     reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        topk_cuda(v, k)
-        torch.cuda.synchronize()
+    topk_cuda(v, k)
     assert launch_counts()["topk/cuda"] == 1
-    on_card = [(e.key, e.count) for e in prof.key_averages()
-               if e.self_device_time_total > 0
-               and not e.key.startswith(("aten::", "cuda"))]
+    on_card = list(_device_kernels(lambda: topk_cuda(v, k), 1).items())
     assert len(on_card) == 1 and on_card[0][1] == 1, on_card
     assert "topk_small" in on_card[0][0], on_card
 
@@ -664,21 +837,16 @@ def test_sign_sketch_adjoint_col_body_matches_plain_and_first(cuda_device, m,
 def test_sign_sketch_col_is_one_launch(cuda_device, K):
     """Up to 8 rows of U, a call is one kernel on the card (the splits are
     added inside the launch, in a cluster), counted once."""
-    from torch.profiler import ProfilerActivity, profile
     U = torch.randn(K, 7850, device=cuda_device)
     sign_sketch(U, 5, 1962)
     torch.cuda.synchronize()
     reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            sign_sketch(U, 5, 1962)
-        torch.cuda.synchronize()
+    for _ in range(3):
+        sign_sketch(U, 5, 1962)
     assert launch_counts()["sign_sketch/cuda"] == 3
-    on_card = [(e.key, e.count) for e in prof.key_averages()
-               if e.self_device_time_total > 0
-               and not e.key.startswith(("aten::", "cuda"))]
-    # a profiler window may lose its first launches, never add one
+    on_card = list(_device_kernels(lambda: sign_sketch(U, 5, 1962),
+                                   3).items())
+    # a profiler window may lose launches, never add one
     assert len(on_card) == 1 and 1 <= on_card[0][1] <= 3, on_card
     assert "sign_sketch_col" in on_card[0][0], on_card
 
@@ -1197,7 +1365,6 @@ def test_cross_f32_body_is_one_kernel_a_call(cuda_device, op, rows, n):
     """One device kernel a call, whether one block owns each slice (it
     writes the outputs) or the blocks' partials are summed in the same
     launch; no scratch where one block owns a slice."""
-    from torch.profiler import ProfilerActivity, profile, schedule
     from repro_torch.kernels import cross
     gen = torch.Generator(device=cuda_device)
     gen.manual_seed(n)
@@ -1211,23 +1378,8 @@ def test_cross_f32_body_is_one_kernel_a_call(cuda_device, op, rows, n):
         args = (_randn(gen, (rows, n), torch.float32, cuda_device),
                 _randn(gen, (rows, n), torch.float32, cuda_device))
         call, plan = stream_stats, (rows, rows, rows, True)
-    call(*args)
-    torch.cuda.synchronize()
     calls = 3
-    # a warm-up cycle first: a window that starts recording as it opens
-    # can miss its first launches on an H100
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        call(*args)
-        torch.cuda.synchronize()
-        prof.step()
-        for _ in range(calls):
-            call(*args)
-        torch.cuda.synchronize()
-        prof.step()
-    kernels = {e.key: e.count for e in prof.key_averages()
-               if e.device_time_total > 0 and "cross" in e.key}
+    kernels = _device_kernels(lambda: call(*args), calls, ("cross",))
     assert len(kernels) == 1 and sum(kernels.values()) == calls, kernels
     assert "cross_f32" in next(iter(kernels))
     if op == "gram_block":
@@ -1487,7 +1639,6 @@ def test_sketch_f32_body_is_one_kernel_a_call(cuda_device, K, m, n):
     """f32 U and R take cross_f32.cu (``f32``): one device kernel a call
     (``torch.profiler``), two calls bitwise equal, within CROSS_TOL of
     cross.cuh's body (``body="cross"``) and of an f64 product."""
-    from torch.profiler import ProfilerActivity, profile, schedule
     from repro_torch.kernels import sketch
     gen = torch.Generator(device=cuda_device)
     gen.manual_seed(K + m + n)
@@ -1503,20 +1654,8 @@ def test_sketch_f32_body_is_one_kernel_a_call(cuda_device, K, m, n):
     assert _rel_err(S, X) <= CROSS_TOL
     assert _rel_err(S.double(), U.double() @ R.double().T) <= CROSS_TOL
     calls = 3
-    # a warm-up cycle first, as test_cross_f32_body_is_one_kernel_a_call
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        sketch_apply(U, R)
-        torch.cuda.synchronize()
-        prof.step()
-        for _ in range(calls):
-            sketch_apply(U, R)
-        torch.cuda.synchronize()
-        prof.step()
-    kernels = {e.key: e.count for e in prof.key_averages()
-               if e.device_time_total > 0 and ("cross" in e.key
-                                               or "sketch" in e.key)}
+    kernels = _device_kernels(lambda: sketch_apply(U, R), calls,
+                              ("cross", "sketch"))
     assert len(kernels) == 1 and sum(kernels.values()) == calls, kernels
     assert "cross_f32" in next(iter(kernels))
 
@@ -1922,7 +2061,6 @@ def test_flash_decode_cluster_is_one_kernel_a_call(cuda_device, B, S, KV, G,
                                                    hd):
     """``torch.profiler``: a call of the cluster body is one kernel, no
     ``decode_mma_merge`` and no copy or fill; the mma body's is two."""
-    from torch.profiler import ProfilerActivity, profile
     gen = torch.Generator(device=cuda_device)
     gen.manual_seed(B * S)
     q, k, v, ln = _decode_case(gen, cuda_device, B, S, KV, G, hd,
@@ -1930,20 +2068,9 @@ def test_flash_decode_cluster_is_one_kernel_a_call(cuda_device, B, S, KV, G,
     assert _plans(q, k)[0][0] > 1
     for body, want in (("cluster", ["decode_cluster"]),
                        ("mma", ["decode_mma_partial", "decode_mma_merge"])):
-        decode_attn.flash_decode_cuda(q, k, v, ln, body=body)
-        torch.cuda.synchronize()
-        seen = []
-        for _ in range(3):      # a trace may lose its first launches
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(4):
-                    decode_attn.flash_decode_cuda(q, k, v, ln, body=body)
-                torch.cuda.synchronize()
-            seen = [e for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and e.count > 0]
-            if sum(e.count for e in seen) >= 4 * len(want):
-                break
-        names = [e.key for e in seen]
+        names = list(_device_kernels(
+            lambda body=body: decode_attn.flash_decode_cuda(q, k, v, ln,
+                                                            body=body), 4))
         assert len(names) == len(want), names
         for w in want:
             assert any(w in n for n in names), names

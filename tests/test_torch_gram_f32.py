@@ -42,17 +42,18 @@ _BODY_CASES = {
     "mixed bf16/f32": (_pair(10, 1024, torch.bfloat16, torch.float32),
                        "cuda_core"),
     "bf16 eligible": (_pair(10, 1024, torch.bfloat16), "mma"),
-    "bf16 at odd n": (_pair(10, 1001, torch.bfloat16), "cuda_core"),
+    "bf16 at odd n": (_pair(10, 1001, torch.bfloat16), "realign"),
     "bf16, K = 128": (_pair(128, 64, torch.bfloat16), "cuda_core"),
     "bf16, U 2 bytes in": (_pair(10, 1024, torch.bfloat16, u_in=1),
-                           "cuda_core"),
+                           "realign"),
 }
 
 
 @pytest.mark.parametrize("case", list(_BODY_CASES))
 def test_body_choice(case):
-    """f32/f32 -> ``f32``; eligible bf16 -> ``mma``; the rest ->
-    ``cuda_core``; read from dtypes, shapes and pointers alone."""
+    """f32/f32 -> ``f32``; eligible bf16 -> ``mma``; the other bf16 calls
+    with K <= 127 -> ``realign``; the rest -> ``cuda_core``; read from
+    dtypes, shapes and pointers alone."""
     (U, g), want = _BODY_CASES[case]
     assert gram._body(U, g) == want
 
@@ -75,9 +76,10 @@ def test_body_is_forced_and_checked():
     U, g = _pair(4, 64)
     with pytest.raises(ValueError, match="CUDA tensors"):
         gram.gram_cuda(U, g, body="cuda_core")
-    assert gram.BODIES == ("mma", "f32", "cuda_core")
+    assert gram.BODIES == ("mma", "realign", "f32", "cuda_core")
     gram.reset_body_launches()
-    assert gram.body_launches() == {"mma": 0, "f32": 0, "cuda_core": 0}
+    assert gram.body_launches() == {"mma": 0, "realign": 0, "f32": 0,
+                                    "cuda_core": 0}
 
 
 def _targets(K):

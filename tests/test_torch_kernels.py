@@ -259,11 +259,13 @@ def test_build_key_covers_every_source():
     assert {"gram.cu", "combine.cu", "combine_vec.cu", "topk.cu",
             "rng_sketch.cu", "stream_stats.cu", "gram_block.cu",
             "sketch.cu", "sketch_mma.cu", "sketch_realign.cu",
-            "cross_f32.cu"} <= names
+            "cross_f32.cu", "gram_mma.cu", "gram_realign.cu"} <= names
     # a header edit rebuilds too (the hash covers every .cuh)
     assert (_build.CSRC / "rng_hash.cuh").is_file()
     assert (_build.CSRC / "cross.cuh").is_file()
     assert (_build.CSRC / "sketch_mma.cuh").is_file()
+    assert (_build.CSRC / "gram_mma.cuh").is_file()
+    assert (_build.CSRC / "realign.cuh").is_file()
     assert len(_build.source_hash()) == 16
     assert _build.build_dir().parent == _build.BUILD_ROOT
 
@@ -442,13 +444,18 @@ def test_gram_mma_eligible_rule(case):
 
 def test_gram_mma_body_is_built_and_bound():
     """``gram_mma.cu`` defines the two launchers the wrapper binds, with the
-    argument counts ``_build`` gives them, stages with ``cp.async``, loads
-    fragments with ``ldmatrix`` and multiplies through mma.cuh's bf16
-    ``mma.sync`` (the three PTX helpers live in mma.cuh);
+    argument counts ``_build`` gives them; its body (in ``gram_mma.cuh``,
+    which it includes, and ``realign.cuh``'s landing) stages with
+    ``cp.async``, loads fragments with ``ldmatrix`` and multiplies through
+    mma.cuh's bf16 ``mma.sync`` (the three PTX helpers live in mma.cuh);
     ``stream_stats.cu`` includes the same header."""
     src = _build.CSRC / "gram_mma.cu"
     assert src in _build.sources()
-    text = src.read_text()
+    assert '#include "gram_mma.cuh"' in src.read_text()
+    # the body lives in gram_mma.cuh, which gram_realign.cu includes too,
+    # its landing of 16-byte chunks in realign.cuh (shared with sketch)
+    text = "".join((_build.CSRC / name).read_text() for name in
+                   ("gram_mma.cu", "gram_mma.cuh", "realign.cuh"))
     sig = _build._SIGNATURES
     assert 'extern "C" int gram_mma_launch_config(int K, int* blocks_per_sm,' \
         in text
@@ -499,6 +506,148 @@ def test_gram_mma_scratch_and_grid_cover_every_column_and_tile(mt):
                 assert 1 <= blocks <= per_sm * 132
                 assert blocks * cols >= n > (blocks - 1) * cols
                 assert blocks * Kp * Kp * 4 <= 8 * 132 * 128 * 128 * 4
+
+
+_GRAM_BODY_CASES = {
+    "bf16 aligned": (_gram_pair(10, 1024), "mma"),
+    "bf16, K = 1": (_gram_pair(1, 64), "mma"),
+    "bf16, K = 127": (_gram_pair(127, 64), "mma"),
+    "data_ptrs 16 bytes in": (_gram_pair(10, 1024, u_in=8, g_in=8), "mma"),
+    "odd n (1 001)": (_gram_pair(10, 1001), "realign"),
+    "n = 7 850 (% 8 = 2)": (_gram_pair(10, 7850), "realign"),
+    "n = 2^20 + 3, K = 64": (_gram_pair(64, (1 << 20) + 3), "realign"),
+    "n = 1": (_gram_pair(3, 1), "realign"),
+    "K = 127, odd n": (_gram_pair(127, 65), "realign"),
+    "U 2 bytes in": (_gram_pair(10, 1024, u_in=1), "realign"),
+    "g 2 bytes in": (_gram_pair(10, 1024, g_in=1), "realign"),
+    "U 14 bytes in": (_gram_pair(10, 1024, u_in=7), "realign"),
+    "bf16, K = 128": (_gram_pair(128, 64), "cuda_core"),
+    "bf16, K = 128, odd n": (_gram_pair(128, 65), "cuda_core"),
+    "mixed f32/bf16": (_gram_pair(10, 1024, torch.float32, torch.bfloat16),
+                       "cuda_core"),
+    "mixed bf16/f32": (_gram_pair(10, 1024, torch.bfloat16, torch.float32),
+                       "cuda_core"),
+    "mixed bf16/f32, odd n": (_gram_pair(10, 1001, torch.bfloat16,
+                                         torch.float32), "cuda_core"),
+    "f32": (_gram_pair(10, 1024, torch.float32), "f32"),
+    "f32, odd n": (_gram_pair(10, 1001, torch.float32), "f32"),
+}
+
+
+@pytest.mark.parametrize("case", list(_GRAM_BODY_CASES))
+def test_gram_body_rule(case):
+    """Each gram call names its body from dtypes, shapes and pointers:
+    ``mma`` (gram_mma.cu) for aligned bf16 rows with K <= 127 and
+    n % 8 == 0, ``realign`` (gram_realign.cu) for every other bf16 call
+    with 1 <= K <= 127 and n >= 1 (odd n, U or g 2 bytes in), ``f32``
+    (gram_f32.cu) for f32 U and g, ``cuda_core`` (gram.cu) for mixed dtypes
+    and bf16 K >= 128."""
+    from repro_torch.kernels import gram
+    (U, g), body = _GRAM_BODY_CASES[case]
+    assert gram.BODIES == ("mma", "realign", "f32", "cuda_core")
+    assert gram._body(U, g) == body
+    assert gram._mma_eligible(U, g) is (body == "mma")
+    assert gram._realign_eligible(U, g) is (body in ("mma", "realign"))
+
+
+def test_gram_bodies_are_tallied_and_refused_off_the_card():
+    """``body_launches()`` has a key for each of the four bodies; the
+    wrapper wants CUDA tensors before it reads ``body=``."""
+    from repro_torch.kernels import gram
+    gram.reset_body_launches()
+    assert gram.body_launches() == {"mma": 0, "realign": 0, "f32": 0,
+                                    "cuda_core": 0}
+    U, g = _gram_pair(10, 1001)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        gram_cuda(U, g, body="realign")
+    assert gram.body_launches() == {"mma": 0, "realign": 0, "f32": 0,
+                                    "cuda_core": 0}
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 130, 1001, 4103])
+def test_gram_realign_stages_every_column_once(n):
+    """The realigning body's staging over gram's own grid, mirrored
+    (``gram.realign_shifts``, ``realign.realign_plan``): each of the K
+    rows of U and g has its own shift, and over U and g at every offset
+    into their buffers every shift 0-7 occurs (n >= 8); for every row,
+    every block range of the one-wave grid at 1-4 blocks an SM (ragged last
+    tiles included) and every tile, each landed chunk starts on a 16-byte
+    boundary inside or after the granule of the row's first entry and is
+    read only if it starts before the block's last column col1 (so no read
+    starts past the row's last entry: U's last row and g end at their
+    allocation); each entry takes the landed entry of its own column, the
+    entries at or past col1 are zero, and over the blocks every column of
+    every row is staged exactly once."""
+    from repro_torch.kernels.gram import (MMA_MAX_K, MMA_STAGE_COLS,
+                                          realign_shifts)
+    from repro_torch.kernels.realign import realign_plan, realign_shift
+    K = 10
+    seen = set()
+    for u_in, g_in in itertools.product(range(8), (0, 3, 5)):
+        shifts = realign_shifts(1024 + 2 * u_in, 4096 + 2 * g_in, K, n)
+        assert len(shifts) == K + 1 <= MMA_MAX_K + 1
+        assert shifts[0] == u_in and shifts[K] == (g_in % 8)
+        assert shifts == [realign_shift(1024 + 2 * (u_in + r * n))
+                          for r in range(K)] + [realign_shift(4096 + 2 * g_in)]
+        seen.update(shifts)
+    assert seen == set(range(8)) or n < 8
+    for per_sm, sms in itertools.product((1, 2, 3, 4), (2, 132)):
+        blocks, cols = grid(n, sms, per_sm)
+        assert cols % MMA_STAGE_COLS == 0
+        for s in range(8):
+            staged = Counter()
+            for b in range(blocks):
+                col0, col1 = b * cols, min(b * cols + cols, n)
+                for base in range(col0, col1, MMA_STAGE_COLS):
+                    chunks, entries, shifted = realign_plan(s, base, col1)
+                    assert len(chunks) == 16 + (s != 0)
+                    for col, read in chunks:
+                        assert (col + s) % 8 == 0 and col >= -s
+                        assert read is (col < col1 <= n)
+                    for j, e in enumerate(entries):
+                        if base + j >= col1:
+                            assert e is None
+                            continue
+                        c, lane = e
+                        assert chunks[c][1] and chunks[c][0] + lane == base + j
+                        staged[base + j] += 1
+                    assert shifted is (s != 0
+                                       or col1 - base < MMA_STAGE_COLS)
+            assert staged == Counter(range(n))
+
+
+def test_gram_realign_body_is_built_and_bound():
+    """``gram_realign.cu`` is built, defines the two launchers the wrapper
+    binds with the argument counts and types ``_build`` gives them (the
+    same as ``gram_mma.cu``'s), and runs the shared body of
+    ``gram_mma.cuh`` with the realigned staging of ``realign.cuh``, which
+    ``sketch_mma.cuh`` includes too."""
+    src = _build.CSRC / "gram_realign.cu"
+    assert src in _build.sources()
+    text = src.read_text()
+    sig = _build._SIGNATURES
+    I, LL, VP = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+    assert ('extern "C" int gram_realign_launch_config(int K, '
+            'int* blocks_per_sm,' in text)
+    assert sig["gram_realign_launch_config"] == \
+        sig["gram_mma_launch_config"] == [I, ctypes.POINTER(I),
+                                          ctypes.POINTER(I)]
+    assert 'extern "C" int gram_realign_launch(const void* U, ' in text
+    # U, g, partial, partial_floats, G, c, K, n, num_blocks,
+    # cols_per_block, stream
+    assert sig["gram_realign_launch"] == sig["gram_mma_launch"] == [
+        VP, VP, VP, LL, VP, VP, I, LL, I, LL, VP]
+    assert '#include "gram_mma.cuh"' in text
+    assert "tc_launch<true>(" in text and "tc_launch_config<true>(" in text
+    body = (_build.CSRC / "gram_mma.cuh").read_text()
+    assert "template <int MT, bool kRealign>" in body
+    assert '#include "realign.cuh"' in body
+    assert "land_chunk<true>(" in body and "realign_rows<kIters>(" in body
+    assert "tc_launch<false>(" in (_build.CSRC / "gram_mma.cu").read_text()
+    shared = (_build.CSRC / "realign.cuh").read_text()
+    assert "__funnelshift_r(" in shared and "__syncwarp()" in shared
+    assert '#include "realign.cuh"' in (_build.CSRC
+                                        / "sketch_mma.cuh").read_text()
 
 
 def _rows(K, n, ld, dtype, skip):
@@ -856,13 +1005,16 @@ def test_sketch_mma_deal_covers_every_tile(nb):
 def test_sketch_mma_body_is_built_and_bound():
     """``sketch_mma.cu`` defines the two launchers the wrapper binds, with
     the argument counts and types ``_build`` gives them; its body (in
-    ``sketch_mma.cuh``, which it includes) stages with ``cp.async``, loads
-    fragments with ``ldmatrix`` and multiplies through mma.cuh's bf16
-    ``mma.sync``; ``sketch.cu`` still runs cross.cuh."""
+    ``sketch_mma.cuh``, which it includes, and ``realign.cuh``'s landing)
+    stages with ``cp.async``, loads fragments with ``ldmatrix`` and
+    multiplies through mma.cuh's bf16 ``mma.sync``; ``sketch.cu`` still
+    runs cross.cuh."""
     src = _build.CSRC / "sketch_mma.cu"
     assert src in _build.sources()
     assert '#include "sketch_mma.cuh"' in src.read_text()
-    text = src.read_text() + (_build.CSRC / "sketch_mma.cuh").read_text()
+    # its landing of 16-byte chunks lives in realign.cuh (shared with gram)
+    text = "".join((_build.CSRC / name).read_text() for name in
+                   ("sketch_mma.cu", "sketch_mma.cuh", "realign.cuh"))
     sig = _build._SIGNATURES
     I, LL, VP = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
     assert ('extern "C" int sketch_mma_launch_config(int K, int m, '
@@ -889,8 +1041,9 @@ def test_sketch_realign_body_is_built_and_bound():
     """``sketch_realign.cu`` is built, defines the two launchers the wrapper
     binds with the argument counts and types ``_build`` gives them (the
     same as ``sketch_mma.cu``'s), and runs the shared body of
-    ``sketch_mma.cuh`` with its realigned staging: aligned-down 16-byte
-    ``cp.async`` chunks, a funnel shift between warp syncs."""
+    ``sketch_mma.cuh`` with its realigned staging (``realign.cuh``):
+    aligned-down 16-byte ``cp.async`` chunks, a funnel shift between warp
+    syncs."""
     src = _build.CSRC / "sketch_realign.cu"
     assert src in _build.sources()
     text = src.read_text()
@@ -910,6 +1063,9 @@ def test_sketch_realign_body_is_built_and_bound():
     assert '#include "sketch_mma.cuh"' in text
     assert "tc_launch<true>(" in text and "tc_launch_config<true>(" in text
     body = (_build.CSRC / "sketch_mma.cuh").read_text()
+    # the realigned staging's helpers live in realign.cuh, shared with gram
+    assert '#include "realign.cuh"' in body
+    body += (_build.CSRC / "realign.cuh").read_text()
     assert "template <int NB, bool kRealign>" in body
     assert "__funnelshift_r(" in body and "__syncwarp()" in body
     assert "if constexpr (kRealign)" in body
